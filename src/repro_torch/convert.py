@@ -1,0 +1,61 @@
+"""Carry a JAX parameter tree over to the port.
+
+``params_from_jax(jax.tree.map(np.asarray, jax_model.init(key)), cfg)``
+returns the port's parameters holding the same values, so both packages
+compute the same function on the same inputs (the parity tests).  The
+input is plain numpy — this module imports no JAX — with the JAX
+package's layout::
+
+    {"embed": {"table"}, "final_norm": {"scale"},
+     "stack": [[{"norm1", "mixer": {wq, wk, wv, wo}, "norm2",
+                 "ffn": {wi_gate, wi_up, wo}}]]}
+
+where every leaf of a segment with ``repeats > 1`` has a leading
+``repeats`` axis.  bf16 arrays (numpy's ``bfloat16`` extension dtype)
+cross bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import ParamDesc
+from repro_torch.models.model import Model
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device)
+
+
+def _convert(desc, tree, device, path: str):
+    if isinstance(desc, ParamDesc):
+        t = _to_tensor(tree, device)
+        if tuple(t.shape) != tuple(desc.shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                             f"{tuple(desc.shape)}")
+        return t
+    if isinstance(desc, dict):
+        if not isinstance(tree, dict) or set(tree) != set(desc):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path}: keys {got} != {sorted(desc)}")
+        return {k: _convert(desc[k], tree[k], device, f"{path}/{k}")
+                for k in sorted(desc)}
+    if not isinstance(tree, (list, tuple)) or len(tree) != len(desc):
+        raise ValueError(f"{path}: expected a list of {len(desc)} entries")
+    return [_convert(d, t, device, f"{path}/{i}")
+            for i, (d, t) in enumerate(zip(desc, tree))]
+
+
+def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
+    """The port's parameter tree for ``cfg`` from a numpy copy of the JAX
+    package's tree; raises on any missing key or shape mismatch."""
+    return _convert(Model(cfg).param_desc(), tree, resolve_device(device),
+                    "params")

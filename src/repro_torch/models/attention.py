@@ -1,0 +1,242 @@
+"""Attention of the port: GQA/MQA with RoPE, sliding windows and logit
+softcap, and single-token KV-cache decoding — counterparts of
+``repro/models/attention.py`` (MLA and QK-norm are not ported yet).
+
+Full-sequence attention is the chunked streaming-softmax forward of the
+reference (``_flash_fwd_impl``), written as plain PyTorch ops over query
+and key blocks so no (T, T) score matrix is materialized.  Scores and the
+softmax are computed in f32, as the reference's
+``preferred_element_type=jnp.float32``; the forward only (no autograd in
+this slice).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models.layers import ParamDesc, TensorSpec, apply_rope
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Chunked (flash-style) full-sequence attention
+# ---------------------------------------------------------------------------
+
+def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window):
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def _masked_scores(qc, kc, qp, kp, scale, softcap, causal, window):
+    """(B,KV,G,cq,hd) x (B,KV,ck,hd) -> capped+masked scores (f32)."""
+    s = torch.einsum("bkgqh,bkch->bkgqc", qc.to(torch.float32),
+                     kc.to(torch.float32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if causal:
+        mask = _block_mask(qp, kp, window)
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+    elif window is not None:
+        mask = (qp[:, None] - kp[None, :]).abs() < window
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+    return s
+
+
+def _flash_fwd_impl(qg, kg, vg, causal, window, softcap, q_chunk, kv_chunk,
+                    q_offset):
+    """qg: (B,KV,G,T,hd); kg/vg: (B,KV,S,hd).  Returns out (B,KV,G,T,hd).
+    The reference also returns the log-sum-exp, which only its backward
+    reads; this forward-only port does not form it."""
+    B, KV, G, T, hd = qg.shape
+    S = kg.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = T // q_chunk, S // kv_chunk
+    dev = qg.device
+    q_positions = q_offset + torch.arange(T, device=dev)
+    k_positions = torch.arange(S, device=dev)
+    outs = []
+    for qi in range(nq):
+        qsl = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        qc, qp = qg[:, :, :, qsl], q_positions[qsl]
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            ksl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            kc, vc, kp = kg[:, :, ksl], vg[:, :, ksl], k_positions[ksl]
+            s = _masked_scores(qc, kc, qp, kp, scale, softcap, causal, window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bkch->bkgqh", p.to(vc.dtype).to(torch.float32),
+                vc.to(torch.float32))
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(qg.dtype))
+    return torch.cat(outs, dim=3)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None, q_chunk: int = 512,
+                    kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """q: (B, T, H, hd); k, v: (B, S, KV, hd) with H = KV * G.  Returns
+    (B, T, H, hd).  ``q_offset`` is the absolute position of q[0]."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk = min(q_chunk, T)
+    kv_chunk = min(kv_chunk, S)
+    if T % q_chunk or S % kv_chunk:
+        raise ValueError(f"chunks must tile the sequence: T={T} S={S} "
+                         f"q_chunk={q_chunk} kv_chunk={kv_chunk}")
+    qg = q.reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)
+    kg = k.permute(0, 2, 1, 3)
+    vg = v.permute(0, 2, 1, 3)
+    out = _flash_fwd_impl(qg, kg, vg, causal, window, softcap, q_chunk,
+                          kv_chunk, q_offset)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Standard GQA attention layer
+# ---------------------------------------------------------------------------
+
+def attn_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
+    if cfg.qk_norm:
+        raise NotImplementedError("QK-norm attention is not ported yet")
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": ParamDesc((d, cfg.num_heads * hd)),
+        "wk": ParamDesc((d, cfg.num_kv_heads * hd)),
+        "wv": ParamDesc((d, cfg.num_kv_heads * hd)),
+        "wo": ParamDesc((cfg.num_heads * hd, d)),
+    }
+
+
+def _project_qkv(params, cfg: ModelConfig, x, positions):
+    B, T, _ = x.shape
+    hd = cfg.hd
+    q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, hd)
+    k = (x @ params["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                 max_len: int):
+    """Full-sequence attention that also emits the decode cache.
+
+    Full-attention layers cache all T entries (padded to ``max_len``);
+    sliding-window layers keep a ring buffer of the last ``window``
+    entries, rolled so that the entry for position p sits at slot
+    p % window.
+    """
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = flash_attention(q, k, v, causal=True, window=spec.window,
+                          softcap=cfg.attn_logit_softcap)
+    out = out.reshape(B, T, -1) @ params["wo"]
+
+    def to_cache(arr):
+        if spec.window and spec.window < max_len:
+            W = min(spec.window, T)
+            tail = arr[:, T - W:]
+            if T > W:
+                tail = torch.roll(tail, shifts=(T - W) % W, dims=1)
+            L = min(spec.window, max_len)
+            return torch.nn.functional.pad(tail, (0, 0, 0, 0, 0, L - W))
+        return torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, max_len - T))
+
+    return out, {"k": to_cache(k), "v": to_cache(v)}
+
+
+def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                    max_len: int, dtype):
+    """Cache shapes for one attention layer.  Sliding-window layers keep a
+    ring buffer of ``window`` entries instead of the full context."""
+    L = min(max_len, spec.window) if spec.window else max_len
+    shape = (batch, L, cfg.num_kv_heads, cfg.hd)
+    return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}
+
+
+def attn_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
+    """One-token decode.  x: (B, 1, d); cache: {'k','v'} (B, L, KV, hd);
+    pos: an int — number of tokens already in the cache — or a (B,) int
+    tensor of per-row positions (the serving engine's continuous batch,
+    where every slot sits at its own depth).  Returns (out, new cache);
+    the input cache is not modified."""
+    B = x.shape[0]
+    hd = cfg.hd
+    dev = x.device
+    vec = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if vec:
+        pos = pos.to(device=dev, dtype=torch.int64)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    L = cache["k"].shape[1]
+    slot = pos % L if spec.window else pos
+    if vec:
+        k_cache = _store_rows(cache["k"], k, slot)
+        v_cache = _store_rows(cache["v"], v, slot)
+    else:
+        k_cache = _dynamic_store(cache["k"], k, slot)
+        v_cache = _dynamic_store(cache["v"], v, slot)
+
+    # positions actually stored in each cache slot (ring-aware); valid is
+    # (B, L) on the vector path, (L,) on the scalar path
+    idx = torch.arange(L, device=dev)
+    p_row = pos[:, None] if vec else pos
+    if spec.window:
+        # slot i holds position p with p % L == i and p <= pos; invalid if
+        # p > pos or evicted (pos - p >= window)
+        base = p_row - (p_row % L)
+        cand = torch.where(idx <= (p_row % L), base + idx, base - L + idx)
+        valid = (cand >= 0) & (cand <= p_row) & ((p_row - cand) < spec.window)
+    else:
+        valid = idx <= p_row
+    vmask = (valid[:, None, None, None, :] if vec
+             else valid[None, None, None, None, :])
+
+    qg = q.reshape(B, 1, cfg.num_kv_heads, -1, hd)
+    s = torch.einsum("btkgh,blkh->bkgtl", qg.to(torch.float32),
+                     k_cache.to(torch.float32)) / math.sqrt(hd)
+    if cfg.attn_logit_softcap is not None:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    s = torch.where(vmask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgtl,blkh->btkgh", p, v_cache).reshape(B, 1, -1)
+    return out @ params["wo"], {"k": k_cache, "v": v_cache}
+
+
+def _dynamic_store(cache, new, slot: int):
+    """cache[:, slot] = new[:, 0] on a copy; ``slot`` is clamped into range
+    as ``lax.dynamic_update_slice`` clamps it."""
+    slot = min(max(int(slot), 0), cache.shape[1] - 1)
+    out = cache.clone()
+    out[:, slot] = new[:, 0].to(cache.dtype)
+    return out
+
+
+def _store_rows(cache, new, slot):
+    """Per-row store on a copy: new[b, 0] lands at cache[b, slot[b]] — the
+    vector-``pos`` twin of :func:`_dynamic_store`.  cache: (B, L, ...);
+    new: (B, 1, ...); slot: (B,) int."""
+    L = cache.shape[1]
+    hit = torch.arange(L, device=cache.device)[None, :] == slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
+    return torch.where(hit, new.to(cache.dtype), cache)

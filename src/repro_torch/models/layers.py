@@ -1,0 +1,163 @@
+"""Shared model substrate of the port: parameter descriptors, RMSNorm, RoPE,
+the gated MLP and the embedding — counterparts of ``repro/models/layers.py``.
+
+Parameters are nested dicts of tensors laid out exactly as the JAX
+package's parameter tree (``repro_torch.convert.params_from_jax`` carries
+one over leaf by leaf).  Descriptors keep the shape and init kind; the
+JAX package's logical sharding axes have no use in this one-card slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._tree import tree_leaves, tree_map
+
+# ---------------------------------------------------------------------------
+# Parameter descriptors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDesc:
+    """Abstract parameter: shape and init kind (``normal``: N(0,1) /
+    sqrt(fan_in); ``small``: N(0,1) * 0.02; ``zeros``; ``ones``)."""
+    shape: Tuple[int, ...]
+    init: str = "normal"
+    scale: Optional[float] = None     # overrides the default fan-in scale
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a tensor not yet allocated (the port's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _is_desc(x) -> bool:
+    return isinstance(x, ParamDesc)
+
+
+def stack_desc(tree, n: int):
+    """Prepend a stacked layer dim of size n to every descriptor."""
+    return tree_map(lambda d: ParamDesc((n,) + d.shape, d.init, d.scale),
+                    tree, is_leaf=_is_desc)
+
+
+def _init_leaf(d: ParamDesc, generator: torch.Generator, dtype):
+    device = generator.device
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
+    scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
+    if d.init == "small":
+        scale = 0.02
+    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def materialize(tree, generator: torch.Generator, dtype=torch.float32):
+    """Concrete parameter values for a descriptor tree, drawn in the tree's
+    leaf order from ``generator`` on the generator's device.  The values
+    differ from ``jax.random``'s for the same seed."""
+    return tree_map(lambda d: _init_leaf(d, generator, dtype), tree,
+                    is_leaf=_is_desc)
+
+
+def desc_leaves(tree):
+    return tree_leaves(tree, is_leaf=_is_desc)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_desc(d: int) -> Dict[str, ParamDesc]:
+    return {"scale": ParamDesc((d,), "zeros")}
+
+
+def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the scale stored as a zero-initialized delta, applied as
+    (1 + w).  Statistics in f32, result cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    y = y * (1.0 + params["scale"].to(torch.float32))
+    return y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., T, H, hd); positions: broadcastable to (..., T).  The head
+    dim is split into halves (not interleaved pairs), computed in f32."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)          # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs        # (..., T, hd/2)
+    angles = angles[..., None, :]                                  # (..., T, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_desc(d: int, d_ff: int) -> Dict[str, ParamDesc]:
+    return {
+        "wi_gate": ParamDesc((d, d_ff)),
+        "wi_up": ParamDesc((d, d_ff)),
+        "wo": ParamDesc((d_ff, d)),
+    }
+
+
+def _activation(name: str):
+    if name == "swiglu":
+        return F.silu
+    # jax.nn.gelu defaults to the tanh approximation
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def mlp(params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
+    act = _activation(activation)
+    gate = act(x @ params["wi_gate"])
+    up = x @ params["wi_up"]
+    return (gate * up) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embedding_desc(vocab: int, d: int) -> Dict[str, ParamDesc]:
+    return {"table": ParamDesc((vocab, d), "small")}
+
+
+def embed(params, tokens: torch.Tensor, *, scale: bool, d: int) -> torch.Tensor:
+    x = params["table"][tokens]
+    if scale:
+        # sqrt(d) is rounded to the parameter dtype before the multiply
+        # (bf16: sqrt(2048) -> 45.25), as in the reference
+        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+    return x

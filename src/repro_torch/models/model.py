@@ -1,0 +1,120 @@
+"""Model facade of the port — counterpart of ``repro/models/model.py`` for
+decoder-only stacks of attention blocks:
+
+  * ``param_desc`` / ``init(generator, dtype)``
+  * ``prefill(params, batch, max_len)``          (inference prefill)
+  * ``init_cache`` / ``decode_step(params, tokens, cache, pos)``
+
+Parameters are the JAX package's tree of tensors; there is no training
+loss in this slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.layers import (desc_leaves, embed, embedding_desc,
+                                       materialize, norm_desc, rmsnorm)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.is_encoder_decoder or cfg.embedding_inputs:
+            raise NotImplementedError("encoder-decoder models are not ported "
+                                      "yet (ROADMAP.md queue 1, item 4)")
+        self.cfg = cfg
+        self.plan = cfg.stack_plan()
+
+    # -- parameters ---------------------------------------------------------
+
+    def param_desc(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        desc: Dict[str, Any] = {
+            "embed": embedding_desc(cfg.padded_vocab, cfg.d_model),
+            "final_norm": norm_desc(cfg.d_model),
+            "stack": transformer.stack_desc_tree(cfg, self.plan),
+        }
+        if not cfg.tie_embeddings:
+            desc["lm_head"] = embedding_desc(cfg.padded_vocab, cfg.d_model)
+        return desc
+
+    def init(self, generator: Optional[torch.Generator] = None, dtype=None,
+             device: DeviceLike = None):
+        """Random parameters drawn from ``generator`` (on its device).
+        Without a generator, one seeded with 0 is made on ``device``
+        (default: CUDA; raises when there is none)."""
+        if generator is None:
+            generator = torch.Generator(resolve_device(device)).manual_seed(0)
+        dtype = dtype or resolve_dtype(self.cfg.param_dtype)
+        return materialize(self.param_desc(), generator, dtype)
+
+    # -- shared pieces ------------------------------------------------------
+
+    def _embed(self, params, tokens):
+        return embed(params["embed"], tokens, scale=self.cfg.embed_scale,
+                     d=self.cfg.d_model).to(resolve_dtype(self.cfg.compute_dtype))
+
+    def _lm_table(self, params):
+        return params["embed" if self.cfg.tie_embeddings else "lm_head"]["table"]
+
+    def _logits(self, params, h):
+        cfg = self.cfg
+        logits = h @ self._lm_table(params).T
+        if cfg.final_logit_softcap:
+            logits = cfg.final_logit_softcap * torch.tanh(
+                logits / cfg.final_logit_softcap)
+        return logits
+
+    # -- inference ----------------------------------------------------------
+
+    def prefill(self, params, batch, max_len: Optional[int] = None):
+        """batch: {"tokens": (B, T) int}.  Returns (last-token logits
+        (B, 1, vocab), cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        max_len = max_len or T
+        x = self._embed(params, tokens)
+        positions = torch.arange(T, device=tokens.device)[None, :]
+        h, cache = transformer.stack_prefill(params["stack"], cfg, self.plan,
+                                             x, positions, max_len)
+        h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
+        return self._logits(params, h[:, -1:]), cache
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """TensorSpec tree of the decode cache (see
+        ``transformer.materialize_cache`` for the zero tensors)."""
+        dtype = dtype or resolve_dtype(self.cfg.compute_dtype)
+        return transformer.stack_cache(self.cfg, self.plan, batch, max_len,
+                                       dtype)
+
+    def decode_step(self, params, tokens, cache, pos):
+        """tokens: (B, 1) int; pos: an int (tokens already cached) or a
+        (B,) int tensor of per-row depths (continuous batching).  Returns
+        (logits (B, 1, vocab), new_cache)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        h, new_cache = transformer.stack_decode(params["stack"], cfg,
+                                                self.plan, x, cache, pos)
+        h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
+        return self._logits(params, h), new_cache
+
+
+def count_params(cfg: ModelConfig) -> int:
+    total = 0
+    for d in desc_leaves(Model(cfg).param_desc()):
+        n = 1
+        for s in d.shape:
+            n *= s
+        total += n
+    return total

@@ -1,0 +1,204 @@
+"""Decoder stack of the port — counterpart of ``repro/models/transformer.py``
+for attention blocks with a dense FFN.
+
+The stacked-repeats layout is kept: a segment of ``repeats`` identical
+periods holds every parameter and cache leaf with a leading ``repeats``
+axis, and the stack loops over that axis where the reference scans.  So
+a segment's cache stays one tensor per leaf, and the paged serving pool
+quantizes all of a segment's layers in one call.  Mamba, xLSTM and MLA
+mixers and the MoE FFN are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch._tree import tree_map, tree_map_with_path
+from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, norm_desc,
+                                       rmsnorm, stack_desc)
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.mixer != "attn":
+        raise NotImplementedError(f"mixer {spec.mixer!r} is not ported yet "
+                                  "(ROADMAP.md queue 1, item 4)")
+    if spec.ffn not in ("dense", "none"):
+        raise NotImplementedError(f"ffn {spec.ffn!r} is not ported yet "
+                                  "(ROADMAP.md queue 1, item 4)")
+
+
+# ---------------------------------------------------------------------------
+# One block
+# ---------------------------------------------------------------------------
+
+def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
+    _check_spec(spec)
+    desc: Dict[str, Any] = {"norm1": norm_desc(cfg.d_model),
+                            "mixer": attn.attn_desc(cfg)}
+    if spec.ffn != "none":
+        desc["norm2"] = norm_desc(cfg.d_model)
+        desc["ffn"] = mlp_desc(cfg.d_model, cfg.d_ff)
+    return desc
+
+
+def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                  max_len: int):
+    """Full-sequence block that also emits this layer's decode cache."""
+    _check_spec(spec)
+    h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
+    h, cache = attn.attn_prefill(params["mixer"], cfg, spec, h, positions,
+                                 max_len)
+    x = x + h
+    if spec.ffn != "none":
+        h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
+        x = x + mlp(params["ffn"], h, cfg.activation)
+    return x, cache
+
+
+def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
+                dtype):
+    _check_spec(spec)
+    return attn.init_attn_cache(cfg, spec, batch, max_len, dtype)
+
+
+def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
+    """One-token block step. Returns (x, new_cache)."""
+    _check_spec(spec)
+    h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
+    h, new_cache = attn.attn_decode(params["mixer"], cfg, spec, h, cache, pos)
+    x = x + h
+    if spec.ffn != "none":
+        h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
+        x = x + mlp(params["ffn"], h, cfg.activation)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stack (a loop over each segment's repeats)
+# ---------------------------------------------------------------------------
+
+def stack_desc_tree(cfg: ModelConfig, plan: Tuple[Segment, ...]) -> List[Any]:
+    """Descriptor tree: list over segments; each segment is a list over
+    period positions of block descriptors, stacked over ``repeats`` when
+    > 1."""
+    segs = []
+    for seg in plan:
+        period = [block_desc(cfg, spec) for spec in seg.period]
+        if seg.repeats > 1:
+            period = [stack_desc(p, seg.repeats) for p in period]
+        segs.append(period)
+    return segs
+
+
+def _index(tree, i: int):
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack(trees: List[Any]):
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def stack_prefill(params_segs, cfg: ModelConfig, plan, x, positions,
+                  max_len: int):
+    """Returns (x, cache) where cache mirrors :func:`stack_cache`."""
+    caches = []
+    for seg, seg_params in zip(plan, params_segs):
+        if seg.repeats == 1:
+            seg_caches = []
+            for spec, p in zip(seg.period, seg_params):
+                x, c = block_prefill(p, cfg, spec, x, positions, max_len)
+                seg_caches.append(c)
+            caches.append(seg_caches)
+            continue
+        per_layer: List[List[Any]] = [[] for _ in seg.period]
+        for r in range(seg.repeats):
+            for j, (spec, p) in enumerate(zip(seg.period, seg_params)):
+                x, c = block_prefill(_index(p, r), cfg, spec, x, positions,
+                                     max_len)
+                per_layer[j].append(c)
+        caches.append([_stack(cs) for cs in per_layer])
+    return x, caches
+
+
+def stack_cache(cfg: ModelConfig, plan, batch: int, max_len: int, dtype):
+    """TensorSpec cache tree mirroring the segment structure."""
+    segs = []
+    for seg in plan:
+        period = [block_cache(cfg, spec, batch, max_len, dtype)
+                  for spec in seg.period]
+        if seg.repeats > 1:
+            period = [tree_map(lambda s: TensorSpec((seg.repeats,) + s.shape,
+                                                    s.dtype), p)
+                      for p in period]
+        segs.append(period)
+    return segs
+
+
+# Cache leaves with a per-position length dim — the ones the serving
+# engine stores in fixed-size pages (attention K/V, MLA latents).  Every
+# other leaf is carried whole per serving slot.
+PAGED_CACHE_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLeafMeta:
+    """Per-leaf layout label for the paged serving pool (serve/kv_cache):
+    ``kind`` is "paged" (length dim at ``batch_axis + 1``, ``length``
+    entries) or "state"; ``batch_axis`` is 1 for leaves stacked over a
+    segment's repeats, else 0."""
+    kind: str
+    batch_axis: int
+    length: int
+
+
+def stack_cache_meta(cfg: ModelConfig, plan, batch: int, max_len: int, dtype):
+    """A tree structurally aligned with :func:`stack_cache` whose leaves
+    are :class:`CacheLeafMeta` labels."""
+    def label(stacked):
+        def f(path, s):
+            name = path[-1] if path else ""
+            bi = 1 if stacked else 0
+            if name in PAGED_CACHE_LEAVES:
+                return CacheLeafMeta("paged", bi, int(s.shape[1]))
+            return CacheLeafMeta("state", bi, 0)
+        return f
+
+    return [[tree_map_with_path(label(seg.repeats > 1),
+                                block_cache(cfg, spec, batch, max_len, dtype))
+             for spec in seg.period] for seg in plan]
+
+
+def materialize_cache(cache_specs, device):
+    """Concrete zero-initialized cache (stabilizer entries 'm' get -1e30)."""
+    def init_leaf(path, s: TensorSpec):
+        name = path[-1] if path else ""
+        fill = -1e30 if name == "m" else 0.0
+        return torch.full(s.shape, fill, dtype=s.dtype, device=device)
+    return tree_map_with_path(init_leaf, cache_specs)
+
+
+def stack_decode(params_segs, cfg: ModelConfig, plan, x, cache_segs, pos):
+    """One token through every layer.  Returns (x, new cache); the input
+    cache is not modified."""
+    new_cache = []
+    for seg, seg_params, seg_cache in zip(plan, params_segs, cache_segs):
+        if seg.repeats == 1:
+            updated = []
+            for spec, p, c in zip(seg.period, seg_params, seg_cache):
+                x, nc = block_decode(p, cfg, spec, x, c, pos)
+                updated.append(nc)
+            new_cache.append(updated)
+            continue
+        per_layer: List[List[Any]] = [[] for _ in seg.period]
+        for i in range(seg.repeats):
+            for j, (spec, p, c) in enumerate(zip(seg.period, seg_params,
+                                                 seg_cache)):
+                x, nc = block_decode(_index(p, i), cfg, spec, x,
+                                     _index(c, i), pos)
+                per_layer[j].append(nc)
+        new_cache.append([_stack(cs) for cs in per_layer])
+    return x, new_cache
