@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree over to the port.
+"""Carry a JAX parameter tree over to the port, and the port's trees back.
 
 ``params_from_jax(jax.tree.map(np.asarray, jax_model.init(key)), cfg)``
 returns the port's parameters holding the same values, so both packages
@@ -13,12 +13,18 @@ package's layout::
 where every leaf of a segment with ``repeats > 1`` has a leading
 ``repeats`` axis.  bf16 arrays (numpy's ``bfloat16`` extension dtype)
 cross bit for bit.
+
+``to_numpy(tree)`` is the reverse for comparisons: any tree of the port's
+tensors (parameters, optimizer moments, EF residuals) as numpy arrays on
+the host, bf16 widened to f32 (exact), so tests can hold it against the
+JAX package's tree.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import ParamDesc
@@ -59,3 +65,16 @@ def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
     package's tree; raises on any missing key or shape mismatch."""
     return _convert(Model(cfg).param_desc(), tree, resolve_device(device),
                     "params")
+
+
+def to_numpy(tree):
+    """The tree's tensors as host numpy arrays (bf16 widened to f32, which
+    is exact); other leaves pass through."""
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    return tree_map(one, tree)

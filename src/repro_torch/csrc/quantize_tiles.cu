@@ -24,21 +24,14 @@
 // A ragged last tile masks i >= n, which gives the reference's zero-padding
 // result: zeros cannot raise a max of absolute values.
 //
-// One difference from the reference: jnp.max propagates a NaN into the
-// scale, while fmaxf drops it.  Cached keys and values are finite.
+// NaN: the max propagates a NaN as jnp.max does (nan_max in tile_math.cuh,
+// not fmaxf, which drops it), so a tile holding a NaN gets a NaN scale; its
+// q entries are then NaN before the int8 store, which writes 0 for them as
+// XLA's float-to-int8 conversion does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_math.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -46,35 +39,17 @@ quantize_tiles_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                       float* __restrict__ scales, int64_t n, int tile) {
   __shared__ float warp_max[kMaxThreads / 32];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
 
   float m = 0.0f;
   for (int j = threadIdx.x; j < tile; j += blockDim.x) {
     const int64_t i = base + j;
-    if (i < n) m = fmaxf(m, fabsf(to_f32(x[i])));
+    if (i < n) m = nan_max(m, fabsf(to_f32(x[i])));
   }
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) warp_max[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < nwarps ? warp_max[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) warp_max[0] = m;
-  }
-  __syncthreads();
-  const float s = fmaxf(warp_max[0], 1e-30f);
+  const float s = nan_max(block_max(m, warp_max), 1e-30f);
 
   for (int j = threadIdx.x; j < tile; j += blockDim.x) {
     const int64_t i = base + j;
-    if (i < n) {
-      float v = rintf(__fmul_rn(__fdiv_rn(to_f32(x[i]), s), 127.0f));
-      v = fminf(fmaxf(v, -127.0f), 127.0f);
-      q[i] = static_cast<int8_t>(v);
-    }
+    if (i < n) q[i] = quantize_one(to_f32(x[i]), s);
   }
   if (threadIdx.x == 0) scales[blockIdx.x] = s;
 }
@@ -91,9 +66,7 @@ extern "C" int quantize_tiles_launch(const void* x, void* q, void* scales,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ntiles = (n + tile - 1) / tile;
   if (ntiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rounded = (tile + 31) / 32 * 32;
-  const int threads = static_cast<int>(rounded < kMaxThreads ? rounded
-                                                             : kMaxThreads);
+  const int threads = tile_threads(tile);
   const dim3 grid(static_cast<unsigned>(ntiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {

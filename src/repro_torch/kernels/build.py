@@ -8,8 +8,9 @@ library with a plain ``extern "C"`` launcher (no PyTorch headers, so no
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
 Libraries go to ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is not.  The ``-Xptxas -v`` report
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+not.  The ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside each
 library as ``<lib>.log``.  Nothing is fetched: the sources are the
 repository's own.
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("quantize_tiles",)
+KERNEL_SOURCES = ("quantize_tiles", "quantize_ef", "topk_mask")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
 
@@ -46,6 +47,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -6,7 +6,8 @@
 There is no override that sends a CUDA tensor to the plain version (the
 JAX package's ``REPRO_KERNELS_IMPL`` has no counterpart here), and no
 fall-back: if a kernel does not build or does not launch, its wrapper
-raises.
+raises.  ``require_flat_cuda`` and ``launch`` are the checks and the
+launch every wrapper shares.
 """
 from __future__ import annotations
 
@@ -22,3 +23,28 @@ def use_kernel(x: torch.Tensor) -> bool:
     if kind == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def require_flat_cuda(x: torch.Tensor, kernel: str, dtypes) -> None:
+    """Raise unless ``x`` is a flat contiguous CUDA tensor of one of
+    ``dtypes``: what every launcher of the port takes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{kernel} kernel takes {[str(d) for d in dtypes]},"
+                        f" got {x.dtype}")
+    if x.ndim != 1 or not x.is_contiguous():
+        raise ValueError(f"{kernel} kernel takes a flat contiguous tensor, "
+                         f"got shape {tuple(x.shape)} strides {x.stride()}")
+
+
+def launch(kernel: str, fn, x: torch.Tensor, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``x``'s CUDA device and
+    PyTorch's current stream there; raise if it returns a CUDA error (a
+    refused launch never runs, and a later synchronise does not report
+    it)."""
+    with torch.cuda.device(x.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

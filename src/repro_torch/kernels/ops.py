@@ -1,23 +1,32 @@
 """Public kernel wrappers of the port — the entry points the hot path calls
-(the paged KV cache today; the compressed ring in the training slice).
+(the paged KV cache; the int8_fused and topk_fused wires of the training
+step).
 
 Dispatch is by the tensor's device (``kernels/dispatch.py``): the Hopper
 kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
-``quantize_tiles.launches`` counts the kernel's launches (a plain int,
-never incremented on the CPU path), so a run can show that its main path
-went through the kernel; ``reset_launch_counts`` sets it to 0.
+Each wrapper's ``launches`` attribute counts its kernel's launches (a plain
+int, never incremented on the CPU path), so a run can show that its main
+path went through the kernel; ``reset_launch_counts`` sets them to 0.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.quantize import quantize_tiles_cuda
+from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
+                                             quantize_ef_cuda)
+from repro_torch.kernels.topk_mask import topk_ef_cuda, topk_mask_cuda
 
 TILE = 8 * 128
+
+
+def _topk_k(ratio: float, tile: int) -> int:
+    """Entries kept per tile, computed as the reference does."""
+    return max(1, int(tile * ratio))
 
 
 def quantize_tiles(x: torch.Tensor, *, tile: int = TILE):
@@ -30,15 +39,76 @@ def quantize_tiles(x: torch.Tensor, *, tile: int = TILE):
     return _ref.quantize_tiles_ref(x, tile=tile)
 
 
-quantize_tiles.launches = 0
-
-
 def dequantize(q: torch.Tensor, scales: torch.Tensor, tile: int = TILE):
     """q int8 (n,), scales (ceil(n/tile),) -> f32 (n,) = q * (s / 127)."""
     return _ref.dequantize_ref(q, scales, tile=tile)
 
 
-KERNEL_WRAPPERS = {"quantize_tiles": quantize_tiles}
+def _into(e_out: Optional[torch.Tensor], e_new: torch.Tensor):
+    """The plain versions' new residual, written into ``e_out`` if given."""
+    return e_new if e_out is None else e_out.copy_(e_new)
+
+
+def quantize_ef(g: torch.Tensor, e: torch.Tensor, *, decay: float = 1.0,
+                tile: int = TILE, e_out: Optional[torch.Tensor] = None):
+    """Fused EF + per-tile int8 quantize of flat f32 g, e:
+    (q int8 (n,), e_new f32 (n,), scales f32 (ceil(n/tile),)).  With
+    ``e_out`` (flat contiguous f32, may be ``e`` itself) the new residual
+    is written there and returned as e_new."""
+    if use_kernel(g):
+        out = quantize_ef_cuda(g.contiguous(), e.contiguous(), decay, tile,
+                               e_out)
+        quantize_ef.launches += 1
+        return out
+    q, e_new, scales = _ref.quantize_ef_ref(g, e, decay=decay, tile=tile)
+    return q, _into(e_out, e_new), scales
+
+
+def dequant_accum(q: torch.Tensor, scales: torch.Tensor, *, tile: int = TILE):
+    """Fused dequantize + accumulate of gathered payloads: q (w, n) int8,
+    scales (w, ceil(n/tile)) -> (n,) f32 sum over ranks in rank order."""
+    if use_kernel(q):
+        out = dequant_accum_cuda(q.contiguous(), scales.contiguous(), tile)
+        dequant_accum.launches += 1
+        return out
+    return _ref.dequant_accum_ref(q, scales, tile=tile)
+
+
+def topk_ef(g: torch.Tensor, e: torch.Tensor, *, ratio: float = 0.01,
+            tile: int = TILE, iters: int = 16, decay: float = 1.0,
+            e_out: Optional[torch.Tensor] = None):
+    """Fused EF + per-tile bisection top-k + residual of flat f32 g, e:
+    (y, e_new) with y + e_new = g + decay·e; ``e_out`` as in
+    :func:`quantize_ef`."""
+    if use_kernel(g):
+        out = topk_ef_cuda(g.contiguous(), e.contiguous(),
+                           _topk_k(ratio, tile), tile, iters, decay, e_out)
+        topk_ef.launches += 1
+        return out
+    y, e_new = _ref.topk_ef_ref(g, e, ratio=ratio, tile=tile, iters=iters,
+                                decay=decay)
+    return y, _into(e_out, e_new)
+
+
+def topk_mask(x: torch.Tensor, *, ratio: float = 0.01, tile: int = TILE,
+              iters: int = 16):
+    """Per-tile bisection top-k mask (no EF) of flat f32 or bf16 x."""
+    if use_kernel(x):
+        out = topk_mask_cuda(x.contiguous(), _topk_k(ratio, tile), tile,
+                             iters)
+        topk_mask.launches += 1
+        return out
+    return _ref.topk_mask_bisect_ref(x, ratio=ratio, tile=tile, iters=iters)
+
+
+KERNEL_WRAPPERS = {"quantize_tiles": quantize_tiles,
+                   "quantize_ef": quantize_ef,
+                   "dequant_accum": dequant_accum,
+                   "topk_ef": topk_ef,
+                   "topk_mask": topk_mask}
+
+for _fn in KERNEL_WRAPPERS.values():
+    _fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -50,5 +120,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["quantize_tiles", "dequantize", "launch_counts",
-           "reset_launch_counts", "TILE"]
+__all__ = ["quantize_tiles", "dequantize", "quantize_ef", "dequant_accum",
+           "topk_ef", "topk_mask", "launch_counts", "reset_launch_counts",
+           "TILE"]

@@ -16,6 +16,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.dispatch import launch, require_flat_cuda
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,16 +35,7 @@ def quantize_tiles_cuda(x: torch.Tensor, tile: int):
     """Launch the kernel on a flat contiguous CUDA tensor (f32 or bf16).
     Returns (q int8 (n,), scales f32 (ceil(n/tile),)); raises if the
     launch is refused."""
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_tiles kernel needs a CUDA tensor, got "
-                         f"{x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quantize_tiles kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if x.ndim != 1 or not x.is_contiguous():
-        raise ValueError("quantize_tiles kernel takes a flat contiguous "
-                         f"tensor, got shape {tuple(x.shape)} strides "
-                         f"{x.stride()}")
+    require_flat_cuda(x, "quantize_tiles", (torch.float32, torch.bfloat16))
     tile = int(tile)
     if not 1 <= tile <= 1 << 30:
         raise ValueError(f"tile must be in [1, 2**30], got {tile}")
@@ -53,12 +45,6 @@ def quantize_tiles_cuda(x: torch.Tensor, tile: int):
     scales = torch.empty(ntiles, dtype=torch.float32, device=x.device)
     if n == 0:
         return q, scales
-    fn = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, tile,
-                 int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"quantize_tiles kernel launch failed: CUDA "
-                           f"error {err}")
+    launch("quantize_tiles", _launcher(), x, x.data_ptr(), q.data_ptr(),
+           scales.data_ptr(), n, tile, int(x.dtype == torch.bfloat16))
     return q, scales

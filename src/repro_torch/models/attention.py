@@ -6,8 +6,11 @@ Full-sequence attention is the chunked streaming-softmax forward of the
 reference (``_flash_fwd_impl``), written as plain PyTorch ops over query
 and key blocks so no (T, T) score matrix is materialized.  Scores and the
 softmax are computed in f32, as the reference's
-``preferred_element_type=jnp.float32``; the forward only (no autograd in
-this slice).
+``preferred_element_type=jnp.float32``.  Its gradient is the reference's
+FlashAttention-2 custom VJP (``_flash_bwd``) as a ``torch.autograd.Function``
+(:class:`_Flash`): the backward recomputes the probabilities per block from
+the saved log-sum-exp.  The JAX package uses this pure-jnp twin, not its
+Pallas flash kernel, on the model path, so plain PyTorch is its port.
 """
 from __future__ import annotations
 
@@ -50,9 +53,8 @@ def _masked_scores(qc, kc, qp, kp, scale, softcap, causal, window):
 
 def _flash_fwd_impl(qg, kg, vg, causal, window, softcap, q_chunk, kv_chunk,
                     q_offset):
-    """qg: (B,KV,G,T,hd); kg/vg: (B,KV,S,hd).  Returns out (B,KV,G,T,hd).
-    The reference also returns the log-sum-exp, which only its backward
-    reads; this forward-only port does not form it."""
+    """qg: (B,KV,G,T,hd); kg/vg: (B,KV,S,hd).  Returns (out (B,KV,G,T,hd),
+    lse (B,KV,G,T) f32); only the backward reads the log-sum-exp."""
     B, KV, G, T, hd = qg.shape
     S = kg.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -60,7 +62,7 @@ def _flash_fwd_impl(qg, kg, vg, causal, window, softcap, q_chunk, kv_chunk,
     dev = qg.device
     q_positions = q_offset + torch.arange(T, device=dev)
     k_positions = torch.arange(S, device=dev)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qsl = slice(qi * q_chunk, (qi + 1) * q_chunk)
         qc, qp = qg[:, :, :, qsl], q_positions[qsl]
@@ -81,8 +83,86 @@ def _flash_fwd_impl(qg, kg, vg, causal, window, softcap, q_chunk, kv_chunk,
                 "bkgqc,bkch->bkgqh", p.to(vc.dtype).to(torch.float32),
                 vc.to(torch.float32))
             m = m_new
-        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(qg.dtype))
-    return torch.cat(outs, dim=3)
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l[..., None]).to(qg.dtype))
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
+
+
+def _flash_bwd_impl(qg, kg, vg, out, lse, do, causal, window, softcap,
+                    q_chunk, kv_chunk, q_offset):
+    """FlashAttention-2 backward of the reference (``_flash_bwd``): for
+    each (kv, q) block pair recompute P from the saved log-sum-exp, then
+    accumulate dV, dK over q blocks and dQ over kv blocks, all in f32.
+    Memory is O(block), not O(T·S)."""
+    B, KV, G, T, hd = qg.shape
+    S = kg.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = T // q_chunk, S // kv_chunk
+    dev = qg.device
+    f32 = torch.float32
+    q_positions = q_offset + torch.arange(T, device=dev)
+    k_positions = torch.arange(S, device=dev)
+    do = do.to(f32)
+    delta = torch.sum(do * out.to(f32), dim=-1)                 # (B,KV,G,T)
+    dq = torch.zeros((B, KV, G, T, hd), dtype=f32, device=dev)
+    dks, dvs = [], []
+    for ki in range(nk):
+        ksl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+        kc, vc, kp = kg[:, :, ksl], vg[:, :, ksl], k_positions[ksl]
+        kc32, vc32 = kc.to(f32), vc.to(f32)
+        dk = torch.zeros((B, KV, kv_chunk, hd), dtype=f32, device=dev)
+        dv = torch.zeros((B, KV, kv_chunk, hd), dtype=f32, device=dev)
+        dq_chunks = []
+        for qi in range(nq):
+            qsl = slice(qi * q_chunk, (qi + 1) * q_chunk)
+            qc32, qp = qg[:, :, :, qsl].to(f32), q_positions[qsl]
+            lse_c, do_c, dl_c = lse[..., qsl], do[:, :, :, qsl], delta[..., qsl]
+            s = torch.einsum("bkgqh,bkch->bkgqc", qc32, kc32) * scale
+            if softcap is not None:
+                t = torch.tanh(s / softcap)
+                s = softcap * t
+            if causal:
+                mask = _block_mask(qp, kp, window)
+            elif window is not None:
+                mask = (qp[:, None] - kp[None, :]).abs() < window
+            else:
+                mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=dev)
+            p = torch.where(mask[None, None, None],
+                            torch.exp(s - lse_c[..., None]), 0.0)
+            dv = dv + torch.einsum("bkgqc,bkgqh->bkch", p, do_c)
+            dp = torch.einsum("bkgqh,bkch->bkgqc", do_c, vc32)
+            ds = p * (dp - dl_c[..., None])
+            if softcap is not None:
+                ds = ds * (1.0 - t * t)
+            ds = ds * scale
+            dq_chunks.append(torch.einsum("bkgqc,bkch->bkgqh", ds, kc32))
+            dk = dk + torch.einsum("bkgqc,bkgqh->bkch", ds, qc32)
+        dq = dq + torch.cat(dq_chunks, dim=3)
+        dks.append(dk)
+        dvs.append(dv)
+    return (dq.to(qg.dtype), torch.cat(dks, dim=2).to(kg.dtype),
+            torch.cat(dvs, dim=2).to(vg.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Chunked attention with the FlashAttention-2 backward (the
+    reference's ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, qg, kg, vg, causal, window, softcap, q_chunk, kv_chunk,
+                q_offset):
+        out, lse = _flash_fwd_impl(qg, kg, vg, causal, window, softcap,
+                                   q_chunk, kv_chunk, q_offset)
+        ctx.save_for_backward(qg, kg, vg, out, lse)
+        ctx.static = (causal, window, softcap, q_chunk, kv_chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qg, kg, vg, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(qg, kg, vg, out, lse, do, *ctx.static)
+        return (dq, dk, dv) + (None,) * 6
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -90,7 +170,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None, q_chunk: int = 512,
                     kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """q: (B, T, H, hd); k, v: (B, S, KV, hd) with H = KV * G.  Returns
-    (B, T, H, hd).  ``q_offset`` is the absolute position of q[0]."""
+    (B, T, H, hd), differentiable through :class:`_Flash`.  ``q_offset``
+    is the absolute position of q[0]."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -102,8 +183,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     qg = q.reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)
     kg = k.permute(0, 2, 1, 3)
     vg = v.permute(0, 2, 1, 3)
-    out = _flash_fwd_impl(qg, kg, vg, causal, window, softcap, q_chunk,
-                          kv_chunk, q_offset)
+    out = _Flash.apply(qg, kg, vg, causal, window, softcap, q_chunk,
+                       kv_chunk, q_offset)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 
@@ -132,6 +213,15 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """Full-sequence causal attention (training). x: (B, T, d)."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = flash_attention(q, k, v, causal=True, window=spec.window,
+                          softcap=cfg.attn_logit_softcap)
+    return out.reshape(B, T, -1) @ params["wo"]
 
 
 def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,

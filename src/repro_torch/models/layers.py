@@ -1,5 +1,6 @@
 """Shared model substrate of the port: parameter descriptors, RMSNorm, RoPE,
-the gated MLP and the embedding — counterparts of ``repro/models/layers.py``.
+the gated MLP, the embedding and the cross-entropy — counterparts of
+``repro/models/layers.py``.
 
 Parameters are nested dicts of tensors laid out exactly as the JAX
 package's parameter tree (``repro_torch.convert.params_from_jax`` carries
@@ -161,3 +162,16 @@ def embed(params, tokens: torch.Tensor, *, scale: bool, d: int) -> torch.Tensor:
         # (bf16: sqrt(2048) -> 45.25), as in the reference
         x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32.  labels: int ids; mask optional."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -2,23 +2,29 @@
 decoder-only stacks of attention blocks:
 
   * ``param_desc`` / ``init(generator, dtype)``
+  * ``loss(params, batch)``                      (train)
   * ``prefill(params, batch, max_len)``          (inference prefill)
   * ``init_cache`` / ``decode_step(params, tokens, cache, pos)``
 
-Parameters are the JAX package's tree of tensors; there is no training
-loss in this slice.
+Parameters are the JAX package's tree of tensors.  Cross-entropy is
+computed in sequence chunks of ``XENT_CHUNK``, each checkpointed, so the
+full (B, T, vocab) logits tensor is never kept for the backward.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (desc_leaves, embed, embedding_desc,
-                                       materialize, norm_desc, rmsnorm)
+                                       materialize, norm_desc, rmsnorm,
+                                       softmax_xent)
+
+XENT_CHUNK = 512
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -74,6 +80,52 @@ class Model:
             logits = cfg.final_logit_softcap * torch.tanh(
                 logits / cfg.final_logit_softcap)
         return logits
+
+    def _backbone_train(self, params, batch):
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        h = transformer.stack_train(params["stack"], self.cfg, self.plan, x,
+                                    positions)
+        return rmsnorm(params["final_norm"], h, eps=self.cfg.norm_eps)
+
+    def _chunk_nll(self, params, hc, lc):
+        """(masked mean nll, label count) of one sequence chunk."""
+        logits = self._logits(params, hc)
+        mc = lc >= 0
+        nll = softmax_xent(logits, torch.clamp_min(lc, 0), mc)
+        return nll, torch.sum(mc.to(torch.float32))
+
+    def _chunked_xent(self, params, h, labels):
+        """h: (B, T, d); labels: (B, T).  Loops over T chunks, each
+        checkpointed: the (B, c, vocab) logits are recomputed in the
+        backward instead of kept."""
+        T = h.shape[1]
+        c = min(XENT_CHUNK, T)
+        n = T // c
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            nll, k = checkpoint(self._chunk_nll, params, h[:, sl],
+                                labels[:, sl], use_reentrant=False)
+            tot, cnt = tot + nll * k, cnt + k
+        if T - n * c:
+            nll, k = self._chunk_nll(params, h[:, n * c:], labels[:, n * c:])
+            tot, cnt = tot + nll * k, cnt + k
+        return tot / torch.clamp_min(cnt, 1.0)
+
+    # -- training -----------------------------------------------------------
+
+    def loss(self, params, batch):
+        """Next-token LM loss.  Labels are tokens shifted left; the final
+        position is masked with -1.  (The reference adds the MoE aux loss,
+        zero for the ported dense blocks.)"""
+        tokens = batch["tokens"]
+        labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])],
+                           dim=1)
+        h = self._backbone_train(params, batch)
+        return self._chunked_xent(params, h, labels)
 
     # -- inference ----------------------------------------------------------
 

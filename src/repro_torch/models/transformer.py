@@ -7,6 +7,12 @@ axis, and the stack loops over that axis where the reference scans.  So
 a segment's cache stays one tensor per leaf, and the paged serving pool
 quantizes all of a segment's layers in one call.  Mamba, xLSTM and MLA
 mixers and the MoE FFN are not ported yet and raise.
+
+Training (:func:`stack_train`) checkpoints every layer
+(``torch.utils.checkpoint``), as the reference rematerializes every period,
+and splits each stacked leaf into its layers once (``unbind``): indexing
+``p[i]`` per layer would make autograd allocate a full-size zero gradient
+of the stacked leaf for every layer.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map, tree_map_with_path
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
@@ -43,6 +50,18 @@ def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
         desc["norm2"] = norm_desc(cfg.d_model)
         desc["ffn"] = mlp_desc(cfg.d_model, cfg.d_ff)
     return desc
+
+
+def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """Full-sequence causal block (training).  The reference's MoE aux loss
+    is zero for the ported dense blocks, so only x is returned."""
+    _check_spec(spec)
+    h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
+    x = x + attn.attn_forward(params["mixer"], cfg, spec, h, positions)
+    if spec.ffn != "none":
+        h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
+        x = x + mlp(params["ffn"], h, cfg.activation)
+    return x
 
 
 def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
@@ -100,6 +119,33 @@ def _index(tree, i: int):
 
 def _stack(trees: List[Any]):
     return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def _unstack(tree, repeats: int) -> List[Any]:
+    """The ``repeats`` per-layer trees of a stacked tree, each leaf split
+    once with ``unbind`` (views; its backward stacks the layer gradients
+    into one tensor)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda u: u[r], parts,
+                     is_leaf=lambda u: isinstance(u, tuple))
+            for r in range(repeats)]
+
+
+def stack_train(params_segs, cfg: ModelConfig, plan, x, positions,
+                remat: bool = True):
+    """Full-sequence stack (training).  ``remat=True`` checkpoints each
+    block: the backward stores one input per layer and recomputes the
+    block, like the reference's per-period ``jax.checkpoint``."""
+    for seg, seg_params in zip(plan, params_segs):
+        periods = ([seg_params] if seg.repeats == 1
+                   else _unstack(seg_params, seg.repeats))
+        for period in periods:
+            for spec, p in zip(seg.period, period):
+                def blk(h, p=p, spec=spec):
+                    return block_train(p, cfg, spec, h, positions)
+                x = checkpoint(blk, x, use_reentrant=False) if remat \
+                    else blk(x)
+    return x
 
 
 def stack_prefill(params_segs, cfg: ModelConfig, plan, x, positions,

@@ -29,8 +29,16 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.quantize" in mods
-    assert "repro_torch.serve.kv_cache" in mods
+    for name in ("repro_torch.kernels.quantize", "repro_torch.serve.kv_cache",
+                 "repro_torch.kernels.quantize_ef",
+                 "repro_torch.kernels.topk_mask",
+                 "repro_torch.core.grad_sync",
+                 "repro_torch.core.compression.fused",
+                 "repro_torch.core.collectives.api",
+                 "repro_torch.launch.train", "repro_torch.launch.dist",
+                 "repro_torch.api", "repro_torch.optim.adam",
+                 "repro_torch.data.pipeline"):
+        assert name in mods, name
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -77,6 +85,10 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
         Engine(model, None, ServeConfig(max_batch=1, max_len=8, page_size=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--gen", "2", "--prompt-len", "4"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--batch", "2",
+                    "--seq", "16"])
     # an explicit CPU device is honoured
     params = model.init(device="cpu")
     assert params["embed"]["table"].device.type == "cpu"

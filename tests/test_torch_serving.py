@@ -250,8 +250,8 @@ def test_int8_engine_matches_jax_int8_engine(gemma):
     eng = Engine(model, params, ServeConfig(**scfg))
     out = eng.run([Request(rid=i, prompt=prompts[i], max_new=gens[i])
                    for i in range(3)])
-    # CPU tensors take the plain version: the kernel counter stays at 0
-    assert ops.launch_counts() == {"quantize_tiles": 0}
+    # CPU tensors take the plain versions: every kernel counter stays at 0
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_WRAPPERS}
     for c, jc in zip(out, jout):
         np.testing.assert_array_equal(c.tokens, jc.tokens)
 
