@@ -9,20 +9,34 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device: needs CUDA; prints the card's name and power limit
      (``nvidia-smi``); TF32 off for f32 matmuls and convolutions;
-  2. build: every CUDA kernel of the port from the sources in the checkout
-     (``nvcc``, one process per source, started together);
-  3. kernels vs plain versions on the card, all held BIT-EQUAL (NaN for
-     NaN): ``quantize_tiles`` over a sweep of tiles, lengths, input types
-     and a NaN tile (and dequantize must round-trip within s/254);
-     ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` over
-     the CPU tests' cases (ragged lengths, decays, ratios, rank counts,
-     zero tiles, exact halves, NaN tiles, bf16 for topk_mask) and at every
-     bucket length of the training path, called as the path calls them
-     (the residual written in place); then kernel, plain-version and bound
-     times at the serving and training paths' shapes;
-  4. small references: the reduced gemma-2b in f32 on the card agrees
-     with the port's CPU path, for serving logits and for two int8_fused
-     training steps (both held against the JAX package by the tests);
+  2. build: the six CUDA kernels of the port from the four sources in the
+     checkout (``nvcc``, one process per source, started together);
+  3. kernels vs plain versions on the card.  ``quantize_tiles``,
+     ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` are
+     held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles,
+     lengths, input types and a NaN tile, including every length the
+     gemma-2b and gemma2-9b serving runs write (and dequantize must
+     round-trip within s/254), the training wire over the CPU tests' cases (ragged
+     lengths, decays, ratios, rank counts, zero tiles, exact halves, NaN
+     tiles, bf16 for topk_mask) and at every bucket length of the
+     training path, called as the path calls them (the residual written
+     in place).  ``flash_attention`` is held within a stated tolerance,
+     element by element (f32: rtol = atol = 1e-5; bf16: 2 bf16 ulps of
+     the element plus 2 of its row's largest magnitude) over the JAX
+     kernel tests' shapes x f32/bf16 x window, softcap, window+softcap,
+     non-causal and non-causal+window, ragged T, rows with no valid key,
+     and at the prefill shapes of gemma2-9b (global and local layers,
+     softcap 50) and gemma-2b in both f32 and bf16.  Then kernel,
+     plain-version, bound and library times at the serving and training
+     paths' shapes, the library being one PyTorch call that computes the
+     same function where there is one (SDPA; flex_attention compiled, for
+     the softcap shapes);
+  4. small references: the reduced gemma-2b, gemma2-9b and gemma3-4b in
+     f32 on the card (prefill through the flash kernel) agree with the
+     port's CPU path (plain versions) for prefill logits and four
+     vector-position decode steps, the two new ones past their window's
+     ring wrap; and gemma-2b for two int8_fused training steps (all held
+     against the JAX package by the tests);
   5. the serving path at full width: ``repro_torch.launch.serve`` with
      gemma-2b (18 layers, d_model 2048, vocab 256000, bf16, random
      weights from seed 0), int8 paged KV, continuous batching, 8 requests
@@ -30,19 +44,31 @@ Phases (any failure exits non-zero and prints no result line):
   6. information only: the share of tokens at temperature 0 that the
      engine shares with ``run_static`` and ``generate``, and a profile of
      ten decode ticks (device-busy share, top kernels);
-  7. the training path at full width: ``repro_torch.launch.train`` with
-     the same gemma-2b, Adam, batch 4 x seq 512, 3 steps on an NCCL group
-     of world 1, once each with ``--sync comm --compressor int8_fused``,
-     ``--sync comm --compressor topk_fused`` and ``--sync vanilla``;
-     step time, tokens/s, peak memory and a ``torch.profiler`` view of one
-     more step per run.
+  7. gemma2-9b served at full width (42 layers alternating a 4096 window
+     and global attention, GQA 16/8 heads, softcaps 50 and 30, untied
+     head, 10.2 B parameters in bf16, random weights from seed 0), int8
+     paged KV in two length groups, 4 requests of 6144 prompt + 32 new
+     tokens through 4 slots: the prompts outrun the window, so the window
+     mask, the kernel's tile skipping and the ring caches' wrap all run;
+     the prefill time of one admission, and a profile of five decode
+     ticks;
+  8. the training path at full width: ``repro_torch.launch.train`` with
+     gemma-2b, Adam, batch 4 x seq 512, 3 steps on an NCCL group of world
+     1, once each with ``--sync comm --compressor int8_fused``, ``--sync
+     comm --compressor topk_fused`` and ``--sync vanilla``; step time,
+     tokens/s, peak memory and a ``torch.profiler`` view of one more step
+     per run.
 
-Every main-path run (5, and each of 7) sets every kernel launch counter to
-0 just before it and reads them just after: each kernel of that run must
-have launched, as often as the run's structure says.  Launches made in
-phase 3 are not counted.  It prints a ``{"kernels": [...]}`` JSON line
-and, last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX
-or of the JAX package.
+Every main-path run (5, 7, and each of 8) sets every kernel launch counter
+to 0 just before it and reads them just after: each kernel of that run
+must have launched exactly as often as the run's structure says, and
+every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
+(admissions + decode ticks), flash_attention = attention layers x
+admissions; training: the wire's kernels = buckets x steps, flash 0 (the
+training path keeps the differentiable chunked attention).  Launches made
+in phases 3, 4 and 6 are not counted.  It prints a ``{"kernels": [...]}``
+JSON line with all six kernels and, last, ``{"ok": true, "device":
+{...}}``.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -62,14 +88,39 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 TILES = (64, 256, 1024)
 QUANT_OPS_PER_ELEMENT = 7       # abs, max, div, mul, round, 2 clamps
 
-SLOTS, MAX_LEN = 4, 256
+SLOTS, MAX_LEN, PAGE = 4, 256, 16
 SERVE_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--quantize", "int8",
               "--engine", "continuous", "--batch", str(SLOTS),
               "--requests", "8", "--prompt-len", "128", "--gen", "64",
-              "--max-len", str(MAX_LEN), "--page-size", "16", "--seed", "0"]
+              "--max-len", str(MAX_LEN), "--page-size", str(PAGE),
+              "--seed", "0"]
+
+GEMMA2_SLOTS, GEMMA2_PROMPT, GEMMA2_MAX_LEN = 4, 6144, 8192
+GEMMA2_SERVE_ARGS = ["--arch", "gemma2-9b", "--no-reduced", "--quantize",
+                     "int8", "--engine", "continuous", "--batch",
+                     str(GEMMA2_SLOTS), "--requests", "4", "--prompt-len",
+                     str(GEMMA2_PROMPT), "--gen", "32", "--max-len",
+                     str(GEMMA2_MAX_LEN), "--page-size", str(PAGE),
+                     "--seed", "0"]
+
+# flash attention sweep: the JAX kernel tests' (B, T, H, KV, hd), ragged T,
+# and the variants; then the prefill shapes of the serving path
+FLASH_SHAPES = ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 128, 8, 1, 32),
+                (2, 128, 4, 4, 128), (1, 200, 4, 2, 64), (2, 11, 4, 1, 32))
+FLASH_VARIANTS = ({}, {"window": 64}, {"softcap": 30.0},
+                  {"window": 64, "softcap": 20.0}, {"causal": False},
+                  {"causal": False, "window": 64})
+FLASH_PATH_SHAPES = {   # name: (B, T, H, KV, hd, kwargs)
+    "gemma2_9b_prefill_global": (1, GEMMA2_PROMPT, 16, 8, 256,
+                                 {"softcap": 50.0}),
+    "gemma2_9b_prefill_local": (1, GEMMA2_PROMPT, 16, 8, 256,
+                                {"softcap": 50.0, "window": 4096}),
+    "gemma_2b_prefill": (1, 128, 8, 1, 256, {}),
+}
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
 TRAIN_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--optimizer", "adam",
@@ -91,6 +142,9 @@ QEF_OPS = 10          # g + decay*e (2), abs, max, div, mul, round, clamp (2),
 #                       residual (2): rounded to 10
 TOPK_OPS = 3 + 2 * ITERS      # EF add (2), abs; per round a compare and an add
 KERNEL_SOURCES = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79",
+                        "flash_attention_pallas"),
     "quantize_tiles": ("src/repro_torch/csrc/quantize_tiles.cu",
                        "src/repro/kernels/quantize_ef.py:99",
                        "quantize_pallas"),
@@ -278,7 +332,9 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
           f"exact halves, NaN tiles); dequantize within s/254", flush=True)
 
     # timed in turns (plain, kernel, kernel, plain) within this call; the
-    # kernel through its wrapper, which allocates q and scales per call
+    # kernel through its wrapper, which allocates q and scales per call;
+    # the prefill writes of gemma2-9b (10^8 elements and more) with CUDA
+    # events around single calls, the rest in CUDA graphs
     timings = {}
     for name, (n, tile) in path_shapes.items():
         x = torch.randn(n, device=dev).to(torch.bfloat16)
@@ -288,16 +344,53 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
 
         def plain():
             return ref.quantize_tiles_ref(x, tile=tile)
-        p0, k0 = device_ms(torch, plain), device_ms(torch, kern)
-        k1, p1 = device_ms(torch, kern), device_ms(torch, plain)
+        timer = events_ms if n >= 1 << 26 else device_ms
+        p0, k0 = timer(torch, plain), timer(torch, kern)
+        k1, p1 = timer(torch, kern), timer(torch, plain)
         b_ms, by = quantize_bound_ms(n, tile, 2)
         timings[name] = {
             "n": n, "tile": tile, "dtype": "bfloat16",
             "ms": min(k0, k1), "plain_ms": min(p0, p1),
             "call_ms": call_ms(torch, kern),
             "plain_call_ms": call_ms(torch, plain),
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "timer": ("cuda events, eager" if timer is events_ms
+                      else "cuda graph")}
+        del x
+        torch.cuda.empty_cache()
     return worst, timings
+
+
+def quantize_path_shapes(arch: str, slots: int, max_len: int,
+                         page: int) -> dict:
+    """{name: (n, tile)}: the flat lengths that the int8 pool of ``arch``'s
+    serving run (``slots`` x ``max_len``, pages of ``page``) hands
+    ``quantize_tiles``, from the pool's own leaf layout.  An admission
+    writes one slot's whole row of each paged leaf (repeats x length x KV
+    x hd), a decode tick one entry per slot (repeats x slots x KV x hd);
+    the tile is hd.  Leaves of equal lengths share a name."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import CacheLeafMeta
+    from repro_torch.serve.kv_cache import PagedDecodeCache
+    cache = PagedDecodeCache(Model(get_config(arch)), slots, max_len, page,
+                             quantize="int8", build_pool=False)
+    leaves = []
+    tree_map(lambda m, s: leaves.append((m, s.shape)), cache.meta,
+             cache.specs, is_leaf=lambda x: isinstance(x, CacheLeafMeta))
+    paged = [(m, shape) for m, shape in leaves if m.kind == "paged"]
+    lengths = sorted({m.length for m, _ in paged})
+    tag = arch.replace("-", "_")
+    out = {}
+    for m, shape in paged:
+        numel, tile = math.prod(shape), shape[-1]
+        out[f"{tag}_decode_write"] = (numel // m.length, tile)
+        name = f"{tag}_prefill_write"
+        if len(lengths) > 1:
+            name += f"_{m.length}"
+        out[name] = (numel // slots, tile)
+    return out
 
 
 def phase_train_kernels(torch, ops, ref) -> dict:
@@ -466,27 +559,231 @@ def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
     return out
 
 
-def phase_small_reference(torch):
-    """Reduced gemma-2b in f32: the card's logits against the CPU path's
-    on the same weights and tokens (max|Δ| <= 1e-4 · max|logit|; TF32 is
-    off, so the difference is summation order only)."""
+def bf16_ulp(torch, x):
+    """The bfloat16 ulp at |x|, 2^(floor(log2 |x|) - 7), and 0 at 0."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x != 0, torch.exp2((e - 8).float()), 0.0)
+
+
+def flash_close(torch, got, want):
+    """(ok, max |got - want|, worst |got - want| / tolerance) of the flash
+    kernel against its plain version, element by element.  f32: rtol =
+    atol = 1e-5 (the same sums in another order).  bf16: 2 bf16 ulps of
+    the element plus 2 of its row's largest magnitude (the row is one
+    query and head over hd): p is rounded to bf16 at another running max,
+    which moves an output by a few 2^-9 of the row's weighted |v|, and the
+    output's own rounding can flip by an ulp."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        return False, float("inf"), float("inf")
+    if not bool(torch.isfinite(g).all()):
+        return False, float("inf"), float("inf")
+    d = (g - w).abs()
+    if got.dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * w.abs()
+    else:
+        row = w.abs().amax(dim=-1, keepdim=True)
+        tol = 2 * bf16_ulp(torch, w) + 2 * bf16_ulp(torch, row)
+    share = torch.where(d > 0, d / tol, 0.0).max().item()
+    return share <= 1.0, d.max().item(), share
+
+
+def attention_pairs(T: int, S: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head and batch row: the work the
+    mask leaves (queries and keys at positions 0 … T-1 and 0 … S-1)."""
+    qp = np.arange(T, dtype=np.int64)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros_like(qp)
+    if causal:
+        hi = np.minimum(S - 1, qp)
+    elif window:
+        hi = np.minimum(S - 1, qp + window - 1)
+    else:
+        hi = np.full_like(qp, S - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(B, T, S, H, KV, hd, elt_bytes, kw):
+    """(least time in ms, what bounds it, operations, bytes): q, k, v read
+    once and out written once at the HBM rate, against 4·B·H·hd
+    operations per unmasked pair (two products) at the bf16 tensor-core
+    rate for bf16 inputs (their products are exact in f32) or the f32
+    rate."""
+    nbytes = elt_bytes * (2 * B * T * H * hd + 2 * B * S * KV * hd)
+    n_ops = 4 * B * H * hd * attention_pairs(T, S, kw.get("causal", True),
+                                             kw.get("window"))
+    rate = BF16_OPS_PER_S if elt_bytes == 2 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / rate * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, n_ops, nbytes
+
+
+def flex_library(torch, q, k, v, window, softcap):
+    """One PyTorch call computing the flash kernel's causal function with
+    a logit softcap: ``flex_attention`` compiled by ``torch.compile``,
+    with the softcap as its ``score_mod``, the causal (and window) mask as
+    its block mask, and GQA.  Timed here only; the port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    T, S = q.shape[1], k.shape[1]
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi
+        return keep if window is None else keep & (qi - ki < window)
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+    mask = create_block_mask(mask_mod, None, None, T, S, device=q.device)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def library():
+        return compiled(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                        enable_gqa=True).transpose(1, 2)
+    return library
+
+
+def phase_flash(torch, ops, ref, flash_cuda):
+    """The flash kernel against its plain version on the card, within
+    :func:`flash_close`, over FLASH_SHAPES x f32/bf16 x FLASH_VARIANTS,
+    rows with no valid key, and the path shapes in f32 and bf16; then
+    kernel, plain, bound and library times at the path shapes (bf16), in
+    turns (plain, kernel, kernel, plain).  Returns (worst |kernel -
+    plain|, timings)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    cases = 0
+
+    def inputs(B, T, S, H, KV, hd, dtype, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((B, T, H, hd), (B, S, KV, hd),
+                                   (B, S, KV, hd)))
+
+    def check(q, k, v, kw, what):
+        nonlocal cases
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ok, err, share = flash_close(torch, got, want)
+        e0, s0 = worst[q.dtype]
+        worst[q.dtype] = (max(e0, err), max(s0, share))
+        cases += 1
+        if not ok:
+            fail(f"flash_attention differs from the plain version at {what}: "
+                 f"max err {err}, {share:.3f} of the tolerance")
+        return err, share
+
+    for i, (B, T, H, KV, hd) in enumerate(FLASH_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for j, kw in enumerate(FLASH_VARIANTS):
+                q, k, v = inputs(B, T, T, H, KV, hd, dtype, 100 * i + j)
+                check(q, k, v, kw, f"{(B, T, H, KV, hd)} {dtype} {kw}")
+    for causal in (True, False):     # T > S + window: rows with no key
+        kw = {"causal": causal, "window": 20}
+        q, k, v = inputs(1, 150, 40, 2, 1, 32, torch.float32, 7)
+        check(q, k, v, kw, f"T=150 S=40 {kw}")
+
+    timings = {}
+    for name, (B, T, H, KV, hd, kw) in FLASH_PATH_SHAPES.items():
+        held = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = inputs(B, T, T, H, KV, hd, dtype, T + H)
+            held[str(dtype).split(".")[-1]] = check(
+                q, k, v, kw, f"the path shape {name} {dtype}")
+        print(f"flash_attention {name} {[B, T, H, KV, hd]} {kw}: max |Δ| "
+              f"{held['float32'][0]:.3e} in f32 ({held['float32'][1]:.4f} of "
+              f"its tolerance), {held['bfloat16'][0]:.3e} in bf16 "
+              f"({held['bfloat16'][1]:.4f} of its tolerance)", flush=True)
+        causal, window = kw.get("causal", True), kw.get("window")
+        softcap = kw.get("softcap")
+
+        def kern():          # q, k, v: the bf16 inputs, timed from here
+            return flash_cuda(q, k, v, causal, window, softcap)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, **kw)
+        if softcap is not None:      # every path shape is causal
+            library = flex_library(torch, q, k, v, window, softcap)
+            note = ("torch.compile(flex_attention)(score_mod=softcap, "
+                    "block_mask=causal/window, enable_gqa=True)")
+        elif window is None:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal,
+                    enable_gqa=True).transpose(1, 2)
+            note = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
+        else:
+            library, note = None, "n/a"
+        timer = events_ms if T > 1024 else device_ms
+        p0, k0 = timer(torch, plain), timer(torch, kern)
+        k1, p1 = timer(torch, kern), timer(torch, plain)
+        lib_ms = lib_err = None
+        if library is not None:
+            lib_ms = min(timer(torch, library), timer(torch, library))
+            lib_err = (library().float() - plain().float()).abs().max().item()
+        b_ms, by, n_ops, nbytes = flash_bound(B, T, T, H, KV, hd, 2, kw)
+        ms = min(k0, k1)
+        timings[name] = {
+            "shape": [B, T, H, KV, hd], "dtype": "bfloat16", **kw,
+            "ms": ms, "plain_ms": min(p0, p1), "bound_ms": b_ms,
+            "bound_by": by, "ops": n_ops, "bytes": nbytes,
+            "tflops": n_ops / ms / 1e9, "library_ms": lib_ms,
+            "library_note": note, "library_max_abs_err": lib_err,
+            "max_abs_err_f32": held["float32"][0],
+            "share_of_tolerance_f32": held["float32"][1],
+            "max_abs_err_bf16": held["bfloat16"][0],
+            "share_of_tolerance_bf16": held["bfloat16"][1],
+            "timer": "cuda events, eager" if T > 1024 else "cuda graph"}
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    (e32, s32), (e16, s16) = worst[torch.float32], worst[torch.bfloat16]
+    print(f"kernels: flash_attention within tolerance of the plain version "
+          f"in {cases} cases (shapes {FLASH_SHAPES}, f32 and bf16, variants "
+          f"{FLASH_VARIANTS}, rows with no valid key, the path shapes "
+          f"{list(FLASH_PATH_SHAPES)} in f32 and bf16); worst |Δ| {e32:.3e} "
+          f"in f32 ({s32:.4f} of the tolerance), {e16:.3e} in bf16 "
+          f"({s16:.4f} of the tolerance)", flush=True)
+    return max(e32, e16), timings
+
+
+SMALL_REFS = {   # arch: (config overrides, prompt length, max_len)
+    "gemma-2b": ({}, 16, 24),
+    # G = 2 as in the full configs; gemma3-4b keeps two segments (2
+    # repeats of its 6-layer period and a 4-layer tail, as the full 5 x 6
+    # + 4); prompts longer than the reduced window (32)
+    "gemma2-9b": ({"num_kv_heads": 2}, 40, 48),
+    "gemma3-4b": ({"num_kv_heads": 2, "num_layers": 16}, 40, 48),
+}
+
+
+def phase_small_reference(torch, arch: str):
+    """A reduced config (``SMALL_REFS``) in f32: the card's logits (prefill
+    through the flash kernel) against the CPU path's (plain versions) on
+    the same weights and tokens, for the prefill and four vector-position
+    decode steps (max|Δ| <= 1e-4 · max|logit|; TF32 is off, so the
+    difference is summation order only)."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import Model
-    cfg = reduced(get_config("gemma-2b"))
+    over, T, max_len = SMALL_REFS[arch]
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
     model = Model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
     params_gpu = tree_map(lambda t: t.to("cuda"), params)
     g = torch.Generator("cpu").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (2, T), generator=g)
     forced = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=g)
     out = {}
     for dev, p in (("cpu", params), ("cuda", params_gpu)):
         logits, cache = model.prefill(p, {"tokens": tokens.to(dev)},
-                                      max_len=24)
+                                      max_len=max_len)
         seq = [logits.float().cpu()]
         for i in range(4):
-            pos = torch.tensor([16 + i, 13 + i], device=dev)
+            pos = torch.tensor([T + i, T - 3 + i], device=dev)
             logits, cache = model.decode_step(p, forced[i].to(dev), cache,
                                               pos)
             seq.append(logits.float().cpu())
@@ -494,9 +791,11 @@ def phase_small_reference(torch):
     err = (out["cuda"] - out["cpu"]).abs().max().item()
     scale = out["cpu"].abs().max().item()
     if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4 * scale):
-        fail(f"reduced gemma-2b on the card disagrees with the CPU path: "
+        fail(f"reduced {arch} on the card disagrees with the CPU path: "
              f"max|Δ|={err} vs 1e-4·{scale}")
-    print(f"small reference: reduced gemma-2b f32, prefill + 4 vector-pos "
+    print(f"small reference: reduced {arch} f32 ({cfg.num_layers} layers, "
+          f"window {cfg.window_size}, G {cfg.num_heads // cfg.num_kv_heads}"
+          f", qk_norm {cfg.qk_norm}), prefill of {T} tokens + 4 vector-pos "
           f"decode steps, card vs CPU max|Δlogit|={err:.3e} "
           f"(max|logit|={scale:.3e})", flush=True)
 
@@ -642,10 +941,11 @@ def run_training(torch, ops, train, card) -> dict:
 
 
 def check_main_path(torch, run, launches, card) -> None:
-    """The serving run's results: every request complete with valid
-    tokens, no page leaked, the quantize kernel launched once per paged
-    leaf per admission and per decode tick (and no other kernel), finite
-    full-width logits."""
+    """A serving run's results: every request complete with valid tokens,
+    no page leaked, the quantize kernel launched once per paged leaf per
+    admission and per decode tick, the flash kernel once per attention
+    layer per admission, no training-wire kernel, finite full-width
+    prefill logits."""
     eng, cfg = run.engines[0], run.cfg
     n_req, n_new = len(run.requests), run.requests[0].max_new
     if len(run.completions) != n_req:
@@ -659,15 +959,16 @@ def check_main_path(torch, run, launches, card) -> None:
     if live:
         fail(f"{live} pages still live after draining")
     leaves = eng.cache.paged_leaves()
-    expected = leaves * (eng.prefills + eng.decode_ticks)
-    if launches["quantize_tiles"] != expected or expected <= 0:
-        fail(f"quantize_tiles launched {launches['quantize_tiles']} times on "
-             f"the main path, expected {expected} = {leaves} leaves x "
-             f"({eng.prefills} admissions + {eng.decode_ticks} decode ticks)")
+    expected = {"quantize_tiles": leaves * (eng.prefills + eng.decode_ticks),
+                "flash_attention": cfg.num_layers * eng.prefills}
     for name, n in launches.items():
-        if name != "quantize_tiles" and n != 0:
-            fail(f"kernel {name} launched {n} times on the serving path, "
-                 f"which runs none of the training wire's kernels")
+        want = expected.get(name, 0)
+        if n != want or (name in expected and want <= 0):
+            fail(f"{cfg.name} serving: kernel {name} launched {n} times, "
+                 f"expected {want} (quantize_tiles = {leaves} paged leaves "
+                 f"x ({eng.prefills} admissions + {eng.decode_ticks} decode "
+                 f"ticks), flash_attention = {cfg.num_layers} layers x "
+                 f"{eng.prefills} admissions, 0 for the training wire)")
     prompt = torch.as_tensor(run.requests[0].prompt, device=eng.device)
     logits, _ = run.model.prefill(run.params, {"tokens": prompt.long()[None]},
                                   max_len=eng.cfg.max_len)
@@ -681,7 +982,9 @@ def check_main_path(torch, run, launches, card) -> None:
           f"{s['tokens']} tokens, {eng.prefills} admissions, "
           f"{eng.decode_ticks} decode ticks, quantize_tiles launches "
           f"{launches['quantize_tiles']} (= {leaves} x ({eng.prefills} + "
-          f"{eng.decode_ticks}))", flush=True)
+          f"{eng.decode_ticks})), flash_attention launches "
+          f"{launches['flash_attention']} (= {cfg.num_layers} x "
+          f"{eng.prefills})", flush=True)
     print(f"serving [{card}]: tokens/s={s['tokens_per_s']:.2f} "
           f"p50 per-token latency={s['p50_s'] * 1e3:.3f} ms "
           f"p99={s['p99_s'] * 1e3:.3f} ms mean TTFT="
@@ -732,7 +1035,8 @@ def compare_static(torch, run, card) -> None:
           flush=True)
 
 
-def profile_ticks(torch, run, card, ticks: int = 10) -> None:
+def profile_ticks(torch, model, params, scfg, requests, card,
+                  ticks: int = 10) -> dict:
     """Information only: where a decode tick's time goes.  Four requests
     are admitted into a fresh int8 engine, then ``ticks`` pure decode ticks
     are timed bare and again under ``torch.profiler``; prints the wall
@@ -740,8 +1044,8 @@ def profile_ticks(torch, run, card, ticks: int = 10) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Engine
-    eng = Engine(run.model, run.params, run.engines[0].cfg)
-    for r in run.requests[:4]:
+    eng = Engine(model, params, scfg)
+    for r in requests[:4]:
         eng.submit(r)
     for _ in range(4):                      # one admission per tick
         eng.step()
@@ -763,7 +1067,7 @@ def profile_ticks(torch, run, card, ticks: int = 10) -> None:
         print(f"profile: bare decode tick {bare * 1e3:.3f} ms; the profiler "
               f"recorded no device events (device time not measured) "
               f"[{card}]", flush=True)
-        return
+        return {"tick_ms": bare * 1e3, "busy_share": None}
     by_name = {}
     for e in kernels:
         us, n = by_name.get(e.name, (0.0, 0))
@@ -779,24 +1083,84 @@ def profile_ticks(torch, run, card, ticks: int = 10) -> None:
     for name, (us, n) in top:
         print(f"  {us / ticks:9.2f} us/tick {n / ticks:6.1f} launches/tick "
               f"{name[:100]}", flush=True)
+    return {"tick_ms": bare * 1e3, "busy_ms": busy_us / ticks / 1e3,
+            "busy_share": busy_us / ticks / (bare * 1e6)}
+
+
+def run_gemma2_serving(torch, ops, serve, card) -> dict:
+    """gemma2-9b served at full width (GEMMA2_SERVE_ARGS), with every
+    kernel counter set to 0 just before and read just after, checked as
+    the main path; then the prefill of one 6144-token admission timed
+    alone (host clock around synchronised calls, median of 3) and a
+    profile of five decode ticks.  Everything is freed before it
+    returns."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(GEMMA2_SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if run.engines[0].device.type != "cuda":
+        fail(f"the engine ran on {run.engines[0].device}, not on the card")
+    check_main_path(torch, run, launches, card)
+    peak = torch.cuda.max_memory_allocated()
+    eng = run.engines[0]
+    prompt = torch.as_tensor(run.requests[0].prompt,
+                             device=eng.device).long()[None]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.model.prefill(run.params, {"tokens": prompt},
+                          max_len=eng.cfg.max_len)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res = {"summary": run.summary, "seconds": run.seconds,
+           "admissions": eng.prefills, "decode_ticks": eng.decode_ticks,
+           "launches": launches, "peak_bytes": peak,
+           "prefill_s": statistics.median(times), "prefill_s_all": times,
+           "params": run.cfg.num_params()}
+    print(f"gemma2-9b serving [{card}]: {res['params']} params bf16; "
+          f"prefill of one {prompt.shape[1]}-token admission "
+          f"{res['prefill_s'] * 1e3:.3f} ms (median of "
+          f"{[round(t * 1e3, 1) for t in times]}); peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    model, params, scfg, reqs = run.model, run.params, eng.cfg, run.requests
+    del run, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["profile"] = profile_ticks(torch, model, params, scfg, reqs, card,
+                                   ticks=5)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def kernel_line(name, launches, max_err_, timings, main_shape) -> dict:
-    """One entry of the ``{"kernels": [...]}`` line."""
+    """One entry of the ``{"kernels": [...]}`` line; ``launches`` maps each
+    main-path run to the kernel's count there."""
     source, replaces, tpu_fn = KERNEL_SOURCES[name]
     t = timings[main_shape]
+    total = sum(launches.values())
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "tpu_function": tpu_fn, "checked": True,
-        "launches": launches, "launches_on_path": launches,
-        "max_abs_err": max_err_,
+        "launches": total, "launches_on_path": total,
+        "launches_by_run": launches, "max_abs_err": max_err_,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
-        "library_note": "no single PyTorch call computes this function",
+        "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+        "library_note": t.get("library_note") or
+        "no single PyTorch call computes this function",
         "main_shape": main_shape, "shapes": timings}
 
 
 def main() -> None:
+    # torch.compile (the flex_attention library timing) keeps its caches
+    # under build/, beside the port's kernels
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -804,6 +1168,7 @@ def main() -> None:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build, ops, ref
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
         from repro_torch.kernels.quantize import quantize_tiles_cuda
         from repro_torch.launch import serve, train
         from repro_torch.launch.dist import destroy_group
@@ -837,13 +1202,25 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # -- 3. kernels vs plain versions ---------------------------------------
-    # the serving path's shapes: one tile (head_dim) per cached entry, for
-    # all stacked layers at once: a decode tick writes one entry per slot,
-    # an admission writes a slot's whole max_len row
+    flash_err, flash_timings = phase_flash(torch, ops, ref,
+                                           flash_attention_cuda)
+    for name, t in flash_timings.items():
+        lib = t["library_note"]
+        if t["library_ms"] is not None:
+            lib = (f"{t['library_ms'] * 1e3:.3f} us, max |Δ| "
+                   f"{t['library_max_abs_err']:.3e} to the plain version, "
+                   f"by {lib}")
+        print(f"flash_attention {name} {t['shape']} bf16: device time kernel "
+              f"{t['ms'] * 1e3:.3f} us ({t['tflops']:.2f} TFLOP/s), plain "
+              f"{t['plain_ms'] * 1e3:.3f} us, bound {t['bound_ms'] * 1e3:.3f}"
+              f" us ({t['bound_by']}), {t['bound_ms'] / t['ms']:.4f} of the "
+              f"bound, library {lib} ({t['timer']}) [{card}]", flush=True)
+    # the serving paths' shapes: one tile (head_dim) per cached entry, for
+    # all stacked layers of a leaf at once
     cfg = get_config("gemma-2b")
-    entry = cfg.num_layers * cfg.num_kv_heads * cfg.hd
-    path_shapes = {"decode_write": (entry * SLOTS, cfg.hd),
-                   "prefill_write": (entry * MAX_LEN, cfg.hd)}
+    path_shapes = {**quantize_path_shapes("gemma-2b", SLOTS, MAX_LEN, PAGE),
+                   **quantize_path_shapes("gemma2-9b", GEMMA2_SLOTS,
+                                          GEMMA2_MAX_LEN, PAGE)}
     q_err, timings = phase_kernels(torch, ops, ref, quantize_tiles_cuda,
                                    path_shapes)
     for name, t in timings.items():
@@ -852,7 +1229,8 @@ def main() -> None:
               f"{t['plain_ms'] * 1e3:.3f} us, bound {t['bound_ms'] * 1e3:.3f}"
               f" us ({t['bound_by']}); eager call kernel "
               f"{t['call_ms'] * 1e3:.3f} us, plain "
-              f"{t['plain_call_ms'] * 1e3:.3f} us [{card}]", flush=True)
+              f"{t['plain_call_ms'] * 1e3:.3f} us ({t['timer']}) [{card}]",
+              flush=True)
     train_err = phase_train_kernels(torch, ops, ref)
     buckets = train_bucket_sizes(cfg)
     train_shapes = {"largest_bucket": max(buckets), "first_bucket": buckets[0]}
@@ -866,7 +1244,8 @@ def main() -> None:
                   f"({t['timer']}) [{card}]", flush=True)
 
     # -- 4. small references ----------------------------------------------
-    phase_small_reference(torch)
+    for arch in SMALL_REFS:
+        phase_small_reference(torch, arch)
     phase_small_train_reference(torch)
 
     # -- 5. the serving path at full width ----------------------------------
@@ -880,27 +1259,44 @@ def main() -> None:
 
     # -- 6. static vs continuous, and a profile (information only) --------
     compare_static(torch, run, card)
-    profile_ticks(torch, run, card)
+    profile_ticks(torch, run.model, run.params, run.engines[0].cfg,
+                  run.requests, card)
     del run
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 7. the training path at full width ---------------------------------
+    # -- 7. gemma2-9b served at full width -----------------------------------
+    gemma2 = run_gemma2_serving(torch, ops, serve, card)
+    s = gemma2["summary"]
+    print(f"serving gemma2-9b [{card}]: tokens/s={s['tokens_per_s']:.3f} "
+          f"p50 per-token latency={s['p50_s'] * 1e3:.3f} ms "
+          f"p99={s['p99_s'] * 1e3:.3f} ms mean TTFT="
+          f"{s['mean_ttft_s'] * 1e3:.3f} ms makespan={s['makespan_s']:.3f} s "
+          f"(serve run {gemma2['seconds']:.2f} s)", flush=True)
+
+    # -- 8. the training path at full width ---------------------------------
     trained = run_training(torch, ops, train, card)
     destroy_group()
 
-    def path_launches(name):
-        return sum(r["launches"][name] for r in trained.values())
+    serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
 
-    kernels = [kernel_line("quantize_tiles", launches["quantize_tiles"],
-                           q_err, timings, "decode_write")]
+    def runs_of(name, runs):
+        return {run_name: r[name] for run_name, r in runs.items()}
+
+    kernels = [
+        kernel_line("flash_attention", runs_of("flash_attention", serving),
+                    flash_err, flash_timings, "gemma2_9b_prefill_global"),
+        kernel_line("quantize_tiles", runs_of("quantize_tiles", serving),
+                    q_err, timings, "gemma_2b_decode_write")]
+    train_runs = {k: r["launches"] for k, r in trained.items()}
     for name in ("quantize_ef", "dequant_accum", "topk_ef", "topk_mask"):
-        kernels.append(kernel_line(name, path_launches(name),
+        kernels.append(kernel_line(name, runs_of(name, train_runs),
                                    train_err[name], train_timings[name],
                                    "largest_bucket"))
     training = {k: {f: v for f, v in r.items() if f != "params"}
                 for k, r in trained.items()}
     print(json.dumps({"training": training, "card": card}))
+    print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -6,13 +6,16 @@ compute the same function on the same inputs (the parity tests).  The
 input is plain numpy — this module imports no JAX — with the JAX
 package's layout::
 
-    {"embed": {"table"}, "final_norm": {"scale"},
-     "stack": [[{"norm1", "mixer": {wq, wk, wv, wo}, "norm2",
-                 "ffn": {wi_gate, wi_up, wo}}]]}
+    {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
+     "stack": [[{"norm1", "mixer": {wq, wk, wv, wo, [q_norm, k_norm]},
+                 "norm2", "ffn": {wi_gate, wi_up, wo}}]]}
 
-where every leaf of a segment with ``repeats > 1`` has a leading
-``repeats`` axis.  bf16 arrays (numpy's ``bfloat16`` extension dtype)
-cross bit for bit.
+where ``lm_head`` exists for an untied head (gemma2-9b, gemma3-4b),
+``q_norm``/``k_norm`` for QK-norm (gemma3-4b), and every leaf of a segment
+with ``repeats > 1`` has a leading ``repeats`` axis.  The keys expected
+are the port's own ``Model(cfg).param_desc()``, so a tree missing one of
+them, or holding one more, is refused.  bf16 arrays (numpy's ``bfloat16``
+extension dtype) cross bit for bit.
 
 ``to_numpy(tree)`` is the reverse for comparisons: any tree of the port's
 tensors (parameters, optimizer moments, EF residuals) as numpy arrays on

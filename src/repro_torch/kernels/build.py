@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("quantize_tiles", "quantize_ef", "topk_mask")
+KERNEL_SOURCES = ("quantize_tiles", "quantize_ef", "topk_mask",
+                  "flash_attention")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
 

@@ -1,6 +1,6 @@
 """Public kernel wrappers of the port — the entry points the hot path calls
-(the paged KV cache; the int8_fused and topk_fused wires of the training
-step).
+(the prefill attention of every layer; the paged KV cache; the int8_fused
+and topk_fused wires of the training step).
 
 Dispatch is by the tensor's device (``kernels/dispatch.py``): the Hopper
 kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.flash_attention import (check_args,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.quantize import quantize_tiles_cuda
 from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
                                              quantize_ef_cuda)
@@ -101,7 +103,25 @@ def topk_mask(x: torch.Tensor, *, ratio: float = 0.01, tile: int = TILE,
     return _ref.topk_mask_bisect_ref(x, ratio=ratio, tile=tile, iters=iters)
 
 
-KERNEL_WRAPPERS = {"quantize_tiles": quantize_tiles,
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Forward attention: q (B, T, H, hd), k and v (B, S, KV, hd) with
+    H = KV·G (query head h reads KV head h // G), query and key positions
+    counted from 0, causal and/or sliding-window mask, optional logit
+    softcap.  Returns (B, T, H, hd) in q's dtype.  No gradient: the
+    training path keeps ``models/attention.flash_attention``."""
+    check_args(q, k, v, window)
+    if use_kernel(q):
+        out = flash_attention_cuda(q, k, v, causal, window, softcap)
+        flash_attention.launches += 1
+        return out
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+
+
+KERNEL_WRAPPERS = {"flash_attention": flash_attention,
+                   "quantize_tiles": quantize_tiles,
                    "quantize_ef": quantize_ef,
                    "dequant_accum": dequant_accum,
                    "topk_ef": topk_ef,
@@ -120,6 +140,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["quantize_tiles", "dequantize", "quantize_ef", "dequant_accum",
-           "topk_ef", "topk_mask", "launch_counts", "reset_launch_counts",
-           "TILE"]
+__all__ = ["flash_attention", "quantize_tiles", "dequantize", "quantize_ef",
+           "dequant_accum", "topk_ef", "topk_mask", "launch_counts",
+           "reset_launch_counts", "TILE"]

@@ -7,6 +7,10 @@ follow the pad-and-slice contract: zero-pad to the tile boundary, compute
 per tile, slice back to ``n`` (zeros cannot raise a tile's max|x| and
 cannot pass a positive bisection threshold).
 
+The exception is :func:`flash_attention_ref`, the plain version of the
+attention kernel: its sums run in another order than the kernel's, so the
+two are held within a stated tolerance, not bit for bit.
+
 Two rules keep the bits equal on every device:
 
   * ``s / 127`` divides by a tensor (:func:`_div127`): on CUDA, PyTorch
@@ -18,10 +22,15 @@ Two rules keep the bits equal on every device:
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 TILE = 8 * 128
+NEG_INF = -1e30
+FLASH_Q_CHUNK = 1024   # query rows per step of flash_attention_ref
 
 
 def _pad_blocks(x: torch.Tensor, tile: int) -> torch.Tensor:
@@ -163,3 +172,51 @@ def topk_mask_ref(x: torch.Tensor, *, ratio: float = 0.01,
     thresh = torch.sort(ax, dim=1).values[:, -k]
     y = torch.where(ax >= thresh[:, None], blocks, 0.0)
     return y.reshape(-1)[:n].to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain attention with the flash kernel's arithmetic over one key tile
+    that holds every key: q (B, T, H, hd), k/v (B, S, KV, hd), H = KV·G,
+    query head h reads KV head h // G.  Scores ``(q·k)·(1/sqrt(hd))`` in
+    f32, optional ``softcap·tanh(s/softcap)``, masked to -1e30 (causal:
+    key <= query; window w: query − key < w, and key − query < w when not
+    causal), ``p = exp(s − max s)``, ``l = Σ p``, ``out = (p rounded to v's
+    dtype)·v / max(l, 1e-30)`` cast to q's dtype — the port of
+    ``repro/kernels/ref.py:flash_attention_ref`` (the reference's
+    ``attention_reference``) with the kernel's rounding of p.  A row with
+    no valid key gets the mean of v, as in the reference.  Query rows are
+    independent, so they are computed ``FLASH_Q_CHUNK`` at a time to bound
+    the (T, S) score memory."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(hd)
+    kf = k.to(f32)
+    vf = v.to(f32)
+    k_pos = torch.arange(S, device=q.device)
+    outs = []
+    for t0 in range(0, T, FLASH_Q_CHUNK):
+        qc = q[:, t0:t0 + FLASH_Q_CHUNK].to(f32)
+        tc = qc.shape[1]
+        s = torch.einsum("btkgh,bskh->bkgts", qc.reshape(B, tc, KV, G, hd),
+                         kf) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        q_pos = t0 + torch.arange(tc, device=q.device)
+        mask = torch.ones((tc, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            if not causal:
+                mask &= (k_pos[None, :] - q_pos[:, None]) < window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1)                                  # (B, KV, G, tc)
+        acc = torch.einsum("bkgts,bskh->btkgh", p.to(v.dtype).to(f32), vf)
+        denom = torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
+        outs.append((acc / denom).to(q.dtype).reshape(B, tc, H, hd))
+    return torch.cat(outs, dim=1)

@@ -6,11 +6,14 @@ routing), with static batching and one-shot ``generate`` as modes.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --no-reduced --quantize int8 --engine continuous
 
-Runs on CUDA unless ``--device`` names another device; without CUDA and
-without ``--device`` it raises.  Weights are random, drawn from a
-``torch.Generator`` seeded with ``--seed`` on the device.  The reference's
-``--plan`` (serving placement search) is not offered until the planner
-is ported.
+``--arch`` offers the architectures the port registers
+(``configs.ALL_ARCHS``: gemma-2b, gemma2-9b, gemma3-4b).  Every prefill
+runs its attention through ``kernels/ops.flash_attention`` (the Hopper
+kernel on CUDA).  Runs on CUDA unless ``--device`` names another device;
+without CUDA and without ``--device`` it raises.  Weights are random,
+drawn from a ``torch.Generator`` seeded with ``--seed`` on the device.
+The reference's ``--plan`` (serving placement search) is not offered
+until the planner is ported.
 """
 from __future__ import annotations
 

@@ -1,16 +1,26 @@
-"""Attention of the port: GQA/MQA with RoPE, sliding windows and logit
-softcap, and single-token KV-cache decoding — counterparts of
-``repro/models/attention.py`` (MLA and QK-norm are not ported yet).
+"""Attention of the port: GQA/MQA with RoPE, QK-norm, sliding windows and
+logit softcap, and single-token KV-cache decoding — counterparts of
+``repro/models/attention.py`` (MLA is not ported yet).
 
-Full-sequence attention is the chunked streaming-softmax forward of the
-reference (``_flash_fwd_impl``), written as plain PyTorch ops over query
-and key blocks so no (T, T) score matrix is materialized.  Scores and the
-softmax are computed in f32, as the reference's
-``preferred_element_type=jnp.float32``.  Its gradient is the reference's
-FlashAttention-2 custom VJP (``_flash_bwd``) as a ``torch.autograd.Function``
-(:class:`_Flash`): the backward recomputes the probabilities per block from
-the saved log-sum-exp.  The JAX package uses this pure-jnp twin, not its
-Pallas flash kernel, on the model path, so plain PyTorch is its port.
+Two full-sequence paths:
+
+  * **prefill** (:func:`attn_prefill`: the engine's admissions,
+    ``GenerateSession.generate``, ``Model.prefill``) is forward only and
+    calls ``kernels/ops.flash_attention``: on a CUDA tensor the Hopper
+    kernel ``csrc/flash_attention.cu`` (the port of the Pallas kernel
+    ``repro/kernels/flash_attention.py``), on a CPU tensor its plain
+    version;
+  * **training** (:func:`attn_forward`) keeps :func:`flash_attention`, the
+    chunked streaming-softmax forward of the reference's pure-jnp twin
+    (``_flash_fwd_impl``) as plain PyTorch ops over query and key blocks,
+    with the reference's FlashAttention-2 custom VJP (``_flash_bwd``) as a
+    ``torch.autograd.Function`` (:class:`_Flash`) whose backward recomputes
+    the probabilities per block from the saved log-sum-exp.  The JAX
+    training path runs this twin too: the Pallas kernel has no backward
+    and writes no log-sum-exp, so its port serves only the forward.
+
+Scores and the softmax are computed in f32 on both paths, as the
+reference's ``preferred_element_type=jnp.float32``.
 """
 from __future__ import annotations
 
@@ -20,7 +30,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models.layers import ParamDesc, TensorSpec, apply_rope
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (ParamDesc, TensorSpec, apply_rope,
+                                       norm_desc, rmsnorm)
 
 NEG_INF = -1e30
 
@@ -193,15 +205,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 def attn_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
-    if cfg.qk_norm:
-        raise NotImplementedError("QK-norm attention is not ported yet")
     d, hd = cfg.d_model, cfg.hd
-    return {
+    desc = {
         "wq": ParamDesc((d, cfg.num_heads * hd)),
         "wk": ParamDesc((d, cfg.num_kv_heads * hd)),
         "wv": ParamDesc((d, cfg.num_kv_heads * hd)),
         "wo": ParamDesc((cfg.num_heads * hd, d)),
     }
+    if cfg.qk_norm:
+        desc["q_norm"] = norm_desc(hd)
+        desc["k_norm"] = norm_desc(hd)
+    return desc
 
 
 def _project_qkv(params, cfg: ModelConfig, x, positions):
@@ -210,6 +224,9 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, hd)
     k = (x @ params["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
     v = (x @ params["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -226,7 +243,8 @@ def attn_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
 
 def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                  max_len: int):
-    """Full-sequence attention that also emits the decode cache.
+    """Full-sequence attention that also emits the decode cache, through
+    ``ops.flash_attention`` (the Hopper kernel on CUDA, forward only).
 
     Full-attention layers cache all T entries (padded to ``max_len``);
     sliding-window layers keep a ring buffer of the last ``window``
@@ -235,8 +253,8 @@ def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     """
     B, T, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=spec.window,
-                          softcap=cfg.attn_logit_softcap)
+    out = ops.flash_attention(q, k, v, causal=True, window=spec.window,
+                              softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, T, -1) @ params["wo"]
 
     def to_cache(arr):

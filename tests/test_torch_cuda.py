@@ -133,3 +133,114 @@ def test_cuda_residual_written_in_place(cuda_device, n):
         assert got[1] is buf
         want = ref_fn(gt, et, decay=0.9, tile=TILE, **kw)
         assert all(_same(a, b) for a, b in zip(got, want)), fn.__name__
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the kernel against its plain version, within tolerance
+# ---------------------------------------------------------------------------
+
+# (B, T, H, KV, hd): the JAX kernel tests' shapes, hd 256 at G = 2 and
+# G = 8, and ragged T (a partial last query and key tile)
+FLASH_SHAPES = [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 128, 8, 1, 32),
+                (2, 128, 4, 4, 128), (1, 192, 4, 2, 256), (1, 128, 8, 1, 256),
+                (1, 200, 4, 2, 64), (2, 11, 4, 1, 32)]
+FLASH_VARIANTS = [dict(), dict(window=64), dict(softcap=30.0),
+                  dict(window=64, softcap=20.0), dict(causal=False),
+                  dict(causal=False, window=64)]
+
+
+def _qkv(B, T, H, KV, hd, dtype, seed, S=None):
+    rng = np.random.default_rng(seed)
+    S = T if S is None else S
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype) for shape in ((B, T, H, hd), (B, S, KV, hd),
+                                             (B, S, KV, hd)))
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 ulp at |x|, 2^(floor(log2 |x|) - 7), and 0 at 0."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x != 0, torch.exp2((e - 8).float()), 0.0)
+
+
+def _flash_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Element by element.  f32: rtol = atol = 1e-5 (sums in another
+    order); bf16: 2 bf16 ulps of the element plus 2 of its row's largest
+    magnitude (p is rounded to bf16 at another running max, and the
+    output's own bf16 rounding can flip)."""
+    dtype = got.dtype
+    got, want = got.cpu().float(), want.cpu().float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        return False
+    if dtype == torch.float32:
+        return torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    row = want.abs().amax(dim=-1, keepdim=True)
+    tol = 2 * _bf16_ulp(want) + 2 * _bf16_ulp(row)
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", FLASH_VARIANTS,
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items())
+                         or "causal")
+def test_cuda_flash_matches_plain(cuda_device, dtype, variant):
+    for i, shape in enumerate(FLASH_SHAPES):
+        q, k, v = _qkv(*shape, dtype, seed=i)
+        n0 = tops.flash_attention.launches
+        got = tops.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), **variant)
+        torch.cuda.synchronize()
+        assert tops.flash_attention.launches == n0 + 1
+        assert got.dtype == dtype and got.is_contiguous()
+        want = tref.flash_attention_ref(q.to(cuda_device), k.to(cuda_device),
+                                        v.to(cuda_device), **variant)
+        assert _flash_close(got, want), (shape, variant)
+
+
+def test_cuda_flash_reads_strided_inputs(cuda_device):
+    # q, k, v as views of one fused (B, T, H + 2 KV, hd) projection: the
+    # kernel reads them through their strides
+    B, T, H, KV, hd = 2, 100, 4, 2, 64
+    fused = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (B, T, H + 2 * KV, hd)).astype(np.float32)).to(cuda_device)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = tops.flash_attention(q, k, v, window=30, softcap=25.0)
+    want = tref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), window=30, softcap=25.0)
+    assert _flash_close(got, want)
+
+
+def test_cuda_flash_rows_without_a_key(cuda_device):
+    # T > S with a window: rows q >= S + window - 1 have no valid key and
+    # get the reference's mean of v; their query tiles visit every key tile
+    q, k, v = _qkv(1, 150, 2, 1, 32, torch.float32, seed=3, S=40)
+    for causal in (True, False):
+        got = tops.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), causal=causal,
+                                   window=20)
+        want = tref.flash_attention_ref(q, k, v, causal=causal, window=20)
+        assert _flash_close(got, want)
+        mean = v.mean(dim=1, keepdim=True).expand(1, 150 - 59, 1, 32)
+        assert torch.allclose(got[:, 59:, :1].cpu(), mean, atol=1e-5)
+
+
+def test_cuda_flash_skips_fully_masked_leading_tile(cuda_device):
+    # window 64 at T = 200: the query tiles from row 128 on skip key tile 0,
+    # which holds only masked keys for them.  With finite v the skip is
+    # exact; with an inf at key 0 the reference (and the plain version)
+    # gives NaN on every row that masks key 0 (0 * inf), while the kernel's
+    # rows from 128 on never read it and stay finite — the one place where
+    # skipping differs.
+    q, k, v = _qkv(1, 200, 4, 2, 64, torch.float32, seed=5)
+    qc, kc = q.to(cuda_device), k.to(cuda_device)
+    got = tops.flash_attention(qc, kc, v.to(cuda_device), window=64)
+    assert _flash_close(got, tref.flash_attention_ref(q, k, v, window=64))
+    v_inf = v.clone()
+    v_inf[:, 0] = float("inf")
+    got_inf = tops.flash_attention(qc, kc, v_inf.to(cuda_device), window=64)
+    plain_inf = tref.flash_attention_ref(q, k, v_inf, window=64)
+    assert torch.isnan(plain_inf[:, 64:]).all()
+    assert torch.isfinite(got_inf[:, 128:]).all()
+    assert torch.equal(got_inf[:, 128:], got[:, 128:])

@@ -37,7 +37,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.collectives.api",
                  "repro_torch.launch.train", "repro_torch.launch.dist",
                  "repro_torch.api", "repro_torch.optim.adam",
-                 "repro_torch.data.pipeline"):
+                 "repro_torch.data.pipeline",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.configs.gemma2_9b",
+                 "repro_torch.configs.gemma3_4b"):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"

@@ -24,6 +24,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.quantize import quantize_tiles_cuda
 from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
                                              quantize_ef_cuda)
@@ -123,10 +124,12 @@ def test_cpu_path_leaves_launch_counter_at_zero():
     tops.dequant_accum(torch.stack([q, q]), torch.stack([s, s]))
     tops.topk_ef(g, e, ratio=0.05)
     tops.topk_mask(g, ratio=0.05)
+    tops.flash_attention(torch.randn(1, 8, 2, 4), torch.randn(1, 8, 1, 4),
+                         torch.randn(1, 8, 1, 4), window=3)
     assert tops.launch_counts() == {name: 0 for name in tops.KERNEL_WRAPPERS}
-    assert set(tops.KERNEL_WRAPPERS) == {"quantize_tiles", "quantize_ef",
-                                         "dequant_accum", "topk_ef",
-                                         "topk_mask"}
+    assert set(tops.KERNEL_WRAPPERS) == {"flash_attention", "quantize_tiles",
+                                         "quantize_ef", "dequant_accum",
+                                         "topk_ef", "topk_mask"}
 
 
 def test_dispatch_by_device():
@@ -149,6 +152,9 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         topk_ef_cuda(x, x, 3, 256, 16, 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         topk_mask_cuda(x, 3, 256, 16)
+    qkv = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(qkv, qkv, qkv, True, None, None)
 
 
 def test_build_flags_and_cache_key():
@@ -156,7 +162,7 @@ def test_build_flags_and_cache_key():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags
     assert set(build.KERNEL_SOURCES) == {"quantize_tiles", "quantize_ef",
-                                         "topk_mask"}
+                                         "topk_mask", "flash_attention"}
     for name in build.KERNEL_SOURCES:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR

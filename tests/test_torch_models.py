@@ -23,6 +23,7 @@ from repro.configs import reduced as jreduced
 from repro.models import Model as JModel
 from repro.models import attention as jattn
 from repro_torch.configs import get_config, reduced
+from repro_torch._tree import tree_leaves
 from repro_torch.convert import params_from_jax
 from repro_torch.models import Model, count_params
 from repro_torch.models import attention as tattn
@@ -200,3 +201,119 @@ def test_ring_window_decode_matches_jax():
         jl, jc = jdecode(jparams, jnp.asarray(tok), jc, jnp.asarray(pos))
         tl, tc = model.decode_step(params, _t(tok).long(), tc, _t(pos).long())
         _close(tl, jl)
+
+
+# ---------------------------------------------------------------------------
+# gemma2-9b (sliding window + logit softcaps, untied head) and gemma3-4b
+# (QK-norm, rope_theta 1e6, a stack of stacked repeats plus a tail)
+# ---------------------------------------------------------------------------
+
+# reduced sizes, with G = 2 query heads per KV head as in both full
+# configs; gemma3-4b keeps two segments (2 repeats of its 6-layer period
+# and a 4-layer tail, as the full 5 x 6 + 4)
+NEW_ARCHS = {"gemma2-9b": dict(num_kv_heads=2),
+             "gemma3-4b": dict(num_kv_heads=2, num_layers=16)}
+
+
+def _reduced_pair(arch):
+    over = NEW_ARCHS[arch]
+    return (dataclasses.replace(jreduced(jget_config(arch)), **over),
+            dataclasses.replace(reduced(get_config(arch)), **over))
+
+
+@pytest.fixture(scope="module", params=sorted(NEW_ARCHS))
+def new_pair(request):
+    jcfg, cfg = _reduced_pair(request.param)
+    jmodel = JModel(jcfg)
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(2)))
+    # the norms' scales init to 0; random ones make QK-norm's scale count
+    rng = np.random.default_rng(8)
+    for seg in tree["stack"]:
+        for blk in seg:
+            for name in ("q_norm", "k_norm"):
+                if name in blk["mixer"]:
+                    s = blk["mixer"][name]["scale"]
+                    blk["mixer"][name]["scale"] = (
+                        0.5 * rng.standard_normal(s.shape)).astype(s.dtype)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_jax(tree, cfg, device="cpu")
+    return jcfg, jmodel, jparams, cfg, Model(cfg), params, tree
+
+
+@pytest.mark.parametrize("arch", sorted(NEW_ARCHS))
+def test_new_config_copies_match_reference(arch):
+    for full in (False, True):
+        j, t = jget_config(arch), get_config(arch)
+        if not full:
+            j, t = jreduced(j), reduced(t)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert _plan(t) == _plan(j)
+    assert count_params(get_config(arch)) == jget_config(arch).num_params()
+    jcfg, cfg = _reduced_pair(arch)
+    assert _plan(cfg) == _plan(jcfg)
+
+
+def test_registry_ports_the_two_new_archs_only():
+    from repro_torch.configs import ALL_ARCHS, NOT_PORTED
+    from repro.configs import ALL_ARCHS as J_ALL
+    assert set(ALL_ARCHS) == {"gemma-2b", "gemma2-9b", "gemma3-4b"}
+    assert set(ALL_ARCHS) | set(NOT_PORTED) == set(J_ALL)
+    assert len(NOT_PORTED) == 7
+    for name in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(name)
+    full = get_config("gemma3-4b").stack_plan()
+    assert [(len(s.period), s.repeats) for s in full] == [(6, 5), (4, 1)]
+
+
+def test_params_from_jax_carries_head_and_qk_norm(new_pair):
+    jcfg, _, _, cfg, _, params, tree = new_pair
+    assert not cfg.tie_embeddings
+    np.testing.assert_array_equal(params["lm_head"]["table"].numpy(),
+                                  tree["lm_head"]["table"])
+    mixer = params["stack"][0][0]["mixer"]
+    jmixer = tree["stack"][0][0]["mixer"]
+    assert ("q_norm" in mixer) == ("k_norm" in mixer) == cfg.qk_norm
+    for name in ("q_norm", "k_norm") if cfg.qk_norm else ():
+        np.testing.assert_array_equal(mixer[name]["scale"].numpy(),
+                                      jmixer[name]["scale"])
+        assert mixer[name]["scale"].shape[-1] == cfg.hd
+    bad = dict(tree, lm_head={"table": tree["lm_head"]["table"][:-1]})
+    with pytest.raises(ValueError, match="lm_head"):
+        params_from_jax(bad, cfg, device="cpu")
+
+
+def test_new_archs_prefill_and_decode_match(new_pair):
+    # prompts longer than the reduced window (32), decode past the ring's
+    # wrap, with scalar and vector positions
+    jcfg, jmodel, jparams, cfg, model, params, _ = new_pair
+    assert cfg.window_size == 32 and cfg.num_heads == 2 * cfg.num_kv_heads
+    rng = np.random.default_rng(12)
+    B, T, ML, steps = 2, 40, 48, 4
+    tokens = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int32)
+
+    jprefill, jdecode = _jitted(jmodel)
+    jl, jc = jprefill(jparams, {"tokens": jnp.asarray(tokens)}, max_len=ML)
+    tl, tc = model.prefill(params, {"tokens": _t(tokens).long()}, max_len=ML)
+    _close(tl, jl)
+    jleaves, tleaves = jax.tree.leaves(jc), tree_leaves(tc)
+    assert len(jleaves) == len(tleaves) == 2 * sum(
+        len(seg.period) for seg in cfg.stack_plan())
+    for a, b in zip(tleaves, jleaves):
+        assert tuple(a.shape) == b.shape
+        _close(a, b)
+
+    for pos_of in (lambda i: T + i,
+                   lambda i: np.array([T + i, T - 5 + i], np.int32)):
+        jcs, tcs = jc, tc
+        for i in range(steps):
+            pos = pos_of(i)
+            jpos = jnp.asarray(pos, jnp.int32)
+            tpos = _t(pos).long() if isinstance(pos, np.ndarray) else pos
+            jl, jcs = jdecode(jparams, jnp.asarray(forced[i]), jcs, jpos)
+            tl, tcs = model.decode_step(params, _t(forced[i]).long(), tcs,
+                                        tpos)
+            _close(tl, jl)
+        for a, b in zip(tree_leaves(tcs), jax.tree.leaves(jcs)):
+            _close(a, b)

@@ -19,6 +19,8 @@
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -295,3 +297,33 @@ def test_int8_pool_layout_and_launch_count_formula(gemma, monkeypatch):
     assert len(calls) == eng.cache.paged_leaves() * (eng.prefills
                                                      + eng.decode_ticks)
     assert all(tile == cfg.hd for _, tile in calls)
+
+
+def test_int8_engine_matches_jax_for_windowed_gemma2():
+    # reduced gemma2-9b (G = 2): its local layers keep a ring of the
+    # window (32) and its global layers the whole max_len (48), so the
+    # paged pool has two length groups; prompts are longer than the
+    # window, so the prefill writes a wrapped ring
+    over = dict(num_kv_heads=2)
+    jcfg = dataclasses.replace(jreduced(jget_config("gemma2-9b")), **over)
+    cfg = dataclasses.replace(reduced(get_config("gemma2-9b")), **over)
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(3))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    P, ML, gens = 36, 48, [6, 3, 5]
+    prompts = _prompts(cfg, 3, P, seed=7)
+    scfg = dict(max_batch=2, max_len=ML, page_size=8, quantize="int8")
+    jout = JEngine(jmodel, jparams, JServeConfig(**scfg)).run(
+        [JRequest(rid=i, prompt=prompts[i], max_new=gens[i])
+         for i in range(3)])
+    ops.reset_launch_counts()
+    eng = Engine(Model(cfg), params, ServeConfig(**scfg))
+    out = eng.run([Request(rid=i, prompt=prompts[i], max_new=gens[i])
+                   for i in range(3)])
+    assert sorted(eng.cache.allocators) == [cfg.window_size, ML]
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_WRAPPERS}
+    assert [len(c.tokens) for c in out] == gens
+    for c, jc in zip(out, jout):
+        np.testing.assert_array_equal(c.tokens, jc.tokens)
+    assert not any(a.live_pages() for a in eng.cache.allocators.values())
