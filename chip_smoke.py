@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device: needs CUDA; prints the card's name and power limit
      (``nvidia-smi``); TF32 off for f32 matmuls and convolutions;
-  2. build: the six CUDA kernels of the port from the four sources in the
-     checkout (``nvcc``, one process per source, started together);
+  2. build: the eight CUDA kernels of the port from the five sources in
+     the checkout (``nvcc``, one process per source, started together),
+     with each kernel's registers and spills from ``-Xptxas -v``;
   3. kernels vs plain versions on the card.  ``quantize_tiles``,
      ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` are
      held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles,
@@ -23,14 +24,21 @@ Phases (any failure exits non-zero and prints no result line):
      in place).  ``flash_attention`` is held within a stated tolerance,
      element by element (f32: rtol = atol = 1e-5; bf16: 2 bf16 ulps of
      the element plus 2 of its row's largest magnitude) over the JAX
-     kernel tests' shapes x f32/bf16 x window, softcap, window+softcap,
-     non-causal and non-causal+window, ragged T, rows with no valid key,
-     and at the prefill shapes of gemma2-9b (global and local layers,
-     softcap 50) and gemma-2b in both f32 and bf16.  Then kernel,
-     plain-version, bound and library times at the serving and training
-     paths' shapes, the library being one PyTorch call that computes the
-     same function where there is one (SDPA; flex_attention compiled, for
-     the softcap shapes);
+     kernel tests' shapes and more (hd 32 to 256, G 1 to 68, ragged T,
+     grids of one and two consumer warpgroups) x f32 (the SIMT route) /
+     bf16 (the wgmma route) x window, softcap, window+softcap, non-causal
+     and non-causal+window, rows with no valid key, and at the prefill
+     shapes of gemma2-9b (global and local layers, softcap 50) and gemma-2b
+     in both f32 and bf16; its pre-pass ``nonfinite_tiles`` is held
+     bit-equal, and the NaN rule (NaN exactly where the plain version has
+     NaN, for an inf or NaN of v in a skipped key tile) on both routes.
+     Then kernel, plain-version, bound and library times at the serving
+     and training paths' shapes, the library being one PyTorch call that
+     computes the same function where there is one (SDPA; flex_attention
+     compiled, for the softcap shapes); flash on both routes (the SIMT
+     kernel on the same bf16 inputs), and gates: the wgmma route, pre-pass
+     included, no slower than the library call and 5x faster than the
+     SIMT kernel's recorded time at the gemma2-9b prefill;
   4. small references: the reduced gemma-2b, gemma2-9b and gemma3-4b in
      f32 on the card (prefill through the flash kernel) agree with the
      port's CPU path (plain versions) for prefill logits and four
@@ -63,11 +71,12 @@ Every main-path run (5, 7, and each of 8) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
-(admissions + decode ticks), flash_attention = attention layers x
-admissions; training: the wire's kernels = buckets x steps, flash 0 (the
+(admissions + decode ticks), flash_attention and its pre-pass = attention
+layers x admissions, all of them on the wgmma route and none on the SIMT
+one; training: the wire's kernels = buckets x steps, flash 0 (the
 training path keeps the differentiable chunked attention).  Launches made
 in phases 3, 4 and 6 are not counted.  It prints a ``{"kernels": [...]}``
-JSON line with all six kernels and, last, ``{"ok": true, "device":
+JSON line with all eight kernels and, last, ``{"ok": true, "device":
 {...}}``.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -77,6 +86,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,9 +118,14 @@ GEMMA2_SERVE_ARGS = ["--arch", "gemma2-9b", "--no-reduced", "--quantize",
                      "--seed", "0"]
 
 # flash attention sweep: the JAX kernel tests' (B, T, H, KV, hd), ragged T,
+# hd 256 at G = 2 and 8, grids of 128-row blocks (two consumer warpgroups
+# on the wgmma route: B x H x ceil(T / 128) >= the SM count) with ragged T,
 # and the variants; then the prefill shapes of the serving path
 FLASH_SHAPES = ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 128, 8, 1, 32),
-                (2, 128, 4, 4, 128), (1, 200, 4, 2, 64), (2, 11, 4, 1, 32))
+                (2, 128, 4, 4, 128), (1, 200, 4, 2, 64), (2, 11, 4, 1, 32),
+                (1, 192, 4, 2, 256), (1, 128, 8, 1, 256),
+                (1, 1000, 136, 2, 64), (2, 300, 34, 2, 128),
+                (1, 520, 48, 8, 256))
 FLASH_VARIANTS = ({}, {"window": 64}, {"softcap": 30.0},
                   {"window": 64, "softcap": 20.0}, {"causal": False},
                   {"causal": False, "window": 64})
@@ -142,9 +157,19 @@ QEF_OPS = 10          # g + decay*e (2), abs, max, div, mul, round, clamp (2),
 #                       residual (2): rounded to 10
 TOPK_OPS = 3 + 2 * ITERS      # EF add (2), abs; per round a compare and an add
 KERNEL_SOURCES = {
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    # the wgmma route, which every serving path takes (bf16, hd 256)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:79",
                         "flash_attention_pallas"),
+    # the SIMT route (f32; bf16 at other head dims)
+    "flash_attention_simt": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:79",
+                             "flash_attention_pallas"),
+    # the pre-pass of both routes: it stands in for the Pallas kernel's
+    # visit of every key tile (the NaN rule), so it replaces a part of it
+    "nonfinite_tiles": ("src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:79",
+                       "flash_attention_pallas"),
     "quantize_tiles": ("src/repro_torch/csrc/quantize_tiles.cu",
                        "src/repro/kernels/quantize_ef.py:99",
                        "quantize_pallas"),
@@ -260,6 +285,14 @@ def events_ms(torch, fn, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
     return _median_ms(torch, fn, reps, 1)
+
+
+def loop_ms(torch, fn) -> float:
+    """Device time per call of a call of a millisecond or more, whose host
+    work (allocation, tensor maps, launches) would show in the time of a
+    single eager call: CUDA events around 5 back-to-back calls, median of
+    5 after a warm-up."""
+    return call_ms(torch, fn, reps=5, inner=5)
 
 
 def device_ms(torch, fn, reps: int = 25, inner: int = 20) -> float:
@@ -643,23 +676,111 @@ def flex_library(torch, q, k, v, window, softcap):
     return library
 
 
-def phase_flash(torch, ops, ref, flash_cuda):
-    """The flash kernel against its plain version on the card, within
-    :func:`flash_close`, over FLASH_SHAPES x f32/bf16 x FLASH_VARIANTS,
-    rows with no valid key, and the path shapes in f32 and bf16; then
-    kernel, plain, bound and library times at the path shapes (bf16), in
-    turns (plain, kernel, kernel, plain).  Returns (worst |kernel -
-    plain|, timings)."""
+def flash_inputs(torch, B, T, S, H, KV, hd, dtype, seed):
+    """Gaussian q (B, T, H, hd), k and v (B, S, KV, hd) on the card."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((B, T, H, hd), (B, S, KV, hd),
+                               (B, S, KV, hd)))
+
+
+def nan_rule_check(torch, ops, ref, flash_cuda, tiles_cuda):
+    """The NaN rule on the card, both routes (f32 and bf16 through the
+    wrapper, and bf16 forced onto the SIMT kernel): v holds an inf, a NaN
+    and a -inf at keys that query tiles skip; the kernel's NaN places must
+    be the plain version's, and the rest within :func:`flash_close`.  The
+    pre-pass is held bit-equal to its plain version on the same v.
+    Returns the number of cases."""
+    cases = 0
+    for dtype, kernel in ((torch.float32, "simt"),
+                          (torch.bfloat16, "wgmma"),
+                          (torch.bfloat16, "simt")):
+        for kw in ({"window": 64}, {}, {"causal": False, "window": 64},
+                   {"window": 64, "softcap": 30.0}):
+            q, k, v = flash_inputs(torch, 1, 330, 330, 4, 2, 64, dtype, 3)
+            v[0, 0, 0, 1] = float("inf")       # skipped from row 128 on
+            v[0, 250, 1, 5] = float("nan")     # skipped by rows < 192
+            v[0, 70, 0, 7] = float("-inf")
+            tiles = tiles_cuda(v)
+            want_tiles = ref.nonfinite_tiles_ref(v)
+            got = flash_cuda(q, k, v, tiles, kw.get("causal", True),
+                             kw.get("window"), kw.get("softcap"), kernel)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            what = f"{dtype} {kernel} {kw}"
+            if not torch.equal(tiles, want_tiles):
+                fail(f"nonfinite_tiles differs from the plain version at "
+                     f"{what}")
+            nan, inf = torch.isnan(want), torch.isinf(want)
+            if not (nan.any() and torch.equal(torch.isnan(got), nan)
+                    and torch.equal(got[inf], want[inf])):
+                fail(f"flash_attention NaN rule broken at {what}: "
+                     f"{int(torch.isnan(got).sum())} NaN, plain "
+                     f"{int(nan.sum())}")
+            ok, err, share = flash_close(torch, got.masked_fill(nan | inf, 0),
+                                         want.masked_fill(nan | inf, 0))
+            if not ok:
+                fail(f"flash_attention differs from the plain version off "
+                     f"the non-finite places at {what}: max err {err}, "
+                     f"{share:.3f} of the tolerance")
+            cases += 1
+    return cases
+
+
+def time_turns(torch, timer, plain, kerns):
+    """Plain and kernel times in turns (plain, kernels, kernels reversed,
+    plain) within this call: (min plain ms, [min ms of each kernel])."""
+    p0 = timer(torch, plain)
+    first = [timer(torch, k) for k in kerns]
+    second = [timer(torch, k) for k in reversed(kerns)][::-1]
+    p1 = timer(torch, plain)
+    return min(p0, p1), [min(a, b) for a, b in zip(first, second)]
+
+
+# the SIMT flash kernel (bf16) at the gemma2-9b prefill when it was the only
+# route, ms on an H100 80GB HBM3 at 700 W (PERF.md, kernel table): the wgmma
+# route must be 5x faster
+SIMT_RECORDED_MS = {"gemma2_9b_prefill_global": 17.812799,
+                 "gemma2_9b_prefill_local": 14.631296}
+
+
+def check_flash_gates(timings) -> None:
+    """The wgmma route (pre-pass included) is no slower than the library
+    call at every path shape that has one, and at least 5x faster than
+    the SIMT kernel's recorded time at the gemma2-9b prefill."""
+    for name, t in timings.items():
+        lib = t["library_ms"]
+        if lib is not None and t["ms"] > lib:
+            fail(f"flash_attention wgmma at {name}: {t['ms']:.4f} ms, slower "
+                 f"than the library call ({lib:.4f} ms)")
+        if name in SIMT_RECORDED_MS and 5 * t["ms"] > SIMT_RECORDED_MS[name]:
+            fail(f"flash_attention wgmma at {name}: {t['ms']:.4f} ms, not 5x "
+                 f"faster than the SIMT kernel's recorded "
+                 f"{SIMT_RECORDED_MS[name]} ms")
+    print("flash gates: the wgmma route is no slower than the library call "
+          "at " + ", ".join(f"{n} ({t['ms'] * 1e3:.3f} vs "
+                            f"{t['library_ms'] * 1e3:.3f} us)"
+                            for n, t in timings.items()
+                            if t["library_ms"] is not None)
+          + "; at least 5x faster than the SIMT kernel's recorded time at "
+          + ", ".join(
+              f"{n} ({SIMT_RECORDED_MS[n] / timings[n]['ms']:.2f}x)"
+              for n in SIMT_RECORDED_MS), flush=True)
+
+
+def phase_flash(torch, ops, ref, flash_cuda, tiles_cuda):
+    """The flash kernels against their plain version on the card, within
+    :func:`flash_close`, over FLASH_SHAPES x f32/bf16 x FLASH_VARIANTS
+    (bf16 takes the wgmma route, f32 the SIMT one), rows with no valid key
+    in both, the NaN rule, and the path shapes in f32 and bf16; then times
+    at the path shapes (bf16, in turns): the wgmma route through its
+    wrapper call (pre-pass included), the SIMT kernel on the same inputs,
+    the pre-pass alone, the plain version and the library call.  Returns
+    (worst |kernel - plain|, {route: timings}, pre-pass timings)."""
     import torch.nn.functional as F
-    dev = torch.device("cuda")
     worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
     cases = 0
-
-    def inputs(B, T, S, H, KV, hd, dtype, seed):
-        gen = torch.Generator(dev).manual_seed(seed)
-        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
-                     for shape in ((B, T, H, hd), (B, S, KV, hd),
-                                   (B, S, KV, hd)))
+    ops.reset_launch_counts()
 
     def check(q, k, v, kw, what):
         nonlocal cases
@@ -678,18 +799,31 @@ def phase_flash(torch, ops, ref, flash_cuda):
     for i, (B, T, H, KV, hd) in enumerate(FLASH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             for j, kw in enumerate(FLASH_VARIANTS):
-                q, k, v = inputs(B, T, T, H, KV, hd, dtype, 100 * i + j)
+                q, k, v = flash_inputs(torch, B, T, T, H, KV, hd, dtype,
+                                       100 * i + j)
                 check(q, k, v, kw, f"{(B, T, H, KV, hd)} {dtype} {kw}")
-    for causal in (True, False):     # T > S + window: rows with no key
-        kw = {"causal": causal, "window": 20}
-        q, k, v = inputs(1, 150, 40, 2, 1, 32, torch.float32, 7)
-        check(q, k, v, kw, f"T=150 S=40 {kw}")
+    for dtype in (torch.float32, torch.bfloat16):   # rows with no key
+        for causal in (True, False):
+            kw = {"causal": causal, "window": 20}
+            q, k, v = flash_inputs(torch, 1, 150, 40, 2, 1, 32, dtype, 7)
+            check(q, k, v, kw, f"T=150 S=40 {dtype} {kw}")
+    routes = ops.route_counts()
+    n_bf16 = (len(FLASH_SHAPES) * len(FLASH_VARIANTS) + 2)
+    if routes != {"wgmma": n_bf16, "simt": cases - n_bf16}:
+        fail(f"flash routes {routes}: bf16 cases must take the wgmma "
+             f"kernel ({n_bf16}) and f32 ones the SIMT kernel "
+             f"({cases - n_bf16})")
+    nan_cases = nan_rule_check(torch, ops, ref, flash_cuda, tiles_cuda)
+    print(f"kernels: flash NaN rule held on both routes in {nan_cases} cases "
+          f"(NaN exactly where the plain version has NaN; pre-pass "
+          f"bit-equal)", flush=True)
 
-    timings = {}
+    timings = {"wgmma": {}, "simt": {}}
+    tiles_timings = {}
     for name, (B, T, H, KV, hd, kw) in FLASH_PATH_SHAPES.items():
         held = {}
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = inputs(B, T, T, H, KV, hd, dtype, T + H)
+            q, k, v = flash_inputs(torch, B, T, T, H, KV, hd, dtype, T + H)
             held[str(dtype).split(".")[-1]] = check(
                 q, k, v, kw, f"the path shape {name} {dtype}")
         print(f"flash_attention {name} {[B, T, H, KV, hd]} {kw}: max |Δ| "
@@ -698,12 +832,39 @@ def phase_flash(torch, ops, ref, flash_cuda):
               f"({held['bfloat16'][1]:.4f} of its tolerance)", flush=True)
         causal, window = kw.get("causal", True), kw.get("window")
         softcap = kw.get("softcap")
+        # q, k, v: the bf16 inputs, timed from here
+        simt_ok = flash_close(torch, flash_cuda(q, k, v, tiles_cuda(v), causal,
+                                                window, softcap, "simt"),
+                              ref.flash_attention_ref(q, k, v, **kw))
+        if not simt_ok[0]:
+            fail(f"the SIMT kernel differs from the plain version at {name} "
+                 f"bf16: max err {simt_ok[1]}")
+        if not torch.equal(tiles_cuda(v), ref.nonfinite_tiles_ref(v)):
+            fail(f"nonfinite_tiles differs from the plain version at {name}")
 
-        def kern():          # q, k, v: the bf16 inputs, timed from here
-            return flash_cuda(q, k, v, causal, window, softcap)
+        def wgmma():          # the wrapper's call: pre-pass + kernel
+            return flash_cuda(q, k, v, tiles_cuda(v), causal, window,
+                              softcap, "wgmma")
+
+        def simt():
+            return flash_cuda(q, k, v, tiles_cuda(v), causal, window,
+                              softcap, "simt")
+
+        # the pre-pass reads a v that is not in L2, as after the prefill's
+        # projections of other layers: 4 copies of v, one per launch in
+        # turn (4 x 25 MB at gemma2-9b, twice the 50 MB L2)
+        v_turns = [v.clone() for _ in range(4)]
+        turn = [0]
+
+        def tiles_only():
+            turn[0] = (turn[0] + 1) % len(v_turns)
+            return tiles_cuda(v_turns[turn[0]])
 
         def plain():
             return ref.flash_attention_ref(q, k, v, **kw)
+
+        def tiles_plain():
+            return ref.nonfinite_tiles_ref(v)
         if softcap is not None:      # every path shape is causal
             library = flex_library(torch, q, k, v, window, softcap)
             note = ("torch.compile(flex_attention)(score_mod=softcap, "
@@ -718,36 +879,52 @@ def phase_flash(torch, ops, ref, flash_cuda):
             note = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
         else:
             library, note = None, "n/a"
-        timer = events_ms if T > 1024 else device_ms
-        p0, k0 = timer(torch, plain), timer(torch, kern)
-        k1, p1 = timer(torch, kern), timer(torch, plain)
+        timer = loop_ms if T > 1024 else device_ms
+        plain_ms, (w_ms, s_ms) = time_turns(torch, timer, plain,
+                                            [wgmma, simt])
         lib_ms = lib_err = None
         if library is not None:
             lib_ms = min(timer(torch, library), timer(torch, library))
             lib_err = (library().float() - plain().float()).abs().max().item()
+        tiles_timer = device_ms
+        sp_plain, (sp_ms,) = time_turns(torch, tiles_timer, tiles_plain,
+                                        [tiles_only])
         b_ms, by, n_ops, nbytes = flash_bound(B, T, T, H, KV, hd, 2, kw)
-        ms = min(k0, k1)
-        timings[name] = {
-            "shape": [B, T, H, KV, hd], "dtype": "bfloat16", **kw,
-            "ms": ms, "plain_ms": min(p0, p1), "bound_ms": b_ms,
-            "bound_by": by, "ops": n_ops, "bytes": nbytes,
-            "tflops": n_ops / ms / 1e9, "library_ms": lib_ms,
-            "library_note": note, "library_max_abs_err": lib_err,
-            "max_abs_err_f32": held["float32"][0],
-            "share_of_tolerance_f32": held["float32"][1],
-            "max_abs_err_bf16": held["bfloat16"][0],
-            "share_of_tolerance_bf16": held["bfloat16"][1],
-            "timer": "cuda events, eager" if T > 1024 else "cuda graph"}
+        v_bytes = v.numel() * v.element_size()
+        tiles_bytes = 4 * (-(-T // 64)) * B * KV * (1 + -(-hd // 32))
+        sb_ms = (v_bytes + tiles_bytes) / HBM_BYTES_PER_S * 1e3
+        tiles_timings[name] = {
+            "shape": [B, T, KV, hd], "dtype": "bfloat16", "ms": sp_ms,
+            "plain_ms": sp_plain, "bound_ms": sb_ms, "bound_by": "bytes",
+            "library_ms": None, "timer": "cuda graph, v not in L2"}
+        del v_turns
+        for route, ms in (("wgmma", w_ms), ("simt", s_ms)):
+            timings[route][name] = {
+                "shape": [B, T, H, KV, hd], "dtype": "bfloat16", **kw,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": by, "ops": n_ops, "bytes": nbytes,
+                "tflops": n_ops / ms / 1e9, "library_ms": lib_ms,
+                "library_note": note, "library_max_abs_err": lib_err,
+                "max_abs_err_f32": held["float32"][0],
+                "share_of_tolerance_f32": held["float32"][1],
+                "max_abs_err_bf16": (held["bfloat16"][0] if route == "wgmma"
+                                     else simt_ok[1]),
+                "share_of_tolerance_bf16": (held["bfloat16"][1]
+                                            if route == "wgmma"
+                                            else simt_ok[2]),
+                "includes_prepass": True,
+                "timer": ("cuda events, 5 eager calls back to back"
+                          if T > 1024 else "cuda graph")}
         del q, k, v, library
         torch.cuda.empty_cache()
     (e32, s32), (e16, s16) = worst[torch.float32], worst[torch.bfloat16]
     print(f"kernels: flash_attention within tolerance of the plain version "
-          f"in {cases} cases (shapes {FLASH_SHAPES}, f32 and bf16, variants "
-          f"{FLASH_VARIANTS}, rows with no valid key, the path shapes "
-          f"{list(FLASH_PATH_SHAPES)} in f32 and bf16); worst |Δ| {e32:.3e} "
-          f"in f32 ({s32:.4f} of the tolerance), {e16:.3e} in bf16 "
-          f"({s16:.4f} of the tolerance)", flush=True)
-    return max(e32, e16), timings
+          f"in {cases} cases (shapes {FLASH_SHAPES}, f32 (SIMT) and bf16 "
+          f"(wgmma), variants {FLASH_VARIANTS}, rows with no valid key, the "
+          f"path shapes {list(FLASH_PATH_SHAPES)} in f32 and bf16); worst "
+          f"|Δ| {e32:.3e} in f32 ({s32:.4f} of the tolerance), {e16:.3e} in "
+          f"bf16 ({s16:.4f} of the tolerance)", flush=True)
+    return max(e32, e16), timings, tiles_timings
 
 
 SMALL_REFS = {   # arch: (config overrides, prompt length, max_len)
@@ -898,7 +1075,7 @@ def run_training(torch, ops, train, card) -> dict:
         session = train.main(TRAIN_ARGS + flags)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = ops.launch_counts()
+        launches = path_counts(ops)
         peak = torch.cuda.max_memory_allocated()
         if session.device.type != "cuda":
             fail(f"training {name} ran on {session.device}, not on the card")
@@ -940,12 +1117,21 @@ def run_training(torch, ops, train, card) -> dict:
     return results
 
 
+def path_counts(ops) -> dict:
+    """Every wrapper's launch count, and the flash wrapper's per route
+    (``flash_attention[wgmma]``, ``flash_attention[simt]``)."""
+    return {**ops.launch_counts(),
+            **{f"flash_attention[{r}]": n
+               for r, n in ops.route_counts().items()}}
+
+
 def check_main_path(torch, run, launches, card) -> None:
     """A serving run's results: every request complete with valid tokens,
     no page leaked, the quantize kernel launched once per paged leaf per
-    admission and per decode tick, the flash kernel once per attention
-    layer per admission, no training-wire kernel, finite full-width
-    prefill logits."""
+    admission and per decode tick, the flash kernel and its pre-pass once
+    per attention layer per admission, every flash launch on the wgmma
+    route and none on the SIMT one, no training-wire kernel, finite
+    full-width prefill logits."""
     eng, cfg = run.engines[0], run.cfg
     n_req, n_new = len(run.requests), run.requests[0].max_new
     if len(run.completions) != n_req:
@@ -959,16 +1145,20 @@ def check_main_path(torch, run, launches, card) -> None:
     if live:
         fail(f"{live} pages still live after draining")
     leaves = eng.cache.paged_leaves()
+    flash = cfg.num_layers * eng.prefills
     expected = {"quantize_tiles": leaves * (eng.prefills + eng.decode_ticks),
-                "flash_attention": cfg.num_layers * eng.prefills}
+                "flash_attention": flash, "nonfinite_tiles": flash,
+                "flash_attention[wgmma]": flash}
     for name, n in launches.items():
         want = expected.get(name, 0)
         if n != want or (name in expected and want <= 0):
             fail(f"{cfg.name} serving: kernel {name} launched {n} times, "
                  f"expected {want} (quantize_tiles = {leaves} paged leaves "
                  f"x ({eng.prefills} admissions + {eng.decode_ticks} decode "
-                 f"ticks), flash_attention = {cfg.num_layers} layers x "
-                 f"{eng.prefills} admissions, 0 for the training wire)")
+                 f"ticks), flash_attention and nonfinite_tiles = "
+                 f"{cfg.num_layers} layers x {eng.prefills} admissions, all "
+                 f"on the wgmma route, 0 on the SIMT route and for the "
+                 f"training wire)")
     prompt = torch.as_tensor(run.requests[0].prompt, device=eng.device)
     logits, _ = run.model.prefill(run.params, {"tokens": prompt.long()[None]},
                                   max_len=eng.cfg.max_len)
@@ -984,7 +1174,9 @@ def check_main_path(torch, run, launches, card) -> None:
           f"{launches['quantize_tiles']} (= {leaves} x ({eng.prefills} + "
           f"{eng.decode_ticks})), flash_attention launches "
           f"{launches['flash_attention']} (= {cfg.num_layers} x "
-          f"{eng.prefills})", flush=True)
+          f"{eng.prefills}; wgmma route {launches['flash_attention[wgmma]']},"
+          f" SIMT route {launches['flash_attention[simt]']}), nonfinite_tiles "
+          f"{launches['nonfinite_tiles']}", flush=True)
     print(f"serving [{card}]: tokens/s={s['tokens_per_s']:.2f} "
           f"p50 per-token latency={s['p50_s'] * 1e3:.3f} ms "
           f"p99={s['p99_s'] * 1e3:.3f} ms mean TTFT="
@@ -1099,7 +1291,7 @@ def run_gemma2_serving(torch, ops, serve, card) -> dict:
     ops.reset_launch_counts()
     run = serve.main(GEMMA2_SERVE_ARGS)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = path_counts(ops)
     if run.engines[0].device.type != "cuda":
         fail(f"the engine ran on {run.engines[0].device}, not on the card")
     check_main_path(torch, run, launches, card)
@@ -1137,6 +1329,39 @@ def run_gemma2_serving(torch, ops, serve, card) -> dict:
     return res
 
 
+def kernel_name(mangled: str) -> str:
+    """A short name of a mangled kernel template: its name, then its
+    element type and integer template arguments."""
+    m = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
+    if not m:
+        m = re.search(r"([a-z_]+_kernel)", mangled)
+        return m.group(1) if m else mangled[:60]
+    args = m.group(2)
+    kind = ["bf16"] if "bfloat16" in args else ["f32"] if args[:1] == "f" \
+        else []
+    return f"{m.group(1)}<{', '.join(kind + re.findall(r'Li(\d+)E', args + 'E'))}>"
+
+
+def check_ptxas(name: str, log: str) -> None:
+    """Print each kernel's registers and spills from the ``-Xptxas -v``
+    report of library ``name``; fail on a spill, and on a wgmma pipeline
+    that ptxas serialized, in the tensor-core attention kernel."""
+    kernel = "?"
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {name} {kernel}: {line}")
+        if name == "flash_attention_wgmma" and (
+                "Performance Loss" in line or
+                ("spill" in line and not line.startswith("0 bytes stack "
+                                                         "frame, 0 bytes "
+                                                         "spill stores, 0 "
+                                                         "bytes spill loads"))):
+            fail(f"ptxas: {name}: {line}")
+
+
 def kernel_line(name, launches, max_err_, timings, main_shape) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``launches`` maps each
     main-path run to the kernel's count there."""
@@ -1168,7 +1393,8 @@ def main() -> None:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build, ops, ref
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_cuda, nonfinite_tiles_cuda)
         from repro_torch.kernels.quantize import quantize_tiles_cuda
         from repro_torch.launch import serve, train
         from repro_torch.launch.dist import destroy_group
@@ -1197,24 +1423,32 @@ def main() -> None:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f}s",
           flush=True)
     for name in libs:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        check_ptxas(name, build.build_log(name))
 
     # -- 3. kernels vs plain versions ---------------------------------------
-    flash_err, flash_timings = phase_flash(torch, ops, ref,
-                                           flash_attention_cuda)
-    for name, t in flash_timings.items():
-        lib = t["library_note"]
-        if t["library_ms"] is not None:
-            lib = (f"{t['library_ms'] * 1e3:.3f} us, max |Δ| "
-                   f"{t['library_max_abs_err']:.3e} to the plain version, "
-                   f"by {lib}")
-        print(f"flash_attention {name} {t['shape']} bf16: device time kernel "
-              f"{t['ms'] * 1e3:.3f} us ({t['tflops']:.2f} TFLOP/s), plain "
-              f"{t['plain_ms'] * 1e3:.3f} us, bound {t['bound_ms'] * 1e3:.3f}"
-              f" us ({t['bound_by']}), {t['bound_ms'] / t['ms']:.4f} of the "
-              f"bound, library {lib} ({t['timer']}) [{card}]", flush=True)
+    flash_err, flash_timings, tiles_timings = phase_flash(
+        torch, ops, ref, flash_attention_cuda, nonfinite_tiles_cuda)
+    for route, per_shape in flash_timings.items():
+        for name, t in per_shape.items():
+            lib = t["library_note"]
+            if t["library_ms"] is not None:
+                lib = (f"{t['library_ms'] * 1e3:.3f} us, max |Δ| "
+                       f"{t['library_max_abs_err']:.3e} to the plain version, "
+                       f"by {lib}")
+            print(f"flash_attention {route} route {name} {t['shape']} bf16: "
+                  f"device time kernel with its pre-pass "
+                  f"{t['ms'] * 1e3:.3f} us ({t['tflops']:.2f} TFLOP/s), "
+                  f"plain {t['plain_ms'] * 1e3:.3f} us, bound "
+                  f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
+                  f"{t['bound_ms'] / t['ms']:.4f} of the bound, library {lib} "
+                  f"({t['timer']}) [{card}]", flush=True)
+    for name, t in tiles_timings.items():
+        print(f"nonfinite_tiles {name} v {t['shape']} bf16: device time "
+              f"{t['ms'] * 1e3:.3f} us, plain {t['plain_ms'] * 1e3:.3f} us, "
+              f"bound {t['bound_ms'] * 1e3:.3f} us (bytes), "
+              f"{t['bound_ms'] / t['ms']:.4f} of the bound ({t['timer']}) "
+              f"[{card}]", flush=True)
+    check_flash_gates(flash_timings["wgmma"])
     # the serving paths' shapes: one tile (head_dim) per cached entry, for
     # all stacked layers of a leaf at once
     cfg = get_config("gemma-2b")
@@ -1252,7 +1486,7 @@ def main() -> None:
     ops.reset_launch_counts()
     run = serve.main(SERVE_ARGS)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = path_counts(ops)
     if run.engines[0].device.type != "cuda":
         fail(f"the engine ran on {run.engines[0].device}, not on the card")
     check_main_path(torch, run, launches, card)
@@ -1284,8 +1518,14 @@ def main() -> None:
         return {run_name: r[name] for run_name, r in runs.items()}
 
     kernels = [
-        kernel_line("flash_attention", runs_of("flash_attention", serving),
-                    flash_err, flash_timings, "gemma2_9b_prefill_global"),
+        kernel_line("flash_attention",
+                    runs_of("flash_attention[wgmma]", serving), flash_err,
+                    flash_timings["wgmma"], "gemma2_9b_prefill_global"),
+        kernel_line("flash_attention_simt",
+                    runs_of("flash_attention[simt]", serving), flash_err,
+                    flash_timings["simt"], "gemma2_9b_prefill_global"),
+        kernel_line("nonfinite_tiles", runs_of("nonfinite_tiles", serving),
+                    0.0, tiles_timings, "gemma2_9b_prefill_global"),
         kernel_line("quantize_tiles", runs_of("quantize_tiles", serving),
                     q_err, timings, "gemma_2b_decode_write")]
     train_runs = {k: r["launches"] for k, r in trained.items()}

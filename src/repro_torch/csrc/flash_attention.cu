@@ -1,5 +1,7 @@
-// Forward attention with a streaming softmax for Hopper (sm_90a): the
-// prefill attention of every layer on the serving path.
+// Forward attention with a streaming softmax for Hopper (sm_90a), SIMT
+// route: f32 inputs, and bf16 at a head dim that the tensor-core kernel
+// (flash_attention_wgmma.cu) does not take.  Also the pre-pass that both
+// routes run first (nonfinite_tiles_kernel, below).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:_kernel
 // (entry flash_attention_pallas).  For q (B, T, H, hd) and k, v (B, S, KV, hd)
@@ -23,12 +25,10 @@
 // a no-op there.  For f32 inputs the two are the same.
 //
 // What bounds it: operations.  4 * B * H * hd operations per unmasked
-// (query, key) pair against q, k, v read once and out written once; at the
-// gemma2-9b prefill (T = S = 6144, hd 256) that is ~1.2e3 operations per
-// byte, far above the card's ratio.  This first kernel runs the two
-// products as f32 FMAs on the CUDA cores (67 TFLOP/s), not on the tensor
-// cores (wgmma on bf16 is later work), and uses expf / tanhf, not the fast
-// intrinsics.
+// (query, key) pair against q, k, v read once and out written once.  With
+// f32 inputs the products run as f32 FMAs on the CUDA cores (67 TFLOP/s):
+// TF32 on the tensor cores would break the f32 tolerance.  This kernel uses
+// expf / tanhf, not the fast intrinsics.
 //
 // Design (simple and correct first):
 //   * one block of 256 threads per (64-row query tile, head, batch row);
@@ -52,34 +52,40 @@
 //     as if absent) and are not part of the softmax.
 //
 // Key tiles that the mask empties for every row of the query tile are
-// skipped: those past the causal diagonal or the forward window, and those
-// before the backward window.  Past the diagonal this is exact, since there
-// p = exp(-1e30 - m) = 0.  Before a row's first valid tile the reference adds
-// exp(0) * v for each fully masked tile and then wipes it with corr =
-// exp(-1e30 - m) = 0, so skipping gives the same result unless v holds an
-// inf or a NaN in a skipped tile (0 * inf is NaN in the reference, not in
-// the kernel).  A query tile holding a row with no valid key at all (T > S
-// with a window) visits every key tile, so that row gets the reference's
-// mean of v.
+// skipped (flash_common.cuh: visited_tiles): those past the causal diagonal
+// or the forward window, and those before the backward window.  For finite
+// v that is exact: past the diagonal p = exp(-1e30 - m) = 0, and before a
+// row's first valid tile the reference adds exp(0) * v and then wipes it
+// with corr = 0.  For an inf or a NaN in a skipped tile of v the reference
+// gives NaN (0 * inf, or inf * 0), so the epilogue writes NaN at the head
+// dims where the pre-pass found a non-finite v in a skipped tile
+// (flash_common.cuh: skipped_nonfinite).  The kernel is launched as a
+// programmatic dependent of the pre-pass and waits for it only there.  A
+// query tile holding a row with no valid key at all (T > S with a window)
+// visits every key tile, so that row gets the reference's mean of v.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
+using flash::kKvBlk;
+using flash::kNegInf;
+
 constexpr int kQBlk = 64;                           // query rows per block
-constexpr int kKvBlk = 64;                          // keys per tile
 constexpr int kThreads = 256;                       // 8 warps
 constexpr int kRows = kQBlk / (kThreads / 32);      // query rows per warp
 constexpr int kLdP = kKvBlk + 4;                    // row stride of p
-constexpr float kNegInf = -1e30f;                   // the reference's NEG_INF
 
 struct Params {
   int64_t q_sb, q_st, q_sh;     // element strides of q (B, T, H, hd)
   int64_t k_sb, k_st, k_sh;     // of k (B, S, KV, hd)
   int64_t v_sb, v_st, v_sh;     // of v
-  int T, S, H, G, hd;
+  int B, T, S, H, KV, G, hd;
+  int nt;                       // key tiles: ceil(S / kKvBlk)
   int causal;
   int window;                   // <= 0: no window
   float softcap;                // <= 0: no softcap
@@ -114,15 +120,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ bool allowed(int qpos, int kpos, const Params& p) {
-  if (p.causal && kpos > qpos) return false;
-  if (p.window > 0) {
-    if (qpos - kpos >= p.window) return false;
-    if (!p.causal && kpos - qpos >= p.window) return false;
-  }
-  return true;
-}
-
 // Stage `rows_valid` rows of `hd` elements (row stride `s_row`) into a
 // 64 x W f32 tile of row stride LD, zero-filling the rest.
 template <typename T, int W, int LD>
@@ -140,7 +137,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, Params p) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 const int* __restrict__ tiles, Params p) {
   constexpr int W = 32 * NJ;        // head dim padded to whole warps
   constexpr int LD = W + 4;         // shared row stride in floats
   extern __shared__ float4 smem4[];
@@ -159,19 +157,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = warp * kRows;
   const int hd4 = (p.hd + 3) & ~3;
 
-  // keys that may be valid for some row of this query tile
-  int lo = 0, hi = p.S - 1;
-  if (p.causal) hi = min(hi, qlast);
-  if (p.window > 0) {
-    lo = max(lo, q0 - p.window + 1);
-    if (!p.causal) hi = min(hi, qlast + p.window - 1);
-    if (static_cast<int64_t>(qlast) >=
-        static_cast<int64_t>(p.S) + p.window - 1) {
-      lo = 0;                       // a row with no valid key: visit all
-      hi = p.S - 1;
-    }
-  }
-  const int kt_lo = lo / kKvBlk, kt_hi = hi / kKvBlk;
+  int kt_lo, kt_hi;
+  flash::visited_tiles(q0, qlast, p.S, p.causal, p.window, &kt_lo, &kt_hi);
 
   load_tile<T, W, LD>(sQ, q + b * p.q_sb + q0 * p.q_st + h * p.q_sh, p.q_st,
                       q_rows, p.hd);
@@ -233,7 +220,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (p.softcap > 0.0f) t = p.softcap * tanhf(t / p.softcap);
         if (kpos >= p.S) {
           t = -INFINITY;            // past the keys: absent, weight 0
-        } else if (!allowed(qpos, kpos, p)) {
+        } else if (!flash::allowed(qpos, kpos, p.causal, p.window)) {
           t = kNegInf;
         }
         x[jj] = t;
@@ -277,6 +264,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();                   // p rows are rewritten by the next tile
   }
 
+  // the NaN rule for non-finite v in the skipped tiles (word j: the dims
+  // lane + 32 j' of warps' lanes, bit lane)
+  uint32_t bad[NJ];
+  flash::skipped_nonfinite<NJ>(tiles, p.nt, p.B * p.KV, b * p.KV + kvh,
+                               (p.hd + 31) / 32, kt_lo, kt_hi, bad);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qpos = q0 + row0 + i;
@@ -286,14 +278,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = lane + 32 * j;
-      if (d < p.hd) store(o + d, acc[i][j] / denom);
+      if (d < p.hd)
+        store(o + d, (bad[j] >> lane) & 1u ? NAN : acc[i][j] / denom);
     }
   }
 }
 
 template <typename T, int NJ>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int B, const Params& p, cudaStream_t stream) {
+                 const int* tiles, const Params& p, cudaStream_t stream) {
   constexpr int LD = 32 * NJ + 4;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kQBlk) * LD +
                                        2 * static_cast<size_t>(kKvBlk) * LD +
@@ -314,55 +307,143 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
     configured |= bit;
   }
   const dim3 grid(static_cast<unsigned>((p.T + kQBlk - 1) / kQBlk),
-                  static_cast<unsigned>(p.H), static_cast<unsigned>(B));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), p);
+                  static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
+  // a programmatic dependent of the pre-pass: it may start while the
+  // pre-pass runs, and waits for it only in its epilogue
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                           static_cast<const T*>(k), static_cast<const T*>(v),
+                           static_cast<T*>(out), tiles, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              const Params& p, cudaStream_t s) {
-  if (p.hd <= 32) return launch_typed<T, 1>(q, k, v, out, B, p, s);
-  if (p.hd <= 64) return launch_typed<T, 2>(q, k, v, out, B, p, s);
-  if (p.hd <= 128) return launch_typed<T, 4>(q, k, v, out, B, p, s);
-  return launch_typed<T, 8>(q, k, v, out, B, p, s);
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              const int* tiles, const Params& p, cudaStream_t s) {
+  if (p.hd <= 32) return launch_typed<T, 1>(q, k, v, out, tiles, p, s);
+  if (p.hd <= 64) return launch_typed<T, 2>(q, k, v, out, tiles, p, s);
+  if (p.hd <= 128) return launch_typed<T, 4>(q, k, v, out, tiles, p, s);
+  return launch_typed<T, 8>(q, k, v, out, tiles, p, s);
+}
+
+// Pre-pass of both routes: which key tiles of v hold a non-finite value,
+// and at which head dims (the layout in flash_common.cuh).  One read of v,
+// bound by bytes.  One block per (key tile, b * KV + kv head), one thread
+// per head dim: it reads its dim of the tile's 64 positions; a warp ballot
+// gives the tile's word of 32 dims, a block vote its flag.  Every entry is
+// written, so the buffer needs no clearing.  It lets its dependents (the
+// attention kernels, launched programmatically after it) start at once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+nonfinite_tiles_kernel(const T* __restrict__ v, int* __restrict__ tiles,
+                       int S, int KV, int hd, int64_t v_sb, int64_t v_st,
+                       int64_t v_sh) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int c = blockIdx.x, bk = blockIdx.y;
+  const int bkv = gridDim.y, nw = blockDim.x / 32;
+  const int b = bk / KV, kvh = bk - b * KV;
+  const int d = threadIdx.x;
+  const int s0 = c * kKvBlk, rows = min(kKvBlk, S - s0);
+  bool bad = false;
+  if (d < hd) {
+    const T* src = v + b * v_sb + kvh * v_sh + s0 * v_st + d;
+#pragma unroll 16
+    for (int r = 0; r < rows; ++r) bad |= !isfinite(to_f32(src[r * v_st]));
+  }
+  const uint32_t word = __ballot_sync(0xffffffffu, bad);
+  const int any = __syncthreads_or(bad);
+  uint32_t* words = reinterpret_cast<uint32_t*>(tiles + gridDim.x * bkv);
+  if ((threadIdx.x & 31) == 0)
+    words[(c * bkv + bk) * nw + threadIdx.x / 32] = word;
+  if (threadIdx.x == 0) tiles[c * bkv + bk] = any != 0;
+}
+
+template <typename T>
+int tiles_typed(const void* v, int* tiles, int B, int S, int KV, int hd,
+                int64_t v_sb, int64_t v_st, int64_t v_sh, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((S + kKvBlk - 1) / kKvBlk),
+                  static_cast<unsigned>(B * KV));
+  nonfinite_tiles_kernel<T><<<grid, 32 * ((hd + 31) / 32), 0, s>>>(
+      static_cast<const T*>(v), tiles, S, KV, hd, v_sb, v_st, v_sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the pre-pass's output: int32 entries for v (B, S, KV, hd)
+int64_t tiles_entries(int64_t B, int64_t S, int64_t KV, int64_t hd) {
+  return (S + kKvBlk - 1) / kKvBlk * B * KV * (1 + (hd + 31) / 32);
 }
 
 }  // namespace
 
+// v (B, S, KV, hd) with the given element strides (last dim contiguous), f32
+// or bf16 (is_bf16); tiles: an int32 buffer of
+// ceil(S / 64) * B * KV * (1 + ceil(hd / 32)) entries (flash_common.cuh),
+// all of which this writes.  Launches on `stream`; returns the CUDA error
+// of the launch (0 on success).
+extern "C" int nonfinite_tiles_launch(const void* v, void* tiles, int64_t B,
+                                      int64_t S, int64_t KV, int64_t hd,
+                                      int64_t v_sb, int64_t v_st,
+                                      int64_t v_sh, int is_bf16,
+                                      void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || hd < 1 || hd > 256 || B * KV > 65535 ||
+      S >= (int64_t{1} << 30) ||
+      tiles_entries(B, S, KV, hd) >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* out = static_cast<int*>(tiles);
+  const int b = static_cast<int>(B), kv = static_cast<int>(KV);
+  const int sl = static_cast<int>(S), d = static_cast<int>(hd);
+  return is_bf16 ? tiles_typed<__nv_bfloat16>(v, out, b, sl, kv, d, v_sb,
+                                              v_st, v_sh, s)
+                 : tiles_typed<float>(v, out, b, sl, kv, d, v_sb, v_st, v_sh,
+                                      s);
+}
+
 // q (B, T, H, hd), k and v (B, S, KV, hd): device pointers with the given
 // element strides (the last dim contiguous), all f32 or all bf16 (is_bf16);
-// out: contiguous (B, T, H, hd) of the same type.  window <= 0 means none,
-// softcap <= 0 means none.  Launches on `stream` without synchronising;
-// returns the CUDA error of the attribute call or the launch (0 on success).
+// out: contiguous (B, T, H, hd) of the same type; tiles: the pre-pass's
+// output for this v, launched just before on the same stream.  window <= 0 means none, softcap <= 0 means none.
+// Launches on `stream` without synchronising; returns the CUDA error of the
+// attribute call or the launch (0 on success).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int64_t B,
-    int64_t T, int64_t S, int64_t H, int64_t KV, int64_t hd, int64_t q_sb,
-    int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
-    int64_t v_sb, int64_t v_st, int64_t v_sh, int causal, int64_t window,
-    double softcap, int is_bf16, void* stream) {
+    const void* q, const void* k, const void* v, void* out, const void* tiles,
+    int64_t B, int64_t T, int64_t S, int64_t H, int64_t KV, int64_t hd,
+    int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
+    int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int causal,
+    int64_t window, double softcap, int is_bf16, void* stream) {
   const int64_t kMax = int64_t{1} << 30;
   if (B < 1 || B > 65535 || T < 1 || T >= kMax || S < 1 || S >= kMax ||
       KV < 1 || H < KV || H > 65535 || H % KV != 0 || hd < 1 || hd > 256 ||
-      window >= kMax)
+      window >= kMax || tiles_entries(B, S, KV, hd) >= kMax)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
+  p.B = static_cast<int>(B);
   p.T = static_cast<int>(T);
   p.S = static_cast<int>(S);
   p.H = static_cast<int>(H);
+  p.KV = static_cast<int>(KV);
   p.G = static_cast<int>(H / KV);
   p.hd = static_cast<int>(hd);
+  p.nt = static_cast<int>((S + kKvBlk - 1) / kKvBlk);
   p.causal = causal != 0;
   p.window = window > 0 ? static_cast<int>(window) : 0;
   p.softcap = softcap > 0.0 ? static_cast<float>(softcap) : 0.0f;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int b = static_cast<int>(B);
-  return is_bf16 ? launch_hd<__nv_bfloat16>(q, k, v, out, b, p, s)
-                 : launch_hd<float>(q, k, v, out, b, p, s);
+  const int* t = static_cast<const int*>(tiles);
+  return is_bf16 ? launch_hd<__nv_bfloat16>(q, k, v, out, t, p, s)
+                 : launch_hd<float>(q, k, v, out, t, p, s);
 }

@@ -13,7 +13,9 @@ flags, so an edited source or header is rebuilt and an unchanged one is
 not.  The ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside each
 library as ``<lib>.log``.  Nothing is fetched: the sources are the
-repository's own.
+repository's own.  No library beyond the CUDA runtime is linked: the
+tensor-core attention kernel looks up libcuda's ``cuTensorMapEncodeTiled``
+through ``cudaGetDriverEntryPoint``.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("quantize_tiles", "quantize_ef", "topk_mask",
-                  "flash_attention")
+                  "flash_attention", "flash_attention_wgmma")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
 

@@ -6,7 +6,9 @@ Dispatch is by the tensor's device (``kernels/dispatch.py``): the Hopper
 kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
 Each wrapper's ``launches`` attribute counts its kernel's launches (a plain
 int, never incremented on the CPU path), so a run can show that its main
-path went through the kernel; ``reset_launch_counts`` sets them to 0.
+path went through the kernel; ``flash_attention.routes`` splits its count
+by kernel route (``route_counts``); ``reset_launch_counts`` sets them all
+to 0.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.flash_attention import (check_args,
-                                                 flash_attention_cuda)
+from repro_torch.kernels.flash_attention import (check_args, check_cuda,
+                                                 flash_attention_cuda,
+                                                 nonfinite_tiles_cuda, route)
 from repro_torch.kernels.quantize import quantize_tiles_cuda
 from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
                                              quantize_ef_cuda)
@@ -113,33 +116,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     training path keeps ``models/attention.flash_attention``."""
     check_args(q, k, v, window)
     if use_kernel(q):
-        out = flash_attention_cuda(q, k, v, causal, window, softcap)
+        check_cuda(q, softcap)
+        kernel = route(q.dtype, q.shape[-1])
+        out = flash_attention_cuda(q, k, v, nonfinite_tiles(v), causal,
+                                   window, softcap, kernel)
         flash_attention.launches += 1
+        flash_attention.routes[kernel] += 1
         return out
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
 
 
+def nonfinite_tiles(v: torch.Tensor) -> torch.Tensor:
+    """The flash kernels' pre-pass: which 64-key tiles of v (B, S, KV, hd)
+    hold a non-finite value, per (b, kv head), and at which head dims, as
+    int32 (layout in ``csrc/flash_common.cuh``)."""
+    if use_kernel(v):
+        out = nonfinite_tiles_cuda(v)
+        nonfinite_tiles.launches += 1
+        return out
+    return _ref.nonfinite_tiles_ref(v)
+
+
 KERNEL_WRAPPERS = {"flash_attention": flash_attention,
+                   "nonfinite_tiles": nonfinite_tiles,
                    "quantize_tiles": quantize_tiles,
                    "quantize_ef": quantize_ef,
                    "dequant_accum": dequant_accum,
                    "topk_ef": topk_ef,
                    "topk_mask": topk_mask}
 
-for _fn in KERNEL_WRAPPERS.values():
-    _fn.launches = 0
+FLASH_ROUTES = ("wgmma", "simt")
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """Launches of ``flash_attention`` per kernel route."""
+    return dict(flash_attention.routes)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    flash_attention.routes = dict.fromkeys(FLASH_ROUTES, 0)
 
 
-__all__ = ["flash_attention", "quantize_tiles", "dequantize", "quantize_ef",
-           "dequant_accum", "topk_ef", "topk_mask", "launch_counts",
+reset_launch_counts()
+
+
+__all__ = ["flash_attention", "nonfinite_tiles", "quantize_tiles",
+           "dequantize", "quantize_ef", "dequant_accum", "topk_ef",
+           "topk_mask", "launch_counts", "route_counts",
            "reset_launch_counts", "TILE"]

@@ -220,3 +220,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         denom = torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
         outs.append((acc / denom).to(q.dtype).reshape(B, tc, H, hd))
     return torch.cat(outs, dim=1)
+
+
+def nonfinite_tiles_ref(v: torch.Tensor, *, tile: int = 64) -> torch.Tensor:
+    """Plain version of the flash kernels' pre-pass: for v (B, S, KV, hd),
+    with nt = ceil(S / tile) key tiles, int32 holding first a flag per
+    (key tile, b·KV + kv head), 1 where that tile of v holds a non-finite
+    value, then ceil(hd / 32) words per (key tile, b·KV + kv head) whose
+    bit i of word w is set where head dim 32·w + i does."""
+    B, S, KV, hd = v.shape
+    nt, nw = -(-S // tile), -(-hd // 32)
+    bad = (~torch.isfinite(v)).to(torch.int64)
+    bad = F.pad(bad, (0, 0, 0, 0, 0, nt * tile - S))
+    per = bad.reshape(B, nt, tile, KV, hd).amax(dim=2)      # (B, nt, KV, hd)
+    per = per.permute(1, 0, 2, 3).reshape(nt, B * KV, hd)
+    flags = per.amax(dim=-1)
+    bits = F.pad(per, (0, nw * 32 - hd)).reshape(nt, B * KV, nw, 32)
+    words = (bits << torch.arange(32, device=v.device)).sum(dim=-1)
+    words = torch.where(words >= 2**31, words - 2**32, words)  # as uint32
+    return torch.cat([flags.reshape(-1), words.reshape(-1)]).to(torch.int32)

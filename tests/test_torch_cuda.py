@@ -179,68 +179,163 @@ def _flash_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool(((got - want).abs() <= tol).all())
 
 
+def _route_of(dtype, hd) -> str:
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", FLASH_VARIANTS,
                          ids=lambda kw: "-".join(f"{k}={v}"
                                                  for k, v in kw.items())
                          or "causal")
 def test_cuda_flash_matches_plain(cuda_device, dtype, variant):
+    # bf16 takes the wgmma kernel, f32 the SIMT one
     for i, shape in enumerate(FLASH_SHAPES):
         q, k, v = _qkv(*shape, dtype, seed=i)
         n0 = tops.flash_attention.launches
+        r0 = tops.route_counts()
         got = tops.flash_attention(q.to(cuda_device), k.to(cuda_device),
                                    v.to(cuda_device), **variant)
         torch.cuda.synchronize()
         assert tops.flash_attention.launches == n0 + 1
+        route = _route_of(dtype, shape[-1])
+        assert tops.route_counts()[route] == r0[route] + 1
         assert got.dtype == dtype and got.is_contiguous()
         want = tref.flash_attention_ref(q.to(cuda_device), k.to(cuda_device),
                                         v.to(cuda_device), **variant)
         assert _flash_close(got, want), (shape, variant)
 
 
-def test_cuda_flash_reads_strided_inputs(cuda_device):
+# the wgmma route's grid: ragged T and S, G = 1, 2, 8, every head dim, and
+# grids of 128-row blocks (two consumer warpgroups: B x H x ceil(T / 128)
+# >= the SM count) beside 64-row ones
+WGMMA_CASES = [
+    # (B, T, S, H, KV, hd)
+    (1, 11, 11, 2, 2, 32), (2, 200, 200, 4, 2, 64), (1, 150, 40, 8, 1, 128),
+    (1, 200, 200, 8, 1, 256), (1, 11, 11, 16, 8, 256), (1, 150, 40, 2, 1, 64),
+    (1, 1000, 1000, 136, 2, 64), (1, 520, 520, 48, 8, 256),
+    (2, 300, 300, 34, 34, 32), (1, 200, 150, 144, 72, 128),
+]
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd", WGMMA_CASES)
+def test_cuda_flash_wgmma_route(cuda_device, B, T, S, H, KV, hd):
+    q, k, v = (x.to(cuda_device) for x in _qkv(B, T, H, KV, hd,
+                                                  torch.bfloat16, seed=T + H,
+                                                  S=S))
+    for variant in (dict(), dict(window=64, softcap=50.0),
+                    dict(causal=False), dict(causal=False, window=30)):
+        r0 = tops.route_counts()["wgmma"]
+        got = tops.flash_attention(q, k, v, **variant)
+        torch.cuda.synchronize()
+        assert tops.route_counts()["wgmma"] == r0 + 1
+        want = tref.flash_attention_ref(q, k, v, **variant)
+        assert _flash_close(got, want), ((B, T, S, H, KV, hd), variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_reads_strided_inputs(cuda_device, dtype):
     # q, k, v as views of one fused (B, T, H + 2 KV, hd) projection: the
-    # kernel reads them through their strides
+    # kernels read them through their strides (the TMA's maps take them
+    # as they are: no copy)
+    from repro_torch.kernels.flash_attention import tma_ready
     B, T, H, KV, hd = 2, 100, 4, 2, 64
     fused = torch.from_numpy(np.random.default_rng(9).standard_normal(
-        (B, T, H + 2 * KV, hd)).astype(np.float32)).to(cuda_device)
+        (B, T, H + 2 * KV, hd)).astype(np.float32)).to(cuda_device, dtype)
     q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
-    assert not q.is_contiguous()
+    assert not q.is_contiguous() and all(map(tma_ready, (q, k, v)))
     got = tops.flash_attention(q, k, v, window=30, softcap=25.0)
     want = tref.flash_attention_ref(q.contiguous(), k.contiguous(),
                                     v.contiguous(), window=30, softcap=25.0)
     assert _flash_close(got, want)
 
 
-def test_cuda_flash_rows_without_a_key(cuda_device):
+def test_cuda_flash_copies_what_the_tma_refuses(cuda_device):
+    # a base 2 bytes past a 16-byte boundary, and a transposed last dim:
+    # copied once, then the wgmma kernel runs
+    from repro_torch.kernels.flash_attention import tma_ready
+    q, k, v = (x.to(cuda_device) for x in _qkv(1, 64, 4, 2, 64,
+                                                  torch.bfloat16, seed=4))
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    q_odd = flat[1:].view(q.shape).copy_(q)
+    k_t = k.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not tma_ready(q_odd) and not tma_ready(k_t)
+    r0 = tops.route_counts()["wgmma"]
+    got = tops.flash_attention(q_odd, k_t, v)
+    assert tops.route_counts()["wgmma"] == r0 + 1
+    assert _flash_close(got, tref.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_rows_without_a_key(cuda_device, dtype):
     # T > S with a window: rows q >= S + window - 1 have no valid key and
     # get the reference's mean of v; their query tiles visit every key tile
-    q, k, v = _qkv(1, 150, 2, 1, 32, torch.float32, seed=3, S=40)
+    q, k, v = _qkv(1, 150, 2, 1, 32, dtype, seed=3, S=40)
     for causal in (True, False):
         got = tops.flash_attention(q.to(cuda_device), k.to(cuda_device),
                                    v.to(cuda_device), causal=causal,
                                    window=20)
         want = tref.flash_attention_ref(q, k, v, causal=causal, window=20)
         assert _flash_close(got, want)
-        mean = v.mean(dim=1, keepdim=True).expand(1, 150 - 59, 1, 32)
-        assert torch.allclose(got[:, 59:, :1].cpu(), mean, atol=1e-5)
+        mean = v.float().mean(dim=1, keepdim=True).expand(1, 150 - 59, 1, 32)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert torch.allclose(got[:, 59:, :1].cpu().float(), mean, atol=tol)
 
 
-def test_cuda_flash_skips_fully_masked_leading_tile(cuda_device):
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.float32, "simt"), (torch.bfloat16, "wgmma"),
+    (torch.bfloat16, "simt")],
+    ids=["f32-simt", "bf16-wgmma", "bf16-simt"])
+def test_cuda_flash_skips_fully_masked_leading_tile(cuda_device, dtype,
+                                                    kernel):
     # window 64 at T = 200: the query tiles from row 128 on skip key tile 0,
     # which holds only masked keys for them.  With finite v the skip is
-    # exact; with an inf at key 0 the reference (and the plain version)
-    # gives NaN on every row that masks key 0 (0 * inf), while the kernel's
-    # rows from 128 on never read it and stay finite — the one place where
-    # skipping differs.
-    q, k, v = _qkv(1, 200, 4, 2, 64, torch.float32, seed=5)
+    # exact.  With an inf at key 0 the reference (and the plain version)
+    # gives NaN on every row that masks key 0 (0 * inf), rows 64 on; the
+    # kernels' rows from 128 on never read it, and the pre-pass's record of
+    # the key tiles holding a non-finite v makes them NaN all the same: NaN
+    # exactly where the plain version has NaN, on both routes.
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     nonfinite_tiles_cuda)
+    q, k, v = _qkv(1, 200, 4, 2, 64, dtype, seed=5)
     qc, kc = q.to(cuda_device), k.to(cuda_device)
-    got = tops.flash_attention(qc, kc, v.to(cuda_device), window=64)
+
+    def run(vv):
+        vc = vv.to(cuda_device)
+        return flash_attention_cuda(qc, kc, vc, nonfinite_tiles_cuda(vc),
+                                    True, 64, None, kernel).cpu()
+    got = run(v)
     assert _flash_close(got, tref.flash_attention_ref(q, k, v, window=64))
-    v_inf = v.clone()
-    v_inf[:, 0] = float("inf")
-    got_inf = tops.flash_attention(qc, kc, v_inf.to(cuda_device), window=64)
-    plain_inf = tref.flash_attention_ref(q, k, v_inf, window=64)
-    assert torch.isnan(plain_inf[:, 64:]).all()
-    assert torch.isfinite(got_inf[:, 128:]).all()
-    assert torch.equal(got_inf[:, 128:], got[:, 128:])
+    for d, val in ((None, float("inf")), (3, float("nan"))):
+        v_bad = v.clone()
+        if d is None:
+            v_bad[:, 0] = val
+        else:
+            v_bad[:, 0, :, d] = val
+        got_bad = run(v_bad)
+        plain = tref.flash_attention_ref(q, k, v_bad, window=64)
+        assert torch.isnan(plain[:, 64:, :, 3]).all()
+        assert torch.equal(torch.isnan(got_bad), torch.isnan(plain))
+        # rows 0-63 attend key 0: +inf there with the inf, as in the plain
+        # version; every finite place is the finite run's
+        inf, fin = torch.isinf(plain), torch.isfinite(plain)
+        assert torch.equal(got_bad[inf], plain[inf])
+        assert torch.equal(got_bad[fin], got[fin])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_nonfinite_tiles_bit_equal_to_plain(cuda_device, dtype):
+    for B, S, KV, hd in ((1, 128, 1, 256), (2, 300, 3, 64), (1, 7, 2, 40)):
+        v = torch.randn(B, S, KV, hd, generator=torch.Generator(
+            "cpu").manual_seed(S)).to(dtype)
+        n0 = tops.nonfinite_tiles.launches
+        got = tops.nonfinite_tiles(v.to(cuda_device))
+        assert tops.nonfinite_tiles.launches == n0 + 1
+        assert not got.any()
+        for s, kvh, d, val in ((0, 0, 0, "inf"), (S - 1, KV - 1, hd - 1,
+                                                  "nan"),
+                               (S // 2, 0, 5, "-inf"), (S // 3, 0, 5, "nan")):
+            v[B - 1, s, kvh, d] = float(val)
+        got = tops.nonfinite_tiles(v.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), tref.nonfinite_tiles_ref(v))

@@ -24,7 +24,8 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 nonfinite_tiles_cuda)
 from repro_torch.kernels.quantize import quantize_tiles_cuda
 from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
                                              quantize_ef_cuda)
@@ -126,10 +127,13 @@ def test_cpu_path_leaves_launch_counter_at_zero():
     tops.topk_mask(g, ratio=0.05)
     tops.flash_attention(torch.randn(1, 8, 2, 4), torch.randn(1, 8, 1, 4),
                          torch.randn(1, 8, 1, 4), window=3)
+    tops.nonfinite_tiles(torch.randn(1, 8, 1, 4))
     assert tops.launch_counts() == {name: 0 for name in tops.KERNEL_WRAPPERS}
-    assert set(tops.KERNEL_WRAPPERS) == {"flash_attention", "quantize_tiles",
-                                         "quantize_ef", "dequant_accum",
-                                         "topk_ef", "topk_mask"}
+    assert tops.route_counts() == {"wgmma": 0, "simt": 0}
+    assert set(tops.KERNEL_WRAPPERS) == {"flash_attention", "nonfinite_tiles",
+                                         "quantize_tiles", "quantize_ef",
+                                         "dequant_accum", "topk_ef",
+                                         "topk_mask"}
 
 
 def test_dispatch_by_device():
@@ -153,23 +157,30 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         topk_mask_cuda(x, 3, 256, 16)
     qkv = torch.zeros(1, 4, 2, 8)
+    for kernel in ("wgmma", "simt"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_attention_cuda(qkv, qkv, qkv, None, True, None, None,
+                                 kernel)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention_cuda(qkv, qkv, qkv, True, None, None)
+        nonfinite_tiles_cuda(qkv)
 
 
 def test_build_flags_and_cache_key():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags
+    assert "-lcuda" not in flags      # cuTensorMapEncodeTiled: looked up
     assert set(build.KERNEL_SOURCES) == {"quantize_tiles", "quantize_ef",
-                                         "topk_mask", "flash_attention"}
+                                         "topk_mask", "flash_attention",
+                                         "flash_attention_wgmma"}
     for name in build.KERNEL_SOURCES:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
         assert (build.CSRC / f"{name}.cu").exists()
-    # the shared header is part of every library's cache key
+    # the shared headers are part of every library's cache key
     assert (build.CSRC / "tile_math.cuh").exists()
+    assert (build.CSRC / "flash_common.cuh").exists()
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -288,9 +288,9 @@ def test_cli_cpu_drive_launches_no_kernel():
     res = json.loads(lines[-1])
     assert res["device"] == "cpu" and len(res["losses"]) == 2
     assert np.isfinite(res["losses"]).all()
-    assert set(res["counts"]) == {"flash_attention", "quantize_tiles",
-                                  "quantize_ef", "dequant_accum", "topk_ef",
-                                  "topk_mask"}
+    assert set(res["counts"]) == {"flash_attention", "nonfinite_tiles",
+                                  "quantize_tiles", "quantize_ef",
+                                  "dequant_accum", "topk_ef", "topk_mask"}
     assert all(n == 0 for n in res["counts"].values())
 
 
