@@ -9,19 +9,22 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device: needs CUDA; prints the card's name and power limit
      (``nvidia-smi``); TF32 off for f32 matmuls and convolutions;
-  2. build: the eight CUDA kernels of the port from the five sources in
+  2. build: the ten CUDA kernels of the port from the five sources in
      the checkout (``nvcc``, one process per source, started together),
-     with each kernel's registers and spills from ``-Xptxas -v``;
+     with each kernel's registers and spills from ``-Xptxas -v``: no
+     spill and no stack frame in the wgmma, quantize_tiles and top-k
+     libraries;
   3. kernels vs plain versions on the card.  ``quantize_tiles``,
      ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` are
-     held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles,
-     lengths, input types and a NaN tile, including every length the
-     gemma-2b and gemma2-9b serving runs write (and dequantize must
-     round-trip within s/254), the training wire over the CPU tests' cases (ragged
-     lengths, decays, ratios, rank counts, zero tiles, exact halves, NaN
-     tiles, bf16 for topk_mask) and at every bucket length of the
-     training path, called as the path calls them (the residual written
-     in place).  ``flash_attention`` is held within a stated tolerance,
+     held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles
+     (64 to 1024 on its warp route, 4096 on its block route), lengths,
+     input types and a NaN tile, including every length the gemma-2b and
+     gemma2-9b serving runs write (and dequantize must round-trip within
+     s/254), the training wire over the CPU tests' cases (ragged lengths,
+     decays, ratios, rank counts, zero tiles, exact halves, NaN tiles,
+     bf16 for topk_mask; top-k at tile 1024, topk_ef's warp route, and
+     2048, its block route) and at every bucket length of the training
+     path, called as the path calls them (the residual written in place).  ``flash_attention`` is held within a stated tolerance,
      element by element (f32: rtol = atol = 1e-5; bf16: 2 bf16 ulps of
      the element plus 2 of its row's largest magnitude) over the JAX
      kernel tests' shapes and more (hd 32 to 256, G 1 to 68, ragged T,
@@ -38,7 +41,10 @@ Phases (any failure exits non-zero and prints no result line):
      compiled, for the softcap shapes); flash on both routes (the SIMT
      kernel on the same bf16 inputs), and gates: the wgmma route, pre-pass
      included, no slower than the library call and 5x faster than the
-     SIMT kernel's recorded time at the gemma2-9b prefill;
+     SIMT kernel's recorded time at the gemma2-9b prefill; the warp route
+     of topk_ef 2x faster than the block kernel's recorded time at the
+     largest bucket, and of quantize_tiles 3x faster at the gemma2-9b
+     prefill writes;
   4. small references: the reduced gemma-2b, gemma2-9b and gemma3-4b in
      f32 on the card (prefill through the flash kernel) agree with the
      port's CPU path (plain versions) for prefill logits and four
@@ -71,13 +77,14 @@ Every main-path run (5, 7, and each of 8) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
-(admissions + decode ticks), flash_attention and its pre-pass = attention
-layers x admissions, all of them on the wgmma route and none on the SIMT
-one; training: the wire's kernels = buckets x steps, flash 0 (the
-training path keeps the differentiable chunked attention).  Launches made
-in phases 3, 4 and 6 are not counted.  It prints a ``{"kernels": [...]}``
-JSON line with all eight kernels and, last, ``{"ok": true, "device":
-{...}}``.  It imports nothing of JAX or of the JAX package.
+(admissions + decode ticks), all on the warp route; flash_attention and
+its pre-pass = attention layers x admissions, all of them on the wgmma
+route and none on the SIMT one; training: the wire's kernels = buckets x
+steps, topk_ef's all on the warp route, flash 0 (the training path keeps
+the differentiable chunked attention).  Launches made in phases 3, 4 and
+6 are not counted.  It prints a ``{"kernels": [...]}`` JSON line with all
+ten kernels (launches per run and per route) and, last, ``{"ok": true,
+"device": {...}}``.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -99,7 +106,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
-TILES = (64, 256, 1024)
+QUANT_TILES = (64, 256, 1024, 4096)       # 4096: quantize_tiles' block route
 QUANT_OPS_PER_ELEMENT = 7       # abs, max, div, mul, round, 2 clamps
 
 SLOTS, MAX_LEN, PAGE = 4, 256, 16
@@ -145,10 +152,11 @@ TRAIN_RUNS = {   # run name: (extra CLI flags, kernels each bucket launches)
     "int8_fused": (["--sync", "comm", "--compressor", "int8_fused"],
                    ("quantize_ef", "dequant_accum")),
     "topk_fused": (["--sync", "comm", "--compressor", "topk_fused"],
-                   ("topk_ef",)),
+                   ("topk_ef", "topk_ef[warp]")),
     "vanilla": (["--sync", "vanilla"], ()),
 }
 TILE = 1024
+TOPK_BLOCK_TILE = 2048        # the top-k sweep's tile on topk_ef's block route
 EF_SIZES = (1024, 1000, 2065, 4096)
 RATIOS = (0.01, 0.05, 0.25)
 ITERS = 16
@@ -170,17 +178,26 @@ KERNEL_SOURCES = {
     "nonfinite_tiles": ("src/repro_torch/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:79",
                        "flash_attention_pallas"),
+    # the warp route, which every serving write takes (tiles <= 1024)
     "quantize_tiles": ("src/repro_torch/csrc/quantize_tiles.cu",
                        "src/repro/kernels/quantize_ef.py:99",
                        "quantize_pallas"),
+    # the block route (tiles > 1024)
+    "quantize_tiles_block": ("src/repro_torch/csrc/quantize_tiles.cu",
+                             "src/repro/kernels/quantize_ef.py:99",
+                             "quantize_pallas"),
     "quantize_ef": ("src/repro_torch/csrc/quantize_ef.cu",
                     "src/repro/kernels/quantize_ef.py:63",
                     "quantize_ef_pallas"),
     "dequant_accum": ("src/repro_torch/csrc/quantize_ef.cu",
                       "src/repro/kernels/quantize_ef.py:126",
                       "dequant_accum_pallas"),
+    # the warp route, which the topk_fused wire takes (tile 1024)
     "topk_ef": ("src/repro_torch/csrc/topk_mask.cu",
                 "src/repro/kernels/topk_mask.py:99", "topk_ef_pallas"),
+    # the block route (tiles 1025 to 8192)
+    "topk_ef_block": ("src/repro_torch/csrc/topk_mask.cu",
+                      "src/repro/kernels/topk_mask.py:99", "topk_ef_pallas"),
     "topk_mask": ("src/repro_torch/csrc/topk_mask.cu",
                   "src/repro/kernels/topk_mask.py:65", "topk_mask_pallas"),
 }
@@ -323,11 +340,48 @@ def quantize_bound_ms(n: int, tile: int, in_bytes: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def quantize_timing(torch, ref, quantize_tiles_cuda, n: int, tile: int):
+    """Kernel, plain-version and bound times of quantize_tiles on n bf16
+    values, in turns (plain, kernel, kernel, plain) within this call; the
+    kernel through its wrapper, which allocates q and scales per call;
+    10^8 elements and more with CUDA events around single calls, the rest
+    in CUDA graphs."""
+    x = torch.randn(n, device="cuda").to(torch.bfloat16)
+
+    def kern():
+        return quantize_tiles_cuda(x, tile)
+
+    def plain():
+        return ref.quantize_tiles_ref(x, tile=tile)
+    timer = events_ms if n >= 1 << 26 else device_ms
+    p0, k0 = timer(torch, plain), timer(torch, kern)
+    k1, p1 = timer(torch, kern), timer(torch, plain)
+    b_ms, by = quantize_bound_ms(n, tile, 2)
+    out = {"n": n, "tile": tile, "dtype": "bfloat16",
+           "ms": min(k0, k1), "plain_ms": min(p0, p1),
+           "call_ms": call_ms(torch, kern),
+           "plain_call_ms": call_ms(torch, plain),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+           "timer": ("cuda events, eager" if timer is events_ms
+                     else "cuda graph")}
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
+    """quantize_tiles against its plain version, bit-equal, over the sweep
+    (QUANT_TILES, both routes) and every length the serving pools write,
+    each launch on the route of its tile; then times at the path shapes
+    (the warp route) and, at the gemma2-9b ring write's length, of the
+    block route at tile 4096.  Returns (worst |kernel - plain|, warp-route
+    timings, block-route timings)."""
+    from repro_torch.kernels.dispatch import tile_route
     dev = torch.device("cuda")
     worst = 0.0
     cases = 0
-    for tile in TILES:
+    for tile in QUANT_TILES:
+        route = tile_route(tile)
         sizes = {tile, 3 * tile + 17, 18 * 4 * 256, 18 * 128 * 256}
         sizes |= {n for n, t in path_shapes.values() if t == tile}
         for n in sorted(sizes):
@@ -336,9 +390,13 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
                     x = sweep_input(torch, n, tile, dtype, dev)
                     if nan:       # a NaN tile: NaN scale, int8 codes 0
                         x[tile + 3] = float("nan")
+                    r0 = ops.route_counts()["quantize_tiles"][route]
                     qk, sk = ops.quantize_tiles(x, tile=tile)
                     qp, sp = ref.quantize_tiles_ref(x, tile=tile)
                     torch.cuda.synchronize()
+                    if ops.route_counts()["quantize_tiles"][route] != r0 + 1:
+                        fail(f"quantize_tiles at tile {tile} did not take "
+                             f"the {route} route")
                     err = max(max_err(torch, qk, qp), max_err(torch, sk, sp))
                     worst = max(worst, err)
                     if not (same(torch, qk, qp) and same(torch, sk, sp)):
@@ -361,37 +419,17 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
                         fail(f"dequantize round trip beyond s/254 at n={n} "
                              f"tile={tile} {dtype}")
     print(f"kernels: quantize_tiles bit-equal to the plain version in "
-          f"{cases} cases (tiles {TILES}, f32 and bf16, zero tiles, "
-          f"exact halves, NaN tiles); dequantize within s/254", flush=True)
-
-    # timed in turns (plain, kernel, kernel, plain) within this call; the
-    # kernel through its wrapper, which allocates q and scales per call;
-    # the prefill writes of gemma2-9b (10^8 elements and more) with CUDA
-    # events around single calls, the rest in CUDA graphs
-    timings = {}
-    for name, (n, tile) in path_shapes.items():
-        x = torch.randn(n, device=dev).to(torch.bfloat16)
-
-        def kern():
-            return quantize_tiles_cuda(x, tile)
-
-        def plain():
-            return ref.quantize_tiles_ref(x, tile=tile)
-        timer = events_ms if n >= 1 << 26 else device_ms
-        p0, k0 = timer(torch, plain), timer(torch, kern)
-        k1, p1 = timer(torch, kern), timer(torch, plain)
-        b_ms, by = quantize_bound_ms(n, tile, 2)
-        timings[name] = {
-            "n": n, "tile": tile, "dtype": "bfloat16",
-            "ms": min(k0, k1), "plain_ms": min(p0, p1),
-            "call_ms": call_ms(torch, kern),
-            "plain_call_ms": call_ms(torch, plain),
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "timer": ("cuda events, eager" if timer is events_ms
-                      else "cuda graph")}
-        del x
-        torch.cuda.empty_cache()
-    return worst, timings
+          f"{cases} cases (tiles {QUANT_TILES}: the warp route up to 1024, "
+          f"the block route above; f32 and bf16, zero tiles, exact halves, "
+          f"NaN tiles), each on its tile's route; dequantize within s/254",
+          flush=True)
+    timings = {name: quantize_timing(torch, ref, quantize_tiles_cuda, n,
+                                     tile)
+               for name, (n, tile) in path_shapes.items()}
+    ring = "gemma2_9b_prefill_write_4096"
+    block = {f"{ring}_tile4096": quantize_timing(
+        torch, ref, quantize_tiles_cuda, path_shapes[ring][0], 4096)}
+    return worst, timings, block
 
 
 def quantize_path_shapes(arch: str, slots: int, max_len: int,
@@ -429,8 +467,11 @@ def quantize_path_shapes(arch: str, slots: int, max_len: int,
 def phase_train_kernels(torch, ops, ref) -> dict:
     """The training wire's four kernels against their plain versions on
     the card, bit-equal (NaN for NaN) over the CPU tests' cases plus the
-    largest bucket's length rounded to a ragged size.  Returns the worst
-    |kernel - plain| per kernel (0.0 when every case is bit-equal)."""
+    largest bucket's length rounded to a ragged size; the top-k kernels at
+    tile 1024 and at TOPK_BLOCK_TILE, each topk_ef launch on the route of
+    its tile.  Returns the worst |kernel - plain| per kernel (0.0 when
+    every case is bit-equal)."""
+    from repro_torch.kernels.dispatch import tile_route
     dev = torch.device("cuda")
     worst = {k: 0.0 for k in ("quantize_ef", "dequant_accum", "topk_ef",
                               "topk_mask")}
@@ -462,27 +503,38 @@ def phase_train_kernels(torch, ops, ref) -> dict:
                     torch.cuda.synchronize()
                     check("dequant_accum", got, want, f"{what} w={w}")
                 for ratio in RATIOS:
-                    got = ops.topk_ef(g, e, ratio=ratio, tile=TILE,
-                                      iters=ITERS, decay=decay)
-                    want = ref.topk_ef_ref(g, e, ratio=ratio, tile=TILE,
-                                           iters=ITERS, decay=decay)
-                    torch.cuda.synchronize()
-                    check("topk_ef", got, want, f"{what} ratio={ratio}")
+                    for tile in (TILE, TOPK_BLOCK_TILE):
+                        route = tile_route(tile)
+                        r0 = ops.route_counts()["topk_ef"][route]
+                        got = ops.topk_ef(g, e, ratio=ratio, tile=tile,
+                                          iters=ITERS, decay=decay)
+                        want = ref.topk_ef_ref(g, e, ratio=ratio, tile=tile,
+                                               iters=ITERS, decay=decay)
+                        torch.cuda.synchronize()
+                        check("topk_ef", got, want,
+                              f"{what} ratio={ratio} tile={tile}")
+                        if ops.route_counts()["topk_ef"][route] != r0 + 1:
+                            fail(f"topk_ef at tile {tile} did not take the "
+                                 f"{route} route")
             for ratio in RATIOS:
-                for dtype in (torch.float32, torch.bfloat16):
+                for dtype, tile in ((torch.float32, TILE),
+                                    (torch.bfloat16, TILE),
+                                    (torch.float32, TOPK_BLOCK_TILE)):
                     x = g.to(dtype)
-                    got = (ops.topk_mask(x, ratio=ratio, tile=TILE,
+                    got = (ops.topk_mask(x, ratio=ratio, tile=tile,
                                          iters=ITERS),)
                     want = (ref.topk_mask_bisect_ref(x, ratio=ratio,
-                                                     tile=TILE, iters=ITERS),)
+                                                     tile=tile, iters=ITERS),)
                     torch.cuda.synchronize()
                     check("topk_mask", got, want,
-                          f"n={n} nan={nan} ratio={ratio} {dtype}")
+                          f"n={n} nan={nan} ratio={ratio} {dtype} "
+                          f"tile={tile}")
     print(f"kernels: training wire bit-equal to the plain versions "
           f"(NaN for NaN) in {cases} cases (lengths {EF_SIZES} and "
           f"{3 * 2**20 + 17}, decays 1.0/0.9, ratios {RATIOS}, ranks 1/2/8, "
-          f"zero tiles, exact halves, NaN tiles, topk_mask f32 and bf16)",
-          flush=True)
+          f"zero tiles, exact halves, NaN tiles, topk_mask f32 and bf16; "
+          f"top-k at tiles {TILE} and {TOPK_BLOCK_TILE}: topk_ef's warp and "
+          f"block routes)", flush=True)
     return worst
 
 
@@ -521,8 +573,9 @@ def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
     from repro_torch.kernels.topk_mask import topk_ef_cuda, topk_mask_cuda
     dev = torch.device("cuda")
     k = max(1, int(TILE * 0.01))
+    k_block = max(1, int(TOPK_BLOCK_TILE * 0.01))
     out = {name: {} for name in ("quantize_ef", "dequant_accum", "topk_ef",
-                                 "topk_mask")}
+                                 "topk_ef_block", "topk_mask")}
     shape_of = {n: name for name, n in timed.items()}
 
     def check(name, got, want, n):
@@ -569,6 +622,13 @@ def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
                                              buf),
                         lambda: ref.topk_ef_ref(g, e, tile=TILE),
                         bound(16 * n, TOPK_OPS * n)),
+            # the block route, at its own tile
+            "topk_ef_block": (lambda: topk_ef_cuda(g, buf, k_block,
+                                                   TOPK_BLOCK_TILE, ITERS,
+                                                   1.0, buf),
+                              lambda: ref.topk_ef_ref(g, e,
+                                                      tile=TOPK_BLOCK_TILE),
+                              bound(16 * n, TOPK_OPS * n)),
             "topk_mask": (lambda: topk_mask_cuda(g, k, TILE, ITERS),
                           lambda: ref.topk_mask_bisect_ref(g, tile=TILE),
                           bound(8 * n, (1 + 2 * ITERS) * n)),
@@ -579,7 +639,8 @@ def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
             p0, k0 = timer(torch, plain), timer(torch, kern)
             k1, p1 = timer(torch, kern), timer(torch, plain)
             out[name][shape] = {
-                "n": n, "tile": TILE, "dtype": "float32",
+                "n": n, "dtype": "float32",
+                "tile": TOPK_BLOCK_TILE if name == "topk_ef_block" else TILE,
                 "ms": min(k0, k1), "plain_ms": min(p0, p1),
                 "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                 "timer": "cuda events, eager" if big else "cuda graph"}
@@ -768,6 +829,34 @@ def check_flash_gates(timings) -> None:
               for n in SIMT_RECORDED_MS), flush=True)
 
 
+# the one-block-per-tile kernels at the shapes that the warp route now
+# takes, when they were the only route, ms on an H100 80GB HBM3 at 700 W
+# (PERF.md, kernel table): (recorded ms, the factor by which the warp
+# route must be faster)
+BLOCK_RECORDED_MS = {
+    ("topk_ef", "largest_bucket"): (8.224832, 2.0),
+    ("quantize_tiles", "gemma2_9b_prefill_write_4096"): (1.186592, 3.0),
+    ("quantize_tiles", "gemma2_9b_prefill_write_8192"): (2.311680, 3.0)}
+
+
+def check_tile_gates(timings) -> None:
+    """The warp routes of topk_ef and quantize_tiles against the block
+    kernels' recorded times (``BLOCK_RECORDED_MS``); ``timings`` maps
+    kernel -> shape -> timing dict."""
+    for (kernel, shape), (recorded, factor) in BLOCK_RECORDED_MS.items():
+        ms = timings[kernel][shape]["ms"]
+        if factor * ms > recorded:
+            fail(f"{kernel} warp route at {shape}: {ms:.6f} ms, not "
+                 f"{factor}x faster than the block kernel's recorded "
+                 f"{recorded} ms")
+    print("tile gates: the warp route is faster than the block kernel's "
+          "recorded time by " + ", ".join(
+              f"{recorded / timings[k][sh]['ms']:.2f}x (at least {f}x) for "
+              f"{k} at {sh}"
+              for (k, sh), (recorded, f) in BLOCK_RECORDED_MS.items()),
+          flush=True)
+
+
 def phase_flash(torch, ops, ref, flash_cuda, tiles_cuda):
     """The flash kernels against their plain version on the card, within
     :func:`flash_close`, over FLASH_SHAPES x f32/bf16 x FLASH_VARIANTS
@@ -807,7 +896,7 @@ def phase_flash(torch, ops, ref, flash_cuda, tiles_cuda):
             kw = {"causal": causal, "window": 20}
             q, k, v = flash_inputs(torch, 1, 150, 40, 2, 1, 32, dtype, 7)
             check(q, k, v, kw, f"T=150 S=40 {dtype} {kw}")
-    routes = ops.route_counts()
+    routes = ops.route_counts()["flash_attention"]
     n_bf16 = (len(FLASH_SHAPES) * len(FLASH_VARIANTS) + 2)
     if routes != {"wgmma": n_bf16, "simt": cases - n_bf16}:
         fail(f"flash routes {routes}: bf16 cases must take the wgmma "
@@ -1045,7 +1134,8 @@ def profile_step(torch, session, card, name: str) -> dict:
     wire_us = sum(us for k, (us, _) in by_name.items()
                   if any(w in k for w in ("quantize_ef_kernel",
                                           "dequant_accum_kernel",
-                                          "topk_ef_kernel")))
+                                          "topk_ef_warp_kernel",
+                                          "topk_ef_block_kernel")))
     res = {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
            "busy_share": busy_us / (wall * 1e6),
            "wire_kernel_ms": wire_us / 1e3,
@@ -1118,20 +1208,22 @@ def run_training(torch, ops, train, card) -> dict:
 
 
 def path_counts(ops) -> dict:
-    """Every wrapper's launch count, and the flash wrapper's per route
-    (``flash_attention[wgmma]``, ``flash_attention[simt]``)."""
+    """Every wrapper's launch count, and per route of the wrappers that
+    have routes (``flash_attention[wgmma]``, ``quantize_tiles[warp]``,
+    ``topk_ef[block]``, ...)."""
     return {**ops.launch_counts(),
-            **{f"flash_attention[{r}]": n
-               for r, n in ops.route_counts().items()}}
+            **{f"{kernel}[{r}]": n
+               for kernel, routes in ops.route_counts().items()
+               for r, n in routes.items()}}
 
 
 def check_main_path(torch, run, launches, card) -> None:
     """A serving run's results: every request complete with valid tokens,
     no page leaked, the quantize kernel launched once per paged leaf per
-    admission and per decode tick, the flash kernel and its pre-pass once
-    per attention layer per admission, every flash launch on the wgmma
-    route and none on the SIMT one, no training-wire kernel, finite
-    full-width prefill logits."""
+    admission and per decode tick, all on the warp route, the flash
+    kernel and its pre-pass once per attention layer per admission, every
+    flash launch on the wgmma route and none on the SIMT one, no
+    training-wire kernel, finite full-width prefill logits."""
     eng, cfg = run.engines[0], run.cfg
     n_req, n_new = len(run.requests), run.requests[0].max_new
     if len(run.completions) != n_req:
@@ -1146,7 +1238,8 @@ def check_main_path(torch, run, launches, card) -> None:
         fail(f"{live} pages still live after draining")
     leaves = eng.cache.paged_leaves()
     flash = cfg.num_layers * eng.prefills
-    expected = {"quantize_tiles": leaves * (eng.prefills + eng.decode_ticks),
+    quant = leaves * (eng.prefills + eng.decode_ticks)
+    expected = {"quantize_tiles": quant, "quantize_tiles[warp]": quant,
                 "flash_attention": flash, "nonfinite_tiles": flash,
                 "flash_attention[wgmma]": flash}
     for name, n in launches.items():
@@ -1155,10 +1248,10 @@ def check_main_path(torch, run, launches, card) -> None:
             fail(f"{cfg.name} serving: kernel {name} launched {n} times, "
                  f"expected {want} (quantize_tiles = {leaves} paged leaves "
                  f"x ({eng.prefills} admissions + {eng.decode_ticks} decode "
-                 f"ticks), flash_attention and nonfinite_tiles = "
-                 f"{cfg.num_layers} layers x {eng.prefills} admissions, all "
-                 f"on the wgmma route, 0 on the SIMT route and for the "
-                 f"training wire)")
+                 f"ticks), all on the warp route, flash_attention and "
+                 f"nonfinite_tiles = {cfg.num_layers} layers x "
+                 f"{eng.prefills} admissions, all on the wgmma route, 0 on "
+                 f"the block and SIMT routes and for the training wire)")
     prompt = torch.as_tensor(run.requests[0].prompt, device=eng.device)
     logits, _ = run.model.prefill(run.params, {"tokens": prompt.long()[None]},
                                   max_len=eng.cfg.max_len)
@@ -1172,7 +1265,9 @@ def check_main_path(torch, run, launches, card) -> None:
           f"{s['tokens']} tokens, {eng.prefills} admissions, "
           f"{eng.decode_ticks} decode ticks, quantize_tiles launches "
           f"{launches['quantize_tiles']} (= {leaves} x ({eng.prefills} + "
-          f"{eng.decode_ticks})), flash_attention launches "
+          f"{eng.decode_ticks}); warp route "
+          f"{launches['quantize_tiles[warp]']}, block route "
+          f"{launches['quantize_tiles[block]']}), flash_attention launches "
           f"{launches['flash_attention']} (= {cfg.num_layers} x "
           f"{eng.prefills}; wgmma route {launches['flash_attention[wgmma]']},"
           f" SIMT route {launches['flash_attention[simt]']}), nonfinite_tiles "
@@ -1342,10 +1437,17 @@ def kernel_name(mangled: str) -> str:
     return f"{m.group(1)}<{', '.join(kind + re.findall(r'Li(\d+)E', args + 'E'))}>"
 
 
+# libraries whose every kernel must compile with no spill and no stack
+# frame (register arrays indexed at run time would land in a stack frame),
+# and, for the tensor-core attention kernel, no serialized wgmma pipeline
+PTXAS_STRICT = ("flash_attention_wgmma", "quantize_tiles", "topk_mask")
+PTXAS_CLEAN = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+
+
 def check_ptxas(name: str, log: str) -> None:
     """Print each kernel's registers and spills from the ``-Xptxas -v``
-    report of library ``name``; fail on a spill, and on a wgmma pipeline
-    that ptxas serialized, in the tensor-core attention kernel."""
+    report of library ``name``; fail, for the libraries of
+    ``PTXAS_STRICT``, on a spill, a stack frame or a serialized wgmma."""
     kernel = "?"
     for line in log.splitlines():
         line = line.strip()
@@ -1353,18 +1455,17 @@ def check_ptxas(name: str, log: str) -> None:
             kernel = kernel_name(line.split("'")[1])
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {name} {kernel}: {line}")
-        if name == "flash_attention_wgmma" and (
+        if name in PTXAS_STRICT and (
                 "Performance Loss" in line or
-                ("spill" in line and not line.startswith("0 bytes stack "
-                                                         "frame, 0 bytes "
-                                                         "spill stores, 0 "
-                                                         "bytes spill loads"))):
-            fail(f"ptxas: {name}: {line}")
+                ("spill" in line and not line.startswith(PTXAS_CLEAN))):
+            fail(f"ptxas: {name} {kernel}: {line}")
 
 
-def kernel_line(name, launches, max_err_, timings, main_shape) -> dict:
+def kernel_line(name, launches, max_err_, timings, main_shape,
+                routes=None) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``launches`` maps each
-    main-path run to the kernel's count there."""
+    main-path run to the kernel's count there, and ``routes`` (for a
+    wrapper with routes) maps each of its routes to such a map."""
     source, replaces, tpu_fn = KERNEL_SOURCES[name]
     t = timings[main_shape]
     total = sum(launches.values())
@@ -1372,7 +1473,8 @@ def kernel_line(name, launches, max_err_, timings, main_shape) -> dict:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "tpu_function": tpu_fn, "checked": True,
         "launches": total, "launches_on_path": total,
-        "launches_by_run": launches, "max_abs_err": max_err_,
+        "launches_by_run": launches, "launches_by_route": routes,
+        "max_abs_err": max_err_,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
         "library_note": t.get("library_note") or
@@ -1455,10 +1557,12 @@ def main() -> None:
     path_shapes = {**quantize_path_shapes("gemma-2b", SLOTS, MAX_LEN, PAGE),
                    **quantize_path_shapes("gemma2-9b", GEMMA2_SLOTS,
                                           GEMMA2_MAX_LEN, PAGE)}
-    q_err, timings = phase_kernels(torch, ops, ref, quantize_tiles_cuda,
-                                   path_shapes)
-    for name, t in timings.items():
-        print(f"quantize_tiles {name} n={t['n']} tile={t['tile']} bf16: "
+    q_err, timings, q_block = phase_kernels(torch, ops, ref,
+                                            quantize_tiles_cuda, path_shapes)
+    for name, t in [*timings.items(), *q_block.items()]:
+        route = "block" if name in q_block else "warp"
+        print(f"quantize_tiles {route} route {name} n={t['n']} "
+              f"tile={t['tile']} bf16: "
               f"device time kernel {t['ms'] * 1e3:.3f} us, plain "
               f"{t['plain_ms'] * 1e3:.3f} us, bound {t['bound_ms'] * 1e3:.3f}"
               f" us ({t['bound_by']}); eager call kernel "
@@ -1476,6 +1580,8 @@ def main() -> None:
                   f"us, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}),"
                   f" {t['bound_ms'] / t['ms']:.3f} of the bound "
                   f"({t['timer']}) [{card}]", flush=True)
+    check_tile_gates({"quantize_tiles": timings,
+                      "topk_ef": train_timings["topk_ef"]})
 
     # -- 4. small references ----------------------------------------------
     for arch in SMALL_REFS:
@@ -1517,22 +1623,36 @@ def main() -> None:
     def runs_of(name, runs):
         return {run_name: r[name] for run_name, r in runs.items()}
 
+    def routes_of(kernel, runs):
+        return {route: runs_of(f"{kernel}[{route}]", runs)
+                for route in ops.KERNEL_ROUTES[kernel]}
+
+    train_runs = {k: r["launches"] for k, r in trained.items()}
+    flash_routes = routes_of("flash_attention", serving)
+    quant_routes = routes_of("quantize_tiles", serving)
+    topk_routes = routes_of("topk_ef", train_runs)
     kernels = [
-        kernel_line("flash_attention",
-                    runs_of("flash_attention[wgmma]", serving), flash_err,
-                    flash_timings["wgmma"], "gemma2_9b_prefill_global"),
-        kernel_line("flash_attention_simt",
-                    runs_of("flash_attention[simt]", serving), flash_err,
-                    flash_timings["simt"], "gemma2_9b_prefill_global"),
+        kernel_line("flash_attention", flash_routes["wgmma"], flash_err,
+                    flash_timings["wgmma"], "gemma2_9b_prefill_global",
+                    flash_routes),
+        kernel_line("flash_attention_simt", flash_routes["simt"], flash_err,
+                    flash_timings["simt"], "gemma2_9b_prefill_global",
+                    flash_routes),
         kernel_line("nonfinite_tiles", runs_of("nonfinite_tiles", serving),
                     0.0, tiles_timings, "gemma2_9b_prefill_global"),
-        kernel_line("quantize_tiles", runs_of("quantize_tiles", serving),
-                    q_err, timings, "gemma_2b_decode_write")]
-    train_runs = {k: r["launches"] for k, r in trained.items()}
-    for name in ("quantize_ef", "dequant_accum", "topk_ef", "topk_mask"):
+        kernel_line("quantize_tiles", quant_routes["warp"], q_err, timings,
+                    "gemma2_9b_prefill_write_8192", quant_routes),
+        kernel_line("quantize_tiles_block", quant_routes["block"], q_err,
+                    q_block, "gemma2_9b_prefill_write_4096_tile4096",
+                    quant_routes)]
+    for name in ("quantize_ef", "dequant_accum", "topk_mask"):
         kernels.append(kernel_line(name, runs_of(name, train_runs),
                                    train_err[name], train_timings[name],
                                    "largest_bucket"))
+    for name, route in (("topk_ef", "warp"), ("topk_ef_block", "block")):
+        kernels.append(kernel_line(name, topk_routes[route],
+                                   train_err["topk_ef"], train_timings[name],
+                                   "largest_bucket", topk_routes))
     training = {k: {f: v for f, v in r.items() if f != "params"}
                 for k, r in trained.items()}
     print(json.dumps({"training": training, "card": card}))

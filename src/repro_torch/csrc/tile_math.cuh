@@ -1,5 +1,5 @@
-// Per-element and block-wide helpers shared by the port's tile kernels
-// (quantize_tiles.cu, quantize_ef.cu, topk_mask.cu).
+// Per-element, warp-wide and block-wide helpers shared by the port's tile
+// kernels (quantize_tiles.cu, quantize_ef.cu, topk_mask.cu).
 //
 // Every operation that rounds is written as an explicit IEEE intrinsic
 // (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn), so nvcc can neither fuse a
@@ -81,4 +81,45 @@ static __device__ __forceinline__ int block_sum(int c, int* buf) {
 static inline int tile_threads(int64_t tile) {
   const int64_t rounded = (tile + 31) / 32 * 32;
   return static_cast<int>(rounded < kMaxThreads ? rounded : kMaxThreads);
+}
+
+// ---------------------------------------------------------------------------
+// The warp route: one warp per tile of up to kWarpMaxTile elements, the tile
+// held in registers (P values a lane), kWarpsPerBlock tiles per block, no
+// shared memory and no block barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpMaxTile = 1024;
+constexpr int kWarpsPerBlock = 8;
+
+// Values a lane holds for a tile of `tile` (1 .. kWarpMaxTile) elements:
+// tile / 32 rounded up to 1, 2, 4, 8, 16 or 32.
+static inline int values_per_lane(int64_t tile) {
+  int p = 1;
+  while (32 * p < tile) p *= 2;
+  return p;
+}
+
+// Blocks of kWarpsPerBlock warps for one warp per tile.
+static inline unsigned warp_route_blocks(int64_t ntiles) {
+  return static_cast<unsigned>((ntiles + kWarpsPerBlock - 1) /
+                               kWarpsPerBlock);
+}
+
+// This warp's tile (the same for all its lanes).
+static __device__ __forceinline__ int64_t warp_tile_index() {
+  return static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+         (threadIdx.x >> 5);
+}
+
+// Warp-wide NaN-propagating max of non-negative values; every lane gets it.
+static __device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+static __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }

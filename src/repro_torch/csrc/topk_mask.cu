@@ -25,21 +25,38 @@
 //
 // What bounds them: memory.  topk_ef reads 8 bytes and writes 8 per element
 // (16 B/elt); topk_mask reads and writes one element each.  The bisection
-// makes `iters` passes over the tile, but over shared memory, not device
-// memory: about 2 * iters operations per element.
+// makes `iters` counting passes over the tile, but over values held on
+// chip, not over device memory: about 2 * iters operations per element.
 //
-// Design (simple and correct first): one thread block per tile, with
-// min(round_up(tile, 32), 256) threads striding over it.  The tile's c lives
-// in dynamic shared memory, so device memory is read once and written once;
-// topk_ef's e_new may be e itself (the executor passes the EF state's
-// buffer), since every e[i] is read before the block's first barrier and
-// written after it, so those two pointers carry no __restrict__.
-// Each round counts per thread, then across the block with warp shuffles
-// and one shared pass (block_sum), so every thread holds the same lo and hi
-// and the loop is uniform.  A ragged last tile masks i >= n and adds the
-// padding's zeros to the count by hand (0 >= mid holds only when mid is 0),
-// which gives exactly the reference's zero-padding result.  Indices are
-// int64.
+// Two designs, chosen by the caller from the tile alone
+// (kernels/dispatch.py:tile_route):
+//
+// * warp route, tiles of up to kWarpMaxTile (1024) elements, topk_ef only:
+//   one warp per tile, kWarpsPerBlock tiles per block, no shared memory and
+//   no block barrier.  Each lane holds P = tile / 32 values (rounded up to
+//   a power of two) in registers.  A tile whose first element is 16-byte
+//   aligned in all four arrays and that is a whole number of float4
+//   vectors, and not the ragged last tile, is loaded with float4 loads
+//   (every load issued before the first use: 2 x P / 4 of 16 bytes in
+//   flight per lane) and stored with float4 stores; any other tile takes
+//   scalar loads inside the same kernel.  The bisection
+//   (warp_bisect_threshold) counts per lane and totals with
+//   __reduce_add_sync, so every lane holds the same lo and hi and the loop
+//   is uniform.  Register arrays are indexed only at compile-time indices
+//   in fully unrolled loops, so they stay in registers.
+// * block route, tiles of 1025 to kMaxTile elements (and topk_mask at any
+//   tile): one thread block per tile, with min(round_up(tile, 32), 256)
+//   threads striding over it.  The tile's c lives in dynamic shared
+//   memory; each round counts per thread, then across the block with warp
+//   shuffles and one shared pass (block_sum).
+//
+// On both routes topk_ef's e_new may be e itself (the executor passes the
+// EF state's buffer): every e[i] is read, by the lane or thread that later
+// writes e_new[i], before any write, so those two pointers carry no
+// __restrict__.  Padding: a slot inside the tile whose global index is
+// >= n is the reference's zero padding and counts as |0| in every round
+// (so only when mid is 0); a slot past the tile's end is not part of it
+// and never counts.  Indices are int64.
 
 #include "tile_math.cuh"
 
@@ -69,10 +86,119 @@ __device__ float bisect_threshold(const float* c_buf, int tile, int valid,
   return hi;
 }
 
+// The bisection threshold of one warp's tile: each lane holds its P values
+// of c; the tile's zero padding holds 0 (and counts as |0|), and so do the
+// `outside` slots of the warp that lie past the tile's end, which are taken
+// back out of every count.  Called by every lane of the warp (no other
+// synchronisation); returns the same hi to all.
+template <int P>
+__device__ __forceinline__ float warp_bisect_threshold(const float (&c)[P],
+                                                       int outside, int k,
+                                                       int iters) {
+  float m = 0.0f;
+#pragma unroll
+  for (int j = 0; j < P; ++j) m = nan_max(m, fabsf(c[j]));
+  float hi = warp_max(m);
+  float lo = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    int own = 0;
+#pragma unroll
+    for (int j = 0; j < P; ++j) own += fabsf(c[j]) >= mid;
+    const int cnt =
+        static_cast<int>(__reduce_add_sync(0xffffffffu,
+                                           static_cast<unsigned>(own))) -
+        (0.0f >= mid ? outside : 0);
+    if (cnt > k) lo = mid; else hi = mid;
+  }
+  return hi;
+}
+
+// y and e_new of one value c against the threshold hi.
+__device__ __forceinline__ void ef_split(float c, float hi, float& y,
+                                         float& e_new) {
+  const bool keep = fabsf(c) >= hi;
+  y = keep ? c : 0.0f;
+  e_new = keep ? 0.0f : c;
+}
+
+__device__ __forceinline__ float ef_add(float g, float e, float decay) {
+  return __fadd_rn(g, __fmul_rn(decay, e));
+}
+
+// One warp per tile (tile <= 32 * P).  Vector layout: float4 number
+// v = j * 32 + lane of the tile holds elements 4v .. 4v + 3 (lane values
+// 4j .. 4j + 3); scalar layout: element j * 32 + lane (lane value j).
+template <int P>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+topk_ef_warp_kernel(const float* __restrict__ g, const float* e,
+                    float* __restrict__ y, float* e_new, int64_t n,
+                    int64_t ntiles, int tile, int k, int iters, float decay) {
+  constexpr int NV = P / 4;                 // float4 vectors a lane
+  const int64_t t = warp_tile_index();
+  if (t >= ntiles) return;                  // the whole warp leaves
+  const int lane = threadIdx.x & 31;
+  const int64_t base = t * tile;
+  const int valid = static_cast<int>(n - base < tile ? n - base : tile);
+  g += base;
+  e += base;
+  y += base;
+  e_new += base;
+  const bool vec = NV > 0 && valid == tile && tile % 4 == 0 &&
+                   aligned16(g) && aligned16(e) && aligned16(y) &&
+                   aligned16(e_new);
+  float c[P];
+  if (vec) {
+    float4 gv[NV > 0 ? NV : 1], ev[NV > 0 ? NV : 1];
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {          // every load before any use
+      const int i = 4 * (j * 32 + lane);
+      gv[j] = i < tile ? *reinterpret_cast<const float4*>(g + i) : zero;
+      ev[j] = i < tile ? *reinterpret_cast<const float4*>(e + i) : zero;
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      c[4 * j + 0] = ef_add(gv[j].x, ev[j].x, decay);
+      c[4 * j + 1] = ef_add(gv[j].y, ev[j].y, decay);
+      c[4 * j + 2] = ef_add(gv[j].z, ev[j].z, decay);
+      c[4 * j + 3] = ef_add(gv[j].w, ev[j].w, decay);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = j * 32 + lane;
+      c[j] = i < valid ? ef_add(g[i], e[i], decay) : 0.0f;
+    }
+  }
+  const float hi = warp_bisect_threshold<P>(c, 32 * P - tile, k, iters);
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = 4 * (j * 32 + lane);
+      if (i < tile) {
+        float4 yv, rv;
+        ef_split(c[4 * j + 0], hi, yv.x, rv.x);
+        ef_split(c[4 * j + 1], hi, yv.y, rv.y);
+        ef_split(c[4 * j + 2], hi, yv.z, rv.z);
+        ef_split(c[4 * j + 3], hi, yv.w, rv.w);
+        *reinterpret_cast<float4*>(y + i) = yv;
+        *reinterpret_cast<float4*>(e_new + i) = rv;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = j * 32 + lane;
+      if (i < valid) ef_split(c[j], hi, y[i], e_new[i]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
-topk_ef_kernel(const float* __restrict__ g, const float* e,
-               float* __restrict__ y, float* e_new, int64_t n,
-               int tile, int k, int iters, float decay) {
+topk_ef_block_kernel(const float* __restrict__ g, const float* e,
+                     float* __restrict__ y, float* e_new, int64_t n,
+                     int tile, int k, int iters, float decay) {
   extern __shared__ float c_buf[];
   __shared__ float fbuf[kMaxThreads / 32];
   __shared__ int ibuf[kMaxThreads / 32];
@@ -114,20 +240,61 @@ bool bad_args(int64_t n, int64_t tile, int64_t k, int64_t iters) {
          iters > 64 || (n + tile - 1) / tile > 0x7fffffff;
 }
 
+template <int P>
+void topk_ef_warp(const void* g, const void* e, void* y, void* e_new,
+                  int64_t n, int64_t ntiles, int tile, int k, int iters,
+                  float decay, cudaStream_t s) {
+  topk_ef_warp_kernel<P><<<warp_route_blocks(ntiles), kWarpsPerBlock * 32,
+                           0, s>>>(
+      static_cast<const float*>(g), static_cast<const float*>(e),
+      static_cast<float*>(y), static_cast<float*>(e_new), n, ntiles, tile, k,
+      iters, decay);
+}
+
 }  // namespace
 
-// g, e, y, e_new: n f32 device pointers (e_new may equal e).  Launches on
-// `stream` without synchronising; returns cudaGetLastError() (0 on success).
-extern "C" int topk_ef_launch(const void* g, const void* e, void* y,
-                              void* e_new, int64_t n, int64_t tile,
-                              int64_t k, int64_t iters, float decay,
-                              void* stream) {
-  if (bad_args(n, tile, k, iters))
+// topk_ef on the warp route (tile <= kWarpMaxTile).  g, e, y, e_new: n f32
+// device pointers (e_new may equal e).  Launches on `stream` without
+// synchronising; returns cudaGetLastError() (0 on success).
+extern "C" int topk_ef_warp_launch(const void* g, const void* e, void* y,
+                                   void* e_new, int64_t n, int64_t tile,
+                                   int64_t k, int64_t iters, float decay,
+                                   void* stream) {
+  if (bad_args(n, tile, k, iters) || tile > kWarpMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ntiles = (n + tile - 1) / tile;
-  topk_ef_kernel<<<dim3(static_cast<unsigned>(ntiles)), tile_threads(tile),
-                   static_cast<size_t>(tile) * sizeof(float),
-                   static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(tile), kk = static_cast<int>(k),
+            it = static_cast<int>(iters);
+  switch (values_per_lane(tile)) {
+    case 1: topk_ef_warp<1>(g, e, y, e_new, n, ntiles, t, kk, it, decay, s);
+      break;
+    case 2: topk_ef_warp<2>(g, e, y, e_new, n, ntiles, t, kk, it, decay, s);
+      break;
+    case 4: topk_ef_warp<4>(g, e, y, e_new, n, ntiles, t, kk, it, decay, s);
+      break;
+    case 8: topk_ef_warp<8>(g, e, y, e_new, n, ntiles, t, kk, it, decay, s);
+      break;
+    case 16: topk_ef_warp<16>(g, e, y, e_new, n, ntiles, t, kk, it, decay, s);
+      break;
+    default: topk_ef_warp<32>(g, e, y, e_new, n, ntiles, t, kk, it, decay, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// topk_ef on the block route (kWarpMaxTile < tile <= kMaxTile); the same
+// arguments as topk_ef_warp_launch.
+extern "C" int topk_ef_block_launch(const void* g, const void* e, void* y,
+                                    void* e_new, int64_t n, int64_t tile,
+                                    int64_t k, int64_t iters, float decay,
+                                    void* stream) {
+  if (bad_args(n, tile, k, iters) || tile <= kWarpMaxTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ntiles = (n + tile - 1) / tile;
+  topk_ef_block_kernel<<<dim3(static_cast<unsigned>(ntiles)),
+                         tile_threads(tile),
+                         static_cast<size_t>(tile) * sizeof(float),
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(e),
       static_cast<float*>(y), static_cast<float*>(e_new), n,
       static_cast<int>(tile), static_cast<int>(k), static_cast<int>(iters),

@@ -7,11 +7,15 @@ There is no override that sends a CUDA tensor to the plain version (the
 JAX package's ``REPRO_KERNELS_IMPL`` has no counterpart here), and no
 fall-back: if a kernel does not build or does not launch, its wrapper
 raises.  ``require_flat_cuda`` and ``launch`` are the checks and the
-launch every wrapper shares.
+launch every wrapper shares; ``tile_route`` picks the kernel of the
+per-tile wrappers (``quantize_tiles``, ``topk_ef``).
 """
 from __future__ import annotations
 
 import torch
+
+WARP_MAX_TILE = 1024          # kWarpMaxTile in csrc/tile_math.cuh
+TILE_ROUTES = ("warp", "block")
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -23,6 +27,15 @@ def use_kernel(x: torch.Tensor) -> bool:
     if kind == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def tile_route(tile: int) -> str:
+    """The kernel of a per-tile wrapper for tiles of ``tile`` elements:
+    ``"warp"`` (one warp per tile, the tile in registers) up to
+    ``WARP_MAX_TILE``, ``"block"`` (one thread block per tile) above.  The
+    tile alone decides: a failed build or launch raises, it never sends a
+    tile to the other kernel."""
+    return "warp" if int(tile) <= WARP_MAX_TILE else "block"
 
 
 def require_flat_cuda(x: torch.Tensor, kernel: str, dtypes) -> None:

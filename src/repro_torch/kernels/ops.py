@@ -6,9 +6,10 @@ Dispatch is by the tensor's device (``kernels/dispatch.py``): the Hopper
 kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
 Each wrapper's ``launches`` attribute counts its kernel's launches (a plain
 int, never incremented on the CPU path), so a run can show that its main
-path went through the kernel; ``flash_attention.routes`` splits its count
-by kernel route (``route_counts``); ``reset_launch_counts`` sets them all
-to 0.
+path went through the kernel; the ``routes`` of ``flash_attention``
+(wgmma / SIMT), ``quantize_tiles`` and ``topk_ef`` (warp / block) split
+that count by kernel (``route_counts``); ``reset_launch_counts`` sets
+them all to 0.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import TILE_ROUTES, tile_route, use_kernel
 from repro_torch.kernels.flash_attention import (check_args, check_cuda,
                                                  flash_attention_cuda,
                                                  nonfinite_tiles_cuda, route)
@@ -40,6 +41,7 @@ def quantize_tiles(x: torch.Tensor, *, tile: int = TILE):
     if use_kernel(x):
         out = quantize_tiles_cuda(x.contiguous(), tile)
         quantize_tiles.launches += 1
+        quantize_tiles.routes[tile_route(tile)] += 1
         return out
     return _ref.quantize_tiles_ref(x, tile=tile)
 
@@ -89,6 +91,7 @@ def topk_ef(g: torch.Tensor, e: torch.Tensor, *, ratio: float = 0.01,
         out = topk_ef_cuda(g.contiguous(), e.contiguous(),
                            _topk_k(ratio, tile), tile, iters, decay, e_out)
         topk_ef.launches += 1
+        topk_ef.routes[tile_route(tile)] += 1
         return out
     y, e_new = _ref.topk_ef_ref(g, e, ratio=ratio, tile=tile, iters=iters,
                                 decay=decay)
@@ -146,22 +149,27 @@ KERNEL_WRAPPERS = {"flash_attention": flash_attention,
                    "topk_ef": topk_ef,
                    "topk_mask": topk_mask}
 
-FLASH_ROUTES = ("wgmma", "simt")
+KERNEL_ROUTES = {"flash_attention": ("wgmma", "simt"),
+                 "quantize_tiles": TILE_ROUTES,
+                 "topk_ef": TILE_ROUTES}
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
-def route_counts() -> Dict[str, int]:
-    """Launches of ``flash_attention`` per kernel route."""
-    return dict(flash_attention.routes)
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """Launches per kernel route of each wrapper that has routes:
+    ``{"flash_attention": {"wgmma": n, "simt": n}, "quantize_tiles":
+    {"warp": n, "block": n}, "topk_ef": {...}}``."""
+    return {name: dict(KERNEL_WRAPPERS[name].routes) for name in KERNEL_ROUTES}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
-    flash_attention.routes = dict.fromkeys(FLASH_ROUTES, 0)
+    for name, routes in KERNEL_ROUTES.items():
+        KERNEL_WRAPPERS[name].routes = dict.fromkeys(routes, 0)
 
 
 reset_launch_counts()

@@ -5,9 +5,14 @@ topk_fused wire) and ``topk_mask`` (the port of ``_kernel`` /
 ``topk_mask_pallas``).  Both share the bisection of ``_bisect_threshold``.
 
 The caller passes ``k = max(1, int(tile * ratio))`` computed as the
-reference does.  The library is built with nvcc on first use
-(``kernels/build.py``) and called through plain C launchers with ctypes,
-on PyTorch's current stream, without synchronising.
+reference does.  ``topk_ef`` has two kernels, chosen from the tile alone
+(``dispatch.tile_route``): the warp route (one warp per tile, the tile in
+registers) for tiles of up to 1024 elements, which the training wire
+takes, and the block route (one thread block per tile) for 1025 to 8192;
+``topk_mask`` runs the block kernel at every tile.  The library is built
+with nvcc on first use (``kernels/build.py``) and called through plain C
+launchers with ctypes, on PyTorch's current stream, without
+synchronising.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import launch, require_flat_cuda
+from repro_torch.kernels.dispatch import (launch, require_flat_cuda,
+                                          tile_route)
 from repro_torch.kernels.quantize_ef import _check_tile, check_residual_pair
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -27,14 +33,21 @@ MAX_ITERS = 64
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
+    """{"warp": topk_ef's warp launcher, "block": its block launcher,
+    "mask": topk_mask's launcher}, built and loaded on first use."""
     lib = build.load("topk_mask")
-    ef = lib.topk_ef_launch
-    ef.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_float, _P]
-    ef.restype = ctypes.c_int
+    out = {}
+    for route in ("warp", "block"):
+        fn = getattr(lib, f"topk_ef_{route}_launch")
+        fn.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                       ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
+        out[route] = fn
     mask = lib.topk_mask_launch
     mask.argtypes = [_P, _P, _I64, _I64, _I64, _I64, ctypes.c_int, _P]
     mask.restype = ctypes.c_int
-    return ef, mask
+    out["mask"] = mask
+    return out
 
 
 def _check_k_iters(k: int, iters: int):
@@ -49,9 +62,10 @@ def _check_k_iters(k: int, iters: int):
 def topk_ef_cuda(g: torch.Tensor, e: torch.Tensor, k: int, tile: int,
                  iters: int, decay: float,
                  e_out: Optional[torch.Tensor] = None):
-    """Launch topk_ef on flat contiguous f32 CUDA tensors g, e of equal
-    length; the new residual is written to ``e_out`` (which may be ``e``)
-    or to a new tensor.  Returns (y f32 (n,), e_new f32 (n,))."""
+    """Launch topk_ef (the kernel of ``tile_route(tile)``) on flat
+    contiguous f32 CUDA tensors g, e of equal length; the new residual is
+    written to ``e_out`` (which may be ``e``) or to a new tensor.  Returns
+    (y f32 (n,), e_new f32 (n,))."""
     e_new = check_residual_pair(g, e, e_out, "topk_ef")
     tile = _check_tile(tile)
     k, iters = _check_k_iters(k, iters)
@@ -59,8 +73,9 @@ def topk_ef_cuda(g: torch.Tensor, e: torch.Tensor, k: int, tile: int,
     y = torch.empty(n, dtype=torch.float32, device=g.device)
     if n == 0:
         return y, e_new
-    launch("topk_ef", _launchers()[0], g, g.data_ptr(), e.data_ptr(),
-           y.data_ptr(), e_new.data_ptr(), n, tile, k, iters, float(decay))
+    launch("topk_ef", _launchers()[tile_route(tile)], g, g.data_ptr(),
+           e.data_ptr(), y.data_ptr(), e_new.data_ptr(), n, tile, k, iters,
+           float(decay))
     return y, e_new
 
 
@@ -74,6 +89,6 @@ def topk_mask_cuda(x: torch.Tensor, k: int, tile: int, iters: int):
     y = torch.empty_like(x)
     if n == 0:
         return y
-    launch("topk_mask", _launchers()[1], x, x.data_ptr(), y.data_ptr(), n,
-           tile, k, iters, int(x.dtype == torch.bfloat16))
+    launch("topk_mask", _launchers()["mask"], x, x.data_ptr(), y.data_ptr(),
+           n, tile, k, iters, int(x.dtype == torch.bfloat16))
     return y

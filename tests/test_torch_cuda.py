@@ -48,17 +48,17 @@ def _input(n: int, tile: int, seed: int) -> np.ndarray:
     return x
 
 
-def _ef_inputs(n: int, seed: int, nan: bool = False):
+def _ef_inputs(n: int, seed: int, nan: bool = False, tile: int = TILE):
     """g as :func:`_input`; e a smaller Gaussian, zero on the first and
     last tiles; optionally a NaN in the second tile."""
-    g = _input(n, TILE, seed)
+    g = _input(n, tile, seed)
     e = (np.random.default_rng(seed + 1).standard_normal(n) * 0.5).astype(
         np.float32)
-    if n >= 2 * TILE:
-        e[:TILE] = 0.0
-    e[(n - 1) // TILE * TILE:] = 0.0
+    if n >= 2 * tile:
+        e[:tile] = 0.0
+    e[(n - 1) // tile * tile:] = 0.0
     if nan:
-        g[TILE + 5] = np.nan
+        g[tile + 5] = np.nan
     return g, e
 
 
@@ -136,6 +136,94 @@ def test_cuda_residual_written_in_place(cuda_device, n):
 
 
 # ---------------------------------------------------------------------------
+# quantize_tiles and topk_ef on their two routes: one warp per tile (tiles
+# of up to 1024) and one block per tile (above)
+# ---------------------------------------------------------------------------
+
+WARP_TILES = [1, 17, 32, 100, 256, 1000, 1024]
+BLOCK_TILES = [1025, 8192]
+
+
+def _route_count(kernel: str, route: str) -> int:
+    return tops.route_counts()[kernel][route]
+
+
+def _lengths(tile: int):
+    """One tile; a ragged last tile; 41 whole tiles (several blocks of
+    the warp route)."""
+    return (tile, 3 * tile + 17, 41 * tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", WARP_TILES + BLOCK_TILES)
+def test_cuda_quantize_tiles_routes(cuda_device, tile, dtype):
+    # an all-zero first tile, exact halves in the last, a NaN tile
+    route = "warp" if tile <= 1024 else "block"
+    for n in _lengths(tile):
+        x = torch.from_numpy(_input(n, tile, seed=n + tile)).to(dtype)
+        if n >= 3 * tile:
+            x[tile + 3] = float("nan")
+        r0 = _route_count("quantize_tiles", route)
+        qk, sk = tops.quantize_tiles(x.to(cuda_device), tile=tile)
+        torch.cuda.synchronize()
+        assert _route_count("quantize_tiles", route) == r0 + 1
+        qp, sp = tref.quantize_tiles_ref(x, tile=tile)
+        assert _same(qk, qp) and _same(sk, sp), (n, tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [256, 1024, 2048])
+def test_cuda_quantize_tiles_misaligned_view(cuda_device, tile, dtype):
+    # x[1:] of a contiguous tensor: contiguous, but its base is one element
+    # past a 16-byte boundary, so every tile takes the scalar loads
+    n = 4 * tile + 1
+    x = torch.from_numpy(_input(n, tile, seed=tile + 1)).to(dtype)
+    xc = x.to(cuda_device)[1:]
+    assert xc.is_contiguous() and xc.data_ptr() % 16 != 0
+    qk, sk = tops.quantize_tiles(xc, tile=tile)
+    torch.cuda.synchronize()
+    qp, sp = tref.quantize_tiles_ref(x[1:], tile=tile)
+    assert _same(qk, qp) and _same(sk, sp)
+
+
+@pytest.mark.parametrize("ratio", [0.01, 0.25])
+@pytest.mark.parametrize("tile", WARP_TILES + BLOCK_TILES)
+def test_cuda_topk_ef_routes(cuda_device, tile, ratio):
+    # decay 0.9, the residual written in place (e_out is e), an all-zero
+    # first tile, ties at exact halves in the last, a NaN tile
+    route = "warp" if tile <= 1024 else "block"
+    for n in _lengths(tile):
+        g, e = _ef_inputs(n, seed=n + tile, nan=n >= 3 * tile, tile=tile)
+        gt, et = torch.from_numpy(g), torch.from_numpy(e)
+        buf = et.to(cuda_device)
+        r0 = _route_count("topk_ef", route)
+        got = tops.topk_ef(gt.to(cuda_device), buf, ratio=ratio, tile=tile,
+                           decay=0.9, e_out=buf)
+        torch.cuda.synchronize()
+        assert _route_count("topk_ef", route) == r0 + 1 and got[1] is buf
+        want = tref.topk_ef_ref(gt, et, ratio=ratio, tile=tile, decay=0.9)
+        assert all(_same(a, b) for a, b in zip(got, want)), (n, tile)
+
+
+@pytest.mark.parametrize("tile", [256, 1024, 2048])
+def test_cuda_topk_ef_misaligned_views_in_place(cuda_device, tile):
+    # g[1:] and e[1:] (bases 4 bytes past a 16-byte boundary), the residual
+    # written into e[1:] itself; e[0] stays as it was
+    n = 4 * tile + 1
+    g, e = _ef_inputs(n, seed=tile + 2, nan=True, tile=tile)
+    gt, et = torch.from_numpy(g), torch.from_numpy(e)
+    gc, ec = gt.to(cuda_device), et.to(cuda_device)
+    gv, ev = gc[1:], ec[1:]
+    assert gv.is_contiguous() and gv.data_ptr() % 16 != 0
+    got = tops.topk_ef(gv, ev, ratio=0.01, tile=tile, decay=0.9, e_out=ev)
+    torch.cuda.synchronize()
+    assert got[1] is ev and ec[0].item() == e[0]
+    want = tref.topk_ef_ref(gt[1:], et[1:], ratio=0.01, tile=tile,
+                            decay=0.9)
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
 # flash attention: the kernel against its plain version, within tolerance
 # ---------------------------------------------------------------------------
 
@@ -183,6 +271,10 @@ def _route_of(dtype, hd) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
+def _flash_wgmma() -> int:
+    return tops.route_counts()["flash_attention"]["wgmma"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", FLASH_VARIANTS,
                          ids=lambda kw: "-".join(f"{k}={v}"
@@ -193,13 +285,13 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, variant):
     for i, shape in enumerate(FLASH_SHAPES):
         q, k, v = _qkv(*shape, dtype, seed=i)
         n0 = tops.flash_attention.launches
-        r0 = tops.route_counts()
+        r0 = tops.route_counts()["flash_attention"]
         got = tops.flash_attention(q.to(cuda_device), k.to(cuda_device),
                                    v.to(cuda_device), **variant)
         torch.cuda.synchronize()
         assert tops.flash_attention.launches == n0 + 1
         route = _route_of(dtype, shape[-1])
-        assert tops.route_counts()[route] == r0[route] + 1
+        assert tops.route_counts()["flash_attention"][route] == r0[route] + 1
         assert got.dtype == dtype and got.is_contiguous()
         want = tref.flash_attention_ref(q.to(cuda_device), k.to(cuda_device),
                                         v.to(cuda_device), **variant)
@@ -225,10 +317,10 @@ def test_cuda_flash_wgmma_route(cuda_device, B, T, S, H, KV, hd):
                                                   S=S))
     for variant in (dict(), dict(window=64, softcap=50.0),
                     dict(causal=False), dict(causal=False, window=30)):
-        r0 = tops.route_counts()["wgmma"]
+        r0 = _flash_wgmma()
         got = tops.flash_attention(q, k, v, **variant)
         torch.cuda.synchronize()
-        assert tops.route_counts()["wgmma"] == r0 + 1
+        assert _flash_wgmma() == r0 + 1
         want = tref.flash_attention_ref(q, k, v, **variant)
         assert _flash_close(got, want), ((B, T, S, H, KV, hd), variant)
 
@@ -260,9 +352,9 @@ def test_cuda_flash_copies_what_the_tma_refuses(cuda_device):
     q_odd = flat[1:].view(q.shape).copy_(q)
     k_t = k.transpose(2, 3).contiguous().transpose(2, 3)
     assert not tma_ready(q_odd) and not tma_ready(k_t)
-    r0 = tops.route_counts()["wgmma"]
+    r0 = _flash_wgmma()
     got = tops.flash_attention(q_odd, k_t, v)
-    assert tops.route_counts()["wgmma"] == r0 + 1
+    assert _flash_wgmma() == r0 + 1
     assert _flash_close(got, tref.flash_attention_ref(q, k, v))
 
 

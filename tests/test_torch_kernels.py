@@ -129,11 +129,40 @@ def test_cpu_path_leaves_launch_counter_at_zero():
                          torch.randn(1, 8, 1, 4), window=3)
     tops.nonfinite_tiles(torch.randn(1, 8, 1, 4))
     assert tops.launch_counts() == {name: 0 for name in tops.KERNEL_WRAPPERS}
-    assert tops.route_counts() == {"wgmma": 0, "simt": 0}
+    assert tops.route_counts() == {
+        "flash_attention": {"wgmma": 0, "simt": 0},
+        "quantize_tiles": {"warp": 0, "block": 0},
+        "topk_ef": {"warp": 0, "block": 0}}
     assert set(tops.KERNEL_WRAPPERS) == {"flash_attention", "nonfinite_tiles",
                                          "quantize_tiles", "quantize_ef",
                                          "dequant_accum", "topk_ef",
                                          "topk_mask"}
+
+
+def test_tile_route():
+    # every tile of up to 1024 takes the warp route, every larger one the
+    # block route; the serving pools' tile (head_dim 256) and the training
+    # wire's (1024) are warp tiles
+    assert dispatch.WARP_MAX_TILE == 1024
+    assert {dispatch.tile_route(t) for t in range(1, 1025)} == {"warp"}
+    assert {dispatch.tile_route(t) for t in range(1025, 8193)} == {"block"}
+    assert dispatch.tile_route(2**30) == "block"
+    assert dispatch.tile_route(256) == dispatch.tile_route(tops.TILE) == "warp"
+
+
+def test_reset_launch_counts_zeroes_every_route():
+    for name, routes in tops.route_counts().items():
+        for route in routes:
+            tops.KERNEL_WRAPPERS[name].routes[route] = 5
+        tops.KERNEL_WRAPPERS[name].launches = 5
+    tops.reset_launch_counts()
+    assert tops.route_counts() == {
+        name: {r: 0 for r in routes}
+        for name, routes in tops.KERNEL_ROUTES.items()}
+    assert tops.KERNEL_ROUTES == {"flash_attention": ("wgmma", "simt"),
+                                  "quantize_tiles": ("warp", "block"),
+                                  "topk_ef": ("warp", "block")}
+    assert set(tops.launch_counts().values()) == {0}
 
 
 def test_dispatch_by_device():
@@ -392,3 +421,53 @@ def test_plain_path_writes_residual_into_e_out(into):
         assert got[1] is e_out           # the new residual, in e_out
         for a, b in zip(got, want):
             assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
+# ---------------------------------------------------------------------------
+# Tiles on both sides of the warp route's limit (1024): the plain versions
+# against the JAX reference at tiles 1000, 1025 and 2048
+# ---------------------------------------------------------------------------
+
+EDGE_TILES = [1000, 1025, 2048]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("tile", EDGE_TILES)
+def test_quantize_tiles_edge_tiles_bit_equal_to_jax(tile, dtype):
+    n = 3 * tile + 17
+    x = _input(n, tile, seed=tile + 11)
+    x[tile + 3] = np.nan                 # a NaN tile
+    xj, xt = _pair(x, dtype)
+    q, s = tops.quantize_tiles(xt, tile=tile)
+    qj, sj = jref.quantize_tiles_ref(xj, tile=tile)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    assert s[0].item() == np.float32(1e-30) and np.isnan(s[1].item())
+
+
+@pytest.mark.parametrize("ratio", [0.01, 0.25])
+@pytest.mark.parametrize("tile", EDGE_TILES)
+def test_topk_ef_edge_tiles_bit_equal_to_jax(tile, ratio):
+    n = 3 * tile + 17
+    g = _input(n, tile, seed=tile + 5)
+    g[tile + 7] = np.nan
+    e = (np.random.default_rng(tile).standard_normal(n) * 0.5).astype(
+        np.float32)
+    e[:tile] = 0.0
+    y, e_new = tops.topk_ef(torch.from_numpy(g), torch.from_numpy(e),
+                            ratio=ratio, tile=tile, decay=0.9)
+    for got, want in zip((y, e_new), jref.topk_ef_ref(
+            jnp.asarray(g), jnp.asarray(e), ratio=ratio, tile=tile,
+            decay=0.9)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not y[tile:2 * tile].any()         # the NaN tile keeps nothing
+
+
+@pytest.mark.parametrize("tile", EDGE_TILES)
+def test_topk_mask_edge_tiles_bit_equal_to_jax(tile):
+    x = _input(2 * tile + 5, tile, seed=tile + 9)
+    xj, xt = _pair(x, "f32")
+    y = tops.topk_mask(xt, ratio=0.05, tile=tile)
+    np.testing.assert_array_equal(
+        y.numpy(), np.asarray(jref.topk_mask_bisect_ref(xj, ratio=0.05,
+                                                        tile=tile)))
