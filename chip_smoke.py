@@ -9,11 +9,11 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device: needs CUDA; prints the card's name and power limit
      (``nvidia-smi``); TF32 off for f32 matmuls and convolutions;
-  2. build: the ten CUDA kernels of the port from the five sources in
+  2. build: the twelve CUDA kernels of the port from the five sources in
      the checkout (``nvcc``, one process per source, started together),
      with each kernel's registers and spills from ``-Xptxas -v``: no
-     spill and no stack frame in the wgmma, quantize_tiles and top-k
-     libraries;
+     spill and no stack frame in the wgmma, quantize_tiles, quantize_ef
+     and top-k libraries;
   3. kernels vs plain versions on the card.  ``quantize_tiles``,
      ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` are
      held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles
@@ -21,10 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
      input types and a NaN tile, including every length the gemma-2b and
      gemma2-9b serving runs write (and dequantize must round-trip within
      s/254), the training wire over the CPU tests' cases (ragged lengths,
-     decays, ratios, rank counts, zero tiles, exact halves, NaN tiles,
-     bf16 for topk_mask; top-k at tile 1024, topk_ef's warp route, and
-     2048, its block route) and at every bucket length of the training
-     path, called as the path calls them (the residual written in place).  ``flash_attention`` is held within a stated tolerance,
+     decays, ratios, rank counts 1, 2, 4 and 8 at lengths that are and
+     are not multiples of 16, zero tiles, exact halves, NaN tiles, f32
+     and bf16 for topk_mask; dequant_accum and the top-k kernels at tile
+     1024, their warp routes, and 2048, their block routes) and at every
+     bucket length of the training path, called as the path calls them
+     (the residual written in place; quantize_tiles and topk_mask as the
+     encode without error feedback).  ``flash_attention`` is held within a stated tolerance,
      element by element (f32: rtol = atol = 1e-5; bf16: 2 bf16 ulps of
      the element plus 2 of its row's largest magnitude) over the JAX
      kernel tests' shapes and more (hd 32 to 256, G 1 to 68, ragged T,
@@ -41,10 +44,10 @@ Phases (any failure exits non-zero and prints no result line):
      compiled, for the softcap shapes); flash on both routes (the SIMT
      kernel on the same bf16 inputs), and gates: the wgmma route, pre-pass
      included, no slower than the library call and 5x faster than the
-     SIMT kernel's recorded time at the gemma2-9b prefill; the warp route
-     of topk_ef 2x faster than the block kernel's recorded time at the
-     largest bucket, and of quantize_tiles 3x faster at the gemma2-9b
-     prefill writes;
+     SIMT kernel's recorded time at the gemma2-9b prefill; the warp
+     routes faster than the block kernels' recorded times: topk_ef 2x,
+     topk_mask 3x (f32) and dequant_accum 1.4x (one rank) at the largest
+     bucket, and quantize_tiles 3x at the gemma2-9b prefill writes;
   4. small references: the reduced gemma-2b, gemma2-9b and gemma3-4b in
      f32 on the card (prefill through the flash kernel) agree with the
      port's CPU path (plain versions) for prefill logits and four
@@ -69,9 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
   8. the training path at full width: ``repro_torch.launch.train`` with
      gemma-2b, Adam, batch 4 x seq 512, 3 steps on an NCCL group of world
      1, once each with ``--sync comm --compressor int8_fused``, ``--sync
-     comm --compressor topk_fused`` and ``--sync vanilla``; step time,
-     tokens/s, peak memory and a ``torch.profiler`` view of one more step
-     per run.
+     comm --compressor topk_fused``, both of them again with
+     ``--no-error-feedback``, and ``--sync vanilla``; step time, tokens/s,
+     peak memory and a ``torch.profiler`` view of one more step per run.
 
 Every main-path run (5, 7, and each of 8) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
@@ -80,11 +83,13 @@ every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
 (admissions + decode ticks), all on the warp route; flash_attention and
 its pre-pass = attention layers x admissions, all of them on the wgmma
 route and none on the SIMT one; training: the wire's kernels = buckets x
-steps, topk_ef's all on the warp route, flash 0 (the training path keeps
-the differentiable chunked attention).  Launches made in phases 3, 4 and
-6 are not counted.  It prints a ``{"kernels": [...]}`` JSON line with all
-ten kernels (launches per run and per route) and, last, ``{"ok": true,
-"device": {...}}``.  It imports nothing of JAX or of the JAX package.
+steps, all on their warp routes (int8_fused: quantize_ef and
+dequant_accum; topk_fused: topk_ef; without error feedback, int8_fused:
+quantize_tiles and dequant_accum, topk_fused: topk_mask), flash 0 (the
+training path keeps the differentiable chunked attention).  Launches made
+in phases 3, 4 and 6 are not counted.  It prints a ``{"kernels": [...]}``
+JSON line with all twelve kernels (launches per run and per route) and,
+last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -148,15 +153,22 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
 TRAIN_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--optimizer", "adam",
               "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
               "--steps", str(TRAIN_STEPS), "--seed", "0", "--log-every", "1"]
+NO_EF = ["--no-error-feedback"]
 TRAIN_RUNS = {   # run name: (extra CLI flags, kernels each bucket launches)
     "int8_fused": (["--sync", "comm", "--compressor", "int8_fused"],
-                   ("quantize_ef", "dequant_accum")),
+                   ("quantize_ef", "dequant_accum", "dequant_accum[warp]")),
     "topk_fused": (["--sync", "comm", "--compressor", "topk_fused"],
                    ("topk_ef", "topk_ef[warp]")),
+    "int8_fused_no_ef": (["--sync", "comm", "--compressor", "int8_fused",
+                          *NO_EF],
+                         ("quantize_tiles", "quantize_tiles[warp]",
+                          "dequant_accum", "dequant_accum[warp]")),
+    "topk_fused_no_ef": (["--sync", "comm", "--compressor", "topk_fused",
+                          *NO_EF], ("topk_mask", "topk_mask[warp]")),
     "vanilla": (["--sync", "vanilla"], ()),
 }
 TILE = 1024
-TOPK_BLOCK_TILE = 2048        # the top-k sweep's tile on topk_ef's block route
+BLOCK_TILE = 2048   # the training wire sweeps' tile on the block routes
 EF_SIZES = (1024, 1000, 2065, 4096)
 RATIOS = (0.01, 0.05, 0.25)
 ITERS = 16
@@ -189,17 +201,28 @@ KERNEL_SOURCES = {
     "quantize_ef": ("src/repro_torch/csrc/quantize_ef.cu",
                     "src/repro/kernels/quantize_ef.py:63",
                     "quantize_ef_pallas"),
+    # the warp route, which the int8_fused wire takes (tile 1024)
     "dequant_accum": ("src/repro_torch/csrc/quantize_ef.cu",
                       "src/repro/kernels/quantize_ef.py:126",
                       "dequant_accum_pallas"),
+    # the block route (tiles 1025 to 8192)
+    "dequant_accum_block": ("src/repro_torch/csrc/quantize_ef.cu",
+                            "src/repro/kernels/quantize_ef.py:126",
+                            "dequant_accum_pallas"),
     # the warp route, which the topk_fused wire takes (tile 1024)
     "topk_ef": ("src/repro_torch/csrc/topk_mask.cu",
                 "src/repro/kernels/topk_mask.py:99", "topk_ef_pallas"),
     # the block route (tiles 1025 to 8192)
     "topk_ef_block": ("src/repro_torch/csrc/topk_mask.cu",
                       "src/repro/kernels/topk_mask.py:99", "topk_ef_pallas"),
+    # the warp route, which the topk_fused wire without error feedback
+    # takes (tile 1024)
     "topk_mask": ("src/repro_torch/csrc/topk_mask.cu",
                   "src/repro/kernels/topk_mask.py:65", "topk_mask_pallas"),
+    # the block route (tiles 1025 to 8192)
+    "topk_mask_block": ("src/repro_torch/csrc/topk_mask.cu",
+                        "src/repro/kernels/topk_mask.py:65",
+                        "topk_mask_pallas"),
 }
 
 
@@ -467,10 +490,10 @@ def quantize_path_shapes(arch: str, slots: int, max_len: int,
 def phase_train_kernels(torch, ops, ref) -> dict:
     """The training wire's four kernels against their plain versions on
     the card, bit-equal (NaN for NaN) over the CPU tests' cases plus the
-    largest bucket's length rounded to a ragged size; the top-k kernels at
-    tile 1024 and at TOPK_BLOCK_TILE, each topk_ef launch on the route of
-    its tile.  Returns the worst |kernel - plain| per kernel (0.0 when
-    every case is bit-equal)."""
+    largest bucket's length rounded to a ragged size; dequant_accum and
+    the top-k kernels at tile 1024 and at BLOCK_TILE, each launch checked
+    on the route of its tile.  Returns the worst |kernel - plain| per
+    kernel (0.0 when every case is bit-equal)."""
     from repro_torch.kernels.dispatch import tile_route
     dev = torch.device("cuda")
     worst = {k: 0.0 for k in ("quantize_ef", "dequant_accum", "topk_ef",
@@ -485,6 +508,15 @@ def phase_train_kernels(torch, ops, ref) -> dict:
             fail(f"{name} differs from the plain version at {what}: max err "
                  f"{err}")
 
+    def routed(name, tile, call):
+        """``call()``, which must launch ``name`` once on tile's route."""
+        route = tile_route(tile)
+        r0 = ops.route_counts()[name][route]
+        out = call()
+        if ops.route_counts()[name][route] != r0 + 1:
+            fail(f"{name} at tile {tile} did not take the {route} route")
+        return out
+
     for n in EF_SIZES + (3 * 2**20 + 17,):
         for nan in ((False, True) if n >= 2 * TILE else (False,)):
             g, e = ef_inputs(torch, n, seed=n, nan=nan, device=dev)
@@ -494,47 +526,47 @@ def phase_train_kernels(torch, ops, ref) -> dict:
                 want = ref.quantize_ef_ref(g, e, decay=decay, tile=TILE)
                 torch.cuda.synchronize()
                 check("quantize_ef", got, want, what)
-                q, _, sc = want
-                for w in (1, 2, 8):
-                    qw = torch.stack([q.roll(r) for r in range(w)])
-                    sw = torch.stack([sc * (1 + r) for r in range(w)])
-                    got = (ops.dequant_accum(qw, sw, tile=TILE),)
-                    want = (ref.dequant_accum_ref(qw, sw, tile=TILE),)
-                    torch.cuda.synchronize()
-                    check("dequant_accum", got, want, f"{what} w={w}")
+                for tile in (TILE, BLOCK_TILE):
+                    q, _, sc = ref.quantize_ef_ref(g, e, decay=decay,
+                                                   tile=tile)
+                    for w in (1, 2, 4, 8):
+                        qw = torch.stack([q.roll(r) for r in range(w)])
+                        sw = torch.stack([sc * (1 + r) for r in range(w)])
+                        got = (routed("dequant_accum", tile,
+                                      lambda: ops.dequant_accum(
+                                          qw, sw, tile=tile)),)
+                        want = (ref.dequant_accum_ref(qw, sw, tile=tile),)
+                        torch.cuda.synchronize()
+                        check("dequant_accum", got, want,
+                              f"{what} w={w} tile={tile}")
                 for ratio in RATIOS:
-                    for tile in (TILE, TOPK_BLOCK_TILE):
-                        route = tile_route(tile)
-                        r0 = ops.route_counts()["topk_ef"][route]
-                        got = ops.topk_ef(g, e, ratio=ratio, tile=tile,
-                                          iters=ITERS, decay=decay)
+                    for tile in (TILE, BLOCK_TILE):
+                        got = routed("topk_ef", tile, lambda: ops.topk_ef(
+                            g, e, ratio=ratio, tile=tile, iters=ITERS,
+                            decay=decay))
                         want = ref.topk_ef_ref(g, e, ratio=ratio, tile=tile,
                                                iters=ITERS, decay=decay)
                         torch.cuda.synchronize()
                         check("topk_ef", got, want,
                               f"{what} ratio={ratio} tile={tile}")
-                        if ops.route_counts()["topk_ef"][route] != r0 + 1:
-                            fail(f"topk_ef at tile {tile} did not take the "
-                                 f"{route} route")
             for ratio in RATIOS:
-                for dtype, tile in ((torch.float32, TILE),
-                                    (torch.bfloat16, TILE),
-                                    (torch.float32, TOPK_BLOCK_TILE)):
-                    x = g.to(dtype)
-                    got = (ops.topk_mask(x, ratio=ratio, tile=tile,
-                                         iters=ITERS),)
-                    want = (ref.topk_mask_bisect_ref(x, ratio=ratio,
-                                                     tile=tile, iters=ITERS),)
-                    torch.cuda.synchronize()
-                    check("topk_mask", got, want,
-                          f"n={n} nan={nan} ratio={ratio} {dtype} "
-                          f"tile={tile}")
+                for dtype in (torch.float32, torch.bfloat16):
+                    for tile in (TILE, BLOCK_TILE):
+                        x = g.to(dtype)
+                        got = (routed("topk_mask", tile, lambda: ops.topk_mask(
+                            x, ratio=ratio, tile=tile, iters=ITERS)),)
+                        want = (ref.topk_mask_bisect_ref(
+                            x, ratio=ratio, tile=tile, iters=ITERS),)
+                        torch.cuda.synchronize()
+                        check("topk_mask", got, want,
+                              f"n={n} nan={nan} ratio={ratio} {dtype} "
+                              f"tile={tile}")
     print(f"kernels: training wire bit-equal to the plain versions "
           f"(NaN for NaN) in {cases} cases (lengths {EF_SIZES} and "
-          f"{3 * 2**20 + 17}, decays 1.0/0.9, ratios {RATIOS}, ranks 1/2/8, "
-          f"zero tiles, exact halves, NaN tiles, topk_mask f32 and bf16; "
-          f"top-k at tiles {TILE} and {TOPK_BLOCK_TILE}: topk_ef's warp and "
-          f"block routes)", flush=True)
+          f"{3 * 2**20 + 17}, decays 1.0/0.9, ratios {RATIOS}, ranks "
+          f"1/2/4/8, zero tiles, exact halves, NaN tiles, topk_mask f32 and "
+          f"bf16; dequant_accum and top-k at tiles {TILE} and {BLOCK_TILE}: "
+          f"their warp and block routes)", flush=True)
     return worst
 
 
@@ -558,24 +590,29 @@ def bound(nbytes: float, ops_: float):
 
 
 def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
-    """The four training-wire kernels at every bucket length of the
-    training path, called through their wrappers as the path calls them:
+    """The training-wire kernels at every bucket length of the training
+    path, called through their wrappers as the path calls them:
     quantize_ef and topk_ef (ratio 0.01, decay 1.0) write the new residual
     into e's buffer, dequant_accum decodes one rank's quantize_ef payload
-    (world 1), and topk_mask masks the same bucket.  Each result is held
-    bit-equal (NaN for NaN) to the plain version on the same inputs.  Then,
-    at the lengths named in ``timed``, kernel, plain-version and bound
-    times in turns (plain, kernel, kernel, plain): long calls with CUDA
-    events, short ones by CUDA-graph replay.  Returns {kernel: {shape name:
-    timing dict}}."""
+    (world 1), and quantize_tiles and topk_mask encode the same bucket
+    without error feedback.  Each result is held bit-equal (NaN for NaN)
+    to the plain version on the same inputs.  Then, at the lengths named
+    in ``timed``, kernel, plain-version and bound times in turns (plain,
+    kernel, kernel, plain): long calls with CUDA events, short ones by
+    CUDA-graph replay; the routes at their tiles (1024: warp, BLOCK_TILE:
+    block), dequant_accum also at 4 ranks and topk_mask also in bf16.
+    Returns {kernel: {shape name: timing dict}}."""
+    from repro_torch.kernels.quantize import quantize_tiles_cuda
     from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
                                                  quantize_ef_cuda)
     from repro_torch.kernels.topk_mask import topk_ef_cuda, topk_mask_cuda
     dev = torch.device("cuda")
     k = max(1, int(TILE * 0.01))
-    k_block = max(1, int(TOPK_BLOCK_TILE * 0.01))
-    out = {name: {} for name in ("quantize_ef", "dequant_accum", "topk_ef",
-                                 "topk_ef_block", "topk_mask")}
+    k_block = max(1, int(BLOCK_TILE * 0.01))
+    out = {name: {} for name in (
+        "quantize_tiles", "quantize_ef", "dequant_accum",
+        "dequant_accum_block", "topk_ef", "topk_ef_block", "topk_mask",
+        "topk_mask_block")}
     shape_of = {n: name for name, n in timed.items()}
 
     def check(name, got, want, n):
@@ -602,6 +639,8 @@ def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
         got = ops.topk_ef(g, buf, tile=TILE, e_out=buf)
         check("topk_ef", got, want, n)
         del want, got
+        check("quantize_tiles", ops.quantize_tiles(g, tile=TILE),
+              ref.quantize_tiles_ref(g, tile=TILE), n)
         check("topk_mask", (ops.topk_mask(g, tile=TILE),),
               (ref.topk_mask_bisect_ref(g, tile=TILE),), n)
         shape = shape_of.get(n)
@@ -609,47 +648,85 @@ def train_path_kernels(torch, ops, ref, buckets, timed) -> dict:
             del g, e, buf, q1, s1
             torch.cuda.empty_cache()
             continue
-        nt = -(-n // TILE)
-        cases = {
-            "quantize_ef": (lambda: quantize_ef_cuda(g, buf, 1.0, TILE, buf),
-                            lambda: ref.quantize_ef_ref(g, e, tile=TILE),
-                            bound(13 * n + 4 * nt, QEF_OPS * n)),
-            "dequant_accum": (lambda: dequant_accum_cuda(q1, s1, TILE),
-                              lambda: ref.dequant_accum_ref(q1, s1,
-                                                            tile=TILE),
-                              bound(5 * n + 4 * nt, 2 * n)),
-            "topk_ef": (lambda: topk_ef_cuda(g, buf, k, TILE, ITERS, 1.0,
-                                             buf),
-                        lambda: ref.topk_ef_ref(g, e, tile=TILE),
-                        bound(16 * n, TOPK_OPS * n)),
-            # the block route, at its own tile
-            "topk_ef_block": (lambda: topk_ef_cuda(g, buf, k_block,
-                                                   TOPK_BLOCK_TILE, ITERS,
-                                                   1.0, buf),
-                              lambda: ref.topk_ef_ref(g, e,
-                                                      tile=TOPK_BLOCK_TILE),
-                              bound(16 * n, TOPK_OPS * n)),
-            "topk_mask": (lambda: topk_mask_cuda(g, k, TILE, ITERS),
-                          lambda: ref.topk_mask_bisect_ref(g, tile=TILE),
-                          bound(8 * n, (1 + 2 * ITERS) * n)),
-        }
+        nt, ntb = -(-n // TILE), -(-n // BLOCK_TILE)
+        g16 = g.to(torch.bfloat16)
+        q4 = q1.repeat(4, 1)
+        s4 = torch.cat([s1 * (1 + r) for r in range(4)])
+        qb, sb = quantize_tiles_cuda(g, BLOCK_TILE)
+        q1b, s1b = qb[None], sb[None]
+        q4b = q1b.repeat(4, 1)
+        s4b = torch.cat([s1b * (1 + r) for r in range(4)])
+        del qb, sb
+
+        def accum_bound(w, ntiles):
+            return bound(w * n + 4 * w * ntiles + 4 * n, 2 * w * n)
+
+        # (kernel, shape, tile, dtype, kernel call, plain call, bound)
+        cases = [
+            ("quantize_tiles", shape, TILE, "float32",
+             lambda: quantize_tiles_cuda(g, TILE),
+             lambda: ref.quantize_tiles_ref(g, tile=TILE),
+             bound(5 * n + 4 * nt, QUANT_OPS_PER_ELEMENT * n)),
+            ("quantize_ef", shape, TILE, "float32",
+             lambda: quantize_ef_cuda(g, buf, 1.0, TILE, buf),
+             lambda: ref.quantize_ef_ref(g, e, tile=TILE),
+             bound(13 * n + 4 * nt, QEF_OPS * n)),
+            ("dequant_accum", shape, TILE, "float32",
+             lambda: dequant_accum_cuda(q1, s1, TILE),
+             lambda: ref.dequant_accum_ref(q1, s1, tile=TILE),
+             accum_bound(1, nt)),
+            ("dequant_accum", f"{shape}_w4", TILE, "float32",
+             lambda: dequant_accum_cuda(q4, s4, TILE),
+             lambda: ref.dequant_accum_ref(q4, s4, tile=TILE),
+             accum_bound(4, nt)),
+            ("dequant_accum_block", shape, BLOCK_TILE, "float32",
+             lambda: dequant_accum_cuda(q1b, s1b, BLOCK_TILE),
+             lambda: ref.dequant_accum_ref(q1b, s1b, tile=BLOCK_TILE),
+             accum_bound(1, ntb)),
+            ("dequant_accum_block", f"{shape}_w4", BLOCK_TILE, "float32",
+             lambda: dequant_accum_cuda(q4b, s4b, BLOCK_TILE),
+             lambda: ref.dequant_accum_ref(q4b, s4b, tile=BLOCK_TILE),
+             accum_bound(4, ntb)),
+            ("topk_ef", shape, TILE, "float32",
+             lambda: topk_ef_cuda(g, buf, k, TILE, ITERS, 1.0, buf),
+             lambda: ref.topk_ef_ref(g, e, tile=TILE),
+             bound(16 * n, TOPK_OPS * n)),
+            ("topk_ef_block", shape, BLOCK_TILE, "float32",
+             lambda: topk_ef_cuda(g, buf, k_block, BLOCK_TILE, ITERS, 1.0,
+                                  buf),
+             lambda: ref.topk_ef_ref(g, e, tile=BLOCK_TILE),
+             bound(16 * n, TOPK_OPS * n)),
+        ]
+        for x, suffix in ((g, ""), (g16, "_bf16")):
+            nbytes = 2 * x.element_size() * n
+            cases += [
+                ("topk_mask", shape + suffix, TILE, str(x.dtype)[6:],
+                 lambda x=x: topk_mask_cuda(x, k, TILE, ITERS),
+                 lambda x=x: ref.topk_mask_bisect_ref(x, tile=TILE),
+                 bound(nbytes, (1 + 2 * ITERS) * n)),
+                ("topk_mask_block", shape + suffix, BLOCK_TILE,
+                 str(x.dtype)[6:],
+                 lambda x=x: topk_mask_cuda(x, k_block, BLOCK_TILE, ITERS),
+                 lambda x=x: ref.topk_mask_bisect_ref(x, tile=BLOCK_TILE),
+                 bound(nbytes, (1 + 2 * ITERS) * n))]
         big = n > 2**24
         timer = events_ms if big else device_ms
-        for name, (kern, plain, (b_ms, by)) in cases.items():
+        for name, key, tile, dtype, kern, plain, (b_ms, by) in cases:
             p0, k0 = timer(torch, plain), timer(torch, kern)
             k1, p1 = timer(torch, kern), timer(torch, plain)
-            out[name][shape] = {
-                "n": n, "dtype": "float32",
-                "tile": TOPK_BLOCK_TILE if name == "topk_ef_block" else TILE,
+            out[name][key] = {
+                "n": n, "dtype": dtype, "tile": tile,
                 "ms": min(k0, k1), "plain_ms": min(p0, p1),
                 "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                 "timer": "cuda events, eager" if big else "cuda graph"}
             torch.cuda.synchronize()
-        del g, e, buf, q1, s1, cases
+        del g, e, buf, q1, s1, g16, q4, s4, q1b, s1b, q4b, s4b, cases
         torch.cuda.empty_cache()
     print(f"kernels: training wire bit-equal to the plain versions at every "
           f"bucket length of the training path {sorted(set(buckets))} "
-          f"(residual written in place, dequant_accum at w=1)", flush=True)
+          f"(residual written in place, dequant_accum at w=1, "
+          f"quantize_tiles and topk_mask as the encode without error "
+          f"feedback)", flush=True)
     return out
 
 
@@ -835,14 +912,16 @@ def check_flash_gates(timings) -> None:
 # route must be faster)
 BLOCK_RECORDED_MS = {
     ("topk_ef", "largest_bucket"): (8.224832, 2.0),
+    ("topk_mask", "largest_bucket"): (8.143840, 3.0),
+    ("dequant_accum", "largest_bucket"): (1.802720, 1.4),
     ("quantize_tiles", "gemma2_9b_prefill_write_4096"): (1.186592, 3.0),
     ("quantize_tiles", "gemma2_9b_prefill_write_8192"): (2.311680, 3.0)}
 
 
 def check_tile_gates(timings) -> None:
-    """The warp routes of topk_ef and quantize_tiles against the block
-    kernels' recorded times (``BLOCK_RECORDED_MS``); ``timings`` maps
-    kernel -> shape -> timing dict."""
+    """The warp routes of the tile kernels against the block kernels'
+    recorded times (``BLOCK_RECORDED_MS``); ``timings`` maps kernel ->
+    shape -> timing dict."""
     for (kernel, shape), (recorded, factor) in BLOCK_RECORDED_MS.items():
         ms = timings[kernel][shape]["ms"]
         if factor * ms > recorded:
@@ -1108,6 +1187,14 @@ def phase_small_train_reference(torch):
           f"|Δparam| {dparam:.3e}", flush=True)
 
 
+# the training wire's kernels, by their names in the profiler's events
+WIRE_KERNELS = ("quantize_ef_kernel", "quantize_tiles_warp_kernel",
+                "quantize_tiles_block_kernel", "dequant_accum_warp_kernel",
+                "dequant_accum_block_kernel", "topk_ef_warp_kernel",
+                "topk_ef_block_kernel", "topk_mask_warp_kernel",
+                "topk_mask_block_kernel")
+
+
 def profile_step(torch, session, card, name: str) -> dict:
     """One more training step under ``torch.profiler``: its wall time,
     device-busy share, the compression kernels' share of device time and
@@ -1132,10 +1219,7 @@ def profile_step(torch, session, card, name: str) -> dict:
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
     wire_us = sum(us for k, (us, _) in by_name.items()
-                  if any(w in k for w in ("quantize_ef_kernel",
-                                          "dequant_accum_kernel",
-                                          "topk_ef_warp_kernel",
-                                          "topk_ef_block_kernel")))
+                  if any(w in k for w in WIRE_KERNELS))
     res = {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
            "busy_share": busy_us / (wall * 1e6),
            "wire_kernel_ms": wire_us / 1e3,
@@ -1440,7 +1524,8 @@ def kernel_name(mangled: str) -> str:
 # libraries whose every kernel must compile with no spill and no stack
 # frame (register arrays indexed at run time would land in a stack frame),
 # and, for the tensor-core attention kernel, no serialized wgmma pipeline
-PTXAS_STRICT = ("flash_attention_wgmma", "quantize_tiles", "topk_mask")
+PTXAS_STRICT = ("flash_attention_wgmma", "quantize_tiles", "quantize_ef",
+                "topk_mask")
 PTXAS_CLEAN = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -1575,13 +1660,16 @@ def main() -> None:
     train_timings = train_path_kernels(torch, ops, ref, buckets, train_shapes)
     for name, per_shape in train_timings.items():
         for shape, t in per_shape.items():
-            print(f"{name} {shape} n={t['n']} f32: device time kernel "
+            print(f"{name} {shape} n={t['n']} tile={t['tile']} "
+                  f"{t['dtype']}: device time kernel "
                   f"{t['ms'] * 1e3:.3f} us, plain {t['plain_ms'] * 1e3:.3f} "
                   f"us, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}),"
                   f" {t['bound_ms'] / t['ms']:.3f} of the bound "
                   f"({t['timer']}) [{card}]", flush=True)
     check_tile_gates({"quantize_tiles": timings,
-                      "topk_ef": train_timings["topk_ef"]})
+                      **{k: train_timings[k]
+                         for k in ("topk_ef", "topk_mask",
+                                   "dequant_accum")}})
 
     # -- 4. small references ----------------------------------------------
     for arch in SMALL_REFS:
@@ -1629,8 +1717,9 @@ def main() -> None:
 
     train_runs = {k: r["launches"] for k, r in trained.items()}
     flash_routes = routes_of("flash_attention", serving)
-    quant_routes = routes_of("quantize_tiles", serving)
-    topk_routes = routes_of("topk_ef", train_runs)
+    quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
+    quant_shapes = {**timings, **{f"train_{k}": t for k, t in
+                                  train_timings["quantize_tiles"].items()}}
     kernels = [
         kernel_line("flash_attention", flash_routes["wgmma"], flash_err,
                     flash_timings["wgmma"], "gemma2_9b_prefill_global",
@@ -1640,19 +1729,23 @@ def main() -> None:
                     flash_routes),
         kernel_line("nonfinite_tiles", runs_of("nonfinite_tiles", serving),
                     0.0, tiles_timings, "gemma2_9b_prefill_global"),
-        kernel_line("quantize_tiles", quant_routes["warp"], q_err, timings,
-                    "gemma2_9b_prefill_write_8192", quant_routes),
+        kernel_line("quantize_tiles", quant_routes["warp"], q_err,
+                    quant_shapes, "gemma2_9b_prefill_write_8192",
+                    quant_routes),
         kernel_line("quantize_tiles_block", quant_routes["block"], q_err,
                     q_block, "gemma2_9b_prefill_write_4096_tile4096",
                     quant_routes)]
-    for name in ("quantize_ef", "dequant_accum", "topk_mask"):
-        kernels.append(kernel_line(name, runs_of(name, train_runs),
-                                   train_err[name], train_timings[name],
-                                   "largest_bucket"))
-    for name, route in (("topk_ef", "warp"), ("topk_ef_block", "block")):
-        kernels.append(kernel_line(name, topk_routes[route],
-                                   train_err["topk_ef"], train_timings[name],
-                                   "largest_bucket", topk_routes))
+    kernels.append(kernel_line("quantize_ef",
+                               runs_of("quantize_ef", train_runs),
+                               train_err["quantize_ef"],
+                               train_timings["quantize_ef"],
+                               "largest_bucket"))
+    for kernel in ("dequant_accum", "topk_ef", "topk_mask"):
+        routes = routes_of(kernel, train_runs)
+        for name, route in ((kernel, "warp"), (f"{kernel}_block", "block")):
+            kernels.append(kernel_line(name, routes[route], train_err[kernel],
+                                       train_timings[name], "largest_bucket",
+                                       routes))
     training = {k: {f: v for f, v in r.items() if f != "params"}
                 for k, r in trained.items()}
     print(json.dumps({"training": training, "card": card}))

@@ -7,14 +7,16 @@
   * ``topk_fused`` — per-tile bisection top-k of the EF-corrected gradient.
     The payload is the masked dense buffer, so it is aggregatable.
 
-The fused hooks dispatch to ``repro_torch.kernels.ops`` (the CUDA kernels
-on the card, their plain versions on the CPU); ``fused_ef_compress``
-writes the new residual into e's buffer (f32, contiguous) and returns that
-buffer.  The UNFUSED methods (``compress``/``decompress``) run the same op
-sequence as plain PyTorch (``kernels/ref.py``), as the reference runs its
-jnp lowering: they are the reference chain the fused hooks are pinned
-against (bit-identical payloads and residuals), and the compress of a
-bucket without error feedback.
+The fused hooks and ``compress`` dispatch to ``repro_torch.kernels.ops``
+(the CUDA kernels on the card, their plain versions on the CPU):
+``fused_ef_compress`` (a bucket with error feedback) writes the new
+residual into e's buffer (f32, contiguous) and returns that buffer;
+``compress`` (a bucket without error feedback, and the reference chain
+the fused hooks are pinned against) is ``ops.quantize_tiles`` or
+``ops.topk_mask``, bit-equal on every device to the plain versions in
+``kernels/ref.py`` that the reference's jnp lowering mirrors.  The
+int8_fused ``decompress`` stays plain PyTorch (``kref.dequantize_ref``):
+the executor decodes gathered payloads through ``fused_decode_sum``.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def int8_fused_compressor(tile: int = ops.TILE) -> Compressor:
     tile = int(tile)
 
     def compress(g, rng=None):
-        q, scales = kref.quantize_tiles_ref(_flat32(g), tile=tile)
+        q, scales = ops.quantize_tiles(_flat32(g), tile=tile)
         return (q, scales), tuple(g.shape)
 
     def decompress(payload, shape):
@@ -74,8 +76,7 @@ def topk_fused_compressor(ratio: float = 0.01, tile: int = ops.TILE,
     ratio, tile, iters = float(ratio), int(tile), int(iters)
 
     def compress(g, rng=None):
-        y = kref.topk_mask_bisect_ref(_flat32(g), ratio=ratio, tile=tile,
-                                      iters=iters)
+        y = ops.topk_mask(_flat32(g), ratio=ratio, tile=tile, iters=iters)
         return y.reshape(g.shape), None
 
     def decompress(payload, meta):

@@ -289,8 +289,9 @@ class PlanExecutor:
         return _unflatten(grads, out), new_state
 
     # EF + compress of one flat/leaf-shaped f32 buffer: with EF, the
-    # compressor's fused one-pass hook (the CUDA kernels on the card), which
-    # writes the new residual into e's buffer; without, its plain compress.
+    # compressor's fused one-pass hook, which writes the new residual into
+    # e's buffer; without, its compress.  Both run the CUDA kernels on the
+    # card.
     def _compress_with_ef(self, buf, e, b: BucketPlan, comp):
         if self._bucket_uses_ef(b):
             payload, meta, _ = comp.fused_ef_compress(buf, e, b.ef_decay)

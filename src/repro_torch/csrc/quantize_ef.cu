@@ -26,19 +26,44 @@
 // writes 4 per element.  Both do a few operations per byte, far below the
 // card's ratio of operations to bandwidth.
 //
-// Design (simple and correct first): one thread block per tile, with
-// min(round_up(tile, 32), 256) threads striding over it.  quantize_ef keeps
-// the tile's c in dynamic shared memory, so g and e are read once: pass 1
-// computes c and the block max (warp shuffles, then one shared pass), pass 2
-// writes q and e_new.  dequant_accum forms the w per-tile factors s[r] / 127
-// once in shared memory, then each thread walks the ranks for its elements
-// (neighbouring threads read neighbouring bytes of each rank's payload).
-// e_new may be e itself (the executor passes the EF state's buffer): each
-// thread reads e[i] in pass 1 and writes e_new[i] in pass 2, so the two
-// pointers carry no __restrict__.  A ragged last tile masks i >= n, which
-// gives the reference's zero padding: zeros cannot raise a max of absolute
-// values, and padded outputs are sliced away.  Indices are int64: one
-// bucket at full width holds 6e8 elements.
+// quantize_ef: one thread block per tile, with min(round_up(tile, 32), 256)
+// threads striding over it.  It keeps the tile's c in dynamic shared
+// memory, so g and e are read once: pass 1 computes c and the block max
+// (warp shuffles, then one shared pass), pass 2 writes q and e_new.  e_new
+// may be e itself (the executor passes the EF state's buffer): each thread
+// reads e[i] in pass 1 and writes e_new[i] in pass 2, so the two pointers
+// carry no __restrict__.
+//
+// dequant_accum has two designs, chosen by the caller from the tile alone
+// (kernels/dispatch.py:tile_route):
+//
+// * warp route, tiles of up to kWarpMaxTile (1024) elements (the wire's
+//   tile): one warp per tile, kWarpsPerBlock tiles per block, no shared
+//   memory and no block barrier.  Each lane keeps P = tile / 32 (rounded
+//   up to a power of two) f32 sums in registers.  For each rank in order
+//   the lane forms the factor s[r] / 127 in a register and reads its codes
+//   as 4-byte words (P / 4 loads a lane a rank, all issued before their
+//   first use; rank r+1's loads issued before rank r is added in); the
+//   sums leave as float4 stores.  Word v = j * 32 + lane holds 4 codes, so
+//   a warp's load covers 128 contiguous bytes and its store 512: with
+//   16-byte code loads a lane would own 64 contiguous bytes of output and
+//   each float4 store would write 16 bytes at a 64-byte stride (measured
+//   slower, PERF.md).  A tile takes that vector path when it is whole, a
+//   whole number of words, 4-byte aligned in every rank's row (so
+//   n % 4 == 0 when w > 1) and its output 16-byte aligned, and P >= 4; any
+//   other tile (the ragged last one, odd n, a misaligned view, tiles of up
+//   to 64) takes scalar loads inside the same kernel.  Register arrays are
+//   indexed only in fully unrolled loops.
+// * block route, tiles of 1025 to kMaxTile elements: one thread block per
+//   tile; the w factors are formed once in shared memory, then each thread
+//   walks the ranks for its elements (neighbouring threads read
+//   neighbouring bytes of each rank's payload).
+//
+// Both routes add in the reference's order: acc = q[0] * f[0], then
+// acc = acc + q[r] * f[r] for r = 1 .. w-1.  A ragged last tile masks
+// i >= n, which gives the reference's zero padding: zeros cannot raise a
+// max of absolute values, and padded outputs are sliced away.  Indices are
+// int64: one bucket at full width holds 6e8 elements.
 
 #include "tile_math.cuh"
 
@@ -81,11 +106,111 @@ quantize_ef_kernel(const float* __restrict__ g, const float* e,
   if (threadIdx.x == 0) scales[blockIdx.x] = s;
 }
 
+// Code b (0 .. 3, little-endian) of a word of four int8 codes, as f32
+// (exact).
+__device__ __forceinline__ float code_of(uint32_t word, int b) {
+  return static_cast<float>(
+      static_cast<int8_t>(static_cast<uint8_t>(word >> (8 * b))));
+}
+
+// acc = q * f on the first rank, acc + q * f after it.
+__device__ __forceinline__ float accumulate(float acc, float q, float f,
+                                            bool first) {
+  const float term = __fmul_rn(q, f);
+  return first ? term : __fadd_rn(acc, term);
+}
+
+// One warp per tile (tile <= 32 * P).  Vector layout: code word number
+// v = j * 32 + lane of a rank's tile (4 int8 codes) holds elements
+// 4v .. 4v + 3 (lane values 4j .. 4j + 3), so one load instruction of the
+// warp reads 128 contiguous bytes of codes and one float4 store writes 512
+// contiguous bytes of sums; scalar layout: element j * 32 + lane (lane
+// value j).
+template <int P>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+dequant_accum_warp_kernel(const int8_t* __restrict__ q,
+                          const float* __restrict__ scales,
+                          float* __restrict__ out, int64_t n, int w,
+                          int tile, int64_t ntiles) {
+  constexpr int NV = P / 4;                 // code words a lane a rank
+  const int64_t t = warp_tile_index();
+  if (t >= ntiles) return;                  // the whole warp leaves
+  const int lane = threadIdx.x & 31;
+  const int64_t base = t * tile;
+  const int valid = static_cast<int>(n - base < tile ? n - base : tile);
+  q += base;
+  out += base;
+  scales += t;                              // rank r's scale: r * ntiles
+  float acc[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) acc[j] = 0.0f;
+  if constexpr (NV > 0) {
+    const bool vec = valid == tile && tile % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(q) & 3u) == 0 &&
+                     (w == 1 || n % 4 == 0) && aligned16(out);
+    if (vec) {
+      uint32_t cur[NV], nxt[NV];
+      auto load_rank = [&](const int8_t* row, uint32_t (&dst)[NV]) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int i = 4 * (j * 32 + lane);
+          dst[j] = i < tile ? *reinterpret_cast<const uint32_t*>(row + i)
+                            : 0u;
+        }
+      };
+      load_rank(q, cur);
+      float s_cur = scales[0];
+      for (int r = 0; r < w; ++r) {
+        float s_nxt = 0.0f;
+        if (r + 1 < w) {                    // the next rank's loads first
+          load_rank(q + static_cast<int64_t>(r + 1) * n, nxt);
+          s_nxt = scales[static_cast<int64_t>(r + 1) * ntiles];
+        }
+        const float f = __fdiv_rn(s_cur, 127.0f);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[4 * j + b] = accumulate(acc[4 * j + b], code_of(cur[j], b),
+                                        f, r == 0);
+        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j) cur[j] = nxt[j];
+        s_cur = s_nxt;
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int i = 4 * (j * 32 + lane);
+        if (i < tile)
+          *reinterpret_cast<float4*>(out + i) = make_float4(
+              acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      return;
+    }
+  }
+  for (int r = 0; r < w; ++r) {
+    const int8_t* row = q + static_cast<int64_t>(r) * n;
+    const float f =
+        __fdiv_rn(scales[static_cast<int64_t>(r) * ntiles], 127.0f);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = j * 32 + lane;
+      if (i < valid)
+        acc[j] = accumulate(acc[j], static_cast<float>(row[i]), f, r == 0);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int i = j * 32 + lane;
+    if (i < valid) out[i] = acc[j];
+  }
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
-dequant_accum_kernel(const int8_t* __restrict__ q,
-                     const float* __restrict__ scales,
-                     float* __restrict__ out, int64_t n, int w, int tile,
-                     int64_t ntiles) {
+dequant_accum_block_kernel(const int8_t* __restrict__ q,
+                           const float* __restrict__ scales,
+                           float* __restrict__ out, int64_t n, int w,
+                           int tile, int64_t ntiles) {
   extern __shared__ float factor[];          // w entries: s[r] / 127
   for (int r = threadIdx.x; r < w; r += blockDim.x)
     factor[r] = __fdiv_rn(scales[static_cast<int64_t>(r) * ntiles +
@@ -130,17 +255,52 @@ extern "C" int quantize_ef_launch(const void* g, const void* e, void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: (w, n) int8 row-major; scales: (w, ceil(n/tile)) f32; out: n f32.
-extern "C" int dequant_accum_launch(const void* q, const void* scales,
-                                    void* out, int64_t n, int64_t w,
-                                    int64_t tile, void* stream) {
-  if (bad_grid(n, tile) || w <= 0 || w > kMaxRanks)
+template <int P>
+void dequant_accum_warp(const void* q, const void* scales, void* out,
+                        int64_t n, int w, int tile, int64_t ntiles,
+                        cudaStream_t s) {
+  dequant_accum_warp_kernel<P><<<warp_route_blocks(ntiles),
+                                 kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(out), n, w, tile, ntiles);
+}
+
+// dequant_accum on the warp route (tile <= kWarpMaxTile).  q: (w, n) int8
+// row-major; scales: (w, ceil(n/tile)) f32; out: n f32; all device
+// pointers.  Launches on `stream` without synchronising; returns
+// cudaGetLastError() (0 on success).
+extern "C" int dequant_accum_warp_launch(const void* q, const void* scales,
+                                         void* out, int64_t n, int64_t w,
+                                         int64_t tile, void* stream) {
+  if (bad_grid(n, tile) || w <= 0 || w > kMaxRanks || tile > kWarpMaxTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ntiles = (n + tile - 1) / tile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ww = static_cast<int>(w), t = static_cast<int>(tile);
+  switch (values_per_lane(tile)) {
+    case 1: dequant_accum_warp<1>(q, scales, out, n, ww, t, ntiles, s); break;
+    case 2: dequant_accum_warp<2>(q, scales, out, n, ww, t, ntiles, s); break;
+    case 4: dequant_accum_warp<4>(q, scales, out, n, ww, t, ntiles, s); break;
+    case 8: dequant_accum_warp<8>(q, scales, out, n, ww, t, ntiles, s); break;
+    case 16: dequant_accum_warp<16>(q, scales, out, n, ww, t, ntiles, s);
+      break;
+    default: dequant_accum_warp<32>(q, scales, out, n, ww, t, ntiles, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dequant_accum on the block route (kWarpMaxTile < tile <= kMaxTile); the
+// same arguments as dequant_accum_warp_launch.
+extern "C" int dequant_accum_block_launch(const void* q, const void* scales,
+                                          void* out, int64_t n, int64_t w,
+                                          int64_t tile, void* stream) {
+  if (bad_grid(n, tile) || w <= 0 || w > kMaxRanks || tile <= kWarpMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ntiles = (n + tile - 1) / tile;
   const size_t smem = static_cast<size_t>(w) * sizeof(float);
-  dequant_accum_kernel<<<dim3(static_cast<unsigned>(ntiles)),
-                         tile_threads(tile), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  dequant_accum_block_kernel<<<dim3(static_cast<unsigned>(ntiles)),
+                               tile_threads(tile), smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(scales),
       static_cast<float*>(out), n, static_cast<int>(w),
       static_cast<int>(tile), ntiles);

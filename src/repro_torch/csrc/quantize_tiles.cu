@@ -52,24 +52,6 @@ namespace {
 
 constexpr int64_t kMaxTile = int64_t{1} << 30;
 
-// The f32 values of one 16-byte vector of T (4 f32 or 8 bf16; bf16 -> f32
-// is exact: the bf16 bits are the high half of the f32).
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& r,
-                                         float (&v)[16 / sizeof(T)]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = __uint_as_float(w[u]);
-  } else {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      v[2 * u] = __uint_as_float(w[u] << 16);
-      v[2 * u + 1] = __uint_as_float(w[u] & 0xffff0000u);
-    }
-  }
-}
-
 // Four int8 codes packed little-endian into one word.
 __device__ __forceinline__ uint32_t pack4(int8_t a, int8_t b, int8_t c,
                                           int8_t d) {

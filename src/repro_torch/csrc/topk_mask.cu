@@ -26,29 +26,33 @@
 // What bounds them: memory.  topk_ef reads 8 bytes and writes 8 per element
 // (16 B/elt); topk_mask reads and writes one element each.  The bisection
 // makes `iters` counting passes over the tile, but over values held on
-// chip, not over device memory: about 2 * iters operations per element.
+// chip, not over device memory: about 2 * iters operations per element,
+// which bound topk_mask in bf16 (4 bytes moved per element) instead.
 //
 // Two designs, chosen by the caller from the tile alone
 // (kernels/dispatch.py:tile_route):
 //
-// * warp route, tiles of up to kWarpMaxTile (1024) elements, topk_ef only:
-//   one warp per tile, kWarpsPerBlock tiles per block, no shared memory and
-//   no block barrier.  Each lane holds P = tile / 32 values (rounded up to
-//   a power of two) in registers.  A tile whose first element is 16-byte
-//   aligned in all four arrays and that is a whole number of float4
-//   vectors, and not the ragged last tile, is loaded with float4 loads
-//   (every load issued before the first use: 2 x P / 4 of 16 bytes in
-//   flight per lane) and stored with float4 stores; any other tile takes
-//   scalar loads inside the same kernel.  The bisection
-//   (warp_bisect_threshold) counts per lane and totals with
-//   __reduce_add_sync, so every lane holds the same lo and hi and the loop
-//   is uniform.  Register arrays are indexed only at compile-time indices
-//   in fully unrolled loops, so they stay in registers.
-// * block route, tiles of 1025 to kMaxTile elements (and topk_mask at any
-//   tile): one thread block per tile, with min(round_up(tile, 32), 256)
-//   threads striding over it.  The tile's c lives in dynamic shared
-//   memory; each round counts per thread, then across the block with warp
-//   shuffles and one shared pass (block_sum).
+// * warp route, tiles of up to kWarpMaxTile (1024) elements (the wire's
+//   tile): one warp per tile, kWarpsPerBlock tiles per block, no shared
+//   memory and no block barrier.  Each lane holds P = tile / 32 values
+//   (rounded up to a power of two) in registers.  A tile whose first
+//   element is 16-byte aligned in every array it reads and writes, that is
+//   a whole number of 16-byte vectors (4 f32 or 8 bf16) and is not the
+//   ragged last tile, is loaded with 16-byte loads (every load issued
+//   before the first use: 2 x P / 4 of 16 bytes in flight per lane for
+//   topk_ef, P / 4 or P / 8 for topk_mask) and stored with 16-byte stores;
+//   any other tile takes scalar loads inside the same kernel.  topk_mask
+//   writes x's own bits where it keeps and +0 elsewhere.  The bisection
+//   (warp_bisect_threshold, shared by both kernels) counts per lane and
+//   totals with __reduce_add_sync, so every lane holds the same lo and hi
+//   and the loop is uniform.  Register arrays are indexed only at
+//   compile-time indices in fully unrolled loops, so they stay in
+//   registers.
+// * block route, tiles of 1025 to kMaxTile elements: one thread block per
+//   tile, with min(round_up(tile, 32), 256) threads striding over it.  The
+//   tile's c lives in dynamic shared memory; each round counts per thread,
+//   then across the block with warp shuffles and one shared pass
+//   (block_sum).
 //
 // On both routes topk_ef's e_new may be e itself (the executor passes the
 // EF state's buffer): every e[i] is read, by the lane or thread that later
@@ -216,10 +220,93 @@ topk_ef_block_kernel(const float* __restrict__ g, const float* e,
   }
 }
 
+// The 16-byte vector of T holding v's bits where |v| >= hi and +0
+// elsewhere (v: the f32 values unpack16<T> gave, so a kept value's f32
+// bits hold its T bits: all 32 for f32, the high 16 for bf16).
+template <typename T>
+__device__ __forceinline__ uint4 pack16_kept(const float (&v)[16 / sizeof(T)],
+                                             float hi) {
+  uint32_t w[4];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[u] = fabsf(v[u]) >= hi ? __float_as_uint(v[u]) : 0u;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[u] = (fabsf(v[2 * u]) >= hi ? __float_as_uint(v[2 * u]) >> 16 : 0u) |
+             (fabsf(v[2 * u + 1]) >= hi
+                  ? __float_as_uint(v[2 * u + 1]) & 0xffff0000u : 0u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One warp per tile (tile <= 32 * P).  Vector layout: 16-byte vector number
+// v = j * 32 + lane of the tile holds elements V*v .. V*v + V-1 (lane values
+// V*j .. V*j + V-1); scalar layout: element j * 32 + lane (lane value j).
+template <typename T, int P>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+topk_mask_warp_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
+                      int64_t ntiles, int tile, int k, int iters) {
+  constexpr int V = 16 / sizeof(T);         // elements of a 16-byte vector
+  constexpr int NV = P / V;                 // vectors a lane
+  const int64_t t = warp_tile_index();
+  if (t >= ntiles) return;                  // the whole warp leaves
+  const int lane = threadIdx.x & 31;
+  const int64_t base = t * tile;
+  const int valid = static_cast<int>(n - base < tile ? n - base : tile);
+  x += base;
+  y += base;
+  const bool vec = NV > 0 && valid == tile && tile % V == 0 &&
+                   aligned16(x) && aligned16(y);
+  float c[P];
+  if (vec) {
+    uint4 raw[NV > 0 ? NV : 1];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {          // every load before any use
+      const int i = V * (j * 32 + lane);
+      raw[j] = i < tile ? *reinterpret_cast<const uint4*>(x + i)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float u[V];
+      unpack16<T>(raw[j], u);
+#pragma unroll
+      for (int w = 0; w < V; ++w) c[V * j + w] = u[w];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = j * 32 + lane;
+      c[j] = i < valid ? to_f32(x[i]) : 0.0f;
+    }
+  }
+  const float hi = warp_bisect_threshold<P>(c, 32 * P - tile, k, iters);
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = V * (j * 32 + lane);
+      if (i < tile) {
+        float u[V];
+#pragma unroll
+        for (int w = 0; w < V; ++w) u[w] = c[V * j + w];
+        *reinterpret_cast<uint4*>(y + i) = pack16_kept<T>(u, hi);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = j * 32 + lane;
+      if (i < valid) y[i] = fabsf(c[j]) >= hi ? x[i] : T(0.0f);
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-topk_mask_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
-                 int tile, int k, int iters) {
+topk_mask_block_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
+                       int tile, int k, int iters) {
   extern __shared__ float c_buf[];
   __shared__ float fbuf[kMaxThreads / 32];
   __shared__ int ibuf[kMaxThreads / 32];
@@ -249,6 +336,29 @@ void topk_ef_warp(const void* g, const void* e, void* y, void* e_new,
       static_cast<const float*>(g), static_cast<const float*>(e),
       static_cast<float*>(y), static_cast<float*>(e_new), n, ntiles, tile, k,
       iters, decay);
+}
+
+template <typename T, int P>
+void topk_mask_warp(const void* x, void* y, int64_t n, int64_t ntiles,
+                    int tile, int k, int iters, cudaStream_t s) {
+  topk_mask_warp_kernel<T, P><<<warp_route_blocks(ntiles),
+                                kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), n, ntiles, tile, k,
+      iters);
+}
+
+template <typename T>
+void topk_mask_warp_of(const void* x, void* y, int64_t n, int64_t ntiles,
+                       int tile, int k, int iters, cudaStream_t s) {
+  switch (values_per_lane(tile)) {
+    case 1: topk_mask_warp<T, 1>(x, y, n, ntiles, tile, k, iters, s); break;
+    case 2: topk_mask_warp<T, 2>(x, y, n, ntiles, tile, k, iters, s); break;
+    case 4: topk_mask_warp<T, 4>(x, y, n, ntiles, tile, k, iters, s); break;
+    case 8: topk_mask_warp<T, 8>(x, y, n, ntiles, tile, k, iters, s); break;
+    case 16: topk_mask_warp<T, 16>(x, y, n, ntiles, tile, k, iters, s);
+      break;
+    default: topk_mask_warp<T, 32>(x, y, n, ntiles, tile, k, iters, s);
+  }
 }
 
 }  // namespace
@@ -302,23 +412,44 @@ extern "C" int topk_ef_block_launch(const void* g, const void* e, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: n elements (f32, or bf16 when x_is_bf16) on the device.
-extern "C" int topk_mask_launch(const void* x, void* y, int64_t n,
-                                int64_t tile, int64_t k, int64_t iters,
-                                int x_is_bf16, void* stream) {
-  if (bad_args(n, tile, k, iters))
+// topk_mask on the warp route (tile <= kWarpMaxTile).  x, y: n elements
+// (f32, or bf16 when x_is_bf16) on the device.  Launches on `stream`
+// without synchronising; returns cudaGetLastError() (0 on success).
+extern "C" int topk_mask_warp_launch(const void* x, void* y, int64_t n,
+                                     int64_t tile, int64_t k, int64_t iters,
+                                     int x_is_bf16, void* stream) {
+  if (bad_args(n, tile, k, iters) || tile > kWarpMaxTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ntiles = (n + tile - 1) / tile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(tile), kk = static_cast<int>(k),
+            it = static_cast<int>(iters);
+  if (x_is_bf16)
+    topk_mask_warp_of<__nv_bfloat16>(x, y, n, ntiles, t, kk, it, s);
+  else
+    topk_mask_warp_of<float>(x, y, n, ntiles, t, kk, it, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// topk_mask on the block route (kWarpMaxTile < tile <= kMaxTile); the same
+// arguments as topk_mask_warp_launch.
+extern "C" int topk_mask_block_launch(const void* x, void* y, int64_t n,
+                                      int64_t tile, int64_t k, int64_t iters,
+                                      int x_is_bf16, void* stream) {
+  if (bad_args(n, tile, k, iters) || tile <= kWarpMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ntiles = (n + tile - 1) / tile;
   const dim3 grid(static_cast<unsigned>(ntiles));
   const size_t smem = static_cast<size_t>(tile) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {
-    topk_mask_kernel<__nv_bfloat16><<<grid, tile_threads(tile), smem, s>>>(
+    topk_mask_block_kernel<__nv_bfloat16><<<grid, tile_threads(tile), smem,
+                                            s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
         n, static_cast<int>(tile), static_cast<int>(k),
         static_cast<int>(iters));
   } else {
-    topk_mask_kernel<float><<<grid, tile_threads(tile), smem, s>>>(
+    topk_mask_block_kernel<float><<<grid, tile_threads(tile), smem, s>>>(
         static_cast<const float*>(x), static_cast<float*>(y), n,
         static_cast<int>(tile), static_cast<int>(k), static_cast<int>(iters));
   }

@@ -8,7 +8,8 @@ JAX package's ``REPRO_KERNELS_IMPL`` has no counterpart here), and no
 fall-back: if a kernel does not build or does not launch, its wrapper
 raises.  ``require_flat_cuda`` and ``launch`` are the checks and the
 launch every wrapper shares; ``tile_route`` picks the kernel of the
-per-tile wrappers (``quantize_tiles``, ``topk_ef``).
+per-tile wrappers (``quantize_tiles``, ``dequant_accum``, ``topk_ef``,
+``topk_mask``).
 """
 from __future__ import annotations
 

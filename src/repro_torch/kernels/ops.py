@@ -7,9 +7,10 @@ kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
 Each wrapper's ``launches`` attribute counts its kernel's launches (a plain
 int, never incremented on the CPU path), so a run can show that its main
 path went through the kernel; the ``routes`` of ``flash_attention``
-(wgmma / SIMT), ``quantize_tiles`` and ``topk_ef`` (warp / block) split
-that count by kernel (``route_counts``); ``reset_launch_counts`` sets
-them all to 0.
+(wgmma / SIMT) and of the per-tile wrappers ``quantize_tiles``,
+``dequant_accum``, ``topk_ef`` and ``topk_mask`` (warp / block) split that
+count by kernel (``route_counts``); ``reset_launch_counts`` sets them all
+to 0.
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ def dequant_accum(q: torch.Tensor, scales: torch.Tensor, *, tile: int = TILE):
     if use_kernel(q):
         out = dequant_accum_cuda(q.contiguous(), scales.contiguous(), tile)
         dequant_accum.launches += 1
+        dequant_accum.routes[tile_route(tile)] += 1
         return out
     return _ref.dequant_accum_ref(q, scales, tile=tile)
 
@@ -105,6 +107,7 @@ def topk_mask(x: torch.Tensor, *, ratio: float = 0.01, tile: int = TILE,
         out = topk_mask_cuda(x.contiguous(), _topk_k(ratio, tile), tile,
                              iters)
         topk_mask.launches += 1
+        topk_mask.routes[tile_route(tile)] += 1
         return out
     return _ref.topk_mask_bisect_ref(x, ratio=ratio, tile=tile, iters=iters)
 
@@ -151,7 +154,9 @@ KERNEL_WRAPPERS = {"flash_attention": flash_attention,
 
 KERNEL_ROUTES = {"flash_attention": ("wgmma", "simt"),
                  "quantize_tiles": TILE_ROUTES,
-                 "topk_ef": TILE_ROUTES}
+                 "dequant_accum": TILE_ROUTES,
+                 "topk_ef": TILE_ROUTES,
+                 "topk_mask": TILE_ROUTES}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -161,7 +166,8 @@ def launch_counts() -> Dict[str, int]:
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches per kernel route of each wrapper that has routes:
     ``{"flash_attention": {"wgmma": n, "simt": n}, "quantize_tiles":
-    {"warp": n, "block": n}, "topk_ef": {...}}``."""
+    {"warp": n, "block": n}, "dequant_accum": {...}, "topk_ef": {...},
+    "topk_mask": {...}}``."""
     return {name: dict(KERNEL_WRAPPERS[name].routes) for name in KERNEL_ROUTES}
 
 

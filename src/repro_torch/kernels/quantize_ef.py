@@ -3,6 +3,10 @@
 ``src/repro/kernels/quantize_ef.py:_kernel`` / ``quantize_ef_pallas``) and
 ``dequant_accum`` (the port of ``_accum_kernel`` / ``dequant_accum_pallas``).
 
+``dequant_accum`` has two kernels, chosen from the tile alone
+(``dispatch.tile_route``): the warp route (one warp per tile, the sums in
+registers) for tiles of up to 1024 elements, which the training wire
+takes, and the block route (one thread block per tile) for 1025 to 8192.
 The library is built with nvcc on first use (``kernels/build.py``) and
 called through plain C launchers with ctypes.  Each launch runs on
 PyTorch's current stream and does not synchronise; outputs are allocated
@@ -18,7 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import launch, require_flat_cuda
+from repro_torch.kernels.dispatch import (launch, require_flat_cuda,
+                                          tile_route)
 
 MAX_TILE = 8192         # the tile's f32 values stay within 32 KB of shared memory
 MAX_RANKS = 1024
@@ -28,13 +33,18 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
+    """(quantize_ef's launcher, {route: dequant_accum's launcher}), built
+    and loaded on first use."""
     lib = build.load("quantize_ef")
     qef = lib.quantize_ef_launch
     qef.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P]
     qef.restype = ctypes.c_int
-    acc = lib.dequant_accum_launch
-    acc.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
-    acc.restype = ctypes.c_int
+    acc = {}
+    for route in ("warp", "block"):
+        fn = getattr(lib, f"dequant_accum_{route}_launch")
+        fn.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
+        fn.restype = ctypes.c_int
+        acc[route] = fn
     return qef, acc
 
 
@@ -83,8 +93,9 @@ def quantize_ef_cuda(g: torch.Tensor, e: torch.Tensor, decay: float,
 
 
 def dequant_accum_cuda(q: torch.Tensor, scales: torch.Tensor, tile: int):
-    """Launch dequant_accum on contiguous CUDA tensors q (w, n) int8 and
-    scales (w, ceil(n/tile)) f32.  Returns the (n,) f32 sum over ranks."""
+    """Launch dequant_accum (the kernel of ``tile_route(tile)``) on
+    contiguous CUDA tensors q (w, n) int8 and scales (w, ceil(n/tile))
+    f32.  Returns the (n,) f32 sum over ranks."""
     if q.device.type != "cuda" or scales.device != q.device:
         raise ValueError(f"dequant_accum kernel needs q and scales on one "
                          f"CUDA device, got {q.device} and {scales.device}")
@@ -104,6 +115,6 @@ def dequant_accum_cuda(q: torch.Tensor, scales: torch.Tensor, tile: int):
     out = torch.empty(n, dtype=torch.float32, device=q.device)
     if n == 0:
         return out
-    launch("dequant_accum", _launchers()[1], q, q.data_ptr(),
-           scales.data_ptr(), out.data_ptr(), n, w, tile)
+    launch("dequant_accum", _launchers()[1][tile_route(tile)], q,
+           q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, w, tile)
     return out

@@ -5,14 +5,13 @@ topk_fused wire) and ``topk_mask`` (the port of ``_kernel`` /
 ``topk_mask_pallas``).  Both share the bisection of ``_bisect_threshold``.
 
 The caller passes ``k = max(1, int(tile * ratio))`` computed as the
-reference does.  ``topk_ef`` has two kernels, chosen from the tile alone
+reference does.  Each has two kernels, chosen from the tile alone
 (``dispatch.tile_route``): the warp route (one warp per tile, the tile in
 registers) for tiles of up to 1024 elements, which the training wire
-takes, and the block route (one thread block per tile) for 1025 to 8192;
-``topk_mask`` runs the block kernel at every tile.  The library is built
-with nvcc on first use (``kernels/build.py``) and called through plain C
-launchers with ctypes, on PyTorch's current stream, without
-synchronising.
+takes, and the block route (one thread block per tile) for 1025 to 8192.
+The library is built with nvcc on first use (``kernels/build.py``) and
+called through plain C launchers with ctypes, on PyTorch's current
+stream, without synchronising.
 """
 from __future__ import annotations
 
@@ -33,20 +32,21 @@ MAX_ITERS = 64
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    """{"warp": topk_ef's warp launcher, "block": its block launcher,
-    "mask": topk_mask's launcher}, built and loaded on first use."""
+    """{kernel: {route: launcher}} for topk_ef and topk_mask, built and
+    loaded on first use."""
     lib = build.load("topk_mask")
+    argtypes = {"topk_ef": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                            ctypes.c_float, _P],
+                "topk_mask": [_P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
+                              _P]}
     out = {}
-    for route in ("warp", "block"):
-        fn = getattr(lib, f"topk_ef_{route}_launch")
-        fn.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                       ctypes.c_float, _P]
-        fn.restype = ctypes.c_int
-        out[route] = fn
-    mask = lib.topk_mask_launch
-    mask.argtypes = [_P, _P, _I64, _I64, _I64, _I64, ctypes.c_int, _P]
-    mask.restype = ctypes.c_int
-    out["mask"] = mask
+    for kernel, types in argtypes.items():
+        out[kernel] = {}
+        for route in ("warp", "block"):
+            fn = getattr(lib, f"{kernel}_{route}_launch")
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+            out[kernel][route] = fn
     return out
 
 
@@ -73,15 +73,16 @@ def topk_ef_cuda(g: torch.Tensor, e: torch.Tensor, k: int, tile: int,
     y = torch.empty(n, dtype=torch.float32, device=g.device)
     if n == 0:
         return y, e_new
-    launch("topk_ef", _launchers()[tile_route(tile)], g, g.data_ptr(),
-           e.data_ptr(), y.data_ptr(), e_new.data_ptr(), n, tile, k, iters,
-           float(decay))
+    launch("topk_ef", _launchers()["topk_ef"][tile_route(tile)], g,
+           g.data_ptr(), e.data_ptr(), y.data_ptr(), e_new.data_ptr(), n,
+           tile, k, iters, float(decay))
     return y, e_new
 
 
 def topk_mask_cuda(x: torch.Tensor, k: int, tile: int, iters: int):
-    """Launch topk_mask on a flat contiguous CUDA tensor (f32 or bf16).
-    Returns the masked tensor in x's dtype."""
+    """Launch topk_mask (the kernel of ``tile_route(tile)``) on a flat
+    contiguous CUDA tensor (f32 or bf16).  Returns the masked tensor in x's
+    dtype."""
     require_flat_cuda(x, "topk_mask", (torch.float32, torch.bfloat16))
     tile = _check_tile(tile)
     k, iters = _check_k_iters(k, iters)
@@ -89,6 +90,7 @@ def topk_mask_cuda(x: torch.Tensor, k: int, tile: int, iters: int):
     y = torch.empty_like(x)
     if n == 0:
         return y
-    launch("topk_mask", _launchers()["mask"], x, x.data_ptr(), y.data_ptr(),
-           n, tile, k, iters, int(x.dtype == torch.bfloat16))
+    launch("topk_mask", _launchers()["topk_mask"][tile_route(tile)], x,
+           x.data_ptr(), y.data_ptr(), n, tile, k, iters,
+           int(x.dtype == torch.bfloat16))
     return y

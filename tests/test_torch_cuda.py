@@ -224,6 +224,143 @@ def test_cuda_topk_ef_misaligned_views_in_place(cuda_device, tile):
 
 
 # ---------------------------------------------------------------------------
+# dequant_accum and topk_mask on their two routes
+# ---------------------------------------------------------------------------
+
+def _payloads(n: int, tile: int, w: int, seed: int):
+    """w ranks' quantize_tiles payloads (CPU) of :func:`_input` values
+    scaled by 1 + r: q (w, n) int8 and scales (w, ceil(n/tile)); rank
+    min(1, w-1)'s second tile holds a NaN (a NaN scale, codes 0) when
+    there are three tiles or more."""
+    qs, ss = [], []
+    for r in range(w):
+        x = _input(n, tile, seed=seed + r) * np.float32(1 + r)
+        if r == min(1, w - 1) and n >= 3 * tile:
+            x[tile + tile // 2] = np.nan
+        q, s = tref.quantize_tiles_ref(torch.from_numpy(x), tile=tile)
+        qs.append(q)
+        ss.append(s)
+    return torch.stack(qs), torch.stack(ss)
+
+
+def _check_dequant_accum(q, s, tile, cuda_device, route, qc=None):
+    """dequant_accum of q, s (CPU) on the card, from ``qc`` (a CUDA view
+    holding q's values) when given, on ``route``; bit-equal to the plain
+    version on the CPU."""
+    r0 = _route_count("dequant_accum", route)
+    got = tops.dequant_accum(q.to(cuda_device) if qc is None else qc,
+                             s.to(cuda_device), tile=tile)
+    torch.cuda.synchronize()
+    assert _route_count("dequant_accum", route) == r0 + 1
+    assert _same(got, tref.dequant_accum_ref(q, s, tile=tile))
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("tile", WARP_TILES + BLOCK_TILES)
+def test_cuda_dequant_accum_routes(cuda_device, tile, w):
+    # one tile, a ragged last tile (n % 16 != 0), 41 whole tiles and 16 of
+    # them (n % 16 == 0 when tile % 16 == 0: the vector loads at w > 1); a
+    # NaN tile, an all-zero tile, exact halves
+    route = "warp" if tile <= 1024 else "block"
+    for n in _lengths(tile) + (16 * tile,):
+        q, s = _payloads(n, tile, w, seed=n + tile)
+        _check_dequant_accum(q, s, tile, cuda_device, route)
+
+
+@pytest.mark.parametrize("n", [2 * 1024 + 16, 2 * 1024 + 5])
+@pytest.mark.parametrize("tile", [1024, 2048])
+def test_cuda_dequant_accum_most_ranks(cuda_device, tile, n):
+    # 1024 ranks, the most the kernels take, added in rank order
+    q, s = _payloads(n, tile, 1024, seed=tile)
+    _check_dequant_accum(q, s, tile, cuda_device,
+                         "warp" if tile <= 1024 else "block")
+
+
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("tile", [256, 1024, 2048])
+def test_cuda_dequant_accum_misaligned_rows(cuda_device, tile, w):
+    # q as rows of a buffer whose base is one byte past a 16-byte boundary
+    # (contiguous: every tile takes the scalar loads), and q[:, 1:] (for
+    # w > 1 not contiguous: the wrapper copies it)
+    route = "warp" if tile <= 1024 else "block"
+    n = 4 * tile
+    q, s = _payloads(n + 1, tile, w, seed=tile + w)
+    flat = torch.zeros(w * n + 1, dtype=torch.int8, device=cuda_device)
+    qc = flat[1:].view(w, n)
+    qc.copy_(q[:, :n].to(cuda_device))
+    assert qc.is_contiguous() and qc.data_ptr() % 16 != 0
+    s_n = s[:, :-(-n // tile)].contiguous()
+    _check_dequant_accum(q[:, :n], s_n, tile, cuda_device, route, qc=qc)
+    view = q.to(cuda_device)[:, 1:]
+    _check_dequant_accum(q[:, 1:].contiguous(), s_n, tile, cuda_device,
+                         route, qc=view)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ratio", [0.01, 0.25])
+@pytest.mark.parametrize("tile", WARP_TILES + BLOCK_TILES)
+def test_cuda_topk_mask_routes(cuda_device, tile, ratio, dtype):
+    # an all-zero first tile, ties at exact halves in the last, a NaN tile
+    route = "warp" if tile <= 1024 else "block"
+    for n in _lengths(tile):
+        x = torch.from_numpy(_input(n, tile, seed=n + tile + 1)).to(dtype)
+        if n >= 3 * tile:
+            x[tile + tile // 2] = float("nan")
+        r0 = _route_count("topk_mask", route)
+        got = tops.topk_mask(x.to(cuda_device), ratio=ratio, tile=tile)
+        torch.cuda.synchronize()
+        assert _route_count("topk_mask", route) == r0 + 1
+        assert got.dtype == dtype
+        want = tref.topk_mask_bisect_ref(x, ratio=ratio, tile=tile)
+        assert _same(got, want), (n, tile)
+        if n >= 3 * tile:                     # the NaN tile keeps nothing
+            assert not got[tile:2 * tile].cpu().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [256, 1024, 2048])
+def test_cuda_topk_mask_misaligned_view(cuda_device, tile, dtype):
+    # x[1:]: contiguous, its base one element past a 16-byte boundary, so
+    # every tile takes the scalar loads
+    n = 4 * tile + 1
+    x = torch.from_numpy(_input(n, tile, seed=tile + 3)).to(dtype)
+    xc = x.to(cuda_device)[1:]
+    assert xc.is_contiguous() and xc.data_ptr() % 16 != 0
+    got = tops.topk_mask(xc, ratio=0.01, tile=tile)
+    torch.cuda.synchronize()
+    assert _same(got, tref.topk_mask_bisect_ref(x[1:], ratio=0.01,
+                                                tile=tile))
+
+
+@pytest.mark.parametrize("name", ["int8_fused", "topk_fused"])
+def test_cuda_compress_without_error_feedback_launches_its_kernel(
+        cuda_device, name):
+    # the encode of a bucket without error feedback: one launch of
+    # quantize_tiles (int8_fused) or topk_mask (topk_fused), on the warp
+    # route at the wire's tile, bit-equal to the plain versions
+    from repro_torch.core.compression import get_compressor
+    comp = get_compressor(name)
+    g = torch.from_numpy(_input(3 * 2065, TILE, seed=21)).reshape(3, 2065)
+    kernel = "quantize_tiles" if name == "int8_fused" else "topk_mask"
+    before, routes = tops.launch_counts(), tops.route_counts()
+    payload, meta = comp.compress(g.to(cuda_device), None)
+    torch.cuda.synchronize()
+    after = tops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kernel) for k in after}
+    assert tops.route_counts()[kernel]["warp"] == routes[kernel]["warp"] + 1
+    flat = g.reshape(-1)
+    if name == "int8_fused":
+        assert meta == (3, 2065)
+        want = tref.quantize_tiles_ref(flat, tile=TILE)
+        assert all(_same(a, b) for a, b in zip(payload, want))
+    else:
+        assert meta is None and payload.shape == g.shape
+        assert _same(payload.reshape(-1),
+                     tref.topk_mask_bisect_ref(flat, tile=TILE))
+
+
+# ---------------------------------------------------------------------------
 # flash attention: the kernel against its plain version, within tolerance
 # ---------------------------------------------------------------------------
 

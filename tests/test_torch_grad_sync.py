@@ -5,7 +5,8 @@ the JAX package's.
     against the reference's, run inside ``shard_map`` over a one-device
     mesh, on the same gradients and EF residuals: synced gradients and new
     residuals for ``none``, ``int8_fused`` and ``topk_fused``, packed and
-    per-leaf buckets.  The plans and ``payload_bits`` are the same.
+    per-leaf buckets, and the two compressed wires without error
+    feedback.  The plans and ``payload_bits`` are the same.
   * World 2: two processes (``torch.multiprocessing``, gloo, rendezvous by
     a ``FileStore`` under ``tmp_path``) each sync their own gradients;
     every rank's synced gradients and residuals are held against an
@@ -47,6 +48,8 @@ SHAPES = {"a": (2065,), "b": (64, 33), "c": (3, 700), "d": (5000,)}
 CASES = [("none", 32 * 2**20), ("int8_fused", 8192), ("int8_fused", 0),
          ("topk_fused", 8192), ("topk_fused", 0)]
 CASE_IDS = [f"{c}-{b}" for c, b in CASES]
+NO_EF_CASES = [c for c in CASES if c[0] != "none"]
+NO_EF_IDS = [f"{c}-{b}" for c, b in NO_EF_CASES]
 ULP = 2.0 ** -23
 
 
@@ -71,9 +74,25 @@ def world1():
 
 @pytest.mark.parametrize("compressor,bucket_bytes", CASES, ids=CASE_IDS)
 def test_world1_matches_jax_executor(world1, compressor, bucket_bytes):
+    _world1_against_jax(compressor, bucket_bytes, error_feedback=True)
+
+
+@pytest.mark.parametrize("compressor,bucket_bytes", NO_EF_CASES,
+                         ids=NO_EF_IDS)
+def test_world1_no_error_feedback_matches_jax_executor(world1, compressor,
+                                                       bucket_bytes):
+    # without error feedback the encode is the compressor's compress
+    # (ops.quantize_tiles / ops.topk_mask), and the state holds no residual;
+    # the same tolerances as with it (module docstring)
+    _world1_against_jax(compressor, bucket_bytes, error_feedback=False)
+
+
+def _world1_against_jax(compressor, bucket_bytes, error_feedback):
     g = _grads(seed=1)
-    cfg = SyncConfig(compressor=compressor, bucket_bytes=bucket_bytes)
-    jcfg = JCfg(compressor=compressor, bucket_bytes=bucket_bytes)
+    cfg = SyncConfig(compressor=compressor, bucket_bytes=bucket_bytes,
+                     error_feedback=error_feedback)
+    jcfg = JCfg(compressor=compressor, bucket_bytes=bucket_bytes,
+                error_feedback=error_feedback)
     gt = {k: torch.from_numpy(v.copy()) for k, v in g.items()}
     gj = {k: jnp.asarray(v) for k, v in g.items()}
     plan, jp = plan_from_config(cfg, gt), jplan(jcfg, gj)
@@ -84,6 +103,7 @@ def test_world1_matches_jax_executor(world1, compressor, bucket_bytes):
     assert ex.payload_bits(gt) == jex.payload_bits(gj)
 
     state, jstate = ex.init_state(gt), jex.init_state(gj)
+    assert ("error" in state) == (error_feedback and compressor != "none")
     res = []
     if "error" in state:
         res = _residuals(state["error"], seed=2)

@@ -132,7 +132,9 @@ def test_cpu_path_leaves_launch_counter_at_zero():
     assert tops.route_counts() == {
         "flash_attention": {"wgmma": 0, "simt": 0},
         "quantize_tiles": {"warp": 0, "block": 0},
-        "topk_ef": {"warp": 0, "block": 0}}
+        "dequant_accum": {"warp": 0, "block": 0},
+        "topk_ef": {"warp": 0, "block": 0},
+        "topk_mask": {"warp": 0, "block": 0}}
     assert set(tops.KERNEL_WRAPPERS) == {"flash_attention", "nonfinite_tiles",
                                          "quantize_tiles", "quantize_ef",
                                          "dequant_accum", "topk_ef",
@@ -161,7 +163,9 @@ def test_reset_launch_counts_zeroes_every_route():
         for name, routes in tops.KERNEL_ROUTES.items()}
     assert tops.KERNEL_ROUTES == {"flash_attention": ("wgmma", "simt"),
                                   "quantize_tiles": ("warp", "block"),
-                                  "topk_ef": ("warp", "block")}
+                                  "dequant_accum": ("warp", "block"),
+                                  "topk_ef": ("warp", "block"),
+                                  "topk_mask": ("warp", "block")}
     assert set(tops.launch_counts().values()) == {0}
 
 
@@ -471,3 +475,25 @@ def test_topk_mask_edge_tiles_bit_equal_to_jax(tile):
     np.testing.assert_array_equal(
         y.numpy(), np.asarray(jref.topk_mask_bisect_ref(xj, ratio=0.05,
                                                         tile=tile)))
+
+
+@pytest.mark.parametrize("tile", EDGE_TILES)
+def test_dequant_accum_edge_tiles_bit_equal_to_jax(tile):
+    # four ranks, n not a multiple of 16 (the kernels' vector rule), a NaN
+    # tile in rank 1: its NaN scale makes the tile NaN in the sum
+    n, w = 3 * tile + 17, 4
+    qs, ss = [], []
+    for r in range(w):
+        x = _input(n, tile, seed=tile + r)
+        if r == 1:
+            x[tile + 3] = np.nan
+        q, s = tops.quantize_tiles(torch.from_numpy(x), tile=tile)
+        qs.append(q)
+        ss.append(s)
+    q, s = torch.stack(qs), torch.stack(ss)
+    out = tops.dequant_accum(q, s, tile=tile)
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(jref.dequant_accum_ref(
+            jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), tile=tile)))
+    assert torch.isnan(out[tile:2 * tile]).all()
+    assert not torch.isnan(out[:tile]).any()

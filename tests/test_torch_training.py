@@ -268,30 +268,50 @@ def test_comm_optimized_step_equals_session_step(jax_params):
 # The CLI
 # ---------------------------------------------------------------------------
 
-def test_cli_cpu_drive_launches_no_kernel():
+def _cli_cpu_drive(flags):
+    """Two CPU steps of ``launch.train`` with ``flags``, in a fresh process:
+    (stdout lines, the JSON of launch counts, device and losses)."""
     code = (
         "import json\n"
         "from repro_torch.kernels import ops\n"
         "from repro_torch.launch import train\n"
         "s = train.main(['--device', 'cpu', '--arch', 'gemma-2b', "
         "'--reduced', '--steps', '2', '--batch', '2', '--seq', '32', "
-        "'--sync', 'comm', '--compressor', 'int8_fused'])\n"
+        f"'--sync', 'comm', {', '.join(map(repr, flags))}])\n"
         "print(json.dumps({'counts': ops.launch_counts(), "
+        "'routes': ops.route_counts(), "
         "'device': s.device.type, 'losses': s.losses}))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
+    return lines, json.loads(lines[-1])
+
+
+def _assert_no_launch(lines, res):
     assert any(line.startswith("final loss ") for line in lines)
     assert sum(line.startswith("step ") for line in lines) == 2
-    res = json.loads(lines[-1])
     assert res["device"] == "cpu" and len(res["losses"]) == 2
     assert np.isfinite(res["losses"]).all()
     assert set(res["counts"]) == {"flash_attention", "nonfinite_tiles",
                                   "quantize_tiles", "quantize_ef",
                                   "dequant_accum", "topk_ef", "topk_mask"}
     assert all(n == 0 for n in res["counts"].values())
+    assert all(n == 0 for routes in res["routes"].values()
+               for n in routes.values())
+
+
+def test_cli_cpu_drive_launches_no_kernel():
+    _assert_no_launch(*_cli_cpu_drive(["--compressor", "int8_fused"]))
+
+
+@pytest.mark.parametrize("compressor", ["int8_fused", "topk_fused"])
+def test_cli_cpu_drive_without_error_feedback_launches_no_kernel(compressor):
+    # the no-EF encode (compress) goes through ops.quantize_tiles /
+    # ops.topk_mask, which run their plain versions on the CPU
+    _assert_no_launch(*_cli_cpu_drive(["--compressor", compressor,
+                                       "--no-error-feedback"]))
 
 
 @pytest.mark.parametrize("flags", [
