@@ -74,9 +74,25 @@ Phases (any failure exits non-zero and prints no result line):
      1, once each with ``--sync comm --compressor int8_fused``, ``--sync
      comm --compressor topk_fused``, both of them again with
      ``--no-error-feedback``, and ``--sync vanilla``; step time, tokens/s,
-     peak memory and a ``torch.profiler`` view of one more step per run.
+     peak memory and a ``torch.profiler`` view of one more step per run;
+  9. the explicit collectives at world 4 on the one card: 4 spawned
+     processes on a gloo group (NCCL refuses two ranks on one device), card
+     tensors staged through pinned host memory.  ``PlanExecutor`` runs
+     int8_fused with error feedback on ``ring_fused`` for 3 rounds over
+     the wire's first and largest buckets (73728 and 603979776 f32, each
+     rank's gradients drawn on the card from seed + rank): every rank's
+     result bit-equal (a digest of the bits), quantize_ef once and
+     quantize_tiles 2·p = 8 times per bucket and round, all on the warp
+     route; int8_fused (the gather wire, dequant_accum at w = 4) and
+     topk_fused on ``ring`` at the 9437184 bucket, each bit-equal across
+     ranks and to the same executor on the CPU (gloo, plain versions),
+     one launch per bucket; every algorithm on a (2, 2) mesh, bit-equal
+     across ranks and to its CPU schedule; seconds per round, staged
+     bytes, a profiled round split into kernels, plain ops, staging copies
+     and host, and quantize_tiles at the hop's length (n = 75497472 f32)
+     and dequant_accum at w = 4, timed by graph replay.
 
-Every main-path run (5, 7, and each of 8) sets every kernel launch counter
+Every main-path run (5, 7, each of 8, and each of 9 on every rank) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
@@ -86,8 +102,9 @@ route and none on the SIMT one; training: the wire's kernels = buckets x
 steps, all on their warp routes (int8_fused: quantize_ef and
 dequant_accum; topk_fused: topk_ef; without error feedback, int8_fused:
 quantize_tiles and dequant_accum, topk_fused: topk_mask), flash 0 (the
-training path keeps the differentiable chunked attention).  Launches made
-in phases 3, 4 and 6 are not counted.  It prints a ``{"kernels": [...]}``
+training path keeps the differentiable chunked attention); world 4: as
+stated in 9.  Launches made in phases 3, 4 and 6, and by 9's timings, are
+not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
 """
@@ -1508,6 +1525,344 @@ def run_gemma2_serving(torch, ops, serve, card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 9. the explicit collectives at world 4 on the one card
+# ---------------------------------------------------------------------------
+
+W4 = 4
+W4_ROUNDS = 3
+W4_SEED = 0
+W4_SMALL = 10007    # the (2, 2) mesh's buffer: chunk rows off 16 bytes
+W4_TIMEOUT_S = 600
+RING_FUSED_STREAMS = 2   # ring_fused's encodes: streams x p per axis
+
+
+def digest(torch, x):
+    """Two order-free checksums of an f32 tensor's bits (int64 sums,
+    wrapping, of the bits and of the bits times a position weight), so
+    that ranks compare a 2.4 GB result without moving it."""
+    bits = x.reshape(-1).view(torch.int32)
+    sums = torch.zeros(2, dtype=torch.int64, device=x.device)
+    for off in range(0, bits.numel(), 1 << 24):
+        b = bits[off:off + (1 << 24)].to(torch.int64)
+        w = torch.arange(off, off + b.numel(), device=b.device) % 65521 + 1
+        sums += torch.stack([b.sum(), (b * w).sum()])
+    return sums.cpu()
+
+
+def w4_gate(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(f"world-4 phase, rank {os.environ.get('RANK', '?')}: {msg}")
+
+
+def w4_launch_gate(counts, want: dict, what: str) -> None:
+    """Every wrapper's count in ``counts`` (``path_counts``) equals
+    ``want`` (0 where it names none)."""
+    got = {k: v for k, v in counts.items() if v}
+    w4_gate(got == {k: v for k, v in want.items() if v},
+            f"{what}: launches {got}, expected {want}")
+
+
+def world4_child(rank: int, store: str, out_dir: str, sizes: dict) -> None:
+    """One rank of the world-4 phase: a gloo group of 4 processes on the
+    one card (NCCL refuses two ranks on one device), card tensors staged
+    through pinned host memory for every transfer.  Writes its results to
+    ``out_dir/rank<r>.json``; any failed gate exits non-zero."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import GradientSynchronizer, SyncConfig
+    from repro_torch.core import PlanExecutor
+    from repro_torch.core.collectives import ALGOS, all_gather, allreduce
+    from repro_torch.core.collectives import p2p
+    from repro_torch.core.schedule.planner import BucketPlan, CommPlan
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quantize import quantize_tiles_cuda
+    from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
+                                                 quantize_ef_cuda)
+    from repro_torch.launch.dist import init_group, mesh_axes
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=W4, rank=rank,
+               store_path=store)
+    dev = torch.device("cuda")
+    res = {"rank": rank}
+
+    def same_on_all_ranks(x) -> bool:
+        """x's bits (its digest above 4M elements) equal on every rank."""
+        mine = (x.reshape(-1).view(torch.int32) if x.numel() <= 1 << 22
+                else digest(torch, x))
+        rows = all_gather(mine)
+        return all(torch.equal(rows[r], rows[0]) for r in range(W4))
+
+    # -- 9.1 int8_fused with EF on ring_fused, the wire's real buckets -----
+    first, largest = sizes["first"], sizes["largest"]
+    plan = CommPlan(buckets=(
+        BucketPlan(leaves=(1,), compressor="int8_fused", algo="ring_fused",
+                   bucket_bytes=4 * first),
+        BucketPlan(leaves=(0,), compressor="int8_fused", algo="ring_fused",
+                   bucket_bytes=4 * largest)))
+    ex = PlanExecutor(plan)
+    gen = torch.Generator(dev).manual_seed(W4_SEED + rank)
+    grads = {"a": torch.randn(largest, generator=gen, device=dev),
+             "b": torch.randn(first, generator=gen, device=dev)}
+    state = ex.init_state(grads)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    p2p.reset_staged_bytes()
+    round_s = []
+    for _ in range(W4_ROUNDS):
+        t0 = time.perf_counter()
+        synced, state = ex(grads, state)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        for k, v in synced.items():
+            w4_gate(torch.isfinite(v).all().item(), f"ring_fused {k} "
+                    f"not finite")
+            w4_gate(same_on_all_ranks(v), f"ring_fused result {k} "
+                    f"({v.numel()} f32) differs between ranks")
+        del synced
+    counts = path_counts(ops)
+    staged = p2p.staged_bytes()
+    per = len(plan.buckets) * W4_ROUNDS
+    hops = RING_FUSED_STREAMS * W4 * per         # 2p per bucket and round
+    w4_launch_gate(counts, {"quantize_ef": per, "quantize_tiles": hops,
+                            "quantize_tiles[warp]": hops},
+                   "int8_fused on ring_fused")
+    peak = torch.cuda.max_memory_allocated()
+    res["ring_fused"] = {"round_s": round_s, "staged_bytes": staged,
+                         "launches": counts, "peak_bytes": peak,
+                         "buckets": [first, largest]}
+
+    # one more round under the profiler (rank 0 records; all take part)
+    if rank == 0:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            synced, state = ex(grads, state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res["profile"] = w4_breakdown(prof, wall)
+    else:
+        synced, state = ex(grads, state)
+        torch.cuda.synchronize()
+    del synced, state, grads, ex
+    torch.cuda.empty_cache()
+
+    # -- 9.2 the gather wire and the exact ring at the 9437184 bucket -------
+    mid = sizes["mid"]
+    gen = torch.Generator(dev).manual_seed(W4_SEED + 100 + rank)
+    g2 = {"g": torch.randn(mid, generator=gen, device=dev)}
+    wires = {"int8_fused_ring": ("int8_fused", {"quantize_ef": 1,
+                                                "dequant_accum": 1,
+                                                "dequant_accum[warp]": 1}),
+             "topk_fused_ring": ("topk_fused", {"topk_ef": 1,
+                                                "topk_ef[warp]": 1})}
+    for name, (comp, want) in wires.items():
+        cfg = SyncConfig(compressor=comp, algo="ring")
+        card = GradientSynchronizer(cfg)
+        st = card.init_state(g2)
+        dist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, st = card(g2, st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = path_counts(ops)
+        w4_launch_gate(counts, want, name)
+        w4_gate(same_on_all_ranks(out["g"]), f"{name} differs between ranks")
+        cpu = GradientSynchronizer(cfg)
+        gc_ = {"g": g2["g"].cpu()}
+        out_c, st_c = cpu(gc_, cpu.init_state(gc_))
+        flips = int((out["g"].cpu() != out_c["g"]).sum())
+        e_flips = int((st["error"][0].cpu() != st_c["error"][0]).sum())
+        w4_gate(flips == 0 and e_flips == 0,
+                f"{name}: the card differs from the same executor on the CPU "
+                f"(gloo, plain versions) at {flips} synced entries and "
+                f"{e_flips} residual entries")
+        res[name] = {"seconds": secs, "launches": counts}
+        if comp == "int8_fused":
+            # dequant_accum at w = 4 on this bucket's gathered payloads,
+            # timed on rank 0 while the others wait at the next barrier
+            q, _, sc = quantize_ef_cuda(g2["g"], torch.zeros_like(g2["g"]),
+                                        1.0, TILE, None)
+            qg, sg = all_gather(q), all_gather(sc)
+            if rank == 0:
+                res["dequant_accum_w4"] = w4_time(
+                    torch, lambda: dequant_accum_cuda(qg, sg, TILE),
+                    lambda: ref.dequant_accum_ref(qg, sg), mid,
+                    bound(W4 * mid + 4 * W4 * -(-mid // TILE) + 4 * mid,
+                          2 * W4 * mid))
+            del q, sc, qg, sg
+        del out, st, out_c, st_c
+    del g2
+    torch.cuda.empty_cache()
+
+    # -- 9.3 every algorithm on a (2, 2) mesh ------------------------------
+    axes = mesh_axes((2, 2))
+    gen = torch.Generator(dev).manual_seed(W4_SEED + 200 + rank)
+    x = torch.randn(W4_SMALL, generator=gen, device=dev)
+    exact = all_gather(x.double()).sum(0).cpu()
+    res["algos"] = {}
+    for algo in ALGOS:
+        dist.barrier()
+        ops.reset_launch_counts()
+        got = allreduce(x.clone(), algo, axes)
+        torch.cuda.synchronize()
+        counts = path_counts(ops)
+        # ring_fused: streams x p encodes on each of the 2 axes of size 2
+        n_q = 2 * RING_FUSED_STREAMS * 2 if algo == "ring_fused" else 0
+        w4_launch_gate(counts, {"quantize_tiles": n_q,
+                                "quantize_tiles[warp]": n_q}, algo)
+        want = allreduce(x.cpu(), algo, axes)
+        w4_gate(torch.equal(got.cpu().view(torch.int32),
+                            want.view(torch.int32)),
+                f"{algo} on the (2, 2) mesh: the card differs from the same "
+                f"schedule on the CPU (plain versions)")
+        w4_gate(same_on_all_ranks(got), f"{algo} differs between ranks")
+        err = float((got.cpu().double() - exact).abs().max())
+        # the reference's check_collectives: ring_fused within 5% of the
+        # largest sum, the exact schedules within 1e-4
+        limit = (0.05 * float(exact.abs().max()) if algo == "ring_fused"
+                 else 1e-4)
+        w4_gate(err <= limit, f"{algo}: max |error| {err} > {limit}")
+        res["algos"][algo] = {"max_abs_err": err, "launches": counts}
+
+    # -- 9.4 quantize_tiles at the ring_fused hop's length (rank 0) --------
+    hop = -(-round(largest / RING_FUSED_STREAMS) // W4)
+    if rank == 0:
+        xh = torch.randn(hop, generator=gen, device=dev)
+        res["quantize_tiles_hop"] = w4_time(
+            torch, lambda: quantize_tiles_cuda(xh, TILE),
+            lambda: ref.quantize_tiles_ref(xh, tile=TILE), hop,
+            bound(5 * hop + 4 * -(-hop // TILE),
+                  QUANT_OPS_PER_ELEMENT * hop))
+        del xh
+    dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def w4_time(torch, kern, plain, n, bound_) -> dict:
+    """Kernel and plain-version device times in turns (plain, kernel,
+    kernel, plain), by CUDA-graph replay: the calls last 0.1-0.2 ms, so
+    CUDA events around eager calls would count the host's launch work."""
+    p0, k0 = device_ms(torch, plain), device_ms(torch, kern)
+    k1, p1 = device_ms(torch, kern), device_ms(torch, plain)
+    return {"n": n, "tile": TILE, "dtype": "float32", "ms": min(k0, k1),
+            "plain_ms": min(p0, p1), "bound_ms": bound_[0],
+            "bound_by": bound_[1], "library_ms": None,
+            "timer": "cuda graph"}
+
+
+def w4_breakdown(prof, wall: float) -> dict:
+    """One profiled ring_fused round on rank 0, split by device time:
+    the port's kernels, the host staging copies (memcpy to and from
+    pinned memory), the plain PyTorch ops (dequantize, add, pad, cast,
+    division); the rest of the wall time is the host (gloo transfers,
+    Python, launches)."""
+    from torch.autograd import DeviceType
+    split = {"kernels_ms": 0.0, "staging_copies_ms": 0.0, "plain_ops_ms": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        ms = e.time_range.elapsed_us() / 1e3
+        if any(k in e.name for k in WIRE_KERNELS):
+            split["kernels_ms"] += ms
+        elif "Memcpy" in e.name or "memcpy" in e.name:
+            split["staging_copies_ms"] += ms
+        else:
+            split["plain_ops_ms"] += ms
+    busy = sum(split.values())
+    return {**split, "device_events": n, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy, "host_ms": wall * 1e3 - busy}
+
+
+def phase_world4(torch, card, sizes: dict) -> dict:
+    """Four spawned ranks on the one card (``world4_child``); every
+    library is built already (phase 2), so no rank runs ``nvcc``.  A rank
+    that fails fails the run; the others are stopped."""
+    import shutil
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "world4"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=world4_child,
+                         args=(r, str(out_dir / "store"), str(out_dir),
+                               sizes)) for r in range(W4)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad or time.perf_counter() - t0 > W4_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * W4:
+        fail(f"world-4 phase: rank exit codes {codes} after "
+             f"{time.perf_counter() - t0:.1f} s")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(W4)]
+    for name in ("ring_fused", "int8_fused_ring", "topk_fused_ring"):
+        if any(r[name]["launches"] != ranks[0][name]["launches"]
+               for r in ranks):
+            fail(f"world-4 phase {name}: ranks launched differently")
+    r0 = ranks[0]
+    rf = r0["ring_fused"]
+    print(f"world 4 on one card over gloo [{card}]: int8_fused with EF on "
+          f"ring_fused, buckets {rf['buckets']}, {W4_ROUNDS} rounds: "
+          f"seconds per round by rank "
+          f"{[[round(s, 4) for s in r['ring_fused']['round_s']] for r in ranks]}"
+          f"; staged bytes per rank {[r['ring_fused']['staged_bytes'] for r in ranks]}"
+          f"; peak memory per rank "
+          f"{[round(r['ring_fused']['peak_bytes'] / 2**30, 3) for r in ranks]}"
+          f" GiB; launches {dict((k, v) for k, v in rf['launches'].items() if v)}"
+          f"; all ranks bit-equal", flush=True)
+    pr = r0["profile"]
+    print(f"world 4 ring_fused round profiled on rank 0 [{card}]: wall "
+          f"{pr['wall_ms']:.3f} ms; device busy {pr['device_busy_ms']:.3f} ms"
+          f" = kernels {pr['kernels_ms']:.3f} + plain ops (dequantize, add, "
+          f"pad, cast, divide) {pr['plain_ops_ms']:.3f} + staging copies "
+          f"{pr['staging_copies_ms']:.3f}; host (gloo transfers, Python) "
+          f"{pr['host_ms']:.3f} ms", flush=True)
+    for name in ("int8_fused_ring", "topk_fused_ring"):
+        r = r0[name]
+        print(f"world 4 {name} at the {sizes['mid']} bucket [{card}]: "
+              f"{r['seconds'] * 1e3:.3f} ms on rank 0, bit-equal across "
+              f"ranks and to the CPU executor (gloo, plain versions); "
+              f"launches {dict((k, v) for k, v in r['launches'].items() if v)}",
+              flush=True)
+    print(f"world 4 on a (2, 2) mesh at n={W4_SMALL}: "
+          f"{ {a: r['max_abs_err'] for a, r in r0['algos'].items()} } max "
+          f"|error| to the exact sum; each bit-equal across ranks and to "
+          f"its CPU schedule", flush=True)
+    for key in ("quantize_tiles_hop", "dequant_accum_w4"):
+        t = r0[key]
+        print(f"world 4 {key} n={t['n']} tile={t['tile']} f32: device time "
+              f"kernel {t['ms'] * 1e3:.3f} us, plain {t['plain_ms'] * 1e3:.3f}"
+              f" us, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.3f} of the bound ({t['timer']}) "
+              f"[{card}]", flush=True)
+    return r0
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -1706,6 +2061,11 @@ def main() -> None:
     trained = run_training(torch, ops, train, card)
     destroy_group()
 
+    # -- 9. the explicit collectives at world 4 on the one card -------------
+    world4 = phase_world4(torch, card, {"first": buckets[0],
+                                        "mid": buckets[1],
+                                        "largest": max(buckets)})
+
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
 
     def runs_of(name, runs):
@@ -1716,10 +2076,18 @@ def main() -> None:
                 for route in ops.KERNEL_ROUTES[kernel]}
 
     train_runs = {k: r["launches"] for k, r in trained.items()}
+    # rank 0's counts (every rank's are gated equal)
+    train_runs.update({f"world4_{k}": world4[k]["launches"] for k in
+                       ("ring_fused", "int8_fused_ring", "topk_fused_ring")})
+    train_runs.update({f"world4_mesh_{a}": r["launches"]
+                       for a, r in world4["algos"].items()})
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
-                                  train_timings["quantize_tiles"].items()}}
+                                  train_timings["quantize_tiles"].items()},
+                    "world4_ring_fused_hop": world4["quantize_tiles_hop"]}
+    train_timings["dequant_accum"]["world4_mid_bucket_w4"] = \
+        world4["dequant_accum_w4"]
     kernels = [
         kernel_line("flash_attention", flash_routes["wgmma"], flash_err,
                     flash_timings["wgmma"], "gemma2_9b_prefill_global",
@@ -1749,6 +2117,7 @@ def main() -> None:
     training = {k: {f: v for f, v in r.items() if f != "params"}
                 for k, r in trained.items()}
     print(json.dumps({"training": training, "card": card}))
+    print(json.dumps({"world4": world4, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

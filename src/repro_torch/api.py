@@ -156,9 +156,13 @@ class TrainSession:
             action, _ = self.strategy.scheduler.round(self.step, {})
             if action.compute != "sync":
                 raise NotImplementedError(f"action {action.compute!r}")
+            # the stochastic compressors draw from a generator per
+            # (seed, step), as the reference folds the step into its key
+            rng = torch.Generator(self.device).manual_seed(
+                self.cfg.seed * 2**32 + self.step)
             self.params, self.opt_state, self.sync_state, loss = self._sync(
                 self.params, self.opt_state, self.sync_state, batch,
-                self.step)
+                self.step, rng)
         self.grad_rounds += 1          # BSP syncs gradients every step
         loss = float(loss)
         self.losses.append(loss)

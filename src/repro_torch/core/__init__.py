@@ -1,7 +1,7 @@
 """The training step's communication layer, ported from ``repro/core``:
-compression (``none``, ``int8_fused``, ``topk_fused``), the psum
-collective and the all-gather on ``torch.distributed`` process groups,
-the gradient synchronizer, and the every-step sync strategy."""
+every compressor, every collective algorithm on ``torch.distributed``
+process groups (one per mesh axis), the gradient synchronizer, and the
+every-step sync strategy."""
 from repro_torch.core.grad_sync import (  # noqa: F401
     GradientSynchronizer, PlanExecutor, SyncConfig, bucketize,
     plan_from_config)

@@ -8,9 +8,10 @@ A compressor maps a gradient leaf ``g`` to a compact payload and back:
 
 ``payload_bits(shape)`` reports the wire size and ``aggregatable`` says
 whether payloads can be summed directly by a reduce collective or must be
-gathered and decompressed per rank first.  The fused compressors
-(``compression/fused.py``) add the one-pass hooks ``fused_ef_compress``
-and ``fused_decode_sum`` that the executor prefers.
+gathered and decompressed per rank first.  Every compressor of the JAX
+package is registered (``quantization.py``, ``sparsification.py``,
+``lowrank.py``, ``fused.py``); the fused ones add the one-pass hooks
+``fused_ef_compress`` and ``fused_decode_sum`` that the executor prefers.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +62,6 @@ def identity_compressor() -> Compressor:
 
 REGISTRY: Dict[str, Callable[..., Compressor]] = {}
 
-# compressors of the JAX package that the port does not have yet
-NOT_PORTED = ("sign", "terngrad", "qsgd", "int8", "topk", "randomk",
-              "threshold", "powersgd", "svd")
-
 
 def register(name: str):
     def deco(fn):
@@ -78,11 +74,6 @@ register("none")(identity_compressor)
 
 
 def get_compressor(name: str, **kwargs) -> Compressor:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 2: quantization.py, sparsification.py, lowrank.py); "
-            f"ported: {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown compressor {name!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[name](**kwargs)

@@ -8,12 +8,16 @@ TCP port: no network is needed, and concurrent test workers cannot collide
 on a fixed ``MASTER_PORT``.  A one-process run still gets a real group of
 world 1, so its collectives (NCCL's ``all_reduce`` and
 ``all_gather_into_tensor`` on the card) are on the path.
+:func:`mesh_axes` splits the default group into one group per axis of a
+multi-axis mesh, the manual axes the explicit collectives run over.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import tempfile
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,3 +57,36 @@ def init_group(device: torch.device, world_size: int = 1, rank: int = 0,
 def destroy_group() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def mesh_axes(shape: Sequence[int]) -> Tuple[dist.ProcessGroup, ...]:
+    """One process group per axis of a row-major mesh of ``shape`` over the
+    default group (the counterpart of ``jax.make_mesh``'s axes, taken as
+    ``shard_map``'s manual axes).  Global rank ``r`` sits at the row-major
+    coordinates of ``r`` in ``shape``; the group of axis ``k`` holds the
+    ranks that share every other coordinate, in the order of their
+    coordinate on axis ``k``, so the rank inside the group is
+    ``jax.lax.axis_index`` of that axis.  Every rank calls
+    ``dist.new_group`` for every group, in the same order, as the call
+    requires.  A one-axis mesh is the default group itself."""
+    shape = tuple(int(p) for p in shape)
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} does not hold a world of {world}")
+    if len(shape) == 1:
+        return (dist.group.WORLD,)
+    coords = list(itertools.product(*(range(p) for p in shape)))
+    me = coords[dist.get_rank()]
+    axes = []
+    for k in range(len(shape)):
+        mine = None
+        others = [range(p) if i != k else range(1)
+                  for i, p in enumerate(shape)]
+        for fixed in itertools.product(*others):
+            ranks = [coords.index(fixed[:k] + (c,) + fixed[k + 1:])
+                     for c in range(shape[k])]
+            group = dist.new_group(ranks)
+            if me[:k] + me[k + 1:] == fixed[:k] + fixed[k + 1:]:
+                mine = group
+        axes.append(mine)
+    return tuple(axes)

@@ -12,9 +12,10 @@ Runs on CUDA unless ``--device`` names another device; without CUDA and
 without ``--device`` it raises.  One process is a process group of world 1
 (``launch/dist.py``: NCCL on the card, gloo on the CPU, rendezvous through
 a file, no network).  Weights are random, from a ``torch.Generator``
-seeded with ``--seed``.  Values the reference takes and the port does not
-have yet (other compressors, algorithms, optimizers, ``--sync auto``)
-raise and name their ROADMAP.md item.  Prints the loss and wall time of
+seeded with ``--seed``.  Every compressor, collective algorithm and
+optimizer of the reference is taken; at world 1 every algorithm but psum
+is the identity, as in the reference.  ``--sync auto`` (the planner) raises
+and names its ROADMAP.md item.  Prints the loss and wall time of
 every ``--log-every``-th step and the reference's final line.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional
 from repro_torch.api import SessionConfig, TrainSession
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.core import SyncConfig, make_strategy
+from repro_torch.core.collectives import ALGOS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,12 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--optimizer", default="adam",
-                    help="adam | sgd (lars and lamb are not ported yet)")
+                    help="adam | sgd | lamb | lars")
     ap.add_argument("--sync", default="vanilla",
                     help="vanilla | comm (auto is not ported yet)")
     ap.add_argument("--compressor", default="none",
-                    help="none | int8_fused | topk_fused")
-    ap.add_argument("--algo", default="psum", help="psum")
+                    help="none | sign | terngrad | qsgd | int8 | topk | "
+                         "randomk | threshold | powersgd | svd | int8_fused "
+                         "| topk_fused")
+    ap.add_argument("--algo", default="psum", choices=ALGOS)
     ap.add_argument("--bucket-mb", type=float, default=32.0)
     ap.add_argument("--no-error-feedback", action="store_true")
     ap.add_argument("--log-every", type=int, default=1)

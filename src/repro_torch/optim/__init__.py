@@ -1,6 +1,7 @@
-"""Optimizers of the port (counterparts of ``repro/optim``): ``adam`` and
-``sgd``, the LR schedules, and the leaf-by-leaf in-place application."""
+"""Optimizers of the port (counterparts of ``repro/optim``): ``adam``,
+``sgd``, ``lamb`` and ``lars``, the LR schedules, and the leaf-by-leaf
+in-place application."""
 from repro_torch.optim.base import (  # noqa: F401
     Optimizer, apply_updates, make_optimizer, step_inplace)
-from repro_torch.optim import adam, sgd  # noqa: F401
+from repro_torch.optim import adam, lamb, lars, sgd  # noqa: F401
 from repro_torch.optim.schedule import warmup_cosine  # noqa: F401

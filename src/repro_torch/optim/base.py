@@ -64,9 +64,6 @@ def step_inplace(optimizer: Optimizer, params, grads, opt_state,
 
 REGISTRY: Dict[str, Callable[..., Optimizer]] = {}
 
-# optimizers of the JAX package that the port does not have yet
-NOT_PORTED = ("lars", "lamb")
-
 
 def register(name: str):
     def deco(fn):
@@ -76,10 +73,6 @@ def register(name: str):
 
 
 def make_optimizer(name: str, **kwargs) -> Optimizer:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 2: lamb/lars); ported: {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown optimizer {name!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[name](**kwargs)

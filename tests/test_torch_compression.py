@@ -10,7 +10,9 @@ On the CPU the fused hooks run the kernels' plain versions.  Held here:
   * the fused decode equals the per-rank decompress loop in rank order;
   * payloads and residuals equal the JAX compressors' (run eagerly, op by
     op, so XLA fuses nothing: bit-equal), and ``payload_bits`` is the same;
-  * compressors the port does not have yet raise and name the ROADMAP item.
+  * the compressors of ``quantization.py``, ``sparsification.py`` and
+    ``lowrank.py`` round-trip as the JAX ones do (held in full in
+    ``tests/test_torch_compressors.py``); an unknown name raises.
 """
 from __future__ import annotations
 
@@ -119,8 +121,31 @@ def test_payload_bits_values():
 
 
 @pytest.mark.parametrize("name", ["sign", "qsgd", "int8", "topk", "powersgd"])
-def test_unported_compressors_name_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_compressor(name)
+def test_unported_compressors_name_the_roadmap(name, monkeypatch):
+    # ported now: each round-trips as its JAX counterpart does (qsgd fed
+    # the JAX draws; sign, qsgd and powersgd within 1e-6 of the largest
+    # magnitude, their scales being sums); an unknown name still raises
+    # KeyError
+    import jax
+
+    import repro_torch.core.compression.quantization as quantization
+    key = jax.random.PRNGKey(0)
+    monkeypatch.setattr(quantization, "bernoulli", lambda p, rng: (
+        torch.from_numpy(np.array(jax.random.bernoulli(
+            key, jnp.asarray(p.numpy()))))))
+    comp, jcomp = get_compressor(name), jget(name)
+    g = np.random.default_rng(5).standard_normal((64, 33)).astype(np.float32)
+    gt, gj = torch.from_numpy(g), jnp.asarray(g)
+    if name == "powersgd":
+        q0 = np.random.default_rng(6).standard_normal((33, 4)).astype(
+            np.float32)
+        got = comp.decompress(*comp.compress(gt, q_prev=torch.from_numpy(q0)))
+        want = jcomp.decompress(*jcomp.compress(gj, q_prev=jnp.asarray(q0)))
+    else:
+        got, want = comp.roundtrip(gt, torch.Generator()), \
+            jcomp.roundtrip(gj, key)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6 * np.abs(g).max())
+    assert comp.payload_bits((64, 33)) == jcomp.payload_bits((64, 33))
     with pytest.raises(KeyError):
         get_compressor("no-such-compressor")

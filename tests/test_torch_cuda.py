@@ -11,6 +11,8 @@ differ between devices).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -568,3 +570,70 @@ def test_cuda_nonfinite_tiles_bit_equal_to_plain(cuda_device, dtype):
         got = tops.nonfinite_tiles(v.to(cuda_device))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), tref.nonfinite_tiles_ref(v))
+
+
+# ---------------------------------------------------------------------------
+# ring_fused on a gloo group of 2 and 4 processes sharing the one card
+# ---------------------------------------------------------------------------
+
+RING_FUSED_N = 2 * 4 * 1024 * 3 + 37      # chunk rows off 16-byte boundaries
+
+
+def _ring_fused_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank: the compressed ring on its card tensor (the kernel on
+    every hop, tensors staged through the host for gloo) and on the same
+    values on the CPU (the plain versions); saves both and the launch
+    counts."""
+    import torch.distributed as dist
+
+    from repro_torch.core.collectives import allreduce, p2p
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # no name lookup
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    x = torch.from_numpy(_input(RING_FUSED_N, TILE, seed=40 + rank))
+    tops.reset_launch_counts()
+    got = allreduce(x.cuda(), "ring_fused").cpu()
+    counts = {"launches": tops.launch_counts(),
+              "routes": tops.route_counts()["quantize_tiles"]}
+    want = allreduce(x.clone(), "ring_fused")
+    np.savez(f"{out}/{rank}.npz", got=got.numpy(), want=want.numpy(),
+             staged=p2p.staged_bytes(),
+             counts=np.array([counts["launches"]["quantize_tiles"],
+                              counts["routes"]["warp"],
+                              sum(counts["launches"].values())]))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_cuda_ring_fused_gloo_world(cuda_device, tmp_path, world):
+    # every rank decodes the same payloads: bit-equal across ranks and to
+    # the same schedule on the CPU; quantize_tiles launches 2 streams x p
+    # hops' encodes = 2p times, all on the warp route, and nothing else
+    from repro_torch.kernels import build
+    build.build_all(("quantize_tiles",))      # before the ranks start
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_ring_fused_rank,
+                         args=(r, world, str(tmp_path / "store"),
+                               str(tmp_path))) for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0] * world
+    res = [np.load(tmp_path / f"{r}.npz") for r in range(world)]
+    for r in res:
+        np.testing.assert_array_equal(r["got"], res[0]["got"])
+        np.testing.assert_array_equal(r["got"], r["want"])
+        assert r["counts"].tolist() == [2 * world] * 3
+        assert int(r["staged"]) > 0
+    exact = sum(_input(RING_FUSED_N, TILE, seed=40 + r).astype(np.float64)
+                for r in range(world))
+    assert np.abs(res[0]["got"] - exact).max() <= \
+        2 * (world - 1) * np.abs(exact).max() / 127

@@ -42,6 +42,7 @@ from repro.core import plan_from_config as jplan
 from repro.kernels import ref as jref
 from repro_torch.core import (GradientSynchronizer, PlanExecutor, SyncConfig,
                               bucketize, plan_from_config)
+from repro_torch.core.collectives import ALGOS, tree
 from repro_torch.launch.dist import init_group
 
 SHAPES = {"a": (2065,), "b": (64, 33), "c": (3, 700), "d": (5000,)}
@@ -171,14 +172,27 @@ def test_world1_synchronizer_equals_executor(world1):
                                  for k, v in g.items()})
 
 
-def test_unported_algorithms_raise(world1):
+def test_unported_algorithms_raise(world1, monkeypatch):
+    # every algorithm constructs and, at world 1, is the identity of the
+    # reference (p == 1 returns x); unknown names raise ValueError
     g = {k: torch.from_numpy(v) for k, v in _grads(seed=5).items()}
-    for algo in ("ring", "tree", "hierarchical", "ring_fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            GradientSynchronizer(SyncConfig(compressor="int8_fused",
-                                            algo=algo))
+    want, _ = GradientSynchronizer(SyncConfig(compressor="int8_fused"))(
+        g, GradientSynchronizer(SyncConfig(compressor="int8_fused"))
+        .init_state(g))
+    for algo in ALGOS:
+        sync = GradientSynchronizer(SyncConfig(compressor="int8_fused",
+                                               algo=algo))
+        got, _ = sync(g, sync.init_state(g))
+        for k in g:
+            assert torch.equal(got[k], want[k]), (algo, k)
+    with pytest.raises(ValueError):
+        GradientSynchronizer(SyncConfig(algo="nope"))
     with pytest.raises(ValueError):
         PlanExecutor(plan_from_config(SyncConfig(algo="nope"), g))
+    # a tree over 3 ranks raises before it moves a byte
+    monkeypatch.setattr(tree, "axis_size", lambda axis: 3)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tree.tree_allreduce(torch.ones(4), None)
 
 
 # ---------------------------------------------------------------------------
