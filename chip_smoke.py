@@ -89,8 +89,10 @@ Phases (any failure exits non-zero and prints no result line):
      one launch per bucket; every algorithm on a (2, 2) mesh, bit-equal
      across ranks and to its CPU schedule; seconds per round, staged
      bytes, a profiled round split into kernels, plain ops, staging copies
-     and host, and quantize_tiles at the hop's length (n = 75497472 f32)
-     and dequant_accum at w = 4, timed by graph replay.
+     and host; quantize_tiles on every row of the (4, m) hop buffers at
+     both buckets' chunk lengths (m = 9216 and 75497472 f32) and
+     dequant_accum at w = 4, each held bit-equal to its plain version,
+     then timed by graph replay.
 
 Every main-path run (5, 7, each of 8, and each of 9 on every rank) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
@@ -103,7 +105,8 @@ steps, all on their warp routes (int8_fused: quantize_ef and
 dequant_accum; topk_fused: topk_ef; without error feedback, int8_fused:
 quantize_tiles and dequant_accum, topk_fused: topk_mask), flash 0 (the
 training path keeps the differentiable chunked attention); world 4: as
-stated in 9.  Launches made in phases 3, 4 and 6, and by 9's timings, are
+stated in 9.  Launches made in phases 3, 4 and 6, and by 9's checks
+and timings, are
 not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
@@ -1537,6 +1540,15 @@ W4_TIMEOUT_S = 600
 RING_FUSED_STREAMS = 2   # ring_fused's encodes: streams x p per axis
 
 
+def ring_fused_hops(n: int) -> list:
+    """The chunk lengths ceil(part/p) at which ring_fused at world 4 hands
+    quantize_tiles the rows of its (p, m) hop buffers, for a bucket of n
+    (split into streams at round(n·i/streams), as ring_fused does)."""
+    b = [round(n * i / RING_FUSED_STREAMS)
+         for i in range(RING_FUSED_STREAMS + 1)]
+    return sorted({-(-(hi - lo) // W4) for lo, hi in zip(b, b[1:]) if hi > lo})
+
+
 def digest(torch, x):
     """Two order-free checksums of an f32 tensor's bits (int64 sums,
     wrapping, of the bits and of the bits times a position weight), so
@@ -1692,6 +1704,10 @@ def world4_child(rank: int, store: str, out_dir: str, sizes: dict) -> None:
                                         1.0, TILE, None)
             qg, sg = all_gather(q), all_gather(sc)
             if rank == 0:
+                w4_gate(same(torch, dequant_accum_cuda(qg, sg, TILE),
+                             ref.dequant_accum_ref(qg, sg, tile=TILE)),
+                        f"dequant_accum at w = {W4}, n={mid} differs from "
+                        f"the plain version")
                 res["dequant_accum_w4"] = w4_time(
                     torch, lambda: dequant_accum_cuda(qg, sg, TILE),
                     lambda: ref.dequant_accum_ref(qg, sg), mid,
@@ -1732,16 +1748,32 @@ def world4_child(rank: int, store: str, out_dir: str, sizes: dict) -> None:
         w4_gate(err <= limit, f"{algo}: max |error| {err} > {limit}")
         res["algos"][algo] = {"max_abs_err": err, "launches": counts}
 
-    # -- 9.4 quantize_tiles at the ring_fused hop's length (rank 0) --------
-    hop = -(-round(largest / RING_FUSED_STREAMS) // W4)
+    # -- 9.4 quantize_tiles at the ring_fused hops' lengths (rank 0) -------
+    # 9.1 holds the ranks to each other only, so here every row of a
+    # (p, m) hop buffer, at each bucket's chunk length m, is held bit-equal
+    # to the plain version on the same row; then the largest hop is timed
     if rank == 0:
-        xh = torch.randn(hop, generator=gen, device=dev)
+        for n_bucket in (first, largest):
+            for m in ring_fused_hops(n_bucket):
+                a = torch.randn(W4, m, generator=gen, device=dev)
+                for r in range(W4):
+                    got = quantize_tiles_cuda(a[r], TILE)
+                    want = ref.quantize_tiles_ref(a[r], tile=TILE)
+                    w4_gate(all(same(torch, g_, w_)
+                                for g_, w_ in zip(got, want)),
+                            f"quantize_tiles on row {r} of the ({W4}, {m}) "
+                            f"ring_fused hop buffer of the {n_bucket} bucket "
+                            f"differs from the plain version")
+                    del got, want
+        # a is now the largest bucket's hop buffer: time one of its rows
+        m = a.shape[1]
+        xh = a[1]
         res["quantize_tiles_hop"] = w4_time(
             torch, lambda: quantize_tiles_cuda(xh, TILE),
-            lambda: ref.quantize_tiles_ref(xh, tile=TILE), hop,
-            bound(5 * hop + 4 * -(-hop // TILE),
-                  QUANT_OPS_PER_ELEMENT * hop))
-        del xh
+            lambda: ref.quantize_tiles_ref(xh, tile=TILE), m,
+            bound(5 * m + 4 * -(-m // TILE), QUANT_OPS_PER_ELEMENT * m))
+        del a, xh
+        torch.cuda.empty_cache()
     dist.barrier()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -1858,8 +1890,8 @@ def phase_world4(torch, card, sizes: dict) -> dict:
         print(f"world 4 {key} n={t['n']} tile={t['tile']} f32: device time "
               f"kernel {t['ms'] * 1e3:.3f} us, plain {t['plain_ms'] * 1e3:.3f}"
               f" us, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
-              f"{t['bound_ms'] / t['ms']:.3f} of the bound ({t['timer']}) "
-              f"[{card}]", flush=True)
+              f"{t['bound_ms'] / t['ms']:.3f} of the bound ({t['timer']}); "
+              f"bit-equal to the plain version [{card}]", flush=True)
     return r0
 
 

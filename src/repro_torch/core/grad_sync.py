@@ -7,10 +7,10 @@ Every data-parallel training step runs
 
 ``PlanExecutor`` takes a ``CommPlan`` (an ordered list of per-bucket
 ``BucketPlan(leaves, compressor, algo, ...)`` entries) and runs it over the
-data axes: a tuple of ``torch.distributed`` process groups, the port's
-counterpart of the reference's manual ``shard_map`` axes
-(``launch/dist.py:mesh_axes``), or one group for a one-axis mesh
-(``group=``, the default group when None).  The world size is the product
+data axes, given as ``group``: a tuple of ``torch.distributed`` process
+groups, the port's counterpart of the reference's manual ``shard_map``
+axes (``launch/dist.py:mesh_axes``), or one group for a one-axis mesh
+(the default group when None).  The world size is the product
 of the axes' sizes.  ``plan_from_config`` lowers one global ``SyncConfig``
 to that plan and ``GradientSynchronizer`` keeps the reference's
 single-config API.
@@ -170,10 +170,9 @@ class PlanExecutor:
     second copy of the residuals, as large as the f32 parameters, would not
     fit beside the first."""
 
-    def __init__(self, plan: CommPlan, group: Axes = None, *,
-                 axes: Optional[Axes] = None):
+    def __init__(self, plan: CommPlan, group: Axes = None):
         self.plan = plan
-        self.axes = as_axes(group if axes is None else axes)
+        self.axes = as_axes(group)
         for b in plan.buckets:
             check_algo(b.algo)
         self.comps = [get_compressor(b.compressor, **dict(b.compressor_args))
@@ -408,10 +407,9 @@ class GradientSynchronizer:
     """One global ``SyncConfig`` applied to every bucket: lowers the config
     to a degenerate ``CommPlan`` and lets ``PlanExecutor`` run it."""
 
-    def __init__(self, cfg: SyncConfig, group: Axes = None, *,
-                 axes: Optional[Axes] = None):
+    def __init__(self, cfg: SyncConfig, group: Axes = None):
         self.cfg = cfg
-        self.axes = as_axes(group if axes is None else axes)
+        self.axes = as_axes(group)
         # eager validation: an unknown compressor or algo fails here
         self.comp = cfg.make_compressor()
         check_algo(cfg.algo)
@@ -423,7 +421,7 @@ class GradientSynchronizer:
         key = tuple(tuple(g.shape) for g in tree_leaves(grads))
         if self._executor is None or key != self._plan_key:
             self._executor = PlanExecutor(plan_from_config(self.cfg, grads),
-                                          axes=self.axes)
+                                          self.axes)
             self._plan_key = key
         return self._executor
 

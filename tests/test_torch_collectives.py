@@ -35,7 +35,9 @@ Held (every rank's output, each against the reference's same rank):
     gradient magnitude (measured: at most 0.33), and int8_fused/ring is
     also held bit-equal to the same wire composed eagerly from
     ``repro/kernels/ref.py``.  int8_fused/ring_fused is held within the
-    ring_fused bound above.  The two gather wires run again on the (4, 2)
+    ring_fused bound above of the reference, and bit-equal to the same
+    wire composed eagerly on the port's plain versions (EF encode, local
+    decode, the composed ring_fused schedule, division by 8).  The two gather wires run again on the (4, 2)
     mesh, where the gathered payloads stack pod-major as the reference's
     nested ``all_gather``s stack them.
 """
@@ -481,6 +483,35 @@ def test_int8_fused_gather_wire_bit_equal_to_eager_reference(runs, mesh):
             total[:64 * 32])
         np.testing.assert_array_equal(
             got[r][f"grad_int8_fused/ring{mesh}_b"], total[64 * 32:])
+
+
+def test_int8_fused_ring_fused_bit_equal_to_eager_composition(runs):
+    """Every rank's EF encode (``quantize_ef_ref``) decoded locally
+    (``dequantize_ref``), the decoded buffers summed by the ring_fused
+    schedule composed eagerly (``_ring_fused_composed``) and divided by
+    8: the int8_fused wire on ring_fused, on the port's plain versions,
+    for the one packed bucket (w, then b).  The wire is deterministic, so
+    every rank must match it bit for bit."""
+    import torch
+
+    from repro_torch.kernels import ref
+    inp = _inputs()
+    decoded = []
+    for r in range(P):
+        buf = torch.from_numpy(np.concatenate([inp["w"][r].reshape(-1),
+                                               inp["b"][r]]))
+        q, _, sc = ref.quantize_ef_ref(buf, torch.zeros_like(buf))
+        decoded.append(ref.dequantize_ref(q, sc).numpy())
+    total = _ring_fused_composed(np.stack(decoded)) / np.float32(P)
+    assert total.dtype == np.float32
+    _, got = runs
+    for r in range(P):
+        np.testing.assert_array_equal(
+            got[r]["grad_int8_fused/ring_fused_w"].reshape(-1),
+            total[:64 * 32], err_msg=f"rank {r}")
+        np.testing.assert_array_equal(
+            got[r]["grad_int8_fused/ring_fused_b"], total[64 * 32:],
+            err_msg=f"rank {r}")
 
 
 if __name__ == "__main__":
