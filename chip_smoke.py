@@ -92,9 +92,34 @@ Phases (any failure exits non-zero and prints no result line):
      and host; quantize_tiles on every row of the (4, m) hop buffers at
      both buckets' chunk lengths (m = 9216 and 75497472 f32) and
      dequant_accum at w = 4, each held bit-equal to its plain version,
-     then timed by graph replay.
+     then timed by graph replay;
+ 10. the rounds axis: (a) ``repro_torch.launch.train`` at phase 8's full
+     width, 4 steps each, with ``--local-sgd 2 --sync comm --compressor
+     int8_fused`` (2 parameter rounds, each through the int8_fused wire
+     on the params-minus-anchor delta), ``--lag 4`` with int8_fused (a
+     probe every step, at least one sync and one reuse) and
+     ``--push-pull 2 2`` with topk_fused (2 pushes, 2 dense fetches):
+     round counts, step times, peak memory (against the reckoning of 26
+     bytes a parameter, checked before the first run) and one profiled
+     step with a round split into wire kernels, other device work and
+     host; (b) reduced gemma-2b in f32: 4 local-SGD steps with int8_fused
+     rounds and 4 LAG steps at θ = 4 (a sync, then reuse steps) agree
+     between the card and the CPU (phase 4's tolerance, the same round
+     counts, gated as in (a)), and a checkpoint — 2 steps, save,
+     load into a fresh session, 2 steps — is bit-equal to the
+     uninterrupted 4-step run on the card and restores on the CPU bit for
+     bit; (c) 4 spawned ranks (``launch/dist.py:spawn``) on a gloo group on
+     the one card, gemma-2b at full width with 1 layer, SGD, local SGD
+     τ = 2 with int8_fused rounds on psum (the gather wire,
+     dequant_accum at w = 4), global batch 4 x seq 128, 4 steps: before
+     each round the ranks' parameters differ and after it they are
+     bit-equal (digests of the bits); then, with the card free again,
+     quantize_ef (residual written in place) and dequant_accum on a
+     (4, n) stack of payloads, at every delta-bucket length of that run,
+     each held bit-equal to its plain version.
 
-Every main-path run (5, 7, each of 8, and each of 9 on every rank) sets every kernel launch counter
+Every main-path run (5, 7, each of 8, each of 9 on every rank, and each
+of 10 (a) and (c)) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
@@ -105,8 +130,13 @@ steps, all on their warp routes (int8_fused: quantize_ef and
 dequant_accum; topk_fused: topk_ef; without error feedback, int8_fused:
 quantize_tiles and dequant_accum, topk_fused: topk_mask), flash 0 (the
 training path keeps the differentiable chunked attention); world 4: as
-stated in 9.  Launches made in phases 3, 4 and 6, and by 9's checks
-and timings, are
+stated in 9; the rounds axis: the wire's kernels = buckets x the ROUNDS
+that run the wire, not x steps — parameter rounds for local SGD
+(quantize_ef and dequant_accum on the delta buckets, at world 4 on every
+rank), gradient syncs for LAG (quantize_ef and dequant_accum) and
+push/pull (topk_ef, push steps only), all on the warp route, and 0 for
+every other kernel.  Launches made in phases 3, 4, 6 and 10 (b), and by
+9's checks and timings, are
 not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
@@ -1550,10 +1580,11 @@ def ring_fused_hops(n: int) -> list:
 
 
 def digest(torch, x):
-    """Two order-free checksums of an f32 tensor's bits (int64 sums,
-    wrapping, of the bits and of the bits times a position weight), so
-    that ranks compare a 2.4 GB result without moving it."""
-    bits = x.reshape(-1).view(torch.int32)
+    """Two order-free checksums of a tensor's bits (f32 or bf16; int64
+    sums, wrapping, of the bits and of the bits times a position weight),
+    so that ranks compare a 2.4 GB result without moving it."""
+    bits = x.detach().reshape(-1).view({2: torch.int16,
+                                        4: torch.int32}[x.element_size()])
     sums = torch.zeros(2, dtype=torch.int64, device=x.device)
     for off in range(0, bits.numel(), 1 << 24):
         b = bits[off:off + (1 << 24)].to(torch.int64)
@@ -1575,7 +1606,8 @@ def w4_launch_gate(counts, want: dict, what: str) -> None:
             f"{what}: launches {got}, expected {want}")
 
 
-def world4_child(rank: int, store: str, out_dir: str, sizes: dict) -> None:
+def world4_child(rank: int, world: int, store: str, out_dir: str,
+                 sizes: dict) -> None:
     """One rank of the world-4 phase: a gloo group of 4 processes on the
     one card (NCCL refuses two ranks on one device), card tensors staged
     through pinned host memory for every transfer.  Writes its results to
@@ -1818,38 +1850,22 @@ def w4_breakdown(prof, wall: float) -> dict:
 
 
 def phase_world4(torch, card, sizes: dict) -> dict:
-    """Four spawned ranks on the one card (``world4_child``); every
-    library is built already (phase 2), so no rank runs ``nvcc``.  A rank
-    that fails fails the run; the others are stopped."""
+    """Four spawned ranks on the one card (``world4_child``, through
+    ``launch/dist.py:spawn``); every library is built already (phase 2),
+    so no rank runs ``nvcc``.  A rank that fails fails the run; the others
+    are stopped."""
     import shutil
-    import torch.multiprocessing as mp
+    from repro_torch.launch.dist import spawn
     gc.collect()
     torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "world4"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=world4_child,
-                         args=(r, str(out_dir / "store"), str(out_dir),
-                               sizes)) for r in range(W4)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
     try:
-        while any(p.is_alive() for p in procs):
-            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-            if bad or time.perf_counter() - t0 > W4_TIMEOUT_S:
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * W4:
-        fail(f"world-4 phase: rank exit codes {codes} after "
-             f"{time.perf_counter() - t0:.1f} s")
+        spawn(world4_child, W4, args=(str(out_dir), sizes),
+              timeout=W4_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"world-4 phase: {e}")
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(W4)]
     for name in ("ring_fused", "int8_fused_ring", "topk_fused_ring"):
@@ -1893,6 +1909,480 @@ def phase_world4(torch, card, sizes: dict) -> dict:
               f"{t['bound_ms'] / t['ms']:.3f} of the bound ({t['timer']}); "
               f"bit-equal to the plain version [{card}]", flush=True)
     return r0
+
+
+# ---------------------------------------------------------------------------
+# 10. the rounds axis: local SGD, LAG and push/pull
+# ---------------------------------------------------------------------------
+
+ROUNDS_STEPS = 4
+ROUNDS_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--optimizer", "adam",
+               "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+               "--steps", str(ROUNDS_STEPS), "--seed", "0",
+               "--log-every", "1"]
+INT8_WIRE = ("quantize_ef", "dequant_accum", "dequant_accum[warp]")
+ROUNDS_RUNS = {   # run name: (extra CLI flags, the wire's kernels per
+    #               bucket, the rounds that run the wire)
+    "local_sgd": (["--local-sgd", "2", "--sync", "comm", "--compressor",
+                   "int8_fused"], INT8_WIRE, "param"),
+    "lag": (["--lag", "4", "--sync", "comm", "--compressor", "int8_fused"],
+            INT8_WIRE, "grad"),
+    "push_pull": (["--push-pull", "2", "2", "--sync", "comm", "--compressor",
+                   "topk_fused"], ("topk_ef", "topk_ef[warp]"), "grad"),
+}
+# (grad, param, control) rounds of 4 steps; LAG's are data-dependent
+ROUNDS_EXPECT = {"local_sgd": (0, 2, 0), "push_pull": (2, 2, 0)}
+# bytes held per parameter by the local-SGD run at its round: bf16 params
+# (2), Adam's f32 moments (8), the f32 anchor (4) and parameter EF (4), the
+# f32 delta (4) and its reduction (4)
+LOCAL_SGD_BYTES_PER_PARAM = 26
+W4_ROUNDS_SESSION = dict(arch="gemma-2b", layers=1, steps=ROUNDS_STEPS,
+                         batch=4, seq=128, optimizer="sgd", lr=3e-3,
+                         warmup=1, seed=0)
+
+
+def round_step(session) -> bool:
+    """Whether the session's next step runs a parameter round (local SGD
+    and push/pull decide without a probe)."""
+    sched = session.strategy.scheduler
+    action, _ = sched.round(session.step, session._sched_state)
+    return action.param_round
+
+
+def profile_round(torch, session, card, name: str) -> dict:
+    """One more step that holds a round (local SGD and push/pull: the next
+    step with a parameter round, the steps before it run unprofiled; LAG:
+    the next step, probe included) under ``torch.profiler``: its wall time
+    split into the wire kernels, the other device work (the model, Adam,
+    casts, packing, the probe's sums: plain ops) and the host; with the
+    parameter round's own wall time where the step holds one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if session.strategy.scheduler.has_param_rounds:
+        while not round_step(session):
+            session.step_once()
+    round_ms = []
+    if session.strategy.scheduler.has_param_rounds:
+        inner = session._param_round
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        session._param_round = timed
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        session.step_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if round_ms:
+        session._param_round = inner
+    wire = other = 0.0
+    n = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        ms = e.time_range.elapsed_us() / 1e3
+        if any(k in e.name for k in WIRE_KERNELS):
+            wire += ms
+        else:
+            other += ms
+    res = {"wall_ms": wall * 1e3, "wire_kernels_ms": wire,
+           "plain_ops_ms": other, "device_events": n,
+           "host_ms": wall * 1e3 - wire - other,
+           "param_round_ms": round_ms[0] if round_ms else None}
+    what = "parameter round" if round_ms else "probe and its round"
+    print(f"profile rounds {name} [{card}]: one step with a {what} "
+          f"{res['wall_ms']:.3f} ms = wire kernels {wire:.3f} + other device "
+          f"work (model, Adam, casts, packing) {other:.3f} + host "
+          f"{res['host_ms']:.3f} ms ({n} device events)"
+          + (f"; its parameter round {round_ms[0]:.3f} ms" if round_ms
+             else ""), flush=True)
+    return res
+
+
+def run_rounds(torch, ops, train, card) -> dict:
+    """Phase 10 (a): the three schedulers at full width through the CLI,
+    each with every kernel counter set to 0 just before and read just
+    after: the wire's kernels launch once per bucket per ROUND that runs
+    the wire (parameter rounds for local SGD, gradient syncs for LAG and
+    push/pull), the rest 0."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    free, total = torch.cuda.mem_get_info()
+    params = sum(math.prod(d.shape) for d in
+                 tree_leaves(Model(get_config("gemma-2b")).param_desc()))
+    need = LOCAL_SGD_BYTES_PER_PARAM * params
+    print(f"rounds memory reckoning [{card}]: local SGD with int8_fused "
+          f"rounds holds {LOCAL_SGD_BYTES_PER_PARAM} B per parameter at its "
+          f"round = {need / 2**30:.2f} GiB for {params} parameters; the card "
+          f"has {free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB",
+          flush=True)
+    if need > free:
+        fail(f"the local-SGD run needs ~{need / 2**30:.2f} GiB, the card has "
+             f"{free / 2**30:.2f} GiB free")
+    results = {}
+    for name, (flags, wire, carrier) in ROUNDS_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        session = train.main(ROUNDS_ARGS + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = path_counts(ops)
+        peak = torch.cuda.max_memory_allocated()
+        if session.device.type != "cuda":
+            fail(f"rounds {name} ran on {session.device}, not on the card")
+        losses = list(session.losses)
+        if len(losses) != ROUNDS_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"rounds {name}: losses {losses}")
+        split = (session.grad_rounds, session.param_rounds,
+                 session.control_rounds)
+        if name in ROUNDS_EXPECT and split != ROUNDS_EXPECT[name]:
+            fail(f"rounds {name}: (grad, param, control) rounds {split}, "
+                 f"expected {ROUNDS_EXPECT[name]}")
+        if name == "lag" and not (split[1] == 0
+                                  and split[2] == ROUNDS_STEPS
+                                  and 1 <= split[0] < ROUNDS_STEPS):
+            fail(f"rounds lag: (grad, param, control) rounds {split}: "
+                 f"needs a probe every step and both a sync and a reuse")
+        reducer = (session.synchronizer if carrier == "grad"
+                   else session.strategy.param_reducer)
+        n_buckets = reducer.plan.n_buckets
+        rounds = split[0] if carrier == "grad" else split[1]
+        for kname, count in launches.items():
+            want = n_buckets * rounds if kname in wire else 0
+            if count != want or (kname in wire and want <= 0):
+                fail(f"rounds {name}: kernel {kname} launched {count} "
+                     f"times, expected {want} (= {n_buckets} buckets x "
+                     f"{rounds} {carrier} rounds for the wire's kernels, 0 "
+                     f"for the others)")
+        times = [t * 1e3 for t in session.step_times]
+        res = {"losses": losses, "step_ms_all": times,
+               "step_ms": statistics.median(times[1:]),
+               "grad_rounds": split[0], "param_rounds": split[1],
+               "control_rounds": split[2], "comm_rounds":
+               session.comm_rounds, "peak_bytes": peak,
+               "n_buckets": n_buckets, "launches": launches,
+               "run_s": seconds}
+        print(f"rounds {name} [{card}]: {session.model_cfg.name} bf16, batch "
+              f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {ROUNDS_STEPS} steps, "
+              f"losses {[round(x, 4) for x in losses]}; step times "
+              f"{[round(t, 1) for t in times]} ms (median of steps 2-"
+              f"{ROUNDS_STEPS} {res['step_ms']:.3f}); comm rounds "
+              f"{session.comm_rounds} = grad {split[0]} + param {split[1]}, "
+              f"control {split[2]}; peak memory {peak / 2**30:.3f} GiB; "
+              f"{n_buckets} buckets; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        res["profile"] = profile_round(torch, session, card, name)
+        results[name] = res
+        del session, reducer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_small_rounds_reference(torch, card) -> dict:
+    """Phase 10 (b), reduced gemma-2b in f32: four local-SGD steps with
+    int8_fused parameter rounds and four LAG steps with the int8_fused
+    wire, on the card and on the port's CPU path (plain versions, a gloo
+    group of the one rank), from the same weights and data: the same
+    round counts, gated on both devices as in (a), step-1 losses within
+    1e-5 and the others within 1e-4 relative (phase 4's training
+    tolerance).  LAG's θ = 4 gives a sync and then reuse steps: at this
+    size ||g - g_last||² / ||g||² stays near 1.6-2.1 after the first
+    step (the CPU path's probes), so θ = 0.5 would sync on every step and
+    never run the reuse program.  Then a checkpoint on the
+    card: 2 steps, save, load into a fresh session, 2 more steps — losses
+    and parameters bit-equal to an uninterrupted 4-step run; and the
+    card's checkpoint loads on the CPU bit for bit."""
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.models import Model
+    cfg = reduced(get_config("gemma-2b"))
+    params = Model(cfg).init(torch.Generator("cpu").manual_seed(0))
+    kw = dict(arch="gemma-2b", reduced=True, steps=ROUNDS_STEPS, batch=4,
+              seq=64, lr=3e-3, warmup=1)
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    sync = SyncConfig(compressor="int8_fused")
+    out = {}
+    for name, skw in (("local_sgd", dict(period=2)),
+                      ("lag", dict(threshold=4.0))):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            group = gloo if dev == "cpu" else None
+            sess = TrainSession(SessionConfig(device=dev, **kw),
+                                strategy=make_strategy(name, group=group,
+                                                       sync=sync, **skw),
+                                params=params, group=group)
+            losses = sess.run(ROUNDS_STEPS)
+            runs[dev] = (losses, (sess.grad_rounds, sess.param_rounds,
+                                  sess.control_rounds))
+        (lc, rc), (lh, rh) = runs["cuda"], runs["cpu"]
+        for split in (rc, rh):
+            grad, param, control = split
+            if name == "local_sgd" and split != ROUNDS_EXPECT[name]:
+                fail(f"reduced gemma-2b local_sgd: (grad, param, control) "
+                     f"rounds {split}, expected {ROUNDS_EXPECT[name]}")
+            if name == "lag" and not (param == 0 and control == ROUNDS_STEPS
+                                      and 1 <= grad < ROUNDS_STEPS):
+                fail(f"reduced gemma-2b lag: (grad, param, control) rounds "
+                     f"{split}: needs a probe every step and both a sync "
+                     f"and a reuse")
+        rel = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+        if rc != rh or not (all(map(math.isfinite, lc)) and rel[0] <= 1e-5
+                            and max(rel) <= 1e-4):
+            fail(f"reduced gemma-2b {name} on the card disagrees with the CPU"
+                 f" path: losses {lc} vs {lh}, rounds {rc} vs {rh}")
+        print(f"small reference rounds [{card}]: reduced gemma-2b f32, "
+              f"{ROUNDS_STEPS} {name} steps ({skw}, int8_fused), card vs "
+              f"CPU: losses "
+              f"{lc} vs {lh} (max rel diff {max(rel):.3e}); (grad, param, "
+              f"control) rounds {rc} on both", flush=True)
+        out[name] = {"losses_card": lc, "losses_cpu": lh,
+                     "max_rel_diff": max(rel), "rounds": rc}
+
+    # the checkpoint: vanilla Adam on the card, resumed mid-run
+    ckpt = str(ROOT / "build" / "rounds_checkpoint" / "ck")
+
+    def card_session():
+        return TrainSession(SessionConfig(device="cuda", **kw), params=params)
+
+    whole = card_session()
+    whole.run(ROUNDS_STEPS)
+    first = card_session()
+    first.run(2)
+    first.save_checkpoint(ckpt)
+    resumed = card_session()
+    if resumed.load_checkpoint(ckpt) != 2:
+        fail("checkpoint: the resumed session is not at step 2")
+    later = resumed.run(ROUNDS_STEPS - 2)
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(resumed.params),
+                          tree_leaves(whole.params)))
+    if first.losses + later != whole.losses or not same_params:
+        fail(f"checkpoint: resumed losses {first.losses + later} vs "
+             f"uninterrupted {whole.losses}, parameters bit-equal "
+             f"{same_params}")
+    host = TrainSession(SessionConfig(device="cpu", **kw), group=gloo)
+    host.load_checkpoint(ckpt)
+    on_cpu = all(torch.equal(a, b.cpu()) for a, b in
+                 zip(tree_leaves(host.params), tree_leaves(first.params)))
+    if not on_cpu:
+        fail("checkpoint: the card's checkpoint restores differently on the "
+             "CPU")
+    print(f"checkpoint [{card}]: reduced gemma-2b, 2 steps + save + load + "
+          f"2 steps on the card = the uninterrupted 4-step run bit for bit "
+          f"(losses {whole.losses}); the card's checkpoint restores on the "
+          f"CPU bit for bit", flush=True)
+    out["checkpoint"] = {"losses": whole.losses, "bit_equal": True,
+                         "cpu_restore_bit_equal": True}
+    return out
+
+
+def params_digest(torch, params):
+    """(leaves, 2) int64: ``digest`` of every leaf."""
+    from repro_torch._tree import tree_leaves
+    return torch.stack([digest(torch, p) for p in tree_leaves(params)])
+
+
+def rounds_w4_child(rank: int, world: int, store: str, out_dir: str) -> None:
+    """Phase 10 (c), one rank: gemma-2b at full width with 1 layer, SGD,
+    local SGD τ = 2 with int8_fused parameter rounds on psum (the gather
+    wire: dequant_accum at w = 4), a gloo group of 4 processes on the one
+    card.  Before each round the ranks' parameters differ, after it they
+    are bit-equal (digests of the bits, gathered); quantize_ef and
+    dequant_accum launch once per delta bucket per round."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.core.collectives import all_gather, p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    group = dist.group.WORLD
+    sess = TrainSession(
+        SessionConfig(device="cuda", **W4_ROUNDS_SESSION),
+        strategy=make_strategy("local_sgd", group=group, period=2,
+                               sync=SyncConfig(compressor="int8_fused")),
+        group=group)
+    sess._build()
+    inner = sess._param_round
+    rounds = []
+
+    def watched(params, anchor, red_state, rng):
+        pre = params_digest(torch, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(params, anchor, red_state, rng)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rounds.append((pre, params_digest(torch, out[0]), secs))
+        return out
+
+    sess._param_round = watched
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    p2p.reset_staged_bytes()
+    losses = sess.run(ROUNDS_STEPS)
+    torch.cuda.synchronize()
+    counts = path_counts(ops)
+    staged = p2p.staged_bytes()
+    plan = sess.strategy.param_reducer.plan
+    n_buckets = plan.n_buckets
+    sizes = [p.numel() for p in tree_leaves(sess.params)]
+    w4_gate(all(map(math.isfinite, losses)), f"losses {losses}")
+    w4_gate((sess.grad_rounds, sess.param_rounds) == (0, 2) and
+            len(rounds) == 2, f"rounds (grad, param) = "
+            f"{(sess.grad_rounds, sess.param_rounds)}, expected (0, 2)")
+    per = n_buckets * len(rounds)
+    w4_launch_gate(counts, {"quantize_ef": per, "dequant_accum": per,
+                            "dequant_accum[warp]": per},
+                   "local SGD int8_fused rounds")
+    for i, (pre, post, _) in enumerate(rounds):
+        pres, posts = all_gather(pre), all_gather(post)
+        w4_gate(not all(torch.equal(pres[r], pres[0]) for r in range(world)),
+                f"round {i}: the ranks' parameters are equal before it")
+        w4_gate(all(torch.equal(posts[r], posts[0]) for r in range(world)),
+                f"round {i}: the ranks' parameters differ after it")
+    res = {"rank": rank, "losses": losses,
+           "step_ms_all": [t * 1e3 for t in sess.step_times],
+           "round_s": [r[2] for r in rounds], "staged_bytes": staged,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "n_buckets": n_buckets, "launches": counts,
+           "bucket_lengths": [sum(sizes[i] for i in b.leaves)
+                              for b in plan.buckets],
+           "params": sess.num_params()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_rounds_world4(torch, card) -> dict:
+    """Four spawned ranks of ``rounds_w4_child`` on the one card through
+    ``launch/dist.py:spawn``; a rank that fails fails the run."""
+    import shutil
+    from repro_torch.launch.dist import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "rounds_world4"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    # four ranks share the card's 79 GiB: the ranks' allocators map their
+    # segments on demand rather than keep fragments reserved
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawn(rounds_w4_child, W4, args=(str(out_dir),),
+              timeout=W4_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"rounds world-4 phase: {e}")
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(W4)]
+    if any(r["launches"] != ranks[0]["launches"] for r in ranks):
+        fail("rounds world-4 phase: ranks launched differently")
+    r0 = ranks[0]
+    print(f"rounds world 4 on one card over gloo [{card}]: gemma-2b d_model "
+          f"2048 x 1 layer ({r0['params']} params bf16), SGD, local SGD "
+          f"τ=2 with int8_fused rounds on psum, global batch 4 x seq 128, "
+          f"{ROUNDS_STEPS} steps: losses {r0['losses']}; round seconds by "
+          f"rank {[[round(s, 4) for s in r['round_s']] for r in ranks]}; "
+          f"step ms by rank "
+          f"{[[round(t, 1) for t in r['step_ms_all']] for r in ranks]}; "
+          f"staged bytes per rank {[r['staged_bytes'] for r in ranks]}; "
+          f"peak memory per rank "
+          f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB; "
+          f"{r0['n_buckets']} buckets; launches "
+          f"{ {k: v for k, v in r0['launches'].items() if v} }; ranks differ"
+          f" before each round and are bit-equal after it ({seconds:.1f} s)",
+          flush=True)
+    return {**r0, "round_s_by_rank": [r["round_s"] for r in ranks],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+            "seconds": seconds}
+
+
+def check_rounds_w4_kernels(torch, ops, ref, lengths, card) -> None:
+    """The int8_fused wire's kernels at every delta-bucket length of the
+    world-4 run, with the card free again: quantize_ef writing the new
+    residual into e's buffer, as the round calls it, and dequant_accum on
+    a (4, n) stack of four ranks' payloads (the gathered shape of that
+    run; 4 n comes near 2**31 at the embedding's bucket), each held
+    bit-equal (NaN for NaN) to its plain version on the same inputs.  The
+    gates of (c) compare the ranks with each other, which a deterministic
+    wrong kernel passes."""
+    dev = torch.device("cuda")
+    for n in sorted(set(lengths)):
+        gen = torch.Generator(dev).manual_seed(W4_SEED + 300 + n % 65521)
+        g = torch.randn(n, generator=gen, device=dev)
+        e = torch.randn(n, generator=gen, device=dev) * 0.1
+        buf = e.clone()
+        want = ref.quantize_ef_ref(g, e, tile=TILE)
+        got = ops.quantize_ef(g, buf, tile=TILE, e_out=buf)
+        torch.cuda.synchronize()
+        if got[1].data_ptr() != buf.data_ptr() or not all(
+                same(torch, a, b) for a, b in zip(got, want)):
+            fail(f"rounds world-4 kernels: quantize_ef at the delta bucket "
+                 f"length n={n} differs from the plain version or did not "
+                 f"write the residual in place")
+        q, sc = got[0], got[2]
+        del g, e, buf, want, got
+        torch.cuda.empty_cache()
+        q4 = torch.stack([q.roll(r * 997) for r in range(W4)])
+        s4 = torch.stack([sc * (1 + r) for r in range(W4)])
+        del q, sc
+        got = ops.dequant_accum(q4, s4, tile=TILE)
+        torch.cuda.synchronize()
+        ok = same(torch, got, ref.dequant_accum_ref(q4, s4, tile=TILE))
+        del q4, s4, got
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"rounds world-4 kernels: dequant_accum at w = {W4}, n={n} "
+                 f"differs from the plain version")
+    print(f"rounds world-4 kernels [{card}]: quantize_ef (residual in place) "
+          f"and dequant_accum at w = {W4} bit-equal to their plain versions "
+          f"at every delta-bucket length {sorted(set(lengths))}", flush=True)
+
+
+def phase_rounds(torch, ops, ref, train, card) -> dict:
+    """Phase 10: (a) the three schedulers at full width, (b) the reduced
+    card-vs-CPU runs and the checkpoint, (c) local SGD at world 4, then
+    its kernels at its bucket lengths against their plain versions."""
+    full = run_rounds(torch, ops, train, card)
+    small = phase_small_rounds_reference(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    world4 = phase_rounds_world4(torch, card)
+    check_rounds_w4_kernels(torch, ops, ref, world4["bucket_lengths"], card)
+    return {"full_width": full, "small_reference": small, "world4": world4}
 
 
 def kernel_name(mangled: str) -> str:
@@ -2098,6 +2588,10 @@ def main() -> None:
                                         "mid": buckets[1],
                                         "largest": max(buckets)})
 
+    # -- 10. the rounds axis -------------------------------------------------
+    rounds = phase_rounds(torch, ops, ref, train, card)
+    destroy_group()
+
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
 
     def runs_of(name, runs):
@@ -2113,6 +2607,9 @@ def main() -> None:
                        ("ring_fused", "int8_fused_ring", "topk_fused_ring")})
     train_runs.update({f"world4_mesh_{a}": r["launches"]
                        for a, r in world4["algos"].items()})
+    train_runs.update({f"rounds_{k}": r["launches"]
+                       for k, r in rounds["full_width"].items()})
+    train_runs["rounds_world4_local_sgd"] = rounds["world4"]["launches"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -2150,6 +2647,7 @@ def main() -> None:
                 for k, r in trained.items()}
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"world4": world4, "card": card}))
+    print(json.dumps({"rounds": rounds, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

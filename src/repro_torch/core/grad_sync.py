@@ -66,13 +66,15 @@ def _numel(t: torch.Tensor) -> int:
     return int(t.numel())
 
 
-def _div(x: torch.Tensor, denom: float) -> torch.Tensor:
+def _div(x: torch.Tensor, denom: float, inplace: bool = False
+         ) -> torch.Tensor:
     """``x / denom`` as one IEEE division per element on any device (on
     CUDA, PyTorch turns a division by a Python scalar into a reciprocal
-    multiply)."""
+    multiply); ``inplace`` writes it into ``x``."""
     if denom == 1.0:
         return x
-    return x / torch.tensor(denom, dtype=x.dtype, device=x.device)
+    d = torch.tensor(denom, dtype=x.dtype, device=x.device)
+    return x.div_(d) if inplace else x / d
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +201,11 @@ class PlanExecutor:
 
     @staticmethod
     def _pack_bucket(leaves, idxs) -> torch.Tensor:
+        """The bucket's leaves as one flat f32 buffer; a bucket of one f32
+        leaf is a view of it (no copy: the wire reads the buffer and never
+        writes it)."""
+        if len(idxs) == 1:
+            return leaves[idxs[0]].reshape(-1).to(torch.float32)
         return torch.cat([leaves[i].reshape(-1).to(torch.float32)
                           for i in idxs])
 
@@ -386,7 +393,9 @@ class PlanExecutor:
         gathered = tree_map(gather, payload)
         gathered_meta = tree_map(gather, meta)
         if comp.fused_decode_sum is not None:
-            return _div(comp.fused_decode_sum(gathered, gathered_meta), denom)
+            total = comp.fused_decode_sum(gathered, gathered_meta)
+            del gathered, gathered_meta
+            return _div(total, denom, inplace=True)
 
         def index(x, i):
             return x[i] if isinstance(x, torch.Tensor) else x

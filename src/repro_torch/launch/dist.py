@@ -9,15 +9,19 @@ on a fixed ``MASTER_PORT``.  A one-process run still gets a real group of
 world 1, so its collectives (NCCL's ``all_reduce`` and
 ``all_gather_into_tensor`` on the card) are on the path.
 :func:`mesh_axes` splits the default group into one group per axis of a
-multi-axis mesh, the manual axes the explicit collectives run over.
+multi-axis mesh, the manual axes the explicit collectives run over, and
+:func:`spawn` starts a world of processes on one machine that meet through
+such a file.
 """
 from __future__ import annotations
 
 import itertools
 import math
 import os
+import shutil
 import tempfile
-from typing import Optional, Sequence, Tuple
+import time
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -27,20 +31,23 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
 
 
-def init_group(device: torch.device, world_size: int = 1, rank: int = 0,
-               store_path: Optional[str] = None) -> None:
+def init_group(device: torch.device, world_size: Optional[int] = 1,
+               rank: int = 0, store_path: Optional[str] = None) -> None:
     """Join (or create) the default process group.  ``store_path`` names
     the rendezvous file that all ``world_size`` ranks share; a world of 1
     makes its own in a fresh temporary directory.  A group that already
-    exists is kept if its backend and size match, and refused otherwise."""
+    exists is kept if its backend and size match (any size when
+    ``world_size`` is None), and refused otherwise."""
     backend = backend_for(device)
     if dist.is_initialized():
-        if dist.get_backend() != backend or dist.get_world_size() != world_size:
+        if dist.get_backend() != backend or (
+                world_size is not None and dist.get_world_size() != world_size):
             raise RuntimeError(
                 f"a {dist.get_backend()} process group of world "
                 f"{dist.get_world_size()} already exists; this run needs "
                 f"{backend} with world {world_size}")
         return
+    world_size = 1 if world_size is None else world_size
     if store_path is None:
         if world_size != 1:
             raise ValueError("ranks of a world > 1 must share a store_path")
@@ -52,6 +59,45 @@ def init_group(device: torch.device, world_size: int = 1, rank: int = 0,
     store = dist.FileStore(store_path, world_size)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world_size)
+
+
+def spawn(fn: Callable, world_size: int, args: tuple = (),
+          timeout: Optional[float] = None) -> None:
+    """Run ``fn(rank, world_size, store_path, *args)`` in ``world_size``
+    fresh processes (the ``spawn`` start method), which meet through the
+    rendezvous file ``store_path`` in a new temporary directory
+    (:func:`init_group`).  Waits for all of them; when one exits non-zero
+    or ``timeout`` seconds pass, the others are stopped and
+    ``RuntimeError`` names the exit codes.  ``fn`` and ``args`` must be
+    picklable (``fn`` a module-level function)."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    store_dir = tempfile.mkdtemp(prefix="repro_torch_pg_")
+    store = os.path.join(store_dir, "store")
+    procs = [ctx.Process(target=fn, args=(r, world_size, store, *args))
+             for r in range(world_size)]
+    t0 = time.monotonic()
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            failed = any(p.exitcode not in (None, 0) for p in procs)
+            if failed or (timeout is not None
+                          and time.monotonic() - t0 > timeout):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.pid is None:        # never started
+                continue
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world_size:
+        raise RuntimeError(f"spawned world of {world_size}: rank exit codes "
+                           f"{codes} after {time.monotonic() - t0:.1f} s")
 
 
 def destroy_group() -> None:

@@ -5,12 +5,19 @@
   * :func:`make_comm_optimized_train_step` / :func:`_make_synced_train_step`
     — per-rank loss and backward, the gradient synchronizer (compression +
     collective over the process group), the update, and the loss averaged
-    over the group.
+    over the group;
+  * the strategy phase steps: :func:`make_local_train_step` (no gradient
+    collective), :func:`make_param_round_step` (model averaging, or the
+    params-minus-anchor delta through a compressing reducer) and
+    :func:`make_lag_programs` (LAG's probe, sync and reuse).
 
 Each rank runs its own process; the reference's manual ``shard_map`` data
 axes become the process group.  EF state is per process, as in the
-reference (a per-worker leading axis there).  Parameters and optimizer
-moments are updated in place.
+reference (a per-worker leading axis there), and so are the parameters
+and optimizer state under a scheduler whose workers diverge (local SGD,
+push/pull): the reference's ``broadcast_worker_state`` / ``worker_view``
+axis has no counterpart.  Parameters and optimizer moments are updated in
+place.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.core.collectives import allreduce, world_size
 from repro_torch.core.grad_sync import (GradientSynchronizer, SyncConfig,
                                         _div)
+from repro_torch.core.lag import change_and_scale
+from repro_torch.core.local_sgd import average_leaf
 from repro_torch.models.model import Model
 from repro_torch.optim import step_inplace
 
@@ -92,3 +101,103 @@ def _make_synced_train_step(model: Model, optimizer, synchronizer,
         return synchronizer.init_state(params)
 
     return step_fn, synchronizer, init_sync_state
+
+
+# ---------------------------------------------------------------------------
+# Strategy phase steps (local SGD, push/pull, LAG)
+# ---------------------------------------------------------------------------
+
+def make_local_train_step(model: Model, optimizer,
+                          group: Optional[dist.ProcessGroup] = None):
+    """Purely local step: this rank's loss, backward and in-place update
+    with NO gradient collective (the skip step of local SGD and push/pull),
+    so ranks diverge between rounds.  Only the scalar loss is averaged over
+    the group, for reporting.  Returns ``step_fn(params, opt_state, batch,
+    step) -> loss``."""
+
+    def step_fn(params, opt_state, batch, step):
+        loss, grads = loss_and_grads(model, params, batch)
+        step_inplace(optimizer, params, grads, opt_state, step)
+        del grads
+        return mean_over_group(loss, group)
+
+    return step_fn
+
+
+def make_param_round_step(reducer, group: Optional[dist.ProcessGroup] = None,
+                          algo: str = "psum"):
+    """One parameter round (local SGD's averaging, push/pull's fetch).
+
+    ``reducer=None``: the dense model average on ``algo``, leaf by leaf in
+    place.  Otherwise the round moves the params-minus-anchor DELTA
+    through the reducer (per-bucket compression with error feedback: the
+    card's kernels for the fused compressors) and rebuilds
+    ``params = anchor + reduced``; the anchor (the parameters agreed at the
+    last round, equal on every rank) is what keeps compressed averaging
+    sound.  Parameters keep their dtype (bf16 stays bf16) and the f32
+    anchor is rebuilt FROM the cast result, so it equals what every rank
+    holds entering the next local phase.
+
+    Returns ``round_fn(params, anchor, red_state, rng) -> (params, anchor,
+    red_state)``; params and anchor are updated in place (``anchor`` is
+    None without a reducer)."""
+    if reducer is None:
+        def avg_round(params, anchor, red_state, rng=None):
+            with torch.no_grad():
+                for p in tree_leaves(params):
+                    p.copy_(average_leaf(p, group, algo))
+            return params, anchor, red_state
+
+        return avg_round
+
+    def round_fn(params, anchor, red_state, rng=None):
+        with torch.no_grad():
+            delta = tree_map(lambda p, a: p.to(torch.float32) - a,
+                             params, anchor)
+            reduced, red_state = reducer(delta, red_state, rng)
+            del delta
+            for p, a, r in zip(tree_leaves(params), tree_leaves(anchor),
+                               tree_leaves(reduced)):
+                a.add_(r)            # anchor + reduced delta, in f32
+                p.copy_(a)           # cast to the parameter's dtype
+                a.copy_(p)           # the new anchor: what p now holds
+            del reduced
+        return params, anchor, red_state
+
+    return round_fn
+
+
+def make_lag_programs(model: Model, optimizer, synchronizer,
+                      group: Optional[dist.ProcessGroup] = None):
+    """The three LAG steps (host dispatch):
+
+      * ``probe(params, batch, g_last) -> (loss, grads, delta, scale)`` —
+        this rank's backward, then ``delta = Σ||g - g_last||²`` and
+        ``scale = Σ||g||²`` summed over the group in ONE 2-element f32
+        collective, the only wire traffic of a skipped round; the loss is
+        the group's mean;
+      * ``sync_apply(params, opt_state, sync_state, grads, step, rng) ->
+        (params, opt_state, sync_state, synced)`` — reduce the probe's
+        gradients through the strategy's reducer and update; ``synced`` is
+        the new ``g_last``;
+      * ``reuse_apply(params, opt_state, g_last, step)`` — apply the last
+        synchronized gradient with no collective at all.
+    """
+
+    def probe(params, batch, g_last):
+        loss, grads = loss_and_grads(model, params, batch)
+        with torch.no_grad():
+            sums = torch.stack(change_and_scale(grads, g_last))
+            sums = allreduce(sums, "psum", group)
+        return mean_over_group(loss, group), grads, sums[0], sums[1]
+
+    def sync_apply(params, opt_state, sync_state, grads, step, rng=None):
+        synced, sync_state = synchronizer(grads, sync_state, rng)
+        step_inplace(optimizer, params, synced, opt_state, step)
+        return params, opt_state, sync_state, synced
+
+    def reuse_apply(params, opt_state, g_last, step):
+        step_inplace(optimizer, params, g_last, opt_state, step)
+        return params, opt_state
+
+    return probe, sync_apply, reuse_apply
