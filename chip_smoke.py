@@ -116,10 +116,27 @@ Phases (any failure exits non-zero and prints no result line):
      bit-equal (digests of the bits); then, with the card free again,
      quantize_ef (residual written in place) and dequant_accum on a
      (4, n) stack of payloads, at every delta-bucket length of that run,
-     each held bit-equal to its plain version.
+     each held bit-equal to its plain version;
+ 11. the communication planner: (a) ``repro_torch.launch.train --sync
+     auto --topology commodity_cluster`` at phase 8's full width (Adam,
+     batch 4 x seq 512, 3 steps, NCCL world 1): the backward measured on
+     the card (``profile_backward``), the search's host time, the winner
+     (one of the priced arms) and every bucket, step times, peak memory and
+     a profiled step split into wire kernels, other device work and host;
+     the executor's plan is the planned one bucket for bucket; (b) 4
+     spawned ranks on a gloo group on the one card, gemma-2b at full width
+     with 1 layer, SGD, ``plan_auto`` with local SGD τ = 2 on
+     ``device:4@fast_ici`` at a pinned 30 ms backward, global batch 4 x seq
+     128, 4 steps: every rank's plan digest equal and the plan the port's
+     planner makes on the CPU from the same inputs (printed beside it), the
+     ranks' parameters different before each round and bit-equal after it;
+     then the kernels of each run at its plan's packed bucket lengths (and,
+     at world 4, every row of the ring_fused hop buffers), each held
+     bit-equal to its plain version.
 
-Every main-path run (5, 7, each of 8, each of 9 on every rank, and each
-of 10 (a) and (c)) sets every kernel launch counter
+Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
+10 (a) and (c), and each of 11 on every rank) sets every kernel launch
+counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
@@ -135,7 +152,11 @@ that run the wire, not x steps — parameter rounds for local SGD
 (quantize_ef and dequant_accum on the delta buckets, at world 4 on every
 rank), gradient syncs for LAG (quantize_ef and dequant_accum) and
 push/pull (topk_ef, push steps only), all on the warp route, and 0 for
-every other kernel.  Launches made in phases 3, 4, 6 and 10 (b), and by
+every other kernel; the planner: what the executed plan derives bucket by
+bucket (``plan_launches``: topk_ef per topk_fused bucket and gradient
+sync; per int8_fused bucket and parameter round, quantize_ef once and,
+on ring_fused at world 4, quantize_tiles 2·p = 8 times), all on the warp
+route, 0 for every other kernel.  Launches made in phases 3, 4, 6 and 10 (b), and by
 9's checks and timings, are
 not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
@@ -1997,7 +2018,9 @@ def profile_round(torch, session, card, name: str) -> dict:
            "plain_ops_ms": other, "device_events": n,
            "host_ms": wall * 1e3 - wire - other,
            "param_round_ms": round_ms[0] if round_ms else None}
-    what = "parameter round" if round_ms else "probe and its round"
+    what = ("parameter round" if round_ms else "probe and its round"
+            if session.strategy.scheduler.needs_grad_probe
+            else "gradient sync")
     print(f"profile rounds {name} [{card}]: one step with a {what} "
           f"{res['wall_ms']:.3f} ms = wire kernels {wire:.3f} + other device "
           f"work (model, Adam, casts, packing) {other:.3f} + host "
@@ -2198,35 +2221,10 @@ def params_digest(torch, params):
     return torch.stack([digest(torch, p) for p in tree_leaves(params)])
 
 
-def rounds_w4_child(rank: int, world: int, store: str, out_dir: str) -> None:
-    """Phase 10 (c), one rank: gemma-2b at full width with 1 layer, SGD,
-    local SGD τ = 2 with int8_fused parameter rounds on psum (the gather
-    wire: dequant_accum at w = 4), a gloo group of 4 processes on the one
-    card.  Before each round the ranks' parameters differ, after it they
-    are bit-equal (digests of the bits, gathered); quantize_ef and
-    dequant_accum launch once per delta bucket per round."""
-    os.environ["RANK"] = str(rank)
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch._tree import tree_leaves
-    from repro_torch.api import SessionConfig, TrainSession
-    from repro_torch.core import SyncConfig, make_strategy
-    from repro_torch.core.collectives import all_gather, p2p
-    from repro_torch.kernels import ops
-    from repro_torch.launch.dist import init_group
-    torch.set_num_threads(2)
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    init_group(torch.device("cpu"), world_size=world, rank=rank,
-               store_path=store)
-    group = dist.group.WORLD
-    sess = TrainSession(
-        SessionConfig(device="cuda", **W4_ROUNDS_SESSION),
-        strategy=make_strategy("local_sgd", group=group, period=2,
-                               sync=SyncConfig(compressor="int8_fused")),
-        group=group)
-    sess._build()
+def watch_param_rounds(torch, sess) -> list:
+    """Wrap the built session's parameter round so that each round appends
+    (digest of the parameters before it, after it, its seconds) to the
+    returned list."""
     inner = sess._param_round
     rounds = []
 
@@ -2241,6 +2239,85 @@ def rounds_w4_child(rank: int, world: int, store: str, out_dir: str) -> None:
         return out
 
     sess._param_round = watched
+    return rounds
+
+
+def gate_rounds_differ_then_agree(torch, rounds, world: int) -> None:
+    """Before each round the ranks' parameters differ; after it they are
+    bit-equal (digests gathered over the default group)."""
+    from repro_torch.core.collectives import all_gather
+    for i, (pre, post, _) in enumerate(rounds):
+        pres, posts = all_gather(pre), all_gather(post)
+        w4_gate(not all(torch.equal(pres[r], pres[0]) for r in range(world)),
+                f"round {i}: the ranks' parameters are equal before it")
+        w4_gate(all(torch.equal(posts[r], posts[0]) for r in range(world)),
+                f"round {i}: the ranks' parameters differ after it")
+
+
+def spawn_world4(torch, child, name: str, args: tuple) -> list:
+    """Four spawned ranks of ``child`` on the one card
+    (``launch/dist.py:spawn``), each writing ``rank{r}.json`` under
+    ``build/<name>``; a rank that fails fails the run, and so do ranks
+    whose launch counts differ.  The ranks share the card's memory, so
+    their allocators map segments on demand (expandable segments) rather
+    than keep fragments reserved.  Returns (ranks' results, seconds)."""
+    import shutil
+    from repro_torch.launch.dist import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / name
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawn(child, W4, args=(str(out_dir), *args), timeout=W4_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"{name} phase: {e}")
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(W4)]
+    if any(r["launches"] != ranks[0]["launches"] for r in ranks):
+        fail(f"{name} phase: ranks launched differently")
+    return ranks, seconds
+
+
+def rounds_w4_child(rank: int, world: int, store: str, out_dir: str) -> None:
+    """Phase 10 (c), one rank: gemma-2b at full width with 1 layer, SGD,
+    local SGD τ = 2 with int8_fused parameter rounds on psum (the gather
+    wire: dequant_accum at w = 4), a gloo group of 4 processes on the one
+    card.  Before each round the ranks' parameters differ, after it they
+    are bit-equal (digests of the bits, gathered); quantize_ef and
+    dequant_accum launch once per delta bucket per round."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.core.collectives import p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    group = dist.group.WORLD
+    sess = TrainSession(
+        SessionConfig(device="cuda", **W4_ROUNDS_SESSION),
+        strategy=make_strategy("local_sgd", group=group, period=2,
+                               sync=SyncConfig(compressor="int8_fused")),
+        group=group)
+    sess._build()
+    rounds = watch_param_rounds(torch, sess)
     torch.cuda.synchronize()
     dist.barrier()
     ops.reset_launch_counts()
@@ -2260,12 +2337,7 @@ def rounds_w4_child(rank: int, world: int, store: str, out_dir: str) -> None:
     w4_launch_gate(counts, {"quantize_ef": per, "dequant_accum": per,
                             "dequant_accum[warp]": per},
                    "local SGD int8_fused rounds")
-    for i, (pre, post, _) in enumerate(rounds):
-        pres, posts = all_gather(pre), all_gather(post)
-        w4_gate(not all(torch.equal(pres[r], pres[0]) for r in range(world)),
-                f"round {i}: the ranks' parameters are equal before it")
-        w4_gate(all(torch.equal(posts[r], posts[0]) for r in range(world)),
-                f"round {i}: the ranks' parameters differ after it")
+    gate_rounds_differ_then_agree(torch, rounds, world)
     res = {"rank": rank, "losses": losses,
            "step_ms_all": [t * 1e3 for t in sess.step_times],
            "round_s": [r[2] for r in rounds], "staged_bytes": staged,
@@ -2281,35 +2353,9 @@ def rounds_w4_child(rank: int, world: int, store: str, out_dir: str) -> None:
 
 
 def phase_rounds_world4(torch, card) -> dict:
-    """Four spawned ranks of ``rounds_w4_child`` on the one card through
-    ``launch/dist.py:spawn``; a rank that fails fails the run."""
-    import shutil
-    from repro_torch.launch.dist import spawn
-    gc.collect()
-    torch.cuda.empty_cache()
-    out_dir = ROOT / "build" / "rounds_world4"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    t0 = time.perf_counter()
-    # four ranks share the card's 79 GiB: the ranks' allocators map their
-    # segments on demand rather than keep fragments reserved
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        spawn(rounds_w4_child, W4, args=(str(out_dir),),
-              timeout=W4_TIMEOUT_S)
-    except RuntimeError as e:
-        fail(f"rounds world-4 phase: {e}")
-    finally:
-        if alloc is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    seconds = time.perf_counter() - t0
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(W4)]
-    if any(r["launches"] != ranks[0]["launches"] for r in ranks):
-        fail("rounds world-4 phase: ranks launched differently")
+    """Four spawned ranks of ``rounds_w4_child`` on the one card."""
+    ranks, seconds = spawn_world4(torch, rounds_w4_child, "rounds_world4",
+                                  ())
     r0 = ranks[0]
     print(f"rounds world 4 on one card over gloo [{card}]: gemma-2b d_model "
           f"2048 x 1 layer ({r0['params']} params bf16), SGD, local SGD "
@@ -2383,6 +2429,369 @@ def phase_rounds(torch, ops, ref, train, card) -> dict:
     world4 = phase_rounds_world4(torch, card)
     check_rounds_w4_kernels(torch, ops, ref, world4["bucket_lengths"], card)
     return {"full_width": full, "small_reference": small, "world4": world4}
+
+# ---------------------------------------------------------------------------
+# 11. the communication planner: --sync auto at world 1 and at world 4
+# ---------------------------------------------------------------------------
+
+AUTO_ARGS = TRAIN_ARGS + ["--sync", "auto", "--topology",
+                          "commodity_cluster"]
+AUTO_W4_TOPOLOGY = "device:4@fast_ici"
+AUTO_W4_T_BWD_S = 0.030
+AUTO_W4_STEPS = 4
+AUTO_W4_PERIOD = 2
+AUTO_W4_SESSION = dict(arch="gemma-2b", layers=1, steps=AUTO_W4_STEPS,
+                       batch=4, seq=128, optimizer="sgd", lr=3e-3, warmup=1,
+                       seed=0)
+
+
+def plan_launches(plan, rounds: int, world: int) -> dict:
+    """The wire-kernel launches a plan makes in ``rounds`` rounds over one
+    data axis of ``world`` ranks, derived bucket by bucket: topk_fused
+    launches topk_ef (with error feedback) or topk_mask once per bucket
+    and round; int8_fused quantize_ef (with error feedback) or
+    quantize_tiles once, then dequant_accum once on the gather wire, or,
+    on ring_fused at world > 1, quantize_tiles once per stream and hop
+    (2·p); every other compressor runs plain ops.  All on the warp route
+    (tile 1024)."""
+    want: dict = {}
+
+    def add(kernel, n):
+        for k in (kernel, f"{kernel}[warp]"):
+            want[k] = want.get(k, 0) + n
+        if kernel == "quantize_ef":          # a wrapper without routes
+            del want["quantize_ef[warp]"]
+
+    for b in plan.buckets:
+        ef = b.error_feedback and b.compressor != "none"
+        if b.compressor == "topk_fused":
+            add("topk_ef" if ef and b.fused else "topk_mask", rounds)
+        elif b.compressor == "int8_fused":
+            add("quantize_ef" if ef and b.fused else "quantize_tiles", rounds)
+            if b.algo == "ring_fused":
+                if world > 1:
+                    add("quantize_tiles", RING_FUSED_STREAMS * world * rounds)
+            elif b.fused:
+                add("dequant_accum", rounds)
+    return want
+
+
+def bucket_lengths(plan, params) -> list:
+    """Each bucket's packed length (elements), from the leaves it packs."""
+    from repro_torch._tree import tree_leaves
+    sizes = [math.prod(p.shape) for p in tree_leaves(params)]
+    return [sum(sizes[i] for i in b.leaves) for b in plan.buckets]
+
+
+def describe_buckets(plan, lengths) -> str:
+    return "; ".join(
+        f"{j}: {b.algo}/{b.compressor} leaves {list(b.leaves)} n={n} "
+        f"({b.bucket_bytes} B priced)"
+        for j, (b, n) in enumerate(zip(plan.buckets, lengths)))
+
+
+def run_auto(torch, ops, train, card) -> dict:
+    """Phase 11 (a): ``--sync auto --topology commodity_cluster`` through
+    the CLI at phase 8's full width, NCCL world 1, every kernel counter
+    set to 0 just before and read just after: the backward measured on
+    the card, the executed plan the planned one bucket for bucket, the
+    winner one of the priced arms, the wire kernels exactly as the plan
+    derives them (``plan_launches``), losses finite; then a profiled
+    step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session = train.main(AUTO_ARGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    if session.device.type != "cuda":
+        fail(f"auto ran on {session.device}, not on the card")
+    planned = session.planned
+    sp, executed = planned["strategy_plan"], planned["executed"]
+    if sp.key not in planned["arms"] or planned["arms"][sp.key] is not sp:
+        fail(f"auto: the winner {sp.key} is not one of the priced arms "
+             f"{sorted(planned['arms'])}")
+    if executed is not sp:
+        fail(f"auto: the winner {sp.key} did not run ({executed.key} did)")
+    st = session.strategy
+    reducer = st.param_reducer if sp.schedule.kind == "local_sgd" \
+        else st.grad_reducer
+    if reducer is None or reducer.plan.buckets != sp.comm.buckets:
+        fail(f"auto: the executor's plan is not the planned one: "
+             f"{None if reducer is None else reducer.plan.describe()} vs "
+             f"{sp.comm.describe()}")
+    losses = list(session.losses)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"auto: losses {losses}")
+    rounds = (session.param_rounds if sp.schedule.kind == "local_sgd"
+              else session.grad_rounds)
+    want = plan_launches(reducer.plan, rounds, session.world)
+    if not any(want.values()):
+        fail(f"auto: the plan {sp.key} runs no kernel of the port")
+    for kname, count in launches.items():
+        if count != want.get(kname, 0):
+            fail(f"auto: kernel {kname} launched {count} times, expected "
+                 f"{want.get(kname, 0)} (derived from the plan: "
+                 f"{ {k: v for k, v in want.items() if v} } over {rounds} "
+                 f"rounds)")
+    lengths = bucket_lengths(reducer.plan, session.params)
+    times = [t * 1e3 for t in session.step_times]
+    res = {"t_backward_s": planned["t_backward_s"],
+           "search_s": planned["search_s"], "winner": sp.key,
+           "modeled_step_s": sp.modeled_step_s,
+           "arms": sorted(planned["arms"]), "digest": planned["digest"],
+           "buckets": [[b.algo, b.compressor, list(b.leaves), n,
+                        b.bucket_bytes]
+                       for b, n in zip(reducer.plan.buckets, lengths)],
+           "losses": losses, "step_ms_all": times,
+           "step_ms": statistics.median(times[1:]), "peak_bytes": peak,
+           "launches": launches, "run_s": seconds,
+           "rounds": rounds}
+    print(f"auto world 1 [{card}]: {session.model_cfg.name} bf16, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps on "
+          f"commodity_cluster (world 256, a planning model): backward "
+          f"measured {planned['t_backward_s'] * 1e3:.3f} ms, the search "
+          f"{planned['search_s']:.3f} s of host time, winner {sp.key} "
+          f"(modeled {sp.modeled_step_s * 1e3:.3f} ms/step, "
+          f"{len(planned['arms'])} arms); buckets "
+          f"{describe_buckets(reducer.plan, lengths)}; losses "
+          f"{[round(x, 4) for x in losses]}; step times "
+          f"{[round(t, 1) for t in times]} ms (median of steps 2-"
+          f"{TRAIN_STEPS} {res['step_ms']:.3f}); peak memory "
+          f"{peak / 2**30:.3f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (= the plan's "
+          f"{ {k: v for k, v in want.items() if v} }); run {seconds:.1f} s",
+          flush=True)
+    res["profile"] = profile_round(torch, session, card, "auto")
+    res["wire"] = [(b.compressor, dict(b.compressor_args), n)
+                   for b, n in zip(reducer.plan.buckets, lengths)]
+    del session, reducer, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_auto_kernels(torch, ops, ref, wire, world: int, what: str,
+                       card) -> None:
+    """The kernels of an executed plan at every packed bucket length it
+    runs them at, each bit-equal (NaN for NaN) to its plain version on
+    the same inputs, called as the path calls them: topk_ef and
+    quantize_ef write the residual into e's buffer; dequant_accum decodes
+    the bucket's payload at ``world`` ranks (the gather wire at world 1);
+    on ring_fused at world > 1, quantize_tiles on every row of the
+    (p, m) hop buffers at the bucket's chunk lengths."""
+    dev = torch.device("cuda")
+    done = []
+    for comp, args, n in wire:
+        if comp not in ("topk_fused", "int8_fused"):
+            continue
+        gen = torch.Generator(dev).manual_seed(W4_SEED + 500 + n % 65521)
+        g = torch.randn(n, generator=gen, device=dev)
+        e = torch.randn(n, generator=gen, device=dev) * 0.1
+        buf = e.clone()
+        if comp == "topk_fused":
+            ratio = float(args.get("ratio", 0.01))
+            want = ref.topk_ef_ref(g, e, ratio=ratio, tile=TILE)
+            got = ops.topk_ef(g, buf, ratio=ratio, tile=TILE, e_out=buf)
+            name = "topk_ef"
+        else:
+            want = ref.quantize_ef_ref(g, e, tile=TILE)
+            got = ops.quantize_ef(g, buf, tile=TILE, e_out=buf)
+            name = "quantize_ef"
+        torch.cuda.synchronize()
+        if got[1].data_ptr() != buf.data_ptr() or not all(
+                same(torch, a, b) for a, b in zip(got, want)):
+            fail(f"{what}: {name} at the planned bucket length n={n} "
+                 f"differs from the plain version or did not write the "
+                 f"residual in place")
+        done.append((name, n))
+        if comp == "int8_fused" and world == 1:
+            q1, s1 = got[0][None], got[2][None]
+            if not same(torch, ops.dequant_accum(q1, s1, tile=TILE),
+                        ref.dequant_accum_ref(q1, s1, tile=TILE)):
+                fail(f"{what}: dequant_accum at n={n} differs from the "
+                     f"plain version")
+            done.append(("dequant_accum", n))
+            del q1, s1
+        del g, e, buf, want, got
+        torch.cuda.empty_cache()
+        if comp == "int8_fused" and world > 1:
+            for m in ring_fused_hops(n):
+                a = torch.randn(world, m, generator=gen, device=dev)
+                for r in range(world):
+                    got = ops.quantize_tiles(a[r], tile=TILE)
+                    want = ref.quantize_tiles_ref(a[r], tile=TILE)
+                    if not all(same(torch, x, y) for x, y in zip(got, want)):
+                        fail(f"{what}: quantize_tiles on row {r} of the "
+                             f"({world}, {m}) ring_fused hop buffer of the "
+                             f"n={n} bucket differs from the plain version")
+                    del got, want
+                done.append(("quantize_tiles", m))
+                del a
+                torch.cuda.empty_cache()
+    print(f"{what} kernels [{card}]: bit-equal to their plain versions at "
+          f"the planned lengths {done}", flush=True)
+
+
+def auto_w4_child(rank: int, world: int, store: str, out_dir: str,
+                  expect: dict) -> None:
+    """Phase 11 (b), one rank: gemma-2b at full width with 1 layer, SGD,
+    ``plan_auto`` with a pinned local-SGD scheduler (τ = 2) on
+    ``device:4@fast_ici`` at a pinned backward of 30 ms, a gloo group of
+    4 processes on the one card.  Gates: the rank's plan is ``expect``
+    (the port's planner on the CPU, same inputs) and every rank's digest
+    is equal; 2 parameter rounds, before each the ranks differ and after
+    it they are bit-equal; the wire kernels as ``plan_launches`` derives
+    them from the plan."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import (SessionConfig, TrainSession, plan_decision,
+                                 plan_digest)
+    from repro_torch.core import get_scheduler
+    from repro_torch.core.collectives import all_gather, p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    from repro_torch.launch.report import render_strategy_plan
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    group = dist.group.WORLD
+    sess = TrainSession(SessionConfig(device="cuda", **AUTO_W4_SESSION),
+                        group=group)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    p2p.reset_staged_bytes()
+    t0 = time.perf_counter()
+    sp = sess.plan_auto(topology=AUTO_W4_TOPOLOGY,
+                        t_backward_s=AUTO_W4_T_BWD_S,
+                        scheduler=get_scheduler("local_sgd",
+                                                period=AUTO_W4_PERIOD))
+    plan_s = time.perf_counter() - t0
+    if rank == 0:
+        print(render_strategy_plan(
+            sp, arms=sess.planned["arms"],
+            baselines=sess.planned["baselines"],
+            t_backward_s=sess.planned["t_backward_s"]), flush=True)
+    mine = torch.tensor(list(bytes.fromhex(plan_digest(sp))),
+                        dtype=torch.int64)
+    every = all_gather(mine, group)
+    w4_gate(all(torch.equal(every[r], every[0]) for r in range(world)),
+            "the ranks' plan digests differ")
+    w4_gate(plan_decision(sp) == expect,
+            f"the plan {plan_decision(sp)} is not the port's CPU plan "
+            f"{expect}")
+    sess._build()
+    rounds = watch_param_rounds(torch, sess)
+    losses = sess.run(AUTO_W4_STEPS)
+    torch.cuda.synchronize()
+    counts = path_counts(ops)
+    staged = p2p.staged_bytes()
+    plan = sess.strategy.param_reducer.plan
+    w4_gate(plan.buckets == sp.comm.buckets,
+            "the executor's plan is not the planned one")
+    w4_gate(all(map(math.isfinite, losses)), f"losses {losses}")
+    n_rounds = AUTO_W4_STEPS // AUTO_W4_PERIOD
+    w4_gate((sess.grad_rounds, sess.param_rounds) == (0, n_rounds) and
+            len(rounds) == n_rounds,
+            f"rounds (grad, param) = {(sess.grad_rounds, sess.param_rounds)}"
+            f", expected (0, {n_rounds})")
+    want = plan_launches(plan, n_rounds, world)
+    w4_gate(any(want.values()), "the plan runs no kernel of the port")
+    w4_launch_gate(counts, want, "auto local SGD rounds")
+    gate_rounds_differ_then_agree(torch, rounds, world)
+    lengths = bucket_lengths(plan, sess.params)
+    res = {"rank": rank, "losses": losses, "plan_s": plan_s,
+           "winner": sp.key, "digest": sess.planned["digest"],
+           "step_ms_all": [t * 1e3 for t in sess.step_times],
+           "round_s": [r[2] for r in rounds], "staged_bytes": staged,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "n_buckets": plan.n_buckets, "launches": counts,
+           "buckets": describe_buckets(plan, lengths),
+           "wire": [(b.compressor, dict(b.compressor_args), n)
+                    for b, n in zip(plan.buckets, lengths)],
+           "params": sess.num_params()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def auto_w4_expected() -> dict:
+    """The world-4 run's plan as the port's planner makes it on the CPU,
+    from the same leaf sizes (``param_desc``: nothing allocated), backward
+    time, topology and scheduler."""
+    from repro_torch.api import plan_decision
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import (Topology, profiles_from_grads,
+                                           serial_round_plan)
+    from repro_torch.core.schedule.planner import local_sgd_arm
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(AUTO_W4_SESSION["arch"]),
+                              num_layers=AUTO_W4_SESSION["layers"])
+    profiles = profiles_from_grads(Model(cfg).param_desc(), AUTO_W4_T_BWD_S)
+    topo = Topology.from_spec(AUTO_W4_TOPOLOGY)
+    rp = serial_round_plan(profiles, topo, topo.world)
+    return plan_decision(local_sgd_arm(rp, AUTO_W4_T_BWD_S, AUTO_W4_PERIOD))
+
+
+def phase_auto_world4(torch, card) -> dict:
+    """Four spawned ranks of ``auto_w4_child`` on the one card, after the
+    port's planner made the same plan on the CPU."""
+    expect = auto_w4_expected()
+    wires = sorted({(b[1], b[2]) for b in expect["buckets"]})
+    print(f"auto world 4: the port's planner on the CPU plans "
+          f"{expect['key']} with {len(expect['buckets'])} buckets {wires} "
+          f"for {AUTO_W4_TOPOLOGY} at a backward of "
+          f"{AUTO_W4_T_BWD_S * 1e3:.0f} ms", flush=True)
+    ranks, seconds = spawn_world4(torch, auto_w4_child, "auto_world4",
+                                  (expect,))
+    r0 = ranks[0]
+    print(f"auto world 4 on one card over gloo [{card}]: gemma-2b d_model "
+          f"2048 x 1 layer ({r0['params']} params bf16), SGD, --sync auto "
+          f"--local-sgd {AUTO_W4_PERIOD} --topology {AUTO_W4_TOPOLOGY} "
+          f"--plan-backward-ms {AUTO_W4_T_BWD_S * 1e3:.0f}, global batch "
+          f"4 x seq 128, {AUTO_W4_STEPS} steps: the plan {r0['winner']} "
+          f"(digest {r0['digest'][:16]}, equal on every rank, = the CPU "
+          f"planner's) planned in {[round(r['plan_s'], 3) for r in ranks]} "
+          f"s; buckets {r0['buckets']}; losses {r0['losses']}; round "
+          f"seconds by rank {[[round(s, 4) for s in r['round_s']] for r in ranks]}"
+          f"; step ms by rank "
+          f"{[[round(t, 1) for t in r['step_ms_all']] for r in ranks]}; "
+          f"staged bytes per rank {[r['staged_bytes'] for r in ranks]}; peak "
+          f"memory per rank "
+          f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB; "
+          f"launches { {k: v for k, v in r0['launches'].items() if v} }; "
+          f"ranks differ before each round and are bit-equal after it "
+          f"({seconds:.1f} s)", flush=True)
+    return {**r0, "expect": expect,
+            "round_s_by_rank": [r["round_s"] for r in ranks],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+            "seconds": seconds}
+
+
+def phase_auto(torch, ops, ref, train, card) -> dict:
+    """Phase 11: (a) ``--sync auto`` at world 1 at full width, then its
+    kernels at its bucket lengths; (b) the planned local-SGD rounds at
+    world 4, then their kernels at that plan's bucket and hop lengths."""
+    from repro_torch.launch.dist import destroy_group
+    world1 = run_auto(torch, ops, train, card)
+    destroy_group()
+    check_auto_kernels(torch, ops, ref, world1["wire"], 1, "auto world 1",
+                       card)
+    world4 = phase_auto_world4(torch, card)
+    check_auto_kernels(torch, ops, ref, world4["wire"], W4, "auto world 4",
+                       card)
+    return {"world1": world1, "world4": world4}
+
 
 
 def kernel_name(mangled: str) -> str:
@@ -2592,6 +3001,9 @@ def main() -> None:
     rounds = phase_rounds(torch, ops, ref, train, card)
     destroy_group()
 
+    # -- 11. the communication planner ----------------------------------------
+    auto = phase_auto(torch, ops, ref, train, card)
+
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
 
     def runs_of(name, runs):
@@ -2610,6 +3022,8 @@ def main() -> None:
     train_runs.update({f"rounds_{k}": r["launches"]
                        for k, r in rounds["full_width"].items()})
     train_runs["rounds_world4_local_sgd"] = rounds["world4"]["launches"]
+    train_runs["auto_world1"] = auto["world1"]["launches"]
+    train_runs["auto_world4_local_sgd"] = auto["world4"]["launches"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -2648,6 +3062,7 @@ def main() -> None:
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"world4": world4, "card": card}))
     print(json.dumps({"rounds": rounds, "card": card}))
+    print(json.dumps({"auto": auto, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

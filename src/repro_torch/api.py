@@ -20,21 +20,34 @@ counted as they ran: ``grad_rounds`` (gradient syncs), ``param_rounds``
 (parameter rounds) and ``control_rounds`` (LAG's two-scalar probes);
 ``comm_rounds = grad_rounds + param_rounds``, the survey's Table 2.
 
+Or let the planner choose the whole composite (rounds × bits × overlap,
+priced on a tiered topology):
+
+    sess = TrainSession(SessionConfig(arch="gemma-2b", reduced=True,
+                                      device="cpu"))
+    sp = sess.plan_auto(topology="commodity_cluster")
+    print(sp.describe()); sess.run(steps=8)
+
 The session joins (or creates) the default process group
 (``launch/dist.py``): a one-process run is a group of world 1, and each
 rank of a larger world trains on its rows of the global batch.  One
 process is one worker: under a scheduler whose workers diverge (local
 SGD, push/pull) each rank's ``params`` and ``opt_state`` are its own
 worker's (the reference carries them on a leading device axis and shows
-worker 0's).  ``save_checkpoint`` / ``load_checkpoint`` write and read
-the reference's checkpoint format.  Planning and the sharded, pipeline
-and elastic modes wait (ROADMAP.md queue 1, items 7-9 and 12).
+worker 0's).  Every rank plans for itself, from one measured backward
+time (the group's minimum), and the ranks check that their plans agree
+before the first step.  ``save_checkpoint`` / ``load_checkpoint`` write
+and read the reference's checkpoint format.  The sharded, pipeline and
+elastic modes wait (ROADMAP.md queue 1, items 8, 9 and 12), and so does
+calibration (item 11).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,12 +57,24 @@ from repro_torch import checkpoint
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.checkpoint.checkpoint import _flatten_with_paths
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import GradientSynchronizer, SyncConfig, SyncStrategy
+from repro_torch.core import (GradientSynchronizer, PlanExecutor, SyncConfig,
+                              SyncStrategy, get_scheduler)
+from repro_torch.core.collectives import all_gather, as_axes
+from repro_torch.core.collectives import axes_for_topology
+from repro_torch.core.collectives.p2p import process_group, to_wire
+from repro_torch.core.schedule import (LINK_PRESETS, LinkParams,
+                                       PipelineAxis, RoundSchedule,
+                                       StrategyPlan, TensorAxis, Topology,
+                                       fixed_config_plan, plan, plan_rounds,
+                                       profiles_from_grads,
+                                       resolve_cost_table, serial_round_plan)
+from repro_torch.core.schedule.planner import FIXED_BASELINES, local_sgd_arm
+from repro_torch.core.strategy import LocalSGDScheduler
 from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.dist import init_group
 from repro_torch.launch.steps import (_make_synced_train_step,
-                                      make_lag_programs,
+                                      loss_and_grads, make_lag_programs,
                                       make_local_train_step,
                                       make_param_round_step, make_train_step)
 from repro_torch.models import Model
@@ -72,6 +97,45 @@ class SessionConfig:
     device: Optional[str] = None   # None: CUDA, raising when there is none
     layers: int = 0             # > 0: cut the stack to this depth (widths
                                 # stay), 0: the configuration's own
+
+
+def strategy_from_plan(sp: StrategyPlan, axes=None) -> SyncStrategy:
+    """The executable strategy a planner composite describes, over the
+    data axes ``axes`` (process groups; None: the default group).  A tp /
+    ep winner runs its DP edge (the arm's comm plan) and carries the spec
+    as record axes, as the reference does on a mesh with no model axis; a
+    sharded winner raises (``SyncStrategy``, ROADMAP.md queue 1, item 8)
+    and a pipeline winner too (item 9: :meth:`TrainSession.plan_auto`
+    runs the best executable arm in its place)."""
+    if sp.schedule.kind == "local_sgd":
+        return SyncStrategy(
+            scheduler=get_scheduler("local_sgd", period=sp.schedule.period),
+            param_reducer=PlanExecutor(sp.comm, axes))
+    if sp.pipeline_stages > 1:
+        raise NotImplementedError(
+            f"the planner's arm {sp.key} needs a pipeline executor, not "
+            f"ported yet (ROADMAP.md queue 1, item 9)")
+    return SyncStrategy(scheduler=get_scheduler("every_step"),
+                        grad_reducer=PlanExecutor(sp.comm, axes),
+                        parallelism=sp.parallelism)
+
+
+def plan_decision(sp: StrategyPlan) -> Dict[str, Any]:
+    """What every rank must agree on before it runs a plan: the arm, the
+    rounds schedule and every bucket's leaves, wire and packing."""
+    return {"key": sp.key,
+            "schedule": [sp.schedule.kind, sp.schedule.period],
+            "buckets": [[list(b.leaves), b.algo, b.compressor,
+                         [list(a) for a in b.compressor_args],
+                         int(b.bucket_bytes), b.pack, b.fused,
+                         b.error_feedback, b.ef_decay]
+                        for b in sp.comm.buckets]}
+
+
+def plan_digest(sp: StrategyPlan) -> str:
+    """sha256 of :func:`plan_decision` (canonical JSON)."""
+    return hashlib.sha256(json.dumps(plan_decision(sp), sort_keys=True)
+                          .encode()).hexdigest()
 
 
 class TrainSession:
@@ -124,6 +188,18 @@ class TrainSession:
                               params)
         self.params = params
         self.opt_state = self.optimizer.init(params)
+        # measured f32 moment buffers per parameter (sgd carries one, adam
+        # two): the planner's memory model
+        n_elems = sum(int(p.numel()) for p in tree_leaves(params))
+        self.opt_moments = (sum(int(x.numel()) for x in
+                                tree_leaves(self.opt_state))
+                            / max(n_elems, 1))
+        # the data axes the planned reducers run over: the session's
+        # group, or one group per tier after apply_topology
+        self.axes: Tuple[Any, ...] = as_axes(group)
+        self.topology: Optional[Topology] = None
+        self.tiered_mesh = False
+        self.planned: Optional[Dict[str, Any]] = None
         self.sync_state: Optional[Any] = None
         self.step = 0
         self.losses: List[float] = []
@@ -185,6 +261,231 @@ class TrainSession:
                     self.params)
                 self._red_state = st.param_reducer.init_state(self.params)
         self._built = True
+
+    # -- auto planning (rounds × bits × overlap) -----------------------------
+
+    def resolve_link(self, link="fast_ici", alpha=None,
+                     beta_gbps=None) -> LinkParams:
+        lp = LINK_PRESETS[link] if isinstance(link, str) else link
+        a = lp.alpha_s if alpha is None else alpha
+        b = lp.beta_s_per_byte if beta_gbps is None \
+            else 1.0 / (beta_gbps * 1e9)
+        return LinkParams(alpha_s=a, beta_s_per_byte=b)
+
+    def apply_topology(self, topology) -> Topology:
+        """Install a tiered network model (``--topology``, DESIGN.md §10):
+        a :class:`Topology`, a spec string
+        (``"node:4@datacenter,device:8@fast_ici"``) or a
+        ``TOPOLOGY_PRESETS`` name.  The planner then prices every arm on
+        it, at its world.  When it has more than one tier and its world is
+        this session's (the default group's), the data axes become one
+        process group per tier (``collectives.axes_for_topology``,
+        innermost first), so the planned reducers run ``hierarchical``'s
+        inner ring on the fast tier; otherwise the topology is a planning
+        model only (a pod modeled from one card)."""
+        if self._built:
+            raise RuntimeError("apply_topology must run before the first "
+                               "step")
+        topo = Topology.from_spec(topology) if isinstance(topology, str) \
+            else topology
+        self.topology = topo
+        self.tiered_mesh = (topo.n_tiers > 1 and topo.world == self.world
+                            and self.world == dist.get_world_size())
+        if self.tiered_mesh:
+            self.axes = axes_for_topology(topo)
+        return topo
+
+    def profile_backward(self, repeats: int = 3) -> float:
+        """Wall time of this rank's backward on its slice of the global
+        batch (global / world rows, what one step computes per rank): one
+        warm-up pass, then the min of ``repeats`` timed passes, each
+        between ``torch.cuda.synchronize()`` calls on the card, × 2/3 (the
+        backward's share of a grad step).  The reference's policy."""
+        batch = self.batch(0)
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+
+        def once() -> float:
+            sync()
+            t0 = time.perf_counter()
+            _, grads = loss_and_grads(self.model, self.params, batch)
+            sync()
+            dt = time.perf_counter() - t0
+            del grads
+            return dt
+
+        once()
+        times = [once() for _ in range(max(repeats, 1))]
+        return min(times) * (2.0 / 3.0)
+
+    def _group_min(self, value: float) -> float:
+        """The smallest of every rank's ``value`` (one f64 all-reduce)."""
+        if self.world == 1:
+            return value
+        wire_dev = self.device if dist.get_backend(self.group) == "nccl" \
+            else torch.device("cpu")
+        buf = to_wire(torch.tensor([value], dtype=torch.float64,
+                                   device=wire_dev), self.group)
+        dist.all_reduce(buf, op=dist.ReduceOp.MIN,
+                        group=process_group(self.group))
+        return float(buf.item())
+
+    def _check_plan_agreement(self, sp: StrategyPlan) -> str:
+        """Gather every rank's :func:`plan_digest` and raise unless they
+        are all equal: ranks that ran different collectives on one group
+        would hang.  Returns the digest."""
+        digest = plan_digest(sp)
+        if self.world > 1:
+            mine = torch.tensor(list(bytes.fromhex(digest)),
+                                dtype=torch.int64, device=self.device)
+            every = all_gather(mine, self.group)
+            if not all(torch.equal(every[r], every[0])
+                       for r in range(every.shape[0])):
+                raise RuntimeError(
+                    f"the ranks planned differently (rank {self.rank}: "
+                    f"{sp.key}, digest {digest}); a shared plan is needed "
+                    f"before the first step")
+        return digest
+
+    def _note(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg, flush=True)
+
+    def plan_auto(self, link="fast_ici", *, alpha=None, beta_gbps=None,
+                  tau_grid=None, candidates=None, scheduler=None,
+                  t_backward_s: Optional[float] = None,
+                  shard_state: Optional[bool] = None,
+                  memory_budget_gb: Optional[float] = None,
+                  topology=None, compression_costs=None) -> StrategyPlan:
+        """``--sync auto``: profile the backward, search (rounds schedule ×
+        per-bucket strategy × shard axis × parallelism axis) and install
+        the winning composite as this session's strategy.
+
+        The three branches of the reference: the free search
+        (``plan_rounds``); a pinned local-SGD ``scheduler``, whose round
+        gets the serial per-bucket plan (``serial_round_plan``); and a
+        pinned LAG / push-pull / every-step scheduler, whose gradient syncs
+        get the overlap-planned per-bucket plan (``plan``).  ``topology``
+        (or an earlier :meth:`apply_topology`) prices a tiered network at
+        its world; without one, the flat ``link`` (with ``alpha`` /
+        ``beta_gbps`` overrides) at this session's world.
+        ``t_backward_s`` pins the backward time; left None it is measured
+        (:meth:`profile_backward`) and every rank takes the group's
+        minimum, so all ranks plan from one number.  ``shard_state`` /
+        ``memory_budget_gb`` constrain the free search's shard axis.
+        ``compression_costs`` (a ``CompressionCostTable`` or a path to the
+        reference's JSON) replaces the analytic compression-compute term.
+
+        A pipeline winner cannot run here (item 9): the best executable
+        arm runs instead, with the reference's note.  A sharded winner
+        raises ``NotImplementedError`` (item 8).  Before returning, every
+        rank checks that all ranks planned alike.  The decision record is
+        ``self.planned``: the reference's keys, plus the arm that runs
+        (``executed``), the plan's ``digest`` and the search's host
+        seconds (``search_s``)."""
+        if self._built:
+            raise RuntimeError("plan_auto must run before the first step")
+        if topology is not None:
+            self.apply_topology(topology)
+        if scheduler is not None and shard_state:
+            raise ValueError("shard_state composes only with the planner's "
+                             "every-step arm, not a pinned rounds scheduler")
+        if scheduler is not None and memory_budget_gb is not None:
+            raise ValueError(
+                "memory_budget_gb constrains the planner's FREE search "
+                "over arms; a pinned rounds scheduler fixes the memory "
+                "footprint, so the budget cannot be enforced — drop one")
+        if self.topology is not None:
+            lp: Any = self.topology
+            world = lp.world
+        else:
+            lp = self.resolve_link(link, alpha, beta_gbps)
+            world = self.world
+        if t_backward_s is None:
+            t_backward_s = self._group_min(self.profile_backward())
+        profiles = profiles_from_grads(self.params, t_backward_s)
+        cost_table = resolve_cost_table(compression_costs)
+        kw: Dict[str, Any] = {}
+        if candidates is not None:
+            kw["candidates"] = candidates
+        if cost_table is not None:
+            kw["cost_table"] = cost_table
+        t_bwd = sum(p.t_backward_s for p in profiles)
+        pipe_axis = PipelineAxis(
+            global_tokens=float(self.cfg.batch * self.cfg.seq),
+            bytes_per_token=float(self.model_cfg.d_model * 4))
+        # tp pays 4 activation allreduces per layer (Megatron wire); the
+        # expert axis would price MoE stacks, which the port has none of
+        # (ROADMAP.md queue 1, item 4)
+        tensor_axis = TensorAxis(
+            global_tokens=pipe_axis.global_tokens,
+            bytes_per_token=pipe_axis.bytes_per_token,
+            n_layers=self.model_cfg.num_layers)
+        mem_budget = (memory_budget_gb * 2**30
+                      if memory_budget_gb is not None else None)
+
+        arms: Dict[str, StrategyPlan]
+        t_search = time.perf_counter()
+        if scheduler is None:
+            shard_grid = ((False, True) if shard_state is None
+                          else (bool(shard_state),))
+            best, arms = plan_rounds(
+                profiles, lp, world,
+                opt_name=self.cfg.optimizer, shard_grid=shard_grid,
+                opt_moments=self.opt_moments,
+                memory_budget_bytes=mem_budget,
+                pipeline=pipe_axis, tensor=tensor_axis,
+                **dict(kw, **({"tau_grid": tau_grid}
+                              if tau_grid is not None else {})))
+            exec_best = best
+            if best.pipeline_stages > 1:
+                # no pipeline executor yet (ROADMAP.md queue 1, item 9):
+                # run the best arm that CAN execute, keep the record
+                exec_best = min((a for a in arms.values()
+                                 if a.pipeline_stages <= 1),
+                                key=lambda a: a.modeled_step_s)
+                self._note(f"note: modeled winner {best.key} needs a "
+                           f"pipe({best.pipeline_stages}) mesh this host "
+                           f"cannot build; executing {exec_best.key} "
+                           f"instead")
+            strategy = strategy_from_plan(exec_best, self.axes)
+        elif isinstance(scheduler, LocalSGDScheduler):
+            rp = serial_round_plan(profiles, lp, world, **kw)
+            best = exec_best = local_sgd_arm(rp, t_bwd,
+                                             scheduler.cfg.period)
+            arms = {best.schedule.key: best}
+            strategy = SyncStrategy(
+                scheduler=scheduler,
+                param_reducer=PlanExecutor(rp, self.axes))
+        else:
+            # LAG / push-pull / every-step: the gradient syncs get the
+            # overlap-planned per-bucket plan; the round COUNT is the
+            # scheduler's, so the every-step modeled time is an upper bound
+            cp = plan(profiles, lp, world, **kw)
+            best = exec_best = StrategyPlan(
+                schedule=RoundSchedule(kind=scheduler.name), comm=cp,
+                modeled_step_s=cp.modeled_step_s,
+                round_cost_s=cp.modeled_step_s, t_backward_s=t_bwd)
+            arms = {best.schedule.key: best}
+            strategy = SyncStrategy(
+                scheduler=scheduler,
+                grad_reducer=PlanExecutor(cp, self.axes))
+
+        search_s = time.perf_counter() - t_search
+        baselines = {
+            name: fixed_config_plan(profiles, lp, world, comp, algo,
+                                    compressor_args=cargs,
+                                    cost_table=cost_table)
+            for name, (comp, algo, cargs) in FIXED_BASELINES.items()}
+        digest = self._check_plan_agreement(exec_best)
+        self.strategy = strategy
+        self.planned = {"strategy_plan": best, "arms": arms,
+                        "baselines": baselines,
+                        "t_backward_s": t_backward_s,
+                        "cost_table": cost_table,
+                        "executed": exec_best, "digest": digest,
+                        "search_s": search_s}
+        return best
 
     def batch(self, step: int):
         """This rank's rows of the global batch of ``step`` (rank r of w

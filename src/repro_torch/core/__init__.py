@@ -1,11 +1,12 @@
 """The training step's communication layer, ported from ``repro/core``:
 every compressor, every collective algorithm on ``torch.distributed``
-process groups (one per mesh axis), the gradient synchronizer, and the
+process groups (one per mesh axis), the gradient synchronizer, the
 round schedulers (every step, local SGD, LAG, push/pull) with their
-strategies."""
+strategies, and the communication planner (``core/schedule``)."""
 from repro_torch.core.grad_sync import (  # noqa: F401
     GradientSynchronizer, PlanExecutor, SyncConfig, bucketize,
     plan_from_config)
+from repro_torch.core.parallelism import ParallelismSpec  # noqa: F401
 from repro_torch.core.schedule.planner import BucketPlan, CommPlan  # noqa: F401
 from repro_torch.core.local_sgd import (  # noqa: F401
     AsymmetricPushPullConfig, LocalSGDConfig, average_params,

@@ -20,8 +20,11 @@ default group) for a one-axis mesh.
     :func:`my_chunk_index`, :func:`local_chunk`).
 
 A CUDA tensor on a gloo group is moved through a pinned host copy
-(``p2p.py``).  The topology mapping ``axes_for_topology`` and the cost
-model's re-exports wait for the planner (ROADMAP.md queue 1, item 7).
+(``p2p.py``).  :func:`axes_for_topology` maps a tiered topology's tiers
+onto one process group each, innermost first, so ``hierarchical`` runs
+its inner ring on the fast tier as the cost model
+(``core/schedule/cost.py``, re-exported here as in the reference) prices
+it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from repro_torch.core.collectives.ring import (ring_all_gather_canonical,
                                                ring_reduce_scatter_canonical)
 from repro_torch.core.collectives.ring_fused import ring_fused_allreduce
 from repro_torch.core.collectives.tree import tree_allreduce
+from repro_torch.core.schedule.cost import (  # noqa: F401
+    LINK_PRESETS, LinkParams, allreduce_cost_s)
 
 # one output tensor for every rank's input: the new name where it exists
 _all_gather_into = getattr(dist, "all_gather_single", None) or \
@@ -57,6 +62,21 @@ def as_axes(axes: Axes) -> Tuple[Axis, ...]:
     if axes is None or isinstance(axes, dist.ProcessGroup):
         return (axes,)
     return tuple(axes)
+
+
+def axes_for_topology(topo) -> Tuple[dist.ProcessGroup, ...]:
+    """THE tier→group mapping of topology-dispatched collectives
+    (DESIGN.md §10): one process group per tier of ``topo`` over the
+    default group (``launch/dist.py:mesh_axes`` on the tier sizes,
+    outermost first, so global rank ``r`` sits at the row-major
+    coordinates of ``r``), returned INNERMOST FIRST.  :func:`allreduce`'s
+    two-axis algorithms take ``(inner, outer)``: ``hierarchical`` runs its
+    ring reduce-scatter / all-gather on ``axes[0]``, the fast tier, and
+    the shard ring on ``axes[1]``, exactly as the cost model prices it.
+    Every rank must call it, in the same order (``dist.new_group``)."""
+    from repro_torch.launch.dist import mesh_axes
+    groups = mesh_axes([t.size for t in topo.tiers])
+    return tuple(reversed(groups))
 
 
 def world_size(axes: Axes = None) -> int:

@@ -18,10 +18,11 @@ single-config API.
 Every compressor and every collective algorithm of the reference runs
 here, with error feedback, PowerSGD's warm-started factors and the
 compressors' fused hooks (the CUDA kernels on the card); a compressor
-without fused hooks runs the decomposed EF chain and the per-rank decode
-loop, as the reference does for it.  Waiting: ``sync_shards`` and
-``sharded_plan_from_config`` (sharded DP, ROADMAP.md queue 1, item 8),
-and ``BucketPlan.fused=False``, which only the planner sets (item 7).
+without fused hooks, or a bucket with ``BucketPlan.fused=False``, runs the
+decomposed EF chain and the per-rank decode loop, as the reference does.
+The planner (``core/schedule/planner.py``) mixes compressors, algorithms
+and ``pack`` bucket by bucket in one plan.  Waiting: ``sync_shards`` and
+``sharded_plan_from_config`` (sharded DP, ROADMAP.md queue 1, item 8).
 
 Wire semantics (DESIGN.md §5): gather-pattern compressors all-gather their
 compact payloads and every rank decompresses and sums them in the
@@ -325,13 +326,13 @@ class PlanExecutor:
         return _unflatten(grads, out), new_state
 
     # EF + compress of one flat/leaf-shaped f32 buffer; the new residual
-    # goes into e's buffer.  With EF and a fused hook, the compressor's
-    # one-pass hook (the CUDA kernels on the card); otherwise the
-    # decomposed chain EF add -> compress -> decompress -> residual.
+    # goes into e's buffer.  With EF, a fused hook and ``b.fused``, the
+    # compressor's one-pass hook (the CUDA kernels on the card); otherwise
+    # the decomposed chain EF add -> compress -> decompress -> residual.
     # Returns (payload, meta, g_hat), g_hat None after the fused hook.
     def _compress_with_ef(self, buf, e, rng, b: BucketPlan, comp):
         use_ef = self._bucket_uses_ef(b)
-        if use_ef and comp.fused_ef_compress is not None:
+        if b.fused and use_ef and comp.fused_ef_compress is not None:
             payload, meta, _ = comp.fused_ef_compress(buf, e, b.ef_decay)
             return payload, meta, None
         corrected = buf + b.ef_decay * e if use_ef else buf
@@ -355,7 +356,8 @@ class PlanExecutor:
             if reduced is buf:        # never all-reduce the caller's input
                 reduced = reduced.clone()
             return _div(allreduce(reduced, b.algo, self.axes), denom)
-        return self._gather_mean(comp, payload, meta, buf, denom)
+        return self._gather_mean(comp, payload, meta, buf, denom,
+                                 fused=b.fused)
 
     # PowerSGD: all-reduce the (P, Q) factors directly (aggregatable).
     # Returns (synced leaf in g's dtype, new Q); the residual goes into
@@ -373,13 +375,15 @@ class PlanExecutor:
         e.copy_(corrected - approx)
         return approx.to(g.dtype), q_f
 
-    def _gather_mean(self, comp, payload, meta, buf, denom):
+    def _gather_mean(self, comp, payload, meta, buf, denom,
+                     fused: bool = True):
         """All-gather the compact payloads over the axes, in order, and sum
         every rank's decode (1-bit SGD / DGC wire pattern).  The gathered
         leading axis lists the ranks as the reference stacks them: the
-        last axis outermost.  With the compressor's fused decode that is
-        ONE dequantize + accumulate pass (the CUDA kernel on the card),
-        else a decompress per rank added in that order.  Payload tensors
+        last axis outermost.  With the compressor's fused decode (and
+        ``fused``) that is ONE dequantize + accumulate pass (the CUDA
+        kernel on the card), else a decompress per rank added in that
+        order.  Payload tensors
         are gathered one by one, so the wire carries int8, indices and
         scales, not dense f32; static metadata (shapes) passes through."""
         def gather(x):
@@ -392,7 +396,7 @@ class PlanExecutor:
 
         gathered = tree_map(gather, payload)
         gathered_meta = tree_map(gather, meta)
-        if comp.fused_decode_sum is not None:
+        if fused and comp.fused_decode_sum is not None:
             total = comp.fused_decode_sum(gathered, gathered_meta)
             del gathered, gathered_meta
             return _div(total, denom, inplace=True)

@@ -19,8 +19,11 @@ Schedulers carry their own state through ``init_state`` / ``round`` /
 (``sync`` — gradient-reducing step, ``local`` — purely local step with NO
 gradient collective, ``reuse`` — LAG's apply of the last synchronized
 gradient) and whether a parameter round follows.  Every scheduler of the
-reference is here; the parallelism axis (sharded state, pipeline, tensor
-and expert parallelism) waits for ROADMAP.md queue 1, items 8-10.
+reference is here.  The parallelism axis is a ``ParallelismSpec``: its
+tensor and expert axes are carried as record axes (the planner prices
+them; the port runs their DP edge, as the reference does on a mesh with
+no model axis), while sharded state and the pipeline wait for ROADMAP.md
+queue 1, items 8 and 9.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.core.grad_sync import (GradientSynchronizer, PlanExecutor,
 from repro_torch.core.lag import LAGConfig, init_lag_state, lag_update_state
 from repro_torch.core.local_sgd import (AsymmetricPushPullConfig,
                                         LocalSGDConfig, should_sync)
+from repro_torch.core.parallelism import ParallelismSpec
 from repro_torch.core.schedule.planner import CommPlan
 
 
@@ -235,7 +239,7 @@ class PushPullScheduler(RoundScheduler):
 
 
 class SyncStrategy:
-    """scheduler × reducers.  Reducers are engines with the
+    """scheduler × reducers × parallelism.  Reducers are engines with the
     ``init_state(tree)`` / ``__call__(tree, state, rng)`` interface
     (``PlanExecutor``, ``GradientSynchronizer``):
 
@@ -246,23 +250,41 @@ class SyncStrategy:
         ``param_algo``); compressing the delta, not the raw parameters,
         keeps error feedback and sparsification sound
 
-    ``parallelism`` other than None (sharded state, pipeline, tensor and
-    expert axes) is not ported yet."""
+    ``parallelism`` (a :class:`ParallelismSpec`, a spec string, or None =
+    pure replicated DP) names how the world is factored.  Its ``tp`` /
+    ``ep`` axes are record axes: the gradient reducer runs the DP edge the
+    planner priced for them.  Sharded optimizer state (item 8) and the
+    pipeline (``pp > 1`` or ``micro > 1``, item 9) raise."""
 
     def __init__(self, scheduler: RoundScheduler, grad_reducer: Any = None,
                  param_reducer: Any = None, param_algo: str = "psum",
                  parallelism=None):
-        if parallelism is not None:
+        spec = ParallelismSpec.coerce(parallelism)
+        waiting = [what for what, on in (
+            ("sharded optimizer state (item 8)", spec.shard_state),
+            (f"a pipeline of pp={spec.pp} stages (item 9)", spec.pp > 1),
+            (f"micro={spec.micro_batches} micro-batches (item 9)",
+             spec.micro_batches > 1)) if on]
+        if waiting:
             raise NotImplementedError(
-                "parallelism= (sharded state, pipeline, tensor and expert "
-                "axes) is not ported yet (ROADMAP.md queue 1, items 8-10)")
+                f"parallelism {spec.spec()!r} needs {' and '.join(waiting)},"
+                f" not ported yet (ROADMAP.md queue 1, items 8-10)")
         self.scheduler = scheduler
         self.grad_reducer = grad_reducer
         self.param_reducer = param_reducer
         self.param_algo = param_algo
+        self.parallelism = spec
 
     def describe(self) -> str:
-        parts = [self.scheduler.describe()]
+        p = self.parallelism
+        mode = ""
+        if p.tp > 1:
+            mode += f" [tp={p.tp}" + (f"@{p.tp_tier}" if p.tp_tier else "") \
+                + "]"
+        if p.ep > 1:
+            mode += f" [ep={p.ep}" + (f"@{p.ep_tier}" if p.ep_tier else "") \
+                + "]"
+        parts = [self.scheduler.describe() + mode]
         if "sync" in self.scheduler.computes:
             parts.append("grads via "
                          + _describe_reducer(self.grad_reducer, "dense psum"))

@@ -12,8 +12,9 @@ runs its attention through ``kernels/ops.flash_attention`` (the Hopper
 kernel on CUDA).  Runs on CUDA unless ``--device`` names another device;
 without CUDA and without ``--device`` it raises.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed`` on the device.
-The reference's ``--plan`` (serving placement search) is not offered
-until the planner is ported.
+``--plan`` prints the planner's serving placement search
+(``core/schedule/planner.plan_serving``: tp degree × tier × replicas on
+``--topology``, optionally under ``--latency-budget-ms``) before serving.
 """
 from __future__ import annotations
 
@@ -106,7 +107,32 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the tp x tier serving placement search")
+    ap.add_argument("--topology", default="two_tier_pod",
+                    help="topology preset or spec for --plan")
+    ap.add_argument("--latency-budget-ms", type=float, default=0.0)
     return ap
+
+
+def print_plan(cfg, args):
+    """The serving placement search for ``cfg`` on ``--topology``
+    (bf16 weights: 2 bytes a parameter), printed as the reference prints
+    it; returns the chosen arm."""
+    from repro_torch.core.schedule import (TOPOLOGY_PRESETS, Topology,
+                                           plan_serving)
+    from repro_torch.launch.report import render_serving_plan
+    from repro_torch.models.model import count_params
+    spec = TOPOLOGY_PRESETS.get(args.topology, args.topology)
+    net = Topology.from_spec(spec)
+    budget = (args.latency_budget_ms / 1e3
+              if args.latency_budget_ms > 0 else None)
+    best, arms = plan_serving(
+        net, net.world, count_params(cfg) * 2.0, cfg.num_layers,
+        cfg.d_model, batch=args.batch, latency_budget_s=budget)
+    print(render_serving_plan(best, arms, arch=cfg.name, batch=args.batch,
+                              latency_budget_s=budget), flush=True)
+    return best
 
 
 @dataclasses.dataclass
@@ -134,6 +160,8 @@ def main(argv=None) -> ServeRun:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.plan:
+        print_plan(cfg, args)
     model = Model(cfg)
     gen_ = torch.Generator(device).manual_seed(args.seed)
     params = model.init(gen_)

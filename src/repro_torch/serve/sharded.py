@@ -4,8 +4,9 @@ Data-parallel serving: N independent :class:`~repro_torch.serve.engine.Engine`
 replicas behind a load-aware router.  Each replica holds a full model
 copy; requests are routed at submit time to the least-loaded replica,
 ties broken round-robin so equal replicas share work deterministically.
-The placement planner (``plan_serving`` in the reference) is not ported
-yet.
+How many replicas, and how each is sharded over a topology's tiers, is
+the planner's serving search (``core/schedule/planner.plan_serving``,
+``launch/serve.py --plan``).
 """
 from __future__ import annotations
 

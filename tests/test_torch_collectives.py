@@ -39,7 +39,12 @@ Held (every rank's output, each against the reference's same rank):
     wire composed eagerly on the port's plain versions (EF encode, local
     decode, the composed ring_fused schedule, division by 8).  The two gather wires run again on the (4, 2)
     mesh, where the gathered payloads stack pod-major as the reference's
-    nested ``all_gather``s stack them.
+    nested ``all_gather``s stack them;
+  * ``BucketPlan.fused=False`` (the decomposed EF chain and the per-rank
+    decode loop) against the fused wire on the same plan, 3 rounds of
+    fresh gradients, int8_fused and topk_fused on ring: synced sums and
+    EF residuals bit-equal on every rank (``tests/test_conformance.py``'s
+    fused-vs-unfused trajectory, at world 8).
 """
 from __future__ import annotations
 
@@ -72,6 +77,11 @@ GRAD_BIT_EQUAL = ("none/ring", "topk_fused/ring", "topk/ring",
 # the gather wires again on the (4, 2) mesh: the payloads are gathered over
 # "data", then "pod", so the ranks stack pod-major
 GRAD_TWO_AXES = ("int8_fused/ring", "topk/ring")
+FUSED_VS_UNFUSED = {   # name: (compressor, compressor_args)
+    "int8_fused": ("int8_fused", ()),
+    "topk_fused": ("topk_fused", (("ratio", 0.25),)),
+}
+FVU_ROUNDS = 3
 ULP = 2.0 ** -23
 
 
@@ -246,6 +256,40 @@ def _port_worker(rank: int, store: str, out_dir: str,
         synced, _ = sync(grads, sync.init_state(grads), torch.Generator())
         for k, v in synced.items():
             out[f"grad_{name}_{k}"] = v.numpy()
+    # BucketPlan.fused=False against the fused wire on the same plan
+    import dataclasses
+
+    from repro_torch.core import PlanExecutor, plan_from_config
+    for name, (comp, args) in FUSED_VS_UNFUSED.items():
+        plan = plan_from_config(SyncConfig(compressor=comp, algo="ring",
+                                           compressor_args=args,
+                                           bucket_bytes=2048), grads)
+        for fused in (True, False):
+            ex = PlanExecutor(dataclasses.replace(plan, buckets=tuple(
+                dataclasses.replace(b, fused=fused)
+                for b in plan.buckets)), one)
+            hooks = []       # the fused one-pass hooks that ran
+
+            def counted(hook):
+                def call(*a, **kw):
+                    hooks.append(1)
+                    return hook(*a, **kw)
+                return None if hook is None else call
+
+            ex.comps = [dataclasses.replace(
+                c, fused_ef_compress=counted(c.fused_ef_compress),
+                fused_decode_sum=counted(c.fused_decode_sum))
+                for c in ex.comps]
+            state = ex.init_state(grads)
+            for r in range(FVU_ROUNDS):
+                fresh = {k: torch.roll(v, r, 0) * (1.0 + r)
+                         for k, v in grads.items()}
+                synced, state = ex(fresh, state)
+                for k, v in synced.items():
+                    out[f"fvu_{name}_{fused}_{r}_{k}"] = v.numpy()
+            for j, e in enumerate(state["error"]):
+                out[f"fvu_{name}_{fused}_err{j}"] = e.numpy()
+            out[f"fvuhooks_{name}_{fused}"] = np.array(len(hooks))
     np.savez(os.path.join(out_dir, f"port-{rank}.npz"), **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -517,3 +561,23 @@ def test_int8_fused_ring_fused_bit_equal_to_eager_composition(runs):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--reference"]:
         _reference(sys.argv[2])
+
+
+@pytest.mark.parametrize("name", list(FUSED_VS_UNFUSED))
+def test_fused_vs_unfused_bit_trajectory_world8(runs, name):
+    _, got = runs
+    keys = sorted(k for k in got[0] if k.startswith(f"fvu_{name}_True_"))
+    assert any("_err" in k for k in keys) and \
+        sum(f"_{FVU_ROUNDS - 1}_" in k for k in keys) == 2
+    for r, g in enumerate(got):
+        for k in keys:
+            unfused = k.replace("_True_", "_False_")
+            np.testing.assert_array_equal(g[k], g[unfused],
+                                          err_msg=f"rank {r} {k}")
+            if "_err" not in k:     # residuals are each rank's own
+                np.testing.assert_array_equal(g[k], got[0][k],
+                                              err_msg=f"rank {r} {k}")
+    assert any(np.any(got[0][k] != 0) for k in keys if "_err" in k)
+    for g in got:      # the unfused arm never runs the one-pass hooks
+        assert g[f"fvuhooks_{name}_True"] >= FVU_ROUNDS
+        assert g[f"fvuhooks_{name}_False"] == 0

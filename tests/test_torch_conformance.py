@@ -120,11 +120,9 @@ def _batch(step: int):
 
 
 def _port_plan(jplan) -> CommPlan:
-    """The reference's plan as the port's (``fused`` is the planner's
-    switch, always on in the port)."""
+    """The reference's plan as the port's, bucket by bucket."""
     return CommPlan(buckets=tuple(
-        BucketPlan(**{k: v for k, v in dataclasses.asdict(b).items()
-                      if k != "fused"}) for b in jplan.buckets),
+        BucketPlan(**dataclasses.asdict(b)) for b in jplan.buckets),
         mean=jplan.mean)
 
 

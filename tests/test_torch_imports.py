@@ -40,7 +40,13 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.data.pipeline",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.configs.gemma2_9b",
-                 "repro_torch.configs.gemma3_4b"):
+                 "repro_torch.configs.gemma3_4b",
+                 "repro_torch.core.parallelism", "repro_torch.core.pipeline",
+                 "repro_torch.core.schedule.cost",
+                 "repro_torch.core.schedule.topology",
+                 "repro_torch.core.schedule.perf_model",
+                 "repro_torch.core.schedule.planner",
+                 "repro_torch.launch.report", "repro_torch.launch.paths"):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"

@@ -59,12 +59,16 @@ def _prompts(cfg, n, P, seed=1):
 
 
 def test_reduced_flag_parsing_and_no_plan():
+    # --plan (the planner's serving placement search) is ported now: it
+    # is off by default, and takes the reference's topology and budget
     ap = build_parser()
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args(["--device", "cpu"]).device == "cpu"
-    with pytest.raises(SystemExit):
-        ap.parse_args(["--plan"])
+    assert ap.parse_args([]).plan is False
+    args = ap.parse_args(["--plan"])
+    assert (args.plan, args.topology, args.latency_budget_ms) == \
+        (True, "two_tier_pod", 0.0)
 
 
 # ---------------------------------------------------------------------------

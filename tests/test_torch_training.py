@@ -330,17 +330,19 @@ def test_cli_cpu_drive_without_error_feedback_launches_no_kernel(compressor):
     ["--compressor", "int8_fused", "--sync", "comm", "--algo", "ring"],
     ["--optimizer", "lamb"],
     ["--sync", "auto"]], ids=["int8", "ring", "lamb", "auto"])
-def test_cli_refuses_unported_values(flags, capsys):
-    # int8, ring and lamb are ported now: one CPU step with a finite loss
-    # and the reference's final line; only the planner (--sync auto)
-    # still raises and names its ROADMAP item
+def test_cli_refuses_unported_values(flags, capsys, tmp_path, monkeypatch):
+    # int8, ring, lamb and the planner (--sync auto) are ported now: one
+    # CPU step with a finite loss and the reference's final line (auto
+    # writes its plan record under tmp_path)
+    import repro_torch.launch.paths as paths
+    monkeypatch.setattr(paths, "COMM_PLANS", str(tmp_path))
     base = ["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
             "--seq", "16"]
-    if "auto" in flags:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
-            train.main(base + flags)
-        return
     session = train.main(base + flags)
     assert len(session.losses) == 1 and np.isfinite(session.losses[0])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-1].startswith("final loss ")
+    if "auto" in flags:
+        assert any(line.startswith("### Sync strategy") for line in lines)
+        assert session.planned["strategy_plan"].key == "every_step"
+        assert (tmp_path / "gemma-2b.json").exists()
