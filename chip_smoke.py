@@ -132,11 +132,37 @@ Phases (any failure exits non-zero and prints no result line):
      ranks' parameters different before each round and bit-equal after it;
      then the kernels of each run at its plan's packed bucket lengths (and,
      at world 4, every row of the ring_fused hop buffers), each held
-     bit-equal to its plain version.
+     bit-equal to its plain version;
+ 12. sharded data parallelism: (a) ``repro_torch.launch.train`` at phase
+     8's full width with ``--sync comm --compressor int8_fused
+     --parallelism shard`` (NCCL world 1, 3 steps): the rows of the f32
+     master and Adam's moments hold exactly the layout's reckoning, the
+     allocator holds the parameters, the rows and the EF residuals after
+     the run (no replicated moment alive), the peak within a reckoning
+     printed before the run; step times, a profiled step, and the
+     largest difference from phase 8's replicated int8_fused parameters
+     (printed, not gated); (b) reduced gemma-2b in f32 on 4 spawned
+     ranks over gloo on the one card: 3 steps of the sharded and the
+     replicated step on one plan, dense ``ring`` and ``int8_fused`` on
+     ``ring`` with Adam (parameters, gathered master rows and moments,
+     EF residuals bit-equal on every rank) and LAMB on dense ``ring``
+     (rtol 2e-5, atol 1e-7); the int8_fused session's checkpoint, saved
+     at world 4, restores here into a world-1 sharded session and a
+     replicated one bit for bit; (c) 4 spawned ranks, gemma-2b at full
+     width with 1 layer, Adam, global batch 4 x seq 128, ``plan_auto``
+     on ``commodity_cluster`` at a pinned 30 ms backward with the spec
+     ``shard`` and a memory budget halfway between the layout's
+     replicated moments and its sharded rows: the plan
+     ``every_step_sharded``, every rank's digest equal to the port's
+     CPU planner's, parameters bit-equal across ranks after every step,
+     the rows' bytes the layout's reckoning; then the same plan run
+     replicated, for the per-rank peak, state bytes, staged bytes and
+     step times beside the sharded run's; then the kernels of (c) at
+     its packed bucket lengths, each bit-equal to its plain version.
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
-10 (a) and (c), and each of 11 on every rank) sets every kernel launch
-counter
+10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
+12 (c) on every rank) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
@@ -156,9 +182,11 @@ every other kernel; the planner: what the executed plan derives bucket by
 bucket (``plan_launches``: topk_ef per topk_fused bucket and gradient
 sync; per int8_fused bucket and parameter round, quantize_ef once and,
 on ring_fused at world 4, quantize_tiles 2·p = 8 times), all on the warp
-route, 0 for every other kernel.  Launches made in phases 3, 4, 6 and 10 (b), and by
-9's checks and timings, are
-not counted.  It prints a ``{"kernels": [...]}``
+route, 0 for every other kernel; sharded: the int8_fused run as 8's
+(quantize_ef and dequant_accum = buckets x steps), the planned world-4
+runs as 11's (``plan_launches``: topk_ef per topk_fused bucket and
+step).  Launches made in phases 3, 4, 6, 10 (b) and 12 (b), and by the
+checks and timings of 9, 10, 11 and 12, are not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
 """
@@ -1307,10 +1335,13 @@ def profile_step(torch, session, card, name: str) -> dict:
     return res
 
 
-def run_training(torch, ops, train, card) -> dict:
+def run_training(torch, ops, train, card, keep=None) -> dict:
     """The training path at full width, once per entry of TRAIN_RUNS, each
     with every kernel counter set to 0 just before and read just after;
-    then one profiled step.  Each run's state is freed before the next."""
+    then one profiled step.  Each run's state is freed before the next;
+    ``keep``, a dict, receives a host copy of the int8_fused run's final
+    parameters (phase 12 compares the sharded run with them)."""
+    from repro_torch._tree import tree_leaves
     results = {}
     for name, (flags, wire) in TRAIN_RUNS.items():
         torch.cuda.empty_cache()
@@ -1354,6 +1385,9 @@ def run_training(torch, ops, train, card) -> dict:
               f"{res['tokens_per_s']:.1f}; peak memory "
               f"{peak / 2**30:.3f} GiB; {n_buckets} buckets; launches "
               f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if keep is not None and name == "int8_fused":
+            keep[name] = [p.detach().cpu() for p in
+                          tree_leaves(session.params)]
         res["profile"] = profile_step(torch, session, card, name)
         results[name] = res
         del session
@@ -2794,6 +2828,531 @@ def phase_auto(torch, ops, ref, train, card) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# 12. sharded data parallelism: world 1 at full width, world 4 on one card
+# ---------------------------------------------------------------------------
+
+SHARD_FLAGS = ["--sync", "comm", "--compressor", "int8_fused",
+               "--parallelism", "shard"]
+# bytes held per parameter through the sharded step: bf16 params (2) and
+# grads (2), the f32 master (4), Adam's f32 moments over the rows (8), the
+# int8_fused EF residual (4) and the f32 gradient shards (4)
+SHARD_BYTES_PER_PARAM = 24
+# above that: the backward's activations and one bucket's temporaries
+SHARD_PEAK_SLACK = 16 * 2**30
+SHARD_SMALL_STEPS = 3
+SHARD_SMALL_SESSION = dict(arch="gemma-2b", reduced=True,
+                           steps=SHARD_SMALL_STEPS, batch=4, seq=32,
+                           lr=3e-3, warmup=1, seed=0)
+SHARD_SMALL_WIRES = {   # name: (SyncConfig kwargs, optimizers)
+    "dense_ring": (dict(algo="ring"), ("adam", "lamb")),
+    "int8_fused_ring": (dict(compressor="int8_fused", algo="ring"),
+                        ("adam",)),
+}
+SHARD_W4_TOPOLOGY = "commodity_cluster"
+SHARD_W4_T_BWD_S = 0.030
+SHARD_W4_STEPS = 3
+SHARD_W4_SESSION = dict(arch="gemma-2b", layers=1, steps=SHARD_W4_STEPS,
+                        batch=4, seq=128, optimizer="adam", lr=3e-3,
+                        warmup=1, seed=0)
+
+
+def rows_bytes(state) -> int:
+    """Bytes of a sharded session's rows (master and moments)."""
+    rows = list(state["master"]) + [r for v in state["opt"].values()
+                                    for r in v]
+    return sum(r.numel() * r.element_size() for r in rows)
+
+
+def tensors_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def run_sharded(torch, ops, train, card, replicated_params) -> dict:
+    """Phase 12 (a): ``--sync comm --compressor int8_fused --parallelism
+    shard`` through the CLI at phase 8's full width, NCCL world 1, every
+    kernel counter set to 0 just before and read just after: quantize_ef
+    and dequant_accum once per bucket and step, all on the warp route, 0
+    for every other kernel; the rows' bytes equal the layout's reckoning;
+    what the allocator holds after the run is the parameters, the rows
+    and the EF residuals (no replicated moment alive); the peak within the
+    reckoning printed before the run.  Then the largest difference from
+    phase 8's replicated int8_fused parameters (printed, not gated: the
+    f32 master keeps bits the replicated bf16 update rounds away) and a
+    profiled step."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    params = sum(math.prod(d.shape) for d in
+                 tree_leaves(Model(get_config("gemma-2b")).param_desc()))
+    need = SHARD_BYTES_PER_PARAM * params
+    print(f"sharded memory reckoning [{card}]: the sharded int8_fused step "
+          f"holds {SHARD_BYTES_PER_PARAM} B per parameter = "
+          f"{need / 2**30:.2f} GiB for {params} parameters, and the peak "
+          f"may add {SHARD_PEAK_SLACK / 2**30:.0f} GiB of activations and "
+          f"bucket temporaries; the card has {free / 2**30:.2f} GiB free of "
+          f"{total / 2**30:.2f} GiB", flush=True)
+    if need > free:
+        fail(f"the sharded run needs ~{need / 2**30:.2f} GiB, the card has "
+             f"{free / 2**30:.2f} GiB free")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session = train.main(TRAIN_ARGS + SHARD_FLAGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    alive = torch.cuda.memory_allocated()
+    if session.device.type != "cuda":
+        fail(f"sharded ran on {session.device}, not on the card")
+    layout = session.layout
+    if layout is None or not session.strategy.shard_state:
+        fail("sharded: the session did not build the sharded step")
+    losses = list(session.losses)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"sharded: losses {losses}")
+    n_buckets = len(layout.buckets)
+    for kname, count in launches.items():
+        want = n_buckets * TRAIN_STEPS if kname in INT8_WIRE else 0
+        if count != want or (kname in INT8_WIRE and want <= 0):
+            fail(f"sharded: kernel {kname} launched {count} times, expected "
+                 f"{want} (= {n_buckets} buckets x {TRAIN_STEPS} steps for "
+                 f"quantize_ef and dequant_accum on the warp route, 0 for "
+                 f"the others)")
+    state = rows_bytes(session.opt_state)
+    reckoned = layout.opt_bytes_per_worker("adam", True)
+    if sorted(session.opt_state) != ["master", "opt"] or state != reckoned:
+        fail(f"sharded: the rows hold {state} B, the layout reckons "
+             f"{reckoned} B ({sorted(session.opt_state)})")
+    held = (tensors_bytes(tree_leaves(session.params)) + state +
+            tensors_bytes(session.sync_state.get("error", [])))
+    if alive - held > 2**30:
+        fail(f"sharded: the allocator holds {alive} B after the run, the "
+             f"parameters, rows and EF residuals {held} B: a replicated "
+             f"moment (or another step-long buffer) is still alive")
+    if peak > need + SHARD_PEAK_SLACK:
+        fail(f"sharded: peak {peak / 2**30:.3f} GiB above the reckoning "
+             f"{need / 2**30:.2f} + {SHARD_PEAK_SLACK / 2**30:.0f} GiB")
+    dmax = 0.0
+    for p, r in zip(tree_leaves(session.params), replicated_params):
+        d = (p.float() - r.to(p.device).float()).abs().max().item()
+        dmax = max(dmax, d)
+    times = [t * 1e3 for t in session.step_times]
+    res = {"losses": losses, "step_ms_all": times,
+           "step_ms": statistics.median(times[1:]), "peak_bytes": peak,
+           "reckoning_bytes": need, "alive_bytes": alive,
+           "held_bytes": held, "state_bytes": state,
+           "replicated_state_bytes": layout.opt_bytes_per_worker(
+               "adam", False),
+           "n_buckets": n_buckets, "launches": launches, "run_s": seconds,
+           "max_abs_diff_vs_replicated": dmax}
+    print(f"sharded world 1 [{card}]: {session.model_cfg.name} bf16, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, int8_fused, "
+          f"--parallelism shard: losses {[round(x, 4) for x in losses]}; "
+          f"step times {[round(t, 1) for t in times]} ms (median of steps 2-"
+          f"{TRAIN_STEPS} {res['step_ms']:.3f}); rows {state} B = the "
+          f"layout's reckoning (3 x 4 B x {sum(b.m for b in layout.buckets)}"
+          f"), replicated moments would be "
+          f"{res['replicated_state_bytes']} B; after the run the allocator "
+          f"holds {alive / 2**30:.3f} GiB, the parameters + rows + EF "
+          f"residuals {held / 2**30:.3f} GiB; peak memory "
+          f"{peak / 2**30:.3f} GiB (reckoning {need / 2**30:.2f} GiB + "
+          f"activations); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; largest |Δ| of "
+          f"the bf16 parameters from phase 8's replicated int8_fused run "
+          f"{dmax:.6g} (not gated); run {seconds:.1f} s", flush=True)
+    res["profile"] = profile_round(torch, session, card, "sharded")
+    del session, layout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tree_digests(torch, tree) -> dict:
+    """``digest`` of every leaf of a tree, by its checkpoint key."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    return {k: digest(torch, v).tolist()
+            for k, v in _flatten_with_paths(tree).items()}
+
+
+def shard_small_child(rank: int, world: int, store: str,
+                      out_dir: str) -> None:
+    """Phase 12 (b), one rank: reduced gemma-2b in f32 on a gloo group of
+    4 processes on the one card, 3 steps each of a sharded session and a
+    replicated one on the same plan (``sharded_plan_from_config``), for
+    dense ``ring`` and ``int8_fused`` on ``ring`` with Adam, and LAMB on
+    dense ``ring``.  Adam: losses, parameters, the gathered master rows,
+    the gathered moments and the EF residuals bit-equal; LAMB within
+    rtol 2e-5, atol 1e-7.  Then the int8_fused session saves its
+    checkpoint (rank 0 writes it and the digests of the saved state)."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.core import (PlanExecutor, SyncConfig, SyncStrategy,
+                                  get_scheduler, make_strategy)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    group = dist.group.WORLD
+    res = {"rank": rank, "compared": []}
+
+    def equal(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    saver = None
+    for name, (kw, opts) in SHARD_SMALL_WIRES.items():
+        for opt in opts:
+            scfg = SessionConfig(device="cuda", optimizer=opt,
+                                 **SHARD_SMALL_SESSION)
+            sh = TrainSession(scfg, strategy=make_strategy(
+                "every_step", group=group, sync=SyncConfig(**kw),
+                parallelism="shard"), group=group)
+            sh.run(SHARD_SMALL_STEPS)
+            plan = sh.synchronizer.plan
+            rp = TrainSession(scfg, strategy=SyncStrategy(
+                get_scheduler("every_step"),
+                grad_reducer=PlanExecutor(plan, group)), group=group)
+            rp.run(SHARD_SMALL_STEPS)
+            full = sh.full_opt_state()
+            what = f"{name}/{opt}"
+            w4_gate(equal(full["master"], sh.params),
+                    f"{what}: the gathered master rows are not the params")
+            if opt == "lamb":
+                worst = max(((a - b).abs() - 1e-7 - 2e-5 * b.abs()).max()
+                            .item() for a, b in zip(tree_leaves(sh.params),
+                                                    tree_leaves(rp.params)))
+                w4_gate(worst <= 0.0, f"{what}: sharded and replicated "
+                        f"parameters beyond rtol 2e-5, atol 1e-7 ({worst})")
+            else:
+                w4_gate(sh.losses == rp.losses, f"{what}: losses "
+                        f"{sh.losses} vs {rp.losses}")
+                w4_gate(equal(sh.params, rp.params),
+                        f"{what}: parameters differ from the replicated run")
+                w4_gate(all(equal(full[k], rp.opt_state[k])
+                            for k in ("m", "v")),
+                        f"{what}: moments differ from the replicated run")
+                errs = [(a, b) for a, b in zip(
+                    sh.sync_state.get("error", []),
+                    rp.sync_state.get("error", [])) if a is not None]
+                w4_gate(all(torch.equal(a, b) for a, b in errs),
+                        f"{what}: EF residuals differ")
+            res["compared"].append([what, sh.losses,
+                                    [b.m for b in sh.layout.buckets]])
+            if name == "int8_fused_ring":
+                saver = (sh, full)
+            else:
+                del sh, full
+            del rp
+            gc.collect()
+    sh, full = saver
+    path = os.path.join(out_dir, "ck")
+    sh.save_checkpoint(path)
+    if rank == 0:
+        res["saved"] = {"params": tree_digests(torch, sh.params),
+                        "opt": tree_digests(torch, full),
+                        "step": sh.step}
+    res["launches"] = path_counts(ops)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_shard_small(torch, card) -> dict:
+    """Phase 12 (b): four spawned ranks of ``shard_small_child``, then the
+    world-4 checkpoint restored here into a world-1 sharded session and a
+    replicated one: their parameters and full optimizer state (with the
+    f32 master where kept) equal the saved state bit for bit."""
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.launch.dist import destroy_group
+    ranks, seconds = spawn_world4(torch, shard_small_child, "shard_small",
+                                  ())
+    saved = ranks[0]["saved"]
+    path = str(ROOT / "build" / "shard_small" / "ck")
+    kw = SHARD_SMALL_WIRES["int8_fused_ring"][0]
+    restored = {}
+    for tag, strategy in (("world1_sharded", make_strategy(
+            "every_step", sync=SyncConfig(**kw), parallelism="shard")),
+                          ("replicated", None)):
+        sess = TrainSession(SessionConfig(device="cuda",
+                                          **SHARD_SMALL_SESSION),
+                            strategy=strategy)
+        step = sess.load_checkpoint(path)
+        sess._build()
+        opt = tree_digests(torch, sess.full_opt_state())
+        want = saved["opt"] if tag != "replicated" else {
+            k: v for k, v in saved["opt"].items()
+            if not k.startswith("master/")}
+        if step != saved["step"] or opt != want or \
+                tree_digests(torch, sess.params) != saved["params"]:
+            fail(f"sharded checkpoint: the world-4 state restored into the "
+                 f"{tag} session differs (step {step} vs {saved['step']}; "
+                 f"optimizer leaves {len(opt)} vs {len(want)})")
+        restored[tag] = {"step": step, "opt_leaves": len(opt)}
+        del sess
+        gc.collect()
+        destroy_group()
+    print(f"sharded world 4 bit-equality [{card}]: reduced gemma-2b f32 on "
+          f"gloo, {SHARD_SMALL_STEPS} steps each: "
+          f"{[c[0] for c in ranks[0]['compared']]} sharded == replicated bit "
+          f"for bit on every rank (parameters, gathered master, moments, EF; "
+          f"lamb within rtol 2e-5), losses "
+          f"{[[c[0], c[1]] for c in ranks[0]['compared']]}; the world-4 "
+          f"checkpoint restores into a world-1 sharded session "
+          f"({restored['world1_sharded']['opt_leaves']} optimizer leaves "
+          f"with the master) and a replicated one "
+          f"({restored['replicated']['opt_leaves']} leaves) bit for bit "
+          f"({seconds:.1f} s)", flush=True)
+    return {"compared": ranks[0]["compared"], "restored": restored,
+            "seconds": seconds}
+
+
+def shard_w4_child(rank: int, world: int, store: str, out_dir: str,
+                   expect: dict, budget_gb: float, mode: str) -> None:
+    """Phase 12 (c), one rank: gemma-2b at full width with 1 layer, Adam,
+    global batch 4 x seq 128, ``plan_auto`` on ``commodity_cluster`` at a
+    pinned 30 ms backward, pinned to the ``shard`` spec under a memory
+    budget, a gloo group of 4 processes on the one card; ``mode``
+    "replicated" runs the same plan replicated instead.  Gates: the plan
+    is ``expect`` and every rank's digest is equal; the parameters are
+    bit-equal across ranks after every step; the wire kernels as
+    ``plan_launches`` derives them from the plan."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import (SessionConfig, TrainSession, plan_decision,
+                                 plan_digest)
+    from repro_torch.core import (PlanExecutor, SyncStrategy,
+                                  get_scheduler)
+    from repro_torch.core.collectives import all_gather, p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    group = dist.group.WORLD
+    sess = TrainSession(SessionConfig(device="cuda", **SHARD_W4_SESSION),
+                        group=group)
+    sp = sess.plan_auto(topology=SHARD_W4_TOPOLOGY,
+                        t_backward_s=SHARD_W4_T_BWD_S, parallelism="shard",
+                        memory_budget_gb=budget_gb)
+    every = all_gather(torch.tensor(list(bytes.fromhex(plan_digest(sp))),
+                                    dtype=torch.int64), group)
+    w4_gate(all(torch.equal(every[r], every[0]) for r in range(world)),
+            "the ranks' plan digests differ")
+    w4_gate(sp.key == "every_step_sharded" and plan_decision(sp) == expect,
+            f"the plan {plan_decision(sp)} is not the port's CPU plan "
+            f"{expect}")
+    if mode == "replicated":
+        plan = dataclasses.replace(sp.comm, shard_state=False)
+        sess.strategy = SyncStrategy(get_scheduler("every_step"),
+                                     grad_reducer=PlanExecutor(plan,
+                                                               sess.axes))
+    sess._build()
+    plan = sess.synchronizer.plan
+    w4_gate(plan.buckets == sp.comm.buckets,
+            "the executor's plan is not the planned one")
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    p2p.reset_staged_bytes()
+    step_ms = []
+    for s in range(SHARD_W4_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.step_once()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        digests = all_gather(params_digest(torch, sess.params), group)
+        w4_gate(all(torch.equal(digests[r], digests[0])
+                    for r in range(world)),
+                f"step {s}: the ranks' parameters differ")
+    counts = path_counts(ops)
+    staged = p2p.staged_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    want = plan_launches(plan, SHARD_W4_STEPS, world)
+    w4_gate(any(want.values()), "the plan runs no kernel of the port")
+    w4_launch_gate(counts, want, f"{mode} world 4")
+    w4_gate(all(map(math.isfinite, sess.losses)), f"losses {sess.losses}")
+    if mode == "sharded":
+        state = rows_bytes(sess.opt_state)
+        reckoned = sess.layout.opt_bytes_per_worker("adam", True)
+        w4_gate(state == reckoned, f"rows {state} B, reckoned {reckoned} B")
+    else:
+        state = tensors_bytes(t for v in sess.opt_state.values()
+                              for t in tree_leaves(v))
+    lengths = bucket_lengths(plan, sess.params)
+    res = {"rank": rank, "mode": mode, "losses": sess.losses,
+           "winner": sp.key, "digest": sess.planned["digest"],
+           "step_ms_all": step_ms, "staged_bytes_per_step":
+           staged / SHARD_W4_STEPS, "state_bytes": state,
+           "peak_bytes": peak, "launches": counts,
+           "n_buckets": plan.n_buckets,
+           "buckets": describe_buckets(plan, lengths),
+           "wire": [(b.compressor, dict(b.compressor_args), n)
+                    for b, n in zip(plan.buckets, lengths)],
+           "params": sess.num_params()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def decision_digest(decision: dict) -> str:
+    """sha256 of a plan decision (``api.plan_digest``'s canonical JSON)."""
+    import hashlib
+    return hashlib.sha256(json.dumps(decision, sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def shard_w4_inputs(torch) -> tuple:
+    """(the port's CPU plan of the world-4 run, from the same leaf sizes,
+    backward time, topology, spec and budget as ``plan_auto``; the budget
+    in GiB, halfway between the layout's replicated Adam moments and its
+    sharded rows at world 4; both reckonings in bytes)."""
+    from repro_torch.api import plan_decision
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShardLayout, SyncConfig
+    from repro_torch.core.grad_sync import sharded_plan_from_config
+    from repro_torch.core.schedule import (PipelineAxis, TensorAxis,
+                                           Topology, plan_rounds,
+                                           profiles_from_grads)
+    from repro_torch.models import Model
+    from repro_torch._tree import tree_map
+    s = SHARD_W4_SESSION
+    cfg = dataclasses.replace(get_config(s["arch"]), num_layers=s["layers"])
+    desc = Model(cfg).param_desc()
+    # shapes only: tensors on the meta device allocate nothing
+    meta = tree_map(lambda d: torch.empty(d.shape, device="meta"), desc,
+                    is_leaf=lambda d: hasattr(d, "init"))
+    layout = ShardLayout.from_plan(
+        sharded_plan_from_config(SyncConfig(), meta), meta, (W4,))
+    rep = layout.opt_bytes_per_worker("adam", False, moments=2.0)
+    sh = layout.opt_bytes_per_worker("adam", True, moments=2.0)
+    budget_gb = (rep + sh) / 2 / 2**30
+    tokens = float(s["batch"] * s["seq"])
+    topo = Topology.from_spec(SHARD_W4_TOPOLOGY)
+    best, _ = plan_rounds(
+        profiles_from_grads(desc, SHARD_W4_T_BWD_S), topo, topo.world,
+        opt_name="adam", opt_moments=2.0,
+        memory_budget_bytes=budget_gb * 2**30,
+        pipeline=PipelineAxis(global_tokens=tokens,
+                              bytes_per_token=float(cfg.d_model * 4)),
+        tensor=TensorAxis(global_tokens=tokens,
+                          bytes_per_token=float(cfg.d_model * 4),
+                          n_layers=cfg.num_layers),
+        parallelism="shard")
+    return plan_decision(best), budget_gb, rep, sh
+
+
+def phase_shard_world4(torch, card) -> dict:
+    """Phase 12 (c): the sharded run of ``shard_w4_child`` on four spawned
+    ranks, then the replicated run of the same plan, each after the
+    port's planner made the plan on the CPU."""
+    expect, budget_gb, rep, sh = shard_w4_inputs(torch)
+    wires = sorted({(b[1], b[2]) for b in expect["buckets"]})
+    print(f"sharded world 4: the port's planner on the CPU plans "
+          f"{expect['key']} with {len(expect['buckets'])} buckets {wires} "
+          f"for {SHARD_W4_TOPOLOGY} at a backward of "
+          f"{SHARD_W4_T_BWD_S * 1e3:.0f} ms, the spec 'shard' and a budget "
+          f"of {budget_gb:.4f} GiB (halfway between the layout's replicated "
+          f"Adam moments, {int(rep)} B, and its sharded rows at world 4, "
+          f"{int(sh)} B); its plan digest {decision_digest(expect)}",
+          flush=True)
+    runs = {}
+    for mode in ("sharded", "replicated"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"sharded world 4, {mode} run: the card has "
+              f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB "
+              f"before the spawn", flush=True)
+        ranks, seconds = spawn_world4(torch, shard_w4_child,
+                                      f"shard_world4_{mode}",
+                                      (expect, budget_gb, mode))
+        runs[mode] = (ranks, seconds)
+    (sr, ss), (rr, rs) = runs["sharded"], runs["replicated"]
+    r0 = sr[0]
+    if r0["digest"] != decision_digest(expect):
+        fail(f"sharded world 4: the ranks' plan digest {r0['digest']} is not "
+             f"the CPU planner's {decision_digest(expect)}")
+    for a, b in zip(sr, rr):
+        if a["digest"] != b["digest"] or a["launches"] != b["launches"]:
+            fail("sharded world 4: the sharded and replicated runs planned "
+                 "or launched differently")
+    saved = [b["peak_bytes"] - a["peak_bytes"] for a, b in zip(sr, rr)]
+    print(f"sharded world 4 on one card over gloo [{card}]: gemma-2b d_model "
+          f"2048 x 1 layer ({r0['params']} params bf16), Adam, --sync auto "
+          f"--topology {SHARD_W4_TOPOLOGY} --plan-backward-ms "
+          f"{SHARD_W4_T_BWD_S * 1e3:.0f} --parallelism shard, global batch "
+          f"4 x seq 128, {SHARD_W4_STEPS} steps: the plan {r0['winner']} "
+          f"(digest {r0['digest']}, equal on every rank; the CPU planner's "
+          f"decision equal); buckets {r0['buckets']}; losses sharded "
+          f"{r0['losses']} replicated {rr[0]['losses']}; step ms by rank "
+          f"sharded {[[round(t, 1) for t in r['step_ms_all']] for r in sr]}"
+          f" replicated "
+          f"{[[round(t, 1) for t in r['step_ms_all']] for r in rr]}; staged "
+          f"bytes per rank and step sharded "
+          f"{[r['staged_bytes_per_step'] for r in sr]} replicated "
+          f"{[r['staged_bytes_per_step'] for r in rr]}; optimizer state per "
+          f"rank sharded {[r['state_bytes'] for r in sr]} B (reckoning 3 x "
+          f"4 B x Σm = {int(sh)} B) replicated "
+          f"{[r['state_bytes'] for r in rr]} B (2 x 4 B x n = {int(rep)} "
+          f"B); peak memory per rank sharded "
+          f"{[round(r['peak_bytes'] / 2**30, 3) for r in sr]} GiB "
+          f"replicated {[round(r['peak_bytes'] / 2**30, 3) for r in rr]} "
+          f"GiB, lower by {[round(x / 2**30, 3) for x in saved]} GiB; "
+          f"launches { {k: v for k, v in r0['launches'].items() if v} }; "
+          f"parameters bit-equal across ranks after every step ({ss:.1f} + "
+          f"{rs:.1f} s)", flush=True)
+    return {"sharded": r0, "replicated": rr[0], "expect": expect,
+            "budget_gb": budget_gb, "reckoning": {"replicated": rep,
+                                                  "sharded": sh},
+            "peak_bytes_by_rank": {"sharded": [r["peak_bytes"] for r in sr],
+                                   "replicated": [r["peak_bytes"]
+                                                  for r in rr]},
+            "step_ms_by_rank": {"sharded": [r["step_ms_all"] for r in sr],
+                                "replicated": [r["step_ms_all"]
+                                               for r in rr]},
+            "seconds": {"sharded": ss, "replicated": rs}}
+
+
+def phase_shard(torch, ops, ref, train, card, replicated_params) -> dict:
+    """Phase 12: (a) the sharded int8_fused run at world 1 at full width;
+    (b) sharded == replicated bit for bit at world 4 on reduced gemma-2b,
+    and the world-4 checkpoint restored at world 1 and replicated; (c)
+    the planner's sharded arm at world 4, beside a replicated run of the
+    same plan, then its kernels at its packed bucket lengths."""
+    from repro_torch.launch.dist import destroy_group
+    world1 = run_sharded(torch, ops, train, card, replicated_params)
+    destroy_group()
+    small = phase_shard_small(torch, card)
+    world4 = phase_shard_world4(torch, card)
+    check_auto_kernels(torch, ops, ref, world4["sharded"]["wire"], W4,
+                       "sharded world 4", card)
+    return {"world1": world1, "small": small, "world4": world4}
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -2989,7 +3548,8 @@ def main() -> None:
           f"(serve run {gemma2['seconds']:.2f} s)", flush=True)
 
     # -- 8. the training path at full width ---------------------------------
-    trained = run_training(torch, ops, train, card)
+    kept = {}
+    trained = run_training(torch, ops, train, card, kept)
     destroy_group()
 
     # -- 9. the explicit collectives at world 4 on the one card -------------
@@ -3003,6 +3563,9 @@ def main() -> None:
 
     # -- 11. the communication planner ----------------------------------------
     auto = phase_auto(torch, ops, ref, train, card)
+
+    # -- 12. sharded data parallelism -------------------------------------------
+    shard = phase_shard(torch, ops, ref, train, card, kept.pop("int8_fused"))
 
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
 
@@ -3024,6 +3587,10 @@ def main() -> None:
     train_runs["rounds_world4_local_sgd"] = rounds["world4"]["launches"]
     train_runs["auto_world1"] = auto["world1"]["launches"]
     train_runs["auto_world4_local_sgd"] = auto["world4"]["launches"]
+    train_runs["shard_world1"] = shard["world1"]["launches"]
+    train_runs["shard_world4"] = shard["world4"]["sharded"]["launches"]
+    train_runs["shard_world4_replicated"] = \
+        shard["world4"]["replicated"]["launches"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -3063,6 +3630,7 @@ def main() -> None:
     print(json.dumps({"world4": world4, "card": card}))
     print(json.dumps({"rounds": rounds, "card": card}))
     print(json.dumps({"auto": auto, "card": card}))
+    print(json.dumps({"shard": shard, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

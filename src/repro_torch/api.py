@@ -37,9 +37,17 @@ worker's (the reference carries them on a leading device axis and shows
 worker 0's).  Every rank plans for itself, from one measured backward
 time (the group's minimum), and the ranks check that their plans agree
 before the first step.  ``save_checkpoint`` / ``load_checkpoint`` write
-and read the reference's checkpoint format.  The sharded, pipeline and
-elastic modes wait (ROADMAP.md queue 1, items 8, 9 and 12), and so does
-calibration (item 11).
+and read the reference's checkpoint format.
+
+Sharded data parallelism (a strategy whose parallelism has ``shard``,
+or the planner's ``every_step_sharded`` winner) partitions the f32
+master parameters and the optimizer moments: ``self.opt_state`` becomes
+this rank's rows (``{"master": [...], "opt": {...}}``, one row per plan
+bucket, ``self.layout`` their geometry) and the replicated moments are
+freed.  :meth:`full_opt_state` gathers them leaf-shaped, and checkpoints
+store that form, so they restore at any world, sharded or replicated.
+The pipeline and elastic modes wait (ROADMAP.md queue 1, items 9 and
+12), and so does calibration (item 11).
 """
 from __future__ import annotations
 
@@ -57,11 +65,13 @@ from repro_torch import checkpoint
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.checkpoint.checkpoint import _flatten_with_paths
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import (GradientSynchronizer, PlanExecutor, SyncConfig,
-                              SyncStrategy, get_scheduler)
+from repro_torch.core import (GradientSynchronizer, PlanExecutor, ShardLayout,
+                              SyncConfig, SyncStrategy, get_scheduler,
+                              sharded_plan_from_config)
 from repro_torch.core.collectives import all_gather, as_axes
 from repro_torch.core.collectives import axes_for_topology
-from repro_torch.core.collectives.p2p import process_group, to_wire
+from repro_torch.core.collectives.p2p import (axis_size, process_group,
+                                              to_wire)
 from repro_torch.core.schedule import (LINK_PRESETS, LinkParams,
                                        PipelineAxis, RoundSchedule,
                                        StrategyPlan, TensorAxis, Topology,
@@ -76,9 +86,12 @@ from repro_torch.launch.dist import init_group
 from repro_torch.launch.steps import (_make_synced_train_step,
                                       loss_and_grads, make_lag_programs,
                                       make_local_train_step,
-                                      make_param_round_step, make_train_step)
+                                      make_param_round_step,
+                                      make_sharded_train_step,
+                                      make_train_step)
 from repro_torch.models import Model
-from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.optim import (make_optimizer, make_sharded_optimizer,
+                               warmup_cosine)
 
 
 @dataclasses.dataclass
@@ -104,9 +117,10 @@ def strategy_from_plan(sp: StrategyPlan, axes=None) -> SyncStrategy:
     data axes ``axes`` (process groups; None: the default group).  A tp /
     ep winner runs its DP edge (the arm's comm plan) and carries the spec
     as record axes, as the reference does on a mesh with no model axis; a
-    sharded winner raises (``SyncStrategy``, ROADMAP.md queue 1, item 8)
-    and a pipeline winner too (item 9: :meth:`TrainSession.plan_auto`
-    runs the best executable arm in its place)."""
+    sharded winner runs sharded data parallelism on the arm's plan; a
+    pipeline winner raises (ROADMAP.md queue 1, item 9:
+    :meth:`TrainSession.plan_auto` runs the best executable arm in its
+    place)."""
     if sp.schedule.kind == "local_sgd":
         return SyncStrategy(
             scheduler=get_scheduler("local_sgd", period=sp.schedule.period),
@@ -174,9 +188,8 @@ class TrainSession:
         if c.batch % self.world:
             raise ValueError(f"global batch {c.batch} does not split over "
                              f"{self.world} ranks")
-        self.optimizer = make_optimizer(c.optimizer,
-                                        lr=warmup_cosine(c.lr, c.warmup,
-                                                         c.steps))
+        self._lr = warmup_cosine(c.lr, c.warmup, c.steps)
+        self.optimizer = make_optimizer(c.optimizer, lr=self._lr)
         self.data = SyntheticPipeline(DataConfig(
             vocab_size=model_cfg.vocab_size, seq_len=c.seq,
             global_batch=c.batch))
@@ -200,6 +213,8 @@ class TrainSession:
         self.topology: Optional[Topology] = None
         self.tiered_mesh = False
         self.planned: Optional[Dict[str, Any]] = None
+        self.layout: Optional[ShardLayout] = None   # set by sharded builds
+        self._restore_opt: Optional[Dict[str, Any]] = None
         self.sync_state: Optional[Any] = None
         self.step = 0
         self.losses: List[float] = []
@@ -227,12 +242,18 @@ class TrainSession:
             return
         self._anchor = None
         self._red_state = None
+        if self.strategy is None or not self.strategy.shard_state:
+            self._restore_opt = None     # the moments are in opt_state
         if self.strategy is None:
             self._base = make_train_step(self.model, self.optimizer,
                                          self.group)
             self._built = True
             return
         st = self.strategy
+        if st.shard_state:
+            self._build_sharded(st)
+            self._built = True
+            return
         sched = st.scheduler
         self._sched_state = sched.init_state(self.params)
         engine = st.grad_reducer
@@ -261,6 +282,72 @@ class TrainSession:
                     self.params)
                 self._red_state = st.param_reducer.init_state(self.params)
         self._built = True
+
+    def _build_sharded(self, st: SyncStrategy) -> None:
+        """Sharded-DP programs (DESIGN.md §8): the every-step sync step is
+        ``make_sharded_train_step`` and ``self.opt_state`` becomes this
+        rank's {master, moments} rows; the replicated moments are freed
+        first.  A ``GradientSynchronizer`` (or no reducer: dense psum)
+        runs the packed plan of ``sharded_plan_from_config``."""
+        sched = st.scheduler
+        self._sched_state = sched.init_state(self.params)
+        engine = st.grad_reducer
+        if engine is None:
+            engine = PlanExecutor(
+                sharded_plan_from_config(SyncConfig(), self.params),
+                self.axes)
+        elif isinstance(engine, GradientSynchronizer):
+            engine = PlanExecutor(
+                sharded_plan_from_config(engine.cfg, self.params),
+                engine.axes)
+        self._engine = engine
+        axes = engine.axes
+        self.layout = ShardLayout.from_plan(
+            engine.plan, self.params, tuple(axis_size(a) for a in axes))
+        shopt = make_sharded_optimizer(self.cfg.optimizer, self.layout,
+                                       axes, lr=self._lr)
+        self._sync, init_opt_rows, init_sync_state = \
+            make_sharded_train_step(self.model, engine, self.layout, shopt,
+                                    self.group)
+        self.opt_state = None      # the replicated moments go first
+        if self._restore_opt is not None:
+            # resharding restore (DESIGN.md §15): the checkpoint's
+            # LEAF-SHAPED state becomes this layout's rows — the f32
+            # master (from the restored params when the checkpoint came
+            # from a replicated run) and each moment tree
+            full, self._restore_opt = self._restore_opt, None
+            master = full.pop("master", None)
+            if master is None:
+                master = tree_map(lambda p: p.detach().to(torch.float32),
+                                  self.params)
+            want = sorted(shopt.init([]))     # the optimizer's buffers
+            if want != sorted(full):
+                raise ValueError(
+                    f"checkpoint optimizer buffers {sorted(full)} do not "
+                    f"match {self.cfg.optimizer!r}'s {want}")
+            self.opt_state = {
+                "master": self.layout.my_rows(master, axes),
+                "opt": {k: self.layout.my_rows(full[k], axes)
+                        for k in want}}
+            del master, full
+        else:
+            self.opt_state = init_opt_rows(self.params)
+        self.sync_state = init_sync_state(self.params)
+
+    def full_opt_state(self):
+        """Leaf-shaped view of the optimizer state: the replicated state
+        as-is, or — in sharded mode — the moments and the f32 master
+        parameters gathered from every rank's rows (a collective: every
+        rank calls it; checkpoints and conformance tests)."""
+        if self.layout is None:
+            return self.opt_state
+        axes = self._engine.axes
+        rows = self.opt_state
+        full = {k: self.layout.gather_tree(v, self.params, axes)
+                for k, v in rows["opt"].items()}
+        full["master"] = self.layout.gather_tree(rows["master"], self.params,
+                                                 axes)
+        return full
 
     # -- auto planning (rounds × bits × overlap) -----------------------------
 
@@ -356,7 +443,8 @@ class TrainSession:
                   t_backward_s: Optional[float] = None,
                   shard_state: Optional[bool] = None,
                   memory_budget_gb: Optional[float] = None,
-                  topology=None, compression_costs=None) -> StrategyPlan:
+                  topology=None, compression_costs=None,
+                  parallelism=None) -> StrategyPlan:
         """``--sync auto``: profile the backward, search (rounds schedule ×
         per-bucket strategy × shard axis × parallelism axis) and install
         the winning composite as this session's strategy.
@@ -372,19 +460,32 @@ class TrainSession:
         ``t_backward_s`` pins the backward time; left None it is measured
         (:meth:`profile_backward`) and every rank takes the group's
         minimum, so all ranks plan from one number.  ``shard_state`` /
-        ``memory_budget_gb`` constrain the free search's shard axis.
+        ``memory_budget_gb`` constrain the free search's shard axis, and
+        ``parallelism`` (a ``ParallelismSpec`` or a spec string such as
+        ``"dp=4,shard"``) pins the free search to that spec's arms.
         ``compression_costs`` (a ``CompressionCostTable`` or a path to the
         reference's JSON) replaces the analytic compression-compute term.
 
         A pipeline winner cannot run here (item 9): the best executable
         arm runs instead, with the reference's note.  A sharded winner
-        raises ``NotImplementedError`` (item 8).  Before returning, every
+        (``every_step_sharded``) runs sharded data parallelism on its
+        plan.  Before returning, every
         rank checks that all ranks planned alike.  The decision record is
         ``self.planned``: the reference's keys, plus the arm that runs
         (``executed``), the plan's ``digest`` and the search's host
         seconds (``search_s``)."""
         if self._built:
             raise RuntimeError("plan_auto must run before the first step")
+        if parallelism is not None:
+            if shard_state is not None:
+                raise ValueError(
+                    "parallelism= subsumes shard_state — fold it into the "
+                    "spec (e.g. 'dp=4,shard')")
+            if scheduler is not None:
+                raise ValueError(
+                    "parallelism= pins arms of the planner's FREE search; "
+                    "a pinned rounds scheduler bypasses that search — "
+                    "drop one")
         if topology is not None:
             self.apply_topology(topology)
         if scheduler is not None and shard_state:
@@ -435,6 +536,7 @@ class TrainSession:
                 opt_moments=self.opt_moments,
                 memory_budget_bytes=mem_budget,
                 pipeline=pipe_axis, tensor=tensor_axis,
+                parallelism=parallelism,
                 **dict(kw, **({"tau_grid": tau_grid}
                               if tau_grid is not None else {})))
             exec_best = best
@@ -587,10 +689,15 @@ class TrainSession:
         """Write ``{"params", "opt"}`` and the step in the reference's
         format (``checkpoint.save``).  Rank 0 writes (this rank's worker
         under a diverging scheduler, as the reference saves worker 0's
-        view); the other ranks wait for it."""
+        view); the other ranks wait for it.  In sharded mode the optimizer
+        state is saved LEAF-SHAPED (:meth:`full_opt_state`, which every
+        rank joins: the moments and the f32 master), so the checkpoint
+        restores at any world and in either mode."""
+        opt = self.full_opt_state()
         if self.rank == 0:
-            checkpoint.save(path, {"params": self.params,
-                                   "opt": self.opt_state}, step=self.step)
+            checkpoint.save(path, {"params": self.params, "opt": opt},
+                            step=self.step)
+        del opt
         if self.world > 1:
             dist.barrier(self.group)
 
@@ -599,9 +706,14 @@ class TrainSession:
         the reference's) into this session, BEFORE the first step.  The
         payload checksum is verified first (a truncated file raises
         ``ValueError``); a missing leaf or optimizer buffer is refused.
-        Leaves keep their stored dtypes.  Sets and returns the restored
-        step; the synthetic data is a function of the step, so the resumed
-        run replays the batch sequence."""
+        Leaves keep their stored dtypes.  Checkpoints are leaf-shaped, so
+        restoring is mode-agnostic: a replicated session takes the moments
+        (a sharded checkpoint's f32 ``master`` is dropped: the params
+        carry the same values), and a sharded build re-partitions the
+        whole leaf-shaped state onto its own layout at its own world.
+        Sets and returns the restored step; the synthetic data is a
+        function of the step, so the resumed run replays the batch
+        sequence."""
         if self._built:
             raise RuntimeError("load_checkpoint must run before the first "
                                "step")
@@ -629,6 +741,7 @@ class TrainSession:
                 f"checkpoint {path!r} lacks optimizer buffers "
                 f"{missing} required by {self.cfg.optimizer!r}")
         self.opt_state = {k: moments[k] for k in self.opt_state}
+        self._restore_opt = full
         self.step = int(manifest.get("step") or 0)
         return self.step
 

@@ -2,10 +2,12 @@
 every compressor, every collective algorithm on ``torch.distributed``
 process groups (one per mesh axis), the gradient synchronizer, the
 round schedulers (every step, local SGD, LAG, push/pull) with their
-strategies, and the communication planner (``core/schedule``)."""
+strategies, the communication planner (``core/schedule``) and the shard
+layout of sharded data parallelism (``core/shard_state.py``)."""
 from repro_torch.core.grad_sync import (  # noqa: F401
     GradientSynchronizer, PlanExecutor, SyncConfig, bucketize,
-    plan_from_config)
+    plan_from_config, sharded_plan_from_config)
+from repro_torch.core.shard_state import ShardLayout  # noqa: F401
 from repro_torch.core.parallelism import ParallelismSpec  # noqa: F401
 from repro_torch.core.schedule.planner import BucketPlan, CommPlan  # noqa: F401
 from repro_torch.core.local_sgd import (  # noqa: F401

@@ -231,7 +231,8 @@ def pad_to_chunks(flat: torch.Tensor, axis_sizes) -> torch.Tensor:
     for p in axis_sizes:
         n = arr.shape[-1]
         m = -(-n // int(p))
-        arr = torch.nn.functional.pad(arr, (0, int(p) * m - n))
+        if int(p) * m != n:          # no copy where nothing is padded
+            arr = torch.nn.functional.pad(arr, (0, int(p) * m - n))
         arr = arr.reshape(arr.shape[:-1] + (int(p), m))
     return arr.reshape(-1)
 

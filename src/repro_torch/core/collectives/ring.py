@@ -65,6 +65,7 @@ def ring_allreduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if p == 1:
         return x
     mine, my_idx, n = ring_reduce_scatter(x, axis)
+    mine = mine.clone()       # frees the padded accumulator before the gather
     gathered = ring_all_gather_chunks(mine, my_idx, p, axis)
     return gathered.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
 

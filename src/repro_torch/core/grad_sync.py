@@ -21,8 +21,11 @@ compressors' fused hooks (the CUDA kernels on the card); a compressor
 without fused hooks, or a bucket with ``BucketPlan.fused=False``, runs the
 decomposed EF chain and the per-rank decode loop, as the reference does.
 The planner (``core/schedule/planner.py``) mixes compressors, algorithms
-and ``pack`` bucket by bucket in one plan.  Waiting: ``sync_shards`` and
-``sharded_plan_from_config`` (sharded DP, ROADMAP.md queue 1, item 8).
+and ``pack`` bucket by bucket in one plan.  Sharded data parallelism
+(DESIGN.md §8) runs the same plan through :meth:`PlanExecutor.sync_shards`,
+which returns this rank's canonical shard of each bucket's synced
+gradient (the reduce-scatter edge), and ``sharded_plan_from_config``
+lowers a ``SyncConfig`` to the packed plan that edge needs.
 
 Wire semantics (DESIGN.md §5): gather-pattern compressors all-gather their
 compact payloads and every rank decompresses and sums them in the
@@ -40,7 +43,8 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.core.collectives import all_gather, allreduce, world_size
-from repro_torch.core.collectives.api import Axes, as_axes, check_algo
+from repro_torch.core.collectives.api import (Axes, as_axes, check_algo,
+                                              local_chunk, reduce_scatter)
 from repro_torch.core.compression import get_compressor
 from repro_torch.core.compression import lowrank
 from repro_torch.core.schedule.planner import (BucketPlan, CommPlan,
@@ -154,6 +158,37 @@ def plan_from_config(cfg: SyncConfig, grads) -> CommPlan:
             error_feedback=cfg.error_feedback, ef_decay=cfg.ef_decay)
             for b in defs)
     return CommPlan(buckets=buckets, mean=cfg.mean)
+
+
+def sharded_plan_from_config(cfg: SyncConfig, grads) -> CommPlan:
+    """The plan sharded DP induces from a global ``SyncConfig``: like
+    :func:`plan_from_config`, but dense buckets are PACKED at the config's
+    fusion granularity, because the reduce-scatter edge operates on fused
+    flat buffers (a bucket is the scatter unit).
+
+    Bit-compat note (DESIGN.md §8): ring-allreduce sums each chunk in a
+    ring order determined by the chunk's position, so replicated-vs-sharded
+    exactness holds per BUCKET BOUNDARY — executing this same plan on the
+    replicated path (``PlanExecutor.__call__``) is the reference the
+    conformance tests compare against."""
+    if cfg.compressor != "none":
+        return dataclasses.replace(plan_from_config(cfg, grads),
+                                   shard_state=True)
+    bb = cfg.bucket_bytes if cfg.bucket_bytes > 0 else 32 * 2**20
+    defs, _, _ = bucketize(grads, bb)
+    buckets = tuple(BucketPlan(
+        leaves=tuple(i for i, _ in b), compressor="none", algo=cfg.algo,
+        bucket_bytes=4 * sum(sz for _, sz in b), pack=True,
+        error_feedback=False) for b in defs)
+    return CommPlan(buckets=buckets, mean=cfg.mean, shard_state=True)
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied when it is a view into a larger buffer: a shard kept
+    across the step must not hold the whole bucket's memory."""
+    if x.untyped_storage().nbytes() > x.numel() * x.element_size():
+        return x.clone()
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +330,8 @@ class PlanExecutor:
                 if b.pack and len(b.leaves) > 1:
                     # fused dense exchange: ONE collective for the bucket
                     buf = self._pack_bucket(leaves, b.leaves)
-                    synced = _div(allreduce(buf, b.algo, self.axes), denom)
+                    synced = _div(allreduce(buf, b.algo, self.axes), denom,
+                                  inplace=True)
                     self._unpack_bucket(synced, leaves, b.leaves, out)
                 else:
                     # unfused: leaves keep their natural shape (f32 out)
@@ -312,11 +348,13 @@ class PlanExecutor:
                     leaves[b.leaves[0]].to(torch.float32), errors[j], rng,
                     b, comp, denom)
             else:
-                buf = self._pack_bucket(leaves, b.leaves)
-                synced = self._sync_buffer(buf, errors[j], rng, b, comp,
-                                           denom)
+                # the packed buffer is handed over: _sync_buffer frees it
+                # once it is encoded
+                synced = self._sync_buffer(
+                    self._pack_bucket(leaves, b.leaves), errors[j], rng, b,
+                    comp, denom)
                 self._unpack_bucket(synced, leaves, b.leaves, out)
-                del buf, synced
+                del synced
 
         new_state: Dict[str, Any] = {"step": state["step"] + 1}
         if "error" in state:
@@ -324,6 +362,90 @@ class PlanExecutor:
         if "q" in state:
             new_state["q"] = new_qs
         return _unflatten(grads, out), new_state
+
+    # -- sharded-DP sync (the reduce-scatter edge, DESIGN.md §8) -------------
+
+    def sync_shards(self, grads, state, rng: Optional[torch.Generator] = None):
+        """Sharded-DP gradient exchange: per bucket, this rank's CANONICAL
+        shard of exactly the synced gradient ``__call__`` would return.
+
+          * dense buckets: ``reduce_scatter`` (ring / nested ring; ``psum``
+            is an all-reduce and a local slice) — chunk values are
+            bit-equal to the matching slices of the all-reduce;
+          * PowerSGD: the factors are all-reduced as in ``__call__`` and
+            the reconstructed approximation is sliced locally (no extra
+            wire);
+          * aggregatable compressed (``topk_fused``, qsgd): error feedback
+            and compression as in ``__call__`` (the fused hook: the
+            ``topk_ef`` kernel on the card), then the decompressed
+            ``g_hat`` goes out as a reduce-scatter instead of an
+            all-reduce;
+          * gather-pattern compressed (``int8_fused``, int8, sign, top-k):
+            the replicated exchange verbatim (``quantize_ef`` and
+            ``dequant_accum`` on the card, ``quantize_tiles`` on every
+            ``ring_fused`` hop), then this rank's slice of the sum — so the
+            EF residuals evolve exactly as in replicated mode (the residual
+            corrects what this worker SENT, which sharding does not
+            change).
+
+        Returns ``(bucket_shards, new_state)``: ``bucket_shards[j]`` is the
+        (m_j,) f32 mean-gradient shard of plan bucket j, and ``new_state``
+        has ``__call__``'s schema (residuals written in place)."""
+        plan = self.plan
+        leaves = tree_leaves(grads)
+        self._check_cover(len(leaves))
+        denom = float(self._world()) if plan.mean else 1.0
+        nb = len(plan.buckets)
+        errors = state.get("error", [None] * nb)
+        qs = state.get("q", [None] * nb)
+
+        shards: List[torch.Tensor] = []
+        new_qs: List[Optional[torch.Tensor]] = []
+        for j, (b, comp) in enumerate(zip(plan.buckets, self.comps)):
+            new_qs.append(qs[j])
+            if b.compressor == "none":
+                buf = self._pack_bucket(leaves, b.leaves)
+                shard = _div(reduce_scatter(buf, b.algo, self.axes), denom)
+            elif b.compressor == "powersgd":
+                i = b.leaves[0]
+                synced, new_qs[j] = self._sync_powersgd_leaf(
+                    leaves[i], errors[j], qs[j], b, comp, denom)
+                # the factors were all-reduced: the whole approximation is
+                # here on every rank, so slice it (no extra collective)
+                shard = local_chunk(synced.reshape(-1).to(torch.float32),
+                                    self.axes)
+            else:
+                buf = (self._pack_bucket(leaves, b.leaves) if b.pack
+                       else leaves[b.leaves[0]].to(torch.float32))
+                if comp.aggregatable:
+                    # as _sync_buffer (fused hook included), but the dense
+                    # decompressed sum goes out as a reduce-scatter
+                    payload, meta, g_hat = self._compress_with_ef(
+                        buf, errors[j], rng, b, comp)
+                    del buf
+                    if g_hat is None:
+                        g_hat = comp.decompress(payload, meta)
+                    del payload, meta
+                    shard = _div(reduce_scatter(
+                        g_hat.to(torch.float32).reshape(-1), b.algo,
+                        self.axes), denom)
+                    del g_hat
+                else:
+                    # gather-pattern wire: the replicated exchange
+                    # verbatim, then the owner's slice of the sum
+                    synced = self._sync_buffer(buf, errors[j], rng, b, comp,
+                                               denom)
+                    shard = local_chunk(synced.reshape(-1), self.axes)
+                    del synced
+            shards.append(_own(shard))
+            del shard
+
+        new_state: Dict[str, Any] = {"step": state["step"] + 1}
+        if "error" in state:
+            new_state["error"] = errors
+        if "q" in state:
+            new_state["q"] = new_qs
+        return shards, new_state
 
     # EF + compress of one flat/leaf-shaped f32 buffer; the new residual
     # goes into e's buffer.  With EF, a fused hook and ``b.fused``, the
@@ -343,7 +465,8 @@ class PlanExecutor:
         return payload, meta, g_hat
 
     # EF + compress + exchange of one flat/leaf-shaped f32 buffer; returns
-    # the synced f32 buffer.
+    # the synced f32 buffer.  A caller that hands ``buf`` over (keeps no
+    # reference) lets it go before the exchange of a dense sum.
     def _sync_buffer(self, buf, e, rng, b: BucketPlan, comp, denom):
         payload, meta, g_hat = self._compress_with_ef(buf, e, rng, b, comp)
         if comp.aggregatable or b.algo == "ring_fused":
@@ -352,10 +475,14 @@ class PlanExecutor:
             # and rides the compressed ring instead of the all-gather
             if g_hat is None:
                 g_hat = comp.decompress(payload, meta)
+            del payload, meta
             reduced = g_hat.to(torch.float32)
             if reduced is buf:        # never all-reduce the caller's input
                 reduced = reduced.clone()
-            return _div(allreduce(reduced, b.algo, self.axes), denom)
+            del g_hat, buf
+            # the sum is ours (``reduced`` or a new tensor): divide in place
+            return _div(allreduce(reduced, b.algo, self.axes), denom,
+                        inplace=True)
         return self._gather_mean(comp, payload, meta, buf, denom,
                                  fused=b.fused)
 
@@ -452,5 +579,6 @@ class GradientSynchronizer:
         return self._exec_for(grads)(grads, state, rng)
 
 
-__all__ = ["SyncConfig", "bucketize", "plan_from_config", "PlanExecutor",
+__all__ = ["SyncConfig", "bucketize", "plan_from_config",
+           "sharded_plan_from_config", "PlanExecutor",
            "GradientSynchronizer"]

@@ -22,8 +22,9 @@ gradient) and whether a parameter round follows.  Every scheduler of the
 reference is here.  The parallelism axis is a ``ParallelismSpec``: its
 tensor and expert axes are carried as record axes (the planner prices
 them; the port runs their DP edge, as the reference does on a mesh with
-no model axis), while sharded state and the pipeline wait for ROADMAP.md
-queue 1, items 8 and 9.
+no model axis), ``shard`` runs sharded data parallelism (partitioned f32
+master and moments, the session's sharded step), and the pipeline waits
+for ROADMAP.md queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -253,31 +254,38 @@ class SyncStrategy:
     ``parallelism`` (a :class:`ParallelismSpec`, a spec string, or None =
     pure replicated DP) names how the world is factored.  Its ``tp`` /
     ``ep`` axes are record axes: the gradient reducer runs the DP edge the
-    planner priced for them.  Sharded optimizer state (item 8) and the
-    pipeline (``pp > 1`` or ``micro > 1``, item 9) raise."""
+    planner priced for them.  ``shard`` partitions the optimizer state
+    (the session builds the sharded step); it needs an every-step
+    gradient-sync scheduler.  The pipeline (``pp > 1`` or ``micro > 1``,
+    item 9) raises."""
 
     def __init__(self, scheduler: RoundScheduler, grad_reducer: Any = None,
                  param_reducer: Any = None, param_algo: str = "psum",
                  parallelism=None):
         spec = ParallelismSpec.coerce(parallelism)
         waiting = [what for what, on in (
-            ("sharded optimizer state (item 8)", spec.shard_state),
-            (f"a pipeline of pp={spec.pp} stages (item 9)", spec.pp > 1),
-            (f"micro={spec.micro_batches} micro-batches (item 9)",
+            (f"a pipeline of pp={spec.pp} stages", spec.pp > 1),
+            (f"micro={spec.micro_batches} micro-batches",
              spec.micro_batches > 1)) if on]
         if waiting:
             raise NotImplementedError(
                 f"parallelism {spec.spec()!r} needs {' and '.join(waiting)},"
-                f" not ported yet (ROADMAP.md queue 1, items 8-10)")
+                f" not ported yet (ROADMAP.md queue 1, item 9)")
+        if spec.shard_state:
+            check_shardable(scheduler)
         self.scheduler = scheduler
         self.grad_reducer = grad_reducer
         self.param_reducer = param_reducer
         self.param_algo = param_algo
         self.parallelism = spec
 
+    @property
+    def shard_state(self) -> bool:
+        return self.parallelism.shard_state
+
     def describe(self) -> str:
         p = self.parallelism
-        mode = ""
+        mode = " [shard_state 1/p]" if p.shard_state else ""
         if p.tp > 1:
             mode += f" [tp={p.tp}" + (f"@{p.tp_tier}" if p.tp_tier else "") \
                 + "]"
@@ -293,6 +301,20 @@ class SyncStrategy:
                          + _describe_reducer(self.param_reducer,
                                              f"dense {self.param_algo} avg"))
         return "; ".join(parts)
+
+
+def check_shardable(scheduler: RoundScheduler) -> None:
+    """Sharded optimizer state needs every step to sync gradients: raise
+    ``ValueError`` for a scheduler with local phases, parameter rounds or
+    gradient reuse (the reference's refusal, its message)."""
+    if (scheduler.computes != frozenset({"sync"})
+            or scheduler.has_param_rounds or scheduler.needs_grad_probe
+            or scheduler.diverges_params):
+        raise ValueError(
+            f"shard_state requires an every-step gradient-sync "
+            f"scheduler, got {scheduler.name!r}: local phases (local_sgd/"
+            f"push_pull) and gradient reuse (lag) need full per-worker "
+            f"optimizer state by construction")
 
 
 def _describe_reducer(reducer, default: str) -> str:

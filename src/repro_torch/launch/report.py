@@ -1,7 +1,8 @@
 """Plan tables and plan records of the port's ``--sync auto`` and
 ``serve --plan`` paths: the part of ``repro/launch/report.py`` that the
 planner calls (the per-tier cost breakdown, the markdown plan tables, the
-JSON plan record).  Records go to ``artifacts/comm_plans_torch/<arch>.json``
+JSON plan record), and the per-worker memory line of a sharded run.
+Records go to ``artifacts/comm_plans_torch/<arch>.json``
 (``launch/paths.py``).  The dry-run and roofline tables are ROADMAP.md
 queue 1, item 14; the calibration and drift blocks, item 11.
 """
@@ -195,6 +196,34 @@ def render_serving_plan(best, arms, arch: str = "", batch: int = 0,
         lines.append(f"| {a.key()}{mark} | {a.step_s * 1e3:.3f} ms | "
                      f"{a.tokens_per_s:,.0f} |")
     return "\n".join(lines)
+
+
+def render_sharded_memory(layout, opt_name: str, moments=None) -> str:
+    """One-line per-worker memory report for a sharded-DP run (the ZeRO
+    identity): partitioned moments + f32 master shards vs the replicated
+    moments footprint.  ``moments`` is the session's MEASURED buffer
+    count (overrides the per-name default)."""
+    rep = layout.opt_bytes_per_worker(opt_name, sharded=False,
+                                      moments=moments)
+    sh = layout.opt_bytes_per_worker(opt_name, sharded=True,
+                                     moments=moments)
+    if sh <= rep:
+        verdict = f"{rep / max(sh, 1):.2f}× smaller"
+    elif rep <= 0:
+        # e.g. sgd with momentum=0: no replicated moment state at all —
+        # a ratio is meaningless, the master shard is the whole cost
+        verdict = ("pure master-shard cost (this optimizer keeps no "
+                   "moment state)")
+    else:
+        # small worlds: the f32 master copy is added with little or no 1/p
+        # benefit to divide it by — say so instead of "0.67x smaller"
+        verdict = (f"{sh / max(rep, 1):.2f}× LARGER (world="
+                   f"{layout.world}: the f32 master shard outweighs the "
+                   f"1/p split)")
+    return (f"optimizer state/worker: {sh / 2**20:.2f} MiB sharded "
+            f"(master+moments over world={layout.world}) vs "
+            f"{rep / 2**20:.2f} MiB replicated — {verdict}; params "
+            f"{layout.param_bytes() / 2**20:.2f} MiB f32")
 
 
 def _write_plan_record(rec: dict, arch: str) -> str:

@@ -9,7 +9,10 @@
   * the strategy phase steps: :func:`make_local_train_step` (no gradient
     collective), :func:`make_param_round_step` (model averaging, or the
     params-minus-anchor delta through a compressing reducer) and
-    :func:`make_lag_programs` (LAG's probe, sync and reuse).
+    :func:`make_lag_programs` (LAG's probe, sync and reuse);
+  * :func:`make_sharded_train_step` — sharded data parallelism: the
+    reduce-scatter edge, the update on this rank's rows of the f32 master
+    and moments, and the all-gather back into the parameters.
 
 Each rank runs its own process; the reference's manual ``shard_map`` data
 axes become the process group.  EF state is per process, as in the
@@ -27,13 +30,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_map
-from repro_torch.core.collectives import allreduce, world_size
+from repro_torch.core.collectives import (all_gather_shards, allreduce,
+                                          world_size)
 from repro_torch.core.grad_sync import (GradientSynchronizer, SyncConfig,
                                         _div)
 from repro_torch.core.lag import change_and_scale
 from repro_torch.core.local_sgd import average_leaf
 from repro_torch.models.model import Model
-from repro_torch.optim import step_inplace
+from repro_torch.optim import apply_rows_inplace, step_inplace
 
 
 def loss_and_grads(model: Model, params, batch):
@@ -101,6 +105,79 @@ def _make_synced_train_step(model: Model, optimizer, synchronizer,
         return synchronizer.init_state(params)
 
     return step_fn, synchronizer, init_sync_state
+
+
+# ---------------------------------------------------------------------------
+# Sharded data parallelism (ZeRO-style, DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+def make_sharded_train_step(model: Model, executor, layout, sharded_opt,
+                            group: Optional[dist.ProcessGroup] = None):
+    """Sharded-DP step: gradients reduce-scatter per bucket to their
+    canonical owners (``PlanExecutor.sync_shards``), each rank updates
+    only its (m,) rows of the f32 master parameters and optimizer moments
+    (``sharded_opt``, from ``optim.make_sharded_optimizer``), and the
+    updated master rows all-gather back, per bucket on the bucket's
+    algorithm, into the parameters (cast to each leaf's dtype, in place).
+
+    Parameters stay whole on every rank (the forward needs them); what is
+    partitioned — the f32 master and the moments — is this rank's rows:
+    ``{"master": [row_b], "opt": <moments over the rows>}``, one (m_b,)
+    f32 row per bucket (the reference carries every rank's rows on a
+    leading device axis).
+
+    Bit-compatibility: for dense f32 plans on psum and ring, and for the
+    gather-pattern wires, parameters and gathered state equal the
+    replicated ``_make_synced_train_step`` on the same plan bit for bit —
+    the scatter chunks equal the all-reduce slices, the elementwise
+    update commutes with slicing (and with running a row in chunks), and
+    the gather moves exact values.
+
+    Returns ``(step_fn, init_opt_rows, init_sync_state)`` with
+    ``step_fn(params, opt_rows, sync_state, batch, step, rng) -> (params,
+    opt_rows, sync_state, loss)``."""
+    if tuple(b.leaves for b in executor.plan.buckets) != \
+            tuple(b.leaves for b in layout.buckets):
+        raise ValueError("ShardLayout does not match the executor's plan "
+                         "buckets — build it with ShardLayout.from_plan on "
+                         "the same CommPlan")
+    axes = executor.axes
+
+    def step_fn(params, opt_rows, sync_state, batch, step, rng=None):
+        loss, grads = loss_and_grads(model, params, batch)
+        gshards, sync_state = executor.sync_shards(grads, sync_state, rng)
+        del grads
+        masters = opt_rows["master"]
+        # masters + updates, as apply_updates on the replicated path
+        apply_rows_inplace(sharded_opt, masters, gshards, opt_rows["opt"],
+                           step)
+        del gshards
+        # the forward edge: the updated master rows, gathered whole, in
+        # the leaves' own dtypes
+        leaves = tree_leaves(params)
+        with torch.no_grad():
+            for b, bl, row in zip(executor.plan.buckets, layout.buckets,
+                                  masters):
+                full = all_gather_shards(row, bl.n, b.algo, axes)
+                off = 0
+                for i, sz in zip(bl.leaves, bl.sizes):
+                    leaves[i].copy_(full[off:off + sz].reshape(
+                        leaves[i].shape))
+                    off += sz
+                del full
+        return params, opt_rows, sync_state, mean_over_group(loss, group)
+
+    def init_opt_rows(params):
+        """This rank's partitioned state: the f32 master rows of the
+        current parameters (``layout.my_rows``) and the sharded
+        optimizer's moments over them (zeros)."""
+        masters = layout.my_rows(params, axes)
+        return {"master": masters, "opt": sharded_opt.init(masters)}
+
+    def init_sync_state(params):
+        return executor.init_state(params)
+
+    return step_fn, init_opt_rows, init_sync_state
 
 
 # ---------------------------------------------------------------------------

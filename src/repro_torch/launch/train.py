@@ -27,6 +27,14 @@ reducer:
   * --lag THRESH                 lazily aggregated gradients (a skipped
                                  round costs only the two-scalar probe)
   * --push-pull N_PUSH N_FETCH   Dean-style asymmetric push/pull cadences
+  * --parallelism SPEC           'dp=D,shard': sharded data parallelism
+                                 (gradients reduce-scatter per bucket, f32
+                                 master params and optimizer moments
+                                 partitioned 1/world, params gathered
+                                 back); prints the per-worker memory line
+                                 after training.  Under --sync auto it
+                                 pins the planner's arms to the spec.
+                                 (--shard-state: the deprecated shim)
   * --checkpoint PATH            write params + optimizer state after the
                                  run (``PATH.npz`` + ``PATH.json``)
   * --data-parallel N            a world of N ranks, spawned here (one
@@ -42,8 +50,9 @@ without ``--device`` it raises.  Ranks meet through a file
 CPU; no network).  Weights are random, from a ``torch.Generator`` seeded
 with ``--seed``.  Every compressor, collective algorithm and optimizer of
 the reference is taken.  ``--calibrate``, ``--replan-drift-pct`` and
-``--replan-every`` raise and name ROADMAP.md queue 1, item 11;
-``--parallelism`` names items 8-10.  Rank 0 prints the loss and wall
+``--replan-every`` raise and name ROADMAP.md queue 1, item 11; a
+``--parallelism`` spec with ``pp`` or ``micro`` names item 9, and one
+with ``tp`` / ``ep`` above 1 item 10.  Rank 0 prints the loss and wall
 time of every ``--log-every``-th step, the plan, and the reference's
 final line; it alone writes the plan record
 (``artifacts/comm_plans_torch/<arch>.json``).
@@ -59,13 +68,15 @@ import torch
 
 from repro_torch.api import SessionConfig, TrainSession
 from repro_torch.configs import ALL_ARCHS
-from repro_torch.core import (SyncConfig, SyncStrategy, get_scheduler,
-                              make_strategy)
+from repro_torch.core import (ParallelismSpec, SyncConfig, SyncStrategy,
+                              get_scheduler, make_strategy)
 from repro_torch.core.collectives import ALGOS
 from repro_torch.core.schedule import LINK_PRESETS
 from repro_torch.device import resolve_device
 from repro_torch.launch.dist import destroy_group, init_group, spawn
-from repro_torch.launch.report import render_strategy_plan, save_strategy_plan
+from repro_torch.launch.report import (render_sharded_memory,
+                                       render_strategy_plan,
+                                       save_strategy_plan)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,9 +132,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "analytic compression term of --sync auto's model")
     ap.add_argument("--memory-budget-gb", type=float, default=None,
                     help="per-worker optimizer-state budget for --sync "
-                         "auto: arms that do not fit are dropped")
+                         "auto: arms that do not fit are dropped, which is "
+                         "how the shard axis wins (it never wins on wall "
+                         "clock)")
     ap.add_argument("--parallelism", default="", metavar="SPEC",
-                    help="not ported yet (ROADMAP.md queue 1, items 8-10)")
+                    help="the parallelism axis in one spec, e.g. "
+                         "'dp=4,shard': sharded data parallelism "
+                         "(gradients reduce-scatter per bucket, f32 master "
+                         "params and optimizer moments partitioned over "
+                         "the ranks, params all-gathered back); under "
+                         "--sync auto only arms of the spec may win.  pp / "
+                         "micro (ROADMAP.md queue 1, item 9) and tp / ep "
+                         "above 1 (item 10) are not ported yet")
+    ap.add_argument("--shard-state", action="store_true",
+                    help="DEPRECATED shim for --parallelism '...,shard'")
     ap.add_argument("--calibrate", action="store_true",
                     help="not ported yet (ROADMAP.md queue 1, item 11)")
     ap.add_argument("--replan-drift-pct", type=float, default=0.0,
@@ -165,14 +187,43 @@ def scheduler_from_args(args):
     return None
 
 
+def resolve_cli_parallelism(args) -> ParallelismSpec:
+    """Fold the CLI's parallelism surface — the ``--parallelism`` spec and
+    the deprecated ``--shard-state`` shim — into one ``ParallelismSpec``.
+    Mixing the spec with the shim is a SystemExit; the shim alone warns
+    and builds the equivalent spec.  Axes this port cannot execute yet
+    raise ``NotImplementedError`` naming their ROADMAP.md item: ``pp`` and
+    ``micro`` (item 9), ``tp`` and ``ep`` above 1 (item 10, which the
+    reference executes on a model axis)."""
+    if args.parallelism:
+        if args.shard_state:
+            raise SystemExit("--parallelism subsumes --shard-state; fold "
+                             "it into the spec (e.g. 'dp=4,shard')")
+        try:
+            spec = ParallelismSpec.from_spec(args.parallelism)
+        except ValueError as e:
+            raise SystemExit(f"--parallelism: {e}")
+    else:
+        if args.shard_state:
+            print("warning: --shard-state deprecated; use --parallelism "
+                  "(e.g. 'dp=4,shard')", flush=True)
+        spec = ParallelismSpec.legacy(shard_state=args.shard_state)
+    if spec.pp > 1 or spec.micro_batches > 1:
+        raise NotImplementedError(
+            f"--parallelism {spec.spec()!r}: the pipeline (pp, micro) is "
+            f"not ported yet (ROADMAP.md queue 1, item 9)")
+    if spec.tp > 1 or spec.ep > 1:
+        raise NotImplementedError(
+            f"--parallelism {spec.spec()!r}: tensor / expert parallelism "
+            f"as an executed model axis is not ported yet (ROADMAP.md "
+            f"queue 1, item 10)")
+    return spec
+
+
 def check_unported(args) -> None:
     """Raise for the flags whose machinery is not ported yet, naming the
     ROADMAP.md item that owns it."""
-    if args.parallelism:
-        raise NotImplementedError(
-            "--parallelism (sharded state, pipeline, tensor and expert "
-            "axes as executed modes) is not ported yet (ROADMAP.md queue "
-            "1, items 8-10)")
+    resolve_cli_parallelism(args)
     late = [f for f, on in (("--calibrate", args.calibrate),
                             ("--replan-drift-pct",
                              args.replan_drift_pct > 0),
@@ -184,10 +235,13 @@ def check_unported(args) -> None:
             f"yet (ROADMAP.md queue 1, item 11)")
 
 
-def plan_session(session: TrainSession, args, scheduler, log) -> None:
-    """``--sync auto``: plan on the session, print the plan with the fixed
-    baselines, write the record (rank 0), and hold the free search to
-    the planner's guarantee (auto <= the best fixed baseline)."""
+def plan_session(session: TrainSession, args, scheduler, par_spec,
+                 log) -> None:
+    """``--sync auto``: plan on the session (a ``--parallelism`` spec pins
+    the free search's arms, ``--shard-state`` its shard axis), print the
+    plan with the fixed baselines, write the record (rank 0), and hold the
+    free search to the planner's guarantee (auto <= the best fixed
+    baseline)."""
     ignored = [f for f, on in (("--compressor", args.compressor != "none"),
                                ("--algo", args.algo != "psum"),
                                ("--bucket-mb", args.bucket_mb != 32.0),
@@ -196,14 +250,23 @@ def plan_session(session: TrainSession, args, scheduler, log) -> None:
     if ignored:
         log(f"warning: --sync auto chooses per-bucket strategies; "
             f"ignoring {', '.join(ignored)}", flush=True)
-    t0 = time.perf_counter()
-    sp = session.plan_auto(
+    if args.parallelism and scheduler is not None:
+        raise SystemExit("--parallelism pins arms of --sync auto's free "
+                         "search; a pinned rounds scheduler bypasses that "
+                         "search — drop one")
+    plan_kw = dict(
         link=args.link, alpha=args.alpha, beta_gbps=args.beta_gbps,
-        scheduler=scheduler,
         t_backward_s=(args.plan_backward_ms / 1e3
                       if args.plan_backward_ms > 0 else None),
         memory_budget_gb=args.memory_budget_gb,
         compression_costs=args.compression_costs or None)
+    t0 = time.perf_counter()
+    if args.parallelism:
+        sp = session.plan_auto(parallelism=par_spec, **plan_kw)
+    else:
+        sp = session.plan_auto(
+            scheduler=scheduler,
+            shard_state=True if par_spec.shard_state else None, **plan_kw)
     planned = session.planned
     log(render_strategy_plan(sp, arms=planned["arms"],
                              baselines=planned["baselines"],
@@ -219,7 +282,8 @@ def plan_session(session: TrainSession, args, scheduler, log) -> None:
         log(f"plan record: {save_strategy_plan(sp, args.arch)}", flush=True)
     best_fixed = min(p.modeled_step_s
                      for p in planned["baselines"].values())
-    unconstrained = scheduler is None and args.memory_budget_gb is None
+    unconstrained = (scheduler is None and args.memory_budget_gb is None
+                     and par_spec.is_trivial)
     if unconstrained and sp.modeled_step_s > best_fixed + 1e-12:
         raise RuntimeError(
             f"planner regression: auto strategy modeled "
@@ -231,18 +295,29 @@ def install_strategy(session: TrainSession, args, log) -> None:
     """The strategy of the flags, over the session's data axes (one group
     per tier after a tiered ``--topology``): ``--sync auto`` plans it;
     ``--sync comm`` composes the scheduler (every step by default) with
-    the config's reducer; ``--sync vanilla`` with a scheduler takes dense
-    reducers, and without one is vanilla BSP (no strategy)."""
+    the config's reducer and the ``--parallelism`` spec; ``--sync
+    vanilla`` with a scheduler or a sharded spec takes dense reducers,
+    and without either is vanilla BSP (no strategy)."""
     scheduler = scheduler_from_args(args)
+    par_spec = resolve_cli_parallelism(args)
+    if par_spec.shard_state and scheduler is not None:
+        raise SystemExit("shard_state partitions optimizer state, which "
+                         "requires every-step gradient sync; drop "
+                         "--local-sgd/--lag/--push-pull")
     if args.sync == "auto":
-        plan_session(session, args, scheduler, log)
+        plan_session(session, args, scheduler, par_spec, log)
     elif args.sync == "comm":
         session.strategy = make_strategy(
             scheduler if scheduler is not None else "every_step",
             group=session.axes,
             sync=SyncConfig(compressor=args.compressor, algo=args.algo,
                             error_feedback=not args.no_error_feedback,
-                            bucket_bytes=int(args.bucket_mb * 2**20)))
+                            bucket_bytes=int(args.bucket_mb * 2**20)),
+            parallelism=par_spec)
+    elif not par_spec.is_trivial:
+        # vanilla + a sharded spec: dense psum wires on the scatter edge
+        session.strategy = make_strategy("every_step", group=session.axes,
+                                         parallelism=par_spec)
     elif scheduler is not None:
         session.strategy = SyncStrategy(scheduler=scheduler)
 
@@ -286,6 +361,9 @@ def run(args, rank: int = 0, group=None) -> TrainSession:
     if session.strategy is not None:
         log(f"strategy: {session.strategy.describe()}", flush=True)
     losses = session.run(args.steps, log_every=args.log_every, log=log)
+    if session.layout is not None:
+        log(render_sharded_memory(session.layout, args.optimizer,
+                                  moments=session.opt_moments), flush=True)
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log("checkpoint written:", args.checkpoint, flush=True)

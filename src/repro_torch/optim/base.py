@@ -8,8 +8,8 @@
 The moments are updated in place (the returned state holds the same
 tensors): at full width a second copy of Adam's f32 moments would not fit
 beside the first.  :func:`step_inplace` runs update + apply leaf by leaf,
-so only one leaf's f32 update exists at a time; it is what the train steps
-call.
+and an elementwise optimizer's large leaf in chunks, so only one chunk's
+f32 temporaries exist at a time; it is what the train steps call.
 """
 from __future__ import annotations
 
@@ -21,6 +21,11 @@ import torch
 from repro_torch._tree import tree_leaves, tree_map
 
 Schedule = Union[float, Callable[[int], float]]
+
+# optimizers whose update of an element reads only that element (and
+# scalars): running them over any split of a leaf gives the same bits
+ELEMENTWISE = ("adam", "sgd")
+CHUNK = 1 << 24        # elements per elementwise update pass (64 MiB f32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +48,14 @@ def apply_updates(params, updates):
 
 
 def step_inplace(optimizer: Optimizer, params, grads, opt_state,
-                 step: int) -> None:
+                 step: int, chunk: int = CHUNK) -> None:
     """``updates, state = optimizer.update(...)`` then ``apply_updates``,
     one leaf at a time, writing the new parameters into ``params`` and the
     new moments into ``opt_state`` in place.  Bit-equal to the tree-wide
-    form: every leaf's update is elementwise."""
+    form: every leaf's update is its own.  An ``ELEMENTWISE`` optimizer
+    runs a leaf of more than ``chunk`` elements ``chunk`` elements at a
+    time (bit-equal too), so no leaf-wide f32 temporary exists: at full
+    width one such temporary of the embedding is 2.1 GB."""
     p_leaves: List[torch.Tensor] = tree_leaves(params)
     g_leaves = tree_leaves(grads)
     moments: Dict[str, List[torch.Tensor]] = {
@@ -55,11 +63,21 @@ def step_inplace(optimizer: Optimizer, params, grads, opt_state,
     with torch.no_grad():
         for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
             state = {k: v[i] for k, v in moments.items()}
-            upd, new = optimizer.update(g, state, p, step)
-            for k, t in new.items():
-                if t is not state[k]:
-                    state[k].copy_(t)
-            p.copy_((p.to(torch.float32) + upd).to(p.dtype))
+            if optimizer.name in ELEMENTWISE and p.numel() > chunk:
+                pf, gf = p.view(-1), g.reshape(-1)
+                sf = {k: t.view(-1) for k, t in state.items()}
+                parts = [(pf[a:a + chunk], gf[a:a + chunk],
+                          {k: t[a:a + chunk] for k, t in sf.items()})
+                         for a in range(0, pf.numel(), chunk)]
+            else:
+                parts = [(p, g, state)]
+            for pp, gg, st in parts:
+                upd, new = optimizer.update(gg, st, pp, step)
+                for k, t in new.items():
+                    if t is not st[k]:
+                        st[k].copy_(t)
+                pp.copy_((pp.to(torch.float32) + upd).to(pp.dtype))
+                del upd, new
 
 
 REGISTRY: Dict[str, Callable[..., Optimizer]] = {}

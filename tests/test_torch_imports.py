@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.schedule.topology",
                  "repro_torch.core.schedule.perf_model",
                  "repro_torch.core.schedule.planner",
-                 "repro_torch.launch.report", "repro_torch.launch.paths"):
+                 "repro_torch.launch.report", "repro_torch.launch.paths",
+                 "repro_torch.core.shard_state",
+                 "repro_torch.optim.sharded"):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"

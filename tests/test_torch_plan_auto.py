@@ -5,11 +5,11 @@ executor's mixed plans) against the JAX package's.
     search (a heterogeneous every-step plan at world 4's topology, a
     tp(2) arm on ``commodity_cluster``), a pinned local-SGD scheduler, a
     pinned LAG scheduler, the pipeline-winner fallback (the reference's
-    note, then the best executable arm) and the shard winner (the
-    reference picks ``every_step_sharded``; the port raises
-    ``NotImplementedError`` naming item 8 before the first step): the same
-    ``planned`` record (winner, every arm, the fixed baselines, the
-    backward time) and the same executed plan.  Two synced steps of the
+    note, then the best executable arm) and the shard winner (a memory
+    budget that only ``every_step_sharded`` fits: both packages pick it
+    and run sharded data parallelism on its plan): the same ``planned``
+    record (winner, every arm, the fixed baselines, the backward time)
+    and the same executed plan.  Two synced steps of the
     planned strategies then agree with the reference's: losses at rtol
     1e-6 and at most 1% of the parameters beyond 1e-6, as in the
     replicated conformance column (``tests/test_torch_conformance.py``).
@@ -31,7 +31,9 @@ executor's mixed plans) against the JAX package's.
     prints the plan and baselines, writes the record and trains, with the
     reference CLI's winner and buckets at a pinned ``--plan-backward-ms``;
     the ignored-flags warning; the ``auto <= best fixed baseline`` check;
-    the flags of later items raise and name them.
+    ``--parallelism dp=1,shard`` and ``--sync auto --shard-state`` run
+    sharded and print the per-worker memory line; the flags of later
+    items raise and name them (``pp`` item 9, ``tp`` item 10).
   * World 4 (4 spawned processes on gloo, ``FileStore``) on
     ``node:2@commodity,device:2@fast_ici``: the tiered mesh (one group per
     tier, ``hierarchical`` on the inner one), every rank the same plan as
@@ -235,16 +237,28 @@ def test_pipeline_winner_runs_the_best_executable_arm(capsys):
     _assert_same_planned(jsess, sess)
 
 
-def test_shard_winner_raises_before_the_first_step():
+def test_shard_winner_runs_every_step_sharded():
+    """A memory budget between the sharded and the replicated arms' state:
+    both packages pick ``every_step_sharded`` and execute it; two steps
+    agree within the session parity bounds, and the port's state is its
+    rows (the replicated moments freed)."""
     jsess, sess = _pair()
     pb = 4.0 * sum(int(p.numel()) for p in tree_leaves(sess.params))
     plan_kw = dict(topology="node:16@datacenter", t_backward_s=0.01,
                    memory_budget_gb=0.2 * pb / 2**30)
     jsp = jsess.plan_auto(**plan_kw)
-    assert jsp.key == "every_step_sharded"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sess.plan_auto(**plan_kw)
-    assert sess.strategy is None and sess.step == 0 and not sess._built
+    sp = sess.plan_auto(**plan_kw)
+    assert sp.key == jsp.key == "every_step_sharded"
+    assert sess.planned["executed"] is sp and sess.strategy.shard_state
+    _assert_same_planned(jsess, sess)
+    jlosses, losses = jsess.run(2), sess.run(2)
+    assert sess.grad_rounds == jsess.grad_rounds == 2
+    assert sess.layout is not None and jsess.layout is not None
+    assert [b.m for b in sess.layout.buckets] == \
+        [b.m for b in jsess.layout.buckets]
+    assert sorted(sess.opt_state) == ["master", "opt"]
+    assert sorted(sess.opt_state["opt"]) == ["m", "v"]
+    _assert_steps_close(sess, jsess, losses, jlosses)
 
 
 def test_plan_auto_refuses_what_the_reference_refuses():
@@ -471,11 +485,47 @@ def test_cli_auto_holds_the_planner_to_the_fixed_baselines(plan_dirs,
 @pytest.mark.parametrize("flags,item", [
     (["--calibrate"], "item 11"), (["--replan-drift-pct", "10"], "item 11"),
     (["--replan-every", "5"], "item 11"),
-    (["--parallelism", "dp=1,shard"], "items 8-10")],
-    ids=["calibrate", "replan-drift", "replan-every", "parallelism"])
+    (["--parallelism", "pp=2"], "item 9"),
+    (["--parallelism", "dp=1,micro=4"], "item 9"),
+    (["--parallelism", "dp=1,tp=2"], "item 10")],
+    ids=["calibrate", "replan-drift", "replan-every", "parallelism",
+         "parallelism-micro", "parallelism-tp"])
 def test_cli_flags_of_later_items_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(BASE + ["--sync", "auto"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sync", "comm", "--compressor", "int8_fused", "--parallelism",
+     "dp=1,shard"],
+    ["--sync", "vanilla", "--parallelism", "shard"],
+    ["--sync", "auto", "--shard-state", "--plan-backward-ms", "5"]],
+    ids=["comm", "vanilla", "auto-shard-state"])
+def test_cli_parallelism_shard_runs(plan_dirs, capsys, flags):
+    """``--parallelism ...,shard`` (and ``--sync auto --shard-state``,
+    which pins the planner's shard axis) train sharded on the CPU and
+    print the per-worker memory line."""
+    sess = train.main(BASE + flags)
+    out = capsys.readouterr().out
+    assert sess.strategy.shard_state and sess.layout is not None
+    assert sess.grad_rounds == 2 and np.isfinite(sess.losses).all()
+    assert "[shard_state 1/p]" in out
+    assert "optimizer state/worker: " in out and \
+        "(master+moments over world=1)" in out
+    if "--sync" in flags and "auto" in flags:
+        assert sess.planned["executed"].key == "every_step_sharded"
+        assert "warning: --shard-state deprecated" in out
+
+
+def test_cli_parallelism_refusals():
+    with pytest.raises(SystemExit, match="requires every-step gradient"):
+        train.main(BASE + ["--sync", "comm", "--local-sgd", "2",
+                           "--parallelism", "dp=1,shard"])
+    with pytest.raises(SystemExit, match="subsumes --shard-state"):
+        train.main(BASE + ["--parallelism", "shard", "--shard-state"])
+    with pytest.raises(SystemExit, match="pinned rounds scheduler"):
+        train.main(BASE + ["--sync", "auto", "--lag", "0.5",
+                           "--parallelism", "dp=1"])
 
 
 def test_cli_topology_warns_about_flat_link_flags(plan_dirs, capsys):

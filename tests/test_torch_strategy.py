@@ -207,8 +207,14 @@ def test_make_strategy_routes_reducers_as_reference():
         JSyncStrategy(jget_scheduler("local_sgd")).describe()
     with pytest.raises(ValueError):
         make_strategy(sync=SyncConfig(), plan=plan)
-    with pytest.raises(NotImplementedError, match="items 8-10"):
-        make_strategy("every_step", parallelism="shard")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_strategy("every_step", parallelism="pp=2")
+    # sharded state is a strategy of its own, described as the reference's
+    st = make_strategy("every_step", sync=SyncConfig(**kw),
+                       parallelism="shard")
+    jst = jmake_strategy("every_step", axes=("data",),
+                         sync=JSyncConfig(**kw), parallelism="shard")
+    assert st.shard_state and st.describe() == jst.describe()
 
 
 # ---------------------------------------------------------------------------
