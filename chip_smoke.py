@@ -158,11 +158,31 @@ Phases (any failure exits non-zero and prints no result line):
      the rows' bytes the layout's reckoning; then the same plan run
      replicated, for the per-rank peak, state bytes, staged bytes and
      step times beside the sharded run's; then the kernels of (c) at
-     its packed bucket lengths, each bit-equal to its plain version.
+     its packed bucket lengths, each bit-equal to its plain version;
+ 13. pipeline parallelism: (a) ``repro_torch.launch.train`` at phase 8's
+     full width with ``--sync comm --compressor int8_fused --parallelism
+     micro=4`` (the degenerate pipe: S = 1, 4 micro-batches accumulated
+     in f32, the wire per layer row; NCCL world 1, 3 steps): 164 per-row
+     buckets (2 shared + 18 x 9), the peak within a reckoning printed
+     before the run, step times, tokens/s, a profiled step and the
+     largest difference from phase 8's int8_fused parameters (printed,
+     not gated); (b) reduced gemma-2b in f32 at 4 layers on 4 spawned
+     ranks over gloo on the one card, M = 4, 3 steps, Adam, dense psum,
+     int8_fused and topk_fused on ring: pipe(2) x data(2) against S = 1 x
+     data(2), losses, merged parameters and moments and EF residuals
+     bit-equal on every rank and across the ranks, and the card within
+     phase 4's tolerance of the same S = 2 run on the CPU; (c) gemma-2b at
+     full width in two stages on 2 spawned ranks over gloo (the depth 18
+     when a printed reckoning leaves 8 GiB of the card free, else cut),
+     M = 4, Adam, int8_fused, 3 steps: per-rank peak, staged bytes split
+     into the activation hops and the shared cells' pipe all-reduce, step
+     times, and the merged parameters bit-equal to the world-1 S = 1 run
+     of the same depth (at depth 18, (a)'s).
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
-12 (c) on every rank) sets every kernel launch counter
+12 (c) on every rank, and 13 (a) and (c) on every rank) sets every
+kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
@@ -185,7 +205,10 @@ on ring_fused at world 4, quantize_tiles 2·p = 8 times), all on the warp
 route, 0 for every other kernel; sharded: the int8_fused run as 8's
 (quantize_ef and dequant_accum = buckets x steps), the planned world-4
 runs as 11's (``plan_launches``: topk_ef per topk_fused bucket and
-step).  Launches made in phases 3, 4, 6, 10 (b) and 12 (b), and by the
+step); the pipeline: quantize_ef and dequant_accum once per leaf of the
+per-row tree and step (164 x 3 at world 1, 83 x 3 on each stage of
+(c)), all on the warp route.  Launches made in phases 3, 4, 6, 10 (b),
+12 (b) and 13 (b), and by the
 checks and timings of 9, 10, 11 and 12, are not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
@@ -2288,8 +2311,9 @@ def gate_rounds_differ_then_agree(torch, rounds, world: int) -> None:
                 f"round {i}: the ranks' parameters differ after it")
 
 
-def spawn_world4(torch, child, name: str, args: tuple) -> list:
-    """Four spawned ranks of ``child`` on the one card
+def spawn_world4(torch, child, name: str, args: tuple,
+                 world: int = 4) -> list:
+    """``world`` (default four) spawned ranks of ``child`` on the one card
     (``launch/dist.py:spawn``), each writing ``rank{r}.json`` under
     ``build/<name>``; a rank that fails fails the run, and so do ranks
     whose launch counts differ.  The ranks share the card's memory, so
@@ -2306,7 +2330,8 @@ def spawn_world4(torch, child, name: str, args: tuple) -> list:
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        spawn(child, W4, args=(str(out_dir), *args), timeout=W4_TIMEOUT_S)
+        spawn(child, world, args=(str(out_dir), *args),
+              timeout=W4_TIMEOUT_S)
     except RuntimeError as e:
         fail(f"{name} phase: {e}")
     finally:
@@ -2316,7 +2341,7 @@ def spawn_world4(torch, child, name: str, args: tuple) -> list:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     seconds = time.perf_counter() - t0
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(W4)]
+             for r in range(world)]
     if any(r["launches"] != ranks[0]["launches"] for r in ranks):
         fail(f"{name} phase: ranks launched differently")
     return ranks, seconds
@@ -3353,6 +3378,449 @@ def phase_shard(torch, ops, ref, train, card, replicated_params) -> dict:
     return {"world1": world1, "small": small, "world4": world4}
 
 
+# ---------------------------------------------------------------------------
+# 13. pipeline parallelism
+# ---------------------------------------------------------------------------
+
+PIPE_M = 4
+PIPE_FLAGS = ["--sync", "comm", "--compressor", "int8_fused",
+              "--parallelism", f"micro={PIPE_M}"]
+# bytes held per parameter through the micro-batched step's sync: bf16
+# params (2), Adam's f32 moments (8), the int8_fused EF residual (4), the
+# f32 gradient accumulators (4) and the synced f32 gradients (4); plus
+# one more f32 embedding (``pipe_reckoning``)
+PIPE_BYTES_PER_PARAM = 22
+# what the peak may hold above the reckoning: one micro-batch's
+# activations and temporaries (1.14 GiB at (a) and none at (c) on an H100,
+# PERF.md §6), with room, and well under the 9.3 GiB of a leaked f32 copy
+# of the gradient tree
+PIPE_PEAK_SLACK = 4 * 2**30
+PIPE_SMALL_STEPS = 3
+PIPE_SMALL_SESSION = dict(arch="gemma-2b", reduced=True, layers=4,
+                          steps=PIPE_SMALL_STEPS, batch=8, seq=32, lr=3e-3,
+                          warmup=1, seed=0, optimizer="adam")
+PIPE_SMALL_WIRES = {   # name: SyncConfig kwargs (per-row buckets)
+    "dense_psum": dict(),
+    "int8_fused_ring": dict(compressor="int8_fused", algo="ring"),
+    "topk_fused_ring": dict(compressor="topk_fused", algo="ring"),
+}
+PIPE_FREE_GIB = 8          # what (c)'s two ranks must leave of the card
+
+
+def pipe_reckoning(cfg, layers: int, stages: int) -> tuple:
+    """(parameters of one stage, bytes one stage's process holds through
+    its sync): 22 B a parameter and one more f32 embedding (the second
+    owner's accumulator of the tied table at S = 1; at S > 1 the pipe
+    all-reduce's result beside its input)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import Model
+    desc = Model(dataclasses.replace(cfg, num_layers=layers)).param_desc()
+    total = sum(math.prod(d.shape) for d in tree_leaves(desc))
+    rows = sum(math.prod(d.shape) for d in tree_leaves(desc["stack"]))
+    emb = math.prod(desc["embed"]["table"].shape)
+    per_stage = total - rows + rows // stages
+    return per_stage, PIPE_BYTES_PER_PARAM * per_stage + 4 * emb
+
+
+def pipe_session_config(layers: int):
+    """The SessionConfig that ``TRAIN_ARGS`` give the CLI, at ``layers``."""
+    from repro_torch.api import SessionConfig
+    return SessionConfig(arch="gemma-2b", layers=layers, steps=TRAIN_STEPS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-3,
+                         warmup=20, optimizer="adam", seed=0, device="cuda")
+
+
+def stage_leaf_lengths(session) -> list:
+    """The distinct lengths of the leaves a pipeline session's DP edge
+    syncs, one bucket each: its per-row tree, as the step builds it."""
+    from repro_torch.launch.steps import unstack_rows
+    tree = {"shared": session._params["shared"],
+            "rows": unstack_rows(session._params["rows"],
+                                 session.staged.layout.rows_per_stage)}
+    return sorted(set(bucket_lengths(session.synchronizer.plan, tree)))
+
+
+def run_pipe_world1(torch, ops, train, card, replicated_params) -> dict:
+    """Phase 13 (a): the degenerate pipe at full width through the CLI,
+    ``--sync comm --compressor int8_fused --parallelism micro=4`` (NCCL
+    world 1, Adam, batch 4 x seq 512, 3 steps), every kernel counter set
+    to 0 just before and read just after: quantize_ef and dequant_accum
+    once per layer-row leaf and step (164 = 2 shared + 18 x 9), all on
+    the warp route, 0 for every other kernel; losses finite; the peak
+    within the reckoning printed before the run; step times, tokens/s, a
+    profiled step; the largest difference from phase 8's int8_fused
+    parameters (printed, not gated: phase 8 fuses leaves into 32 MiB
+    buckets, so its int8 tiles and scales are not these)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    cfg = get_config("gemma-2b")
+    params, need = pipe_reckoning(cfg, cfg.num_layers, 1)
+    print(f"pipeline memory reckoning [{card}]: the micro-batched int8_fused "
+          f"step holds {PIPE_BYTES_PER_PARAM} B per parameter and one more "
+          f"f32 embedding (the second owner's accumulator of the tied "
+          f"table) = {need / 2**30:.2f} GiB for {params} parameters, 2 B "
+          f"per parameter + the embedding more than phase 8's step; the "
+          f"peak may add {PIPE_PEAK_SLACK / 2**30:.0f} GiB of activations "
+          f"and temporaries; the card has {free / 2**30:.2f} GiB free of "
+          f"{total / 2**30:.2f} GiB", flush=True)
+    if need > free:
+        fail(f"the pipeline run needs ~{need / 2**30:.2f} GiB, the card has "
+             f"{free / 2**30:.2f} GiB free")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session = train.main(TRAIN_ARGS + PIPE_FLAGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    if session.device.type != "cuda":
+        fail(f"pipeline ran on {session.device}, not on the card")
+    if session.staged is None or session.strategy.micro_batches != PIPE_M:
+        fail("pipeline: the session did not build the micro-batched step")
+    losses = list(session.losses)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"pipeline: losses {losses}")
+    n_leaves = session.synchronizer.plan.n_buckets
+    want_leaves = 2 + cfg.num_layers * 9
+    if n_leaves != want_leaves:
+        fail(f"pipeline: {n_leaves} per-row buckets, expected "
+             f"{want_leaves} (2 shared + {cfg.num_layers} rows x 9)")
+    for kname, count in launches.items():
+        want = n_leaves * TRAIN_STEPS if kname in INT8_WIRE else 0
+        if count != want:
+            fail(f"pipeline: kernel {kname} launched {count} times, "
+                 f"expected {want} (= {n_leaves} leaves x {TRAIN_STEPS} "
+                 f"steps for quantize_ef and dequant_accum on the warp "
+                 f"route, 0 for the others)")
+    if peak > need + PIPE_PEAK_SLACK:
+        fail(f"pipeline: peak {peak / 2**30:.3f} GiB above the reckoning "
+             f"{need / 2**30:.2f} + {PIPE_PEAK_SLACK / 2**30:.0f} GiB")
+    merged = tree_leaves(session.params)
+    dmax = 0.0
+    for p, r in zip(merged, replicated_params):
+        dmax = max(dmax, (p.float() - r.to(p.device).float()).abs().max()
+                   .item())
+    times = [t * 1e3 for t in session.step_times]
+    step_ms = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"losses": losses, "step_ms_all": times, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
+           "reckoning_bytes": need, "n_buckets": n_leaves,
+           "launches": launches, "run_s": seconds,
+           "max_abs_diff_vs_phase8": dmax,
+           "leaf_lengths": stage_leaf_lengths(session),
+           "param_digests": [digest(torch, p).tolist() for p in merged]}
+    del merged
+    print(f"pipeline micro-batched world 1 [{card}]: {session.model_cfg.name}"
+          f" bf16, batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in {PIPE_M} "
+          f"micro-batches, {TRAIN_STEPS} steps, int8_fused per layer row: "
+          f"losses {[round(x, 4) for x in losses]}; step times "
+          f"{[round(t, 1) for t in times]} ms (median of steps 2-"
+          f"{TRAIN_STEPS} {step_ms:.3f}); tokens/s "
+          f"{res['tokens_per_s']:.1f}; peak memory {peak / 2**30:.3f} GiB "
+          f"(reckoning {need / 2**30:.2f} GiB + activations); {n_leaves} "
+          f"per-row buckets; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; largest |Δ| of "
+          f"the bf16 parameters from phase 8's int8_fused run {dmax:.6g} "
+          f"(not gated); run {seconds:.1f} s", flush=True)
+    res["profile"] = profile_round(torch, session, card, "pipeline")
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipe_small_child(rank: int, world: int, store: str,
+                     out_dir: str) -> None:
+    """Phase 13 (b), one rank of 4 on a gloo group on the one card:
+    reduced gemma-2b in f32 at 4 layers, M = 4, 3 steps, Adam, for each
+    wire of ``PIPE_SMALL_WIRES``: S = 2 x dp 2 on the card (all 4 ranks),
+    S = 1 x dp 2 on the card (a session on this rank's data group) and
+    S = 2 x dp 2 on the CPU, from one set of weights.  Gates: the two
+    card runs' losses, merged parameters, merged moments and EF residuals
+    bit-equal, on every rank; the card within phase 4's tolerance of the
+    CPU (losses 1e-5 relative at step 1, 1e-4 after)."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group, mesh_axes
+    from repro_torch.models import Model
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    # this rank's data group of a pipe(2) x data(2) mesh: the S = 1 runs
+    _, data = mesh_axes((2, world // 2))
+    cfg = dataclasses.replace(reduced(get_config("gemma-2b")),
+                              num_layers=PIPE_SMALL_SESSION["layers"])
+    params0 = Model(cfg).init(torch.Generator("cpu").manual_seed(0))
+    stage = rank // (world // 2)
+    res = {"rank": rank, "compared": []}
+
+    def equal(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    def session(kw, dev, spec, group):
+        sess = TrainSession(SessionConfig(device=dev, **PIPE_SMALL_SESSION),
+                            strategy=make_strategy(
+                                "every_step", group=group,
+                                sync=SyncConfig(**kw), parallelism=spec),
+                            params=params0, group=group)
+        sess.run(PIPE_SMALL_STEPS)
+        return sess
+
+    ops.reset_launch_counts()
+    for name, kw in PIPE_SMALL_WIRES.items():
+        s2 = session(kw, "cuda", f"pp=2,micro={PIPE_M}", dist.group.WORLD)
+        s1 = session(kw, "cuda", f"micro={PIPE_M}", data)
+        cpu = session(kw, "cpu", f"pp=2,micro={PIPE_M}", dist.group.WORLD)
+        p2, p1, pc = s2.params, s1.params, cpu.params
+        e2 = s2.sync_state.get("error", [])
+        e1 = s1.sync_state.get("error", [])
+        n_shared = len(tree_leaves(s2._params["shared"]))
+        n_row = len(e2) - n_shared
+        mine = e1[stage * n_row:(stage + 1) * n_row] + e1[len(e1) - n_shared:]
+        w4_gate(s2.losses == s1.losses, f"{name}: losses S=2 "
+                f"{s2.losses} vs S=1 {s1.losses}")
+        w4_gate(equal(p2, p1), f"{name}: parameters S=2 != S=1")
+        w4_gate(equal(s2.full_opt_state(), s1.full_opt_state()),
+                f"{name}: moments S=2 != S=1")
+        w4_gate(len(e2) == len(mine) and all(
+            (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip(e2, mine)), f"{name}: EF residuals S=2 != S=1")
+        rel = [abs(a - b) / abs(b) for a, b in zip(s2.losses, cpu.losses)]
+        w4_gate(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4,
+                f"{name}: card losses {s2.losses} vs CPU {cpu.losses}")
+        dparam = max((a.float().cpu() - b.float()).abs().max().item()
+                     for a, b in zip(tree_leaves(p2), tree_leaves(pc)))
+        res["compared"].append({
+            "wire": name, "losses": s2.losses, "cpu_losses": cpu.losses,
+            "max_rel_loss": max(rel), "max_abs_param_vs_cpu": dparam,
+            "ef_leaves": sum(e is not None for e in e2),
+            "digests": [digest(torch, x).tolist() for x in tree_leaves(p2)]})
+        del s2, s1, cpu, p2, p1, pc, e2, e1, mine
+        gc.collect()
+    res["launches"] = path_counts(ops)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_pipe_small(torch, card) -> dict:
+    """Phase 13 (b): four spawned ranks of ``pipe_small_child``; their
+    digests of the merged parameters must agree across the ranks."""
+    ranks, seconds = spawn_world4(torch, pipe_small_child, "pipe_small", ())
+    for i, c in enumerate(ranks[0]["compared"]):
+        if any(r["compared"][i]["digests"] != c["digests"] for r in ranks):
+            fail(f"pipeline world 4: the ranks' merged parameters differ "
+                 f"({c['wire']})")
+    compared = [{k: v for k, v in c.items() if k != "digests"}
+                for c in ranks[0]["compared"]]
+    print(f"pipeline S=1 == S=2 on the card [{card}]: reduced gemma-2b f32, "
+          f"{PIPE_SMALL_SESSION['layers']} layers, M={PIPE_M}, "
+          f"{PIPE_SMALL_STEPS} steps, Adam, 4 ranks on gloo: "
+          f"{[c['wire'] for c in compared]} bit-equal between pipe(2) x "
+          f"data(2) and S=1 x data(2) (losses, merged parameters and "
+          f"moments, EF residuals) on every rank, and across the ranks; "
+          f"card vs CPU: max rel loss "
+          f"{[c['max_rel_loss'] for c in compared]}, max |Δparam| "
+          f"{[c['max_abs_param_vs_cpu'] for c in compared]} "
+          f"({seconds:.1f} s)", flush=True)
+    return {"compared": compared, "seconds": seconds,
+            "launches": ranks[0]["launches"]}
+
+
+def pipe_big_child(rank: int, world: int, store: str, out_dir: str,
+                   layers: int) -> None:
+    """Phase 13 (c), one of the 2 stages: gemma-2b at full width with
+    ``layers`` layers, pipe(2) x data(1) on a gloo group on the one card,
+    M = 4, Adam, int8_fused, batch 4 x seq 512, 3 steps: this rank's
+    launches (quantize_ef and dequant_accum once per leaf of its stage
+    tree and step), peak from before the session's construction, the
+    lengths of its DP edge's leaves, staged bytes split into the
+    activation hops and the shared cells' pipe all-reduce, step times,
+    and digests of the merged parameters."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import TrainSession
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.core.collectives import p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    group = dist.group.WORLD
+    # the peak from before the session: its construction draws only this
+    # stage's rows and makes only their moments
+    torch.cuda.reset_peak_memory_stats()
+    sess = TrainSession(pipe_session_config(layers), strategy=make_strategy(
+        "every_step", group=group, sync=SyncConfig(compressor="int8_fused"),
+        parallelism=f"pp=2,micro={PIPE_M}"), group=group)
+    p2p.reset_staged_bytes()
+    ops.reset_launch_counts()
+    staged = []
+    for _ in range(TRAIN_STEPS):
+        sess.run(1)
+        staged.append(dict(sess._sync.staged))
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    n_leaves = sess.synchronizer.plan.n_buckets
+    w4_gate(sess.staged is not None and sess.staged.layout.n_stages == 2,
+            "the session did not build a 2-stage pipe")
+    w4_gate(all(map(math.isfinite, sess.losses)), f"losses {sess.losses}")
+    w4_launch_gate(launches, {k: n_leaves * TRAIN_STEPS for k in INT8_WIRE},
+                   "pipe stage")
+    res = {"rank": rank, "launches": launches, "n_leaves": n_leaves,
+           "losses": sess.losses,
+           "step_ms_all": [t * 1e3 for t in sess.step_times],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "leaf_lengths": stage_leaf_lengths(sess), "staged": staged}
+    params = sess.params               # gathered over the pipe: collective
+    if rank == 0:
+        res["digests"] = [digest(torch, p).tolist()
+                          for p in tree_leaves(params)]
+    del params
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_pipe_reference(torch, layers: int) -> dict:
+    """A world-1 S = 1 run of phase 13 (a)'s configuration at ``layers``
+    layers (the reference of a depth-cut (c)): digests of its
+    parameters."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import TrainSession
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.launch.dist import destroy_group
+    session = TrainSession(pipe_session_config(layers),
+                           strategy=make_strategy(
+                               "every_step",
+                               sync=SyncConfig(compressor="int8_fused"),
+                               parallelism=f"micro={PIPE_M}"))
+    session.run(TRAIN_STEPS)
+    out = {"param_digests": [digest(torch, p).tolist()
+                             for p in tree_leaves(session.params)]}
+    del session
+    destroy_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipe_big(torch, card, world1) -> dict:
+    """Phase 13 (c): two stages of gemma-2b at full width on the one card.
+    The depth is 18 if the reckoning leaves ``PIPE_FREE_GIB`` of the card
+    free with both ranks, else cut (kept even) and printed.  Gates: each
+    rank's launches, finite losses equal on both ranks, and the merged
+    parameters bit-equal to a world-1 S = 1 run of the same depth and M —
+    phase 13 (a)'s run at depth 18; each rank's peak, its construction
+    included, within its stage's reckoning and ``PIPE_PEAK_SLACK``."""
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma-2b")
+    free, total = torch.cuda.mem_get_info()
+    layers = cfg.num_layers
+    while True:
+        per_stage, need = pipe_reckoning(cfg, layers, 2)
+        if free - 2 * need >= PIPE_FREE_GIB * 2**30 or layers <= 2:
+            break
+        layers -= 2
+    cut = "" if layers == cfg.num_layers else \
+        f" (cut from {cfg.num_layers} so that both ranks fit)"
+    print(f"pipeline S=2 memory reckoning [{card}]: {layers} layers{cut}, "
+          f"{per_stage} parameters a stage, {need / 2**30:.2f} GiB a rank "
+          f"through its sync, {2 * need / 2**30:.2f} GiB for both; the card "
+          f"has {free / 2**30:.2f} GiB free of {total / 2**30:.2f}",
+          flush=True)
+    if free - 2 * need < PIPE_FREE_GIB * 2**30:
+        fail(f"two pipeline stages need ~{2 * need / 2**30:.2f} GiB, the "
+             f"card has {free / 2**30:.2f} GiB free")
+    ranks, seconds = spawn_world4(torch, pipe_big_child, "pipe_big",
+                                  (layers,), world=2)
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail(f"pipeline S=2: the stages report different losses "
+             f"{ranks[0]['losses']} vs {ranks[1]['losses']}")
+    for r in ranks:
+        if r["peak_bytes"] > need + PIPE_PEAK_SLACK:
+            fail(f"pipeline S=2: rank {r['rank']} peak "
+                 f"{r['peak_bytes'] / 2**30:.3f} GiB (construction "
+                 f"included) above its stage's reckoning "
+                 f"{need / 2**30:.2f} + {PIPE_PEAK_SLACK / 2**30:.0f} GiB")
+    want = 2 + 9 * (layers // 2)
+    if any(r["n_leaves"] != want for r in ranks):
+        fail(f"pipeline S=2: {[r['n_leaves'] for r in ranks]} leaves a "
+             f"stage, expected {want}")
+    ref = world1 if layers == cfg.num_layers else \
+        run_pipe_reference(torch, layers)
+    if ranks[0]["digests"] != ref["param_digests"]:
+        fail(f"pipeline S=2 at {layers} layers: the merged parameters differ "
+             f"from the world-1 S=1 run's")
+    hops = [sum(st["hops"] for st in r["staged"]) for r in ranks]
+    pipe = [sum(st["pipe"] for st in r["staged"]) for r in ranks]
+    print(f"pipeline S=2 [{card}]: gemma-2b full width, {layers} layers, "
+          f"pipe(2) x data(1) on gloo, M={PIPE_M}, int8_fused, Adam, "
+          f"{TRAIN_STEPS} steps: losses {ranks[0]['losses']} (both ranks); "
+          f"merged parameters bit-equal to the world-1 S=1 run; launches "
+          f"per rank {ranks[0]['launches'].get('quantize_ef')} quantize_ef "
+          f"/ {ranks[0]['launches'].get('dequant_accum')} dequant_accum "
+          f"(= {want} x {TRAIN_STEPS}, warp route); peak per rank, "
+          f"construction included, "
+          f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB "
+          f"(reckoning {need / 2**30:.2f} GiB); "
+          f"staged per rank over {TRAIN_STEPS} steps: activation hops "
+          f"{[round(h / 1e6, 3) for h in hops]} MB, the shared cells' "
+          f"pipe all-reduce {[round(x / 1e9, 3) for x in pipe]} GB; step "
+          f"times {[[round(t, 1) for t in r['step_ms_all']] for r in ranks]}"
+          f" ms ({seconds:.1f} s)", flush=True)
+    return {"layers": layers, "ranks": [
+        {k: v for k, v in r.items() if k != "digests"} for r in ranks],
+        "seconds": seconds, "launches": ranks[0]["launches"]}
+
+
+def phase_pipe(torch, ops, ref, train, card, replicated_params) -> dict:
+    """Phase 13: (a) the degenerate pipe at full width (world 1); (b)
+    S = 1 == S = 2 bit for bit at world 4 on reduced gemma-2b and the card
+    within tolerance of the CPU; (c) two stages at full width; then, with
+    the card free, quantize_ef (residual in place) and dequant_accum (the
+    gather wire at data world 1, as in (a) and (c)) bit-equal to their
+    plain versions at every leaf length that (a) and (c) ran them at."""
+    from repro_torch.launch.dist import destroy_group
+    world1 = run_pipe_world1(torch, ops, train, card, replicated_params)
+    destroy_group()
+    small = phase_pipe_small(torch, card)
+    big = phase_pipe_big(torch, card, world1)
+    world1.pop("param_digests")
+    lengths = sorted(set(world1["leaf_lengths"]).union(
+        *(r["leaf_lengths"] for r in big["ranks"])))
+    check_auto_kernels(torch, ops, ref,
+                       [("int8_fused", {}, n) for n in lengths], 1,
+                       "pipeline (a) and (c)", card)
+    return {"world1": world1, "small": small, "big": big,
+            "checked_lengths": lengths}
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -3565,7 +4033,10 @@ def main() -> None:
     auto = phase_auto(torch, ops, ref, train, card)
 
     # -- 12. sharded data parallelism -------------------------------------------
-    shard = phase_shard(torch, ops, ref, train, card, kept.pop("int8_fused"))
+    shard = phase_shard(torch, ops, ref, train, card, kept["int8_fused"])
+
+    # -- 13. pipeline parallelism ----------------------------------------------
+    pipe = phase_pipe(torch, ops, ref, train, card, kept.pop("int8_fused"))
 
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
 
@@ -3591,6 +4062,8 @@ def main() -> None:
     train_runs["shard_world4"] = shard["world4"]["sharded"]["launches"]
     train_runs["shard_world4_replicated"] = \
         shard["world4"]["replicated"]["launches"]
+    train_runs["pipe_world1_micro"] = pipe["world1"]["launches"]
+    train_runs["pipe_s2_stage"] = pipe["big"]["launches"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -3631,6 +4104,7 @@ def main() -> None:
     print(json.dumps({"rounds": rounds, "card": card}))
     print(json.dumps({"auto": auto, "card": card}))
     print(json.dumps({"shard": shard, "card": card}))
+    print(json.dumps({"pipeline": pipe, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -46,8 +46,18 @@ this rank's rows (``{"master": [...], "opt": {...}}``, one row per plan
 bucket, ``self.layout`` their geometry) and the replicated moments are
 freed.  :meth:`full_opt_state` gathers them leaf-shaped, and checkpoints
 store that form, so they restore at any world, sharded or replicated.
-The pipeline and elastic modes wait (ROADMAP.md queue 1, items 9 and
-12), and so does calibration (item 11).
+
+Pipeline parallelism (a strategy whose parallelism has ``pp > 1`` or
+``micro > 1``, or the planner's pipeline winner) splits the world into a
+``pipe(S) × data(world/S)`` mesh (``launch/dist.py:mesh_axes``): each
+process holds the shared cells and its own stage's layer rows
+(``self.staged``, ``launch/steps.py:make_pipeline_train_step``); given
+at construction, such a strategy is built there, so that a stage never
+holds another stage's rows or the whole model's moments; and
+:attr:`params` merges the stages back (a gather over the pipe group when
+S > 1, so every rank reads it).  Its checkpoints hold the merged,
+leaf-shaped parameters and moments.  The elastic mode waits (ROADMAP.md
+queue 1, item 12), and so does calibration (item 11).
 """
 from __future__ import annotations
 
@@ -65,31 +75,37 @@ from repro_torch import checkpoint
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.checkpoint.checkpoint import _flatten_with_paths
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import (GradientSynchronizer, PlanExecutor, ShardLayout,
-                              SyncConfig, SyncStrategy, get_scheduler,
+from repro_torch.core import (GradientSynchronizer, ParallelismSpec,
+                              PlanExecutor, ShardLayout, SyncConfig,
+                              SyncStrategy, get_scheduler,
                               sharded_plan_from_config)
 from repro_torch.core.collectives import all_gather, as_axes
 from repro_torch.core.collectives import axes_for_topology
-from repro_torch.core.collectives.p2p import (axis_size, process_group,
-                                              to_wire)
+from repro_torch.core.collectives.p2p import (axis_index, axis_size,
+                                              process_group, to_wire)
+from repro_torch.core.pipeline import StagedModel
 from repro_torch.core.schedule import (LINK_PRESETS, LinkParams,
                                        PipelineAxis, RoundSchedule,
                                        StrategyPlan, TensorAxis, Topology,
-                                       fixed_config_plan, plan, plan_rounds,
+                                       fixed_config_plan, pipeline_arm,
+                                       pipeline_placements, plan, plan_rounds,
                                        profiles_from_grads,
                                        resolve_cost_table, serial_round_plan)
 from repro_torch.core.schedule.planner import FIXED_BASELINES, local_sgd_arm
 from repro_torch.core.strategy import LocalSGDScheduler
 from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.device import resolve_device
-from repro_torch.launch.dist import init_group
+from repro_torch.launch.dist import init_group, mesh_axes
 from repro_torch.launch.steps import (_make_synced_train_step,
                                       loss_and_grads, make_lag_programs,
                                       make_local_train_step,
                                       make_param_round_step,
+                                      make_pipeline_train_step,
                                       make_sharded_train_step,
-                                      make_train_step)
+                                      make_train_step, merge_opt_rows)
 from repro_torch.models import Model
+from repro_torch.models.layers import desc_leaves
+from repro_torch.models.model import count_params
 from repro_torch.optim import (make_optimizer, make_sharded_optimizer,
                                warmup_cosine)
 
@@ -118,20 +134,33 @@ def strategy_from_plan(sp: StrategyPlan, axes=None) -> SyncStrategy:
     ep winner runs its DP edge (the arm's comm plan) and carries the spec
     as record axes, as the reference does on a mesh with no model axis; a
     sharded winner runs sharded data parallelism on the arm's plan; a
-    pipeline winner raises (ROADMAP.md queue 1, item 9:
-    :meth:`TrainSession.plan_auto` runs the best executable arm in its
-    place)."""
+    pipeline winner runs the pipeline, its DP edge per layer row on the
+    arm's dominant (compressor, algo) choice, as the reference's does."""
     if sp.schedule.kind == "local_sgd":
         return SyncStrategy(
             scheduler=get_scheduler("local_sgd", period=sp.schedule.period),
             param_reducer=PlanExecutor(sp.comm, axes))
     if sp.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"the planner's arm {sp.key} needs a pipeline executor, not "
-            f"ported yet (ROADMAP.md queue 1, item 9)")
+        # the arm's comm plan describes the DP edge of the modeled heavy
+        # stage; the executor re-derives a per-row plan on the live stage
+        # tree from the arm's dominant bucket (DESIGN.md §9)
+        return SyncStrategy(scheduler=get_scheduler("every_step"),
+                            grad_reducer=_per_row_reducer(sp.comm, axes),
+                            parallelism=sp.parallelism)
     return SyncStrategy(scheduler=get_scheduler("every_step"),
                         grad_reducer=PlanExecutor(sp.comm, axes),
                         parallelism=sp.parallelism)
+
+
+def _per_row_reducer(comm, axes) -> GradientSynchronizer:
+    """A per-leaf ``GradientSynchronizer`` on the (compressor, algo) of the
+    plan's largest bucket: plans are tied to the whole model's tree, the
+    pipeline's DP edge syncs per layer row."""
+    dom = max(comm.buckets, key=lambda b: b.bucket_bytes)
+    return GradientSynchronizer(
+        SyncConfig(compressor=dom.compressor,
+                   compressor_args=dom.compressor_args, algo=dom.algo,
+                   bucket_bytes=0), axes)
 
 
 def plan_decision(sp: StrategyPlan) -> Dict[str, Any]:
@@ -152,6 +181,23 @@ def plan_digest(sp: StrategyPlan) -> str:
                           .encode()).hexdigest()
 
 
+def _leaf_shaped_keys(data: Dict[str, Any]) -> Dict[str, Any]:
+    """Checkpoint keys in the leaf-shaped form.  The reference's pipeline
+    sessions save their optimizer state in the stage tree's form
+    (``opt/<buffer>/shared/...`` and ``opt/<buffer>/rows/<period>/...``
+    with (R, ...) leaves); those keys become ``opt/<buffer>/...`` and
+    ``opt/<buffer>/stack/0/<period>/...``."""
+    out = {}
+    for k, v in data.items():
+        parts = k.split("/")
+        if len(parts) > 3 and parts[0] == "opt" and parts[2] == "shared":
+            k = "/".join(parts[:2] + parts[3:])
+        elif len(parts) > 3 and parts[0] == "opt" and parts[2] == "rows":
+            k = "/".join(parts[:2] + ["stack", "0"] + parts[3:])
+        out[k] = v
+    return out
+
+
 class TrainSession:
     """One training run driven by a :class:`SyncStrategy` (or vanilla BSP).
 
@@ -162,7 +208,8 @@ class TrainSession:
     ``group`` is the process group (default: the default group, created at
     world 1 if there is none).  ``self.params`` and ``self.opt_state`` are
     this rank's: under local SGD or push/pull, this worker's parameters
-    (the reference's ``params`` is worker 0's view)."""
+    (the reference's ``params`` is worker 0's view); in pipeline mode the
+    merged tree of every stage (a collective when S > 1)."""
 
     def __init__(self, cfg: Optional[SessionConfig] = None,
                  strategy: Optional[SyncStrategy] = None, params=None,
@@ -185,6 +232,10 @@ class TrainSession:
         self.group = group
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        # this rank's place on the data axis (the batch rows it trains on);
+        # a pipeline build moves it to the data group of its pipe x data
+        # mesh
+        self.dp_rank, self.dp_world = self.rank, self.world
         if c.batch % self.world:
             raise ValueError(f"global batch {c.batch} does not split over "
                              f"{self.world} ranks")
@@ -193,20 +244,26 @@ class TrainSession:
         self.data = SyntheticPipeline(DataConfig(
             vocab_size=model_cfg.vocab_size, seq_len=c.seq,
             global_batch=c.batch))
-        if params is None:
-            params = self.model.init(torch.Generator(self.device).manual_seed(
-                c.seed))
-        else:
+        # a pipeline strategy is built here, before any moment exists: at
+        # S > 1 the build draws only this stage's rows (``_build_pipeline``)
+        pipelined = strategy is not None and (
+            strategy.pipeline_stages > 1 or strategy.micro_batches > 1)
+        if params is not None:
             params = tree_map(lambda t: t.detach().to(self.device).clone(),
                               params)
-        self.params = params
-        self.opt_state = self.optimizer.init(params)
-        # measured f32 moment buffers per parameter (sgd carries one, adam
-        # two): the planner's memory model
-        n_elems = sum(int(p.numel()) for p in tree_leaves(params))
+        elif not (pipelined and strategy.pipeline_stages > 1):
+            params = self.model.init(torch.Generator(self.device).manual_seed(
+                c.seed))
+        self._params = params
+        self.opt_state = None if pipelined else self.optimizer.init(params)
+        # f32 moment buffers per parameter (sgd carries one, adam two),
+        # counted on the optimizer's state for meta tensors of the model's
+        # shapes: the planner's memory model
+        meta = [torch.empty(d.shape, device="meta")
+                for d in desc_leaves(self.model.param_desc())]
         self.opt_moments = (sum(int(x.numel()) for x in
-                                tree_leaves(self.opt_state))
-                            / max(n_elems, 1))
+                                tree_leaves(self.optimizer.init(meta)))
+                            / max(sum(int(x.numel()) for x in meta), 1))
         # the data axes the planned reducers run over: the session's
         # group, or one group per tier after apply_topology
         self.axes: Tuple[Any, ...] = as_axes(group)
@@ -214,6 +271,8 @@ class TrainSession:
         self.tiered_mesh = False
         self.planned: Optional[Dict[str, Any]] = None
         self.layout: Optional[ShardLayout] = None   # set by sharded builds
+        self.staged: Optional[StagedModel] = None   # set by pipeline builds
+        self.pipe_axis = None                        # the pipe group (S > 1)
         self._restore_opt: Optional[Dict[str, Any]] = None
         self.sync_state: Optional[Any] = None
         self.step = 0
@@ -225,6 +284,28 @@ class TrainSession:
         self.wall_s = float("nan")
         self._engine = None
         self._built = False
+        if pipelined:
+            self._build()
+
+    @property
+    def params(self):
+        """The parameter tree; in pipeline mode the stages merged back into
+        the model's tree (at S > 1 a gather over the pipe group, which
+        every rank of it must join)."""
+        if self.staged is None:
+            return self._params
+        rows = self._params["rows"]
+        if self.pipe_axis is not None:
+            rows = tree_map(lambda x: all_gather(x, self.pipe_axis), rows)
+        else:
+            rows = tree_map(lambda x: x[None], rows)
+        return self.staged.merge(self._params["shared"], rows)
+
+    @params.setter
+    def params(self, value) -> None:
+        if self.staged is not None:
+            raise RuntimeError("a pipeline session's params are its stages'")
+        self._params = value
 
     @property
     def comm_rounds(self) -> int:
@@ -250,12 +331,18 @@ class TrainSession:
             self._built = True
             return
         st = self.strategy
+        if st.pipeline_stages > 1 or st.micro_batches > 1:
+            # S = 1 with micro-batches is the degenerate pipe: the same
+            # 1F1B step with no hop, plain gradient accumulation
+            self._build_pipeline(st)
+            self._built = True
+            return
         if st.shard_state:
             self._build_sharded(st)
             self._built = True
             return
         sched = st.scheduler
-        self._sched_state = sched.init_state(self.params)
+        self._sched_state = sched.init_state(self._params)
         engine = st.grad_reducer
         if engine is None and "sync" in sched.computes:
             engine = GradientSynchronizer(SyncConfig(), self.group)
@@ -263,11 +350,11 @@ class TrainSession:
         if sched.needs_grad_probe:
             self._probe, self._sync, self._reuse = make_lag_programs(
                 self.model, self.optimizer, engine, self.group)
-            self.sync_state = engine.init_state(self.params)
+            self.sync_state = engine.init_state(self._params)
         elif "sync" in sched.computes:
             self._sync, _, init_sync_state = _make_synced_train_step(
                 self.model, self.optimizer, engine, self.group)
-            self.sync_state = init_sync_state(self.params)
+            self.sync_state = init_sync_state(self._params)
         if "local" in sched.computes:
             self._local = make_local_train_step(self.model, self.optimizer,
                                                 self.group)
@@ -279,8 +366,8 @@ class TrainSession:
                 # start), in f32, equal on every rank
                 self._anchor = tree_map(
                     lambda p: p.detach().to(torch.float32, copy=True),
-                    self.params)
-                self._red_state = st.param_reducer.init_state(self.params)
+                    self._params)
+                self._red_state = st.param_reducer.init_state(self._params)
         self._built = True
 
     def _build_sharded(self, st: SyncStrategy) -> None:
@@ -290,20 +377,20 @@ class TrainSession:
         first.  A ``GradientSynchronizer`` (or no reducer: dense psum)
         runs the packed plan of ``sharded_plan_from_config``."""
         sched = st.scheduler
-        self._sched_state = sched.init_state(self.params)
+        self._sched_state = sched.init_state(self._params)
         engine = st.grad_reducer
         if engine is None:
             engine = PlanExecutor(
-                sharded_plan_from_config(SyncConfig(), self.params),
+                sharded_plan_from_config(SyncConfig(), self._params),
                 self.axes)
         elif isinstance(engine, GradientSynchronizer):
             engine = PlanExecutor(
-                sharded_plan_from_config(engine.cfg, self.params),
+                sharded_plan_from_config(engine.cfg, self._params),
                 engine.axes)
         self._engine = engine
         axes = engine.axes
         self.layout = ShardLayout.from_plan(
-            engine.plan, self.params, tuple(axis_size(a) for a in axes))
+            engine.plan, self._params, tuple(axis_size(a) for a in axes))
         shopt = make_sharded_optimizer(self.cfg.optimizer, self.layout,
                                        axes, lr=self._lr)
         self._sync, init_opt_rows, init_sync_state = \
@@ -319,7 +406,7 @@ class TrainSession:
             master = full.pop("master", None)
             if master is None:
                 master = tree_map(lambda p: p.detach().to(torch.float32),
-                                  self.params)
+                                  self._params)
             want = sorted(shopt.init([]))     # the optimizer's buffers
             if want != sorted(full):
                 raise ValueError(
@@ -331,21 +418,110 @@ class TrainSession:
                         for k in want}}
             del master, full
         else:
-            self.opt_state = init_opt_rows(self.params)
-        self.sync_state = init_sync_state(self.params)
+            self.opt_state = init_opt_rows(self._params)
+        self.sync_state = init_sync_state(self._params)
+
+    def _build_pipeline(self, st: SyncStrategy) -> None:
+        """Pipeline programs (DESIGN.md §9): the world becomes ``pipe(S) ×
+        data(world/S)`` (``mesh_axes``; rank r is stage r // dp, data
+        index r % dp), the parameters this stage's shared cells and rows
+        (``self._params = {"shared": ..., "rows": (R/S, ...)}``), the
+        optimizer and EF state per layer row, and the step
+        ``make_pipeline_train_step``.  The DP edge runs a per-leaf
+        ``GradientSynchronizer`` on the data group.  A strategy given at
+        construction is built there, before any optimizer state exists,
+        and at S > 1 from no parameters: the stage draws its own rows
+        (``StagedModel.init_stage``); a planned winner splits the whole
+        tree the session holds and frees its moments.  The reference's
+        refusals: a scheduler other than every-step sync, a world not
+        divisible by S, a batch that does not split into dp x M, a
+        ``CommPlan`` reducer."""
+        sched = st.scheduler
+        if (sched.computes != frozenset({"sync"}) or sched.has_param_rounds
+                or sched.needs_grad_probe or sched.diverges_params):
+            raise ValueError(
+                f"pipeline_stages requires an every-step gradient-sync "
+                f"scheduler, got {sched.name!r}: local phases and gradient "
+                f"reuse assume each worker holds the WHOLE model")
+        S, M = st.pipeline_stages, st.micro_batches
+        if self.world % S != 0:
+            raise ValueError(f"{self.world} ranks do not factor into "
+                             f"pipe({S}) x data")
+        dp = self.world // S
+        if self.cfg.batch % dp or (self.cfg.batch // dp) % M:
+            raise ValueError(
+                f"global batch {self.cfg.batch} must split into "
+                f"{dp} DP shards x {M} micro-batches")
+        engine = st.grad_reducer
+        if engine is not None and not isinstance(engine,
+                                                 GradientSynchronizer):
+            raise ValueError(
+                "pipeline mode takes a SyncConfig-backed reducer (a "
+                "CommPlan is tied to the full-model pytree; the stage "
+                "pytree is per-row)")
+        staged = StagedModel(self.model, S)
+        if S > 1:
+            if self.world != dist.get_world_size():
+                raise ValueError("a pipeline of S > 1 stages splits the "
+                                 "default process group; this session "
+                                 "runs on a subgroup")
+            self.pipe_axis, data = mesh_axes((S, dp))
+        else:
+            data = self.group
+        stage = axis_index(self.pipe_axis) if S > 1 else 0
+        self.dp_rank, self.dp_world = axis_index(data), dp
+        self.axes = (data,)
+        cfg = engine.cfg if engine is not None else SyncConfig()
+        # per-leaf buckets: the DP edge syncs per layer row, keeping the
+        # compression granularity the same at every stage count
+        engine = GradientSynchronizer(
+            dataclasses.replace(cfg, bucket_bytes=0), data)
+        self._engine = engine
+        if self._params is None:
+            # drawn as the whole tree is, this stage's rows kept
+            shared, rows = staged.init_stage(
+                torch.Generator(self.device).manual_seed(self.cfg.seed),
+                stage)
+        else:
+            shared, rows = staged.split(self._params, stage=stage)
+        self.opt_state = None        # a planned winner's moments go first
+        self._params = {"shared": shared, "rows": rows}
+        self.staged = staged
+        self._sched_state = sched.init_state(self._params)
+        del shared, rows
+        self._sync, init_opt_state, init_sync_state = \
+            make_pipeline_train_step(staged, self.optimizer, engine, M,
+                                     self.pipe_axis, data)
+        self.opt_state = init_opt_state(self._params)
+        self.sync_state = init_sync_state(self._params)
+
+    def _leaf_shaped(self, tree):
+        """A stage tree ``{"shared", "rows": [per-row trees]}`` of this
+        stage as the model's leaf-shaped tree (rows merged over the pipe
+        group: a collective at S > 1)."""
+        R = self.staged.layout.rows
+        st = merge_opt_rows({"t": {"rows": tree["rows"]}}, R,
+                            self.pipe_axis)["t"]["rows"]
+        stack = st if R > 1 else tree_map(lambda x: x[0], st)
+        return {**tree["shared"], "stack": [stack]}
 
     def full_opt_state(self):
         """Leaf-shaped view of the optimizer state: the replicated state
-        as-is, or — in sharded mode — the moments and the f32 master
-        parameters gathered from every rank's rows (a collective: every
-        rank calls it; checkpoints and conformance tests)."""
+        as-is; in sharded mode the moments and the f32 master parameters
+        gathered from every rank's rows; in pipeline mode the per-row
+        moments of every stage merged into the model's leaves
+        (``merge_opt_rows``).  A collective in both modes: every rank
+        calls it (checkpoints and conformance tests)."""
+        if self.staged is not None:
+            return {k: self._leaf_shaped(v)
+                    for k, v in self.opt_state.items()}
         if self.layout is None:
             return self.opt_state
         axes = self._engine.axes
         rows = self.opt_state
-        full = {k: self.layout.gather_tree(v, self.params, axes)
+        full = {k: self.layout.gather_tree(v, self._params, axes)
                 for k, v in rows["opt"].items()}
-        full["master"] = self.layout.gather_tree(rows["master"], self.params,
+        full["master"] = self.layout.gather_tree(rows["master"], self._params,
                                                  axes)
         return full
 
@@ -395,7 +571,7 @@ class TrainSession:
         def once() -> float:
             sync()
             t0 = time.perf_counter()
-            _, grads = loss_and_grads(self.model, self.params, batch)
+            _, grads = loss_and_grads(self.model, self._params, batch)
             sync()
             dt = time.perf_counter() - t0
             del grads
@@ -434,6 +610,22 @@ class TrainSession:
                     f"before the first step")
         return digest
 
+    def _pipeline_executable(self, S: int, M: int) -> bool:
+        """Can pipeline(S, M) run on THIS session's world and batch?  (The
+        modeled plan may target a pod through its topology.)"""
+        if S < 2 or self.world % S:
+            return False
+        dp = self.world // S
+        if self.cfg.batch % dp or (self.cfg.batch // dp) % M:
+            return False
+        if self.world != dist.get_world_size():
+            return False
+        try:
+            StagedModel(self.model, S)
+        except ValueError:
+            return False
+        return True
+
     def _note(self, msg: str) -> None:
         if self.rank == 0:
             print(msg, flush=True)
@@ -444,7 +636,8 @@ class TrainSession:
                   shard_state: Optional[bool] = None,
                   memory_budget_gb: Optional[float] = None,
                   topology=None, compression_costs=None,
-                  parallelism=None) -> StrategyPlan:
+                  parallelism=None, pipeline_stages: Optional[int] = None,
+                  micro_batches: Optional[int] = None) -> StrategyPlan:
         """``--sync auto``: profile the backward, search (rounds schedule ×
         per-bucket strategy × shard axis × parallelism axis) and install
         the winning composite as this session's strategy.
@@ -465,22 +658,30 @@ class TrainSession:
         ``"dp=4,shard"``) pins the free search to that spec's arms.
         ``compression_costs`` (a ``CompressionCostTable`` or a path to the
         reference's JSON) replaces the analytic compression-compute term.
+        ``pipeline_stages`` / ``micro_batches`` pin the arm to pipeline(S,
+        M) (M defaults to 8): only its DP edge is planned, priced at the
+        world if it factors into pipe(S) x data(>= 2), else at 2S.
 
-        A pipeline winner cannot run here (item 9): the best executable
-        arm runs instead, with the reference's note.  A sharded winner
-        (``every_step_sharded``) runs sharded data parallelism on its
-        plan.  Before returning, every
+        A pipeline winner runs the pipeline where this session's world and
+        batch can stage it (:meth:`_pipeline_executable`); otherwise the
+        best arm that can run here runs instead, with the reference's
+        note.  A sharded winner (``every_step_sharded``) runs sharded data
+        parallelism on its plan.  Before returning, every
         rank checks that all ranks planned alike.  The decision record is
         ``self.planned``: the reference's keys, plus the arm that runs
         (``executed``), the plan's ``digest`` and the search's host
         seconds (``search_s``)."""
         if self._built:
-            raise RuntimeError("plan_auto must run before the first step")
+            raise RuntimeError("plan_auto must run before the first step "
+                               "(a pipeline strategy given at construction "
+                               "is built there)")
         if parallelism is not None:
-            if shard_state is not None:
+            if (shard_state is not None or pipeline_stages is not None
+                    or micro_batches is not None):
                 raise ValueError(
-                    "parallelism= subsumes shard_state — fold it into the "
-                    "spec (e.g. 'dp=4,shard')")
+                    "parallelism= subsumes shard_state/pipeline_stages/"
+                    "micro_batches — fold them into the spec "
+                    "(e.g. 'dp=4,pp=2,micro=8,shard')")
             if scheduler is not None:
                 raise ValueError(
                     "parallelism= pins arms of the planner's FREE search; "
@@ -496,6 +697,10 @@ class TrainSession:
                 "memory_budget_gb constrains the planner's FREE search "
                 "over arms; a pinned rounds scheduler fixes the memory "
                 "footprint, so the budget cannot be enforced — drop one")
+        if pipeline_stages is not None and pipeline_stages > 1:
+            if scheduler is not None or shard_state:
+                raise ValueError("pipeline_stages composes with every-step "
+                                 "replicated DP only (DESIGN.md §9)")
         if self.topology is not None:
             lp: Any = self.topology
             world = lp.world
@@ -504,7 +709,7 @@ class TrainSession:
             world = self.world
         if t_backward_s is None:
             t_backward_s = self._group_min(self.profile_backward())
-        profiles = profiles_from_grads(self.params, t_backward_s)
+        profiles = profiles_from_grads(self._params, t_backward_s)
         cost_table = resolve_cost_table(compression_costs)
         kw: Dict[str, Any] = {}
         if candidates is not None:
@@ -527,7 +732,33 @@ class TrainSession:
 
         arms: Dict[str, StrategyPlan]
         t_search = time.perf_counter()
-        if scheduler is None:
+        if pipeline_stages is not None and pipeline_stages > 1:
+            # pinned pipeline(S, M): price that arm, plan only its DP edge
+            S = pipeline_stages
+            M = micro_batches or 8
+            # price at the world when it factors into pipe(S) x data(>= 2);
+            # otherwise at the smallest such world (a one-card run still
+            # gets an honest modeled record)
+            plan_w = world if (world % S == 0 and world // S >= 2) else 2 * S
+            act = (pipe_axis.global_tokens / (plan_w // S) / M
+                   * pipe_axis.bytes_per_token)
+            net_p = lp
+            if isinstance(lp, Topology) and (
+                    plan_w != lp.world
+                    or not pipeline_placements(lp, plan_w, S)):
+                # the pinned S fits no tier (or the fallback world left
+                # the topology behind): price flat on the outermost link
+                self._note(f"note: pinned pipeline(S={S}) fits no tier of "
+                           f"{lp.spec()}; pricing it flat on the outermost "
+                           f"link")
+                net_p = lp.outermost.link
+            best = exec_best = pipeline_arm(
+                profiles, net_p, plan_w, S, M, act,
+                opt_name=self.cfg.optimizer,
+                opt_moments=self.opt_moments, **kw)
+            arms = {best.key: best}
+            strategy = strategy_from_plan(best, self.axes)
+        elif scheduler is None:
             shard_grid = ((False, True) if shard_state is None
                           else (bool(shard_state),))
             best, arms = plan_rounds(
@@ -540,12 +771,15 @@ class TrainSession:
                 **dict(kw, **({"tau_grid": tau_grid}
                               if tau_grid is not None else {})))
             exec_best = best
-            if best.pipeline_stages > 1:
-                # no pipeline executor yet (ROADMAP.md queue 1, item 9):
-                # run the best arm that CAN execute, keep the record
-                exec_best = min((a for a in arms.values()
-                                 if a.pipeline_stages <= 1),
-                                key=lambda a: a.modeled_step_s)
+            if best.pipeline_stages > 1 and not self._pipeline_executable(
+                    best.pipeline_stages, best.micro_batches):
+                # the modeled winner targets a pod this world cannot
+                # stage: run the best arm that CAN execute, keep the record
+                exec_best = min(
+                    (a for a in arms.values() if a.pipeline_stages <= 1
+                     or self._pipeline_executable(a.pipeline_stages,
+                                                  a.micro_batches)),
+                    key=lambda a: a.modeled_step_s)
                 self._note(f"note: modeled winner {best.key} needs a "
                            f"pipe({best.pipeline_stages}) mesh this host "
                            f"cannot build; executing {exec_best.key} "
@@ -589,13 +823,48 @@ class TrainSession:
                         "search_s": search_s}
         return best
 
+    def apply_micro_batching(self, micro_batches: int) -> bool:
+        """Attach S = 1 micro-batched accumulation (the degenerate pipe)
+        to the installed strategy — the ``--sync auto --micro-batches M``
+        composition.  Composes with every-step replicated arms only; for
+        other winners (local SGD, sharded, a pipelined arm) the request is
+        declined with a printed reason.  Returns True when micro-batching
+        will run.  The reference's method."""
+        M = int(micro_batches)
+        st = self.strategy
+        if M > 1 and st is not None and (st.pipeline_stages > 1
+                                         or st.micro_batches > 1):
+            return True                      # already micro-batched
+        if self._built:
+            raise RuntimeError("apply_micro_batching must run before the "
+                               "first step")
+        if M <= 1 or st is None:
+            return M <= 1 and st is None
+        sched = st.scheduler
+        if (sched.computes != frozenset({"sync"}) or sched.has_param_rounds
+                or sched.needs_grad_probe or st.shard_state):
+            self._note(f"note: micro-batching composes with every-step "
+                       f"replicated sync only; chosen arm "
+                       f"({st.describe()}) runs without it")
+            return False
+        reducer = st.grad_reducer
+        if isinstance(reducer, PlanExecutor):
+            # plans are tied to the whole model's tree: a per-row reducer
+            # from the plan's dominant bucket
+            reducer = _per_row_reducer(reducer.plan, self.axes)
+        self.strategy = SyncStrategy(
+            scheduler=sched, grad_reducer=reducer,
+            parallelism=ParallelismSpec(micro_batches=M))
+        return True
+
     def batch(self, step: int):
-        """This rank's rows of the global batch of ``step`` (rank r of w
-        takes rows r·B/w … (r+1)·B/w, as the reference shards the batch
-        over its data axis)."""
+        """This rank's rows of the global batch of ``step`` (data rank d
+        of dp takes rows d·B/dp … (d+1)·B/dp, as the reference shards the
+        batch over its data axis; every stage of a pipe takes its data
+        rank's rows)."""
         tokens = self.data.batch(step)["tokens"]
-        local = tokens.shape[0] // self.world
-        rows = tokens[self.rank * local:(self.rank + 1) * local]
+        local = tokens.shape[0] // self.dp_world
+        rows = tokens[self.dp_rank * local:(self.dp_rank + 1) * local]
         return {"tokens": torch.from_numpy(np.ascontiguousarray(rows)).to(
             self.device, torch.int64)}
 
@@ -608,7 +877,7 @@ class TrainSession:
         step = self.step
         batch = self.batch(step)
         if self.strategy is None:
-            loss = self._base(self.params, self.opt_state, batch, step)
+            loss = self._base(self._params, self.opt_state, batch, step)
             self.grad_rounds += 1      # BSP syncs gradients every step
             return self._record(loss)
 
@@ -620,7 +889,7 @@ class TrainSession:
         probe = None
         if sched.needs_grad_probe:
             loss_p, grads, delta, scale = self._probe(
-                self.params, batch, self._sched_state["g_last"])
+                self._params, batch, self._sched_state["g_last"])
             probe = {"delta": float(delta), "scale": float(scale)}
             self.control_rounds += 1
         action, self._sched_state = sched.round(step, self._sched_state,
@@ -628,29 +897,29 @@ class TrainSession:
         synced = None
         if action.compute == "sync":
             if sched.needs_grad_probe:
-                self.params, self.opt_state, self.sync_state, synced = \
-                    self._sync(self.params, self.opt_state, self.sync_state,
+                self._params, self.opt_state, self.sync_state, synced = \
+                    self._sync(self._params, self.opt_state, self.sync_state,
                                grads, step, rng)
                 loss = loss_p
             else:
-                self.params, self.opt_state, self.sync_state, loss = \
-                    self._sync(self.params, self.opt_state, self.sync_state,
+                self._params, self.opt_state, self.sync_state, loss = \
+                    self._sync(self._params, self.opt_state, self.sync_state,
                                batch, step, rng)
             self.grad_rounds += 1
         elif action.compute == "reuse":
-            self.params, self.opt_state = self._reuse(
-                self.params, self.opt_state, self._sched_state["g_last"],
+            self._params, self.opt_state = self._reuse(
+                self._params, self.opt_state, self._sched_state["g_last"],
                 step)
             loss = loss_p
         elif action.compute == "local":
-            loss = self._local(self.params, self.opt_state, batch, step)
+            loss = self._local(self._params, self.opt_state, batch, step)
         else:
             raise ValueError(f"unknown action {action.compute!r}")
         if sched.needs_grad_probe:
             del grads
         if action.param_round:
-            self.params, self._anchor, self._red_state = self._param_round(
-                self.params, self._anchor, self._red_state, rng)
+            self._params, self._anchor, self._red_state = self._param_round(
+                self._params, self._anchor, self._red_state, rng)
             self.param_rounds += 1
         self._sched_state = sched.commit(self._sched_state, action, synced)
         del synced
@@ -683,7 +952,7 @@ class TrainSession:
         return out
 
     def num_params(self) -> int:
-        return sum(int(p.numel()) for p in tree_leaves(self.params))
+        return count_params(self.model_cfg)
 
     def save_checkpoint(self, path: str) -> None:
         """Write ``{"params", "opt"}`` and the step in the reference's
@@ -692,12 +961,14 @@ class TrainSession:
         view); the other ranks wait for it.  In sharded mode the optimizer
         state is saved LEAF-SHAPED (:meth:`full_opt_state`, which every
         rank joins: the moments and the f32 master), so the checkpoint
-        restores at any world and in either mode."""
-        opt = self.full_opt_state()
+        restores at any world and in either mode; in pipeline mode the
+        parameters and moments are merged from every stage into the
+        model's leaves, so the checkpoint does not pin the stage count."""
+        params, opt = self.params, self.full_opt_state()
         if self.rank == 0:
-            checkpoint.save(path, {"params": self.params, "opt": opt},
+            checkpoint.save(path, {"params": params, "opt": opt},
                             step=self.step)
-        del opt
+        del params, opt
         if self.world > 1:
             dist.barrier(self.group)
 
@@ -714,10 +985,18 @@ class TrainSession:
         Sets and returns the restored step; the synthetic data is a
         function of the step, so the resumed run replays the batch
         sequence."""
+        if self.strategy is not None and (
+                self.strategy.pipeline_stages > 1
+                or self.strategy.micro_batches > 1):
+            raise NotImplementedError(
+                "load_checkpoint composes with replicated and sharded DP "
+                "builds; restoring into a pipeline/micro-batched build is "
+                "not supported")
         if self._built:
             raise RuntimeError("load_checkpoint must run before the first "
                                "step")
         data, manifest = checkpoint.load_tensors(path, self.device)
+        data = _leaf_shaped_keys(data)
 
         def tree_at(prefix, like):
             flat = _flatten_with_paths(like)
@@ -730,10 +1009,10 @@ class TrainSession:
             it = iter([data[f"{prefix}/{k}"] for k in flat])
             return tree_map(lambda _: next(it), like)
 
-        self.params = tree_at("params", self.params)
+        self._params = tree_at("params", self._params)
         tops = sorted({k.split("/", 2)[1]
                        for k in data if k.startswith("opt/")})
-        full = {t: tree_at(f"opt/{t}", self.params) for t in tops}
+        full = {t: tree_at(f"opt/{t}", self._params) for t in tops}
         moments = {k: v for k, v in full.items() if k != "master"}
         missing = sorted(set(self.opt_state) - set(moments))
         if missing:

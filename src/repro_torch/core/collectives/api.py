@@ -28,7 +28,7 @@ it.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -194,14 +194,20 @@ def all_to_all(x: torch.Tensor, axis: Axis, variant: str = "direct"):
 # Pipeline edge: neighbour send/recv along one axis (DESIGN.md §9)
 # ---------------------------------------------------------------------------
 
-def send_recv(x: torch.Tensor, axis: Axis, shift: int = 1) -> torch.Tensor:
+def send_recv(x: torch.Tensor, axis: Axis, shift: int = 1,
+              senders: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Every rank's ``x`` moves to rank ``r + shift`` along ``axis``
     (``+1`` forward, ``-1`` backward).  It does not wrap: an edge rank
-    with no sender gets zeros."""
+    with no sender gets zeros.  ``senders`` (axis indices; default all)
+    names the ranks that hold a payload this hop, as the pipeline's
+    schedule knows on every rank: only those pairs move data, the others
+    get zeros, and a rank that is no one's receiver passes any tensor of
+    the payload's shape and dtype."""
     p = axis_size(axis)
     if shift not in (1, -1):
         raise ValueError(f"send_recv moves one hop, got shift={shift}")
-    perm = [(i, i + shift) for i in range(p) if 0 <= i + shift < p]
+    perm = [(i, i + shift) for i in range(p) if 0 <= i + shift < p
+            and (senders is None or i in senders)]
     if not perm:                        # single-stage degenerate pipe
         return torch.zeros_like(x)
     return permute(x, perm, axis)

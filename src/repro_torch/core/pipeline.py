@@ -13,17 +13,21 @@
   * :func:`aligned_ticks` / :func:`aligned_order` — the SPMD slot grid of
     the reference's pipeline executor (DESIGN.md §9);
   * :func:`stage_param_bytes` — per-stage parameter bytes under the
-    balanced cut.
-
-The executor itself (``StagedModel`` and the 1F1B train step) is ROADMAP
-queue 1, item 9; until then the planner prices pipeline arms and the
-session runs the best arm that needs no pipeline mesh.
+    balanced cut;
+  * :class:`StageLayout` / :class:`StagedModel` — the model cut into
+    homogeneous stages of layer rows, the surface the 1F1B train step
+    (``launch/steps.py:make_pipeline_train_step``) runs.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch._tree import tree_map
 
 # t_forward / t_backward for the matmul-dominated stacks this repo models:
 # profile_backward() returns 2/3 of a grad step as backward, so forward is
@@ -197,6 +201,141 @@ def aligned_order(n_stages: int, micro_batches: int
                 ops.append(("B", mb))
         out.append(ops)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Staged models
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageLayout:
+    """Static geometry of a staged model: ``rows`` layer rows split into
+    ``n_stages`` equal groups of ``rows_per_stage`` (homogeneous stages:
+    every pipe rank runs the same program on its own rows)."""
+    n_stages: int
+    rows: int
+    rows_per_stage: int
+
+
+class StagedModel:
+    """Pipeline adapter for a ``repro_torch.models.Model`` (the
+    reference's ``StagedModel``).
+
+    Params split into a SHARED part (embed, final norm, lm head; every
+    stage holds it, stage 0 owning the embedding's gradient and stage S-1
+    the loss tail's) and the stack's layer ROWS: the single segment's
+    ``(R, ...)`` leaves cut into S groups of R/S rows.  Staging needs a
+    decoder-only model whose stack is ONE segment (a homogeneous period)
+    with ``repeats % S == 0``: every stage runs the same program on its
+    own rows.  Anything else is refused with the reference's errors."""
+
+    def __init__(self, model, n_stages: int):
+        self.model = model
+        self.cfg = model.cfg
+        S = int(n_stages)
+        if self.cfg.is_encoder_decoder:
+            raise ValueError("pipeline staging supports decoder-only "
+                             "models; encoder-decoder stacks have no single "
+                             "layer chain to cut")
+        plan = model.plan
+        if len(plan) != 1:
+            raise ValueError(
+                f"pipeline staging requires a homogeneous scannable stack "
+                f"(one segment); {self.cfg.name!r} lowers to {len(plan)} "
+                f"segments {[(len(s.period), s.repeats) for s in plan]}")
+        seg = plan[0]
+        R = seg.repeats
+        if R % S != 0:
+            raise ValueError(f"stack repeats {R} not divisible by "
+                             f"n_stages {S}")
+        if R == 1 and S != 1:
+            raise ValueError(f"single-row stack cannot be cut into {S} "
+                             f"stages")
+        self.seg = seg
+        self.layout = StageLayout(n_stages=S, rows=R, rows_per_stage=R // S)
+        self.aux_coef = float(self.cfg.router_aux_coef)
+
+    # -- params --------------------------------------------------------------
+
+    def split(self, params, stage: Optional[int] = None):
+        """params -> (shared, rows).  ``stage=None``: every stage's rows,
+        leaves reshaped (R, ...) -> (S, R/S, ...) (views).  ``stage=s``:
+        only stage s's (R/S, ...) rows, copied out of the stack so that
+        the whole stack can be freed — the process of one stage keeps no
+        other stage's rows."""
+        shared = {k: v for k, v in params.items() if k != "stack"}
+        stack = params["stack"][0]          # the single segment
+        S, rps = self.layout.n_stages, self.layout.rows_per_stage
+        if self.layout.rows == 1:
+            stack = tree_map(lambda x: x[None], stack)
+        if stage is None:
+            return shared, tree_map(
+                lambda x: x.reshape((S, rps) + tuple(x.shape[1:])), stack)
+        if not 0 <= stage < S:
+            raise ValueError(f"stage {stage} of {S}")
+        lo = stage * rps
+        return shared, tree_map(
+            lambda x: x if S == 1 else x[lo:lo + rps].clone(), stack)
+
+    def init_stage(self, generator: torch.Generator, stage: int, dtype=None):
+        """Stage ``stage``'s ``(shared, rows)``, equal to ``split(
+        model.init(generator, dtype), stage=stage)`` — the same draws in
+        the same leaf order — with each stack leaf cut to the stage's rows
+        as soon as it is drawn: no other stage's rows outlive the drawing
+        of one leaf."""
+        S, rps = self.layout.n_stages, self.layout.rows_per_stage
+        if S == 1 or not 0 <= stage < S:
+            raise ValueError(f"stage {stage} of {S}")
+        params = self.model.init(generator, dtype,
+                                 rows=slice(stage * rps, (stage + 1) * rps))
+        shared = {k: v for k, v in params.items() if k != "stack"}
+        return shared, params["stack"][0]
+
+    def merge(self, shared, rows_stacked):
+        """Inverse of :meth:`split` with ``stage=None``: (S, R/S, ...) rows
+        back to the stack's (R, ...) leaves."""
+        R = self.layout.rows
+        if R == 1:
+            stack = tree_map(lambda x: x[0, 0], rows_stacked)
+        else:
+            stack = tree_map(
+                lambda x: x.reshape((R,) + tuple(x.shape[2:])), rows_stacked)
+        out = dict(shared)
+        out["stack"] = [stack]
+        return out
+
+    # -- stage programs ------------------------------------------------------
+
+    def embed_mb(self, shared, tokens):
+        """Input cell: the token embedding of one micro-batch (stage 0)."""
+        return self.model._embed(shared, tokens)
+
+    def stage_apply(self, rows, h):
+        """One stage: its ``rows_per_stage`` period rows in sequence, every
+        block checkpointed while autograd records (the policy of
+        ``transformer.stack_train``).  Returns (h, aux); the ported dense
+        blocks add no MoE aux loss, so aux is an f32 zero."""
+        from repro_torch.models import transformer
+        cfg, seg = self.cfg, self.seg
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        remat = torch.is_grad_enabled()
+        for period in transformer._unstack(rows, self.layout.rows_per_stage):
+            for spec, p in zip(seg.period, period):
+                def blk(x, p=p, spec=spec):
+                    return transformer.block_train(p, cfg, spec, x,
+                                                   positions)
+                h = checkpoint(blk, h, use_reentrant=False) if remat \
+                    else blk(h)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def loss_tail(self, shared, h, tokens):
+        """Head cell: final norm + chunked cross-entropy (stage S-1), with
+        ``Model.loss``'s label convention (the last position masked)."""
+        from repro_torch.models.layers import rmsnorm
+        labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])],
+                           dim=1)
+        h = rmsnorm(shared["final_norm"], h, eps=self.cfg.norm_eps)
+        return self.model._chunked_xent(shared, h, labels)
 
 
 def stage_param_bytes(leaf_bytes: Sequence[float], n_stages: int

@@ -23,8 +23,9 @@ reference is here.  The parallelism axis is a ``ParallelismSpec``: its
 tensor and expert axes are carried as record axes (the planner prices
 them; the port runs their DP edge, as the reference does on a mesh with
 no model axis), ``shard`` runs sharded data parallelism (partitioned f32
-master and moments, the session's sharded step), and the pipeline waits
-for ROADMAP.md queue 1, item 9.
+master and moments, the session's sharded step), and ``pp`` / ``micro``
+the 1F1B pipeline (the session's pipeline step; ``micro`` alone is
+micro-batched accumulation).
 """
 from __future__ import annotations
 
@@ -256,21 +257,16 @@ class SyncStrategy:
     ``ep`` axes are record axes: the gradient reducer runs the DP edge the
     planner priced for them.  ``shard`` partitions the optimizer state
     (the session builds the sharded step); it needs an every-step
-    gradient-sync scheduler.  The pipeline (``pp > 1`` or ``micro > 1``,
-    item 9) raises."""
+    gradient-sync scheduler.  ``pp > 1`` or ``micro > 1`` makes the
+    session build the 1F1B pipeline step (``pp = 1, micro > 1``: plain
+    micro-batched accumulation); it composes with every-step replicated
+    DP only — the spec refuses ``pp`` with ``shard``, and the session's
+    build refuses another scheduler, as the reference's does."""
 
     def __init__(self, scheduler: RoundScheduler, grad_reducer: Any = None,
                  param_reducer: Any = None, param_algo: str = "psum",
                  parallelism=None):
         spec = ParallelismSpec.coerce(parallelism)
-        waiting = [what for what, on in (
-            (f"a pipeline of pp={spec.pp} stages", spec.pp > 1),
-            (f"micro={spec.micro_batches} micro-batches",
-             spec.micro_batches > 1)) if on]
-        if waiting:
-            raise NotImplementedError(
-                f"parallelism {spec.spec()!r} needs {' and '.join(waiting)},"
-                f" not ported yet (ROADMAP.md queue 1, item 9)")
         if spec.shard_state:
             check_shardable(scheduler)
         self.scheduler = scheduler
@@ -283,16 +279,31 @@ class SyncStrategy:
     def shard_state(self) -> bool:
         return self.parallelism.shard_state
 
+    @property
+    def pipeline_stages(self) -> int:
+        return int(self.parallelism.pp)
+
+    @property
+    def micro_batches(self) -> int:
+        return max(int(self.parallelism.micro_batches), 1)
+
     def describe(self) -> str:
         p = self.parallelism
-        mode = " [shard_state 1/p]" if p.shard_state else ""
+        if self.pipeline_stages > 1:
+            mode = (f" [pipeline S={self.pipeline_stages} "
+                    f"M={self.micro_batches}]")
+        elif self.micro_batches > 1:
+            mode = f" [micro-batches M={self.micro_batches}]"
+        else:
+            mode = ""
         if p.tp > 1:
             mode += f" [tp={p.tp}" + (f"@{p.tp_tier}" if p.tp_tier else "") \
                 + "]"
         if p.ep > 1:
             mode += f" [ep={p.ep}" + (f"@{p.ep_tier}" if p.ep_tier else "") \
                 + "]"
-        parts = [self.scheduler.describe() + mode]
+        parts = [self.scheduler.describe()
+                 + (" [shard_state 1/p]" if p.shard_state else "") + mode]
         if "sync" in self.scheduler.computes:
             parts.append("grads via "
                          + _describe_reducer(self.grad_reducer, "dense psum"))

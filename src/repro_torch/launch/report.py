@@ -1,7 +1,8 @@
 """Plan tables and plan records of the port's ``--sync auto`` and
 ``serve --plan`` paths: the part of ``repro/launch/report.py`` that the
 planner calls (the per-tier cost breakdown, the markdown plan tables, the
-JSON plan record), and the per-worker memory line of a sharded run.
+JSON plan record), the per-worker memory line of a sharded run and the
+stage table of a pipeline run.
 Records go to ``artifacts/comm_plans_torch/<arch>.json``
 (``launch/paths.py``).  The dry-run and roofline tables are ROADMAP.md
 queue 1, item 14; the calibration and drift blocks, item 11.
@@ -224,6 +225,39 @@ def render_sharded_memory(layout, opt_name: str, moments=None) -> str:
             f"(master+moments over world={layout.world}) vs "
             f"{rep / 2**20:.2f} MiB replicated — {verdict}; params "
             f"{layout.param_bytes() / 2**20:.2f} MiB f32")
+
+
+def render_pipeline_stages(staged, params_split, micro_batches: int,
+                           moments=None) -> str:
+    """Per-stage rows for an EXECUTED pipeline run (DESIGN.md §9): stage
+    parameter / optimizer bytes (homogeneous stages: every stage holds
+    R/S identical rows plus the shared cells) and the 1F1B bubble of the
+    configured (S, M).  ``params_split`` is this stage's ``{"shared",
+    "rows"}`` tree; the reference's table, line for line."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.pipeline import bubble_fraction
+
+    lay = staged.layout
+    S, M = lay.n_stages, int(micro_batches)
+    mom = 2.0 if moments is None else float(moments)
+    shared_b = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(params_split["shared"]))
+    rows_b = S * sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params_split["rows"]))
+    per_stage = rows_b / S + shared_b
+    lines = [f"pipeline: {S} stages × {lay.rows_per_stage} layer rows, "
+             f"{M} micro-batches — bubble {bubble_fraction(S, M):.1%} "
+             f"((S−1)/(S−1+M))",
+             "| stage | layer rows | params MiB | opt state MiB |",
+             "|---|---|---|---|"]
+    for s in range(S):
+        lines.append(f"| {s} | {lay.rows_per_stage} | "
+                     f"{per_stage / 2**20:.2f} | "
+                     f"{mom * per_stage / 2**20:.2f} |")
+    lines.append(f"(each stage replicates the shared cells — "
+                 f"{shared_b / 2**20:.2f} MiB of embed/norm/head — and "
+                 f"holds {rows_b / S / 2**20:.2f} MiB of its own rows)")
+    return "\n".join(lines)
 
 
 def _write_plan_record(rec: dict, arch: str) -> str:

@@ -32,9 +32,15 @@ reducer:
                                  master params and optimizer moments
                                  partitioned 1/world, params gathered
                                  back); prints the per-worker memory line
+                                 after training.  'pp=S,micro=M': the
+                                 1F1B pipeline on a pipe(S) x data mesh,
+                                 the gradient sync per layer row on the
+                                 data axis ('micro=M' alone: micro-batched
+                                 accumulation); prints the stage table
                                  after training.  Under --sync auto it
                                  pins the planner's arms to the spec.
-                                 (--shard-state: the deprecated shim)
+                                 (--shard-state, --pipeline-stages,
+                                 --micro-batches: the deprecated shims)
   * --checkpoint PATH            write params + optimizer state after the
                                  run (``PATH.npz`` + ``PATH.json``)
   * --data-parallel N            a world of N ranks, spawned here (one
@@ -50,9 +56,9 @@ without ``--device`` it raises.  Ranks meet through a file
 CPU; no network).  Weights are random, from a ``torch.Generator`` seeded
 with ``--seed``.  Every compressor, collective algorithm and optimizer of
 the reference is taken.  ``--calibrate``, ``--replan-drift-pct`` and
-``--replan-every`` raise and name ROADMAP.md queue 1, item 11; a
-``--parallelism`` spec with ``pp`` or ``micro`` names item 9, and one
-with ``tp`` / ``ep`` above 1 item 10.  Rank 0 prints the loss and wall
+``--replan-every`` raise and name ROADMAP.md queue 1, item 11, and a
+``--parallelism`` spec with ``tp`` / ``ep`` above 1 item 10.  Rank 0
+prints the loss and wall
 time of every ``--log-every``-th step, the plan, and the reference's
 final line; it alone writes the plan record
 (``artifacts/comm_plans_torch/<arch>.json``).
@@ -60,6 +66,7 @@ final line; it alone writes the plan record
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from typing import Optional
@@ -74,7 +81,8 @@ from repro_torch.core.collectives import ALGOS
 from repro_torch.core.schedule import LINK_PRESETS
 from repro_torch.device import resolve_device
 from repro_torch.launch.dist import destroy_group, init_group, spawn
-from repro_torch.launch.report import (render_sharded_memory,
+from repro_torch.launch.report import (render_pipeline_stages,
+                                       render_sharded_memory,
                                        render_strategy_plan,
                                        save_strategy_plan)
 
@@ -140,12 +148,30 @@ def build_parser() -> argparse.ArgumentParser:
                          "'dp=4,shard': sharded data parallelism "
                          "(gradients reduce-scatter per bucket, f32 master "
                          "params and optimizer moments partitioned over "
-                         "the ranks, params all-gathered back); under "
-                         "--sync auto only arms of the spec may win.  pp / "
-                         "micro (ROADMAP.md queue 1, item 9) and tp / ep "
-                         "above 1 (item 10) are not ported yet")
+                         "the ranks, params all-gathered back), "
+                         "'pp=2,micro=8': the 1F1B pipeline (micro "
+                         "defaults to 8 with pp > 1; 'micro=M' alone: "
+                         "micro-batched accumulation); under --sync auto "
+                         "only arms of the spec may win.  tp / ep above 1 "
+                         "(ROADMAP.md queue 1, item 10) are not ported yet")
     ap.add_argument("--shard-state", action="store_true",
                     help="DEPRECATED shim for --parallelism '...,shard'")
+    ap.add_argument("--pipeline-stages", type=int, default=1, metavar="S",
+                    help="DEPRECATED shim for --parallelism 'pp=S'. "
+                         "Pipeline parallelism (DESIGN.md §9): cut the "
+                         "model into S stages on a pipe x data mesh and "
+                         "run 1F1B micro-batching; the gradient sync "
+                         "(--compressor/--algo, or the planner's pick "
+                         "under --sync auto) runs on the data axis only, "
+                         "per layer row")
+    ap.add_argument("--micro-batches", type=int, default=0, metavar="M",
+                    help="DEPRECATED shim for --parallelism 'micro=M'. "
+                         "Micro-batches per step (default: 8 in pipeline "
+                         "mode, 1 otherwise; bubble fraction "
+                         "(S-1)/(S-1+M); the global batch must split into "
+                         "data shards x M).  M > 1 with --pipeline-stages "
+                         "1 runs micro-batched gradient accumulation "
+                         "through the same step")
     ap.add_argument("--calibrate", action="store_true",
                     help="not ported yet (ROADMAP.md queue 1, item 11)")
     ap.add_argument("--replan-drift-pct", type=float, default=0.0,
@@ -189,29 +215,45 @@ def scheduler_from_args(args):
 
 def resolve_cli_parallelism(args) -> ParallelismSpec:
     """Fold the CLI's parallelism surface — the ``--parallelism`` spec and
-    the deprecated ``--shard-state`` shim — into one ``ParallelismSpec``.
-    Mixing the spec with the shim is a SystemExit; the shim alone warns
-    and builds the equivalent spec.  Axes this port cannot execute yet
-    raise ``NotImplementedError`` naming their ROADMAP.md item: ``pp`` and
-    ``micro`` (item 9), ``tp`` and ``ep`` above 1 (item 10, which the
-    reference executes on a model axis)."""
+    the deprecated ``--shard-state`` / ``--pipeline-stages`` /
+    ``--micro-batches`` shims — into one ``ParallelismSpec``, with the
+    reference's pipeline default of 8 micro-batches when ``pp > 1``.
+    Mixing the spec with a shim is a SystemExit; shims alone warn and
+    build the equivalent spec.  ``tp`` and ``ep`` above 1 raise
+    ``NotImplementedError`` naming ROADMAP.md queue 1, item 10 (the
+    reference executes them on a model axis)."""
+    legacy_used = [f for f, on in
+                   (("--shard-state", args.shard_state),
+                    ("--pipeline-stages", args.pipeline_stages != 1),
+                    ("--micro-batches", args.micro_batches != 0)) if on]
     if args.parallelism:
-        if args.shard_state:
-            raise SystemExit("--parallelism subsumes --shard-state; fold "
-                             "it into the spec (e.g. 'dp=4,shard')")
+        if legacy_used:
+            raise SystemExit(
+                f"--parallelism subsumes {', '.join(legacy_used)}; fold "
+                f"them into the spec (e.g. 'dp=4,pp=2,micro=8,shard')")
         try:
             spec = ParallelismSpec.from_spec(args.parallelism)
         except ValueError as e:
             raise SystemExit(f"--parallelism: {e}")
+        if spec.pp > 1 and not spec.micro_batches:
+            # the executor's pipeline default (bubble (S-1)/(S-1+M))
+            spec = dataclasses.replace(spec, micro_batches=8)
     else:
-        if args.shard_state:
-            print("warning: --shard-state deprecated; use --parallelism "
-                  "(e.g. 'dp=4,shard')", flush=True)
-        spec = ParallelismSpec.legacy(shard_state=args.shard_state)
-    if spec.pp > 1 or spec.micro_batches > 1:
-        raise NotImplementedError(
-            f"--parallelism {spec.spec()!r}: the pipeline (pp, micro) is "
-            f"not ported yet (ROADMAP.md queue 1, item 9)")
+        if legacy_used:
+            print(f"warning: {', '.join(legacy_used)} deprecated; use "
+                  f"--parallelism (e.g. 'dp=4,pp=2,micro=8,shard')",
+                  flush=True)
+        pipe = args.pipeline_stages
+        if pipe < 1:
+            raise SystemExit(f"--pipeline-stages must be >= 1, got {pipe}")
+        micro = args.micro_batches or (8 if pipe > 1 else 1)
+        if pipe > 1 and args.shard_state:
+            raise SystemExit("--pipeline-stages and --shard-state are "
+                             "competing answers to the optimizer-memory "
+                             "axis; pick one (DESIGN.md §9)")
+        spec = ParallelismSpec.legacy(shard_state=args.shard_state,
+                                      pipeline_stages=pipe,
+                                      micro_batches=micro)
     if spec.tp > 1 or spec.ep > 1:
         raise NotImplementedError(
             f"--parallelism {spec.spec()!r}: tensor / expert parallelism "
@@ -222,8 +264,8 @@ def resolve_cli_parallelism(args) -> ParallelismSpec:
 
 def check_unported(args) -> None:
     """Raise for the flags whose machinery is not ported yet, naming the
-    ROADMAP.md item that owns it."""
-    resolve_cli_parallelism(args)
+    ROADMAP.md item that owns it (``resolve_cli_parallelism`` raises for
+    the parallelism axes)."""
     late = [f for f, on in (("--calibrate", args.calibrate),
                             ("--replan-drift-pct",
                              args.replan_drift_pct > 0),
@@ -261,12 +303,18 @@ def plan_session(session: TrainSession, args, scheduler, par_spec,
         memory_budget_gb=args.memory_budget_gb,
         compression_costs=args.compression_costs or None)
     t0 = time.perf_counter()
+    pipe, micro = par_spec.pp, max(par_spec.micro_batches, 1)
     if args.parallelism:
         sp = session.plan_auto(parallelism=par_spec, **plan_kw)
     else:
         sp = session.plan_auto(
             scheduler=scheduler,
-            shard_state=True if par_spec.shard_state else None, **plan_kw)
+            shard_state=True if par_spec.shard_state else None,
+            pipeline_stages=pipe if pipe > 1 else None,
+            micro_batches=micro if pipe > 1 else None, **plan_kw)
+    if pipe <= 1 and micro > 1:
+        # S = 1 accumulation rides the winning arm when it composes
+        session.apply_micro_batching(micro)
     planned = session.planned
     log(render_strategy_plan(sp, arms=planned["arms"],
                              baselines=planned["baselines"],
@@ -283,7 +331,7 @@ def plan_session(session: TrainSession, args, scheduler, par_spec,
     best_fixed = min(p.modeled_step_s
                      for p in planned["baselines"].values())
     unconstrained = (scheduler is None and args.memory_budget_gb is None
-                     and par_spec.is_trivial)
+                     and pipe <= 1 and par_spec.is_trivial)
     if unconstrained and sp.modeled_step_s > best_fixed + 1e-12:
         raise RuntimeError(
             f"planner regression: auto strategy modeled "
@@ -291,52 +339,71 @@ def plan_session(session: TrainSession, args, scheduler, par_spec,
             f"{best_fixed:.6f}s")
 
 
-def install_strategy(session: TrainSession, args, log) -> None:
-    """The strategy of the flags, over the session's data axes (one group
-    per tier after a tiered ``--topology``): ``--sync auto`` plans it;
-    ``--sync comm`` composes the scheduler (every step by default) with
-    the config's reducer and the ``--parallelism`` spec; ``--sync
-    vanilla`` with a scheduler or a sharded spec takes dense reducers,
-    and without either is vanilla BSP (no strategy)."""
-    scheduler = scheduler_from_args(args)
-    par_spec = resolve_cli_parallelism(args)
+def check_composition(scheduler, par_spec: ParallelismSpec) -> None:
+    """The flags' refusals: a sharded or pipelined spec needs every-step
+    gradient sync."""
     if par_spec.shard_state and scheduler is not None:
         raise SystemExit("shard_state partitions optimizer state, which "
                          "requires every-step gradient sync; drop "
                          "--local-sgd/--lag/--push-pull")
-    if args.sync == "auto":
-        plan_session(session, args, scheduler, par_spec, log)
-    elif args.sync == "comm":
-        session.strategy = make_strategy(
+    if (par_spec.pp > 1 or par_spec.micro_batches > 1) and \
+            scheduler is not None:
+        raise SystemExit("pipeline stages / micro-batches require "
+                         "every-step gradient sync; drop "
+                         "--local-sgd/--lag/--push-pull")
+
+
+def fixed_strategy(args, scheduler, par_spec: ParallelismSpec, axes):
+    """The strategy of ``--sync comm`` / ``vanilla`` over ``axes``:
+    ``comm`` composes the scheduler (every step by default) with the
+    config's reducer and the ``--parallelism`` spec; ``vanilla`` with a
+    scheduler or a sharded / pipelined spec takes dense reducers, and
+    without either is vanilla BSP (None)."""
+    if args.sync == "comm":
+        return make_strategy(
             scheduler if scheduler is not None else "every_step",
-            group=session.axes,
+            group=axes,
             sync=SyncConfig(compressor=args.compressor, algo=args.algo,
                             error_feedback=not args.no_error_feedback,
                             bucket_bytes=int(args.bucket_mb * 2**20)),
             parallelism=par_spec)
-    elif not par_spec.is_trivial:
-        # vanilla + a sharded spec: dense psum wires on the scatter edge
-        session.strategy = make_strategy("every_step", group=session.axes,
-                                         parallelism=par_spec)
-    elif scheduler is not None:
-        session.strategy = SyncStrategy(scheduler=scheduler)
+    if not par_spec.is_trivial:
+        # vanilla + a parallelism spec: dense psum wires on the scatter
+        # edge or the pipeline's DP edge
+        return make_strategy("every_step", group=axes, parallelism=par_spec)
+    if scheduler is not None:
+        return SyncStrategy(scheduler=scheduler)
+    return None
 
 
 def _quiet(*_, **__) -> None:
     pass
 
 
-def run(args, rank: int = 0, group=None) -> TrainSession:
+def run(args, rank: int = 0, group=None,
+        par_spec: Optional[ParallelismSpec] = None) -> TrainSession:
     """Train as the parsed flags say on ``group`` (the default group,
-    joined or made at world 1, when None); rank 0 prints.  Returns the
+    joined or made at world 1, when None); rank 0 prints.  ``par_spec``
+    is the flags' parallelism as :func:`main` resolved it before any
+    spawn (resolved, and the flags checked, here when None).  Returns the
     session."""
     log = print if rank == 0 else _quiet
-    check_unported(args)
+    if par_spec is None:
+        par_spec = resolve_cli_parallelism(args)
+        check_unported(args)
+    scheduler = scheduler_from_args(args)
+    check_composition(scheduler, par_spec)
     scfg = SessionConfig(
         arch=args.arch, reduced=args.reduced, steps=args.steps,
         batch=args.batch, seq=args.seq, lr=args.lr, warmup=args.warmup,
         optimizer=args.optimizer, seed=args.seed, device=args.device)
-    session = TrainSession(scfg, group=group)
+    strategy = None
+    if (args.sync != "auto" and not args.topology
+            and (par_spec.pp > 1 or par_spec.micro_batches > 1)):
+        # a pipeline is built with the session: a stage makes only its
+        # own rows and their moments
+        strategy = fixed_strategy(args, scheduler, par_spec, group)
+    session = TrainSession(scfg, strategy=strategy, group=group)
     if session.world > 1:
         log(f"data parallel: world {session.world} on "
             f"{session.device.type}", flush=True)
@@ -357,13 +424,21 @@ def run(args, rank: int = 0, group=None) -> TrainSession:
         else:
             log(f"topology: {topo.spec()} (planning model; executing on "
                 f"the flat {session.world}-rank group)", flush=True)
-    install_strategy(session, args, log)
+    if args.sync == "auto":
+        plan_session(session, args, scheduler, par_spec, log)
+    elif strategy is None:
+        session.strategy = fixed_strategy(args, scheduler, par_spec,
+                                          session.axes)
     if session.strategy is not None:
         log(f"strategy: {session.strategy.describe()}", flush=True)
     losses = session.run(args.steps, log_every=args.log_every, log=log)
     if session.layout is not None:
         log(render_sharded_memory(session.layout, args.optimizer,
                                   moments=session.opt_moments), flush=True)
+    if session.staged is not None:
+        log(render_pipeline_stages(session.staged, session._params,
+                                   session.strategy.micro_batches,
+                                   moments=session.opt_moments), flush=True)
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
         log("checkpoint written:", args.checkpoint, flush=True)
@@ -373,7 +448,8 @@ def run(args, rank: int = 0, group=None) -> TrainSession:
     return session
 
 
-def _rank_main(rank: int, world: int, store: str, argv: list) -> None:
+def _rank_main(rank: int, world: int, store: str, argv: list,
+               par_spec: ParallelismSpec) -> None:
     """One spawned rank of ``--data-parallel``: its card (cuda:rank) or the
     CPU, the world's group, then :func:`run`."""
     args = build_parser().parse_args(argv)
@@ -385,7 +461,7 @@ def _rank_main(rank: int, world: int, store: str, argv: list) -> None:
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     init_group(device, world_size=world, rank=rank, store_path=store)
     try:
-        run(args, rank)
+        run(args, rank, par_spec=par_spec)
     finally:
         destroy_group()
 
@@ -395,10 +471,11 @@ def main(argv: Optional[list] = None) -> Optional[TrainSession]:
     None after a spawned ``--data-parallel`` world."""
     args = build_parser().parse_args(argv)
     scheduler_from_args(args)        # "pick one" exits before any spawn
+    par_spec = resolve_cli_parallelism(args)
     check_unported(args)
     world = args.data_parallel
     if world <= 1:
-        return run(args)
+        return run(args, par_spec=par_spec)
     device = resolve_device(args.device)
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise SystemExit(
@@ -406,7 +483,7 @@ def main(argv: Optional[list] = None) -> Optional[TrainSession]:
             f"takes one rank per device); this machine has "
             f"{torch.cuda.device_count()}")
     spawn(_rank_main, world,
-          args=(list(sys.argv[1:] if argv is None else argv),))
+          args=(list(sys.argv[1:] if argv is None else argv), par_spec))
     return None
 
 

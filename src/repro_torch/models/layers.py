@@ -65,12 +65,17 @@ def _init_leaf(d: ParamDesc, generator: torch.Generator, dtype):
     return x.mul_(scale).to(dtype)
 
 
-def materialize(tree, generator: torch.Generator, dtype=torch.float32):
+def materialize(tree, generator: torch.Generator, dtype=torch.float32,
+                post=None):
     """Concrete parameter values for a descriptor tree, drawn in the tree's
     leaf order from ``generator`` on the generator's device.  The values
-    differ from ``jax.random``'s for the same seed."""
-    return tree_map(lambda d: _init_leaf(d, generator, dtype), tree,
-                    is_leaf=_is_desc)
+    differ from ``jax.random``'s for the same seed.  ``post(x)``, when
+    given, replaces each leaf as soon as it is drawn (before the next
+    draw)."""
+    def leaf(d):
+        x = _init_leaf(d, generator, dtype)
+        return x if post is None else post(x)
+    return tree_map(leaf, tree, is_leaf=_is_desc)
 
 
 def desc_leaves(tree):

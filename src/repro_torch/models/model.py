@@ -55,14 +55,24 @@ class Model:
         return desc
 
     def init(self, generator: Optional[torch.Generator] = None, dtype=None,
-             device: DeviceLike = None):
+             device: DeviceLike = None, rows: Optional[slice] = None):
         """Random parameters drawn from ``generator`` (on its device).
         Without a generator, one seeded with 0 is made on ``device``
-        (default: CUDA; raises when there is none)."""
+        (default: CUDA; raises when there is none).  ``rows`` keeps only
+        those rows of every stack leaf, each leaf cut as soon as it is
+        drawn: the values of the whole draw, without the other rows
+        (one pipeline stage's, ``StagedModel.init_stage``)."""
         if generator is None:
             generator = torch.Generator(resolve_device(device)).manual_seed(0)
         dtype = dtype or resolve_dtype(self.cfg.param_dtype)
-        return materialize(self.param_desc(), generator, dtype)
+        desc = self.param_desc()
+        if rows is None:
+            return materialize(desc, generator, dtype)
+        # the leaf order of materialize(desc): the keys sorted
+        return {k: materialize(desc[k], generator, dtype,
+                               post=(lambda x: x[rows].clone())
+                               if k == "stack" else None)
+                for k in sorted(desc)}
 
     # -- shared pieces ------------------------------------------------------
 

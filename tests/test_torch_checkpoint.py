@@ -15,6 +15,9 @@
     the first step, or a checkpoint missing a leaf or an optimizer buffer,
     is refused with the reference's messages; the CLI's ``--checkpoint``
     writes one the session loads.
+  * Sharded and pipeline sessions' checkpoints cross both ways: each
+    package's restores in the other's sharded and replicated sessions bit
+    for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro.api import SessionConfig as JSessionConfig
 from repro.api import TrainSession as JTrainSession
 from repro_torch import checkpoint
 from repro_torch._tree import tree_leaves
+from repro_torch.checkpoint.checkpoint import _flatten_with_paths
 from repro_torch.api import SessionConfig, TrainSession
 from repro_torch.convert import to_numpy
 from repro_torch.core import make_strategy
@@ -231,3 +235,94 @@ def test_cli_checkpoint_flag_writes_a_loadable_checkpoint(tmp_path, capsys):
     fresh = TrainSession(SessionConfig(**SESSION))
     assert fresh.load_checkpoint(path) == 2
     assert _same(fresh.params, sess.params)
+
+
+# ---------------------------------------------------------------------------
+# Sharded and pipeline checkpoints across the packages
+# ---------------------------------------------------------------------------
+
+def _flat(tree):
+    return {k: np.asarray(v) for k, v in
+            _flatten_with_paths(to_numpy(tree) if _is_torch(tree)
+                                else jax.tree.map(np.asarray, tree)).items()}
+
+
+def _is_torch(tree):
+    return isinstance(tree_leaves(tree)[0], torch.Tensor)
+
+
+def _port_session(mode):
+    st = {"replicated": None,
+          "sharded": make_strategy("every_step", parallelism="shard"),
+          "pipeline": make_strategy("every_step", parallelism="micro=2")}
+    return TrainSession(SessionConfig(**SESSION), strategy=st[mode])
+
+
+def _ref_session(mode):
+    from repro.core import make_strategy as jmake_strategy
+    st = {"replicated": None,
+          "sharded": jmake_strategy("every_step", parallelism="shard"),
+          "pipeline": jmake_strategy("every_step", parallelism="micro=2")}
+    return JTrainSession(JSessionConfig(**{k: v for k, v in SESSION.items()
+                                           if k != "device"}),
+                         strategy=st[mode])
+
+
+def _saved(path):
+    """The checkpoint's arrays in the leaf-shaped form (the reference's
+    pipeline sessions write their moments in the stage tree's)."""
+    from repro_torch.api import _leaf_shaped_keys
+    data, _ = checkpoint.load_arrays(path)
+    return _leaf_shaped_keys(data)
+
+
+def _assert_restored(saved, params, opt):
+    got = {**{f"params/{k}": v for k, v in _flat(params).items()},
+           **{f"opt/{k}": v for k, v in _flat(opt).items()}}
+    want = {k: v for k, v in saved.items()
+            if not (k.startswith("opt/master/") and k not in got)}
+    for k, v in got.items():
+        if k.startswith("opt/master/") and k not in saved:
+            # a replicated / pipeline checkpoint: the master is the params
+            v2 = saved["params/" + k[len("opt/master/"):]]
+            assert np.array_equal(v, v2.astype(np.float32)), k
+            continue
+        assert np.array_equal(v, want.pop(k)), k
+    assert not [k for k in want if not k.startswith("opt/master/")], want
+
+
+@pytest.mark.parametrize("saved_by,target", [
+    ("port-sharded", "reference-sharded"),
+    ("port-sharded", "reference-replicated"),
+    ("reference-sharded", "port-sharded"),
+    ("reference-sharded", "port-replicated"),
+    ("port-pipeline", "reference-sharded"),
+    ("port-pipeline", "reference-replicated"),
+    ("reference-pipeline", "port-sharded"),
+    ("reference-pipeline", "port-replicated")])
+def test_sharded_and_pipeline_checkpoints_cross_both_ways(
+        tmp_path, saved_by, target, one_thread):
+    """A sharded session's checkpoint (leaf-shaped moments and the f32
+    ``master``) and a pipeline session's (micro-batched at world 1) from
+    either package restore in the other's sharded and replicated sessions
+    bit for bit: params, moments and, in a sharded session, the master
+    (the saved one, or the params in f32).  The reference's pipeline
+    checkpoint stores its moments in the stage tree's form, which the
+    port reads as the leaf-shaped tree; the reference's own sessions
+    refuse that file (ROADMAP.md queue 3)."""
+    pkg, mode = saved_by.split("-")
+    path = str(tmp_path / "ck")
+    src = _port_session(mode) if pkg == "port" else _ref_session(mode)
+    src.run(1)
+    src.save_checkpoint(path)
+    saved = _saved(path)
+    assert any(k.startswith("opt/master/") for k in saved) == \
+        (mode == "sharded")
+    tpkg, tmode = target.split("-")
+    dst = _port_session(tmode) if tpkg == "port" else _ref_session(tmode)
+    assert dst.load_checkpoint(path) == 1
+    dst._build()
+    _assert_restored(saved, dst.params, dst.full_opt_state())
+    if saved_by == "reference-pipeline" and tmode == "replicated":
+        with pytest.raises(ValueError, match="lacks 'opt/m' leaves"):
+            _ref_session("replicated").load_checkpoint(path)

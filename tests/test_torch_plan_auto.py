@@ -33,7 +33,8 @@ executor's mixed plans) against the JAX package's.
     the ignored-flags warning; the ``auto <= best fixed baseline`` check;
     ``--parallelism dp=1,shard`` and ``--sync auto --shard-state`` run
     sharded and print the per-worker memory line; the flags of later
-    items raise and name them (``pp`` item 9, ``tp`` item 10).
+    items raise and name them (``tp`` item 10), and the pipeline flags
+    meet the reference's refusals.
   * World 4 (4 spawned processes on gloo, ``FileStore``) on
     ``node:2@commodity,device:2@fast_ici``: the tiered mesh (one group per
     tier, ``hierarchical`` on the inner one), every rank the same plan as
@@ -482,16 +483,21 @@ def test_cli_auto_holds_the_planner_to_the_fixed_baselines(plan_dirs,
         train.main(BASE + ["--sync", "auto", "--plan-backward-ms", "5"])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--calibrate"], "item 11"), (["--replan-drift-pct", "10"], "item 11"),
-    (["--replan-every", "5"], "item 11"),
-    (["--parallelism", "pp=2"], "item 9"),
-    (["--parallelism", "dp=1,micro=4"], "item 9"),
-    (["--parallelism", "dp=1,tp=2"], "item 10")],
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--calibrate"], NotImplementedError, "item 11"),
+    (["--replan-drift-pct", "10"], NotImplementedError, "item 11"),
+    (["--replan-every", "5"], NotImplementedError, "item 11"),
+    (["--parallelism", "pp=2"], ValueError, "do not divide world 1"),
+    (["--parallelism", "dp=1,micro=4"], ValueError,
+     "must split into 1 DP shards x 4 micro-batches"),
+    (["--parallelism", "dp=1,tp=2"], NotImplementedError, "item 10")],
     ids=["calibrate", "replan-drift", "replan-every", "parallelism",
          "parallelism-micro", "parallelism-tp"])
-def test_cli_flags_of_later_items_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_flags_of_later_items_raise(flags, exc, match):
+    """Flags of items not ported yet raise and name them.  The pipeline
+    (item 9) is ported: ``pp=2`` at world 1 and ``micro=4`` on a batch of
+    2 now meet the reference's own refusals."""
+    with pytest.raises(exc, match=match):
         train.main(BASE + ["--sync", "auto"] + flags)
 
 

@@ -207,8 +207,13 @@ def test_make_strategy_routes_reducers_as_reference():
         JSyncStrategy(jget_scheduler("local_sgd")).describe()
     with pytest.raises(ValueError):
         make_strategy(sync=SyncConfig(), plan=plan)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_strategy("every_step", parallelism="pp=2")
+    # a pipeline strategy, described as the reference's
+    st = make_strategy("every_step", sync=SyncConfig(**kw),
+                       parallelism="pp=2")
+    jst = jmake_strategy("every_step", axes=("data",),
+                         sync=JSyncConfig(**kw), parallelism="pp=2")
+    assert st.pipeline_stages == jst.pipeline_stages == 2
+    assert st.describe() == jst.describe()
     # sharded state is a strategy of its own, described as the reference's
     st = make_strategy("every_step", sync=SyncConfig(**kw),
                        parallelism="shard")
