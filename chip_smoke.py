@@ -18,9 +18,10 @@ Phases (any failure exits non-zero and prints no result line):
      ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` are
      held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles
      (64 to 1024 on its warp route, 4096 on its block route), lengths,
-     input types and a NaN tile, including every length the gemma-2b and
-     gemma2-9b serving runs write (and dequantize must round-trip within
-     s/254), the training wire over the CPU tests' cases (ragged lengths,
+     input types and a NaN tile, including every length the gemma-2b,
+     gemma2-9b, deepseek-v2-lite-16b and qwen3-moe-30b-a3b serving runs
+     write, at their tiles (256, 512 and 64 of MLA's latents, 128; and
+     dequantize must round-trip within s/254), the training wire over the CPU tests' cases (ragged lengths,
      decays, ratios, rank counts 1, 2, 4 and 8 at lengths that are and
      are not multiples of 16, zero tiles, exact halves, NaN tiles, f32
      and bf16 for topk_mask; dequant_accum and the top-k kernels at tile
@@ -177,18 +178,46 @@ Phases (any failure exits non-zero and prints no result line):
      M = 4, Adam, int8_fused, 3 steps: per-rank peak, staged bytes split
      into the activation hops and the shared cells' pipe all-reduce, step
      times, and the merged parameters bit-equal to the world-1 S = 1 run
-     of the same depth (at depth 18, (a)'s).
+     of the same depth (at depth 18, (a)'s);
+ 14. the MoE and MLA families: first, with the card free, the kernels at
+     their new shapes — flash in bf16 at deepseek-v2-lite-16b's MLA
+     prefill (q/k head dim 192, v padded from 128: the SIMT route; T =
+     128 and 4096) and at qwen3-moe-30b-a3b's (GQA 32/4, head dim 128:
+     the wgmma route), within phase 3's tolerance and NaN where the plain
+     version has NaN, timed against the plain version, the bound and
+     SDPA (phase 3 holds quantize_tiles at the two int8 pools' lengths);
+     reduced f32 references on the card
+     (moe_ffn's expert choices and keep mask equal to the CPU's at
+     capacity factor 0.5, phase 4's prefill + decode check, MLA's naive
+     and absorbed decodes within phase 4's tolerance); then (a)
+     deepseek-v2-lite-16b (27 MLA layers, 64 routed experts top-6 and 2
+     shared, 15.65 B parameters) and (b) qwen3-moe-30b-a3b (48 layers, 128
+     experts top-8, 30.53 B parameters) served at full width with phase
+     5's traffic, bf16 from seed 0, int8 paged KV, the peak within a
+     reckoning printed before each run (weights, pool, the largest
+     transient, + 1 GiB), tokens/s, TTFT, the tick and its device-busy
+     share; (c) qwen3-moe-30b-a3b trained at full width and 4 layers
+     (cut from 48 when 20 B a parameter fits 70 GiB, else 2), Adam,
+     int8_fused, batch 4 x seq 512, NCCL world 1, 3 steps: the drop tap's
+     ``moe capacity:`` line, step times, tokens/s, peak, a profiled step
+     split into wire kernels, other device work and host; then
+     quantize_ef and dequant_accum bit-equal at every bucket length of
+     (c) and timed at the largest (a stacked expert leaf).
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
-12 (c) on every rank, and 13 (a) and (c) on every rank) sets every
-kernel launch counter
+12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b)
+and (c)) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
-(admissions + decode ticks), all on the warp route; flash_attention and
-its pre-pass = attention layers x admissions, all of them on the wgmma
-route and none on the SIMT one; training: the wire's kernels = buckets x
+(admissions + decode ticks), all on the warp route (4 paged leaves for
+deepseek-v2-lite-16b: c_kv and k_rope of its two segments); flash_attention
+and its pre-pass = attention layers x admissions, all of them on the
+route ``route(dtype, head_dim)`` gives — wgmma and none on SIMT for the
+gemmas and qwen3-moe, SIMT and none on wgmma for MLA; the MoE training
+run as 8's int8_fused run, and its drop tap routing each choice once
+per forward; training: the wire's kernels = buckets x
 steps, all on their warp routes (int8_fused: quantize_ef and
 dequant_accum; topk_fused: topk_ef; without error feedback, int8_fused:
 quantize_tiles and dequant_accum, topk_fused: topk_mask), flash 0 (the
@@ -209,7 +238,7 @@ step); the pipeline: quantize_ef and dequant_accum once per leaf of the
 per-row tree and step (164 x 3 at world 1, 83 x 3 on each stage of
 (c)), all on the warp route.  Launches made in phases 3, 4, 6, 10 (b),
 12 (b) and 13 (b), and by the
-checks and timings of 9, 10, 11 and 12, are not counted.  It prints a ``{"kernels": [...]}``
+checks and timings of 9, 10, 11, 12 and 14, are not counted.  It prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
 """
@@ -525,7 +554,8 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
     dev = torch.device("cuda")
     worst = 0.0
     cases = 0
-    for tile in QUANT_TILES:
+    for tile in sorted(set(QUANT_TILES) | {t for _, t in
+                                           path_shapes.values()}):
         route = tile_route(tile)
         sizes = {tile, 3 * tile + 17, 18 * 4 * 256, 18 * 128 * 256}
         sizes |= {n for n, t in path_shapes.values() if t == tile}
@@ -564,7 +594,8 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
                         fail(f"dequantize round trip beyond s/254 at n={n} "
                              f"tile={tile} {dtype}")
     print(f"kernels: quantize_tiles bit-equal to the plain version in "
-          f"{cases} cases (tiles {QUANT_TILES}: the warp route up to 1024, "
+          f"{cases} cases (tiles {QUANT_TILES} and the paths' "
+          f"{sorted({t for _, t in path_shapes.values()})}: the warp route up to 1024, "
           f"the block route above; f32 and bf16, zero tiles, exact halves, "
           f"NaN tiles), each on its tile's route; dequantize within s/254",
           flush=True)
@@ -585,27 +616,51 @@ def quantize_path_shapes(arch: str, slots: int, max_len: int,
     writes one slot's whole row of each paged leaf (repeats x length x KV
     x hd), a decode tick one entry per slot (repeats x slots x KV x hd);
     the tile is hd.  Leaves of equal lengths share a name."""
-    from repro_torch._tree import tree_map
-    from repro_torch.configs import get_config
-    from repro_torch.models import Model
-    from repro_torch.models.transformer import CacheLeafMeta
-    from repro_torch.serve.kv_cache import PagedDecodeCache
-    cache = PagedDecodeCache(Model(get_config(arch)), slots, max_len, page,
-                             quantize="int8", build_pool=False)
-    leaves = []
-    tree_map(lambda m, s: leaves.append((m, s.shape)), cache.meta,
-             cache.specs, is_leaf=lambda x: isinstance(x, CacheLeafMeta))
-    paged = [(m, shape) for m, shape in leaves if m.kind == "paged"]
-    lengths = sorted({m.length for m, _ in paged})
+    leaves = paged_leaves_of(arch, slots, max_len, page)
+    lengths = sorted({m.length for _, m, _, _ in leaves})
     tag = arch.replace("-", "_")
     out = {}
-    for m, shape in paged:
+    for _, m, shape, _ in leaves:
         numel, tile = math.prod(shape), shape[-1]
         out[f"{tag}_decode_write"] = (numel // m.length, tile)
         name = f"{tag}_prefill_write"
         if len(lengths) > 1:
             name += f"_{m.length}"
         out[name] = (numel // slots, tile)
+    return out
+
+
+def paged_leaves_of(arch: str, slots: int, max_len: int, page: int):
+    """[(name, meta, spec shape, n_pages)] of every paged cache leaf of
+    ``arch``'s int8 pool at ``slots`` x ``max_len``, pages of ``page``."""
+    from repro_torch._tree import tree_leaves, tree_map_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import CacheLeafMeta
+    from repro_torch.serve.kv_cache import PagedDecodeCache
+    cache = PagedDecodeCache(Model(get_config(arch)), slots, max_len, page,
+                             quantize="int8", build_pool=False)
+    named = []
+    tree_map_with_path(lambda path, s: named.append(
+        ("_".join(map(str, path)), s.shape)), cache.specs)
+    metas = tree_leaves(cache.meta,
+                        is_leaf=lambda x: isinstance(x, CacheLeafMeta))
+    return [(name, m, shape, cache.allocators[m.length].n_pages)
+            for (name, shape), m in zip(named, metas) if m.kind == "paged"]
+
+
+def pool_write_shapes(arch: str) -> dict:
+    """{name: (n, tile)}: every length ``arch``'s int8 pool hands
+    ``quantize_tiles`` in phase 5's traffic (SLOTS x MAX_LEN, pages of
+    PAGE), per paged leaf: an admission writes one slot's row (repeats x
+    length x rest), a tick one entry per slot; the tile is the leaf's
+    trailing dim (512 for MLA's c_kv, 64 for its k_rope, hd for K/V)."""
+    tag = arch.replace("-", "_")
+    out = {}
+    for name, m, shape, _ in paged_leaves_of(arch, SLOTS, MAX_LEN, PAGE):
+        numel = math.prod(shape)
+        out[f"{tag}_{name}_prefill_write"] = (numel // SLOTS, shape[-1])
+        out[f"{tag}_{name}_decode_write"] = (numel // m.length, shape[-1])
     return out
 
 
@@ -1227,8 +1282,9 @@ SMALL_REFS = {   # arch: (config overrides, prompt length, max_len)
 }
 
 
-def phase_small_reference(torch, arch: str):
-    """A reduced config (``SMALL_REFS``) in f32: the card's logits (prefill
+def phase_small_reference(torch, arch: str, refs=None):
+    """A reduced config (``refs``, default ``SMALL_REFS``) in f32: the
+    card's logits (prefill
     through the flash kernel) against the CPU path's (plain versions) on
     the same weights and tokens, for the prefill and four vector-position
     decode steps (max|Δ| <= 1e-4 · max|logit|; TF32 is off, so the
@@ -1236,7 +1292,7 @@ def phase_small_reference(torch, arch: str):
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import Model
-    over, T, max_len = SMALL_REFS[arch]
+    over, T, max_len = (SMALL_REFS if refs is None else refs)[arch]
     cfg = dataclasses.replace(reduced(get_config(arch)), **over)
     model = Model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
@@ -1434,7 +1490,9 @@ def check_main_path(torch, run, launches, card) -> None:
     no page leaked, the quantize kernel launched once per paged leaf per
     admission and per decode tick, all on the warp route, the flash
     kernel and its pre-pass once per attention layer per admission, every
-    flash launch on the wgmma route and none on the SIMT one, no
+    flash launch on the route ``route`` gives the model's dtype and head
+    dim (``flash_route_of``: wgmma for the gemmas and qwen3-moe, none on
+    the SIMT one; SIMT for MLA's head dim 192, none on wgmma), no
     training-wire kernel, finite full-width prefill logits."""
     eng, cfg = run.engines[0], run.cfg
     n_req, n_new = len(run.requests), run.requests[0].max_new
@@ -1451,9 +1509,10 @@ def check_main_path(torch, run, launches, card) -> None:
     leaves = eng.cache.paged_leaves()
     flash = cfg.num_layers * eng.prefills
     quant = leaves * (eng.prefills + eng.decode_ticks)
+    fr = flash_route_of(cfg)
     expected = {"quantize_tiles": quant, "quantize_tiles[warp]": quant,
                 "flash_attention": flash, "nonfinite_tiles": flash,
-                "flash_attention[wgmma]": flash}
+                f"flash_attention[{fr}]": flash}
     for name, n in launches.items():
         want = expected.get(name, 0)
         if n != want or (name in expected and want <= 0):
@@ -1462,8 +1521,9 @@ def check_main_path(torch, run, launches, card) -> None:
                  f"x ({eng.prefills} admissions + {eng.decode_ticks} decode "
                  f"ticks), all on the warp route, flash_attention and "
                  f"nonfinite_tiles = {cfg.num_layers} layers x "
-                 f"{eng.prefills} admissions, all on the wgmma route, 0 on "
-                 f"the block and SIMT routes and for the training wire)")
+                 f"{eng.prefills} admissions, all on the {fr} route, 0 on "
+                 f"the block route, the other flash route and the training "
+                 f"wire)")
     prompt = torch.as_tensor(run.requests[0].prompt, device=eng.device)
     logits, _ = run.model.prefill(run.params, {"tokens": prompt.long()[None]},
                                   max_len=eng.cfg.max_len)
@@ -3821,6 +3881,429 @@ def phase_pipe(torch, ops, ref, train, card, replicated_params) -> dict:
             "checked_lengths": lengths}
 
 
+# ---------------------------------------------------------------------------
+# 14. the MoE and MLA families
+# ---------------------------------------------------------------------------
+
+MOE_SERVE_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
+# what a serving run's peak may hold above its reckoning (weights, pool and
+# the largest transient): a prefill's and a tick's activations, logits and
+# the tick's linear cache (about 0.1 GB at 4 slots x 256)
+SERVE_ROOM = 2**30
+MOE_TRAIN_ARCH = "qwen3-moe-30b-a3b"
+# phase 8's measured peak per parameter (46.08 GiB over 2.51 B parameters
+# with int8_fused and Adam, PERF.md §5): bf16 params and grads, Adam's f32
+# moments, the EF residual and the synced f32 gradients
+MOE_TRAIN_BYTES_PER_PARAM = 20
+MOE_TRAIN_BUDGET = 70 * 2**30
+MOE_TRAIN_ARGS = ["--arch", MOE_TRAIN_ARCH, "--no-reduced", "--optimizer",
+                  "adam", "--batch", str(TRAIN_BATCH), "--seq",
+                  str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--seed", "0",
+                  "--log-every", "1", "--sync", "comm", "--compressor",
+                  "int8_fused"]
+# the prefill attention of the new families (bf16): MLA's q/k head dim
+# 128 + 64 = 192 with v padded from 128 to it (the SIMT route), and
+# qwen3-moe's GQA 32/4 at head dim 128 (the wgmma route); the serving
+# path's prompt of 128 tokens, and 4096 for the record
+NEW_FLASH_SHAPES = {   # name: (B, T, H, KV, hd, v's width before padding)
+    "deepseek_v2_lite_prefill": (1, 128, 16, 16, 192, 128),
+    "deepseek_v2_lite_prefill_4096": (1, 4096, 16, 16, 192, 128),
+    "qwen3_moe_prefill": (1, 128, 32, 4, 128, 128),
+}
+
+
+def serve_args(arch: str) -> list:
+    """Phase 5's traffic (SERVE_ARGS) for ``arch``."""
+    args = list(SERVE_ARGS)
+    args[args.index("--arch") + 1] = arch
+    return args
+
+
+def flash_route_of(cfg) -> str:
+    """The flash route of a model's prefill: ``route`` of its compute
+    dtype at its attention head dim (MLA's q/k head dim)."""
+    from repro_torch.kernels.flash_attention import route
+    from repro_torch.models.model import resolve_dtype
+    hd = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.hd
+    return route(resolve_dtype(cfg.compute_dtype), hd)
+
+
+def serving_reckoning(arch: str) -> dict:
+    """Bytes that ``arch``'s full-width int8 serving run holds at its peak,
+    from its shapes: the bf16 weights; the int8 pool (codes and f32
+    scales per cached entry, the trash page included); and the largest
+    transient, either the f32 draw of one leaf (one leading slice of a
+    leaf above ``layers.SLICED_DRAW_ELEMENTS``) while the weights are
+    made, or a decode tick's gather of the k chosen experts' three
+    matrices per slot, with a permuted copy for its einsum."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.layers import SLICED_DRAW_ELEMENTS, desc_leaves
+    cfg = get_config(arch)
+    pool = 0
+    for _, m, shape, n_pages in paged_leaves_of(arch, SLOTS, MAX_LEN, PAGE):
+        rest = shape[m.batch_axis + 2:]
+        rows = (shape[0] if m.batch_axis == 1 else 1) * n_pages * PAGE * \
+            math.prod(rest[:-1])
+        pool += rows * rest[-1] + 4 * rows
+    draws = []
+    for d in desc_leaves(Model(cfg).param_desc()):
+        n = math.prod(d.shape)
+        draws.append(4 * (n // d.shape[0] if n > SLICED_DRAW_ELEMENTS else n))
+    ff = cfg.moe_d_ff or cfg.d_ff
+    gather = 2 * 3 * SLOTS * cfg.top_k * cfg.d_model * ff * 2
+    weights = 2 * count_params(cfg)
+    return {"weights": weights, "pool": pool, "draw": max(draws),
+            "gather": gather,
+            "total": weights + pool + max(max(draws), gather)}
+
+
+def run_moe_serving(torch, ops, serve, card, arch: str) -> dict:
+    """Phase 14 (a) / (b): ``arch`` served at full width with phase 5's
+    traffic, every kernel counter set to 0 just before and read just after
+    and checked as the main path (flash on ``flash_route_of``), the peak
+    within the reckoning printed before the run (+ SERVE_ROOM); then a
+    profile of five decode ticks (tick time, device-busy share)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    rk = serving_reckoning(arch)
+    print(f"serving {arch}: reckoning {rk['total'] / 1e9:.3f} GB = weights "
+          f"{rk['weights'] / 1e9:.3f} GB (bf16) + int8 pool "
+          f"{rk['pool'] / 1e9:.4f} GB + the larger transient of a leaf's "
+          f"f32 draw ({rk['draw'] / 1e9:.3f} GB) and a tick's expert gather "
+          f"({rk['gather'] / 1e9:.3f} GB); the peak may hold "
+          f"{SERVE_ROOM / 2**30:.0f} GiB more", flush=True)
+    if rk["total"] + SERVE_ROOM > torch.cuda.get_device_properties(
+            0).total_memory:
+        fail(f"serving {arch}: the reckoning does not fit the card")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(serve_args(arch))
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    if run.engines[0].device.type != "cuda":
+        fail(f"the engine ran on {run.engines[0].device}, not on the card")
+    if flash_route_of(run.cfg) != ("simt" if cfg.use_mla else "wgmma"):
+        fail(f"{arch}: prefill attention on the {flash_route_of(run.cfg)} "
+             f"route")
+    check_main_path(torch, run, launches, card)
+    if peak > rk["total"] + SERVE_ROOM:
+        fail(f"serving {arch}: peak {peak / 1e9:.3f} GB beyond the reckoning "
+             f"{rk['total'] / 1e9:.3f} GB + {SERVE_ROOM / 2**30:.0f} GiB")
+    eng = run.engines[0]
+    res = {"summary": run.summary, "seconds": run.seconds,
+           "admissions": eng.prefills, "decode_ticks": eng.decode_ticks,
+           "launches": launches, "peak_bytes": peak, "reckoning": rk,
+           "params": cfg.num_params()}
+    model, params, scfg, reqs = run.model, run.params, eng.cfg, run.requests
+    del run, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["profile"] = profile_ticks(torch, model, params, scfg, reqs, card,
+                                   ticks=5)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    s, p = res["summary"], res["profile"]
+    busy = p.get("busy_share")
+    print(f"serving {arch} [{card}]: {res['params']} params bf16; "
+          f"tokens/s={s['tokens_per_s']:.3f} mean TTFT="
+          f"{s['mean_ttft_s'] * 1e3:.3f} ms p50 per-token latency="
+          f"{s['p50_s'] * 1e3:.3f} ms; decode tick {p['tick_ms']:.3f} ms, "
+          f"device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f}'} of it; peak "
+          f"{peak / 1e9:.3f} GB within the reckoning "
+          f"{rk['total'] / 1e9:.3f} GB + {SERVE_ROOM / 2**30:.0f} GiB "
+          f"(serve run {res['seconds']:.2f} s)", flush=True)
+    return res
+
+
+def run_moe_training(torch, ops, train, card) -> dict:
+    """Phase 14 (c): qwen3-moe-30b-a3b at full width and cut depth (4
+    layers when MOE_TRAIN_BYTES_PER_PARAM x the parameters fits
+    MOE_TRAIN_BUDGET, else 2), Adam, ``--sync comm --compressor
+    int8_fused``, NCCL world 1, 3 steps: the session is built from the
+    CLI's flags by the CLI's own ``fixed_strategy``, with the depth cut.
+    Gates: quantize_ef and dequant_accum = buckets x steps, on the warp
+    route, every other kernel 0; losses finite; the drop tap routed every
+    choice once per forward.  Prints the CLI's ``moe capacity:`` line,
+    step times, tokens/s, the peak and a profiled step."""
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import destroy_group
+    from repro_torch.launch.report import render_moe_drops
+    from repro_torch.models import count_params
+    cfg = get_config(MOE_TRAIN_ARCH)
+
+    def reckon(layers):
+        return MOE_TRAIN_BYTES_PER_PARAM * count_params(
+            dataclasses.replace(cfg, num_layers=layers))
+    layers = 4 if reckon(4) <= MOE_TRAIN_BUDGET else 2
+    n_params = reckon(layers) // MOE_TRAIN_BYTES_PER_PARAM
+    print(f"training {MOE_TRAIN_ARCH}: {layers} of {cfg.num_layers} layers "
+          f"(reduced depth; widths full): reckoning "
+          f"{MOE_TRAIN_BYTES_PER_PARAM} B x {n_params} parameters = "
+          f"{reckon(layers) / 2**30:.3f} GiB (4 layers: "
+          f"{reckon(4) / 2**30:.3f} GiB, budget "
+          f"{MOE_TRAIN_BUDGET / 2**30:.0f} GiB)", flush=True)
+    args = train.build_parser().parse_args(MOE_TRAIN_ARGS)
+    par = train.resolve_cli_parallelism(args)
+    strategy = train.fixed_strategy(args, train.scheduler_from_args(args),
+                                    par, None)
+    destroy_group()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session = TrainSession(SessionConfig(
+        arch=args.arch, layers=layers, steps=args.steps, batch=args.batch,
+        seq=args.seq, lr=args.lr, warmup=args.warmup,
+        optimizer=args.optimizer, seed=args.seed, device="cuda"),
+        strategy=strategy)
+    session.run(args.steps, log_every=args.log_every)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    if session.device.type != "cuda":
+        fail(f"MoE training ran on {session.device}, not on the card")
+    losses = list(session.losses)
+    if len(losses) != args.steps or not all(map(math.isfinite, losses)):
+        fail(f"MoE training: losses {losses}")
+    n_buckets = session.synchronizer.plan.n_buckets
+    wire = ("quantize_ef", "dequant_accum", "dequant_accum[warp]")
+    for kname, count in launches.items():
+        want = n_buckets * args.steps if kname in wire else 0
+        if count != want or (kname in wire and want <= 0):
+            fail(f"MoE training: kernel {kname} launched {count} times, "
+                 f"expected {want} (= {n_buckets} buckets x {args.steps} "
+                 f"steps for quantize_ef and dequant_accum on the warp "
+                 f"route, 0 for the others)")
+    mcfg = session.model_cfg
+    routed = args.steps * layers * args.batch * args.seq * mcfg.top_k
+    if session.routed_tokens != routed:
+        fail(f"MoE training: the drop tap routed {session.routed_tokens} "
+             f"token-choices, expected {routed} (steps x layers x tokens x "
+             f"top_k: each choice once per forward)")
+    print(render_moe_drops(session.dropped_tokens, session.routed_tokens,
+                           mcfg.capacity_factor), flush=True)
+    times = session.step_times
+    step_ms = statistics.median(times[1:]) * 1e3
+    res = {"layers": layers, "losses": losses, "step_ms": step_ms,
+           "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": args.batch * args.seq / (step_ms / 1e3),
+           "peak_bytes": peak, "n_buckets": n_buckets,
+           "launches": launches, "run_s": seconds,
+           "params": session.num_params(),
+           "dropped": session.dropped_tokens, "routed": session.routed_tokens,
+           "reckoning_bytes": reckon(layers),
+           "lengths": sorted(set(bucket_lengths(session.synchronizer.plan,
+                                                session.params)))}
+    print(f"training {MOE_TRAIN_ARCH} [{card}]: {layers} layers, "
+          f"{res['params']} params bf16, batch {args.batch} x seq "
+          f"{args.seq}, losses {[round(x, 4) for x in losses]}; step time "
+          f"(median of steps 2-{args.steps}) {step_ms:.3f} ms, all steps "
+          f"{[round(t, 1) for t in res['step_ms_all']]} ms; tokens/s "
+          f"{res['tokens_per_s']:.1f}; peak {peak / 2**30:.3f} GiB "
+          f"(reckoning {reckon(layers) / 2**30:.3f}); {n_buckets} buckets; "
+          f"launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    prof = profile_step(torch, session, card, "moe_int8_fused")
+    if prof.get("busy_share") is not None:
+        prof["host_ms"] = prof["wall_ms"] - prof["busy_ms"]
+        prof["other_device_ms"] = prof["busy_ms"] - prof["wire_kernel_ms"]
+        print(f"profile moe_int8_fused [{card}]: {prof['wall_ms']:.3f} ms = "
+              f"wire kernels {prof['wire_kernel_ms']:.3f} + other device "
+              f"work {prof['other_device_ms']:.3f} + host (the rest) "
+              f"{prof['host_ms']:.3f} ms", flush=True)
+    res["profile"] = prof
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    destroy_group()
+    return res
+
+
+def new_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
+    """Phase 14 (d), flash: at NEW_FLASH_SHAPES in bf16, through
+    ``ops.flash_attention`` on the route ``route`` gives (SIMT at MLA's
+    head dim 192, wgmma at qwen3-moe's 128), held to the plain version
+    within :func:`flash_close` and, with a NaN in v at a key that the
+    first query tile skips, NaN exactly where the plain version has NaN;
+    then kernel (pre-pass included), plain and SDPA times in turns and the
+    bound.  Returns {route: {shape name: timing}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import route
+    out = {"simt": {}, "wgmma": {}}
+    for i, (name, (B, T, H, KV, hd, vw)) in enumerate(
+            NEW_FLASH_SHAPES.items()):
+        r = route(torch.bfloat16, hd)
+        q, k, v = flash_inputs(torch, B, T, T, H, KV, hd, torch.bfloat16,
+                               500 + i)
+        v[..., vw:] = 0.0                 # MLA's zero padding of v
+        r0 = ops.route_counts()["flash_attention"][r]
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        if ops.route_counts()["flash_attention"][r] != r0 + 1:
+            fail(f"flash_attention at {name} did not take the {r} route")
+        ok, err, share = flash_close(torch, got, want)
+        if not ok:
+            fail(f"flash_attention ({r}) differs from the plain version at "
+                 f"{name}: max err {err}, {share:.3f} of the tolerance")
+        vn = v.clone()
+        vn[0, T - 20, 1, 5] = float("nan")      # skipped by rows < 64
+        gn = ops.flash_attention(q, k, vn, causal=True)
+        wn = ref.flash_attention_ref(q, k, vn)
+        torch.cuda.synchronize()
+        if not (torch.isnan(wn).any()
+                and torch.equal(torch.isnan(gn), torch.isnan(wn))):
+            fail(f"flash_attention ({r}) NaN rule broken at {name}")
+        del vn, gn, wn
+
+        def kern():
+            return flash_cuda(q, k, v, tiles_cuda(v), True, None, None, r)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        timer = loop_ms if T > 1024 else device_ms
+        plain_ms, (k_ms,) = time_turns(torch, timer, plain, [kern])
+        lib_ms = min(timer(torch, library), timer(torch, library))
+        lib_err = (library().float() - want.float()).abs().max().item()
+        b_ms, by, n_ops, nbytes = flash_bound(B, T, T, H, KV, hd, 2, {})
+        out[r][name] = {
+            "shape": [B, T, H, KV, hd], "dtype": "bfloat16",
+            "v_width_before_padding": vw, "ms": k_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "ops": n_ops, "bytes": nbytes,
+            "tflops": n_ops / k_ms / 1e9, "library_ms": lib_ms,
+            "library_note": "F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa)",
+            "library_max_abs_err": lib_err, "max_abs_err_bf16": err,
+            "share_of_tolerance_bf16": share, "includes_prepass": True,
+            "timer": ("cuda events, 5 eager calls back to back"
+                      if T > 1024 else "cuda graph")}
+        print(f"flash_attention {r} route {name} {[B, T, H, KV, hd]} bf16: "
+              f"within tolerance ({share:.4f} of it), NaN rule held; device "
+              f"time kernel with its pre-pass {k_ms * 1e3:.3f} us "
+              f"({n_ops / k_ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us ({by}), "
+              f"{b_ms / k_ms:.4f} of the bound, library {lib_ms * 1e3:.3f} "
+              f"us by SDPA ({'kernel faster' if k_ms < lib_ms else 'SDPA faster'})"
+              f" [{out[r][name]['timer']}]", flush=True)
+        del q, k, v, qt, kt, vt, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_moe_mla(torch, card) -> None:
+    """Phase 14, small references on the card in f32 (TF32 off): for both
+    new MoE families at reduced size, ``moe_ffn`` at capacity factor 0.5
+    on the card and on the CPU from the same weights and inputs — the same
+    expert choices and the same keep mask, the outputs within 1e-4 of the
+    largest |output| (phase 4's tolerance); phase 4's prefill + four
+    vector-position decode steps, card against CPU; and MLA's naive and
+    absorbed decodes on the card within the same tolerance of each
+    other."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    from repro_torch.models import moe as moe_mod
+    for arch in MOE_SERVE_ARCHS:
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  capacity_factor=0.5)
+        params = Model(cfg).init(torch.Generator("cpu").manual_seed(0))
+        seg = next(i for i, s in enumerate(cfg.stack_plan())
+                   if s.period[0].ffn == "moe")
+        ffn = params["stack"][seg][0]["ffn"]
+        if cfg.stack_plan()[seg].repeats > 1:
+            ffn = tree_map(lambda t: t[0], ffn)
+        g = torch.Generator("cpu").manual_seed(1)
+        ffn = dict(ffn, router=torch.randn(ffn["router"].shape, generator=g))
+        x = torch.randn((2, 64, cfg.d_model), generator=g)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), ffn)
+            xd = x.to(dev)
+            _, experts, _ = moe_mod._route(cfg, xd.reshape(-1, cfg.d_model)
+                                           @ p["router"])
+            N, k, E = 128, cfg.top_k, cfg.num_experts
+            cap = int(max(1, N * k / E * cfg.capacity_factor))
+            _, keep = moe_mod.dispatch_plan(experts, E, 1, cap)
+            out, aux = moe_mod.moe_ffn(p, cfg, xd)
+            res[dev] = (experts.cpu(), keep.cpu(), out.cpu(), aux.cpu())
+        (ec, kc, oc, ac), (eg, kg, og, ag) = res["cpu"], res["cuda"]
+        err = (og - oc).abs().max().item()
+        scale = oc.abs().max().item()
+        if not (torch.equal(ec, eg) and torch.equal(kc, kg)):
+            bad = (kc != kg).nonzero()[:4].tolist()
+            fail(f"{arch} reduced: moe_ffn routes or keeps differently on the "
+                 f"card, e.g. (group, choice) {bad}")
+        if not (err <= 1e-4 * scale and abs(ag.item() - ac.item())
+                <= 1e-4 * abs(ac.item())):
+            fail(f"{arch} reduced: moe_ffn on the card differs from the CPU "
+                 f"path: max|Δ| {err} vs 1e-4·{scale}")
+        print(f"small reference: reduced {arch} f32 moe_ffn at capacity "
+              f"factor 0.5, card vs CPU: expert choices and keep mask equal "
+              f"({int((~kc).sum())} of {kc.numel()} choices dropped), "
+              f"max|Δout| {err:.3e} (max|out| {scale:.3e})", flush=True)
+        phase_small_reference(torch, arch, MOE_SMALL_REFS)
+    cfg = reduced(get_config("deepseek-v2-lite-16b"))
+    model = Model(cfg)
+    params = tree_map(lambda t: t.to("cuda"), model.init(
+        torch.Generator("cpu").manual_seed(0)))
+    g = torch.Generator("cpu").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g).cuda()
+    _, cache = model.prefill(params, {"tokens": tokens}, max_len=24)
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=g).cuda()
+    pos = torch.tensor([16, 13], device="cuda")
+    naive, _ = model.decode_step(params, tok, cache, pos, mla_absorb=False)
+    absorbed, _ = model.decode_step(params, tok, cache, pos, mla_absorb=True)
+    err = (naive - absorbed).abs().max().item()
+    scale = naive.abs().max().item()
+    if not (torch.isfinite(absorbed).all() and err <= 1e-4 * scale):
+        fail(f"MLA absorbed decode differs from the naive one on the card: "
+             f"max|Δ| {err} vs 1e-4·{scale}")
+    print(f"small reference: reduced deepseek-v2-lite-16b f32 on the card, "
+          f"MLA naive vs absorbed decode (vector positions) max|Δlogit| "
+          f"{err:.3e} (max|logit| {scale:.3e})", flush=True)
+
+
+MOE_SMALL_REFS = {   # arch: (config overrides, prompt length, max_len)
+    "deepseek-v2-lite-16b": ({}, 16, 24),
+    "qwen3-moe-30b-a3b": ({}, 16, 24),
+}
+
+
+def phase_moe(torch, ops, ref, serve, train, card, flash_cuda,
+              tiles_cuda) -> dict:
+    """Phase 14: flash at the new families' shapes and the small
+    references (the card free; phase 3 holds quantize_tiles at their
+    pools' lengths), then (a) deepseek-v2-lite-16b and (b)
+    qwen3-moe-30b-a3b served at full width, (c) qwen3-moe-30b-a3b trained
+    at full width and cut depth, and quantize_ef / dequant_accum bit-equal
+    at every bucket length of (c), timed at its largest (an expert leaf)."""
+    t0 = time.perf_counter()
+    flash = new_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda)
+    phase_small_moe_mla(torch, card)
+    serving = {arch: run_moe_serving(torch, ops, serve, card, arch)
+               for arch in MOE_SERVE_ARCHS}
+    training = run_moe_training(torch, ops, train, card)
+    lengths = training["lengths"]
+    wire = train_path_kernels(torch, ops, ref, lengths,
+                              {"qwen3_moe_expert_bucket": max(lengths)})
+    seconds = time.perf_counter() - t0
+    print(f"phase 14 took {seconds:.1f} s", flush=True)
+    return {"flash": flash, "serving": serving, "training": training,
+            "wire": wire, "seconds": seconds}
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -3954,7 +4437,9 @@ def main() -> None:
     cfg = get_config("gemma-2b")
     path_shapes = {**quantize_path_shapes("gemma-2b", SLOTS, MAX_LEN, PAGE),
                    **quantize_path_shapes("gemma2-9b", GEMMA2_SLOTS,
-                                          GEMMA2_MAX_LEN, PAGE)}
+                                          GEMMA2_MAX_LEN, PAGE),
+                   **{k: v for arch in MOE_SERVE_ARCHS
+                      for k, v in pool_write_shapes(arch).items()}}
     q_err, timings, q_block = phase_kernels(torch, ops, ref,
                                             quantize_tiles_cuda, path_shapes)
     for name, t in [*timings.items(), *q_block.items()]:
@@ -4038,7 +4523,12 @@ def main() -> None:
     # -- 13. pipeline parallelism ----------------------------------------------
     pipe = phase_pipe(torch, ops, ref, train, card, kept.pop("int8_fused"))
 
-    serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"]}
+    # -- 14. the MoE and MLA families ------------------------------------------
+    moe = phase_moe(torch, ops, ref, serve, train, card, flash_attention_cuda,
+                    nonfinite_tiles_cuda)
+
+    serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
+               **{arch: r["launches"] for arch, r in moe["serving"].items()}}
 
     def runs_of(name, runs):
         return {run_name: r[name] for run_name, r in runs.items()}
@@ -4064,6 +4554,7 @@ def main() -> None:
         shard["world4"]["replicated"]["launches"]
     train_runs["pipe_world1_micro"] = pipe["world1"]["launches"]
     train_runs["pipe_s2_stage"] = pipe["big"]["launches"]
+    train_runs["moe_qwen3_int8_fused"] = moe["training"]["launches"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -4071,12 +4562,20 @@ def main() -> None:
                     "world4_ring_fused_hop": world4["quantize_tiles_hop"]}
     train_timings["dequant_accum"]["world4_mid_bucket_w4"] = \
         world4["dequant_accum_w4"]
+    for kernel, per_shape in moe["wire"].items():
+        train_timings[kernel].update(per_shape)
+    for route in ("wgmma", "simt"):
+        flash_timings[route].update(moe["flash"][route])
+    flash_err = max([flash_err] + [t["max_abs_err_bf16"]
+                                   for per in moe["flash"].values()
+                                   for t in per.values()])
     kernels = [
         kernel_line("flash_attention", flash_routes["wgmma"], flash_err,
                     flash_timings["wgmma"], "gemma2_9b_prefill_global",
                     flash_routes),
+        # the SIMT route's path: deepseek-v2-lite-16b's MLA prefill
         kernel_line("flash_attention_simt", flash_routes["simt"], flash_err,
-                    flash_timings["simt"], "gemma2_9b_prefill_global",
+                    flash_timings["simt"], "deepseek_v2_lite_prefill",
                     flash_routes),
         kernel_line("nonfinite_tiles", runs_of("nonfinite_tiles", serving),
                     0.0, tiles_timings, "gemma2_9b_prefill_global"),
@@ -4105,6 +4604,7 @@ def main() -> None:
     print(json.dumps({"auto": auto, "card": card}))
     print(json.dumps({"shard": shard, "card": card}))
     print(json.dumps({"pipeline": pipe, "card": card}))
+    print(json.dumps({"moe": moe, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -86,7 +86,8 @@ from repro_torch.core.collectives.p2p import (axis_index, axis_size,
 from repro_torch.core.pipeline import StagedModel
 from repro_torch.core.schedule import (LINK_PRESETS, LinkParams,
                                        PipelineAxis, RoundSchedule,
-                                       StrategyPlan, TensorAxis, Topology,
+                                       ExpertAxis, StrategyPlan, TensorAxis,
+                                       Topology,
                                        fixed_config_plan, pipeline_arm,
                                        pipeline_placements, plan, plan_rounds,
                                        profiles_from_grads,
@@ -104,6 +105,7 @@ from repro_torch.launch.steps import (_make_synced_train_step,
                                       make_sharded_train_step,
                                       make_train_step, merge_opt_rows)
 from repro_torch.models import Model
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import desc_leaves
 from repro_torch.models.model import count_params
 from repro_torch.optim import (make_optimizer, make_sharded_optimizer,
@@ -130,12 +132,14 @@ class SessionConfig:
 
 def strategy_from_plan(sp: StrategyPlan, axes=None) -> SyncStrategy:
     """The executable strategy a planner composite describes, over the
-    data axes ``axes`` (process groups; None: the default group).  A tp /
-    ep winner runs its DP edge (the arm's comm plan) and carries the spec
-    as record axes, as the reference does on a mesh with no model axis; a
-    sharded winner runs sharded data parallelism on the arm's plan; a
-    pipeline winner runs the pipeline, its DP edge per layer row on the
-    arm's dominant (compressor, algo) choice, as the reference's does."""
+    data axes ``axes`` (process groups; None: the default group).  A tp
+    winner runs its DP edge (the arm's comm plan) and carries the spec as
+    a record axis, as the reference does on a mesh with no model axis (an
+    ep winner's strategy is refused when the session builds its step:
+    ROADMAP.md queue 1, item 10); a sharded winner runs sharded data
+    parallelism on the arm's plan; a pipeline winner runs the pipeline,
+    its DP edge per layer row on the arm's dominant (compressor, algo)
+    choice, as the reference's does."""
     if sp.schedule.kind == "local_sgd":
         return SyncStrategy(
             scheduler=get_scheduler("local_sgd", period=sp.schedule.period),
@@ -282,6 +286,13 @@ class TrainSession:
         self.control_rounds = 0
         self.step_times: List[float] = []
         self.wall_s = float("nan")
+        # MoE capacity overflow must not vanish silently: the drop tap
+        # counts the dropped token-choices, drained once per step
+        self.dropped_tokens = 0.0
+        self.routed_tokens = 0.0
+        if model_cfg.num_experts:
+            moe_mod.enable_drop_tap(True)
+            moe_mod.drain_drop_tap()      # no other run's counts
         self._engine = None
         self._built = False
         if pipelined:
@@ -331,6 +342,10 @@ class TrainSession:
             self._built = True
             return
         st = self.strategy
+        if st.parallelism.ep > 1:
+            raise NotImplementedError(
+                f"the strategy {st.describe()!r} runs expert parallelism, "
+                f"which is not ported yet (ROADMAP.md queue 1, item 10)")
         if st.pipeline_stages > 1 or st.micro_batches > 1:
             # S = 1 with micro-batches is the degenerate pipe: the same
             # 1F1B step with no hop, plain gradient accumulation
@@ -626,6 +641,31 @@ class TrainSession:
             return False
         return True
 
+    def _model_axes(self, pipe_axis: PipelineAxis
+                    ) -> Tuple[TensorAxis, Optional[ExpertAxis]]:
+        """The tp / ep pricing axes of this model (the reference's): tp
+        pays 4 activation all-reduces per layer (Megatron's wire); ep
+        exists only for MoE stacks, dispatching top-k activation rows per
+        token, its ``expert_fraction`` from the parameter count."""
+        mc = self.model_cfg
+        tensor_axis = TensorAxis(
+            global_tokens=pipe_axis.global_tokens,
+            bytes_per_token=pipe_axis.bytes_per_token,
+            n_layers=mc.num_layers)
+        expert_axis = None
+        if mc.num_experts:
+            n_moe = sum(1 for i in range(mc.num_layers)
+                        if mc.layer_spec(i).ffn == "moe")
+            if n_moe:
+                ffm = mc.moe_d_ff or mc.d_ff
+                expert_params = n_moe * 3 * mc.num_experts * mc.d_model * ffm
+                frac = min(0.99, expert_params / max(mc.num_params(), 1))
+                expert_axis = ExpertAxis(
+                    global_tokens=pipe_axis.global_tokens,
+                    bytes_per_token=float(mc.top_k * mc.d_model * 4),
+                    n_moe_layers=n_moe, expert_fraction=frac)
+        return tensor_axis, expert_axis
+
     def _note(self, msg: str) -> None:
         if self.rank == 0:
             print(msg, flush=True)
@@ -720,13 +760,7 @@ class TrainSession:
         pipe_axis = PipelineAxis(
             global_tokens=float(self.cfg.batch * self.cfg.seq),
             bytes_per_token=float(self.model_cfg.d_model * 4))
-        # tp pays 4 activation allreduces per layer (Megatron wire); the
-        # expert axis would price MoE stacks, which the port has none of
-        # (ROADMAP.md queue 1, item 4)
-        tensor_axis = TensorAxis(
-            global_tokens=pipe_axis.global_tokens,
-            bytes_per_token=pipe_axis.bytes_per_token,
-            n_layers=self.model_cfg.num_layers)
+        tensor_axis, expert_axis = self._model_axes(pipe_axis)
         mem_budget = (memory_budget_gb * 2**30
                       if memory_budget_gb is not None else None)
 
@@ -766,7 +800,7 @@ class TrainSession:
                 opt_name=self.cfg.optimizer, shard_grid=shard_grid,
                 opt_moments=self.opt_moments,
                 memory_budget_bytes=mem_budget,
-                pipeline=pipe_axis, tensor=tensor_axis,
+                pipeline=pipe_axis, tensor=tensor_axis, expert=expert_axis,
                 parallelism=parallelism,
                 **dict(kw, **({"tau_grid": tau_grid}
                               if tau_grid is not None else {})))
@@ -929,7 +963,25 @@ class TrainSession:
         loss = float(loss)
         self.losses.append(loss)
         self.step += 1
+        self._drain_drops()
         return loss
+
+    def _drain_drops(self) -> None:
+        """Add the step's MoE drop counts (one host read of the device
+        count, after the loss reached the host)."""
+        if not self.model_cfg.num_experts:
+            return
+        d, r = moe_mod.drain_drop_tap()
+        self.dropped_tokens += d
+        self.routed_tokens += r
+
+    @property
+    def drop_fraction(self) -> float:
+        """Share of the routed token-choices dropped to capacity overflow
+        so far (0.0 for dense models and before any step)."""
+        return self.dropped_tokens / self.routed_tokens \
+            if self.routed_tokens else 0.0
+
     def run(self, steps: Optional[int] = None, log_every: int = 0,
             log=print) -> List[float]:
         """Train ``steps`` steps (default: ``cfg.steps``); returns the
@@ -945,9 +997,11 @@ class TrainSession:
             self.step_times.append(dt)
             out.append(loss)
             if log_every and i % log_every == 0:
+                drops = (f", dropped {self.drop_fraction * 100:.1f}%"
+                         if self.routed_tokens else "")
                 log(f"step {self.step - 1:5d} loss {loss:.4f} "
-                    f"({dt * 1e3:.1f} ms, comm rounds {self.comm_rounds})",
-                    flush=True)
+                    f"({dt * 1e3:.1f} ms, comm rounds {self.comm_rounds}"
+                    f"{drops})", flush=True)
         self.wall_s = time.perf_counter() - t0
         return out
 
@@ -1029,6 +1083,11 @@ class TrainSession:
                  f"(grad {self.grad_rounds}, param {self.param_rounds}"
                  + (f", control probes {self.control_rounds}"
                     if self.control_rounds else "") + ")"]
+        if self.routed_tokens:
+            parts.append(
+                f"moe dropped {self.dropped_tokens:.0f}/"
+                f"{self.routed_tokens:.0f} token-choices "
+                f"({self.drop_fraction * 100:.1f}%)")
         parts.append(self.strategy.describe() if self.strategy is not None
                      else "vanilla BSP")
         return "; ".join(parts)

@@ -18,13 +18,14 @@ _ARCH_MODULES = {
     "gemma-2b": "gemma_2b",
     "gemma2-9b": "gemma2_9b",
     "gemma3-4b": "gemma3_4b",
+    "deepseek-67b": "deepseek_67b",
+    "chameleon-34b": "chameleon_34b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 # Architectures of the JAX package that the port does not cover yet.
-NOT_PORTED = (
-    "deepseek-67b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
-    "chameleon-34b", "xlstm-125m", "seamless-m4t-large-v2", "jamba-v0.1-52b",
-)
+NOT_PORTED = ("xlstm-125m", "seamless-m4t-large-v2", "jamba-v0.1-52b")
 
 ALL_ARCHS = tuple(_ARCH_MODULES)
 

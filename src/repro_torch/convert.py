@@ -7,12 +7,20 @@ input is plain numpy — this module imports no JAX — with the JAX
 package's layout::
 
     {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
-     "stack": [[{"norm1", "mixer": {wq, wk, wv, wo, [q_norm, k_norm]},
-                 "norm2", "ffn": {wi_gate, wi_up, wo}}]]}
+     "stack": [[{"norm1", "mixer": MIXER, "norm2", "ffn": FFN}]]}
 
-where ``lm_head`` exists for an untied head (gemma2-9b, gemma3-4b),
-``q_norm``/``k_norm`` for QK-norm (gemma3-4b), and every leaf of a segment
-with ``repeats > 1`` has a leading ``repeats`` axis.  The keys expected
+    MIXER: attention {wq, wk, wv, wo, [q_norm, k_norm]}
+           or MLA    {wq, w_dkv, kv_norm: {scale}, w_ukv, wo}
+    FFN:   dense     {wi_gate, wi_up, wo}
+           or MoE    {router (d, E), wi_gate (E, d, ff), wi_up (E, d, ff),
+                      wo (E, ff, d), [shared: {wi_gate, wi_up, wo}]}
+
+where ``lm_head`` exists for an untied head (every registered model but
+gemma-2b), ``q_norm``/``k_norm`` for QK-norm (gemma3-4b, chameleon-34b,
+qwen3-moe-30b-a3b), MLA for deepseek-v2-lite-16b, the MoE FFN for the
+MoE layers of qwen3-moe-30b-a3b and deepseek-v2-lite-16b (``shared``
+for the latter's shared experts), and every leaf of a segment with
+``repeats > 1`` has a leading ``repeats`` axis.  The keys expected
 are the port's own ``Model(cfg).param_desc()``, so a tree missing one of
 them, or holding one more, is refused.  bf16 arrays (numpy's ``bfloat16``
 extension dtype) cross bit for bit.

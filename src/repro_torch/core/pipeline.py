@@ -25,7 +25,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map
 
@@ -313,20 +312,23 @@ class StagedModel:
     def stage_apply(self, rows, h):
         """One stage: its ``rows_per_stage`` period rows in sequence, every
         block checkpointed while autograd records (the policy of
-        ``transformer.stack_train``).  Returns (h, aux); the ported dense
-        blocks add no MoE aux loss, so aux is an f32 zero."""
+        ``transformer.stack_train``).  Returns (h, aux): the blocks' MoE
+        aux losses summed in f32 in layer order (a zero for dense
+        blocks)."""
         from repro_torch.models import transformer
         cfg, seg = self.cfg, self.seg
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         remat = torch.is_grad_enabled()
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for period in transformer._unstack(rows, self.layout.rows_per_stage):
             for spec, p in zip(seg.period, period):
                 def blk(x, p=p, spec=spec):
                     return transformer.block_train(p, cfg, spec, x,
                                                    positions)
-                h = checkpoint(blk, h, use_reentrant=False) if remat \
+                h, aux = transformer.checkpointed(blk, h) if remat \
                     else blk(h)
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+                aux_total = aux_total + aux
+        return h, aux_total
 
     def loss_tail(self, shared, h, tokens):
         """Head cell: final norm + chunked cross-entropy (stage S-1), with

@@ -227,6 +227,20 @@ def render_sharded_memory(layout, opt_name: str, moments=None) -> str:
             f"{layout.param_bytes() / 2**20:.2f} MiB f32")
 
 
+def render_moe_drops(dropped: float, routed: float,
+                     capacity_factor: float) -> str:
+    """One-line MoE capacity report of a training run: the routed
+    token-choices that overflowed an expert's capacity buffer and were
+    dropped (the reference's line)."""
+    if routed <= 0:
+        return "moe capacity: no tokens routed"
+    frac = dropped / routed
+    verdict = ("no overflow" if dropped == 0 else
+               f"raise capacity_factor ({capacity_factor:g}) to shed drops")
+    return (f"moe capacity: dropped {dropped:.0f}/{routed:.0f} routed "
+            f"token-choices ({frac:.1%}) — {verdict}")
+
+
 def render_pipeline_stages(staged, params_split, micro_batches: int,
                            moments=None) -> str:
     """Per-stage rows for an EXECUTED pipeline run (DESIGN.md §9): stage

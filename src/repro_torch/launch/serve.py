@@ -7,9 +7,13 @@ routing), with static batching and one-shot ``generate`` as modes.
         --no-reduced --quantize int8 --engine continuous
 
 ``--arch`` offers the architectures the port registers
-(``configs.ALL_ARCHS``: gemma-2b, gemma2-9b, gemma3-4b).  Every prefill
+(``configs.ALL_ARCHS``: gemma-2b, gemma2-9b, gemma3-4b, deepseek-67b,
+chameleon-34b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b).  Every prefill
 runs its attention through ``kernels/ops.flash_attention`` (the Hopper
-kernel on CUDA).  Runs on CUDA unless ``--device`` names another device;
+kernel on CUDA: the wgmma route for bf16 at head dims 32/64/128/256,
+the SIMT route otherwise, e.g. MLA's q/k head dim 192).  An MLA layer
+caches its latents (``c_kv``, ``k_rope``), paged and, with ``--quantize
+int8``, quantized as K/V are.  Runs on CUDA unless ``--device`` names another device;
 without CUDA and without ``--device`` it raises.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed`` on the device.
 ``--plan`` prints the planner's serving placement search

@@ -43,6 +43,7 @@ from repro_torch.core.lag import change_and_scale
 from repro_torch.core.local_sgd import average_leaf
 from repro_torch.core.pipeline import aligned_ticks
 from repro_torch.models.model import Model
+from repro_torch.models.moe import drop_tap_paused
 from repro_torch.optim import apply_rows_inplace, step_inplace
 
 
@@ -372,7 +373,9 @@ def make_pipeline_train_step(staged, optimizer, engine, micro_batches: int,
                     x_in = recv_f
                     buf[k % W] = x_in
                 if not last:
-                    with torch.no_grad():
+                    # the backward slot recomputes this forward: the MoE
+                    # drop tap counts it there, once
+                    with torch.no_grad(), drop_tap_paused():
                         if first:
                             x_in = {"h": staged.embed_mb(shared,
                                                          toks_mb[m_f]),

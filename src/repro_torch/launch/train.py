@@ -57,10 +57,13 @@ CPU; no network).  Weights are random, from a ``torch.Generator`` seeded
 with ``--seed``.  Every compressor, collective algorithm and optimizer of
 the reference is taken.  ``--calibrate``, ``--replan-drift-pct`` and
 ``--replan-every`` raise and name ROADMAP.md queue 1, item 11, and a
-``--parallelism`` spec with ``tp`` / ``ep`` above 1 item 10.  Rank 0
-prints the loss and wall
-time of every ``--log-every``-th step, the plan, and the reference's
-final line; it alone writes the plan record
+``--parallelism`` spec with ``tp`` / ``ep`` above 1 item 10.
+``--arch`` takes every model the port registers (``configs.ALL_ARCHS``:
+gemma-2b, gemma2-9b, gemma3-4b, deepseek-67b, chameleon-34b,
+qwen3-moe-30b-a3b, deepseek-v2-lite-16b).  Rank 0 prints the loss and
+wall time of every ``--log-every``-th step (with the MoE drop share for
+an MoE model), the plan, the ``moe capacity:`` line after an MoE run,
+and the reference's final line; it alone writes the plan record
 (``artifacts/comm_plans_torch/<arch>.json``).
 """
 from __future__ import annotations
@@ -81,7 +84,8 @@ from repro_torch.core.collectives import ALGOS
 from repro_torch.core.schedule import LINK_PRESETS
 from repro_torch.device import resolve_device
 from repro_torch.launch.dist import destroy_group, init_group, spawn
-from repro_torch.launch.report import (render_pipeline_stages,
+from repro_torch.launch.report import (render_moe_drops,
+                                       render_pipeline_stages,
                                        render_sharded_memory,
                                        render_strategy_plan,
                                        save_strategy_plan)
@@ -435,6 +439,9 @@ def run(args, rank: int = 0, group=None,
     if session.layout is not None:
         log(render_sharded_memory(session.layout, args.optimizer,
                                   moments=session.opt_moments), flush=True)
+    if session.routed_tokens:
+        log(render_moe_drops(session.dropped_tokens, session.routed_tokens,
+                             session.model_cfg.capacity_factor), flush=True)
     if session.staged is not None:
         log(render_pipeline_stages(session.staged, session._params,
                                    session.strategy.micro_batches,

@@ -1,6 +1,7 @@
 """Attention of the port: GQA/MQA with RoPE, QK-norm, sliding windows and
-logit softcap, and single-token KV-cache decoding — counterparts of
-``repro/models/attention.py`` (MLA is not ported yet).
+logit softcap, DeepSeek-V2's multi-head latent attention (MLA), and
+single-token KV-cache decoding — counterparts of
+``repro/models/attention.py``.
 
 Two full-sequence paths:
 
@@ -348,3 +349,150 @@ def _store_rows(cache, new, slot):
     hit = torch.arange(L, device=cache.device)[None, :] == slot[:, None]
     hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
     return torch.where(hit, new.to(cache.dtype), cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+#
+# Queries and keys have head dim qk_nope_dim + qk_rope_dim; the cache holds
+# the normalized latent c_kv (kv_lora_rank) and one shared RoPE key per
+# position.  The full-sequence paths up-project the latents to per-head
+# K_nope and V, pad V to the q/k head dim so that one attention function
+# applies (the softmax scale stays 1/sqrt(q/k head dim)), and crop.
+
+def mla_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
+    d, H = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": ParamDesc((d, H * qk)),
+        "w_dkv": ParamDesc((d, cfg.kv_lora_rank + cfg.qk_rope_dim)),
+        "kv_norm": norm_desc(cfg.kv_lora_rank),
+        "w_ukv": ParamDesc((cfg.kv_lora_rank,
+                            H * (cfg.qk_nope_dim + cfg.v_head_dim))),
+        "wo": ParamDesc((H * cfg.v_head_dim, d)),
+    }
+
+
+def _mla_qkv(params, cfg: ModelConfig, x, positions):
+    """x (B, T, d) -> q_nope (B, T, H, nope), q_rope (B, T, H, rope) with
+    RoPE, c_kv (B, T, lora) normalized, k_rope (B, T, 1, rope) with RoPE."""
+    B, T, _ = x.shape
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ params["wq"]).reshape(B, T, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    latent = x @ params["w_dkv"]
+    c_kv = rmsnorm(params["kv_norm"], latent[..., :cfg.kv_lora_rank],
+                   eps=cfg.norm_eps)
+    k_rope = apply_rope(latent[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(params, cfg: ModelConfig, c_kv):
+    """Up-project latents (B, L, lora) to per-head K_nope and V."""
+    B, L, _ = c_kv.shape
+    H, nope, vdim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    kv = (c_kv @ params["w_ukv"]).reshape(B, L, H, nope + vdim)
+    return kv[..., :nope], kv[..., nope:]
+
+
+def _mla_full_qkv(params, cfg: ModelConfig, x, positions):
+    """The full-sequence q, k (B, T, H, nope + rope) and v padded to that
+    head dim, plus the latents the cache keeps."""
+    B, T, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
+    k_nope, v = _mla_expand_kv(params, cfg, c_kv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, T, cfg.num_heads,
+                                         cfg.qk_rope_dim)], dim=-1)
+    v_p = torch.nn.functional.pad(v, (0, q.shape[-1] - cfg.v_head_dim))
+    return q, k, v_p, c_kv, k_rope
+
+
+def mla_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """Full-sequence causal MLA (training), through the differentiable
+    chunked attention."""
+    B, T, _ = x.shape
+    q, k, v_p, _, _ = _mla_full_qkv(params, cfg, x, positions)
+    out = flash_attention(q, k, v_p, causal=True)[..., :cfg.v_head_dim]
+    return out.reshape(B, T, -1) @ params["wo"]
+
+
+def mla_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                max_len: int):
+    """Full-sequence MLA through ``ops.flash_attention`` (the Hopper kernel
+    on CUDA; a q/k head dim outside the wgmma set takes the SIMT route),
+    emitting the latent cache ``{"c_kv": (B, max_len, lora), "k_rope":
+    (B, max_len, 1, rope)}``."""
+    B, T, _ = x.shape
+    q, k, v_p, c_kv, k_rope = _mla_full_qkv(params, cfg, x, positions)
+    out = ops.flash_attention(q, k, v_p, causal=True)[..., :cfg.v_head_dim]
+    out = out.reshape(B, T, -1) @ params["wo"]
+    pad = max_len - T
+    cache = {"c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
+             "k_rope": torch.nn.functional.pad(k_rope, (0, 0, 0, 0, 0, pad))}
+    return out, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype):
+    return {"c_kv": TensorSpec((batch, max_len, cfg.kv_lora_rank), dtype),
+            "k_rope": TensorSpec((batch, max_len, 1, cfg.qk_rope_dim), dtype)}
+
+
+def mla_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
+               absorb: bool = False):
+    """One-token MLA decode against the latent cache; ``pos`` an int or a
+    (B,) tensor of per-row positions, as :func:`attn_decode`.
+
+    ``absorb=False`` up-projects every cached latent each step;
+    ``absorb=True`` folds W_uk into the query and W_uv into the output, so
+    that attention runs in the latent space without the (L, H, nope + v)
+    expansion.  Returns (out, new cache); the input cache is not
+    modified."""
+    B = x.shape[0]
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vdim = cfg.v_head_dim
+    dev = x.device
+    f32 = torch.float32
+    vec = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if vec:
+        pos = pos.to(device=dev, dtype=torch.int64)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, cfg, x, positions)
+    if vec:
+        c_cache = _store_rows(cache["c_kv"], c_kv_new, pos)
+        r_cache = _store_rows(cache["k_rope"], k_rope_new, pos)
+    else:
+        c_cache = _dynamic_store(cache["c_kv"], c_kv_new, pos)
+        r_cache = _dynamic_store(cache["k_rope"], k_rope_new, pos)
+    L = c_cache.shape[1]
+    idx = torch.arange(L, device=dev)
+    valid = ((idx[None, :] <= pos[:, None])[:, None, None, :] if vec
+             else (idx <= pos)[None, None, None, :])
+
+    w_ukv = params["w_ukv"].reshape(cfg.kv_lora_rank, H, nope + vdim)
+    w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
+    if absorb:
+        q_lat = torch.einsum("bthn,lhn->bthl", q_nope, w_uk)
+        s = torch.einsum("bthl,bLl->bhtL", q_lat.to(f32), c_cache.to(f32))
+        s = s + torch.einsum("bthr,bLkr->bhtL", q_rope.to(f32),
+                             r_cache.to(f32))
+        s = s / math.sqrt(nope + rope)
+        p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhtL,bLl->bthl", p.to(c_cache.dtype), c_cache)
+        out = torch.einsum("bthl,lhv->bthv", o_lat, w_uv)
+    else:
+        k_nope, v = _mla_expand_kv(params, cfg, c_cache)    # (B, L, H, .)
+        s = torch.einsum("bthn,bLhn->bhtL", q_nope.to(f32), k_nope.to(f32))
+        s = s + torch.einsum("bthr,bLkr->bhtL", q_rope.to(f32),
+                             r_cache.to(f32))
+        s = s / math.sqrt(nope + rope)
+        p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+        out = torch.einsum("bhtL,bLhv->bthv", p.to(v.dtype), v)
+    out = out.reshape(B, 1, H * vdim) @ params["wo"]
+    return out, {"c_kv": c_cache, "k_rope": r_cache}

@@ -50,7 +50,19 @@ def stack_desc(tree, n: int):
                     tree, is_leaf=_is_desc)
 
 
+# Leaves of more elements than this are drawn one leading-axis slice at a
+# time: the f32 draw of a whole leaf is a transient of 4 bytes an element
+# beside the leaves already drawn, 38.7 GB for one of qwen3-moe-30b-a3b's
+# stacked expert leaves (48, 128, 2048, 768).  Every leaf of gemma-2b,
+# gemma2-9b and gemma3-4b lies below it, so their draws are unchanged.
+SLICED_DRAW_ELEMENTS = 2**31
+
+
 def _init_leaf(d: ParamDesc, generator: torch.Generator, dtype):
+    """One leaf drawn from ``generator`` in f32, scaled and cast to
+    ``dtype``.  A leaf of more than ``SLICED_DRAW_ELEMENTS`` (2**31)
+    elements is drawn one leading-axis slice at a time, so that its f32
+    transient is one slice, not the whole leaf (see the constant)."""
     device = generator.device
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
@@ -60,6 +72,12 @@ def _init_leaf(d: ParamDesc, generator: torch.Generator, dtype):
     scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
     if d.init == "small":
         scale = 0.02
+    if math.prod(d.shape) > SLICED_DRAW_ELEMENTS:
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        for i in range(d.shape[0]):
+            out[i] = torch.randn(d.shape[1:], generator=generator,
+                                 dtype=torch.float32, device=device).mul_(scale)
+        return out
     x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                     device=device)
     return x.mul_(scale).to(dtype)

@@ -1,10 +1,11 @@
 """Model facade of the port — counterpart of ``repro/models/model.py`` for
-decoder-only stacks of attention blocks:
+decoder-only stacks of attention / MLA blocks with dense or MoE FFNs:
 
   * ``param_desc`` / ``init(generator, dtype)``
-  * ``loss(params, batch)``                      (train)
+  * ``loss(params, batch)``                      (train; + the MoE aux loss)
   * ``prefill(params, batch, max_len)``          (inference prefill)
-  * ``init_cache`` / ``decode_step(params, tokens, cache, pos)``
+  * ``init_cache`` / ``decode_step(params, tokens, cache, pos,
+    mla_absorb, moe_dispatch)``
 
 Parameters are the JAX package's tree of tensors.  Cross-entropy is
 computed in sequence chunks of ``XENT_CHUNK``, each checkpointed, so the
@@ -95,9 +96,9 @@ class Model:
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        h = transformer.stack_train(params["stack"], self.cfg, self.plan, x,
-                                    positions)
-        return rmsnorm(params["final_norm"], h, eps=self.cfg.norm_eps)
+        h, aux = transformer.stack_train(params["stack"], self.cfg,
+                                         self.plan, x, positions)
+        return rmsnorm(params["final_norm"], h, eps=self.cfg.norm_eps), aux
 
     def _chunk_nll(self, params, hc, lc):
         """(masked mean nll, label count) of one sequence chunk."""
@@ -128,14 +129,15 @@ class Model:
     # -- training -----------------------------------------------------------
 
     def loss(self, params, batch):
-        """Next-token LM loss.  Labels are tokens shifted left; the final
-        position is masked with -1.  (The reference adds the MoE aux loss,
-        zero for the ported dense blocks.)"""
+        """Next-token LM loss plus ``router_aux_coef`` x the MoE aux loss
+        (zero without MoE blocks).  Labels are tokens shifted left; the
+        final position is masked with -1."""
         tokens = batch["tokens"]
         labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])],
                            dim=1)
-        h = self._backbone_train(params, batch)
-        return self._chunked_xent(params, h, labels)
+        h, aux = self._backbone_train(params, batch)
+        nll = self._chunked_xent(params, h, labels)
+        return nll + self.cfg.router_aux_coef * aux
 
     # -- inference ----------------------------------------------------------
 
@@ -148,8 +150,9 @@ class Model:
         max_len = max_len or T
         x = self._embed(params, tokens)
         positions = torch.arange(T, device=tokens.device)[None, :]
-        h, cache = transformer.stack_prefill(params["stack"], cfg, self.plan,
-                                             x, positions, max_len)
+        h, _, cache = transformer.stack_prefill(params["stack"], cfg,
+                                                self.plan, x, positions,
+                                                max_len)
         h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         return self._logits(params, h[:, -1:]), cache
 
@@ -160,14 +163,18 @@ class Model:
         return transformer.stack_cache(self.cfg, self.plan, batch, max_len,
                                        dtype)
 
-    def decode_step(self, params, tokens, cache, pos):
+    def decode_step(self, params, tokens, cache, pos, mla_absorb: bool = False,
+                    moe_dispatch: bool = False):
         """tokens: (B, 1) int; pos: an int (tokens already cached) or a
-        (B,) int tensor of per-row depths (continuous batching).  Returns
+        (B,) int tensor of per-row depths (continuous batching).
+        ``mla_absorb`` / ``moe_dispatch`` pick MLA's absorbed decode and
+        the MoE capacity dispatch (``transformer.block_decode``).  Returns
         (logits (B, 1, vocab), new_cache)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         h, new_cache = transformer.stack_decode(params["stack"], cfg,
-                                                self.plan, x, cache, pos)
+                                                self.plan, x, cache, pos,
+                                                mla_absorb, moe_dispatch)
         h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         return self._logits(params, h), new_cache
 

@@ -1,18 +1,19 @@
 """Decoder stack of the port — counterpart of ``repro/models/transformer.py``
-for attention blocks with a dense FFN.
+for attention and MLA blocks with a dense or MoE FFN.
 
 The stacked-repeats layout is kept: a segment of ``repeats`` identical
 periods holds every parameter and cache leaf with a leading ``repeats``
 axis, and the stack loops over that axis where the reference scans.  So
 a segment's cache stays one tensor per leaf, and the paged serving pool
-quantizes all of a segment's layers in one call.  Mamba, xLSTM and MLA
-mixers and the MoE FFN are not ported yet and raise.
+quantizes all of a segment's layers in one call.  Mamba and xLSTM mixers
+are not ported yet and raise.
 
 Training (:func:`stack_train`) checkpoints every layer
 (``torch.utils.checkpoint``), as the reference rematerializes every period,
 and splits each stacked leaf into its layers once (``unbind``): indexing
 ``p[i]`` per layer would make autograd allocate a full-size zero gradient
-of the stacked leaf for every layer.
+of the stacked leaf for every layer.  The MoE aux loss is summed in f32
+in layer order.
 """
 from __future__ import annotations
 
@@ -25,16 +26,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._tree import tree_map, tree_map_with_path
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, norm_desc,
                                        rmsnorm, stack_desc)
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mla"):
         raise NotImplementedError(f"mixer {spec.mixer!r} is not ported yet "
-                                  "(ROADMAP.md queue 1, item 4)")
-    if spec.ffn not in ("dense", "none"):
-        raise NotImplementedError(f"ffn {spec.ffn!r} is not ported yet "
                                   "(ROADMAP.md queue 1, item 4)")
 
 
@@ -45,55 +44,97 @@ def _check_spec(spec: LayerSpec) -> None:
 def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     _check_spec(spec)
     desc: Dict[str, Any] = {"norm1": norm_desc(cfg.d_model),
-                            "mixer": attn.attn_desc(cfg)}
+                            "mixer": (attn.mla_desc(cfg) if spec.mixer == "mla"
+                                      else attn.attn_desc(cfg))}
     if spec.ffn != "none":
         desc["norm2"] = norm_desc(cfg.d_model)
-        desc["ffn"] = mlp_desc(cfg.d_model, cfg.d_ff)
+        desc["ffn"] = (moe_mod.moe_desc(cfg) if spec.ffn == "moe"
+                       else mlp_desc(cfg.d_model, cfg.d_ff))
     return desc
 
 
+def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x):
+    """x + FFN(norm2(x)) and the MoE aux loss (an f32 zero for a dense
+    FFN)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.ffn == "none":
+        return x, aux
+    h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
+    if spec.ffn == "moe":
+        h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h)
+    else:
+        h = mlp(params["ffn"], h, cfg.activation)
+    return x + h, aux
+
+
 def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """Full-sequence causal block (training).  The reference's MoE aux loss
-    is zero for the ported dense blocks, so only x is returned."""
+    """Full-sequence causal block (training).  Returns (x, aux)."""
     _check_spec(spec)
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    x = x + attn.attn_forward(params["mixer"], cfg, spec, h, positions)
-    if spec.ffn != "none":
-        h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
-        x = x + mlp(params["ffn"], h, cfg.activation)
-    return x
+    mixer = attn.mla_forward if spec.mixer == "mla" else attn.attn_forward
+    x = x + mixer(params["mixer"], cfg, spec, h, positions)
+    return _ffn(params, cfg, spec, x)
 
 
 def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   max_len: int):
-    """Full-sequence block that also emits this layer's decode cache."""
+    """Full-sequence block that also emits this layer's decode cache.
+    Returns (x, aux, cache)."""
     _check_spec(spec)
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    h, cache = attn.attn_prefill(params["mixer"], cfg, spec, h, positions,
-                                 max_len)
-    x = x + h
-    if spec.ffn != "none":
-        h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
-        x = x + mlp(params["ffn"], h, cfg.activation)
-    return x, cache
+    mixer = attn.mla_prefill if spec.mixer == "mla" else attn.attn_prefill
+    h, cache = mixer(params["mixer"], cfg, spec, h, positions, max_len)
+    x, aux = _ffn(params, cfg, spec, x + h)
+    return x, aux, cache
 
 
 def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                 dtype):
     _check_spec(spec)
+    if spec.mixer == "mla":
+        return attn.init_mla_cache(cfg, batch, max_len, dtype)
     return attn.init_attn_cache(cfg, spec, batch, max_len, dtype)
 
 
-def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
-    """One-token block step. Returns (x, new_cache)."""
+def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
+                 mla_absorb: bool = False, moe_dispatch: bool = False):
+    """One-token block step.  Returns (x, new_cache).  ``mla_absorb``
+    picks MLA's absorbed decode; ``moe_dispatch`` runs a decode MoE
+    through the capacity dispatch of training instead of the per-token
+    gather of the experts' weights."""
     _check_spec(spec)
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    h, new_cache = attn.attn_decode(params["mixer"], cfg, spec, h, cache, pos)
+    if spec.mixer == "mla":
+        h, new_cache = attn.mla_decode(params["mixer"], cfg, spec, h, cache,
+                                       pos, absorb=mla_absorb)
+    else:
+        h, new_cache = attn.attn_decode(params["mixer"], cfg, spec, h, cache,
+                                        pos)
     x = x + h
     if spec.ffn != "none":
         h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
-        x = x + mlp(params["ffn"], h, cfg.activation)
+        if spec.ffn == "moe":
+            h = (moe_mod.moe_ffn(params["ffn"], cfg, h)[0] if moe_dispatch
+                 else moe_mod.moe_decode_ffn(params["ffn"], cfg, h))
+        else:
+            h = mlp(params["ffn"], h, cfg.activation)
+        x = x + h
     return x, new_cache
+
+
+def checkpointed(fn, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args)``, whose recomputation in
+    the backward leaves the MoE drop tap alone: each routed choice is
+    counted once per forward."""
+    ran = [False]
+
+    def once(*a):
+        if ran[0]:
+            with moe_mod.drop_tap_paused():
+                return fn(*a)
+        ran[0] = True
+        return fn(*a)
+    return checkpoint(once, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +174,11 @@ def _unstack(tree, repeats: int) -> List[Any]:
 
 def stack_train(params_segs, cfg: ModelConfig, plan, x, positions,
                 remat: bool = True):
-    """Full-sequence stack (training).  ``remat=True`` checkpoints each
-    block: the backward stores one input per layer and recomputes the
-    block, like the reference's per-period ``jax.checkpoint``."""
+    """Full-sequence stack (training).  Returns (x, aux).  ``remat=True``
+    checkpoints each block: the backward stores one input per layer and
+    recomputes the block, like the reference's per-period
+    ``jax.checkpoint``."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_params in zip(plan, params_segs):
         periods = ([seg_params] if seg.repeats == 1
                    else _unstack(seg_params, seg.repeats))
@@ -143,31 +186,34 @@ def stack_train(params_segs, cfg: ModelConfig, plan, x, positions,
             for spec, p in zip(seg.period, period):
                 def blk(h, p=p, spec=spec):
                     return block_train(p, cfg, spec, h, positions)
-                x = checkpoint(blk, x, use_reentrant=False) if remat \
-                    else blk(x)
-    return x
+                x, aux = checkpointed(blk, x) if remat else blk(x)
+                aux_total = aux_total + aux
+    return x, aux_total
 
 
 def stack_prefill(params_segs, cfg: ModelConfig, plan, x, positions,
                   max_len: int):
-    """Returns (x, cache) where cache mirrors :func:`stack_cache`."""
+    """Returns (x, aux, cache) where cache mirrors :func:`stack_cache`."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for seg, seg_params in zip(plan, params_segs):
         if seg.repeats == 1:
             seg_caches = []
             for spec, p in zip(seg.period, seg_params):
-                x, c = block_prefill(p, cfg, spec, x, positions, max_len)
+                x, aux, c = block_prefill(p, cfg, spec, x, positions, max_len)
+                aux_total = aux_total + aux
                 seg_caches.append(c)
             caches.append(seg_caches)
             continue
         per_layer: List[List[Any]] = [[] for _ in seg.period]
         for r in range(seg.repeats):
             for j, (spec, p) in enumerate(zip(seg.period, seg_params)):
-                x, c = block_prefill(_index(p, r), cfg, spec, x, positions,
-                                     max_len)
+                x, aux, c = block_prefill(_index(p, r), cfg, spec, x,
+                                          positions, max_len)
+                aux_total = aux_total + aux
                 per_layer[j].append(c)
         caches.append([_stack(cs) for cs in per_layer])
-    return x, caches
+    return x, aux_total, caches
 
 
 def stack_cache(cfg: ModelConfig, plan, batch: int, max_len: int, dtype):
@@ -227,7 +273,8 @@ def materialize_cache(cache_specs, device):
     return tree_map_with_path(init_leaf, cache_specs)
 
 
-def stack_decode(params_segs, cfg: ModelConfig, plan, x, cache_segs, pos):
+def stack_decode(params_segs, cfg: ModelConfig, plan, x, cache_segs, pos,
+                 mla_absorb: bool = False, moe_dispatch: bool = False):
     """One token through every layer.  Returns (x, new cache); the input
     cache is not modified."""
     new_cache = []
@@ -235,7 +282,8 @@ def stack_decode(params_segs, cfg: ModelConfig, plan, x, cache_segs, pos):
         if seg.repeats == 1:
             updated = []
             for spec, p, c in zip(seg.period, seg_params, seg_cache):
-                x, nc = block_decode(p, cfg, spec, x, c, pos)
+                x, nc = block_decode(p, cfg, spec, x, c, pos, mla_absorb,
+                                     moe_dispatch)
                 updated.append(nc)
             new_cache.append(updated)
             continue
@@ -244,7 +292,8 @@ def stack_decode(params_segs, cfg: ModelConfig, plan, x, cache_segs, pos):
             for j, (spec, p, c) in enumerate(zip(seg.period, seg_params,
                                                  seg_cache)):
                 x, nc = block_decode(_index(p, i), cfg, spec, x,
-                                     _index(c, i), pos)
+                                     _index(c, i), pos, mla_absorb,
+                                     moe_dispatch)
                 per_layer[j].append(nc)
         new_cache.append([_stack(cs) for cs in per_layer])
     return x, new_cache

@@ -637,3 +637,49 @@ def test_cuda_ring_fused_gloo_world(cuda_device, tmp_path, world):
                 for r in range(world))
     assert np.abs(res[0]["got"] - exact).max() <= \
         2 * (world - 1) * np.abs(exact).max() / 127
+
+
+# ---------------------------------------------------------------------------
+# The MoE and MLA families' shapes: MLA's prefill attention at q/k head dim
+# 192 (v padded from 128 with zeros) on the SIMT route, qwen3-moe's GQA
+# 32/4 at head dim 128 on the wgmma route, and the int8 pools' latent
+# tiles (512 for c_kv, 64 for k_rope) on quantize_tiles' warp route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,H,KV,hd,vw,route", [
+    (1, 128, 16, 16, 192, 128, "simt"), (2, 75, 16, 16, 192, 128, "simt"),
+    (1, 128, 32, 4, 128, 128, "wgmma")],
+    ids=["mla", "mla-ragged", "qwen3-moe"])
+def test_cuda_flash_new_family_shapes(cuda_device, B, T, H, KV, hd, vw,
+                                      route):
+    q, k, v = _qkv(B, T, H, KV, hd, torch.bfloat16, seed=hd + T)
+    v[..., vw:] = 0.0
+    q, k, v = (x.to(cuda_device) for x in (q, k, v))
+    r0 = tops.route_counts()["flash_attention"][route]
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tops.route_counts()["flash_attention"][route] == r0 + 1
+    assert _flash_close(got, tref.flash_attention_ref(q, k, v))
+    vn = v.clone()
+    vn[0, T - 10, 1, 3] = float("nan")       # a key the first rows skip
+    got = tops.flash_attention(q, k, vn, causal=True)
+    want = tref.flash_attention_ref(q, k, vn)
+    assert torch.equal(got.isnan().cpu(), want.isnan().cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,tile", [(131072, 512), (2048, 512),
+                                    (3407872, 512), (16384, 64), (256, 64),
+                                    (425984, 64), (6291456, 128)])
+def test_cuda_quantize_tiles_pool_lengths(cuda_device, n, tile, dtype):
+    # every length deepseek-v2-lite-16b's and qwen3-moe-30b-a3b's int8
+    # pools write at 4 slots x 256 (an admission's row, a tick's entries)
+    x = torch.from_numpy(_input(n, tile, seed=n + tile)).to(dtype)
+    if n >= 3 * tile:
+        x[tile + 3] = float("nan")
+    r0 = _route_count("quantize_tiles", "warp")
+    qk, sk = tops.quantize_tiles(x.to(cuda_device), tile=tile)
+    torch.cuda.synchronize()
+    assert _route_count("quantize_tiles", "warp") == r0 + 1
+    qp, sp = tref.quantize_tiles_ref(x, tile=tile)
+    assert _same(qk, qp) and _same(sk, sp)

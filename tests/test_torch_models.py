@@ -81,7 +81,7 @@ def test_config_copy_matches_reference():
 
 def test_unported_arch_raises_with_roadmap_pointer():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-67b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -256,9 +256,11 @@ def test_new_config_copies_match_reference(arch):
 def test_registry_ports_the_two_new_archs_only():
     from repro_torch.configs import ALL_ARCHS, NOT_PORTED
     from repro.configs import ALL_ARCHS as J_ALL
-    assert set(ALL_ARCHS) == {"gemma-2b", "gemma2-9b", "gemma3-4b"}
+    assert set(ALL_ARCHS) == {"gemma-2b", "gemma2-9b", "gemma3-4b",
+                              "deepseek-67b", "chameleon-34b",
+                              "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"}
     assert set(ALL_ARCHS) | set(NOT_PORTED) == set(J_ALL)
-    assert len(NOT_PORTED) == 7
+    assert len(NOT_PORTED) == 3
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(name)

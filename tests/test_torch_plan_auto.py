@@ -184,6 +184,61 @@ def test_free_search_session_matches_reference(topology, t_bwd, wires):
     _assert_steps_close(sess, jsess, losses, jlosses)
 
 
+MOE_PLANS = [("device:4@fast_ici", 0.01), ("commodity_cluster", 0.05),
+             ("node:2@datacenter,device:4@fast_ici", 0.002)]
+
+
+def _moe_pair():
+    from repro.models import moe as jmoe
+    kw = dict(SESSION, arch="qwen3-moe-30b-a3b")
+    jsess = JTrainSession(JSessionConfig(**kw))
+    jmoe.enable_drop_tap(False)
+    start = jax.tree.map(np.asarray, jsess._params)
+    cfg = reduced(get_config("qwen3-moe-30b-a3b"))
+    sess = TrainSession(SessionConfig(device="cpu", **kw),
+                        params=params_from_jax(start, cfg, device="cpu"))
+    return jsess, sess, _pipe_axis(kw, cfg)
+
+
+@pytest.mark.parametrize("topology,t_bwd", MOE_PLANS,
+                         ids=["device4", "commodity_cluster", "tiered"])
+def test_moe_plan_auto_matches_reference(topology, t_bwd):
+    """Reduced qwen3-moe-30b-a3b: the expert axis is priced as the
+    reference prices it (``_model_axes``), so the search makes the same
+    arms, ep arms among them, and picks the same winner."""
+    jsess, sess, pipe = _moe_pair()
+    taxis, eaxis = sess._model_axes(pipe)
+    jtaxis, jeaxis = jsess._model_axes(pipe)
+    assert eaxis is not None
+    assert dataclasses.asdict(eaxis) == dataclasses.asdict(jeaxis)
+    assert dataclasses.asdict(taxis) == dataclasses.asdict(jtaxis)
+    jsp = jsess.plan_auto(topology=topology, t_backward_s=t_bwd)
+    sp = sess.plan_auto(topology=topology, t_backward_s=t_bwd)
+    assert sp.key == jsp.key
+    assert any(a.ep > 1 for a in sess.planned["arms"].values())
+    _assert_same_planned(jsess, sess)
+
+
+def test_moe_ep_winner_names_item_10():
+    """A spec pinned to ep(2): the reference's winner, whose strategy the
+    session refuses when it builds its step (ROADMAP.md queue 1, item
+    10)."""
+    jsess, sess, _ = _moe_pair()
+    kw = dict(topology="device:4@fast_ici", t_backward_s=0.01,
+              parallelism="dp=2,ep=2")
+    jsp, sp = jsess.plan_auto(**kw), sess.plan_auto(**kw)
+    assert sp.key == jsp.key and sp.ep == 2
+    _assert_same_planned(jsess, sess)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sess.step_once()
+
+
+def _pipe_axis(kw, cfg):
+    from repro_torch.core.schedule import PipelineAxis
+    return PipelineAxis(global_tokens=float(kw["batch"] * kw["seq"]),
+                        bytes_per_token=float(cfg.d_model * 4))
+
+
 def test_pinned_local_sgd_session_matches_reference():
     jsess, sess = _pair()
     jsp = jsess.plan_auto(topology=TIERED, t_backward_s=0.01,

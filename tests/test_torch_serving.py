@@ -331,3 +331,62 @@ def test_int8_engine_matches_jax_for_windowed_gemma2():
     for c, jc in zip(out, jout):
         np.testing.assert_array_equal(c.tokens, jc.tokens)
     assert not any(a.live_pages() for a in eng.cache.allocators.values())
+
+
+# ---------------------------------------------------------------------------
+# The MoE and MLA families: the port's engine against the JAX engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["plain", "int8"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_and_mla_engines_match_jax(arch, quantize, monkeypatch):
+    """3 requests through 2 slots, max_len 16, page 4: the greedy tokens
+    equal the reference engine's.  MLA pages its two latents per segment
+    (``c_kv`` tile 512 at full width, 64 here; ``k_rope`` 64 / 16), and
+    the int8 pool quantizes every paged leaf through
+    ``ops.quantize_tiles`` with its trailing dim as the tile, once per
+    admission and decode tick."""
+    jcfg = jreduced(jget_config(arch))
+    cfg = reduced(get_config(arch))
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(5))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    P, gens = 8, [6, 3, 5]
+    prompts = _prompts(cfg, 3, P, seed=9)
+    scfg = dict(max_batch=2, max_len=16, page_size=4, quantize=quantize)
+    jout = JEngine(jmodel, jparams, JServeConfig(**scfg)).run(
+        [JRequest(rid=i, prompt=prompts[i], max_new=gens[i])
+         for i in range(3)])
+    calls = []
+    real = ops.quantize_tiles
+
+    def spy(x, *, tile):
+        calls.append(tile)
+        return real(x, tile=tile)
+
+    monkeypatch.setattr(ops, "quantize_tiles", spy)
+    ops.reset_launch_counts()
+    eng = Engine(Model(cfg), params, ServeConfig(**scfg))
+    out = eng.run([Request(rid=i, prompt=prompts[i], max_new=gens[i])
+                   for i in range(3)])
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_WRAPPERS}
+    assert [len(c.tokens) for c in out] == gens
+    for c, jc in zip(out, jout):
+        np.testing.assert_array_equal(c.tokens, jc.tokens)
+    assert not any(a.live_pages() for a in eng.cache.allocators.values())
+    mla = arch == "deepseek-v2-lite-16b"
+    leaves = eng.cache.paged_leaves()
+    assert leaves == (4 if mla else 2)
+    if quantize:
+        assert len(calls) == leaves * (eng.prefills + eng.decode_ticks)
+        want = ({cfg.kv_lora_rank, cfg.qk_rope_dim} if mla else {cfg.hd})
+        assert set(calls) == want
+        if mla:
+            pool = eng.pool[0][0]
+            assert sorted(pool) == ["c_kv", "k_rope"]
+            assert pool["c_kv"]["q"].dtype == torch.int8
+            assert pool["c_kv"]["q"].shape[-1] == cfg.kv_lora_rank
+    else:
+        assert not calls

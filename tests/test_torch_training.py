@@ -346,3 +346,124 @@ def test_cli_refuses_unported_values(flags, capsys, tmp_path, monkeypatch):
         assert any(line.startswith("### Sync strategy") for line in lines)
         assert session.planned["strategy_plan"].key == "every_step"
         assert (tmp_path / "gemma-2b.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# MoE training (reduced qwen3-moe-30b-a3b): the session, the drop tap, the
+# sharded step, micro-batches and the CLI
+# ---------------------------------------------------------------------------
+
+MOE_SESSION = dict(SESSION, arch="qwen3-moe-30b-a3b")
+MOE_CFG = reduced(get_config("qwen3-moe-30b-a3b"))
+
+
+def test_moe_session_matches_jax_over_three_steps():
+    """int8_fused, 3 steps from the reference's parameters: losses at rtol
+    1e-4, parameters and EF residuals within the conformance bounds of
+    ``_assert_close_after_steps``; the drop tap's counts are the
+    reference's halved, exactly: the reference's ``jax.debug.callback``
+    fires again when ``jax.checkpoint`` recomputes a layer in the
+    backward, the port counts each forward once (its drop share is the
+    same)."""
+    from repro.models import moe as jmoe
+    jsess = JTrainSession(JSessionConfig(**MOE_SESSION), strategy=(
+        jmake_strategy("every_step", axes=("data",),
+                       sync=JSyncConfig(compressor="int8_fused"))))
+    start = jax.tree.map(np.asarray, jsess._params)
+    try:
+        jlosses = jsess.run(3)
+    finally:
+        jmoe.enable_drop_tap(False)
+    sess = TrainSession(SessionConfig(device="cpu", **MOE_SESSION),
+                        strategy=make_strategy("every_step", sync=SyncConfig(
+                            compressor="int8_fused")),
+                        params=params_from_jax(start, MOE_CFG, device="cpu"))
+    losses = sess.run(3)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    envelope = 2 * 3.2 * _lr_sum(3)
+    for a, b in zip(tree_leaves(to_numpy(sess.params)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, jsess.params))):
+        assert a.shape == b.shape
+        _assert_close_after_steps(a, b, 2e-2, envelope)
+    jerr = [np.asarray(e) for e in jsess.sync_state["error"]]
+    terr = [e.numpy() for e in sess.sync_state["error"]]
+    assert len(terr) == len(jerr)
+    for a, b in zip(terr, jerr):
+        _assert_close_after_steps(a, b, 2e-2, 2.5 * np.abs(b).max())
+    tokens = MOE_SESSION["batch"] * MOE_SESSION["seq"]
+    assert sess.routed_tokens == 3 * MOE_CFG.num_layers * tokens * \
+        MOE_CFG.top_k
+    assert (2 * sess.routed_tokens, 2 * sess.dropped_tokens) == \
+        (jsess.routed_tokens, jsess.dropped_tokens)
+    assert sess.drop_fraction == jsess.drop_fraction > 0
+    assert "moe dropped" in sess.summary()
+
+
+def _moe_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def test_moe_sharded_step_equals_replicated():
+    from repro_torch.core import PlanExecutor, SyncStrategy, get_scheduler
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        scfg = SessionConfig(device="cpu", **MOE_SESSION)
+        sh = TrainSession(scfg, strategy=make_strategy(
+            "every_step", sync=SyncConfig(compressor="int8_fused"),
+            parallelism="shard"))
+        sh.run(1)
+        rp = TrainSession(scfg, strategy=SyncStrategy(
+            get_scheduler("every_step"),
+            grad_reducer=PlanExecutor(sh.synchronizer.plan)))
+        rp.run(1)
+    finally:
+        torch.set_num_threads(n)
+    assert sh.layout is not None and rp.layout is None
+    assert sh.losses == rp.losses
+    assert _moe_equal(sh.params, rp.params)
+    full = sh.full_opt_state()
+    assert all(_moe_equal(full[k], rp.opt_state[k]) for k in rp.opt_state)
+    assert (sh.dropped_tokens, sh.routed_tokens) == \
+        (rp.dropped_tokens, rp.routed_tokens)
+
+
+def test_moe_micro_batches_carry_the_aux_loss():
+    """``--parallelism micro=2``: the step's loss is the mean over the
+    micro-batches of ``Model.loss`` (cross-entropy + router_aux_coef x
+    aux), not of the cross-entropy alone."""
+    scfg = SessionConfig(device="cpu", **MOE_SESSION)
+    sess = TrainSession(scfg, strategy=make_strategy(
+        "every_step", parallelism="micro=2"))
+    model = Model(MOE_CFG)
+    params = {k: v for k, v in sess.params.items()}
+    tokens = sess.batch(0)["tokens"]
+    with torch.no_grad():
+        halves = [model.loss(params, {"tokens": t})
+                  for t in tokens.reshape(2, -1, tokens.shape[1])]
+        nll = [model._chunked_xent(
+            params, model._backbone_train(params, {"tokens": t})[0],
+            torch.cat([t[:, 1:], -torch.ones_like(t[:, :1])], dim=1))
+            for t in tokens.reshape(2, -1, tokens.shape[1])]
+    from repro_torch.models import moe as tmoe
+    tmoe.drain_drop_tap()           # the direct calls above were counted
+    loss = sess.step_once()
+    with_aux = float(sum(halves)) / 2
+    assert loss == pytest.approx(with_aux, rel=1e-6)
+    assert abs(loss - float(sum(nll)) / 2) > 100 * abs(loss - with_aux)
+    assert sess.routed_tokens == MOE_CFG.num_layers * tokens.numel() * \
+        MOE_CFG.top_k
+
+
+def test_cli_prints_the_moe_capacity_line(capsys):
+    session = train.main(["--device", "cpu", "--arch", "qwen3-moe-30b-a3b",
+                          "--reduced", "--steps", "2", "--batch", "2",
+                          "--seq", "32", "--sync", "comm", "--compressor",
+                          "int8_fused", "--log-every", "1"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    cap = [line for line in lines if line.startswith("moe capacity:")]
+    assert len(cap) == 1 and f"/{session.routed_tokens:.0f} routed" in cap[0]
+    assert "moe dropped" in lines[-1]
+    assert np.isfinite(session.losses).all()
