@@ -13,14 +13,16 @@ Phases (any failure exits non-zero and prints no result line):
      the checkout (``nvcc``, one process per source, started together),
      with each kernel's registers and spills from ``-Xptxas -v``: no
      spill and no stack frame in the wgmma, quantize_tiles, quantize_ef
-     and top-k libraries;
+     and top-k libraries, and every instantiation of the wgmma kernel
+     (head dims 32, 64, 128, 192, 256 x 1 and 2 consumer warpgroups) in
+     the report;
   3. kernels vs plain versions on the card.  ``quantize_tiles``,
      ``quantize_ef``, ``dequant_accum``, ``topk_ef`` and ``topk_mask`` are
      held BIT-EQUAL (NaN for NaN): quantize_tiles over a sweep of tiles
      (64 to 1024 on its warp route, 4096 on its block route), lengths,
      input types and a NaN tile, including every length the gemma-2b,
-     gemma2-9b, deepseek-v2-lite-16b and qwen3-moe-30b-a3b serving runs
-     write, at their tiles (256, 512 and 64 of MLA's latents, 128; and
+     gemma2-9b, deepseek-v2-lite-16b (at 4 x 256 and at phase 14 (e)'s
+     4 x 8192) and qwen3-moe-30b-a3b serving runs write, at their tiles (256, 512 and 64 of MLA's latents, 128; and
      dequantize must round-trip within s/254), the training wire over the CPU tests' cases (ragged lengths,
      decays, ratios, rank counts 1, 2, 4 and 8 at lengths that are and
      are not multiples of 16, zero tiles, exact halves, NaN tiles, f32
@@ -31,8 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
      encode without error feedback).  ``flash_attention`` is held within a stated tolerance,
      element by element (f32: rtol = atol = 1e-5; bf16: 2 bf16 ulps of
      the element plus 2 of its row's largest magnitude) over the JAX
-     kernel tests' shapes and more (hd 32 to 256, G 1 to 68, ragged T,
-     grids of one and two consumer warpgroups) x f32 (the SIMT route) /
+     kernel tests' shapes and more (hd 32 to 256, 192 among them, G 1 to
+     68, ragged T, grids of one and two consumer warpgroups) x f32 (the SIMT route) /
      bf16 (the wgmma route) x window, softcap, window+softcap, non-causal
      and non-causal+window, rows with no valid key, and at the prefill
      shapes of gemma2-9b (global and local layers, softcap 50) and gemma-2b
@@ -180,12 +182,15 @@ Phases (any failure exits non-zero and prints no result line):
      times, and the merged parameters bit-equal to the world-1 S = 1 run
      of the same depth (at depth 18, (a)'s);
  14. the MoE and MLA families: first, with the card free, the kernels at
-     their new shapes — flash in bf16 at deepseek-v2-lite-16b's MLA
-     prefill (q/k head dim 192, v padded from 128: the SIMT route; T =
-     128 and 4096) and at qwen3-moe-30b-a3b's (GQA 32/4, head dim 128:
-     the wgmma route), within phase 3's tolerance and NaN where the plain
-     version has NaN, timed against the plain version, the bound and
-     SDPA (phase 3 holds quantize_tiles at the two int8 pools' lengths);
+     their new shapes (d) — flash in bf16 at deepseek-v2-lite-16b's MLA
+     prefill (q/k head dim 192, v padded from 128; T = 128, a ragged B =
+     2 x T = 75, and 4096) and at qwen3-moe-30b-a3b's (GQA 32/4, head
+     dim 128), both on the wgmma route, within phase 3's tolerance and NaN
+     where the plain version has NaN, timed against the plain version,
+     the bound and SDPA; at MLA's shapes the SIMT kernel too, by direct
+     call, held the same way: the wgmma route must be 4x faster than it at
+     T = 128 and 20x at T = 4096 (phase 3 holds quantize_tiles at the
+     int8 pools' lengths);
      reduced f32 references on the card
      (moe_ffn's expert choices and keep mask equal to the CPU's at
      capacity factor 0.5, phase 4's prefill + decode check, MLA's naive
@@ -202,20 +207,25 @@ Phases (any failure exits non-zero and prints no result line):
      ``moe capacity:`` line, step times, tokens/s, peak, a profiled step
      split into wire kernels, other device work and host; then
      quantize_ef and dequant_accum bit-equal at every bucket length of
-     (c) and timed at the largest (a stacked expert leaf).
+     (c) and timed at the largest (a stacked expert leaf); (e)
+     deepseek-v2-lite-16b served with long prompts (phase 7's traffic: 4
+     requests of 4096 + 32 tokens through 4 slots, max_len 8192), the
+     peak within its reckoning + 1 GiB, then one 4096-token admission
+     timed alone (median of 3) and profiled (flash's device share), beside
+     the reckoned SIMT cost of the same admission (27 x (d)'s SIMT time).
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
-12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b)
-and (c)) sets every kernel launch counter
+12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b),
+(c) and (e)) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
 (admissions + decode ticks), all on the warp route (4 paged leaves for
 deepseek-v2-lite-16b: c_kv and k_rope of its two segments); flash_attention
 and its pre-pass = attention layers x admissions, all of them on the
-route ``route(dtype, head_dim)`` gives — wgmma and none on SIMT for the
-gemmas and qwen3-moe, SIMT and none on wgmma for MLA; the MoE training
+route ``route(dtype, head_dim)`` gives — wgmma and none on SIMT for
+every family, MLA's head dim 192 included; the MoE training
 run as 8's int8_fused run, and its drop tap routing each choice once
 per forward; training: the wire's kernels = buckets x
 steps, all on their warp routes (int8_fused: quantize_ef and
@@ -281,13 +291,15 @@ GEMMA2_SERVE_ARGS = ["--arch", "gemma2-9b", "--no-reduced", "--quantize",
                      "--seed", "0"]
 
 # flash attention sweep: the JAX kernel tests' (B, T, H, KV, hd), ragged T,
-# hd 256 at G = 2 and 8, grids of 128-row blocks (two consumer warpgroups
-# on the wgmma route: B x H x ceil(T / 128) >= the SM count) with ragged T,
-# and the variants; then the prefill shapes of the serving path
+# hd 256 at G = 2 and 8, MLA's hd 192 at G = 2, grids of 128-row blocks
+# (two consumer warpgroups on the wgmma route: B x H x ceil(T / 128) >= the
+# SM count) with ragged T, and the variants; then the prefill shapes of the
+# serving path
 FLASH_SHAPES = ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 128, 8, 1, 32),
                 (2, 128, 4, 4, 128), (1, 200, 4, 2, 64), (2, 11, 4, 1, 32),
                 (1, 192, 4, 2, 256), (1, 128, 8, 1, 256),
-                (1, 1000, 136, 2, 64), (2, 300, 34, 2, 128),
+                (1, 75, 4, 2, 192), (1, 1000, 136, 2, 64),
+                (2, 300, 34, 2, 128), (2, 300, 34, 2, 192),
                 (1, 520, 48, 8, 256))
 FLASH_VARIANTS = ({}, {"window": 64}, {"softcap": 30.0},
                   {"window": 64, "softcap": 20.0}, {"causal": False},
@@ -328,11 +340,13 @@ QEF_OPS = 10          # g + decay*e (2), abs, max, div, mul, round, clamp (2),
 #                       residual (2): rounded to 10
 TOPK_OPS = 3 + 2 * ITERS      # EF add (2), abs; per round a compare and an add
 KERNEL_SOURCES = {
-    # the wgmma route, which every serving path takes (bf16, hd 256)
+    # the wgmma route, which every serving path takes (bf16; hd 256, 128
+    # and MLA's 192)
     "flash_attention": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:79",
                         "flash_attention_pallas"),
-    # the SIMT route (f32; bf16 at other head dims)
+    # the SIMT route (f32; bf16 at head dims outside the wgmma set): on
+    # no serving path since MLA's 192 took the wgmma route
     "flash_attention_simt": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention.py:79",
                              "flash_attention_pallas"),
@@ -649,18 +663,22 @@ def paged_leaves_of(arch: str, slots: int, max_len: int, page: int):
             for (name, shape), m in zip(named, metas) if m.kind == "paged"]
 
 
-def pool_write_shapes(arch: str) -> dict:
-    """{name: (n, tile)}: every length ``arch``'s int8 pool hands
-    ``quantize_tiles`` in phase 5's traffic (SLOTS x MAX_LEN, pages of
-    PAGE), per paged leaf: an admission writes one slot's row (repeats x
-    length x rest), a tick one entry per slot; the tile is the leaf's
-    trailing dim (512 for MLA's c_kv, 64 for its k_rope, hd for K/V)."""
+def pool_write_shapes(arch: str, slots: int = SLOTS, max_len: int = MAX_LEN,
+                      suffix: str = "") -> dict:
+    """{name + suffix: (n, tile)}: every length ``arch``'s int8 pool
+    hands ``quantize_tiles`` in a run of ``slots`` x ``max_len`` (phase
+    5's traffic by default), pages of PAGE, per paged leaf: an admission
+    writes one slot's row (repeats x length x rest), a tick one entry per
+    slot; the tile is the leaf's trailing dim (512 for MLA's c_kv, 64 for
+    its k_rope, hd for K/V)."""
     tag = arch.replace("-", "_")
     out = {}
-    for name, m, shape, _ in paged_leaves_of(arch, SLOTS, MAX_LEN, PAGE):
+    for name, m, shape, _ in paged_leaves_of(arch, slots, max_len, PAGE):
         numel = math.prod(shape)
-        out[f"{tag}_{name}_prefill_write"] = (numel // SLOTS, shape[-1])
-        out[f"{tag}_{name}_decode_write"] = (numel // m.length, shape[-1])
+        out[f"{tag}_{name}_prefill_write{suffix}"] = (numel // slots,
+                                                     shape[-1])
+        out[f"{tag}_{name}_decode_write{suffix}"] = (numel // m.length,
+                                                    shape[-1])
     return out
 
 
@@ -1491,9 +1509,9 @@ def check_main_path(torch, run, launches, card) -> None:
     admission and per decode tick, all on the warp route, the flash
     kernel and its pre-pass once per attention layer per admission, every
     flash launch on the route ``route`` gives the model's dtype and head
-    dim (``flash_route_of``: wgmma for the gemmas and qwen3-moe, none on
-    the SIMT one; SIMT for MLA's head dim 192, none on wgmma), no
-    training-wire kernel, finite full-width prefill logits."""
+    dim (``flash_route_of``: wgmma for every family, MLA's head dim 192
+    included, none on the SIMT one), no training-wire kernel, finite
+    full-width prefill logits."""
     eng, cfg = run.engines[0], run.cfg
     n_req, n_new = len(run.requests), run.requests[0].max_new
     if len(run.completions) != n_req:
@@ -3887,8 +3905,7 @@ def phase_pipe(torch, ops, ref, train, card, replicated_params) -> dict:
 
 MOE_SERVE_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
 # what a serving run's peak may hold above its reckoning (weights, pool and
-# the largest transient): a prefill's and a tick's activations, logits and
-# the tick's linear cache (about 0.1 GB at 4 slots x 256)
+# the largest transient): a prefill's and a tick's activations and logits
 SERVE_ROOM = 2**30
 MOE_TRAIN_ARCH = "qwen3-moe-30b-a3b"
 # phase 8's measured peak per parameter (46.08 GiB over 2.51 B parameters
@@ -3901,15 +3918,23 @@ MOE_TRAIN_ARGS = ["--arch", MOE_TRAIN_ARCH, "--no-reduced", "--optimizer",
                   str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--seed", "0",
                   "--log-every", "1", "--sync", "comm", "--compressor",
                   "int8_fused"]
-# the prefill attention of the new families (bf16): MLA's q/k head dim
-# 128 + 64 = 192 with v padded from 128 to it (the SIMT route), and
-# qwen3-moe's GQA 32/4 at head dim 128 (the wgmma route); the serving
-# path's prompt of 128 tokens, and 4096 for the record
+# the prefill attention of the new families (bf16), all on the wgmma
+# route: MLA's q/k head dim 128 + 64 = 192 with v padded from 128 to it,
+# and qwen3-moe's GQA 32/4 at head dim 128; the serving path's prompt of
+# 128 tokens, a ragged pair of 75, and (e)'s 4096
 NEW_FLASH_SHAPES = {   # name: (B, T, H, KV, hd, v's width before padding)
     "deepseek_v2_lite_prefill": (1, 128, 16, 16, 192, 128),
+    "deepseek_v2_lite_prefill_ragged": (2, 75, 16, 16, 192, 128),
     "deepseek_v2_lite_prefill_4096": (1, 4096, 16, 16, 192, 128),
     "qwen3_moe_prefill": (1, 128, 32, 4, 128, 128),
 }
+# how much faster than the SIMT kernel, timed in the same run, the wgmma
+# route must be at MLA's prefill shapes (head dim 192)
+MLA_SIMT_FACTORS = {"deepseek_v2_lite_prefill": 4.0,
+                    "deepseek_v2_lite_prefill_4096": 20.0}
+# (e): deepseek-v2-lite-16b served with phase 7's traffic at a 4096-token
+# prompt: 4 requests of 4096 + 32 tokens through 4 slots, max_len 8192
+MLA_LONG_ARCH, MLA_LONG_PROMPT = "deepseek-v2-lite-16b", 4096
 
 
 def serve_args(arch: str) -> list:
@@ -3928,70 +3953,97 @@ def flash_route_of(cfg) -> str:
     return route(resolve_dtype(cfg.compute_dtype), hd)
 
 
-def serving_reckoning(arch: str) -> dict:
-    """Bytes that ``arch``'s full-width int8 serving run holds at its peak,
-    from its shapes: the bf16 weights; the int8 pool (codes and f32
-    scales per cached entry, the trash page included); and the largest
-    transient, either the f32 draw of one leaf (one leading slice of a
-    leaf above ``layers.SLICED_DRAW_ELEMENTS``) while the weights are
-    made, or a decode tick's gather of the k chosen experts' three
-    matrices per slot, with a permuted copy for its einsum."""
+def serving_reckoning(arch: str, slots: int = SLOTS,
+                      max_len: int = MAX_LEN, prompt: int = 128) -> dict:
+    """Bytes that ``arch``'s full-width int8 serving run (``slots`` x
+    ``max_len``, prompts of ``prompt`` tokens) holds at its peak, from its
+    shapes: the bf16 weights; the int8 pool (codes and f32 scales per
+    cached entry, the trash page included); and the largest transient,
+    either the f32 draw of one leaf (one leading slice of a leaf above
+    ``layers.SLICED_DRAW_ELEMENTS``) while the weights are made, a decode
+    tick's gather of the k chosen experts' three matrices per slot, with
+    a permuted copy for its einsum, a decode tick's gather of the int8
+    pool into the linear cache (``PagedDecodeCache.gather``: while the
+    largest leaf is dequantized, its int8 copy and three f32 temporaries
+    — the codes, the repeated scales, their product — 13 bytes an entry,
+    beside the bf16 linear caches of the other leaves), or an
+    admission's prefill: the bf16 cache it emits for every layer at
+    ``max_len`` before the pool takes it, and one layer's bf16 q, k, v
+    and attention output at ``prompt``."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, count_params
     from repro_torch.models.layers import SLICED_DRAW_ELEMENTS, desc_leaves
     cfg = get_config(arch)
-    pool = 0
-    for _, m, shape, n_pages in paged_leaves_of(arch, SLOTS, MAX_LEN, PAGE):
+    pool = emitted = 0
+    entries = []
+    for _, m, shape, n_pages in paged_leaves_of(arch, slots, max_len, PAGE):
         rest = shape[m.batch_axis + 2:]
         rows = (shape[0] if m.batch_axis == 1 else 1) * n_pages * PAGE * \
             math.prod(rest[:-1])
         pool += rows * rest[-1] + 4 * rows
+        emitted += 2 * math.prod(shape) // slots
+        entries.append(math.prod(shape))
+    linear = 13 * max(entries) + 2 * (sum(entries) - max(entries))
     draws = []
     for d in desc_leaves(Model(cfg).param_desc()):
         n = math.prod(d.shape)
         draws.append(4 * (n // d.shape[0] if n > SLICED_DRAW_ELEMENTS else n))
     ff = cfg.moe_d_ff or cfg.d_ff
-    gather = 2 * 3 * SLOTS * cfg.top_k * cfg.d_model * ff * 2
+    gather = 2 * 3 * slots * cfg.top_k * cfg.d_model * ff * 2
+    hd = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.hd
+    prefill = emitted + 2 * 4 * prompt * cfg.num_heads * hd
     weights = 2 * count_params(cfg)
     return {"weights": weights, "pool": pool, "draw": max(draws),
-            "gather": gather,
-            "total": weights + pool + max(max(draws), gather)}
+            "gather": gather, "linear": linear, "prefill": prefill,
+            "total": weights + pool + max(max(draws), gather, linear,
+                                          prefill)}
 
 
-def run_moe_serving(torch, ops, serve, card, arch: str) -> dict:
-    """Phase 14 (a) / (b): ``arch`` served at full width with phase 5's
-    traffic, every kernel counter set to 0 just before and read just after
-    and checked as the main path (flash on ``flash_route_of``), the peak
-    within the reckoning printed before the run (+ SERVE_ROOM); then a
-    profile of five decode ticks (tick time, device-busy share)."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    rk = serving_reckoning(arch)
+def serve_checked(torch, ops, serve, card, arch: str, args: list,
+                  rk: dict):
+    """``serve.main(args)`` at full width with every kernel counter set to
+    0 just before and read just after, checked as the main path (flash on
+    the wgmma route), the peak within the reckoning ``rk`` printed before
+    the run (+ SERVE_ROOM).  Returns (run, launches, peak bytes)."""
     print(f"serving {arch}: reckoning {rk['total'] / 1e9:.3f} GB = weights "
           f"{rk['weights'] / 1e9:.3f} GB (bf16) + int8 pool "
-          f"{rk['pool'] / 1e9:.4f} GB + the larger transient of a leaf's "
-          f"f32 draw ({rk['draw'] / 1e9:.3f} GB) and a tick's expert gather "
-          f"({rk['gather'] / 1e9:.3f} GB); the peak may hold "
-          f"{SERVE_ROOM / 2**30:.0f} GiB more", flush=True)
+          f"{rk['pool'] / 1e9:.4f} GB + the largest transient of a leaf's "
+          f"f32 draw ({rk['draw'] / 1e9:.3f} GB), a tick's expert gather "
+          f"({rk['gather'] / 1e9:.3f} GB), a tick's gather of the pool "
+          f"into the linear cache ({rk['linear'] / 1e9:.3f} GB) and an "
+          f"admission's prefill ({rk['prefill'] / 1e9:.3f} GB); the peak "
+          f"may hold {SERVE_ROOM / 2**30:.0f} GiB more", flush=True)
     if rk["total"] + SERVE_ROOM > torch.cuda.get_device_properties(
             0).total_memory:
         fail(f"serving {arch}: the reckoning does not fit the card")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    run = serve.main(serve_args(arch))
+    run = serve.main(args)
     torch.cuda.synchronize()
     launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
     if run.engines[0].device.type != "cuda":
         fail(f"the engine ran on {run.engines[0].device}, not on the card")
-    if flash_route_of(run.cfg) != ("simt" if cfg.use_mla else "wgmma"):
+    if flash_route_of(run.cfg) != "wgmma":
         fail(f"{arch}: prefill attention on the {flash_route_of(run.cfg)} "
              f"route")
     check_main_path(torch, run, launches, card)
     if peak > rk["total"] + SERVE_ROOM:
         fail(f"serving {arch}: peak {peak / 1e9:.3f} GB beyond the reckoning "
              f"{rk['total'] / 1e9:.3f} GB + {SERVE_ROOM / 2**30:.0f} GiB")
+    return run, launches, peak
+
+
+def run_moe_serving(torch, ops, serve, card, arch: str) -> dict:
+    """Phase 14 (a) / (b): ``arch`` served at full width with phase 5's
+    traffic through :func:`serve_checked`; then a profile of five decode
+    ticks (tick time, device-busy share)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    rk = serving_reckoning(arch)
+    run, launches, peak = serve_checked(torch, ops, serve, card, arch,
+                                        serve_args(arch), rk)
     eng = run.engines[0]
     res = {"summary": run.summary, "seconds": run.seconds,
            "admissions": eng.prefills, "decode_ticks": eng.decode_ticks,
@@ -4017,6 +4069,91 @@ def run_moe_serving(torch, ops, serve, card, arch: str) -> dict:
           f"{peak / 1e9:.3f} GB within the reckoning "
           f"{rk['total'] / 1e9:.3f} GB + {SERVE_ROOM / 2**30:.0f} GiB "
           f"(serve run {res['seconds']:.2f} s)", flush=True)
+    return res
+
+
+# flash's kernels (both routes and the pre-pass), by their names in the
+# profiler's events
+FLASH_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
+                 "nonfinite_tiles_kernel")
+
+
+def run_mla_long_serving(torch, ops, serve, card, simt_ms: float) -> dict:
+    """Phase 14 (e): deepseek-v2-lite-16b served at full width with phase
+    7's traffic at MLA_LONG_PROMPT tokens (4 requests of 4096 + 32 through
+    4 slots, max_len 8192) through :func:`serve_checked`: every request
+    admitted once, so flash launches 27 x 4 times, all on wgmma.  Then one
+    4096-token admission (``model.prefill``) timed alone (host clock
+    around synchronised calls, median of 3) and once under
+    ``torch.profiler`` (flash's device time and share), beside the
+    reckoned SIMT cost of the same admission: the layers x ``simt_ms``,
+    (d)'s SIMT kernel time at T = 4096."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = list(GEMMA2_SERVE_ARGS)
+    args[args.index("--arch") + 1] = MLA_LONG_ARCH
+    args[args.index("--prompt-len") + 1] = str(MLA_LONG_PROMPT)
+    rk = serving_reckoning(MLA_LONG_ARCH, GEMMA2_SLOTS, GEMMA2_MAX_LEN,
+                           MLA_LONG_PROMPT)
+    run, launches, peak = serve_checked(torch, ops, serve, card,
+                                        MLA_LONG_ARCH, args, rk)
+    eng, cfg = run.engines[0], run.cfg
+    if eng.prefills != len(run.requests):
+        fail(f"{MLA_LONG_ARCH} long prompts: {eng.prefills} admissions for "
+             f"{len(run.requests)} requests")
+    prompt = torch.as_tensor(run.requests[0].prompt,
+                             device=eng.device).long()[None]
+
+    def admit():
+        return run.model.prefill(run.params, {"tokens": prompt},
+                                 max_len=eng.cfg.max_len)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    flash_us = sum(e.time_range.elapsed_us() for e in kernels
+                   if any(k in e.name for k in FLASH_KERNELS))
+    res = {"summary": run.summary, "seconds": run.seconds,
+           "admissions": eng.prefills, "decode_ticks": eng.decode_ticks,
+           "launches": launches, "peak_bytes": peak, "reckoning": rk,
+           "prompt": MLA_LONG_PROMPT,
+           "admission_s": statistics.median(times),
+           "admission_s_all": times, "profiled_admission_ms": wall * 1e3,
+           "busy_ms": busy_us / 1e3 if kernels else None,
+           "flash_ms": flash_us / 1e3 if kernels else None,
+           "simt_reckoned_ms": cfg.num_layers * simt_ms}
+    s = run.summary
+    measured = ("the profiler recorded no device events (not measured)"
+                if not kernels else
+                f"profiled {wall * 1e3:.3f} ms, device busy "
+                f"{busy_us / 1e3:.3f} ms, flash with its pre-pass "
+                f"{flash_us / 1e3:.3f} ms = {flash_us / busy_us:.4f} of the "
+                f"busy time")
+    print(f"serving {MLA_LONG_ARCH} long prompts [{card}]: "
+          f"tokens/s={s['tokens_per_s']:.3f} mean TTFT="
+          f"{s['mean_ttft_s'] * 1e3:.3f} ms; peak {peak / 1e9:.3f} GB within "
+          f"the reckoning {rk['total'] / 1e9:.3f} GB + "
+          f"{SERVE_ROOM / 2**30:.0f} GiB (serve run {run.seconds:.2f} s); "
+          f"one {MLA_LONG_PROMPT}-token admission "
+          f"{res['admission_s'] * 1e3:.3f} ms (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {measured}; on the SIMT "
+          f"route its flash would take {cfg.num_layers} x "
+          f"{simt_ms * 1e3:.3f} us = {res['simt_reckoned_ms']:.3f} ms "
+          f"(reckoned from (d))", flush=True)
+    del run, eng, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4128,43 +4265,64 @@ def run_moe_training(torch, ops, train, card) -> dict:
 
 def new_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
     """Phase 14 (d), flash: at NEW_FLASH_SHAPES in bf16, through
-    ``ops.flash_attention`` on the route ``route`` gives (SIMT at MLA's
-    head dim 192, wgmma at qwen3-moe's 128), held to the plain version
-    within :func:`flash_close` and, with a NaN in v at a key that the
-    first query tile skips, NaN exactly where the plain version has NaN;
-    then kernel (pre-pass included), plain and SDPA times in turns and the
-    bound.  Returns {route: {shape name: timing}}."""
+    ``ops.flash_attention`` on the route ``route`` gives (wgmma, at MLA's
+    head dim 192 as at qwen3-moe's 128), held to the plain version within
+    :func:`flash_close` and, with a NaN in v at a key in the last key
+    tile, which the first query tile skips, NaN exactly where the plain
+    version has NaN; at MLA's shapes the SIMT kernel too, by direct call,
+    held the same way.  Then kernel (pre-pass included), plain and SDPA
+    times in turns and the bound; the wgmma route must be
+    MLA_SIMT_FACTORS faster than the SIMT kernel.  Returns {route: {shape
+    name: timing}}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import route
     out = {"simt": {}, "wgmma": {}}
     for i, (name, (B, T, H, KV, hd, vw)) in enumerate(
             NEW_FLASH_SHAPES.items()):
         r = route(torch.bfloat16, hd)
+        if r != "wgmma":
+            fail(f"flash_attention at {name}: bf16 at head dim {hd} routed "
+                 f"to {r}")
         q, k, v = flash_inputs(torch, B, T, T, H, KV, hd, torch.bfloat16,
                                500 + i)
         v[..., vw:] = 0.0                 # MLA's zero padding of v
-        r0 = ops.route_counts()["flash_attention"][r]
-        got = ops.flash_attention(q, k, v, causal=True)
-        want = ref.flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        if ops.route_counts()["flash_attention"][r] != r0 + 1:
-            fail(f"flash_attention at {name} did not take the {r} route")
-        ok, err, share = flash_close(torch, got, want)
-        if not ok:
-            fail(f"flash_attention ({r}) differs from the plain version at "
-                 f"{name}: max err {err}, {share:.3f} of the tolerance")
         vn = v.clone()
-        vn[0, T - 20, 1, 5] = float("nan")      # skipped by rows < 64
-        gn = ops.flash_attention(q, k, vn, causal=True)
+        vn[0, T - 5, 1, 5] = float("nan")       # skipped by rows < 64
+        want = ref.flash_attention_ref(q, k, v)
         wn = ref.flash_attention_ref(q, k, vn)
-        torch.cuda.synchronize()
-        if not (torch.isnan(wn).any()
-                and torch.equal(torch.isnan(gn), torch.isnan(wn))):
-            fail(f"flash_attention ({r}) NaN rule broken at {name}")
-        del vn, gn, wn
+        if not torch.isnan(wn).any():
+            fail(f"flash_attention at {name}: the plain version has no NaN")
+        routes = ["wgmma"] + (["simt"] if hd == 192 else [])
+        held = {}
+        for kernel in routes:
+            r0 = ops.route_counts()["flash_attention"][kernel]
+            if kernel == "wgmma":
+                got = ops.flash_attention(q, k, v, causal=True)
+                gn = ops.flash_attention(q, k, vn, causal=True)
+            else:
+                got = flash_cuda(q, k, v, tiles_cuda(v), True, None, None,
+                                 "simt")
+                gn = flash_cuda(q, k, vn, tiles_cuda(vn), True, None, None,
+                                "simt")
+            torch.cuda.synchronize()
+            if ops.route_counts()["flash_attention"][kernel] != r0 + 2 * (
+                    kernel == "wgmma"):
+                fail(f"flash_attention at {name} did not take the {kernel} "
+                     f"route")
+            ok, err, share = flash_close(torch, got, want)
+            if not ok:
+                fail(f"flash_attention ({kernel}) differs from the plain "
+                     f"version at {name}: max err {err}, {share:.3f} of the "
+                     f"tolerance")
+            if not torch.equal(torch.isnan(gn), torch.isnan(wn)):
+                fail(f"flash_attention ({kernel}) NaN rule broken at {name}")
+            held[kernel] = (err, share)
+            del got, gn
+        del vn, wn
 
-        def kern():
-            return flash_cuda(q, k, v, tiles_cuda(v), True, None, None, r)
+        def timed(kernel):
+            return lambda: flash_cuda(q, k, v, tiles_cuda(v), True, None,
+                                      None, kernel)
 
         def plain():
             return ref.flash_attention_ref(q, k, v)
@@ -4174,30 +4332,45 @@ def new_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
             return F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
         timer = loop_ms if T > 1024 else device_ms
-        plain_ms, (k_ms,) = time_turns(torch, timer, plain, [kern])
+        plain_ms, k_ms = time_turns(torch, timer, plain,
+                                    [timed(kn) for kn in routes])
         lib_ms = min(timer(torch, library), timer(torch, library))
         lib_err = (library().float() - want.float()).abs().max().item()
         b_ms, by, n_ops, nbytes = flash_bound(B, T, T, H, KV, hd, 2, {})
-        out[r][name] = {
-            "shape": [B, T, H, KV, hd], "dtype": "bfloat16",
-            "v_width_before_padding": vw, "ms": k_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "ops": n_ops, "bytes": nbytes,
-            "tflops": n_ops / k_ms / 1e9, "library_ms": lib_ms,
-            "library_note": "F.scaled_dot_product_attention(is_causal, "
-                            "enable_gqa)",
-            "library_max_abs_err": lib_err, "max_abs_err_bf16": err,
-            "share_of_tolerance_bf16": share, "includes_prepass": True,
-            "timer": ("cuda events, 5 eager calls back to back"
-                      if T > 1024 else "cuda graph")}
-        print(f"flash_attention {r} route {name} {[B, T, H, KV, hd]} bf16: "
-              f"within tolerance ({share:.4f} of it), NaN rule held; device "
-              f"time kernel with its pre-pass {k_ms * 1e3:.3f} us "
-              f"({n_ops / k_ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us ({by}), "
-              f"{b_ms / k_ms:.4f} of the bound, library {lib_ms * 1e3:.3f} "
-              f"us by SDPA ({'kernel faster' if k_ms < lib_ms else 'SDPA faster'})"
-              f" [{out[r][name]['timer']}]", flush=True)
-        del q, k, v, qt, kt, vt, got, want
+        timer_note = ("cuda events, 5 eager calls back to back"
+                      if T > 1024 else "cuda graph")
+        for kernel, ms in zip(routes, k_ms):
+            err, share = held[kernel]
+            out[kernel][name] = {
+                "shape": [B, T, H, KV, hd], "dtype": "bfloat16",
+                "v_width_before_padding": vw, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "ops": n_ops,
+                "bytes": nbytes, "tflops": n_ops / ms / 1e9,
+                "library_ms": lib_ms,
+                "library_note": "F.scaled_dot_product_attention(is_causal, "
+                                "enable_gqa)",
+                "library_max_abs_err": lib_err, "max_abs_err_bf16": err,
+                "share_of_tolerance_bf16": share, "includes_prepass": True,
+                "timer": timer_note}
+            print(f"flash_attention {kernel} route {name} "
+                  f"{[B, T, H, KV, hd]} bf16: within tolerance ({share:.4f} "
+                  f"of it), NaN rule held; device time kernel with its "
+                  f"pre-pass {ms * 1e3:.3f} us ({n_ops / ms / 1e9:.2f} "
+                  f"TFLOP/s), plain {plain_ms * 1e3:.3f} us, bound "
+                  f"{b_ms * 1e3:.3f} us ({by}), {b_ms / ms:.4f} of the bound,"
+                  f" library {lib_ms * 1e3:.3f} us by SDPA (kernel / SDPA "
+                  f"{ms / lib_ms:.3f}) [{timer_note}]", flush=True)
+        if name in MLA_SIMT_FACTORS:
+            w, sm = out["wgmma"][name]["ms"], out["simt"][name]["ms"]
+            if MLA_SIMT_FACTORS[name] * w > sm:
+                fail(f"flash_attention wgmma at {name}: {w * 1e3:.3f} us, "
+                     f"not {MLA_SIMT_FACTORS[name]}x faster than the SIMT "
+                     f"kernel's {sm * 1e3:.3f} us in this run")
+            print(f"flash gate: at {name} the wgmma route is {sm / w:.2f}x "
+                  f"faster than the SIMT kernel (at least "
+                  f"{MLA_SIMT_FACTORS[name]}x), SDPA / wgmma "
+                  f"{lib_ms / w:.3f}", flush=True)
+        del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
     return out
 
@@ -4283,12 +4456,13 @@ MOE_SMALL_REFS = {   # arch: (config overrides, prompt length, max_len)
 
 def phase_moe(torch, ops, ref, serve, train, card, flash_cuda,
               tiles_cuda) -> dict:
-    """Phase 14: flash at the new families' shapes and the small
+    """Phase 14: (d) flash at the new families' shapes and the small
     references (the card free; phase 3 holds quantize_tiles at their
     pools' lengths), then (a) deepseek-v2-lite-16b and (b)
     qwen3-moe-30b-a3b served at full width, (c) qwen3-moe-30b-a3b trained
     at full width and cut depth, and quantize_ef / dequant_accum bit-equal
-    at every bucket length of (c), timed at its largest (an expert leaf)."""
+    at every bucket length of (c), timed at its largest (an expert leaf),
+    and (e) deepseek-v2-lite-16b served with 4096-token prompts."""
     t0 = time.perf_counter()
     flash = new_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda)
     phase_small_moe_mla(torch, card)
@@ -4298,10 +4472,13 @@ def phase_moe(torch, ops, ref, serve, train, card, flash_cuda,
     lengths = training["lengths"]
     wire = train_path_kernels(torch, ops, ref, lengths,
                               {"qwen3_moe_expert_bucket": max(lengths)})
+    long = run_mla_long_serving(
+        torch, ops, serve, card,
+        flash["simt"]["deepseek_v2_lite_prefill_4096"]["ms"])
     seconds = time.perf_counter() - t0
     print(f"phase 14 took {seconds:.1f} s", flush=True)
     return {"flash": flash, "serving": serving, "training": training,
-            "wire": wire, "seconds": seconds}
+            "wire": wire, "long": long, "seconds": seconds}
 
 
 def kernel_name(mangled: str) -> str:
@@ -4323,6 +4500,23 @@ def kernel_name(mangled: str) -> str:
 PTXAS_STRICT = ("flash_attention_wgmma", "quantize_tiles", "quantize_ef",
                 "topk_mask")
 PTXAS_CLEAN = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+
+
+def check_wgmma_instantiations(log: str) -> None:
+    """Fail unless the wgmma library's ``-Xptxas -v`` report (which
+    ``check_ptxas`` holds to no spill) holds every instantiation the
+    launcher can reach: each head dim of ``WGMMA_HEAD_DIMS`` at 1 and 2
+    consumer warpgroups."""
+    from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
+    found = {kernel_name(line.split("'")[1]) for line in log.splitlines()
+             if "Compiling entry function" in line}
+    want = {f"flash_wgmma_kernel<{hd}, {nc}>" for hd in WGMMA_HEAD_DIMS
+            for nc in (1, 2)}
+    if want - found:
+        fail(f"ptxas: the wgmma library lacks {sorted(want - found)}")
+    print(f"ptxas: the wgmma library holds {len(want)} instantiations "
+          f"(head dims {WGMMA_HEAD_DIMS} x 1 and 2 consumer warpgroups), "
+          f"none spilling", flush=True)
 
 
 def check_ptxas(name: str, log: str) -> None:
@@ -4407,6 +4601,7 @@ def main() -> None:
           flush=True)
     for name in libs:
         check_ptxas(name, build.build_log(name))
+    check_wgmma_instantiations(build.build_log("flash_attention_wgmma"))
 
     # -- 3. kernels vs plain versions ---------------------------------------
     flash_err, flash_timings, tiles_timings = phase_flash(
@@ -4439,7 +4634,9 @@ def main() -> None:
                    **quantize_path_shapes("gemma2-9b", GEMMA2_SLOTS,
                                           GEMMA2_MAX_LEN, PAGE),
                    **{k: v for arch in MOE_SERVE_ARCHS
-                      for k, v in pool_write_shapes(arch).items()}}
+                      for k, v in pool_write_shapes(arch).items()},
+                   **pool_write_shapes(MLA_LONG_ARCH, GEMMA2_SLOTS,
+                                       GEMMA2_MAX_LEN, "_long")}
     q_err, timings, q_block = phase_kernels(torch, ops, ref,
                                             quantize_tiles_cuda, path_shapes)
     for name, t in [*timings.items(), *q_block.items()]:
@@ -4528,7 +4725,8 @@ def main() -> None:
                     nonfinite_tiles_cuda)
 
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
-               **{arch: r["launches"] for arch, r in moe["serving"].items()}}
+               **{arch: r["launches"] for arch, r in moe["serving"].items()},
+               f"{MLA_LONG_ARCH}_long": moe["long"]["launches"]}
 
     def runs_of(name, runs):
         return {run_name: r[name] for run_name, r in runs.items()}
@@ -4573,7 +4771,8 @@ def main() -> None:
         kernel_line("flash_attention", flash_routes["wgmma"], flash_err,
                     flash_timings["wgmma"], "gemma2_9b_prefill_global",
                     flash_routes),
-        # the SIMT route's path: deepseek-v2-lite-16b's MLA prefill
+        # the SIMT route: on no serving path (0 launches there), timed by
+        # direct call at deepseek-v2-lite-16b's MLA prefill
         kernel_line("flash_attention_simt", flash_routes["simt"], flash_err,
                     flash_timings["simt"], "deepseek_v2_lite_prefill",
                     flash_routes),

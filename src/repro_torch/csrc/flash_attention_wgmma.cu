@@ -1,5 +1,6 @@
 // Forward attention with a streaming softmax for Hopper (sm_90a), tensor-core
-// route: bf16 q, k, v at head dim 32, 64, 128 or 256 -- every serving path.
+// route: bf16 q, k, v at head dim 32, 64, 128, 192 or 256 -- every serving
+// path (192: MLA's q/k head dim 128 + 64, v zero-padded to it by the caller).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:_kernel
 // (entry flash_attention_pallas) and computes what the SIMT route
@@ -31,9 +32,13 @@
 //   * Tiles sit in shared memory as panels of 64 head dims (128-byte rows;
 //     32 dims and 64-byte rows at hd 32) with the TMA's 128-byte (64-byte)
 //     swizzle, which the wgmma descriptors name.  At hd 256, NC = 2:
-//     Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB.
+//     Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB.  At hd 192 (3 panels):
+//     1024 + Q 48 KiB + 2 x (K 24 KiB + V 24 KiB) + 72 = 148,552 bytes at
+//     NC = 2, 123,976 at NC = 1, under the 232,448 a block may use; P.V is
+//     one m64n192k16 per 16 keys, its V operand spanning 3 panels as it
+//     spans 4 at hd 256.
 //   * setmaxnreg gives the consumers 240 registers (O alone is 128 f32 per
-//     thread at hd 256) and the producer 24.
+//     thread at hd 256, 96 at hd 192) and the producer 24.
 //   * The tensor maps read q, k, v in the model's (B, T, H, hd) layout
 //     through their strides as 4-d (hd, heads, positions, batch) maps: no
 //     transposed copies.  Rows past T and keys past S are zero-filled by the
@@ -85,6 +90,8 @@ struct Cfg {
   // 9 mbarriers
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 4 * kStages);
+  static_assert(HD % kPW == 0 && kSmem <= 232448,
+                "head dim not whole panels, or too much shared memory");
 };
 
 struct Params {
@@ -267,6 +274,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d += A.B, A (64 x 16) bf16 in registers, B (16 x n192) MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // d += A.B, A (64 x 16) bf16 in registers, B (16 x n256) MN-major in
 // shared memory
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], uint32_t a0,
@@ -287,10 +307,13 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
                                          uint64_t db) {
   const uint32_t a0 = a[4 * kk], a1 = a[4 * kk + 1], a2 = a[4 * kk + 2],
                  a3 = a[4 * kk + 3];
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 192 || HD == 256,
+                "no P.V wgmma at this head dim");
   if constexpr (HD == 32) wgmma_rs_n32(o, a0, a1, a2, a3, db);
-  if constexpr (HD == 64) wgmma_rs_n64(o, a0, a1, a2, a3, db);
-  if constexpr (HD == 128) wgmma_rs_n128(o, a0, a1, a2, a3, db);
-  if constexpr (HD == 256) wgmma_rs_n256(o, a0, a1, a2, a3, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(o, a0, a1, a2, a3, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(o, a0, a1, a2, a3, db);
+  else if constexpr (HD == 192) wgmma_rs_n192(o, a0, a1, a2, a3, db);
+  else wgmma_rs_n256(o, a0, a1, a2, a3, db);
 }
 
 // 2^x and 1/x on the MUFU, flushing subnormals to 0: p below 2^-126 adds
@@ -740,9 +763,10 @@ bool aligned16(const void* ptr) {
 
 // q (B, T, H, hd), k and v (B, S, KV, hd): bf16 device pointers with the
 // given element strides (last dim contiguous, 16-byte aligned bases, every
-// other stride a multiple of 8 elements: what the TMA takes); hd 32, 64, 128
-// or 256; out: contiguous bf16 (B, T, H, hd); tiles: the pre-pass's output
-// for this v (flash_attention.cu), launched just before on the same stream;
+// other stride a multiple of 8 elements: what the TMA takes); hd 32, 64,
+// 128, 192 or 256 (any other is refused); out: contiguous bf16 (B, T, H,
+// hd); tiles: the pre-pass's output for this v (flash_attention.cu),
+// launched just before on the same stream;
 // nc: consumer warpgroups per block (1 or 2).  window <= 0 means none, softcap <= 0 means none.  Launches on
 // `stream` without synchronising; returns the CUDA error of the attribute
 // call or the launch (0 on success), cudaErrorInvalidValue for arguments
@@ -757,7 +781,7 @@ extern "C" int flash_wgmma_launch(
   const int64_t kMax = int64_t{1} << 30;
   bool ok = B >= 1 && B <= 65535 && T >= 1 && T < kMax && S >= 1 &&
             S < kMax && KV >= 1 && H >= KV && H <= 65535 && H % KV == 0 &&
-            (hd == 32 || hd == 64 || hd == 128 || hd == 256) &&
+            (hd == 32 || hd == 64 || hd == 128 || hd == 192 || hd == 256) &&
             window < kMax && (S / kKvBlk + 1) * B * KV * 9 < kMax &&
             (nc == 1 || nc == 2) &&
             aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
@@ -790,6 +814,8 @@ extern "C" int flash_wgmma_launch(
     case 32: return launch_nc<32>(a, p, nc, s);
     case 64: return launch_nc<64>(a, p, nc, s);
     case 128: return launch_nc<128>(a, p, nc, s);
-    default: return launch_nc<256>(a, p, nc, s);
+    case 192: return launch_nc<192>(a, p, nc, s);
+    case 256: return launch_nc<256>(a, p, nc, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

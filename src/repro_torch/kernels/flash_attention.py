@@ -6,7 +6,8 @@ logit softcap, online softmax in f32.
 Two routes, chosen by :func:`route` from the dtype and head dim alone:
 
   * ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 at a head dim in
-    ``WGMMA_HEAD_DIMS``, both products on the tensor cores, K/V tiles fed
+    ``WGMMA_HEAD_DIMS`` (192 is MLA's q/k head dim, with v zero-padded to
+    it by the caller), both products on the tensor cores, K/V tiles fed
     by TMA.  It reads q, k, v through TMA tensor maps, which take a
     contiguous last dim, 16-byte aligned bases and strides that are
     multiples of 16 bytes (:func:`tma_ready`); a tensor that fails is
@@ -40,7 +41,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import launch
 
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (32, 64, 128, 192, 256)
 WGMMA_ROWS = 64          # query rows per consumer warpgroup
 KV_TILE = 64             # keys per tile, both kernels
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64

@@ -423,7 +423,8 @@ def mla_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
 def mla_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                 max_len: int):
     """Full-sequence MLA through ``ops.flash_attention`` (the Hopper kernel
-    on CUDA; a q/k head dim outside the wgmma set takes the SIMT route),
+    on CUDA: bf16 at q/k head dim 192 takes the wgmma route, v padded to
+    192 as the reference pads it; f32 takes the SIMT route),
     emitting the latent cache ``{"c_kv": (B, max_len, lora), "k_rope":
     (B, max_len, 1, rope)}``."""
     B, T, _ = x.shape

@@ -437,15 +437,17 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, variant):
         assert _flash_close(got, want), (shape, variant)
 
 
-# the wgmma route's grid: ragged T and S, G = 1, 2, 8, every head dim, and
-# grids of 128-row blocks (two consumer warpgroups: B x H x ceil(T / 128)
-# >= the SM count) beside 64-row ones
+# the wgmma route's grid: ragged T and S, G = 1, 2, 3, 4, 8, every head dim
+# (192: MLA's), and grids of 128-row blocks (two consumer warpgroups: B x H
+# x ceil(T / 128) >= the SM count) beside 64-row ones
 WGMMA_CASES = [
     # (B, T, S, H, KV, hd)
     (1, 11, 11, 2, 2, 32), (2, 200, 200, 4, 2, 64), (1, 150, 40, 8, 1, 128),
     (1, 200, 200, 8, 1, 256), (1, 11, 11, 16, 8, 256), (1, 150, 40, 2, 1, 64),
     (1, 1000, 1000, 136, 2, 64), (1, 520, 520, 48, 8, 256),
     (2, 300, 300, 34, 34, 32), (1, 200, 150, 144, 72, 128),
+    (2, 75, 75, 16, 16, 192), (1, 150, 40, 8, 2, 192),
+    (1, 300, 300, 48, 16, 192),
 ]
 
 
@@ -462,6 +464,24 @@ def test_cuda_flash_wgmma_route(cuda_device, B, T, S, H, KV, hd):
         assert _flash_wgmma() == r0 + 1
         want = tref.flash_attention_ref(q, k, v, **variant)
         assert _flash_close(got, want), ((B, T, S, H, KV, hd), variant)
+
+
+@pytest.mark.parametrize("hd", [16, 96, 160, 224])
+def test_cuda_flash_wgmma_launcher_refuses_other_head_dims(cuda_device, hd):
+    # strides and pointers the TMA takes, a head dim with no instantiation:
+    # the C launcher refuses (cudaErrorInvalidValue) and launches nothing
+    from repro_torch.kernels.flash_attention import (_launcher,
+                                                     nonfinite_tiles_cuda)
+    q, k, v = (x.to(cuda_device) for x in _qkv(1, 64, 2, 2, hd,
+                                                  torch.bfloat16, seed=hd))
+    out = torch.zeros_like(q)
+    rc = _launcher("wgmma")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        nonfinite_tiles_cuda(v).data_ptr(), 1, 64, 64, 2, 2, hd,
+        *(st for x in (q, k, v) for st in x.stride()[:3]), 1, 0, 0.0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1 and not out.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -641,13 +661,13 @@ def test_cuda_ring_fused_gloo_world(cuda_device, tmp_path, world):
 
 # ---------------------------------------------------------------------------
 # The MoE and MLA families' shapes: MLA's prefill attention at q/k head dim
-# 192 (v padded from 128 with zeros) on the SIMT route, qwen3-moe's GQA
-# 32/4 at head dim 128 on the wgmma route, and the int8 pools' latent
-# tiles (512 for c_kv, 64 for k_rope) on quantize_tiles' warp route
+# 192 (v padded from 128 with zeros) and qwen3-moe's GQA 32/4 at head dim
+# 128, both on the wgmma route, and the int8 pools' latent tiles (512 for
+# c_kv, 64 for k_rope) on quantize_tiles' warp route
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B,T,H,KV,hd,vw,route", [
-    (1, 128, 16, 16, 192, 128, "simt"), (2, 75, 16, 16, 192, 128, "simt"),
+    (1, 128, 16, 16, 192, 128, "wgmma"), (2, 75, 16, 16, 192, 128, "wgmma"),
     (1, 128, 32, 4, 128, 128, "wgmma")],
     ids=["mla", "mla-ragged", "qwen3-moe"])
 def test_cuda_flash_new_family_shapes(cuda_device, B, T, H, KV, hd, vw,
@@ -665,6 +685,23 @@ def test_cuda_flash_new_family_shapes(cuda_device, B, T, H, KV, hd, vw,
     got = tops.flash_attention(q, k, vn, causal=True)
     want = tref.flash_attention_ref(q, k, vn)
     assert torch.equal(got.isnan().cpu(), want.isnan().cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [(1, 128), (2, 75)])
+def test_cuda_flash_simt_at_mla_head_dim(cuda_device, dtype, B, T):
+    # the SIMT kernel, called directly at MLA's head dim 192 (the route
+    # bf16 took there before the wgmma instantiation; f32 still takes it),
+    # equals the plain version
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     nonfinite_tiles_cuda)
+    q, k, v = (x.to(cuda_device) for x in _qkv(B, T, 16, 16, 192, dtype,
+                                                  seed=T + 1))
+    v[..., 128:] = 0.0
+    got = flash_attention_cuda(q, k, v, nonfinite_tiles_cuda(v), True, None,
+                               None, "simt")
+    torch.cuda.synchronize()
+    assert _flash_close(got, tref.flash_attention_ref(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

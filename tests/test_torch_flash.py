@@ -219,7 +219,7 @@ def test_nonfinite_tiles_ref(dtype):
 # The wrapper's choices: route, consumer warpgroups, copies for the TMA
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192, 256])
 def test_route_tensor_cores_for_bf16(hd):
     assert tflash.route(torch.bfloat16, hd) == "wgmma"
     assert tflash.route(torch.float32, hd) == "simt"

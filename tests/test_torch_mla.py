@@ -28,6 +28,7 @@ from repro.models import attention as jattn
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer
 
@@ -167,6 +168,45 @@ def test_mla_naive_and_absorbed_decode_agree(mla):
     _close(a, b.numpy(), 1e-4)
     for k in ca:
         assert torch.equal(ca[k], cb[k])
+
+
+def _qkv_for_the_kernel(params, cfg, T):
+    """``_mla_full_qkv``'s q, k, v_p in bf16, as the prefill hands them to
+    ``ops.flash_attention``; each must be contiguous and readable by the
+    wgmma kernel's TMA maps in place (no copy)."""
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    x = torch.from_numpy(_x(cfg, 2, T, 9)).to(torch.bfloat16)
+    q, k, v_p, _, _ = tattn._mla_full_qkv(params, cfg, x,
+                                          torch.arange(T)[None, :])
+    hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    for t in (q, k, v_p):
+        assert t.shape == (2, T, cfg.num_heads, hd) and t.is_contiguous()
+        assert tflash.tma_ready(t)
+    assert not v_p[..., cfg.v_head_dim:].any()    # v zero-padded to hd
+    return q
+
+
+def test_mla_prefill_qkv_are_tma_ready(mla):
+    # the reduced widths (q/k head dim 32 + 16): the same layout as the
+    # full model's, so the same in-place reads
+    _, cfg, _, _, tp = mla
+    q = _qkv_for_the_kernel(tp, cfg, 11)
+    assert tflash.route(q.dtype, q.shape[-1]) == "simt"      # hd 48
+
+
+def test_mla_prefill_takes_the_wgmma_route_at_full_width():
+    # deepseek-v2-lite-16b's mixer at its full widths (q/k head dim 128 +
+    # 64 = 192, v 128 padded to 192): bf16 goes to the tensor cores
+    cfg = get_config("deepseek-v2-lite-16b")
+    g = torch.Generator().manual_seed(0)
+    params = {k: ({"scale": torch.zeros(d["scale"].shape)} if k == "kv_norm"
+                  else torch.randn(d.shape, generator=g) * 0.02)
+              for k, d in tattn.mla_desc(cfg).items()}
+    q = _qkv_for_the_kernel(params, cfg, 5)
+    assert q.shape[-1] == 192
+    assert tflash.route(torch.bfloat16, 192) == "wgmma"
+    assert tflash.route(q.dtype, q.shape[-1]) == "wgmma"
+    assert tflash.route(torch.float32, 192) == "simt"
 
 
 def test_mla_block_cache_is_paged_latents():
