@@ -22,7 +22,8 @@ Phases (any failure exits non-zero and prints no result line):
      (64 to 1024 on its warp route, 4096 on its block route), lengths,
      input types and a NaN tile, including every length the gemma-2b,
      gemma2-9b, deepseek-v2-lite-16b (at 4 x 256 and at phase 14 (e)'s
-     4 x 8192) and qwen3-moe-30b-a3b serving runs write, at their tiles (256, 512 and 64 of MLA's latents, 128; and
+     4 x 8192), qwen3-moe-30b-a3b and jamba-v0.1-52b (16 layers) serving
+     runs write, at their tiles (256, 512 and 64 of MLA's latents, 128; and
      dequantize must round-trip within s/254), the training wire over the CPU tests' cases (ragged lengths,
      decays, ratios, rank counts 1, 2, 4 and 8 at lengths that are and
      are not multiples of 16, zero tiles, exact halves, NaN tiles, f32
@@ -38,7 +39,12 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 (the wgmma route) x window, softcap, window+softcap, non-causal
      and non-causal+window, rows with no valid key, and at the prefill
      shapes of gemma2-9b (global and local layers, softcap 50) and gemma-2b
-     in both f32 and bf16; its pre-pass ``nonfinite_tiles`` is held
+     in both f32 and bf16, jamba-v0.1-52b's attention prefill (GQA 32/8,
+     hd 128), and the encoder-decoder's non-causal shapes (the encoder,
+     T = S = 512, and the cross-attention, T = 32 and T = 1 against S =
+     512; hd 64) in bf16 (wgmma) and f32 (SIMT), each timed against its
+     plain version, its bound and SDPA; its pre-pass ``nonfinite_tiles``
+     is held
      bit-equal, and the NaN rule (NaN exactly where the plain version has
      NaN, for an inf or NaN of v in a skipped key tile) on both routes.
      Then kernel, plain-version, bound and library times at the serving
@@ -195,9 +201,10 @@ Phases (any failure exits non-zero and prints no result line):
      (moe_ffn's expert choices and keep mask equal to the CPU's at
      capacity factor 0.5, phase 4's prefill + decode check, MLA's naive
      and absorbed decodes within phase 4's tolerance); then (a)
-     deepseek-v2-lite-16b (27 MLA layers, 64 routed experts top-6 and 2
-     shared, 15.65 B parameters) and (b) qwen3-moe-30b-a3b (48 layers, 128
-     experts top-8, 30.53 B parameters) served at full width with phase
+     deepseek-v2-lite-16b (64 routed experts top-6 and 2 shared, 15.65 B
+     parameters; 14 of its 27 MLA layers) and (b) qwen3-moe-30b-a3b (128
+     experts top-8, 30.53 B parameters; 24 of its 48 layers), cut in
+     depth for the call's time, served at full width with phase
      5's traffic, bf16 from seed 0, int8 paged KV, the peak within a
      reckoning printed before each run (weights, pool, the largest
      transient, + 1 GiB), tokens/s, TTFT, the tick and its device-busy
@@ -212,20 +219,53 @@ Phases (any failure exits non-zero and prints no result line):
      requests of 4096 + 32 tokens through 4 slots, max_len 8192), the
      peak within its reckoning + 1 GiB, then one 4096-token admission
      timed alone (median of 3) and profiled (flash's device share), beside
-     the reckoned SIMT cost of the same admission (27 x (d)'s SIMT time).
+     the reckoned SIMT cost of the same admission (27 x (d)'s SIMT time);
+ 15. the Mamba, xLSTM and encoder-decoder families, bf16 weights from
+     seed 0: first, with the card free, reduced f32 references on the card
+     against the CPU from the same weights (mamba_forward with its state
+     and two mamba_decode steps, the same for mLSTM and sLSTM, seamless's
+     encode with a prefill and a decode step, and phase 4's prefill + four
+     decode steps for jamba and xlstm; phase 4's tolerance); then (a)
+     jamba-v0.1-52b served at full width cut to 16 of its 32 layers (for
+     memory: 26.05 B parameters; two 8-layer Jamba blocks, so one segment
+     of 2 repeats) and (b) xlstm-125m at full width, each with phase 5's
+     traffic and int8 paged KV, the peak within a reckoning printed before
+     the run (weights, pool, the per-slot recurrent state, the largest
+     transient, + 1 GiB), tokens/s, TTFT, the tick, its device-busy share
+     and launches a tick; (c) seamless-m4t-large-v2 at full width (24 + 24
+     layers), one-shot ``generate`` of 64 tokens for 4 prompts of 32
+     tokens over 512 bf16 frames: flash 72 at the prefill + 24 per decode
+     step, all on wgmma, finite logits, the prefill time and the time per
+     token, the peak within its reckoning; (d) the CLI's one-shot path for
+     seamless at full width cut to 2 + 2 layers, with the f32 frames the
+     CLI draws: the encoder's and the cross-attention's flash on SIMT, the
+     decoder's self-attention on wgmma, and the reference's dtypes (f32
+     memory and cross K/V, bf16 self K/V and logits); (e) xlstm-125m
+     trained at full width and 4 of its 12 layers (one period of 3 mLSTM
+     + 1 sLSTM, cut for time: the recurrences run as eager loops), Adam,
+     int8_fused, batch 4 x seq 256, NCCL world 1, 3 steps: finite
+     losses, the peak within a reckoning that counts the chunked remat
+     (printed beside the ones without it), step times and a profiled
+     step (device events only); then quantize_ef and dequant_accum
+     bit-equal at every bucket length of (e), timed at the largest.
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
 12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b),
-(c) and (e)) sets every kernel launch counter
+(c) and (e), and 15 (a)–(e)) sets every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
 (admissions + decode ticks), all on the warp route (4 paged leaves for
 deepseek-v2-lite-16b: c_kv and k_rope of its two segments); flash_attention
-and its pre-pass = attention layers x admissions, all of them on the
-route ``route(dtype, head_dim)`` gives — wgmma and none on SIMT for
-every family, MLA's head dim 192 included; the MoE training
+and its pre-pass = attention layers x admissions (2 x 8 for jamba cut
+to 16 layers, 0 for xlstm, whose pool has no paged leaf and quantizes
+nothing), all of them on the route ``route(dtype, head_dim)`` gives —
+wgmma and none on SIMT for every family, MLA's head dim 192 included;
+seamless one-shot: flash = 3 x 24 at the prefill + 24 per decode step,
+all wgmma with bf16 frames; with f32 frames, the encoder's and the
+cross-attention's on SIMT and the decoder's self-attention on wgmma; the
+xlstm training run as 8's int8_fused run; the MoE training
 run as 8's int8_fused run, and its drop tap routing each choice once
 per forward; training: the wire's kernels = buckets x
 steps, all on their warp routes (int8_fused: quantize_ef and
@@ -247,8 +287,9 @@ runs as 11's (``plan_launches``: topk_ef per topk_fused bucket and
 step); the pipeline: quantize_ef and dequant_accum once per leaf of the
 per-row tree and step (164 x 3 at world 1, 83 x 3 on each stage of
 (c)), all on the warp route.  Launches made in phases 3, 4, 6, 10 (b),
-12 (b) and 13 (b), and by the
-checks and timings of 9, 10, 11, 12 and 14, are not counted.  It prints a ``{"kernels": [...]}``
+12 (b), 13 (b) and 15's small references, and by the
+checks and timings of 9, 10, 11, 12, 14 and 15, are not counted.  It
+prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
 last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX package.
 """
@@ -310,6 +351,8 @@ FLASH_PATH_SHAPES = {   # name: (B, T, H, KV, hd, kwargs)
     "gemma2_9b_prefill_local": (1, GEMMA2_PROMPT, 16, 8, 256,
                                 {"softcap": 50.0, "window": 4096}),
     "gemma_2b_prefill": (1, 128, 8, 1, 256, {}),
+    # jamba-v0.1-52b's attention layers (phase 15 (a)): GQA 32/8, hd 128
+    "jamba_prefill": (1, 128, 32, 8, 128, {}),
 }
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -500,10 +543,19 @@ def loop_ms(torch, fn) -> float:
     return call_ms(torch, fn, reps=5, inner=5)
 
 
+_WARMUP_STREAM = []
+
+
 def device_ms(torch, fn, reps: int = 25, inner: int = 20) -> float:
     """Device time per call: ``inner`` calls captured in one CUDA graph and
-    replayed (median of ``reps``), so no host launch cost is counted."""
-    side = torch.cuda.Stream()
+    replayed (median of ``reps``), so no host launch cost is counted.  The
+    warm-up calls run on one side stream, made once: cuBLAS keeps a
+    workspace for every stream that has run a matmul until the process
+    ends, so a new stream per timing would leave one more workspace
+    allocated in every later phase's peak."""
+    if not _WARMUP_STREAM:
+        _WARMUP_STREAM.append(torch.cuda.Stream())
+    side = _WARMUP_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -622,17 +674,17 @@ def phase_kernels(torch, ops, ref, quantize_tiles_cuda, path_shapes):
     return worst, timings, block
 
 
-def quantize_path_shapes(arch: str, slots: int, max_len: int,
+def quantize_path_shapes(cfg, slots: int, max_len: int,
                          page: int) -> dict:
-    """{name: (n, tile)}: the flat lengths that the int8 pool of ``arch``'s
+    """{name: (n, tile)}: the flat lengths that the int8 pool of ``cfg``'s
     serving run (``slots`` x ``max_len``, pages of ``page``) hands
     ``quantize_tiles``, from the pool's own leaf layout.  An admission
     writes one slot's whole row of each paged leaf (repeats x length x KV
     x hd), a decode tick one entry per slot (repeats x slots x KV x hd);
     the tile is hd.  Leaves of equal lengths share a name."""
-    leaves = paged_leaves_of(arch, slots, max_len, page)
+    leaves = paged_leaves_of(cfg, slots, max_len, page)
     lengths = sorted({m.length for _, m, _, _ in leaves})
-    tag = arch.replace("-", "_")
+    tag = cfg.name.replace("-", "_")
     out = {}
     for _, m, shape, _ in leaves:
         numel, tile = math.prod(shape), shape[-1]
@@ -644,15 +696,14 @@ def quantize_path_shapes(arch: str, slots: int, max_len: int,
     return out
 
 
-def paged_leaves_of(arch: str, slots: int, max_len: int, page: int):
+def paged_leaves_of(cfg, slots: int, max_len: int, page: int):
     """[(name, meta, spec shape, n_pages)] of every paged cache leaf of
-    ``arch``'s int8 pool at ``slots`` x ``max_len``, pages of ``page``."""
+    ``cfg``'s int8 pool at ``slots`` x ``max_len``, pages of ``page``."""
     from repro_torch._tree import tree_leaves, tree_map_with_path
-    from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.transformer import CacheLeafMeta
     from repro_torch.serve.kv_cache import PagedDecodeCache
-    cache = PagedDecodeCache(Model(get_config(arch)), slots, max_len, page,
+    cache = PagedDecodeCache(Model(cfg), slots, max_len, page,
                              quantize="int8", build_pool=False)
     named = []
     tree_map_with_path(lambda path, s: named.append(
@@ -663,23 +714,46 @@ def paged_leaves_of(arch: str, slots: int, max_len: int, page: int):
             for (name, shape), m in zip(named, metas) if m.kind == "paged"]
 
 
-def pool_write_shapes(arch: str, slots: int = SLOTS, max_len: int = MAX_LEN,
+def pool_write_shapes(cfg, slots: int = SLOTS, max_len: int = MAX_LEN,
                       suffix: str = "") -> dict:
-    """{name + suffix: (n, tile)}: every length ``arch``'s int8 pool
+    """{name + suffix: (n, tile)}: every length ``cfg``'s int8 pool
     hands ``quantize_tiles`` in a run of ``slots`` x ``max_len`` (phase
     5's traffic by default), pages of PAGE, per paged leaf: an admission
     writes one slot's row (repeats x length x rest), a tick one entry per
     slot; the tile is the leaf's trailing dim (512 for MLA's c_kv, 64 for
     its k_rope, hd for K/V)."""
-    tag = arch.replace("-", "_")
+    tag = cfg.name.replace("-", "_")
     out = {}
-    for name, m, shape, _ in paged_leaves_of(arch, slots, max_len, PAGE):
+    for name, m, shape, _ in paged_leaves_of(cfg, slots, max_len, PAGE):
         numel = math.prod(shape)
         out[f"{tag}_{name}_prefill_write{suffix}"] = (numel // slots,
                                                      shape[-1])
         out[f"{tag}_{name}_decode_write{suffix}"] = (numel // m.length,
                                                     shape[-1])
     return out
+
+
+def attention_layers(cfg) -> int:
+    """Layers of a decoder-only stack whose prefill runs flash (attention
+    and MLA mixers)."""
+    return sum(seg.repeats for seg in cfg.stack_plan()
+               for s in seg.period if s.mixer in ("attn", "mla"))
+
+
+def state_bytes_of(cfg, slots: int, max_len: int) -> int:
+    """Bytes of the per-slot state leaves (the recurrent mixers' states)
+    of ``cfg``'s serving pool at ``slots`` x ``max_len``."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import CacheLeafMeta
+    from repro_torch.serve.kv_cache import PagedDecodeCache
+    cache = PagedDecodeCache(Model(cfg), slots, max_len, PAGE,
+                             quantize="int8", build_pool=False)
+    metas = tree_leaves(cache.meta,
+                        is_leaf=lambda x: isinstance(x, CacheLeafMeta))
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s, m in zip(tree_leaves(cache.specs), metas)
+               if m.kind == "state")
 
 
 def phase_train_kernels(torch, ops, ref) -> dict:
@@ -1391,15 +1465,19 @@ WIRE_KERNELS = ("quantize_ef_kernel", "quantize_tiles_warp_kernel",
                 "topk_mask_block_kernel")
 
 
-def profile_step(torch, session, card, name: str) -> dict:
+def profile_step(torch, session, card, name: str, cpu: bool = True) -> dict:
     """One more training step under ``torch.profiler``: its wall time,
     device-busy share, the compression kernels' share of device time and
-    the top device kernels."""
+    the top device kernels.  ``cpu=False`` records the device's kernels
+    only (a step of 10^5 launches and more, whose host events would take
+    minutes to read back)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities, acc_events=True) as prof:
         t0 = time.perf_counter()
         session.step_once()
         torch.cuda.synchronize()
@@ -1507,7 +1585,8 @@ def check_main_path(torch, run, launches, card) -> None:
     """A serving run's results: every request complete with valid tokens,
     no page leaked, the quantize kernel launched once per paged leaf per
     admission and per decode tick, all on the warp route, the flash
-    kernel and its pre-pass once per attention layer per admission, every
+    kernel and its pre-pass once per attention (or MLA) layer per
+    admission (none for xlstm-125m, which has neither), every
     flash launch on the route ``route`` gives the model's dtype and head
     dim (``flash_route_of``: wgmma for every family, MLA's head dim 192
     included, none on the SIMT one), no training-wire kernel, finite
@@ -1517,28 +1596,34 @@ def check_main_path(torch, run, launches, card) -> None:
     if len(run.completions) != n_req:
         fail(f"{len(run.completions)} of {n_req} requests completed")
     for c in run.completions:
-        if len(c.tokens) != n_new or not ((c.tokens >= 0)
-                                          & (c.tokens < cfg.vocab_size)).all():
+        # ids of the padded vocabulary: greedy decoding of random weights
+        # may pick a padding row (xlstm-125m's 50304 pad to 50432), as the
+        # reference's engine may
+        valid = (c.tokens >= 0) & (c.tokens < cfg.padded_vocab)
+        if len(c.tokens) != n_new or not valid.all():
             fail(f"request {c.rid}: bad tokens {c.tokens[:8]}...")
     eng.cache.check()
     live = sum(len(a.live_pages()) for a in eng.cache.allocators.values())
     if live:
         fail(f"{live} pages still live after draining")
     leaves = eng.cache.paged_leaves()
-    flash = cfg.num_layers * eng.prefills
+    n_attn = attention_layers(cfg)
+    flash = n_attn * eng.prefills
     quant = leaves * (eng.prefills + eng.decode_ticks)
     fr = flash_route_of(cfg)
     expected = {"quantize_tiles": quant, "quantize_tiles[warp]": quant,
                 "flash_attention": flash, "nonfinite_tiles": flash,
                 f"flash_attention[{fr}]": flash}
+    # a model with attention layers must launch them
+    required = expected if n_attn else {}
     for name, n in launches.items():
         want = expected.get(name, 0)
-        if n != want or (name in expected and want <= 0):
+        if n != want or (name in required and want <= 0):
             fail(f"{cfg.name} serving: kernel {name} launched {n} times, "
                  f"expected {want} (quantize_tiles = {leaves} paged leaves "
                  f"x ({eng.prefills} admissions + {eng.decode_ticks} decode "
                  f"ticks), all on the warp route, flash_attention and "
-                 f"nonfinite_tiles = {cfg.num_layers} layers x "
+                 f"nonfinite_tiles = {n_attn} attention layers x "
                  f"{eng.prefills} admissions, all on the {fr} route, 0 on "
                  f"the block route, the other flash route and the training "
                  f"wire)")
@@ -1558,7 +1643,7 @@ def check_main_path(torch, run, launches, card) -> None:
           f"{eng.decode_ticks}); warp route "
           f"{launches['quantize_tiles[warp]']}, block route "
           f"{launches['quantize_tiles[block]']}), flash_attention launches "
-          f"{launches['flash_attention']} (= {cfg.num_layers} x "
+          f"{launches['flash_attention']} (= {n_attn} attention layers x "
           f"{eng.prefills}; wgmma route {launches['flash_attention[wgmma]']},"
           f" SIMT route {launches['flash_attention[simt]']}), nonfinite_tiles "
           f"{launches['nonfinite_tiles']}", flush=True)
@@ -1661,7 +1746,8 @@ def profile_ticks(torch, model, params, scfg, requests, card,
         print(f"  {us / ticks:9.2f} us/tick {n / ticks:6.1f} launches/tick "
               f"{name[:100]}", flush=True)
     return {"tick_ms": bare * 1e3, "busy_ms": busy_us / ticks / 1e3,
-            "busy_share": busy_us / ticks / (bare * 1e6)}
+            "busy_share": busy_us / ticks / (bare * 1e6),
+            "launches_per_tick": len(kernels) / ticks}
 
 
 def run_gemma2_serving(torch, ops, serve, card) -> dict:
@@ -3904,6 +3990,11 @@ def phase_pipe(torch, ops, ref, train, card, replicated_params) -> dict:
 # ---------------------------------------------------------------------------
 
 MOE_SERVE_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
+# (a) and (b) serve at about half depth, for the call's time: their ticks
+# and admissions are host-bound and scale with the layers, and every block
+# kind (MLA's dense first layer, the MoE layers) stays on the path
+MOE_SERVE_CUT = {"deepseek-v2-lite-16b": {"num_layers": 14},
+                 "qwen3-moe-30b-a3b": {"num_layers": 24}}
 # what a serving run's peak may hold above its reckoning (weights, pool and
 # the largest transient): a prefill's and a tick's activations and logits
 SERVE_ROOM = 2**30
@@ -3953,12 +4044,12 @@ def flash_route_of(cfg) -> str:
     return route(resolve_dtype(cfg.compute_dtype), hd)
 
 
-def serving_reckoning(arch: str, slots: int = SLOTS,
-                      max_len: int = MAX_LEN, prompt: int = 128) -> dict:
-    """Bytes that ``arch``'s full-width int8 serving run (``slots`` x
-    ``max_len``, prompts of ``prompt`` tokens) holds at its peak, from its
-    shapes: the bf16 weights; the int8 pool (codes and f32 scales per
-    cached entry, the trash page included); and the largest transient,
+def serving_reckoning(cfg, slots: int = SLOTS, max_len: int = MAX_LEN,
+                      prompt: int = 128) -> dict:
+    """Bytes that ``cfg``'s full-width int8 serving run (``slots`` x
+    ``max_len``, prompts of ``prompt`` tokens) holds at its peak, from its shapes: the bf16 weights;
+    the int8 pool (codes and f32 scales per cached entry, the trash page
+    included) and its per-slot recurrent state; and the largest transient,
     either the f32 draw of one leaf (one leading slice of a leaf above
     ``layers.SLICED_DRAW_ELEMENTS``) while the weights are made, a decode
     tick's gather of the k chosen experts' three matrices per slot, with
@@ -3970,20 +4061,20 @@ def serving_reckoning(arch: str, slots: int = SLOTS,
     admission's prefill: the bf16 cache it emits for every layer at
     ``max_len`` before the pool takes it, and one layer's bf16 q, k, v
     and attention output at ``prompt``."""
-    from repro_torch.configs import get_config
     from repro_torch.models import Model, count_params
     from repro_torch.models.layers import SLICED_DRAW_ELEMENTS, desc_leaves
-    cfg = get_config(arch)
     pool = emitted = 0
     entries = []
-    for _, m, shape, n_pages in paged_leaves_of(arch, slots, max_len, PAGE):
+    for _, m, shape, n_pages in paged_leaves_of(cfg, slots, max_len, PAGE):
         rest = shape[m.batch_axis + 2:]
         rows = (shape[0] if m.batch_axis == 1 else 1) * n_pages * PAGE * \
             math.prod(rest[:-1])
         pool += rows * rest[-1] + 4 * rows
         emitted += 2 * math.prod(shape) // slots
         entries.append(math.prod(shape))
-    linear = 13 * max(entries) + 2 * (sum(entries) - max(entries))
+    linear = (13 * max(entries) + 2 * (sum(entries) - max(entries))
+              if entries else 0)
+    state = state_bytes_of(cfg, slots, max_len)
     draws = []
     for d in desc_leaves(Model(cfg).param_desc()):
         n = math.prod(d.shape)
@@ -3993,21 +4084,24 @@ def serving_reckoning(arch: str, slots: int = SLOTS,
     hd = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.hd
     prefill = emitted + 2 * 4 * prompt * cfg.num_heads * hd
     weights = 2 * count_params(cfg)
-    return {"weights": weights, "pool": pool, "draw": max(draws),
-            "gather": gather, "linear": linear, "prefill": prefill,
-            "total": weights + pool + max(max(draws), gather, linear,
-                                          prefill)}
+    return {"weights": weights, "pool": pool, "state": state,
+            "draw": max(draws), "gather": gather, "linear": linear,
+            "prefill": prefill,
+            "total": weights + pool + state + max(max(draws), gather,
+                                                  linear, prefill)}
 
 
-def serve_checked(torch, ops, serve, card, arch: str, args: list,
-                  rk: dict):
-    """``serve.main(args)`` at full width with every kernel counter set to
-    0 just before and read just after, checked as the main path (flash on
-    the wgmma route), the peak within the reckoning ``rk`` printed before
-    the run (+ SERVE_ROOM).  Returns (run, launches, peak bytes)."""
+def serve_checked(torch, ops, serve, card, cfg, args: list, rk: dict):
+    """``serve.main(args, cfg)`` (``cfg``: the configuration served, at
+    full width) with every kernel counter set to 0 just before and read
+    just after, checked as the main path (flash on the wgmma route), the
+    peak within the reckoning ``rk`` printed before the run (+
+    SERVE_ROOM).  Returns (run, launches, peak bytes)."""
+    arch = cfg.name
     print(f"serving {arch}: reckoning {rk['total'] / 1e9:.3f} GB = weights "
           f"{rk['weights'] / 1e9:.3f} GB (bf16) + int8 pool "
-          f"{rk['pool'] / 1e9:.4f} GB + the largest transient of a leaf's "
+          f"{rk['pool'] / 1e9:.4f} GB + recurrent state "
+          f"{rk['state'] / 1e9:.4f} GB + the largest transient of a leaf's "
           f"f32 draw ({rk['draw'] / 1e9:.3f} GB), a tick's expert gather "
           f"({rk['gather'] / 1e9:.3f} GB), a tick's gather of the pool "
           f"into the linear cache ({rk['linear'] / 1e9:.3f} GB) and an "
@@ -4019,7 +4113,7 @@ def serve_checked(torch, ops, serve, card, arch: str, args: list,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    run = serve.main(args)
+    run = serve.main(args, cfg)
     torch.cuda.synchronize()
     launches = path_counts(ops)
     peak = torch.cuda.max_memory_allocated()
@@ -4035,20 +4129,36 @@ def serve_checked(torch, ops, serve, card, arch: str, args: list,
     return run, launches, peak
 
 
-def run_moe_serving(torch, ops, serve, card, arch: str) -> dict:
-    """Phase 14 (a) / (b): ``arch`` served at full width with phase 5's
-    traffic through :func:`serve_checked`; then a profile of five decode
-    ticks (tick time, device-busy share)."""
+def cut(arch: str, over: dict):
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    rk = serving_reckoning(arch)
-    run, launches, peak = serve_checked(torch, ops, serve, card, arch,
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def run_full_width_serving(torch, ops, serve, card, arch: str,
+                           over: dict = None) -> dict:
+    """Phases 14 (a) / (b) and 15 (a) / (b): ``arch`` (its depth cut by
+    ``over``, where given) served at full width with phase 5's traffic
+    through :func:`serve_checked` (int8 paged KV, 4 slots, 8 requests of
+    128 + 64 tokens), the peak within a reckoning printed before the run
+    (weights, int8 pool, the per-slot recurrent state, the largest
+    transient, + 1 GiB); then five profiled decode ticks (tick time,
+    device-busy share, launches a tick)."""
+    over = over or {}
+    cfg = cut(arch, over)
+    rk = serving_reckoning(cfg)
+    print(f"serving {arch}: {cfg.num_layers} layers "
+          f"({attention_layers(cfg)} with attention), "
+          f"{cfg.num_params()} parameters; per-slot recurrent state "
+          f"{rk['state'] / 1e6:.3f} MB for {SLOTS} slots", flush=True)
+    run, launches, peak = serve_checked(torch, ops, serve, card, cfg,
                                         serve_args(arch), rk)
     eng = run.engines[0]
-    res = {"summary": run.summary, "seconds": run.seconds,
-           "admissions": eng.prefills, "decode_ticks": eng.decode_ticks,
-           "launches": launches, "peak_bytes": peak, "reckoning": rk,
-           "params": cfg.num_params()}
+    res = {"layers": cfg.num_layers, "summary": run.summary,
+           "seconds": run.seconds, "admissions": eng.prefills,
+           "decode_ticks": eng.decode_ticks, "launches": launches,
+           "peak_bytes": peak, "reckoning": rk,
+           "params": cfg.num_params(),
+           "attention_layers": attention_layers(cfg)}
     model, params, scfg, reqs = run.model, run.params, eng.cfg, run.requests
     del run, eng
     gc.collect()
@@ -4060,15 +4170,20 @@ def run_moe_serving(torch, ops, serve, card, arch: str) -> dict:
     torch.cuda.empty_cache()
     s, p = res["summary"], res["profile"]
     busy = p.get("busy_share")
-    print(f"serving {arch} [{card}]: {res['params']} params bf16; "
-          f"tokens/s={s['tokens_per_s']:.3f} mean TTFT="
-          f"{s['mean_ttft_s'] * 1e3:.3f} ms p50 per-token latency="
+    print(f"serving {arch} [{card}]: {res['params']} params bf16, "
+          f"{res['layers']} layers; tokens/s={s['tokens_per_s']:.3f} mean "
+          f"TTFT={s['mean_ttft_s'] * 1e3:.3f} ms p50 per-token latency="
           f"{s['p50_s'] * 1e3:.3f} ms; decode tick {p['tick_ms']:.3f} ms, "
           f"device busy "
-          f"{'not measured' if busy is None else f'{busy:.4f}'} of it; peak "
-          f"{peak / 1e9:.3f} GB within the reckoning "
-          f"{rk['total'] / 1e9:.3f} GB + {SERVE_ROOM / 2**30:.0f} GiB "
-          f"(serve run {res['seconds']:.2f} s)", flush=True)
+          f"{'not measured' if busy is None else f'{busy:.4f}'} of it, "
+          f"{p.get('launches_per_tick', 'not measured')} launches a tick; "
+          f"flash {launches['flash_attention']} launches (wgmma "
+          f"{launches['flash_attention[wgmma]']}), quantize_tiles "
+          f"{launches['quantize_tiles']} (warp "
+          f"{launches['quantize_tiles[warp]']}); peak {peak / 1e9:.3f} GB "
+          f"within the reckoning {rk['total'] / 1e9:.3f} GB + "
+          f"{SERVE_ROOM / 2**30:.0f} GiB (serve run {res['seconds']:.2f} s)",
+          flush=True)
     return res
 
 
@@ -4093,10 +4208,10 @@ def run_mla_long_serving(torch, ops, serve, card, simt_ms: float) -> dict:
     args = list(GEMMA2_SERVE_ARGS)
     args[args.index("--arch") + 1] = MLA_LONG_ARCH
     args[args.index("--prompt-len") + 1] = str(MLA_LONG_PROMPT)
-    rk = serving_reckoning(MLA_LONG_ARCH, GEMMA2_SLOTS, GEMMA2_MAX_LEN,
-                           MLA_LONG_PROMPT)
-    run, launches, peak = serve_checked(torch, ops, serve, card,
-                                        MLA_LONG_ARCH, args, rk)
+    cfg = cut(MLA_LONG_ARCH, {})
+    rk = serving_reckoning(cfg, GEMMA2_SLOTS, GEMMA2_MAX_LEN, MLA_LONG_PROMPT)
+    run, launches, peak = serve_checked(torch, ops, serve, card, cfg, args,
+                                        rk)
     eng, cfg = run.engines[0], run.cfg
     if eng.prefills != len(run.requests):
         fail(f"{MLA_LONG_ARCH} long prompts: {eng.prefills} admissions for "
@@ -4464,9 +4579,12 @@ def phase_moe(torch, ops, ref, serve, train, card, flash_cuda,
     at every bucket length of (c), timed at its largest (an expert leaf),
     and (e) deepseek-v2-lite-16b served with 4096-token prompts."""
     t0 = time.perf_counter()
+    print(f"phase 14: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated at its start", flush=True)
     flash = new_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda)
     phase_small_moe_mla(torch, card)
-    serving = {arch: run_moe_serving(torch, ops, serve, card, arch)
+    serving = {arch: run_full_width_serving(torch, ops, serve, card, arch,
+                                            MOE_SERVE_CUT[arch])
                for arch in MOE_SERVE_ARCHS}
     training = run_moe_training(torch, ops, train, card)
     lengths = training["lengths"]
@@ -4479,6 +4597,527 @@ def phase_moe(torch, ops, ref, serve, train, card, flash_cuda,
     print(f"phase 14 took {seconds:.1f} s", flush=True)
     return {"flash": flash, "serving": serving, "training": training,
             "wire": wire, "long": long, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# 15. the last three families: Mamba (jamba), xLSTM, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# (a): jamba-v0.1-52b at full width cut to 16 of its 32 layers, for memory
+# (32 layers are 51.57 B parameters = 103.1 GB in bf16; 16 are two 8-layer
+# Jamba blocks = 26.05 B = 52.1 GB): one segment of period 8 x 2 repeats,
+# so stacked state and paged leaves appear as at full depth (x 4)
+JAMBA_ARCH, JAMBA_CUT = "jamba-v0.1-52b", {"num_layers": 16}
+XLSTM_ARCH = "xlstm-125m"
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+# (c): one-shot generate at full width, bf16 frames (Model.input_specs's
+# dtype): batch 4, 512 frames, 32-token prompts, 64 new tokens
+SEAMLESS_BATCH, SEAMLESS_FRAMES = 4, 512
+SEAMLESS_PROMPT, SEAMLESS_GEN = 32, 64
+# (d): the CLI's one-shot path with the f32 frames it draws, full width
+# cut to 2 + 2 layers
+SEAMLESS_F32_CUT = {"num_layers": 2, "num_encoder_layers": 2}
+SEAMLESS_F32_ARGS = ["--arch", SEAMLESS_ARCH, "--no-reduced", "--batch",
+                     "4", "--prompt-len", "32", "--gen", "8", "--seed", "0"]
+# (e): xlstm-125m trained at full width and 4 of its 12 layers (one
+# period: 3 mLSTM + 1 sLSTM), for time: its recurrences run as eager loops,
+# ~43k launches a layer and step with the remat's recomputes
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_LAYERS = 256, 4
+XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--no-reduced", "--optimizer",
+                    "adam", "--batch", str(TRAIN_BATCH), "--seq",
+                    str(XLSTM_TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                    "--seed", "0", "--log-every", "1", "--sync", "comm",
+                    "--compressor", "int8_fused"]
+# phase 3: the encoder-decoder's flash shapes, T queries against S keys.
+# (c), 512 bf16 frames: the encoder (T = S = 512), the cross-attention at
+# prefill (the 32-token prompt) and at decode (T = 1), non-causal, and the
+# decoder's causal self-attention at the prompt (also (d)'s, in bf16).
+# (d), as many f32 frames as prompt tokens (32): the encoder, whose shape
+# is also the cross-attention's at prefill, and the cross-attention at
+# decode
+ENCDEC_FLASH_SHAPES = {   # name: (B, T, S, H, KV, hd, causal)
+    "seamless_encoder": (4, 512, 512, 16, 16, 64, False),
+    "seamless_cross_prefill": (4, 32, 512, 16, 16, 64, False),
+    "seamless_cross_decode": (4, 1, 512, 16, 16, 64, False),
+    "seamless_decoder_self_prefill": (4, 32, 32, 16, 16, 64, True),
+    "seamless_encoder_32_frames": (4, 32, 32, 16, 16, 64, False),
+    "seamless_cross_decode_32_frames": (4, 1, 32, 16, 16, 64, False),
+}
+NEW_SMALL_REFS = {   # arch: (config overrides, prompt length, max_len)
+    JAMBA_ARCH: ({}, 16, 24),
+    XLSTM_ARCH: ({}, 16, 24),
+}
+
+
+def encdec_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
+    """Phase 3, the encoder-decoder's flash shapes (ENCDEC_FLASH_SHAPES,
+    hd 64): through ``ops.flash_attention`` in bf16 (the wgmma route, the
+    path of 15 (c) and of (d)'s decoder) and in f32 (the SIMT route, the
+    path of (d)'s encoder and cross-attention), each held to the plain
+    version within :func:`flash_close`, each launch on its route; then
+    kernel (pre-pass included), plain and SDPA times in turns (graph
+    replay) and the bound.  Returns {route: {name: timing}}, the f32 rows
+    named with ``_f32``."""
+    import torch.nn.functional as F
+    out = {"wgmma": {}, "simt": {}}
+    for i, (name, (B, T, S, H, KV, hd, causal)) in enumerate(
+            ENCDEC_FLASH_SHAPES.items()):
+        for dtype, kernel in ((torch.bfloat16, "wgmma"),
+                              (torch.float32, "simt")):
+            q, k, v = flash_inputs(torch, B, T, S, H, KV, hd, dtype, 700 + i)
+            r0 = ops.route_counts()["flash_attention"][kernel]
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if ops.route_counts()["flash_attention"][kernel] != r0 + 1:
+                fail(f"flash_attention at {name} {dtype} did not take the "
+                     f"{kernel} route")
+            ok, err, share = flash_close(torch, got, want)
+            if not ok:
+                fail(f"flash_attention ({kernel}) differs from the plain "
+                     f"version at {name} {dtype}: max err {err}, "
+                     f"{share:.3f} of the tolerance")
+
+            def timed():
+                return flash_cuda(q, k, v, tiles_cuda(v), causal, None, None,
+                                  kernel)
+
+            def plain():
+                return ref.flash_attention_ref(q, k, v, causal=causal)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal).transpose(1, 2)
+            plain_ms, (k_ms,) = time_turns(torch, device_ms, plain, [timed])
+            lib_ms = min(device_ms(torch, library), device_ms(torch, library))
+            lib_err = (library().float() - want.float()).abs().max().item()
+            elt = 2 if dtype == torch.bfloat16 else 4
+            b_ms, by, n_ops, nbytes = flash_bound(B, T, S, H, KV, hd, elt,
+                                                  {"causal": causal})
+            row = name if kernel == "wgmma" else f"{name}_f32"
+            dname = str(dtype).split(".")[-1]
+            out[kernel][row] = {
+                "shape": [B, T, S, H, KV, hd], "dtype": dname,
+                "causal": causal, "ms": k_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "ops": n_ops,
+                "bytes": nbytes, "tflops": n_ops / k_ms / 1e9,
+                "library_ms": lib_ms,
+                "library_note": "F.scaled_dot_product_attention("
+                                f"is_causal={causal})",
+                "library_max_abs_err": lib_err, "max_abs_err": err,
+                "share_of_tolerance": share, "includes_prepass": True,
+                "timer": "cuda graph"}
+            print(f"flash_attention {kernel} route {row} q {[B, T, H, hd]} "
+                  f"k/v {[B, S, KV, hd]} {dname} "
+                  f"{'causal' if causal else 'non-causal'}: within "
+                  f"tolerance ({share:.4f} of it); device time kernel with "
+                  f"its pre-pass {k_ms * 1e3:.3f} us, plain "
+                  f"{plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us "
+                  f"({by}), {b_ms / k_ms:.4f} of the bound, library "
+                  f"{lib_ms * 1e3:.3f} us by SDPA (kernel / SDPA "
+                  f"{k_ms / lib_ms:.3f}) [cuda graph]", flush=True)
+            del q, k, v, qt, kt, vt, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_new_families(torch, card) -> None:
+    """Phase 15, small references on the card in f32 (TF32 off): at
+    reduced size, from the same weights and inputs on the card and on the
+    CPU, ``mamba_forward`` (with its state) and two ``mamba_decode``
+    steps, the same for ``mlstm_*`` and ``slstm_*``, and seamless's
+    ``encode`` with ``Model.prefill`` and one decode step, each within
+    1e-4 of the largest |output| (phase 4's tolerance); then phase 4's
+    prefill + four vector-position decode steps for jamba and xlstm."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    from repro_torch.models import ssm, xlstm
+
+    def held(what, cpu, gpu):
+        a, b = tree_leaves(cpu), [t.cpu() for t in tree_leaves(gpu)]
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(a, b))
+        scale = max(x.float().abs().max().item() for x in a)
+        if not (all(torch.isfinite(y.float()).all() for y in b)
+                and err <= 1e-4 * scale):
+            fail(f"{what} on the card differs from the CPU path: max|Δ| "
+                 f"{err} vs 1e-4·{scale}")
+        print(f"small reference: {what} f32, card vs CPU max|Δ| {err:.3e} "
+              f"(max|out| {scale:.3e})", flush=True)
+
+    def recurrent(arch, mixer, fwd, dec):
+        cfg = reduced(get_config(arch))
+        params = Model(cfg).init(torch.Generator("cpu").manual_seed(0))
+        i = [s.mixer for s in cfg.stack_plan()[0].period].index(mixer)
+        p = params["stack"][0][i]["mixer"]
+        g = torch.Generator("cpu").manual_seed(3)
+        x = torch.randn((2, 16, cfg.d_model), generator=g)
+        steps = [torch.randn((2, 1, cfg.d_model), generator=g)
+                 for _ in range(2)]
+        res = {}
+        for dev in ("cpu", "cuda"):
+            pd = tree_map(lambda t: t.to(dev), p)
+            out, st = fwd(pd, cfg, x.to(dev), return_state=True)
+            outs = [out]
+            for xt in steps:
+                o, st = dec(pd, cfg, xt.to(dev), st)
+                outs.append(o)
+            res[dev] = (outs, st)
+        held(f"reduced {arch} {mixer} forward + state + 2 decode steps",
+             res["cpu"], res["cuda"])
+
+    recurrent(JAMBA_ARCH, "mamba", ssm.mamba_forward, ssm.mamba_decode)
+    recurrent(XLSTM_ARCH, "mlstm", xlstm.mlstm_forward, xlstm.mlstm_decode)
+    recurrent(XLSTM_ARCH, "slstm", xlstm.slstm_forward, xlstm.slstm_decode)
+
+    from repro_torch.models import encdec
+    cfg = reduced(get_config(SEAMLESS_ARCH))
+    model = Model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    g = torch.Generator("cpu").manual_seed(4)
+    src = torch.randn((2, 24, cfg.d_model), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        memory = encdec.encode(p["encdec"], cfg, src.to(dev))
+        logits, cache = model.prefill(p, {"tokens": tokens.to(dev),
+                                          "src": src.to(dev)}, max_len=12)
+        step, _ = model.decode_step(p, tok.to(dev), cache, 8)
+        res[dev] = [memory, logits, step]
+    held(f"reduced {SEAMLESS_ARCH} encode + prefill + 1 decode step",
+         res["cpu"], res["cuda"])
+    for arch in NEW_SMALL_REFS:
+        phase_small_reference(torch, arch, NEW_SMALL_REFS)
+
+
+def seamless_cache_bytes(cfg, batch: int, max_len: int, src_len: int,
+                         elt: int) -> int:
+    """Bytes of the encoder-decoder's decode cache: the self K/V at
+    ``max_len`` and the cross K/V at ``src_len``, every decoder layer."""
+    per = 2 * cfg.num_kv_heads * cfg.hd * elt * batch
+    return cfg.num_layers * per * (max_len + src_len)
+
+
+def run_seamless_oneshot(torch, ops, serve, card) -> dict:
+    """Phase 15 (c): seamless-m4t-large-v2 at full width (24 + 24 layers),
+    bf16 weights from seed 0, one-shot ``generate`` of SEAMLESS_GEN tokens
+    for SEAMLESS_BATCH prompts of SEAMLESS_PROMPT tokens over
+    SEAMLESS_FRAMES bf16 frames, with every kernel counter set to 0 just
+    before and read just after.  Gates: flash = 72 at the prefill (24
+    encoder, 24 decoder self, 24 cross layers) + 24 (cross, T = 1) per
+    decode step, all on wgmma, and its pre-pass as often; no other kernel;
+    finite prefill logits; the peak within a reckoning printed before the
+    run (weights, three copies of the cache — the one read, the per-layer
+    copies and the stacked new one — and 1 GiB).  Prints the prefill time
+    (median of 3 timed alone) and the time per generated token: its
+    decode loop timed alone, warm, from the last timed prefill's cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(SEAMLESS_ARCH)
+    B, S, P, G = SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_PROMPT, \
+        SEAMLESS_GEN
+    max_len = P + G
+    weights = 2 * cfg.num_params()
+    cache_bytes = seamless_cache_bytes(cfg, B, max_len, S, 2)
+    reckoning = weights + 3 * cache_bytes
+    print(f"serving {SEAMLESS_ARCH} one-shot: reckoning "
+          f"{reckoning / 1e9:.3f} GB = weights {weights / 1e9:.3f} GB "
+          f"(bf16) + 3 x the cache {cache_bytes / 1e9:.4f} GB; the peak "
+          f"may hold "
+          f"{SERVE_ROOM / 2**30:.0f} GiB more", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    frames = torch.randn((B, S, cfg.d_model), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                            device="cuda")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve.generate(model, params, prompts, G, max_len, src=frames)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    flash = 3 * L + L * (G - 1)
+    expected = {"flash_attention": flash, "flash_attention[wgmma]": flash,
+                "nonfinite_tiles": flash}
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            fail(f"{SEAMLESS_ARCH} one-shot: kernel {name} launched {n} "
+                 f"times, expected {expected.get(name, 0)} (flash = 3 x {L} "
+                 f"at the prefill + {L} x {G - 1} decode steps, all on "
+                 f"wgmma, its pre-pass as often, 0 for the others)")
+    if tuple(toks.shape) != (B, G) or not bool(
+            ((toks >= 0) & (toks < cfg.padded_vocab)).all()):
+        fail(f"{SEAMLESS_ARCH} one-shot: tokens {tuple(toks.shape)}")
+    if peak > reckoning + SERVE_ROOM:
+        fail(f"{SEAMLESS_ARCH} one-shot: peak {peak / 1e9:.3f} GB beyond "
+             f"the reckoning {reckoning / 1e9:.3f} GB + 1 GiB")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts,
+                                               "src": frames},
+                                      max_len=max_len)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if tuple(logits.shape) != (B, 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits.float()).all()):
+        fail(f"{SEAMLESS_ARCH} prefill logits: shape {tuple(logits.shape)} "
+             f"finite {bool(torch.isfinite(logits.float()).all())}")
+    prefill_s = statistics.median(times)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G - 1):       # generate's decode loop
+        step, cache = model.decode_step(params, tok, cache, P + i)
+        tok = torch.argmax(step[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    per_token_ms = (time.perf_counter() - t0) / (G - 1) * 1e3
+    res = {"params": cfg.num_params(), "launches": launches,
+           "peak_bytes": peak, "reckoning_bytes": reckoning,
+           "generate_s": gen_s, "prefill_ms": prefill_s * 1e3,
+           "prefill_ms_all": [t * 1e3 for t in times],
+           "per_token_ms": per_token_ms,
+           "tokens_per_s": B * G / gen_s}
+    print(f"serving {SEAMLESS_ARCH} one-shot [{card}]: {res['params']} "
+          f"params bf16, {cfg.num_encoder_layers} + {L} layers, batch {B} x "
+          f"{S} bf16 frames x {P}-token prompts, {G} new tokens in "
+          f"{gen_s:.3f} s ({res['tokens_per_s']:.1f} tokens/s); prefill "
+          f"{prefill_s * 1e3:.3f} ms (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), "
+          f"{per_token_ms:.3f} ms per generated token (its decode loop "
+          f"alone); flash "
+          f"{launches['flash_attention']} launches = 3 x {L} + {L} x "
+          f"{G - 1}, all wgmma; peak {peak / 1e9:.3f} GB within the "
+          f"reckoning {reckoning / 1e9:.3f} GB + 1 GiB", flush=True)
+    del model, params, frames, logits, cache, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_seamless_f32_frames(torch, ops, serve, card) -> dict:
+    """Phase 15 (d): the one-shot path of ``repro_torch.launch.serve
+    --arch seamless-m4t-large-v2`` at full width cut to 2 + 2 layers,
+    with the f32 frames that the CLI draws.  The gate is the routes of the
+    promotion: the encoder's and the cross-attention's flash (f32 memory)
+    on SIMT, the decoder's self-attention (bf16) on wgmma.  Then, on f32
+    frames of the same shape, the dtypes the reference gives: f32 memory
+    and cross K/V, bf16 self K/V and logits."""
+    from repro_torch.models import encdec
+    cfg = cut(SEAMLESS_ARCH, SEAMLESS_F32_CUT)
+    args = SEAMLESS_F32_ARGS
+    B, P = int(args[args.index("--batch") + 1]), \
+        int(args[args.index("--prompt-len") + 1])
+    G = int(args[args.index("--gen") + 1])
+    ops.reset_launch_counts()
+    run = serve.main(args, cfg)
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    Le, L = cfg.num_encoder_layers, cfg.num_layers
+    simt, wgmma = Le + L + L * (G - 1), L
+    expected = {"flash_attention": simt + wgmma,
+                "flash_attention[simt]": simt,
+                "flash_attention[wgmma]": wgmma,
+                "nonfinite_tiles": simt + wgmma}
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            fail(f"{SEAMLESS_ARCH} f32 frames: kernel {name} launched {n} "
+                 f"times, expected {expected.get(name, 0)} (SIMT: {Le} "
+                 f"encoder + {L} cross x {G} steps; wgmma: {L} decoder "
+                 f"self at the prefill)")
+    if run.tokens.shape != (B, G):
+        fail(f"{SEAMLESS_ARCH} f32 frames: tokens {run.tokens.shape}")
+    g = torch.Generator("cuda").manual_seed(2)
+    src = torch.randn((B, P, cfg.d_model), generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda")
+    memory = encdec.encode(run.params["encdec"], cfg, src)
+    logits, cache = run.model.prefill(run.params, {"tokens": tokens,
+                                                   "src": src}, max_len=P + G)
+    dtypes = {"memory": memory.dtype, "cross_k": cache["cross_k"].dtype,
+              "self_k": cache["self"]["k"].dtype, "logits": logits.dtype}
+    want = {"memory": torch.float32, "cross_k": torch.float32,
+            "self_k": torch.bfloat16, "logits": torch.bfloat16}
+    if dtypes != want or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"{SEAMLESS_ARCH} f32 frames: dtypes {dtypes}, expected {want}")
+    print(f"serving {SEAMLESS_ARCH} f32 frames [{card}]: {Le} + {L} layers "
+          f"(cut from {cut(SEAMLESS_ARCH, {}).num_encoder_layers} + "
+          f"{cut(SEAMLESS_ARCH, {}).num_layers}), batch {B}, {P} frames "
+          f"and prompt tokens, {G} new: flash on SIMT "
+          f"{launches['flash_attention[simt]']} (= {Le} encoder + {L} x {G} "
+          f"cross), on wgmma {launches['flash_attention[wgmma]']} (the "
+          f"decoder's self-attention); dtypes "
+          f"{ {k: str(v).split('.')[-1] for k, v in dtypes.items()} } as "
+          f"the reference's (run {run.seconds:.2f} s)", flush=True)
+    res = {"launches": launches, "seconds": run.seconds,
+           "dtypes": {k: str(v) for k, v in dtypes.items()}}
+    del run, memory, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def xlstm_reckoning(cfg, batch: int, seq: int) -> dict:
+    """Bytes xlstm-125m's training step holds at its peak: phase 8's 20
+    bytes a parameter (bf16 parameters and gradients, Adam's f32 moments,
+    the EF residual, the synced f32 gradients), the chunked remat's
+    boundary carries (seq / mlstm_chunk per mLSTM layer) and one chunk of
+    per-step carries with one step's ~4 carry-sized intermediates, the
+    logits of the cross-entropy's chunk (bf16, f32 and f32 gradient and
+    bf16 copies: 12 bytes an entry), and 1 GiB.  Beside it, the reckoning
+    without remat: every step's carry and intermediates kept, for every
+    mLSTM layer."""
+    from repro_torch.models.xlstm import MLSTM_PF
+    di = MLSTM_PF * cfg.d_model
+    H = cfg.num_heads
+    dh = di // H
+    carry = 4 * batch * H * (dh * dh + dh + 1)
+    n_mlstm = sum(seg.repeats for seg in cfg.stack_plan()
+                  for s in seg.period if s.mixer == "mlstm")
+    c = cfg.mlstm_chunk
+    params = 20 * cfg.num_params()
+    boundaries = n_mlstm * (seq // c) * carry
+    chunk = c * carry + 4 * carry
+    logits = 12 * batch * seq * cfg.padded_vocab
+    return {"params": params, "boundaries": boundaries, "chunk": chunk,
+            "logits": logits, "carry": carry, "mlstm_layers": n_mlstm,
+            "total": params + boundaries + chunk + logits + SERVE_ROOM,
+            "no_remat": n_mlstm * seq * 4 * carry}
+
+
+def run_xlstm_training(torch, ops, train, card) -> dict:
+    """Phase 15 (e): xlstm-125m at full width and XLSTM_TRAIN_LAYERS
+    layers, from XLSTM_TRAIN_ARGS (Adam, ``--sync comm --compressor
+    int8_fused``, batch 4 x seq 256, NCCL world 1, 3 steps): the session
+    is built from the CLI's flags by the CLI's own ``fixed_strategy``,
+    with the depth cut, and every kernel counter set to 0 just before and
+    read just after.  Gates: finite losses, quantize_ef and dequant_accum
+    = buckets x steps on the warp route, every other kernel 0, the peak
+    within the reckoning printed before the run (with the chunked remat;
+    the reckonings without it, at this depth and at the full 12 layers,
+    are printed beside it).  Prints step times and a profiled step's
+    device-busy share (device events only)."""
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.launch.dist import destroy_group
+    full = cut(XLSTM_ARCH, {})
+    cfg = cut(XLSTM_ARCH, {"num_layers": XLSTM_TRAIN_LAYERS})
+    rk = xlstm_reckoning(cfg, TRAIN_BATCH, XLSTM_TRAIN_SEQ)
+    full_rk = xlstm_reckoning(full, TRAIN_BATCH, XLSTM_TRAIN_SEQ)
+    print(f"training {XLSTM_ARCH}: {cfg.num_layers} of {full.num_layers} "
+          f"layers (reduced depth; widths full), reckoning "
+          f"{rk['total'] / 2**30:.3f} GiB "
+          f"= 20 B x {cfg.num_params()} parameters "
+          f"({rk['params'] / 2**30:.3f} GiB) + the remat's boundary carries "
+          f"({rk['mlstm_layers']} mLSTM layers x {XLSTM_TRAIN_SEQ} / "
+          f"{cfg.mlstm_chunk} x {rk['carry'] / 1e6:.3f} MB = "
+          f"{rk['boundaries'] / 2**30:.3f} GiB) + one chunk "
+          f"({rk['chunk'] / 2**30:.3f} GiB) + the loss chunk's logits "
+          f"({rk['logits'] / 2**30:.3f} GiB) + 1 GiB; without remat the "
+          f"mLSTM steps alone would keep {rk['no_remat'] / 1e9:.1f} GB "
+          f"({full_rk['no_remat'] / 1e9:.1f} GB at {full.num_layers} "
+          f"layers)", flush=True)
+    args = train.build_parser().parse_args(XLSTM_TRAIN_ARGS)
+    strategy = train.fixed_strategy(args, train.scheduler_from_args(args),
+                                    train.resolve_cli_parallelism(args),
+                                    None)
+    destroy_group()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session = TrainSession(SessionConfig(
+        arch=args.arch, layers=cfg.num_layers, steps=args.steps,
+        batch=args.batch, seq=args.seq, lr=args.lr, warmup=args.warmup,
+        optimizer=args.optimizer, seed=args.seed, device="cuda"),
+        strategy=strategy)
+    session.run(args.steps, log_every=args.log_every)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    if session.device.type != "cuda":
+        fail(f"xlstm training ran on {session.device}, not on the card")
+    losses = list(session.losses)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"xlstm training: losses {losses}")
+    n_buckets = session.synchronizer.plan.n_buckets
+    wire = ("quantize_ef", "dequant_accum", "dequant_accum[warp]")
+    for kname, count in launches.items():
+        want = n_buckets * TRAIN_STEPS if kname in wire else 0
+        if count != want or (kname in wire and want <= 0):
+            fail(f"xlstm training: kernel {kname} launched {count} times, "
+                 f"expected {want} (= {n_buckets} buckets x {TRAIN_STEPS} "
+                 f"steps for quantize_ef and dequant_accum on the warp "
+                 f"route, 0 for the others)")
+    if peak > rk["total"]:
+        fail(f"xlstm training: peak {peak / 2**30:.3f} GiB beyond the "
+             f"reckoning {rk['total'] / 2**30:.3f} GiB")
+    times = session.step_times
+    step_ms = statistics.median(times[1:]) * 1e3
+    res = {"layers": cfg.num_layers, "losses": losses, "step_ms": step_ms,
+           "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": TRAIN_BATCH * XLSTM_TRAIN_SEQ / (step_ms / 1e3),
+           "peak_bytes": peak, "reckoning": rk,
+           "no_remat_full_depth": full_rk["no_remat"], "n_buckets": n_buckets,
+           "launches": launches, "run_s": seconds,
+           "params": session.num_params(),
+           "lengths": sorted(set(bucket_lengths(session.synchronizer.plan,
+                                                session.params)))}
+    print(f"training {XLSTM_ARCH} [{card}]: {cfg.num_layers} layers, "
+          f"{res['params']} params bf16, "
+          f"batch {TRAIN_BATCH} x seq {XLSTM_TRAIN_SEQ}, losses "
+          f"{[round(x, 4) for x in losses]}; step time (median of steps "
+          f"2-{TRAIN_STEPS}) {step_ms:.3f} ms, all steps "
+          f"{[round(t, 1) for t in res['step_ms_all']]} ms; tokens/s "
+          f"{res['tokens_per_s']:.1f}; peak {peak / 2**30:.3f} GiB within "
+          f"the reckoning {rk['total'] / 2**30:.3f} GiB; {n_buckets} "
+          f"buckets; launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    res["profile"] = profile_step(torch, session, card, "xlstm_int8_fused",
+                                  cpu=False)
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    destroy_group()
+    return res
+
+
+def phase_new_families(torch, ops, ref, serve, train, card) -> dict:
+    """Phase 15: the small references (card free), then (a) jamba and (b)
+    xlstm served at full width, (c) seamless one-shot at full width, (d)
+    its f32-frame promotion, (e) xlstm trained at full width, and the
+    wire kernels bit-equal at every bucket length of (e), timed at the
+    largest."""
+    t0 = time.perf_counter()
+    print(f"phase 15: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated at its start", flush=True)
+    phase_small_new_families(torch, card)
+    serving = {JAMBA_ARCH: run_full_width_serving(torch, ops, serve, card,
+                                                  JAMBA_ARCH, JAMBA_CUT),
+               XLSTM_ARCH: run_full_width_serving(torch, ops, serve, card,
+                                                  XLSTM_ARCH)}
+    oneshot = run_seamless_oneshot(torch, ops, serve, card)
+    f32_frames = run_seamless_f32_frames(torch, ops, serve, card)
+    training = run_xlstm_training(torch, ops, train, card)
+    lengths = training["lengths"]
+    wire = train_path_kernels(torch, ops, ref, lengths,
+                              {"xlstm_largest_bucket": max(lengths)})
+    seconds = time.perf_counter() - t0
+    print(f"phase 15 took {seconds:.1f} s", flush=True)
+    return {"serving": serving, "oneshot": oneshot, "f32_frames": f32_frames,
+            "training": training, "wire": wire, "seconds": seconds}
 
 
 def kernel_name(mangled: str) -> str:
@@ -4627,16 +5266,23 @@ def main() -> None:
               f"{t['bound_ms'] / t['ms']:.4f} of the bound ({t['timer']}) "
               f"[{card}]", flush=True)
     check_flash_gates(flash_timings["wgmma"])
+    encdec_flash = encdec_flash_kernels(torch, ops, ref, flash_attention_cuda,
+                                        nonfinite_tiles_cuda)
     # the serving paths' shapes: one tile (head_dim) per cached entry, for
-    # all stacked layers of a leaf at once
+    # all stacked layers of a leaf at once; the pools of the runs cut in
+    # depth at the run's depth (suffixed with it: on the path) and at the
+    # configuration's own (checked and timed, on no path)
     cfg = get_config("gemma-2b")
-    path_shapes = {**quantize_path_shapes("gemma-2b", SLOTS, MAX_LEN, PAGE),
-                   **quantize_path_shapes("gemma2-9b", GEMMA2_SLOTS,
-                                          GEMMA2_MAX_LEN, PAGE),
-                   **{k: v for arch in MOE_SERVE_ARCHS
-                      for k, v in pool_write_shapes(arch).items()},
-                   **pool_write_shapes(MLA_LONG_ARCH, GEMMA2_SLOTS,
-                                       GEMMA2_MAX_LEN, "_long")}
+    depth_cut = {**MOE_SERVE_CUT, JAMBA_ARCH: JAMBA_CUT}
+    path_shapes = {**quantize_path_shapes(cfg, SLOTS, MAX_LEN, PAGE),
+                   **quantize_path_shapes(get_config("gemma2-9b"),
+                                          GEMMA2_SLOTS, GEMMA2_MAX_LEN, PAGE),
+                   **pool_write_shapes(get_config(MLA_LONG_ARCH),
+                                       GEMMA2_SLOTS, GEMMA2_MAX_LEN, "_long")}
+    for arch, over in depth_cut.items():
+        path_shapes.update(pool_write_shapes(get_config(arch)))
+        path_shapes.update(pool_write_shapes(
+            cut(arch, over), suffix=f"_{over['num_layers']}_layers"))
     q_err, timings, q_block = phase_kernels(torch, ops, ref,
                                             quantize_tiles_cuda, path_shapes)
     for name, t in [*timings.items(), *q_block.items()]:
@@ -4724,9 +5370,16 @@ def main() -> None:
     moe = phase_moe(torch, ops, ref, serve, train, card, flash_attention_cuda,
                     nonfinite_tiles_cuda)
 
+    # -- 15. the Mamba, xLSTM and encoder-decoder families --------------------
+    new = phase_new_families(torch, ops, ref, serve, train, card)
+
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
                **{arch: r["launches"] for arch, r in moe["serving"].items()},
-               f"{MLA_LONG_ARCH}_long": moe["long"]["launches"]}
+               f"{MLA_LONG_ARCH}_long": moe["long"]["launches"],
+               **{arch: r["launches"] for arch, r in new["serving"].items()},
+               f"{SEAMLESS_ARCH}_oneshot": new["oneshot"]["launches"],
+               f"{SEAMLESS_ARCH}_f32_frames":
+                   new["f32_frames"]["launches"]}
 
     def runs_of(name, runs):
         return {run_name: r[name] for run_name, r in runs.items()}
@@ -4753,6 +5406,7 @@ def main() -> None:
     train_runs["pipe_world1_micro"] = pipe["world1"]["launches"]
     train_runs["pipe_s2_stage"] = pipe["big"]["launches"]
     train_runs["moe_qwen3_int8_fused"] = moe["training"]["launches"]
+    train_runs["xlstm_int8_fused"] = new["training"]["launches"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -4760,19 +5414,23 @@ def main() -> None:
                     "world4_ring_fused_hop": world4["quantize_tiles_hop"]}
     train_timings["dequant_accum"]["world4_mid_bucket_w4"] = \
         world4["dequant_accum_w4"]
-    for kernel, per_shape in moe["wire"].items():
+    for kernel, per_shape in [*moe["wire"].items(), *new["wire"].items()]:
         train_timings[kernel].update(per_shape)
     for route in ("wgmma", "simt"):
         flash_timings[route].update(moe["flash"][route])
+        flash_timings[route].update(encdec_flash[route])
     flash_err = max([flash_err] + [t["max_abs_err_bf16"]
                                    for per in moe["flash"].values()
-                                   for t in per.values()])
+                                   for t in per.values()]
+                    + [t["max_abs_err"] for per in encdec_flash.values()
+                       for t in per.values()])
     kernels = [
         kernel_line("flash_attention", flash_routes["wgmma"], flash_err,
                     flash_timings["wgmma"], "gemma2_9b_prefill_global",
                     flash_routes),
-        # the SIMT route: on no serving path (0 launches there), timed by
-        # direct call at deepseek-v2-lite-16b's MLA prefill
+        # the SIMT route: on the f32-frame path of 15 (d) (the encoder and
+        # the cross-attention), timed by direct call at
+        # deepseek-v2-lite-16b's MLA prefill
         kernel_line("flash_attention_simt", flash_routes["simt"], flash_err,
                     flash_timings["simt"], "deepseek_v2_lite_prefill",
                     flash_routes),
@@ -4804,6 +5462,8 @@ def main() -> None:
     print(json.dumps({"shard": shard, "card": card}))
     print(json.dumps({"pipeline": pipe, "card": card}))
     print(json.dumps({"moe": moe, "card": card}))
+    print(json.dumps({"new_families": new, "encdec_flash": encdec_flash,
+                      "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

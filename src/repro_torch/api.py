@@ -247,7 +247,9 @@ class TrainSession:
         self.optimizer = make_optimizer(c.optimizer, lr=self._lr)
         self.data = SyntheticPipeline(DataConfig(
             vocab_size=model_cfg.vocab_size, seq_len=c.seq,
-            global_batch=c.batch))
+            global_batch=c.batch,
+            embedding_dim=model_cfg.d_model if model_cfg.embedding_inputs
+            else 0))
         # a pipeline strategy is built here, before any moment exists: at
         # S > 1 the build draws only this stage's rows (``_build_pipeline``)
         pipelined = strategy is not None and (
@@ -896,11 +898,15 @@ class TrainSession:
         of dp takes rows d·B/dp … (d+1)·B/dp, as the reference shards the
         batch over its data axis; every stage of a pipe takes its data
         rank's rows)."""
-        tokens = self.data.batch(step)["tokens"]
-        local = tokens.shape[0] // self.dp_world
-        rows = tokens[self.dp_rank * local:(self.dp_rank + 1) * local]
-        return {"tokens": torch.from_numpy(np.ascontiguousarray(rows)).to(
-            self.device, torch.int64)}
+        data = self.data.batch(step)
+        local = data["tokens"].shape[0] // self.dp_world
+        rows = slice(self.dp_rank * local, (self.dp_rank + 1) * local)
+        out = {"tokens": torch.from_numpy(np.ascontiguousarray(
+            data["tokens"][rows])).to(self.device, torch.int64)}
+        if "src" in data:      # the encoder-decoder's f32 frames
+            out["src"] = torch.from_numpy(np.ascontiguousarray(
+                data["src"][rows])).to(self.device)
+        return out
 
     def step_once(self) -> float:
         """Run one training step under the strategy; returns the loss.  The

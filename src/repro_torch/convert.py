@@ -7,20 +7,36 @@ input is plain numpy — this module imports no JAX — with the JAX
 package's layout::
 
     {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
-     "stack": [[{"norm1", "mixer": MIXER, "norm2", "ffn": FFN}]]}
+     "stack": [[BLOCK]]  or  "encdec": ENCDEC}
 
+    BLOCK: {"norm1", "mixer": MIXER, ["norm2", "ffn": FFN]}
+           or {"mixer": XLSTM}                (mLSTM / sLSTM blocks)
     MIXER: attention {wq, wk, wv, wo, [q_norm, k_norm]}
            or MLA    {wq, w_dkv, kv_norm: {scale}, w_ukv, wo}
+           or Mamba  {in_proj, conv_w, conv_b, x_proj, dt_proj_w,
+                      dt_proj_b, A_log, D, out_proj}
+    XLSTM: mLSTM     {norm, up, conv_w, conv_b, wq, wk, wv, w_if, b_if,
+                      out_norm, down}
+           or sLSTM  {norm, w_in, r, b, out_norm, up, down}
     FFN:   dense     {wi_gate, wi_up, wo}
            or MoE    {router (d, E), wi_gate (E, d, ff), wi_up (E, d, ff),
                       wo (E, ff, d), [shared: {wi_gate, wi_up, wo}]}
+    ENCDEC: {"enc_stack": BLOCK (attention, dense FFN), "enc_norm",
+             "dec_stack": {norm1, self: attention, norm_x,
+                           cross: {wq, wk, wv, wo}, norm2, ffn: dense},
+             "dec_norm"}
 
 where ``lm_head`` exists for an untied head (every registered model but
 gemma-2b), ``q_norm``/``k_norm`` for QK-norm (gemma3-4b, chameleon-34b,
-qwen3-moe-30b-a3b), MLA for deepseek-v2-lite-16b, the MoE FFN for the
-MoE layers of qwen3-moe-30b-a3b and deepseek-v2-lite-16b (``shared``
-for the latter's shared experts), and every leaf of a segment with
-``repeats > 1`` has a leading ``repeats`` axis.  The keys expected
+qwen3-moe-30b-a3b), MLA for deepseek-v2-lite-16b, Mamba for
+jamba-v0.1-52b's non-attention layers, the xLSTM blocks for xlstm-125m,
+``encdec`` for seamless-m4t-large-v2 (whose ``final_norm`` is unused),
+the FFN only where the layer has one (``norm2`` with it), the MoE FFN
+for the MoE layers of qwen3-moe-30b-a3b, deepseek-v2-lite-16b and
+jamba-v0.1-52b (``shared`` for deepseek-v2-lite-16b's shared experts),
+every leaf of a segment with ``repeats > 1`` has a leading ``repeats``
+axis, and every leaf of ``enc_stack`` / ``dec_stack`` one of the
+encoder's / decoder's layers.  The keys expected
 are the port's own ``Model(cfg).param_desc()``, so a tree missing one of
 them, or holding one more, is refused.  bf16 arrays (numpy's ``bfloat16``
 extension dtype) cross bit for bit.

@@ -6,15 +6,19 @@ routing), with static batching and one-shot ``generate`` as modes.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --no-reduced --quantize int8 --engine continuous
 
-``--arch`` offers the architectures the port registers
-(``configs.ALL_ARCHS``: gemma-2b, gemma2-9b, gemma3-4b, deepseek-67b,
-chameleon-34b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b).  Every prefill
-runs its attention through ``kernels/ops.flash_attention`` (the Hopper
-kernel on CUDA: the wgmma route for bf16 at head dims 32/64/128/256,
-the SIMT route otherwise, e.g. MLA's q/k head dim 192).  An MLA layer
-caches its latents (``c_kv``, ``k_rope``), paged and, with ``--quantize
-int8``, quantized as K/V are.  Runs on CUDA unless ``--device`` names another device;
-without CUDA and without ``--device`` it raises.  Weights are random,
+``--arch`` offers every architecture of the JAX package
+(``configs.ALL_ARCHS``).  Every prefill runs its attention through
+``kernels/ops.flash_attention`` (the Hopper kernel on CUDA: the wgmma
+route for bf16 at head dims 32/64/128/192/256, the SIMT route otherwise,
+e.g. f32).  An MLA layer caches its latents (``c_kv``, ``k_rope``), paged
+and, with ``--quantize int8``, quantized as K/V are; the recurrent layers
+(jamba-v0.1-52b's Mamba, xlstm-125m's mLSTM / sLSTM) carry per-slot
+state, never paged.  The encoder-decoder (seamless-m4t-large-v2,
+``cfg.embedding_inputs``) is served one-shot only, as in the reference:
+the engine is ``oneshot`` whatever ``--engine`` says, with
+(``--batch``, ``--prompt-len``, d_model) f32 frames drawn from the seed.
+Runs on CUDA unless ``--device`` names another device; without CUDA and
+without ``--device`` it raises.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed`` on the device.
 ``--plan`` prints the planner's serving placement search
 (``core/schedule/planner.plan_serving``: tp degree × tier × replicas on
@@ -45,17 +49,22 @@ class GenerateSession:
 
     def generate(self, params, prompts, gen: int, max_len: int,
                  rng: Optional[torch.Generator] = None,
-                 temperature: float = 0.0) -> torch.Tensor:
-        """prompts: (B, P) int (tensor or numpy).  Returns (B, gen) sampled
-        tokens on the device of ``params``.  ``rng`` draws the samples at
-        temperature > 0."""
+                 temperature: float = 0.0, src=None) -> torch.Tensor:
+        """prompts: (B, P) int (tensor or numpy); ``src``: the
+        encoder-decoder's (B, S, d) frame embeddings.  Returns (B, gen)
+        sampled tokens on the device of ``params``.  ``rng`` draws the
+        samples at temperature > 0."""
         dev = tensor_device(params)
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.from_numpy(np.asarray(prompts))
         prompts = prompts.to(device=dev, dtype=torch.int64)
         B, Plen = prompts.shape
-        logits, cache = self.model.prefill(params, {"tokens": prompts},
-                                           max_len=max_len)
+        batch = {"tokens": prompts}
+        if src is not None:
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.asarray(src))
+            batch["src"] = src.to(dev)
+        logits, cache = self.model.prefill(params, batch, max_len=max_len)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out = [tok]
         for i in range(gen - 1):
@@ -73,10 +82,11 @@ class GenerateSession:
 
 def generate(model: Model, params, prompts, gen: int, max_len: int,
              rng: Optional[torch.Generator] = None,
-             temperature: float = 0.0) -> torch.Tensor:
+             temperature: float = 0.0, src=None) -> torch.Tensor:
     """prompts: (B, P) int. Returns (B, gen) sampled tokens."""
     return GenerateSession(model).generate(params, prompts, gen, max_len,
-                                           rng=rng, temperature=temperature)
+                                           rng=rng, temperature=temperature,
+                                           src=src)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,14 +164,16 @@ class ServeRun:
     summary: dict
 
 
-def main(argv=None) -> ServeRun:
+def main(argv=None, cfg=None) -> ServeRun:
+    """Serve as the command line ``argv`` asks; ``cfg``, where given, is
+    served in place of ``--arch``'s configuration (a depth cut of it)."""
     from repro_torch.serve import (Engine, MultiReplicaServer, Request,
                                    ServeConfig, run_static)
     from repro_torch.serve.engine import latency_summary, poisson_trace
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    cfg = cfg or get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     if args.plan:
@@ -174,14 +186,22 @@ def main(argv=None) -> ServeRun:
         # pages tile the slot exactly: round the KV length up to a page
         max_len = -(-max_len // args.page_size) * args.page_size
     n_req = args.requests or args.batch
+    engine_kind = args.engine
+    src = None
+    if cfg.embedding_inputs:
+        # encoder-decoder: no paged decode path, one-shot only; f32 frames
+        # as the reference's CLI draws them
+        engine_kind = "oneshot"
+        src = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                          generator=gen_, device=device)
 
     t0 = time.perf_counter()
-    if args.engine == "oneshot":
+    if engine_kind == "oneshot":
         prompts = torch.randint(0, cfg.vocab_size,
                                 (args.batch, args.prompt_len),
                                 generator=gen_, device=device)
         toks = generate(model, params, prompts, args.gen, max_len,
-                        rng=gen_, temperature=args.temperature)
+                        rng=gen_, temperature=args.temperature, src=src)
         toks = toks.cpu().numpy()
         dt = time.perf_counter() - t0
         print(f"arch={cfg.name} engine=oneshot device={device} generated "

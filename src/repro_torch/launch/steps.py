@@ -49,12 +49,15 @@ from repro_torch.optim import apply_rows_inplace, step_inplace
 
 def loss_and_grads(model: Model, params, batch):
     """(loss, grads): the loss (detached) and its gradient for every leaf of
-    ``params``, as a tree of the same shape."""
+    ``params``, as a tree of the same shape; a leaf the loss does not read
+    (the encoder-decoder's ``final_norm``) gets zeros, as under
+    ``jax.grad``."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     loss = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 

@@ -1,11 +1,16 @@
 """Model facade of the port — counterpart of ``repro/models/model.py`` for
-decoder-only stacks of attention / MLA blocks with dense or MoE FFNs:
+decoder-only stacks (attention / MLA / Mamba / xLSTM blocks with dense or
+MoE FFNs) and the encoder-decoder (``cfg.is_encoder_decoder``; batches
+carry ``"src"`` frame embeddings):
 
   * ``param_desc`` / ``init(generator, dtype)``
   * ``loss(params, batch)``                      (train; + the MoE aux loss)
   * ``prefill(params, batch, max_len)``          (inference prefill)
   * ``init_cache`` / ``decode_step(params, tokens, cache, pos,
     mla_absorb, moe_dispatch)``
+
+The encoder-decoder keeps the reference's unused ``final_norm`` (its
+decoder ends in ``dec_norm``), so that converted trees match.
 
 Parameters are the JAX package's tree of tensors.  Cross-entropy is
 computed in sequence chunks of ``XENT_CHUNK``, each checkpointed, so the
@@ -18,12 +23,13 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.layers import (desc_leaves, embed, embedding_desc,
-                                       materialize, norm_desc, rmsnorm,
-                                       softmax_xent)
+from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import (TensorSpec, desc_leaves, embed,
+                                       embedding_desc, materialize, norm_desc,
+                                       rmsnorm, softmax_xent)
 
 XENT_CHUNK = 512
 
@@ -36,9 +42,6 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.is_encoder_decoder or cfg.embedding_inputs:
-            raise NotImplementedError("encoder-decoder models are not ported "
-                                      "yet (ROADMAP.md queue 1, item 4)")
         self.cfg = cfg
         self.plan = cfg.stack_plan()
 
@@ -49,8 +52,11 @@ class Model:
         desc: Dict[str, Any] = {
             "embed": embedding_desc(cfg.padded_vocab, cfg.d_model),
             "final_norm": norm_desc(cfg.d_model),
-            "stack": transformer.stack_desc_tree(cfg, self.plan),
         }
+        if cfg.is_encoder_decoder:
+            desc["encdec"] = encdec.encdec_desc(cfg)
+        else:
+            desc["stack"] = transformer.stack_desc_tree(cfg, self.plan)
         if not cfg.tie_embeddings:
             desc["lm_head"] = embedding_desc(cfg.padded_vocab, cfg.d_model)
         return desc
@@ -96,6 +102,12 @@ class Model:
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        if self.cfg.is_encoder_decoder:
+            memory = encdec.encode(params["encdec"], self.cfg, batch["src"],
+                                   training=True)
+            h = encdec.decode_train(params["encdec"], self.cfg, x, positions,
+                                    memory)
+            return h, torch.zeros((), dtype=torch.float32, device=h.device)
         h, aux = transformer.stack_train(params["stack"], self.cfg,
                                          self.plan, x, positions)
         return rmsnorm(params["final_norm"], h, eps=self.cfg.norm_eps), aux
@@ -142,26 +154,37 @@ class Model:
     # -- inference ----------------------------------------------------------
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """batch: {"tokens": (B, T) int}.  Returns (last-token logits
-        (B, 1, vocab), cache)."""
+        """batch: {"tokens": (B, T) int[, "src": (B, S, d) frames]}.
+        Returns (last-token logits (B, 1, vocab), cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, T = tokens.shape
         max_len = max_len or T
         x = self._embed(params, tokens)
         positions = torch.arange(T, device=tokens.device)[None, :]
-        h, _, cache = transformer.stack_prefill(params["stack"], cfg,
-                                                self.plan, x, positions,
-                                                max_len)
-        h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
+        if cfg.is_encoder_decoder:
+            memory = encdec.encode(params["encdec"], cfg, batch["src"])
+            h, cache = encdec.decode_prefill(params["encdec"], cfg, x,
+                                             positions, memory, max_len)
+        else:
+            h, _, cache = transformer.stack_prefill(params["stack"], cfg,
+                                                    self.plan, x, positions,
+                                                    max_len)
+            h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         return self._logits(params, h[:, -1:]), cache
 
-    def init_cache(self, batch: int, max_len: int, dtype=None):
+    def init_cache(self, batch: int, max_len: int, src_len: int = 0,
+                   dtype=None):
         """TensorSpec tree of the decode cache (see
-        ``transformer.materialize_cache`` for the zero tensors)."""
-        dtype = dtype or resolve_dtype(self.cfg.compute_dtype)
-        return transformer.stack_cache(self.cfg, self.plan, batch, max_len,
-                                       dtype)
+        ``transformer.materialize_cache`` for the zero tensors); the
+        encoder-decoder's holds ``src_len`` cross entries per layer."""
+        cfg = self.cfg
+        dtype = dtype or resolve_dtype(cfg.compute_dtype)
+        if cfg.is_encoder_decoder:
+            one = encdec.dec_block_cache(cfg, batch, max_len, src_len, dtype)
+            return tree_map(lambda s: TensorSpec((cfg.num_layers,) + s.shape,
+                                                 s.dtype), one)
+        return transformer.stack_cache(cfg, self.plan, batch, max_len, dtype)
 
     def decode_step(self, params, tokens, cache, pos, mla_absorb: bool = False,
                     moe_dispatch: bool = False):
@@ -172,6 +195,10 @@ class Model:
         (logits (B, 1, vocab), new_cache)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
+        if cfg.is_encoder_decoder:
+            h, new_cache = encdec.decode_step_stack(params["encdec"], cfg, x,
+                                                    cache, pos)
+            return self._logits(params, h), new_cache
         h, new_cache = transformer.stack_decode(params["stack"], cfg,
                                                 self.plan, x, cache, pos,
                                                 mla_absorb, moe_dispatch)

@@ -1,12 +1,15 @@
-"""Decoder stack of the port — counterpart of ``repro/models/transformer.py``
-for attention and MLA blocks with a dense or MoE FFN.
+"""Decoder stack of the port, counterpart of
+``repro/models/transformer.py``: attention, MLA, Mamba, mLSTM and sLSTM
+blocks, the first three with a dense or MoE FFN (xLSTM blocks carry their
+own norms and projections).
 
 The stacked-repeats layout is kept: a segment of ``repeats`` identical
 periods holds every parameter and cache leaf with a leading ``repeats``
 axis, and the stack loops over that axis where the reference scans.  So
 a segment's cache stays one tensor per leaf, and the paged serving pool
-quantizes all of a segment's layers in one call.  Mamba and xLSTM mixers
-are not ported yet and raise.
+quantizes all of a segment's layers in one call.  The recurrent mixers'
+caches (Mamba's ``h``/``conv``, the xLSTM states) are per-slot state
+leaves of that pool, never paged.
 
 Training (:func:`stack_train`) checkpoints every layer
 (``torch.utils.checkpoint``), as the reference rematerializes every period,
@@ -25,16 +28,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map, tree_map_with_path
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, norm_desc,
                                        rmsnorm, stack_desc)
 
+XLSTM_MIXERS = ("mlstm", "slstm")
+_MIXER_DESC = {"attn": attn.attn_desc, "mla": attn.mla_desc,
+               "mamba": ssm_mod.mamba_desc, "mlstm": xlstm_mod.mlstm_desc,
+               "slstm": xlstm_mod.slstm_desc}
 
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mla"):
-        raise NotImplementedError(f"mixer {spec.mixer!r} is not ported yet "
-                                  "(ROADMAP.md queue 1, item 4)")
+
+def _mixer_desc(cfg: ModelConfig, spec: LayerSpec):
+    if spec.mixer not in _MIXER_DESC:
+        raise ValueError(spec.mixer)
+    return _MIXER_DESC[spec.mixer](cfg)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -42,10 +57,11 @@ def _check_spec(spec: LayerSpec) -> None:
 # ---------------------------------------------------------------------------
 
 def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
-    _check_spec(spec)
+    if spec.mixer in XLSTM_MIXERS:
+        # xLSTM blocks carry their own norms and FFN
+        return {"mixer": _mixer_desc(cfg, spec)}
     desc: Dict[str, Any] = {"norm1": norm_desc(cfg.d_model),
-                            "mixer": (attn.mla_desc(cfg) if spec.mixer == "mla"
-                                      else attn.attn_desc(cfg))}
+                            "mixer": _mixer_desc(cfg, spec)}
     if spec.ffn != "none":
         desc["norm2"] = norm_desc(cfg.d_model)
         desc["ffn"] = (moe_mod.moe_desc(cfg) if spec.ffn == "moe"
@@ -56,7 +72,7 @@ def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
 def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x):
     """x + FFN(norm2(x)) and the MoE aux loss (an f32 zero for a dense
     FFN)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     if spec.ffn == "none":
         return x, aux
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
@@ -67,33 +83,72 @@ def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x):
     return x + h, aux
 
 
-def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """Full-sequence causal block (training).  Returns (x, aux)."""
-    _check_spec(spec)
+def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                causal: bool = True, kernel: bool = False):
+    """Full-sequence block.  Returns (x, aux).  ``causal=False`` is the
+    encoder's bidirectional attention, through ``ops.flash_attention``
+    when ``kernel`` (the encoder at inference), else through the
+    differentiable chunked attention (training)."""
+    if spec.mixer in XLSTM_MIXERS:
+        f = (xlstm_mod.mlstm_forward if spec.mixer == "mlstm"
+             else xlstm_mod.slstm_forward)
+        return x + f(params["mixer"], cfg, x), _zero(x)
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    mixer = attn.mla_forward if spec.mixer == "mla" else attn.attn_forward
-    x = x + mixer(params["mixer"], cfg, spec, h, positions)
-    return _ffn(params, cfg, spec, x)
+    if spec.mixer == "attn" and not causal:
+        h = _attn_bidirectional(params["mixer"], cfg, spec, h, positions,
+                                kernel)
+    elif spec.mixer == "attn":
+        h = attn.attn_forward(params["mixer"], cfg, spec, h, positions)
+    elif spec.mixer == "mla":
+        h = attn.mla_forward(params["mixer"], cfg, spec, h, positions)
+    else:
+        h = ssm_mod.mamba_forward(params["mixer"], cfg, h)
+    return _ffn(params, cfg, spec, x + h)
+
+
+def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
+                        positions, kernel: bool):
+    B, T, _ = x.shape
+    q, k, v = attn._project_qkv(params, cfg, x, positions)
+    fn = ops.flash_attention if kernel else attn.flash_attention
+    out = fn(q, k, v, causal=False, window=spec.window,
+             softcap=cfg.attn_logit_softcap)
+    return out.reshape(B, T, -1) @ params["wo"]
 
 
 def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   max_len: int):
     """Full-sequence block that also emits this layer's decode cache.
     Returns (x, aux, cache)."""
-    _check_spec(spec)
+    if spec.mixer in XLSTM_MIXERS:
+        f = (xlstm_mod.mlstm_forward if spec.mixer == "mlstm"
+             else xlstm_mod.slstm_forward)
+        h, cache = f(params["mixer"], cfg, x, return_state=True)
+        return x + h, _zero(x), cache
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    mixer = attn.mla_prefill if spec.mixer == "mla" else attn.attn_prefill
-    h, cache = mixer(params["mixer"], cfg, spec, h, positions, max_len)
+    if spec.mixer == "mamba":
+        h, cache = ssm_mod.mamba_forward(params["mixer"], cfg, h,
+                                         return_state=True)
+    else:
+        mixer = attn.mla_prefill if spec.mixer == "mla" else attn.attn_prefill
+        h, cache = mixer(params["mixer"], cfg, spec, h, positions, max_len)
     x, aux = _ffn(params, cfg, spec, x + h)
     return x, aux, cache
 
 
 def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                 dtype):
-    _check_spec(spec)
+    if spec.mixer == "attn":
+        return attn.init_attn_cache(cfg, spec, batch, max_len, dtype)
     if spec.mixer == "mla":
         return attn.init_mla_cache(cfg, batch, max_len, dtype)
-    return attn.init_attn_cache(cfg, spec, batch, max_len, dtype)
+    if spec.mixer == "mamba":
+        return ssm_mod.init_mamba_state(cfg, batch, dtype)
+    if spec.mixer == "mlstm":
+        return xlstm_mod.init_mlstm_state(cfg, batch, dtype)
+    if spec.mixer == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, dtype)
+    raise ValueError(spec.mixer)
 
 
 def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
@@ -102,9 +157,15 @@ def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
     picks MLA's absorbed decode; ``moe_dispatch`` runs a decode MoE
     through the capacity dispatch of training instead of the per-token
     gather of the experts' weights."""
-    _check_spec(spec)
+    if spec.mixer in XLSTM_MIXERS:
+        f = (xlstm_mod.mlstm_decode if spec.mixer == "mlstm"
+             else xlstm_mod.slstm_decode)
+        h, new_cache = f(params["mixer"], cfg, x, cache)
+        return x + h, new_cache
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    if spec.mixer == "mla":
+    if spec.mixer == "mamba":
+        h, new_cache = ssm_mod.mamba_decode(params["mixer"], cfg, h, cache)
+    elif spec.mixer == "mla":
         h, new_cache = attn.mla_decode(params["mixer"], cfg, spec, h, cache,
                                        pos, absorb=mla_absorb)
     else:

@@ -9,7 +9,12 @@ The decode cache's leaves split two ways (``transformer.stack_cache_meta``):
     and each serving slot owns a host-side page table mapping logical page
     -> physical page.  Pages are allocated at admission (enough for
     ``prompt + max_new`` tokens) and freed at retirement.
-  * **state** leaves are carried whole per slot.
+  * **state** leaves (the recurrent mixers' states) are carried whole
+    per slot.  A model with no paged leaf (xlstm-125m) has no allocator:
+    every admission fits, and int8 quantizes nothing.
+
+The encoder-decoder is refused, as in the reference: it is served through
+one-shot ``launch/serve.generate`` only.
 
 Page 0 is the reserved TRASH page: unallocated table entries point at it
 and masked (inactive-slot) writes land on it.  Its garbage is never read —
@@ -161,6 +166,9 @@ class PagedDecodeCache:
                  quantize: Optional[str] = None, build_pool: bool = True,
                  device: DeviceLike = None):
         cfg = model.cfg
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError("paged serving covers decoder-only "
+                                      "stacks (no cross-attention cache)")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {quantize!r}")
         dtype = dtype or resolve_dtype(cfg.compute_dtype)

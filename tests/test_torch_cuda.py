@@ -668,8 +668,8 @@ def test_cuda_ring_fused_gloo_world(cuda_device, tmp_path, world):
 
 @pytest.mark.parametrize("B,T,H,KV,hd,vw,route", [
     (1, 128, 16, 16, 192, 128, "wgmma"), (2, 75, 16, 16, 192, 128, "wgmma"),
-    (1, 128, 32, 4, 128, 128, "wgmma")],
-    ids=["mla", "mla-ragged", "qwen3-moe"])
+    (1, 128, 32, 4, 128, 128, "wgmma"), (1, 128, 32, 8, 128, 128, "wgmma")],
+    ids=["mla", "mla-ragged", "qwen3-moe", "jamba"])
 def test_cuda_flash_new_family_shapes(cuda_device, B, T, H, KV, hd, vw,
                                       route):
     q, k, v = _qkv(B, T, H, KV, hd, torch.bfloat16, seed=hd + T)
@@ -685,6 +685,35 @@ def test_cuda_flash_new_family_shapes(cuda_device, B, T, H, KV, hd, vw,
     got = tops.flash_attention(q, k, vn, causal=True)
     want = tref.flash_attention_ref(q, k, vn)
     assert torch.equal(got.isnan().cpu(), want.isnan().cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,causal",
+                         [(1, 512, False), (32, 512, False),
+                          (512, 512, False), (1, 32, False),
+                          (32, 32, False), (32, 32, True)],
+                         ids=["cross-decode", "cross-prefill", "encoder",
+                              "cross-decode-32-frames",
+                              "encoder-32-frames", "decoder-self-prefill"])
+def test_cuda_flash_encoder_decoder_shapes(cuda_device, T, S, causal,
+                                           dtype):
+    # seamless-m4t-large-v2's attention at batch 4, 16 heads of 64,
+    # non-causal: the cross-attention at decode (T = 1) and at a 32-token
+    # prefill against 512 frames, and the encoder; the same against the
+    # serve CLI's 32 frames (its encoder's shape is also its
+    # cross-attention's at prefill); and the decoder's causal
+    # self-attention at the 32-token prompt.  bf16 on the wgmma route, f32
+    # (the memory of f32 frames) on the SIMT route
+    q, k, v = (x.to(cuda_device) for x in _qkv(4, T, 16, 16, 64, dtype,
+                                                  seed=T + S, S=S))
+    route = _route_of(dtype, 64)
+    r0 = tops.route_counts()["flash_attention"][route]
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.route_counts()["flash_attention"][route] == r0 + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_close(got, tref.flash_attention_ref(q, k, v,
+                                                      causal=causal))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -707,10 +736,19 @@ def test_cuda_flash_simt_at_mla_head_dim(cuda_device, dtype, B, T):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,tile", [(131072, 512), (2048, 512),
                                     (3407872, 512), (16384, 64), (256, 64),
-                                    (425984, 64), (6291456, 128)])
+                                    (425984, 64), (6291456, 128),
+                                    (524288, 128), (8192, 128),
+                                    (1703936, 512), (26624, 512),
+                                    (212992, 64), (3328, 64),
+                                    (3145728, 128), (49152, 128),
+                                    (1048576, 128), (16384, 128)])
 def test_cuda_quantize_tiles_pool_lengths(cuda_device, n, tile, dtype):
-    # every length deepseek-v2-lite-16b's and qwen3-moe-30b-a3b's int8
-    # pools write at 4 slots x 256 (an admission's row, a tick's entries)
+    # every length deepseek-v2-lite-16b's, qwen3-moe-30b-a3b's and
+    # jamba-v0.1-52b's int8 pools write at 4 slots x 256 (an admission's
+    # row, a tick's entries), at the configurations' own depths and at
+    # the depths their full-width serving runs are cut to (14, 24 and 16
+    # layers; jamba's 16 hold K/V of 2 stacked attention layers, its 32
+    # of 4)
     x = torch.from_numpy(_input(n, tile, seed=n + tile)).to(dtype)
     if n >= 3 * tile:
         x[tile + 3] = float("nan")

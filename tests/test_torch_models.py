@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_ARCHS as J_ALL_ARCHS
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
 from repro.models import Model as JModel
@@ -80,10 +81,24 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_arch_raises_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
+    # every architecture of the JAX package is registered now; an unknown
+    # name raises KeyError, as in the reference
+    from repro.configs import ALL_ARCHS as J_ALL
+    for name in J_ALL:
+        assert get_config(name).name == name
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", sorted(J_ALL_ARCHS))
+def test_every_config_copy_plan_and_count_match_reference(arch):
+    for full in (False, True):
+        j, t = jget_config(arch), get_config(arch)
+        if not full:
+            j, t = jreduced(j), reduced(t)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert _plan(t) == _plan(j)
+        assert count_params(t) == j.num_params()
 
 
 def test_params_from_jax_checks_shapes(pair):
@@ -254,16 +269,11 @@ def test_new_config_copies_match_reference(arch):
 
 
 def test_registry_ports_the_two_new_archs_only():
+    # the registry is the JAX package's, in its order, none left unported
     from repro_torch.configs import ALL_ARCHS, NOT_PORTED
     from repro.configs import ALL_ARCHS as J_ALL
-    assert set(ALL_ARCHS) == {"gemma-2b", "gemma2-9b", "gemma3-4b",
-                              "deepseek-67b", "chameleon-34b",
-                              "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"}
-    assert set(ALL_ARCHS) | set(NOT_PORTED) == set(J_ALL)
-    assert len(NOT_PORTED) == 3
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    assert NOT_PORTED == ()
+    assert ALL_ARCHS == J_ALL and len(ALL_ARCHS) == 10
     full = get_config("gemma3-4b").stack_plan()
     assert [(len(s.period), s.repeats) for s in full] == [(6, 5), (4, 1)]
 

@@ -85,9 +85,8 @@ def test_config_copy_and_param_count_match_reference(arch):
 
 def test_registry_and_plans():
     from repro.configs import ALL_ARCHS as J_ALL
-    assert set(NOT_PORTED) == {"xlstm-125m", "seamless-m4t-large-v2",
-                               "jamba-v0.1-52b"}
-    assert set(ALL_ARCHS) | set(NOT_PORTED) == set(J_ALL)
+    assert NOT_PORTED == ()
+    assert ALL_ARCHS == J_ALL
     assert set(NEW_ARCHS) <= set(ALL_ARCHS)
     plans = {a: [(tuple((s.mixer, s.ffn) for s in seg.period), seg.repeats)
                  for seg in get_config(a).stack_plan()] for a in MOE_ARCHS}
@@ -386,8 +385,24 @@ def test_prefill_then_decode_matches_full_prefill(arch):
 
 
 def test_unported_mixers_name_item_4():
+    # item 4 ported the recurrent mixers: each block's parameters are the
+    # reference's, shape for shape, and an unknown mixer raises
+    # ValueError as the reference's block_desc does
+    from repro.configs.base import LayerSpec as JLayerSpec
+    from repro.models import transformer as jtransformer
+    from repro.models.layers import ParamDesc as JParamDesc
     from repro_torch.configs.base import LayerSpec
+    from repro_torch.models.layers import ParamDesc
+    arch = "jamba-v0.1-52b"
+    cfg, jcfg = reduced(get_config(arch)), jreduced(jget_config(arch))
     for mixer in ("mamba", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            transformer.block_desc(reduced(get_config("gemma-2b")),
-                                   LayerSpec(mixer=mixer))
+        ffn = "dense" if mixer == "mamba" else "none"
+        desc = transformer.block_desc(cfg, LayerSpec(mixer=mixer, ffn=ffn))
+        jdesc = jtransformer.block_desc(jcfg, JLayerSpec(mixer=mixer,
+                                                         ffn=ffn))
+        assert tree_map(lambda d: d.shape, desc,
+                        is_leaf=lambda d: isinstance(d, ParamDesc)) == \
+            jax.tree.map(lambda d: d.shape, jdesc,
+                         is_leaf=lambda d: isinstance(d, JParamDesc))
+    with pytest.raises(ValueError):
+        transformer.block_desc(cfg, LayerSpec(mixer="rnn"))
