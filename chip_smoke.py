@@ -247,12 +247,54 @@ Phases (any failure exits non-zero and prints no result line):
      losses, the peak within a reckoning that counts the chunked remat
      (printed beside the ones without it), step times and a profiled
      step (device events only); then quantize_ef and dequant_accum
-     bit-equal at every bucket length of (e), timed at the largest.
+     bit-equal at every bucket length of (e), timed at the largest;
+ 16. tensor and expert parallelism, calibration and drift re-planning,
+     each reckoning printed before its run: (a) gemma-2b at full width
+     (18 layers unless two ranks at phase 8's bytes a parameter pass 70
+     GiB) trained with tp = 2 on two spawned gloo ranks on the one card,
+     each holding its half of every FFN (``convert.tp_slice``) under
+     ``tp_region``, Adam, int8_fused on the rank's one-rank data group,
+     batch 4 x seq 512, 3 steps: both ranks' losses bit-equal; against
+     the unsharded run at NCCL world 1 on the same weights, losses within
+     rtol 3e-4, the first step's gradients (before the DP edge) and
+     Adam's first moment after 3 steps within 4e-2 of each leaf's L2
+     norm, and every parameter within the Adam envelope (2 x 3.2 x the
+     summed learning rates + 2 bf16 ulps); the first step's gradients
+     bit-equal to the control, that run with every FFN's halves summed
+     apart (``mlp_blocked``); every step's staged bytes the
+     reckoning (2 activation all-reduces a layer, each copied to the host
+     and back, + the DP edge's codes, scales and loss), and the reference
+     TP check's model in f32 bit-equal to ``mlp_blocked(blocks=2)``; (b)
+     ``moe_ffn`` at qwen3-moe-30b-a3b's widths (128 experts, top 8, 768
+     wide, bf16), 2 x 512 tokens a rank, ep = 2 and ep = 4 on gloo groups
+     of the spawned ranks, both all-to-all variants, router frozen, Adam
+     (lr 0.05) on the expert leaves for 3 steps, against one process
+     running ``groups=ep`` on the same tokens: drop counts equal, 2 + 2
+     all-to-alls a step, each rank's loss bit-equal to the one process's
+     over that rank's tokens, expert parameters and both moments
+     bit-equal (the moments by digests);
+     (c) ``measure_compression_costs`` on the card at the reference's set
+     and sizes (quantize_ef 15, dequant_accum at w = 8 12, topk_ef 15
+     launches, warp routes, nothing else), its table written as the
+     ``--compression-costs`` JSON and read back by ``plan_auto``;
+     ``calibrate_topology`` at NCCL world 1 (degenerate) and on the gloo
+     world of 4 (card tensors staged); the three kernels bit-equal and
+     timed at the calibration's sizes; (d) ``train --sync auto
+     --calibrate --replan-drift-pct --replan-every`` at phase 8's full
+     width, world 1: the drift table, the record's calibration and drift
+     blocks with the reference's keys, at most one re-plan; the CLI's
+     ``--parallelism dp=2,tp=2`` (gemma-2b) and ``dp=2,ep=2``
+     (qwen3-moe-30b-a3b), reduced, on the gloo world of 4: ``final
+     loss`` with the spec in ``describe()``; every CLI run launches the
+     wire kernels its arm's plan names (each arm's rounds apart where a
+     re-plan installs another).  ``python3 chip_smoke.py
+     --phase 16`` runs the build and this phase alone.
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
 12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b),
-(c) and (e), and 15 (a)–(e)) sets every kernel launch counter
+(c) and (e), and 15 (a)–(e), and 16 (a) on both ranks, (c) and (d)) sets
+every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
 every other kernel 0 times.  Serving: quantize_tiles = paged leaves x
@@ -286,7 +328,10 @@ route, 0 for every other kernel; sharded: the int8_fused run as 8's
 runs as 11's (``plan_launches``: topk_ef per topk_fused bucket and
 step); the pipeline: quantize_ef and dequant_accum once per leaf of the
 per-row tree and step (164 x 3 at world 1, 83 x 3 on each stage of
-(c)), all on the warp route.  Launches made in phases 3, 4, 6, 10 (b),
+(c)), all on the warp route; tensor parallelism: as 8's int8_fused run
+on each rank's tree; calibration: the fused hooks' calls at the three
+sizes (encode 5, decode 4 a size), warp routes.  Launches made in
+phases 3, 4, 6, 10 (b),
 12 (b), 13 (b) and 15's small references, and by the
 checks and timings of 9, 10, 11, 12, 14 and 15, are not counted.  It
 prints a ``{"kernels": [...]}``
@@ -5120,6 +5165,984 @@ def phase_new_families(torch, ops, ref, serve, train, card) -> dict:
             "training": training, "wire": wire, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 16. tensor and expert parallelism, calibration and drift re-planning
+# ---------------------------------------------------------------------------
+
+P16_DIR = "phase16"
+P16_WORLD = 4
+TP = 2
+TP_SESSION = dict(arch="gemma-2b", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, optimizer="adam", seed=0)
+# phase 8's measured peak per parameter: 46.08 GiB for gemma-2b's 2.51 B
+# parameters (Adam, int8_fused, batch 4 x 512, on an H100 80GB HBM3 at 700 W)
+TP_BYTES_PER_PARAM = 46.08 * 2**30 / 2_506_172_416
+TP_BUDGET = 70 * 2**30        # both ranks, with the other children's room
+# (a) against the unsharded run, bf16: the tp ranks sum two partial
+# products where the unsharded run sums one matmul.  The backward shows
+# in the first step's gradients (taken before the DP edge) and in Adam's
+# first moment after 3 steps (a linear map of the synced, int8
+# gradients); the parameters cannot show it, since Adam moves each entry
+# by about lr whatever its gradient.  Gradients and moment: each leaf's
+# relative L2 gap.  The control is the unsharded process with every
+# FFN's two halves summed apart (``mlp_blocked``): the tp ranks'
+# arithmetic without the ranks, so their gradients must equal its bit
+# for bit (gap 0), and its own gap from the plain run, bf16's, is the
+# tp ranks' gap too.
+# Measured on an H100 80GB HBM3 at 700 W, the same in three runs: loss
+# 3.1e-5, gradients 3.04e-2 (the control's too), first moment 3.18e-2.
+TP_LOSS_RTOL = 3e-4
+TP_GRAD_RTOL = 4e-2
+TP_BLOCKED_RTOL = 0.0
+TP_MOMENT_RTOL = 4e-2
+ADAM_GAIN = 3.2               # |m̂ / sqrt(v̂)| bound of b1 = 0.9, b2 = 0.999
+EP_ARCH = "qwen3-moe-30b-a3b"
+EP_SIZES = (2, 4)
+EP_BATCH, EP_SEQ = 2, 512
+EP_LR = 0.05                  # the reference check's inline Adam
+EP_SEED = 16
+TINY_TP = dict(d=16, dff=32, vocab=64, batch=4, seq=12)
+CLI_W4 = {"tp": ["--arch", "gemma-2b", "--parallelism", "dp=2,tp=2"],
+          "ep": ["--arch", EP_ARCH, "--parallelism", "dp=2,ep=2"]}
+CLI_W4_BASE = ["--device", "cuda", "--reduced", "--steps", "2", "--batch",
+               "4", "--seq", "32", "--sync", "auto", "--plan-backward-ms",
+               "20", "--seed", "0"]
+REPLAN_PCT, REPLAN_EVERY = 0.001, 2
+DRIFT_KEYS = {"plan_key", "modeled_step_s", "modeled_wall_step_s",
+              "measured_step_s", "steps_measured", "drift_frac", "drift_pct",
+              "comm_fit_err_s", "t_backward_err_s", "measured_spread_s",
+              "fit_error_s", "within_fit_error", "replans", "replan_events",
+              "arms"}
+CALIBRATION_KEYS = {"version", "world", "tiers"}
+
+
+def tp_reckoning(layers: int) -> dict:
+    """A tp rank's parameters (the shared leaves whole, its half of every
+    FFN) at ``layers`` layers, the peak at phase 8's bytes per parameter,
+    and the staged bytes of one step's tp wire: per layer two all-reduces
+    of the (batch, seq, d_model) bf16 activations (the forward's ``g``
+    and the backward's ``f``; the per-layer checkpoint's recomputation
+    stops at the last tensor the backward needs, before the forward's
+    all-reduce), each copied to the host and back: the nominal 4
+    activation transfers a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=layers)
+    total = count_params(cfg)
+    ffn = layers * 3 * cfg.d_model * cfg.d_ff
+    per_rank = total - ffn + ffn // TP
+    act = TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * {
+        "bfloat16": 2, "float32": 4}[cfg.compute_dtype]
+    return {"layers": layers, "params_total": total, "ffn_params": ffn,
+            "params_per_rank": per_rank,
+            "peak_per_rank": per_rank * TP_BYTES_PER_PARAM,
+            "tp_staged_per_step": layers * 2 * 2 * act}
+
+
+def p16_dp_staged(session) -> int:
+    """Staged bytes of one step's int8_fused DP edge on a one-rank gloo
+    group: every bucket's int8 codes and f32 tile scales copied to the
+    host and back by the all-gather, and the f32 loss by its mean over
+    the group."""
+    n = bucket_lengths(session.synchronizer.plan, session.params)
+    return sum(2 * (x + 4 * -(-x // TILE)) for x in n) + 2 * 4
+
+
+def bf16_ulp_of(torch, x):
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def p16_reference(torch, layers: int) -> dict:
+    """(a)'s other side: gemma-2b at ``layers`` layers, unsharded, NCCL
+    world 1, the same int8_fused session for 3 steps on the same weights;
+    the first step's gradients (before the DP edge) of the control (every
+    FFN's two halves summed apart, ``mlp_blocked``) must lie within
+    TP_GRAD_RTOL (relative L2) of the plain run's; the control's (host
+    bf16), its final
+    parameters (host bf16) and Adam's first moment (host f32) go to
+    ``build/phase16_ref/ref_g_blocked.pt``, ``ref_params.pt`` and
+    ``ref_m.pt`` for the tp ranks to compare with."""
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.launch.dist import destroy_group
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import mlp_blocked
+    out_dir = ROOT / "build" / f"{P16_DIR}_ref"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sess = TrainSession(SessionConfig(layers=layers, device="cuda",
+                                      **TP_SESSION),
+                        strategy=make_strategy(
+                            "every_step",
+                            sync=SyncConfig(compressor="int8_fused")))
+    _, g = loss_and_grads(sess.model, sess.params, sess.batch(0))
+    plain = {k: v.detach().cpu() for k, v in _flatten_with_paths(g).items()}
+    del g
+    mlp = transformer.mlp
+    transformer.mlp = lambda p, x, act: mlp_blocked(p, x, act, blocks=TP)
+    try:
+        _, g = loss_and_grads(sess.model, sess.params, sess.batch(0))
+    finally:
+        transformer.mlp = mlp
+    blocked = _flatten_with_paths(g)
+    control = {}
+    for k, v in blocked.items():
+        want = plain[k].to("cuda", torch.float32)
+        norm = float(torch.linalg.vector_norm(want))
+        gap = float(torch.linalg.vector_norm(v.float() - want))
+        control[k] = gap / norm if norm else gap
+        if control[k] > TP_GRAD_RTOL:
+            fail(f"{k}: the control's first-step gradient {control[k]} "
+                 f"(relative L2) from the plain run's, beyond "
+                 f"{TP_GRAD_RTOL}")
+        del want
+    torch.save({k: v.detach().cpu() for k, v in blocked.items()},
+               out_dir / "ref_g_blocked.pt")
+    del g, blocked, plain
+    sess.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    flat = {k: v.detach().cpu() for k, v in
+            _flatten_with_paths(sess.params).items()}
+    torch.save(flat, out_dir / "ref_params.pt")
+    del flat
+    m = {k: v.detach().cpu() for k, v in
+         _flatten_with_paths(sess.opt_state["m"]).items()}
+    torch.save(m, out_dir / "ref_m.pt")
+    res = {"losses": list(sess.losses),
+           "step_ms_all": [t * 1e3 for t in sess.step_times],
+           "lr": [sess._lr(s) for s in range(TRAIN_STEPS)],
+           "g_blocked_path": str(out_dir / "ref_g_blocked.pt"),
+           "control_gap": {"max": max(control.values()),
+                           "median": statistics.median(control.values())},
+           "path": str(out_dir / "ref_params.pt"),
+           "m_path": str(out_dir / "ref_m.pt")}
+    del sess, m
+    destroy_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p16_adam(torch, p, g, m, v, t, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """The reference checks' inline Adam, moments in f32, the parameter
+    updated in f32 and cast back to its type."""
+    m = b1 * m + (1 - b1) * g.float()
+    v = b2 * v + (1 - b2) * g.float() * g.float()
+    tt = torch.tensor(float(t), device=p.device)
+    mh = m / (1 - torch.tensor(b1, device=p.device) ** tt)
+    vh = v / (1 - torch.tensor(b2, device=p.device) ** tt)
+    return (p.float() - lr * mh / (torch.sqrt(vh) + eps)).to(p.dtype), m, v
+
+
+def p16_tiny_tp(torch, rank: int, tp_group) -> dict:
+    """(a)'s reduced f32 leg: the reference TP check's model (embedding,
+    gated MLP of 16 x 32, head) in f32 on the card, 3 Adam steps of
+    ``mlp_tp`` on the two ranks against ``mlp_blocked(blocks=2)`` on each;
+    every leaf and both moments bit-equal."""
+    import torch.nn.functional as F
+    from repro_torch.convert import mlp_slice
+    from repro_torch.models.layers import mlp_blocked, mlp_tp
+    c = TINY_TP
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    p0 = {"emb": torch.randn(c["vocab"], c["d"], generator=gen,
+                             device=dev) * 0.1,
+          "wi_gate": torch.randn(c["d"], c["dff"], generator=gen,
+                                 device=dev) * 0.3,
+          "wi_up": torch.randn(c["d"], c["dff"], generator=gen,
+                               device=dev) * 0.3,
+          "wo": torch.randn(c["dff"], c["d"], generator=gen, device=dev) * .3,
+          "out": torch.randn(c["d"], c["vocab"], generator=gen,
+                             device=dev) * 0.1,
+          "b": torch.zeros(c["vocab"], device=dev)}
+    toks = [torch.randint(0, c["vocab"], (c["batch"], c["seq"]),
+                          generator=gen, device=dev) for _ in range(3)]
+
+    def run(params, mlp_fn):
+        p = dict(params)
+        m = {k: torch.zeros_like(x) for k, x in p.items()}
+        v = {k: torch.zeros_like(x) for k, x in p.items()}
+        for s in range(3):
+            q = {k: x.detach().clone().requires_grad_(True)
+                 for k, x in p.items()}
+            tk = toks[s]
+            x = q["emb"][tk[:, :-1]]
+            h = x + mlp_fn(q, x)
+            lp = F.log_softmax(h @ q["out"] + q["b"], dim=-1)
+            loss = -torch.mean(torch.gather(lp, -1, tk[:, 1:, None]))
+            loss.backward()
+            for k in p:
+                p[k], m[k], v[k] = p16_adam(torch, p[k], q[k].grad, m[k],
+                                            v[k], s + 1, 0.05)
+        return p, m, v
+
+    tp = run(dict(p0, **mlp_slice(p0, rank, TP)),
+             lambda q, x: mlp_tp(q, x, group=tp_group))
+    blocked = run(p0, lambda q, x: mlp_blocked(q, x, blocks=TP))
+    want = [dict(t, **mlp_slice(t, rank, TP)) for t in blocked]
+    equal = all(torch.equal(a[k], b[k]) for a, b in zip(tp, want)
+                for k in a)
+    w4_gate(equal, "the f32 tp leg differs from mlp_blocked(blocks=2)")
+    return {"bit_equal": equal}
+
+
+def tp_share(want, key: str, rank: int):
+    """This tp rank's part of an unsharded leaf (``convert.tp_slice``'s
+    cut: the FFN's ``wi_gate`` / ``wi_up`` on their output dim, ``wo`` on
+    its input dim, every other leaf whole)."""
+    if "/ffn/" in key and key.rsplit("/", 1)[1] in ("wi_gate", "wi_up"):
+        n = want.shape[-1] // TP
+        return want.narrow(-1, rank * n, n)
+    if "/ffn/" in key and key.endswith("/wo"):
+        n = want.shape[-2] // TP
+        return want.narrow(-2, rank * n, n)
+    return want
+
+
+def rel_gaps(torch, mine: dict, ref_path: str, rank: int) -> dict:
+    """Each leaf's relative L2 gap, ||mine - ref|| / ||ref||, between
+    this tp rank's flat tree and its part (``tp_share``) of the unsharded
+    run's, read from ``ref_path``."""
+    ref = torch.load(ref_path, mmap=True)
+    out = {}
+    for key, x in mine.items():
+        want = tp_share(ref[key], key, rank).to("cuda", torch.float32)
+        gap = float(torch.linalg.vector_norm(x.float() - want))
+        norm = float(torch.linalg.vector_norm(want))
+        out[key] = gap / norm if norm else gap
+        del want
+    return out
+
+
+def gate_rel_gaps(gaps: dict, limit: float, what: str) -> dict:
+    for key, r in gaps.items():
+        w4_gate(r <= limit, f"{key}: {what} {r} (relative L2) from the "
+                f"unsharded run's, beyond {limit}")
+    top = max(gaps, key=gaps.get)
+    return {"max": gaps[top], "max_leaf": top,
+            "median": statistics.median(gaps.values()), "limit": limit}
+
+
+def p16_tp(torch, rank: int, tp_group, data_group, layers: int,
+           ref_g_blocked_path: str, ref_path: str,
+           ref_m_path: str) -> dict:
+    """(a), one of the two tp ranks: gemma-2b at full width (``layers``
+    layers), this rank's half of every FFN (``convert.tp_slice``), the
+    Megatron wire under ``tp_region`` on a gloo group of the two ranks,
+    Adam, int8_fused on the rank's one-rank data group, batch 4 x 512, 3
+    steps.  Gates: quantize_ef and dequant_accum once per bucket and step
+    (warp route), every step's staged bytes = the tp wire's reckoning +
+    the DP edge's codes and scales, the first step's gradient of every
+    leaf bit-equal to the control's (``mlp_blocked``; ``p16_reference``
+    holds the control within TP_GRAD_RTOL of the unsharded run), Adam's
+    first moment after the steps within TP_MOMENT_RTOL (relative L2) of
+    the unsharded run's,
+    and every parameter within the Adam envelope of the unsharded
+    run's."""
+    from repro_torch._tree import tree_map
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.convert import tp_slice
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.core.collectives import p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.models.sharding_ctx import tp_region
+    from repro_torch.configs import get_config
+    res = {"tiny_f32": p16_tiny_tp(torch, rank, tp_group)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=layers)
+    full = Model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    params = tp_slice(full, rank, TP)
+    del full
+    gc.collect()
+    sess = TrainSession(SessionConfig(layers=layers, device="cuda",
+                                      **TP_SESSION),
+                        strategy=make_strategy(
+                            "every_step", group=data_group,
+                            sync=SyncConfig(compressor="int8_fused")),
+                        params=params, group=data_group)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rk = tp_reckoning(layers)
+    with tp_region(tp_group):
+        # the first step's gradients on the unchanged weights
+        _, g = loss_and_grads(sess.model, sess.params, sess.batch(0))
+        blocked_gap = gate_rel_gaps(
+            rel_gaps(torch, _flatten_with_paths(g), ref_g_blocked_path,
+                     rank),
+            TP_BLOCKED_RTOL, "the first step's gradient against the "
+            "control's (mlp_blocked; bit-equal expected)")
+        del g
+        gc.collect()
+        torch.cuda.empty_cache()
+    p2p.reset_staged_bytes()
+    ops.reset_launch_counts()
+    staged = []
+    with tp_region(tp_group):
+        for _ in range(TRAIN_STEPS):
+            before = p2p.staged_bytes()
+            sess.run(1)
+            staged.append(p2p.staged_bytes() - before)
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    n_buckets = sess.synchronizer.plan.n_buckets
+    w4_launch_gate(launches, {k: n_buckets * TRAIN_STEPS for k in INT8_WIRE},
+                   "tp rank")
+    dp = p16_dp_staged(sess)
+    w4_gate(all(s == rk["tp_staged_per_step"] + dp for s in staged),
+            f"staged bytes a step {staged}, expected the tp wire's "
+            f"{rk['tp_staged_per_step']} + the DP edge's {dp}")
+    losses = list(sess.losses)
+    w4_gate(all(map(math.isfinite, losses)), f"losses {losses}")
+    # against the unsharded run: this rank's part of its first moment,
+    # where the backward shows, then of its parameters
+    m_gap = gate_rel_gaps(
+        rel_gaps(torch, _flatten_with_paths(sess.opt_state["m"]),
+                 ref_m_path, rank),
+        TP_MOMENT_RTOL, "Adam's first moment")
+    ref = torch.load(ref_path, mmap=True)
+    lr = sum(sess._lr(s) for s in range(TRAIN_STEPS))
+    worst, n_diff, n_all = 0.0, 0, 0
+    for key, p in _flatten_with_paths(tree_map(
+            lambda t: t.detach(), sess.params)).items():
+        want = tp_share(ref[key], key, rank).to("cuda")
+        d = (p.float() - want.float()).abs()
+        env = 2 * ADAM_GAIN * lr + 2 * bf16_ulp_of(torch, want)
+        worst = max(worst, float(d.max()))
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+        w4_gate(bool((d <= env).all()),
+                f"{key}: |Δ| up to {float(d.max())} beyond the Adam "
+                f"envelope {2 * ADAM_GAIN * lr} + 2 bf16 ulps")
+        del want, d, env
+    res.update({
+        "layers": layers, "launches": launches, "n_buckets": n_buckets,
+        "losses": losses, "staged_per_step": staged, "dp_staged": dp,
+        "reckoning": rk, "step_ms_all": [t * 1e3 for t in sess.step_times],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "blocked_gap": blocked_gap, "m_gap": m_gap,
+        "params_max_abs_diff": worst,
+        "params_differing": n_diff, "params_compared": n_all,
+        "adam_envelope": 2 * ADAM_GAIN * lr})
+    del sess, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p16_experts(torch, cfg):
+    """qwen3-moe-30b-a3b's expert leaves at full width (bf16, the model's
+    init scales) and a router of its "small" scale, from EP_SEED."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(EP_SEED)
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    bf = torch.bfloat16
+
+    def draw(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(bf)
+    router = draw((d, E), 0.02)
+    experts = {"wi_gate": draw((E, d, ff), d ** -0.5),
+               "wi_up": draw((E, d, ff), d ** -0.5),
+               "wo": draw((E, ff, d), ff ** -0.5)}
+    return router, experts
+
+
+def p16_tokens(torch, cfg, rank: int):
+    gen = torch.Generator("cuda").manual_seed(EP_SEED + 100 + rank)
+    return torch.randn((EP_BATCH, EP_SEQ, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def p16_moe_steps(torch, cfg, router, experts, x, parts=1, **kw):
+    """3 steps of the reference EP check: loss sum(out²) of ``moe_ffn``,
+    the router frozen, Adam (EP_LR) on the expert leaves.  The tokens
+    take a gradient too, as a layer's input activations do, so the
+    dispatch's reverse exchange runs in the backward beside the
+    combine's.  Returns (the experts, m, v, losses, step seconds, drop
+    counts); a step's entry of ``losses`` is the list of sum(out²) over
+    each of ``parts`` equal blocks of the batch (one rank's tokens each,
+    where one process runs the group's), taken beside the loss."""
+    from repro_torch.models import moe
+    p = dict(experts)
+    m = {k: torch.zeros(x_.shape, device="cuda") for k, x_ in p.items()}
+    v = {k: torch.zeros(x_.shape, device="cuda") for k, x_ in p.items()}
+    losses, times = [], []
+    moe.drain_drop_tap()
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        q = {k: t.detach().clone().requires_grad_(True) for k, t in p.items()}
+        out, _ = moe.moe_ffn(dict(q, router=router), cfg,
+                             x.detach().requires_grad_(True), **kw)
+        loss = torch.sum(out.float() ** 2)
+        with torch.no_grad():
+            losses.append([float(torch.sum(o.float() ** 2))
+                           for o in out.chunk(parts)])
+        loss.backward()
+        for k in p:
+            p[k], m[k], v[k] = p16_adam(torch, p[k], q[k].grad, m[k], v[k],
+                                        s + 1, EP_LR)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return p, m, v, losses, times, moe.drain_drop_tap()
+
+
+def per_expert_digests(torch, t) -> list:
+    return [digest(torch, t[e]).tolist() for e in range(t.shape[0])]
+
+
+def p16_ep(torch, rank: int, groups: dict) -> dict:
+    """(b), this rank's part: ``moe_ffn`` at qwen3-moe-30b-a3b's widths
+    with expert parallelism over gloo groups on the one card (ep = 2 on
+    ranks 0-1, ep = 4 on all four), both all-to-all variants, against one
+    process (the group's rank 0) running ``groups=ep`` on the same tokens.
+    Gates: the group's drop counts sum to the one process's, 4
+    all-to-alls a step (2 forward, 2 backward), each rank's loss bit-equal
+    to the one process's over that rank's tokens, and every expert
+    parameter and both Adam moments bit-equal to the one process's (the
+    moments by digests)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.convert import experts_slice
+    from repro_torch.core.collectives import all_gather, p2p
+    import repro_torch.core.collectives.api as capi
+    from repro_torch.models import moe
+    cfg = get_config(EP_ARCH)
+    router, experts = p16_experts(torch, cfg)
+    calls = [0]
+    real = capi.all_to_all
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+    capi.all_to_all = counted
+    moe.enable_drop_tap(True)
+    out = {}
+    try:
+        for ep, (group, members) in groups.items():
+            if rank not in members:
+                continue
+            me = members.index(rank)
+            res = {}
+            if me == 0:
+                xs = torch.cat([p16_tokens(torch, cfg, r) for r in members])
+                p, m, v, losses, times, drops = p16_moe_steps(
+                    torch, cfg, router, experts, xs, parts=ep, groups=ep)
+                want = {"p": p, "m": {k: per_expert_digests(torch, t)
+                                      for k, t in m.items()},
+                        "v": {k: per_expert_digests(torch, t)
+                              for k, t in v.items()}}
+                res["one_process"] = {"losses": losses, "drops": drops,
+                                      "step_ms": [t * 1e3 for t in times]}
+                del m, v, xs
+            x = p16_tokens(torch, cfg, rank)
+            mine = experts_slice(experts, me, ep)
+            for variant in ("direct", "ring"):
+                calls[0] = 0
+                p2p.reset_staged_bytes()
+                p, m, v, losses, times, drops = p16_moe_steps(
+                    torch, cfg, router, mine, x, ep_axis=group,
+                    a2a_variant=variant)
+                staged = p2p.staged_bytes()
+                w4_gate(calls[0] == 4 * TRAIN_STEPS,
+                        f"ep={ep} {variant}: {calls[0]} all-to-alls in "
+                        f"{TRAIN_STEPS} steps, expected 2 forward + 2 "
+                        f"backward a step")
+                losses = [l for (l,) in losses]
+                w4_gate(all(map(math.isfinite, losses)), f"losses {losses}")
+                every = all_gather(torch.tensor(drops, device="cuda"), group)
+                # f64 holds each f32 loss exactly
+                every_loss = all_gather(torch.tensor(
+                    losses, dtype=torch.float64, device="cuda"), group)
+                gathered = {k: all_gather(t, group) for k, t in p.items()}
+                dig = {t: {k: all_gather(torch.tensor(
+                    per_expert_digests(torch, x_), device="cuda"), group)
+                    for k, x_ in tree.items()} for t, tree in
+                    (("m", m), ("v", v))}
+                leg = {"losses": losses, "drops": list(drops),
+                       "step_ms": [t * 1e3 for t in times],
+                       "staged_bytes": staged, "a2a_calls": calls[0]}
+                if me == 0:
+                    total = every.sum(0).tolist()
+                    w4_gate(total == list(res["one_process"]["drops"]),
+                            f"ep={ep} {variant}: drops {total} != the one "
+                            f"process's {res['one_process']['drops']}")
+                    ranks_loss = every_loss.reshape(len(members),
+                                                    TRAIN_STEPS).T.tolist()
+                    w4_gate(ranks_loss == res["one_process"]["losses"],
+                            f"ep={ep} {variant}: the ranks' losses "
+                            f"{ranks_loss} != the one process's over their "
+                            f"tokens {res['one_process']['losses']}")
+                    worst, bits = 0.0, True
+                    for k, g in gathered.items():
+                        g = g.reshape(want["p"][k].shape)
+                        d = (g.float() - want["p"][k].float()).abs()
+                        worst = max(worst, float(d.max()))
+                        bits &= torch.equal(g, want["p"][k])
+                    w4_gate(bits, f"ep={ep} {variant}: expert parameters "
+                            f"differ from the one process's (max |Δ| "
+                            f"{worst})")
+                    moments = all(
+                        dig[t][k].reshape(-1, 2).tolist() == want[t][k]
+                        for t in ("m", "v") for k in dig[t])
+                    w4_gate(moments, f"ep={ep} {variant}: Adam moments' "
+                            f"digests differ from the one process's")
+                    leg.update({"params_bit_equal": bool(bits),
+                                "params_max_abs_diff": worst,
+                                "moments_bit_equal": moments,
+                                "losses_bit_equal": True,
+                                "drops_total": total})
+                res[variant] = leg
+                del p, m, v, gathered, dig
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[f"ep{ep}"] = res
+            dist.barrier(group)
+    finally:
+        capi.all_to_all = real
+        moe.enable_drop_tap(False)
+    del router, experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def session_wire_launches(sess, since=(0, 0)) -> dict:
+    """The wire-kernel launches (``plan_launches``) that a session's
+    rounds since ``since`` = (gradient rounds, parameter rounds) made
+    under its built strategy: its gradient reducer's plan once per
+    gradient round, its parameter reducer's once per parameter round."""
+    want: dict = {}
+    reducers = ((sess.synchronizer, sess.grad_rounds - since[0]),
+                (getattr(sess.strategy, "param_reducer", None),
+                 sess.param_rounds - since[1]))
+    for reducer, rounds in reducers:
+        plan = getattr(reducer, "plan", None)
+        if plan is not None and rounds:
+            for k, n in plan_launches(plan, rounds, sess.world).items():
+                want[k] = want.get(k, 0) + n
+    return want
+
+
+def p16_cli(torch, rank: int) -> dict:
+    """(d)'s world-4 part: the CLI with ``--parallelism dp=2,tp=2``
+    (gemma-2b) and ``dp=2,ep=2`` (qwen3-moe-30b-a3b), reduced, ``--sync
+    auto``, on the world's gloo group (the run of ``launch/train.py``'s
+    ``run`` on the group, as ``--data-parallel`` runs it where each rank
+    has a card).  Gates: each runs to ``final loss`` with the spec in
+    ``describe()``, and launches the wire kernels its arm's plan names
+    (``session_wire_launches``)."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    out = {}
+    for name, flags in CLI_W4.items():
+        args = train.build_parser().parse_args(CLI_W4_BASE + flags)
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            sess = train.run(args, rank, group=dist.group.WORLD)
+        spec = flags[3].split(",")[1]
+        desc = sess.strategy.describe()
+        w4_gate(f"[{spec}" in desc, f"{name}: describe() {desc!r}")
+        w4_gate(sess.device.type == "cuda", f"{name} ran on {sess.device}")
+        w4_launch_gate(path_counts(ops), session_wire_launches(sess),
+                       f"cli {name}")
+        if rank == 0:
+            last = buf.getvalue().strip().splitlines()[-1]
+            w4_gate(last.startswith("final loss ") and last.endswith(desc),
+                    f"{name}: last line {last!r}")
+        out[name] = {"losses": list(sess.losses), "describe": desc,
+                     "key": sess.planned["strategy_plan"].key,
+                     "launches": path_counts(ops),
+                     "lines": buf.getvalue().strip().splitlines()[-3:]}
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def p16_child(rank: int, world: int, store: str, out_dir: str,
+              tp_layers: int, ref_g_blocked_path: str,
+              ref_path: str, ref_m_path: str) -> None:
+    """Phase 16, one of four ranks of a gloo group on the one card: (b)
+    the expert-parallel legs, (c) the collective calibration of the
+    world, (d) the CLI's tp / ep specs, then (a) tensor parallelism at
+    full width on ranks 0 and 1 (ranks 2 and 3 wait)."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.schedule import calibration
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    # every rank makes every group, in one order
+    pair = dist.new_group([0, 1])
+    tp_group = dist.new_group([0, 1])
+    ones = [dist.new_group([r]) for r in range(world)]
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    res["ep"] = p16_ep(torch, rank, {2: (pair, [0, 1]),
+                                     4: (dist.group.WORLD,
+                                         list(range(world)))})
+    res["ep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cal = calibration.calibrate_topology(device="cuda")
+    res["calibration"] = cal.to_json()
+    res["calibration_describe"] = cal.describe()
+    res["calibration_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["cli"] = p16_cli(torch, rank)
+    res["cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if rank < TP:
+        res["tp"] = p16_tp(torch, rank, tp_group, ones[rank], tp_layers,
+                           ref_g_blocked_path, ref_path,
+                           ref_m_path)
+    res["tp_s"] = time.perf_counter() - t0
+    res["launches"] = {}      # spawn_world4 compares ranks' counts
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def calibration_kernels(torch, ops, ref) -> dict:
+    """(c)'s kernels at the calibration's sizes (CAL_SIZES): quantize_ef
+    and topk_ef (the fused encodes, residual in place) and dequant_accum
+    at w = CAL_WORLD = 8 (the fused decode of the payload stacked 8
+    times), each held bit-equal to its plain version, then timed in turns
+    against it (CUDA-graph replay) beside its bound."""
+    from repro_torch.core.schedule.calibration import CAL_SIZES, CAL_WORLD
+    from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
+                                                 quantize_ef_cuda)
+    from repro_torch.kernels.topk_mask import topk_ef_cuda
+    dev = torch.device("cuda")
+    k = max(1, int(TILE * 0.01))
+    out = {"quantize_ef": {}, "dequant_accum": {}, "topk_ef": {}}
+    for n in CAL_SIZES:
+        gen = torch.Generator(dev).manual_seed(n)
+        g = torch.randn(n, generator=gen, device=dev)
+        e = torch.zeros(n, device=dev)
+        buf = e.clone()
+        got = ops.quantize_ef(g, buf, tile=TILE, e_out=buf)
+        want = ref.quantize_ef_ref(g, e, tile=TILE)
+        q, s = got[0], got[2]
+        qw, sw = q.repeat(CAL_WORLD, 1), s.repeat(CAL_WORLD, 1)
+        buf2 = e.clone()
+        checks = [("quantize_ef", got, want),
+                  ("dequant_accum", (ops.dequant_accum(qw, sw, tile=TILE),),
+                   (ref.dequant_accum_ref(qw, sw, tile=TILE),)),
+                  ("topk_ef", ops.topk_ef(g, buf2, tile=TILE, e_out=buf2),
+                   ref.topk_ef_ref(g, e, tile=TILE))]
+        torch.cuda.synchronize()
+        for name, a, b in checks:
+            if not all(same(torch, x, y) for x, y in zip(a, b)):
+                fail(f"{name} differs from the plain version at the "
+                     f"calibration size n={n}")
+        nt = -(-n // TILE)
+        w = CAL_WORLD
+        shape = f"calibration_{n}"
+        out["quantize_ef"][shape] = w4_time(
+            torch, lambda: quantize_ef_cuda(g, buf, 1.0, TILE, buf),
+            lambda: ref.quantize_ef_ref(g, e, tile=TILE), n,
+            bound(13 * n + 4 * nt, QEF_OPS * n))
+        out["dequant_accum"][f"{shape}_w{w}"] = w4_time(
+            torch, lambda: dequant_accum_cuda(qw, sw, TILE),
+            lambda: ref.dequant_accum_ref(qw, sw, tile=TILE), n,
+            bound(w * n + 4 * w * nt + 4 * n, 2 * w * n))
+        out["topk_ef"][shape] = w4_time(
+            torch, lambda: topk_ef_cuda(g, buf, k, TILE, ITERS, 1.0, buf),
+            lambda: ref.topk_ef_ref(g, e, tile=TILE), n,
+            bound(16 * n, TOPK_OPS * n))
+        del g, e, buf, buf2, q, s, qw, sw, got, want, checks
+        torch.cuda.empty_cache()
+    return out
+
+
+def p16_calibration(torch, ops, ref, card) -> dict:
+    """(c) in this process: ``measure_compression_costs`` on the card at
+    the reference's set and sizes (every kernel launch it makes held to
+    its count and route), the fitted table with its quality, written as
+    the ``--compression-costs`` JSON and read back by ``plan_auto``; then
+    ``calibrate_topology`` at NCCL world 1 (one rank: the degenerate
+    fit), and the kernels timed at the calibration's sizes."""
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.core.schedule.calibration import (CAL_SIZES, CAL_WORLD,
+                                                       CALIBRATION_SET,
+                                                       calibrate_topology,
+                                                       measure_compression_costs)
+    from repro_torch.launch.dist import destroy_group, init_group
+    repeats = 3
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tab = measure_compression_costs(repeats=repeats, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_counts(ops)
+    n = len(CAL_SIZES)
+    # encode: the payload call, the discarded call and the timed repeats;
+    # decode: the discarded call and the timed repeats
+    want = {"quantize_ef": n * (repeats + 2),
+            "dequant_accum": n * (repeats + 1),
+            "dequant_accum[warp]": n * (repeats + 1),
+            "topk_ef": n * (repeats + 2), "topk_ef[warp]": n * (repeats + 2)}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"calibration: kernel launches {got}, expected {want} (every "
+             f"fused hook of CALIBRATION_SET at {n} sizes; dequant_accum at "
+             f"w = {CAL_WORLD}, warp routes)")
+    print(f"calibration: measure_compression_costs at {list(CAL_SIZES)} f32 "
+          f"({[c for c, _ in CALIBRATION_SET]}), {seconds:.3f} s, kernel "
+          f"launches {got} [{card}]", flush=True)
+    quality = {k: (rms, r2, deg) for k, rms, r2, deg in tab.quality}
+    for key, bw, c0 in tab.entries:
+        rms, r2, deg = quality[key]
+        print(f"  {key}: {bw / 1e9:.3f} GB/s + {c0 * 1e6:.3f} us, rms "
+              f"{rms * 1e6:.3f} us, R² {r2:.4f}"
+              + (" [degenerate]" if deg else "") + f" [{card}]", flush=True)
+    out_dir = ROOT / "build" / P16_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "compression_costs.json"
+    path.write_text(json.dumps(tab.to_json(), indent=1))
+    sess = TrainSession(SessionConfig(arch="gemma-2b", reduced=True,
+                                      batch=2, seq=32, device="cuda"))
+    sess.plan_auto(topology="commodity_cluster", t_backward_s=0.05,
+                   compression_costs=str(path))
+    back = sess.planned["cost_table"]
+    if back is None or back.entries != tab.entries or \
+            back.cal_world != CAL_WORLD:
+        fail("calibration: the --compression-costs JSON did not read back "
+             "into plan_auto's cost table")
+    print(f"calibration: {path.name} read back by plan_auto "
+          f"(commodity_cluster, winner {sess.planned['strategy_plan'].key})",
+          flush=True)
+    del sess
+    destroy_group()
+    init_group(torch.device("cuda"))
+    t0 = time.perf_counter()
+    topo = calibrate_topology(device="cuda")
+    topo_s = time.perf_counter() - t0
+    fit = topo.fit_for("data")
+    if not fit.degenerate or topo.world != 1:
+        fail(f"calibration at NCCL world 1: {topo.describe()}")
+    print(f"{topo.describe()} (NCCL world 1, {topo_s:.3f} s) [{card}]",
+          flush=True)
+    destroy_group()
+    kernels = calibration_kernels(torch, ops, ref)
+    for name, per_shape in kernels.items():
+        for shape, t in per_shape.items():
+            print(f"{name} {shape} n={t['n']}: device time kernel "
+                  f"{t['ms'] * 1e3:.3f} us, plain {t['plain_ms'] * 1e3:.3f} "
+                  f"us, bound {t['bound_ms'] * 1e3:.3f} us "
+                  f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of the "
+                  f"bound ({t['timer']}) [{card}]", flush=True)
+    return {"table": tab.to_json(), "seconds": seconds, "launches": launches,
+            "nccl_world1": topo.to_json(), "nccl_world1_s": topo_s,
+            "kernels": kernels}
+
+
+def p16_cli_world1(torch, ops, train, card) -> dict:
+    """(d) at world 1: ``train --arch gemma-2b --sync auto --calibrate
+    --replan-drift-pct REPLAN_PCT --replan-every REPLAN_EVERY`` at full
+    width (batch 4 x 512, 3 steps).  Gates: the calibration and the drift
+    table are printed, the re-written record carries the calibration and
+    drift blocks with the reference's keys, no more re-plans ran than
+    ``max_replans`` (1), and the run launched the wire kernels that its
+    arm's plan names, before and after each re-plan
+    (``session_wire_launches``)."""
+    import contextlib
+    import io
+    from repro_torch.api import TrainSession
+    from repro_torch.launch import paths
+    from repro_torch.launch.dist import destroy_group
+    # a re-plan may install another arm: count each arm's rounds apart
+    want, since = {}, [(0, 0)]
+    real = TrainSession._replan
+
+    def watched(self, *a, **kw):
+        for k, n in session_wire_launches(self, since[-1]).items():
+            want[k] = want.get(k, 0) + n
+        since.append((self.grad_rounds, self.param_rounds))
+        return real(self, *a, **kw)
+    flags = TRAIN_ARGS + ["--sync", "auto", "--calibrate",
+                          "--replan-drift-pct", str(REPLAN_PCT),
+                          "--replan-every", str(REPLAN_EVERY)]
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    TrainSession._replan = watched
+    try:
+        with contextlib.redirect_stdout(buf):
+            sess = train.main(flags)
+    finally:
+        TrainSession._replan = real
+    seconds = time.perf_counter() - t0
+    for k, n in session_wire_launches(sess, since[-1]).items():
+        want[k] = want.get(k, 0) + n
+    launches = path_counts(ops)
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"the CLI at world 1 launched {got}, its arms' plans name "
+             f"{want}")
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    for want in ("calibrated topology: data:1@calibrated",
+                 "modeled vs measured (", "plan record (with drift): "):
+        if want not in text:
+            fail(f"the CLI at world 1 did not print {want!r}")
+    rec = json.loads((Path(paths.COMM_PLANS) / "gemma-2b.json").read_text())
+    if set(rec.get("drift", {})) != DRIFT_KEYS or \
+            set(rec.get("calibration", {})) != CALIBRATION_KEYS:
+        fail(f"the plan record's drift / calibration blocks: "
+             f"{sorted(rec.get('drift', {}))}, "
+             f"{sorted(rec.get('calibration', {}))}")
+    if not 0 <= rec["drift"]["replans"] <= 1 or \
+            sess.replans != rec["drift"]["replans"]:
+        fail(f"replans {sess.replans} (record {rec['drift']['replans']}), "
+             f"max_replans 1")
+    res = {"seconds": seconds, "losses": list(sess.losses),
+           "step_ms_all": [t * 1e3 for t in sess.step_times],
+           "replans": sess.replans, "events": sess.replan_events,
+           "drift": rec["drift"], "calibration": rec["calibration"],
+           "launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"cli --sync auto --calibrate --replan-drift-pct {REPLAN_PCT} "
+          f"--replan-every {REPLAN_EVERY} [{card}]: {seconds:.1f} s, "
+          f"losses {[round(x, 4) for x in sess.losses]}, measured "
+          f"{rec['drift']['measured_step_s'] * 1e3:.3f} ms/step against "
+          f"modeled wall {rec['drift']['modeled_wall_step_s'] * 1e3:.3f} "
+          f"(drift {rec['drift']['drift_pct']:+.1f}%), replans "
+          f"{sess.replans}", flush=True)
+    del sess
+    destroy_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_parallel(torch, ops, ref, train, card) -> dict:
+    """Phase 16: (a) tensor parallelism at full width and (b) expert
+    parallelism at full width (one spawned gloo world of four on the card,
+    with (c)'s world-4 calibration and (d)'s world-4 CLI runs), then (c)
+    the calibration in this process and (d) the CLI at world 1."""
+    t0 = time.perf_counter()
+    print(f"phase 16: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated at its start", flush=True)
+    layers = 18
+    while layers > 2 and TP * tp_reckoning(layers)["peak_per_rank"] > \
+            TP_BUDGET:
+        layers -= 2
+    rk = tp_reckoning(layers)
+    print(f"tensor parallelism (a): gemma-2b tp={TP} at {layers} of 18 "
+          f"layers: {rk['params_per_rank'] / 1e9:.3f} B parameters a rank "
+          f"({rk['ffn_params'] // TP / 1e9:.3f} B of the "
+          f"{rk['ffn_params'] / 1e9:.3f} B FFN); reckoning "
+          f"{rk['peak_per_rank'] / 2**30:.2f} GiB a rank, "
+          f"{TP * rk['peak_per_rank'] / 2**30:.2f} GiB for both (budget "
+          f"{TP_BUDGET / 2**30:.0f} GiB); tp wire staged "
+          f"{rk['tp_staged_per_step'] / 1e6:.1f} MB a step a rank "
+          f"({layers} layers x 2 all-reduces x 2 copies x 8 MiB)",
+          flush=True)
+    ref_run = p16_reference(torch, layers)
+    print(f"tensor parallelism (a): the unsharded run at world 1, losses "
+          f"{[round(x, 5) for x in ref_run['losses']]} [{card}]",
+          flush=True)
+    ranks, seconds = spawn_world4(torch, p16_child, P16_DIR,
+                                  (layers, ref_run["g_blocked_path"],
+                                   ref_run["path"],
+                                   ref_run["m_path"]), world=P16_WORLD)
+    tp = [r["tp"] for r in ranks[:TP]]
+    if tp[0]["losses"] != tp[1]["losses"]:
+        fail(f"tp ranks' losses differ: {tp[0]['losses']} / "
+             f"{tp[1]['losses']}")
+    for s, (a, b) in enumerate(zip(tp[0]["losses"], ref_run["losses"])):
+        if abs(a - b) > TP_LOSS_RTOL * abs(b):
+            fail(f"tp loss at step {s}: {a} against the unsharded {b}, "
+                 f"beyond rtol {TP_LOSS_RTOL}")
+    a = tp[0]
+    step_ms = statistics.median(a["step_ms_all"][1:])
+    print(f"tensor parallelism (a) [{card}]: losses "
+          f"{[round(x, 5) for x in a['losses']]} (rank 1 bit-equal; the "
+          f"unsharded run {[round(x, 5) for x in ref_run['losses']]}); "
+          + "; ".join(
+              f"{what}: relative L2 gap up to "
+              f"{max(r[k]['max'] for r in tp)} ({tp[0][k]['max_leaf']} on "
+              f"rank 0; median {tp[0][k]['median']}; limit "
+              f"{tp[0][k]['limit']})"
+              for k, what in (("blocked_gap", "the first step's gradients "
+                                              "against the control"),
+                              ("m_gap", "Adam's first moment after 3 "
+                                        "steps")))
+          + f"; the control's first-step gradients against the "
+          f"unsharded run's: relative L2 gap up to "
+          f"{ref_run['control_gap']['max']} (median "
+          f"{ref_run['control_gap']['median']}; limit {TP_GRAD_RTOL}); "
+          f"parameters: max |Δ| {max(r['params_max_abs_diff'] for r in tp)}, "
+          f"{sum(r['params_differing'] for r in tp)} of "
+          f"{sum(r['params_compared'] for r in tp)} entries differ, Adam "
+          f"envelope {a['adam_envelope']}; f32 leg bit-equal to "
+          f"mlp_blocked(blocks=2): {a['tiny_f32']['bit_equal']}; staged "
+          f"{a['staged_per_step'][0] / 1e6:.1f} MB a step (tp wire "
+          f"{a['reckoning']['tp_staged_per_step'] / 1e6:.1f} + DP edge "
+          f"{a['dp_staged'] / 1e6:.1f}); step {step_ms:.1f} ms (all "
+          f"{[round(t, 1) for t in a['step_ms_all']]}); peak "
+          f"{a['peak_bytes'] / 2**30:.2f} GiB a rank; launches "
+          f"{ {k: v for k, v in a['launches'].items() if v} }", flush=True)
+    for ep in EP_SIZES:
+        r0 = ranks[0]["ep"][f"ep{ep}"]
+        for variant in ("direct", "ring"):
+            leg = r0[variant]
+            print(f"expert parallelism (b) ep={ep} {variant} [{card}]: "
+                  f"{EP_ARCH} widths, {128 // ep} experts a rank, "
+                  f"{EP_BATCH} x {EP_SEQ} tokens a rank; drops "
+                  f"{leg['drops_total']} = the one process's "
+                  f"{r0['one_process']['drops']}; expert parameters "
+                  f"bit-equal {leg['params_bit_equal']} (max |Δ| "
+                  f"{leg['params_max_abs_diff']}), moments bit-equal "
+                  f"{leg['moments_bit_equal']}, losses of the ranks "
+                  f"bit-equal {leg['losses_bit_equal']}; {leg['a2a_calls']} "
+                  f"all-to-alls in {TRAIN_STEPS} steps; staged "
+                  f"{leg['staged_bytes'] / 1e6:.1f} MB; steps "
+                  f"{[round(t, 1) for t in leg['step_ms']]} ms (one "
+                  f"process: {[round(t, 1) for t in r0['one_process']['step_ms']]})",
+                  flush=True)
+    cal4 = ranks[0]["calibration"]
+    print(f"calibration on the gloo world of 4 (rank 0, card tensors "
+          f"staged) [{card}]:\n{ranks[0]['calibration_describe']}",
+          flush=True)
+    for name, r in ranks[0]["cli"].items():
+        print(f"cli world 4 {name}: {r['lines'][-1]}", flush=True)
+    calib = p16_calibration(torch, ops, ref, card)
+    cli1 = p16_cli_world1(torch, ops, train, card)
+    seconds_all = time.perf_counter() - t0
+    print(f"phase 16 took {seconds_all:.1f} s (the spawned world "
+          f"{seconds:.1f} s: ep {ranks[0]['ep_s']:.1f}, calibration "
+          f"{ranks[0]['calibration_s']:.1f}, cli {ranks[0]['cli_s']:.1f}, "
+          f"tp {ranks[0]['tp_s']:.1f})", flush=True)
+    return {"tp": tp, "tp_reference": ref_run,
+            "ep": {k: ranks[0]["ep"][k] for k in ranks[0]["ep"]},
+            "calibration_world4": cal4, "cli_world4": ranks[0]["cli"],
+            "calibration": calib, "cli_world1": cli1,
+            "spawn_s": seconds, "seconds": seconds_all,
+            "launches": {"tp_rank0": tp[0]["launches"],
+                         "calibration": calib["launches"],
+                         "cli_world1": cli1["launches"]}}
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -5241,6 +6264,14 @@ def main() -> None:
     for name in libs:
         check_ptxas(name, build.build_log(name))
     check_wgmma_instantiations(build.build_log("flash_attention_wgmma"))
+    if sys.argv[1:] == ["--phase", "16"]:
+        # phase 16 alone, after the build (a quicker check of its slice)
+        par = phase_parallel(torch, ops, ref, train, card)
+        print(json.dumps({"parallel": par, "card": card}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": kind,
+                                                 "count": count}}))
+        return
 
     # -- 3. kernels vs plain versions ---------------------------------------
     flash_err, flash_timings, tiles_timings = phase_flash(
@@ -5373,6 +6404,9 @@ def main() -> None:
     # -- 15. the Mamba, xLSTM and encoder-decoder families --------------------
     new = phase_new_families(torch, ops, ref, serve, train, card)
 
+    # -- 16. tensor / expert parallelism, calibration, drift re-planning ------
+    par = phase_parallel(torch, ops, ref, train, card)
+
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
                **{arch: r["launches"] for arch, r in moe["serving"].items()},
                f"{MLA_LONG_ARCH}_long": moe["long"]["launches"],
@@ -5407,6 +6441,8 @@ def main() -> None:
     train_runs["pipe_s2_stage"] = pipe["big"]["launches"]
     train_runs["moe_qwen3_int8_fused"] = moe["training"]["launches"]
     train_runs["xlstm_int8_fused"] = new["training"]["launches"]
+    train_runs.update({f"parallel_{k}": v
+                       for k, v in par["launches"].items()})
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -5414,7 +6450,8 @@ def main() -> None:
                     "world4_ring_fused_hop": world4["quantize_tiles_hop"]}
     train_timings["dequant_accum"]["world4_mid_bucket_w4"] = \
         world4["dequant_accum_w4"]
-    for kernel, per_shape in [*moe["wire"].items(), *new["wire"].items()]:
+    for kernel, per_shape in [*moe["wire"].items(), *new["wire"].items(),
+                              *par["calibration"]["kernels"].items()]:
         train_timings[kernel].update(per_shape)
     for route in ("wgmma", "simt"):
         flash_timings[route].update(moe["flash"][route])
@@ -5464,6 +6501,7 @@ def main() -> None:
     print(json.dumps({"moe": moe, "card": card}))
     print(json.dumps({"new_families": new, "encdec_flash": encdec_flash,
                       "card": card}))
+    print(json.dumps({"parallel": par, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -57,13 +57,33 @@ holds another stage's rows or the whole model's moments; and
 :attr:`params` merges the stages back (a gather over the pipe group when
 S > 1, so every rank reads it).  Its checkpoints hold the merged,
 leaf-shaped parameters and moments.  The elastic mode waits (ROADMAP.md
-queue 1, item 12), and so does calibration (item 11).
+queue 1, item 12).
+
+Tensor and expert parallelism are planning and record axes of the
+session, as in the reference: a tp or ep winner of :meth:`plan_auto`,
+or a strategy whose spec has ``tp`` / ``ep`` above 1, runs its DP edge
+over the session's data axes and carries the spec (``describe()``, the
+plan record).  The model-level wire that executes them is
+``models.layers.mlp_tp`` under ``models.sharding_ctx.tp_region`` and
+``moe_ffn(ep_axis=...)``, on process groups the caller builds.
+
+Calibration and drift re-planning: :meth:`calibrate` fits per-tier α/β
+from timed collectives (``core/schedule/calibration.py``), which
+:meth:`plan_auto` prices with (``calibration=``); :meth:`enable_replan`
+arms a drift check every few steps that re-runs the planner's search on
+a fresh backward profile, and :meth:`drift_report` sets the plan's
+modeled step against the measured one.  Every re-planning decision is
+taken from values all ranks share (the group's largest median step, its
+smallest backward), and the new plan is checked for agreement before it
+is installed.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
+import statistics
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -84,13 +104,17 @@ from repro_torch.core.collectives import axes_for_topology
 from repro_torch.core.collectives.p2p import (axis_index, axis_size,
                                               process_group, to_wire)
 from repro_torch.core.pipeline import StagedModel
-from repro_torch.core.schedule import (LINK_PRESETS, LinkParams,
-                                       PipelineAxis, RoundSchedule,
-                                       ExpertAxis, StrategyPlan, TensorAxis,
-                                       Topology,
-                                       fixed_config_plan, pipeline_arm,
-                                       pipeline_placements, plan, plan_rounds,
+from repro_torch.core.schedule import (LINK_PRESETS, CalibratedTopology,
+                                       LinkParams, PipelineAxis,
+                                       RoundSchedule, ExpertAxis,
+                                       StrategyPlan, TensorAxis, Topology,
+                                       calibrate_topology, drift_fraction,
+                                       fixed_config_plan,
+                                       modeled_wall_step_s, pipeline_arm,
+                                       pipeline_placements, plan,
+                                       plan_comm_error_s, plan_rounds,
                                        profiles_from_grads,
+                                       resolve_calibration,
                                        resolve_cost_table, serial_round_plan)
 from repro_torch.core.schedule.planner import FIXED_BASELINES, local_sgd_arm
 from repro_torch.core.strategy import LocalSGDScheduler
@@ -133,13 +157,12 @@ class SessionConfig:
 def strategy_from_plan(sp: StrategyPlan, axes=None) -> SyncStrategy:
     """The executable strategy a planner composite describes, over the
     data axes ``axes`` (process groups; None: the default group).  A tp
-    winner runs its DP edge (the arm's comm plan) and carries the spec as
-    a record axis, as the reference does on a mesh with no model axis (an
-    ep winner's strategy is refused when the session builds its step:
-    ROADMAP.md queue 1, item 10); a sharded winner runs sharded data
-    parallelism on the arm's plan; a pipeline winner runs the pipeline,
-    its DP edge per layer row on the arm's dominant (compressor, algo)
-    choice, as the reference's does."""
+    or ep winner runs its DP edge (the arm's comm plan) and carries the
+    spec as a record axis, as the reference does (the model axes run on
+    the model-level wire, ``layers.mlp_tp`` / ``moe_ffn(ep_axis=)``); a
+    sharded winner runs sharded data parallelism on the arm's plan; a
+    pipeline winner runs the pipeline, its DP edge per layer row on the
+    arm's dominant (compressor, algo) choice, as the reference's does."""
     if sp.schedule.kind == "local_sgd":
         return SyncStrategy(
             scheduler=get_scheduler("local_sgd", period=sp.schedule.period),
@@ -288,6 +311,16 @@ class TrainSession:
         self.control_rounds = 0
         self.step_times: List[float] = []
         self.wall_s = float("nan")
+        # calibration and drift re-planning
+        self.calibration: Optional[CalibratedTopology] = None
+        self.replans = 0
+        self.replan_events: List[Dict[str, Any]] = []
+        self._t_backward_spread_s = 0.0        # profile_backward's spread
+        self._replan_drift_pct = 0.0           # 0 = re-planning off
+        self._replan_every = 25
+        self._max_replans = 1
+        self._window: List[float] = []         # step times since the check
+        self._replan_search = None         # plan_auto's free search
         # MoE capacity overflow must not vanish silently: the drop tap
         # counts the dropped token-choices, drained once per step
         self.dropped_tokens = 0.0
@@ -344,10 +377,6 @@ class TrainSession:
             self._built = True
             return
         st = self.strategy
-        if st.parallelism.ep > 1:
-            raise NotImplementedError(
-                f"the strategy {st.describe()!r} runs expert parallelism, "
-                f"which is not ported yet (ROADMAP.md queue 1, item 10)")
         if st.pipeline_stages > 1 or st.micro_batches > 1:
             # S = 1 with micro-batches is the degenerate pipe: the same
             # 1F1B step with no hop, plain gradient accumulation
@@ -580,7 +609,9 @@ class TrainSession:
         batch (global / world rows, what one step computes per rank): one
         warm-up pass, then the min of ``repeats`` timed passes, each
         between ``torch.cuda.synchronize()`` calls on the card, × 2/3 (the
-        backward's share of a grad step).  The reference's policy."""
+        backward's share of a grad step).  The reference's policy; the
+        repeats' spread is kept as ``_t_backward_spread_s``, the backward's
+        term of the drift report's error budget."""
         batch = self.batch(0)
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
@@ -596,19 +627,64 @@ class TrainSession:
 
         once()
         times = [once() for _ in range(max(repeats, 1))]
+        self._t_backward_spread_s = (max(times) - min(times)) * (2.0 / 3.0)
         return min(times) * (2.0 / 3.0)
 
     def _group_min(self, value: float) -> float:
         """The smallest of every rank's ``value`` (one f64 all-reduce)."""
+        return self._group_reduce(value, dist.ReduceOp.MIN)
+
+    def _group_max(self, value: float) -> float:
+        """The largest of every rank's ``value`` (one f64 all-reduce)."""
+        return self._group_reduce(value, dist.ReduceOp.MAX)
+
+    def _group_reduce(self, value: float, op) -> float:
         if self.world == 1:
             return value
         wire_dev = self.device if dist.get_backend(self.group) == "nccl" \
             else torch.device("cpu")
         buf = to_wire(torch.tensor([value], dtype=torch.float64,
                                    device=wire_dev), self.group)
-        dist.all_reduce(buf, op=dist.ReduceOp.MIN,
-                        group=process_group(self.group))
+        dist.all_reduce(buf, op=op, group=process_group(self.group))
         return float(buf.item())
+
+    def calibrate(self, sizes=None, repeats=None,
+                  timer=None) -> CalibratedTopology:
+        """Measure THIS world's collective fabric and fit per-tier α/β
+        with confidence bounds (``--calibrate``).  On a tiered mesh
+        (``apply_topology`` matched the world) each tier's process group
+        is timed separately; otherwise the flat fabric over all ranks is
+        fitted — and if a planning-only topology was requested, the
+        calibration measures the ranks that run, not the model, so say
+        so.  Every rank calls it (the timed collectives run on every
+        rank).  The result is stored as ``self.calibration`` and feeds
+        :meth:`plan_auto` via ``calibration=``."""
+        from repro_torch.core.schedule.calibration import (CAL_LINK_REPEATS,
+                                                           CAL_LINK_SIZES)
+        if self.topology is not None and not self.tiered_mesh:
+            self._note(f"note: --calibrate times the HOST fabric "
+                       f"({self.world} rank(s)), not the planning "
+                       f"topology {self.topology.spec()}")
+        topo = self.topology if self.tiered_mesh else None
+        kw: Dict[str, Any] = {
+            "sizes": sizes if sizes is not None else CAL_LINK_SIZES,
+            "repeats": repeats if repeats is not None else CAL_LINK_REPEATS,
+        }
+        if timer is not None:
+            kw["timer"] = timer
+            if topo is None and self.topology is not None:
+                topo = self.topology    # injected timer: no group needed
+        else:
+            if topo is None:
+                topo = Topology.flat(self.world, LinkParams(), name="data")
+                kw["axes"] = (self.group,)
+            else:
+                kw["axes"] = self.axes  # one group per tier
+            kw["device"] = (self.device
+                            if dist.get_backend(self.group) == "nccl"
+                            else torch.device("cpu"))
+        self.calibration = calibrate_topology(topo, **kw)
+        return self.calibration
 
     def _check_plan_agreement(self, sp: StrategyPlan) -> str:
         """Gather every rank's :func:`plan_digest` and raise unless they
@@ -679,7 +755,8 @@ class TrainSession:
                   memory_budget_gb: Optional[float] = None,
                   topology=None, compression_costs=None,
                   parallelism=None, pipeline_stages: Optional[int] = None,
-                  micro_batches: Optional[int] = None) -> StrategyPlan:
+                  micro_batches: Optional[int] = None, calibration=None,
+                  straggler_s: float = 0.0) -> StrategyPlan:
         """``--sync auto``: profile the backward, search (rounds schedule ×
         per-bucket strategy × shard axis × parallelism axis) and install
         the winning composite as this session's strategy.
@@ -703,6 +780,13 @@ class TrainSession:
         ``pipeline_stages`` / ``micro_batches`` pin the arm to pipeline(S,
         M) (M defaults to 8): only its DP edge is planned, priced at the
         world if it factors into pipe(S) x data(>= 2), else at 2S.
+        ``calibration`` (a ``CalibratedTopology`` from :meth:`calibrate` /
+        ``--calibrate``, or a path to a saved one) replaces the preset
+        links with the FITTED fabric: it becomes the pricing topology,
+        unless a planning topology of another shape was given (then the
+        presets stay, with a warning).  ``straggler_s`` (a measured
+        worst-vs-median step skew) prices ``cost.straggler_penalty_s``
+        into every arm of the free search.
 
         A pipeline winner runs the pipeline where this session's world and
         batch can stage it (:meth:`_pipeline_executable`); otherwise the
@@ -731,6 +815,19 @@ class TrainSession:
                     "drop one")
         if topology is not None:
             self.apply_topology(topology)
+        cal = resolve_calibration(calibration)
+        if cal is not None:
+            self.calibration = cal
+            shape = [(t.name, t.size) for t in cal.topology.tiers]
+            if self.topology is not None and \
+                    [(t.name, t.size) for t in self.topology.tiers] != shape:
+                self._note(f"warning: calibration measured "
+                           f"{cal.topology.spec()} but the planning topology "
+                           f"is {self.topology.spec()}; fitted links apply "
+                           f"only to the fabric they were measured on — "
+                           f"planning keeps the preset links")
+            else:
+                self.apply_topology(cal.topology)
         if scheduler is not None and shard_state:
             raise ValueError("shard_state composes only with the planner's "
                              "every-step arm, not a pinned rounds scheduler")
@@ -766,6 +863,22 @@ class TrainSession:
         mem_budget = (memory_budget_gb * 2**30
                       if memory_budget_gb is not None else None)
 
+        def _search(sg):
+            # the free search, kept for _replan / replan_now to re-run with
+            # a fresh profile; a pinned scheduler keeps the FREE search
+            # too (the pin is a user preference, not an execution
+            # constraint)
+            return functools.partial(
+                plan_rounds, link=lp, world=world,
+                opt_name=self.cfg.optimizer, shard_grid=sg,
+                opt_moments=self.opt_moments,
+                memory_budget_bytes=mem_budget, pipeline=pipe_axis,
+                tensor=tensor_axis, expert=expert_axis,
+                parallelism=parallelism, straggler_s=straggler_s,
+                **kw, **({"tau_grid": tau_grid}
+                         if tau_grid is not None else {}))
+
+        self._replan_search = None
         arms: Dict[str, StrategyPlan]
         t_search = time.perf_counter()
         if pipeline_stages is not None and pipeline_stages > 1:
@@ -797,15 +910,8 @@ class TrainSession:
         elif scheduler is None:
             shard_grid = ((False, True) if shard_state is None
                           else (bool(shard_state),))
-            best, arms = plan_rounds(
-                profiles, lp, world,
-                opt_name=self.cfg.optimizer, shard_grid=shard_grid,
-                opt_moments=self.opt_moments,
-                memory_budget_bytes=mem_budget,
-                pipeline=pipe_axis, tensor=tensor_axis, expert=expert_axis,
-                parallelism=parallelism,
-                **dict(kw, **({"tau_grid": tau_grid}
-                              if tau_grid is not None else {})))
+            self._replan_search = _search(shard_grid)
+            best, arms = self._replan_search(profiles)
             exec_best = best
             if best.pipeline_stages > 1 and not self._pipeline_executable(
                     best.pipeline_stages, best.micro_batches):
@@ -822,6 +928,7 @@ class TrainSession:
                            f"instead")
             strategy = strategy_from_plan(exec_best, self.axes)
         elif isinstance(scheduler, LocalSGDScheduler):
+            self._replan_search = _search((False,))
             rp = serial_round_plan(profiles, lp, world, **kw)
             best = exec_best = local_sgd_arm(rp, t_bwd,
                                              scheduler.cfg.period)
@@ -833,6 +940,7 @@ class TrainSession:
             # LAG / push-pull / every-step: the gradient syncs get the
             # overlap-planned per-bucket plan; the round COUNT is the
             # scheduler's, so the every-step modeled time is an upper bound
+            self._replan_search = _search((False,))
             cp = plan(profiles, lp, world, **kw)
             best = exec_best = StrategyPlan(
                 schedule=RoundSchedule(kind=scheduler.name), comm=cp,
@@ -992,15 +1100,21 @@ class TrainSession:
             log=print) -> List[float]:
         """Train ``steps`` steps (default: ``cfg.steps``); returns the
         losses of THIS run.  Each step's wall time (host clock, after the
-        loss reached the host) is kept in ``step_times``."""
+        loss reached the host) is kept in ``step_times``; the steps after
+        the one that built the programs feed the drift check of
+        :meth:`enable_replan`, which runs after every step."""
         steps = steps or self.cfg.steps
         t0 = time.perf_counter()
         out: List[float] = []
         for i in range(steps):
+            pre_built = self._built      # a build step pays the build
             ts = time.perf_counter()
             loss = self.step_once()
             dt = time.perf_counter() - ts
             self.step_times.append(dt)
+            if pre_built:
+                self._window.append(dt)
+            self._maybe_replan()
             out.append(loss)
             if log_every and i % log_every == 0:
                 drops = (f", dropped {self.drop_fraction * 100:.1f}%"
@@ -1010,6 +1124,204 @@ class TrainSession:
                     f"{drops})", flush=True)
         self.wall_s = time.perf_counter() - t0
         return out
+
+    # -- modeled vs measured ------------------------------------------------
+
+    def measured_step_s(self) -> float:
+        """Median wall time of this rank's steps that :meth:`run` ran,
+        dropping the first (it builds the programs).  NaN before any
+        step."""
+        times = self.step_times[1:] or self.step_times
+        return statistics.median(times) if times else float("nan")
+
+    def enable_replan(self, drift_pct: float, check_every: int = 25,
+                      max_replans: int = 1) -> None:
+        """Arm the drift-gated re-planning hook (``--replan-drift-pct``):
+        every ``check_every`` steps after the build, compare the window's
+        median step time (the group's largest) against the plan's modeled
+        wall step; when the drift exceeds ``drift_pct`` percent,
+        re-profile the backward and re-run the planner's search.  Off by
+        default (0 disarms)."""
+        self._replan_drift_pct = float(drift_pct)
+        self._replan_every = max(int(check_every), 2)
+        self._max_replans = int(max_replans)
+
+    def _modeled_wall_s(self) -> float:
+        sp = self.planned.get("strategy_plan") if self.planned else None
+        if sp is None:
+            return float("nan")
+        return modeled_wall_step_s(sp.modeled_step_s, sp.t_backward_s)
+
+    def _maybe_replan(self) -> None:
+        """The drift check after a step.  Every rank reaches the same
+        decision: the window fills at the same step on every rank, the
+        measured step is the group's largest median, and the modeled one
+        comes from the plan all ranks agreed on."""
+        if (self._replan_drift_pct <= 0 or self.planned is None
+                or len(self._window) < self._replan_every
+                or self.replans >= self._max_replans):
+            if len(self._window) >= self._replan_every:
+                self._window.clear()
+            return
+        measured = self._group_max(statistics.median(self._window))
+        self._window.clear()
+        modeled = self._modeled_wall_s()
+        if not modeled or modeled != modeled:
+            return
+        drift = drift_fraction(modeled, measured)
+        if abs(drift) * 100.0 <= self._replan_drift_pct:
+            return
+        self._replan(drift, measured)
+
+    def replan_now(self, straggler_s: float = 0.0,
+                   t_backward_s: Optional[float] = None) -> Dict[str, Any]:
+        """Force one re-plan outside the drift gate (the elastic runtime's
+        straggler escalation): re-run the stashed planner search pricing
+        every arm with ``cost.straggler_penalty_s(straggler_s,
+        rounds/step)``, so a persistent straggler demotes the winning
+        cadence.  ``t_backward_s`` skips the backward re-profile
+        (deterministic re-plans).  Every rank calls it, with the same
+        ``straggler_s``.  Returns the recorded event; needs a prior
+        :meth:`plan_auto` (the stashed search)."""
+        if self.planned is None:
+            raise RuntimeError("replan_now needs a prior plan_auto")
+        measured = self.measured_step_s()
+        if measured == measured:
+            measured = self._group_max(measured)
+        self._replan(0.0, measured, straggler_s=straggler_s,
+                     t_backward_s=t_backward_s)
+        return self.replan_events[-1]
+
+    def _collapse_mean(self, tree):
+        """A diverging scheduler's per-rank state collapsed to its mean
+        over the group (the parameter-averaging round the scheduler owed):
+        floating leaves averaged in f32 and cast back, the others kept."""
+        if self.world == 1:
+            return tree
+        from repro_torch.core.collectives import allreduce
+
+        def one(x):
+            if not torch.is_floating_point(x):
+                return x
+            buf = x.detach().to(torch.float32, copy=True)
+            buf = allreduce(buf, "psum", self.group) / float(self.world)
+            return buf.to(x.dtype)
+        return tree_map(one, tree)
+
+    def _replan(self, drift: float, measured_s: float,
+                straggler_s: float = 0.0,
+                t_backward_s: Optional[float] = None) -> None:
+        """Re-run the stashed planner search with a FRESH backward profile
+        (the group's smallest, as :meth:`plan_auto` takes it).  The ranks
+        check that they planned alike, then the new winner is installed
+        when neither the outgoing nor the incoming arm pins an execution
+        shape that would strand state: no pipeline / micro-batch mesh and
+        no shard rows on either side, and an incoming plain every-step or
+        local-SGD arm.  An outgoing diverging scheduler's per-rank state is
+        collapsed to its mean first (counted as one parameter round);
+        scheduler and EF state start afresh on the rebuild.  Pipeline and
+        sharded shapes only record the recommendation."""
+        event: Dict[str, Any] = {
+            "step": self.step, "drift_frac": drift,
+            "measured_step_s": measured_s,
+            "old_key": self.planned["strategy_plan"].key,
+            "applied": False, "note": ""}
+        if straggler_s > 0.0:
+            event["straggler_s"] = straggler_s
+        search = self._replan_search
+        if search is None:
+            event["note"] = ("no free-search plan to rerun (pinned "
+                             "pipeline)")
+            event["new_key"] = event["old_key"]
+            self.replans += 1
+            self.replan_events.append(event)
+            return
+        t_bwd = t_backward_s if t_backward_s is not None \
+            else self._group_min(self.profile_backward())
+        # the leaf sizes plan_auto profiled (the model's tree, whatever
+        # this rank holds)
+        profiles = profiles_from_grads(self.model.param_desc(), t_bwd)
+        ss = straggler_s if straggler_s > 0.0 \
+            else search.keywords["straggler_s"]
+        best, arms = search(profiles, straggler_s=ss)
+        digest = self._check_plan_agreement(best)
+        event["new_key"] = best.key
+        old = self.strategy
+        old_ok = (old is not None
+                  and old.pipeline_stages <= 1 and old.micro_batches <= 1
+                  and not old.shard_state)
+        new_ok = (best.schedule.kind in ("every_step", "local_sgd")
+                  and not best.shard_state
+                  and best.pipeline_stages <= 1
+                  and best.micro_batches <= 1)
+        if old_ok and new_ok:
+            if best.key != event["old_key"] \
+                    or type(old.scheduler).name != best.schedule.kind:
+                if self._built and old.scheduler.diverges_params:
+                    # the collapse IS the parameter-averaging round the
+                    # outgoing local scheduler owed
+                    self._params = self._collapse_mean(self._params)
+                    self.opt_state = self._collapse_mean(self.opt_state)
+                    self.param_rounds += 1
+                self.strategy = strategy_from_plan(best, self.axes)
+                self._built = False    # rebuilt lazily; EF residual resets
+                event["applied"] = True
+            else:
+                event["note"] = "re-plan kept the incumbent arm"
+        else:
+            event["note"] = ("winner needs a different execution shape "
+                             "(shard/pipeline); not swapped mid-run")
+        self.planned = dict(self.planned, strategy_plan=best, arms=arms,
+                            t_backward_s=t_bwd, digest=digest,
+                            **({"executed": best} if event["applied"]
+                               else {}))
+        self.replans += 1
+        self.replan_events.append(event)
+        self._note(f"replan @step {self.step}: drift {drift * 100:+.1f}%"
+                   + (f", straggler {ss * 1e3:.1f} ms" if ss > 0 else "")
+                   + f" -> {best.key}"
+                   + (" (installed)" if event["applied"]
+                      else f" ({event['note']})"))
+
+    def drift_report(self) -> Optional[Dict[str, Any]]:
+        """The modeled-vs-measured closing of the loop: per-arm predicted
+        step time against this rank's measured median, with the fit's
+        error budget (comm α/β confidence + backward-profile spread +
+        measurement spread).  None until both a plan and steps exist.
+        Local to the rank (no collective)."""
+        if self.planned is None or not self.step_times:
+            return None
+        sp = self.planned["strategy_plan"]
+        measured = self.measured_step_s()
+        modeled_wall = self._modeled_wall_s()
+        times = self.step_times[1:] or self.step_times
+        spread = (max(times) - min(times)) / 2.0 if len(times) > 1 else 0.0
+        comm_err = plan_comm_error_s(sp.comm, self.calibration)
+        fit_err = comm_err + self._t_backward_spread_s + spread
+        arms = {}
+        for key, arm in self.planned.get("arms", {}).items():
+            wall = modeled_wall_step_s(arm.modeled_step_s, arm.t_backward_s)
+            arms[key] = {
+                "modeled_step_s": arm.modeled_step_s,
+                "modeled_wall_step_s": wall,
+                "drift_pct": drift_fraction(wall, measured) * 100.0}
+        return {
+            "plan_key": sp.key,
+            "modeled_step_s": sp.modeled_step_s,
+            "modeled_wall_step_s": modeled_wall,
+            "measured_step_s": measured,
+            "steps_measured": len(times),
+            "drift_frac": drift_fraction(modeled_wall, measured),
+            "drift_pct": drift_fraction(modeled_wall, measured) * 100.0,
+            "comm_fit_err_s": comm_err,
+            "t_backward_err_s": self._t_backward_spread_s,
+            "measured_spread_s": spread,
+            "fit_error_s": fit_err,
+            "within_fit_error": abs(measured - modeled_wall) <= fit_err,
+            "replans": self.replans,
+            "replan_events": list(self.replan_events),
+            "arms": arms,
+        }
 
     def num_params(self) -> int:
         return count_params(self.model_cfg)

@@ -41,6 +41,14 @@ are the port's own ``Model(cfg).param_desc()``, so a tree missing one of
 them, or holding one more, is refused.  bf16 arrays (numpy's ``bfloat16``
 extension dtype) cross bit for bit.
 
+``tp_slice(params, rank, tp)`` and ``ep_slice(params, rank, ep)`` cut a
+parameter tree to one model-axis rank's share by the reference's logical
+axes ("ffn" and "experts" go to the model axis): every dense FFN's
+``wi_gate`` / ``wi_up`` on their output features and ``wo`` on its input
+features, and every MoE FFN's stacked experts on the expert dim.  The
+rest of the tree (and a MoE FFN's router and shared experts) is kept
+whole, replicated on every rank.
+
 ``to_numpy(tree)`` is the reverse for comparisons: any tree of the port's
 tensors (parameters, optimizer moments, EF residuals) as numpy arrays on
 the host, bf16 widened to f32 (exact), so tests can hold it against the
@@ -92,6 +100,57 @@ def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
     package's tree; raises on any missing key or shape mismatch."""
     return _convert(Model(cfg).param_desc(), tree, resolve_device(device),
                     "params")
+
+
+def _block(t: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"dim {dim} of shape {tuple(t.shape)} does not "
+                         f"split over {n} ranks")
+    return t.narrow(dim, rank * (size // n), size // n).contiguous()
+
+
+def mlp_slice(ffn, rank: int, tp: int):
+    """Tensor-parallel rank ``rank``'s slice of one dense FFN ``{wi_gate,
+    wi_up, wo}`` (leaves may carry a leading stacked-layer dim)."""
+    return {"wi_gate": _block(ffn["wi_gate"], -1, rank, tp),
+            "wi_up": _block(ffn["wi_up"], -1, rank, tp),
+            "wo": _block(ffn["wo"], -2, rank, tp)}
+
+
+def experts_slice(ffn, rank: int, ep: int):
+    """Expert-parallel rank ``rank``'s block of one MoE FFN's experts
+    (``wi_gate`` / ``wi_up`` (E, d, ff), ``wo`` (E, ff, d), with an
+    optional leading stacked-layer dim); router and shared experts kept."""
+    out = dict(ffn)
+    for k in ("wi_gate", "wi_up", "wo"):
+        out[k] = _block(ffn[k], -3, rank, ep)
+    return out
+
+
+def _cut_ffns(tree, cut):
+    if isinstance(tree, dict):
+        return {k: (cut(v) if k == "ffn" and isinstance(v, dict)
+                    else _cut_ffns(v, cut))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cut_ffns(v, cut) for v in tree]
+    return tree
+
+
+def tp_slice(params, rank: int, tp: int):
+    """The parameter tree tp rank ``rank`` of ``tp`` holds: every dense
+    FFN cut to its ffn slice (``mlp_slice``); MoE FFNs and everything
+    else whole."""
+    return _cut_ffns(params, lambda f: f if "router" in f
+                     else mlp_slice(f, rank, tp))
+
+
+def ep_slice(params, rank: int, ep: int):
+    """The parameter tree ep rank ``rank`` of ``ep`` holds: every MoE
+    FFN's experts cut to its block (``experts_slice``); the rest whole."""
+    return _cut_ffns(params, lambda f: experts_slice(f, rank, ep)
+                     if "router" in f else f)
 
 
 def to_numpy(tree):

@@ -1,5 +1,6 @@
 from repro_torch.core.collectives.api import (  # noqa: F401
-    ALGOS, all_gather, all_gather_shards, all_to_all, allreduce, as_axes,
+    ALGOS, all_gather, all_gather_shards, all_to_all, all_to_all_grad,
+    allreduce, as_axes,
     axes_for_topology,
     local_chunk, my_chunk_index, nested_shard_len, pad_to_chunks,
     reduce_scatter, send_recv, world_size)

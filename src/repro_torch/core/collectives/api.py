@@ -13,7 +13,8 @@ default group) for a one-axis mesh.
     ``mesh2d.py`` and ``ring_fused.py`` (the compressed ring, whose
     per-hop encode is the ``quantize_tiles`` kernel on the card);
   * :func:`all_gather` (the payload exchange of gather-pattern wires),
-    :func:`all_to_all` (``direct`` and ``ring``) and :func:`send_recv`;
+    :func:`all_to_all` (``direct`` and ``ring``), its differentiable
+    form :func:`all_to_all_grad` and :func:`send_recv`;
   * the sharded-DP edges :func:`reduce_scatter` and
     :func:`all_gather_shards` with the nested canonical chunking
     (:func:`nested_shard_len`, :func:`pad_to_chunks`,
@@ -188,6 +189,29 @@ def all_to_all(x: torch.Tensor, axis: Axis, variant: str = "direct"):
         perm = [(r, (r + s) % p) for r in range(p)]
         out[(i - s) % p] = permute(x[(i + s) % p], perm, axis)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` under autograd.  The exchange is its own inverse
+    (a rank <-> chunk transpose), so its backward is the same exchange of
+    the cotangent: the dispatch's reverse edge is the combine."""
+
+    @staticmethod
+    def forward(ctx, x, axis, variant):
+        ctx.axis, ctx.variant = axis, variant
+        return all_to_all(x, axis, variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.axis, ctx.variant), None, None
+
+
+def all_to_all_grad(x: torch.Tensor, axis: Axis,
+                    variant: str = "direct") -> torch.Tensor:
+    """The differentiable :func:`all_to_all` (either variant): what flows
+    back is the all-to-all of the cotangent.  The expert-parallel MoE
+    dispatches and combines through it."""
+    return _AllToAll.apply(x, axis, variant)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The communication planner of the port (survey §3.3 + §4.1): the α-β
 cost model, the tiered topology, the overlap model and the per-bucket /
 rounds / parallelism search, copied from ``repro/core/schedule`` and held
-to it by ``tests/test_torch_planner.py``.  Calibration (``calibrate_topology``,
-``measure_compression_costs`` and the drift report) is ROADMAP.md queue 1,
-item 11; ``resolve_cost_table`` lives in ``cost.py``."""
+to it by ``tests/test_torch_planner.py``, and the measured calibration
+(``calibration.py``: ``calibrate_topology``, ``measure_compression_costs``,
+the drift accounting), held to it by ``tests/test_torch_calibration.py``;
+``resolve_cost_table`` lives in ``cost.py``."""
 from repro_torch.core.schedule.cost import (  # noqa: F401
     DECODE_HBM_BW, LINK_PRESETS, CompressionCostTable, LinkParams,
     all_to_all_cost_s, allgather_cost_s, allreduce_cost_s,
@@ -11,6 +12,11 @@ from repro_torch.core.schedule.cost import (  # noqa: F401
     compressed_wire_bytes, decode_step_cost_s, p2p_cost_s,
     reduce_scatter_cost_s, resolve_cost_table, shard_gather_cost_s,
     straggler_penalty_s)
+from repro_torch.core.schedule.calibration import (  # noqa: F401
+    CALIBRATION_SET, AffineFit, CalibratedTopology, LinkFit,
+    calibrate_topology, drift_fraction, fit_affine,
+    measure_compression_costs, modeled_wall_step_s, plan_comm_error_s,
+    resolve_calibration)
 from repro_torch.core.schedule.topology import (  # noqa: F401
     TOPOLOGY_PRESETS, Tier, Topology, as_topology)
 from repro_torch.core.schedule.perf_model import (  # noqa: F401

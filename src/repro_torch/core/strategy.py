@@ -20,10 +20,10 @@ Schedulers carry their own state through ``init_state`` / ``round`` /
 gradient collective, ``reuse`` — LAG's apply of the last synchronized
 gradient) and whether a parameter round follows.  Every scheduler of the
 reference is here.  The parallelism axis is a ``ParallelismSpec``: its
-tensor axis is carried as a record axis (the planner prices it; the port
-runs its DP edge, as the reference does on a mesh with no model axis),
-an expert axis above 1 is refused when the session builds its step
-(ROADMAP.md queue 1, item 10), ``shard`` runs sharded data parallelism
+tensor and expert axes are carried as record axes (the planner prices
+them; the session runs their DP edge, as the reference's does; the
+model-level wire is ``layers.mlp_tp`` and ``moe_ffn(ep_axis=...)``),
+``shard`` runs sharded data parallelism
 (partitioned f32 master and moments, the session's sharded step), and
 ``pp`` / ``micro`` the 1F1B pipeline (the session's pipeline step;
 ``micro`` alone is micro-batched accumulation).

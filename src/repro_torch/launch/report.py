@@ -4,13 +4,23 @@ planner calls (the per-tier cost breakdown, the markdown plan tables, the
 JSON plan record), the per-worker memory line of a sharded run and the
 stage table of a pipeline run.
 Records go to ``artifacts/comm_plans_torch/<arch>.json``
-(``launch/paths.py``).  The dry-run and roofline tables are ROADMAP.md
-queue 1, item 14; the calibration and drift blocks, item 11.
+(``launch/paths.py``), with the calibration and drift blocks of a
+``--calibrate`` / ``--replan-drift-pct`` run and its drift table
+(:func:`render_drift_table`).  The dry-run and roofline tables are
+ROADMAP.md queue 1, item 14.
 """
 from __future__ import annotations
 
 import json
 import os
+
+
+def _gbps(link) -> float:
+    """A link's bandwidth in GB/s; infinite for β = 0, which a calibrated
+    one-rank tier fits when its timings fall with size (the reference
+    divides by zero there)."""
+    b = link.beta_s_per_byte
+    return 1.0 / b / 1e9 if b > 0 else float("inf")
 
 
 def tier_cost_breakdown(plan) -> dict:
@@ -60,7 +70,7 @@ def render_comm_plan(plan, baselines=None, t_backward_s=None,
     if tiered:
         tier_txt = " → ".join(
             f"{t.name}:{t.size} (α={t.link.alpha_s:.2e} s, "
-            f"β⁻¹={1 / t.link.beta_s_per_byte / 1e9:.2f} GB/s)"
+            f"β⁻¹={_gbps(t.link):.2f} GB/s)"
             for t in link.tiers)
         lines.append(f"world={world}, topology {tier_txt}"
                      + (f", measured backward {t_backward_s * 1e3:.1f} ms"
@@ -70,7 +80,7 @@ def render_comm_plan(plan, baselines=None, t_backward_s=None,
         if isinstance(link, Topology):
             link = link.tiers[0].link      # flat topology: one tier's link
         lines.append(f"world={world}, α={link.alpha_s:.2e} s, "
-                     f"β⁻¹={1 / link.beta_s_per_byte / 1e9:.2f} GB/s"
+                     f"β⁻¹={_gbps(link):.2f} GB/s"
                      + (f", measured backward {t_backward_s * 1e3:.1f} ms"
                         if t_backward_s else ""))
         lines.append("")
@@ -289,9 +299,13 @@ def save_comm_plan(plan, arch: str) -> str:
     return _write_plan_record(comm_plan_record(plan), arch)
 
 
-def save_strategy_plan(sp, arch: str) -> str:
+def save_strategy_plan(sp, arch: str, calibration=None, drift=None) -> str:
     """Write the composite-strategy record (rounds schedule + comm plan)
-    under artifacts/comm_plans_torch/; returns the file path."""
+    under artifacts/comm_plans_torch/; returns the file path.
+    ``calibration`` (a ``CalibratedTopology``) and ``drift``
+    (``TrainSession.drift_report()``) add their blocks ONLY when present,
+    so records written without them keep the exact pre-calibration
+    schema."""
     rec = comm_plan_record(sp.comm)
     rec["schedule"] = {"kind": sp.schedule.kind, "period": sp.schedule.period}
     rec["modeled_step_s"] = sp.modeled_step_s
@@ -314,7 +328,46 @@ def save_strategy_plan(sp, arch: str) -> str:
             rec["parallelism"]["model_comm_s"] = sp.model_comm_s
     if sp.opt_mem_bytes == sp.opt_mem_bytes:   # not NaN
         rec["opt_mem_bytes_per_worker"] = sp.opt_mem_bytes
+    if calibration is not None:
+        cal = calibration.to_json()
+        cal.pop("samples", None)    # raw timings live in the .cal file
+        rec["calibration"] = cal
+    if drift is not None:
+        rec["drift"] = drift
     return _write_plan_record(rec, arch)
+
+
+def render_drift_table(drift: dict) -> str:
+    """The modeled↔measured closing table (``--calibrate`` /
+    ``--replan-drift-pct`` epilogue): per-arm predicted wall step vs this
+    run's measured median, drift %, and the error-budget verdict."""
+    meas = drift["measured_step_s"]
+    lines = [f"modeled vs measured ({drift['steps_measured']} steps, "
+             f"median {meas * 1e3:.1f} ms/step):",
+             "| arm | modeled ms | wall ms | measured ms | drift |",
+             "|---|---|---|---|---|"]
+    chosen = drift["plan_key"]
+    for key, a in sorted(drift["arms"].items(),
+                         key=lambda kv: kv[1]["modeled_wall_step_s"]):
+        mark = " ←" if key == chosen else ""
+        lines.append(f"| {key}{mark} | {a['modeled_step_s'] * 1e3:.1f} | "
+                     f"{a['modeled_wall_step_s'] * 1e3:.1f} | "
+                     f"{meas * 1e3:.1f} | {a['drift_pct']:+.1f}% |")
+    err = drift["fit_error_s"]
+    verdict = "within" if drift["within_fit_error"] else "OUTSIDE"
+    lines.append(
+        f"chosen arm drift {drift['drift_pct']:+.1f}% — {verdict} the "
+        f"±{err * 1e3:.1f} ms error budget (comm fit "
+        f"{drift['comm_fit_err_s'] * 1e3:.2f} + backward spread "
+        f"{drift['t_backward_err_s'] * 1e3:.1f} + measurement spread "
+        f"{drift['measured_spread_s'] * 1e3:.1f})")
+    if drift["replans"]:
+        for e in drift["replan_events"]:
+            lines.append(f"replan @step {e['step']}: drift "
+                         f"{e['drift_frac'] * 100:+.1f}% → {e['new_key']}"
+                         + (" (installed)" if e["applied"]
+                            else f" ({e['note']})"))
+    return "\n".join(lines)
 
 
 def comm_plan_record(plan) -> dict:

@@ -37,10 +37,24 @@ reducer:
                                  the gradient sync per layer row on the
                                  data axis ('micro=M' alone: micro-batched
                                  accumulation); prints the stage table
-                                 after training.  Under --sync auto it
-                                 pins the planner's arms to the spec.
-                                 (--shard-state, --pipeline-stages,
-                                 --micro-batches: the deprecated shims)
+                                 after training.  'dp=D,tp=T' / 'dp=D,ep=E':
+                                 tensor / expert parallelism as planning
+                                 and record axes (the DP edge runs over
+                                 the ranks, the spec rides in describe()
+                                 and the plan record), as the reference.
+                                 Under --sync auto it pins the planner's
+                                 arms to the spec.  (--shard-state,
+                                 --pipeline-stages, --micro-batches: the
+                                 deprecated shims)
+  * --calibrate                  time the collectives of this world (one
+                                 process group per tier) and fit per-tier
+                                 α/β; --sync auto prices every arm on the
+                                 fitted fabric, and the record gains the
+                                 calibration and drift blocks
+  * --replan-drift-pct PCT       re-run the planner mid-training when the
+                                 measured step drifts more than PCT% from
+                                 the modeled wall step, checked every
+                                 --replan-every steps (default 25)
   * --checkpoint PATH            write params + optimizer state after the
                                  run (``PATH.npz`` + ``PATH.json``)
   * --data-parallel N            a world of N ranks, spawned here (one
@@ -55,9 +69,7 @@ without ``--device`` it raises.  Ranks meet through a file
 (``launch/dist.py``: NCCL on the card, one card per rank; gloo on the
 CPU; no network).  Weights are random, from a ``torch.Generator`` seeded
 with ``--seed``.  Every compressor, collective algorithm and optimizer of
-the reference is taken.  ``--calibrate``, ``--replan-drift-pct`` and
-``--replan-every`` raise and name ROADMAP.md queue 1, item 11, and a
-``--parallelism`` spec with ``tp`` / ``ep`` above 1 item 10.
+the reference is taken.
 ``--arch`` takes every model the port registers (``configs.ALL_ARCHS``:
 gemma-2b, gemma2-9b, gemma3-4b, deepseek-67b, chameleon-34b,
 qwen3-moe-30b-a3b, deepseek-v2-lite-16b).  Rank 0 prints the loss and
@@ -87,6 +99,7 @@ from repro_torch.launch.dist import destroy_group, init_group, spawn
 from repro_torch.launch.report import (render_moe_drops,
                                        render_pipeline_stages,
                                        render_sharded_memory,
+                                       render_drift_table,
                                        render_strategy_plan,
                                        save_strategy_plan)
 
@@ -155,9 +168,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "the ranks, params all-gathered back), "
                          "'pp=2,micro=8': the 1F1B pipeline (micro "
                          "defaults to 8 with pp > 1; 'micro=M' alone: "
-                         "micro-batched accumulation); under --sync auto "
-                         "only arms of the spec may win.  tp / ep above 1 "
-                         "(ROADMAP.md queue 1, item 10) are not ported yet")
+                         "micro-batched accumulation); 'dp=2,tp=2' / "
+                         "'dp=2,ep=2': tensor / expert parallelism as "
+                         "planning and record axes; under --sync auto "
+                         "only arms of the spec may win")
     ap.add_argument("--shard-state", action="store_true",
                     help="DEPRECATED shim for --parallelism '...,shard'")
     ap.add_argument("--pipeline-stages", type=int, default=1, metavar="S",
@@ -177,12 +191,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "1 runs micro-batched gradient accumulation "
                          "through the same step")
     ap.add_argument("--calibrate", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1, item 11)")
+                    help="time real collectives on this world's process "
+                         "groups before planning and fit per-tier α/β "
+                         "(with confidence bounds) — --sync auto then "
+                         "prices every arm on the FITTED fabric instead of "
+                         "the presets, and the plan record gains "
+                         "calibration + drift blocks")
     ap.add_argument("--replan-drift-pct", type=float, default=0.0,
                     metavar="PCT",
-                    help="not ported yet (ROADMAP.md queue 1, item 11)")
-    ap.add_argument("--replan-every", type=int, default=None,
-                    help="not ported yet (ROADMAP.md queue 1, item 11)")
+                    help="re-run the planner mid-training when the "
+                         "measured step time drifts more than PCT%% from "
+                         "the modeled wall step (checked every "
+                         "--replan-every steps; 0 = off, the default)")
+    ap.add_argument("--replan-every", type=int, default=25,
+                    help="steps between drift checks for "
+                         "--replan-drift-pct (default 25)")
     ap.add_argument("--local-sgd", type=int, default=0, metavar="TAU")
     ap.add_argument("--post-local", type=int, default=0)
     ap.add_argument("--lag", type=float, default=0.0, metavar="THRESH")
@@ -223,9 +246,8 @@ def resolve_cli_parallelism(args) -> ParallelismSpec:
     ``--micro-batches`` shims — into one ``ParallelismSpec``, with the
     reference's pipeline default of 8 micro-batches when ``pp > 1``.
     Mixing the spec with a shim is a SystemExit; shims alone warn and
-    build the equivalent spec.  ``tp`` and ``ep`` above 1 raise
-    ``NotImplementedError`` naming ROADMAP.md queue 1, item 10 (the
-    reference executes them on a model axis)."""
+    build the equivalent spec.  ``tp`` and ``ep`` above 1 are planning
+    and record axes, as in the reference's session."""
     legacy_used = [f for f, on in
                    (("--shard-state", args.shard_state),
                     ("--pipeline-stages", args.pipeline_stages != 1),
@@ -258,36 +280,16 @@ def resolve_cli_parallelism(args) -> ParallelismSpec:
         spec = ParallelismSpec.legacy(shard_state=args.shard_state,
                                       pipeline_stages=pipe,
                                       micro_batches=micro)
-    if spec.tp > 1 or spec.ep > 1:
-        raise NotImplementedError(
-            f"--parallelism {spec.spec()!r}: tensor / expert parallelism "
-            f"as an executed model axis is not ported yet (ROADMAP.md "
-            f"queue 1, item 10)")
     return spec
-
-
-def check_unported(args) -> None:
-    """Raise for the flags whose machinery is not ported yet, naming the
-    ROADMAP.md item that owns it (``resolve_cli_parallelism`` raises for
-    the parallelism axes)."""
-    late = [f for f, on in (("--calibrate", args.calibrate),
-                            ("--replan-drift-pct",
-                             args.replan_drift_pct > 0),
-                            ("--replan-every",
-                             args.replan_every is not None)) if on]
-    if late:
-        raise NotImplementedError(
-            f"{', '.join(late)}: calibration and re-planning are not ported "
-            f"yet (ROADMAP.md queue 1, item 11)")
 
 
 def plan_session(session: TrainSession, args, scheduler, par_spec,
                  log) -> None:
-    """``--sync auto``: plan on the session (a ``--parallelism`` spec pins
-    the free search's arms, ``--shard-state`` its shard axis), print the
-    plan with the fixed baselines, write the record (rank 0), and hold the
-    free search to the planner's guarantee (auto <= the best fixed
-    baseline)."""
+    """``--sync auto``: calibrate the fabric first under ``--calibrate``,
+    plan on the session (a ``--parallelism`` spec pins the free search's
+    arms, ``--shard-state`` its shard axis), print the plan with the
+    fixed baselines, write the record (rank 0), and hold the free search
+    to the planner's guarantee (auto <= the best fixed baseline)."""
     ignored = [f for f, on in (("--compressor", args.compressor != "none"),
                                ("--algo", args.algo != "psum"),
                                ("--bucket-mb", args.bucket_mb != 32.0),
@@ -296,6 +298,10 @@ def plan_session(session: TrainSession, args, scheduler, par_spec,
     if ignored:
         log(f"warning: --sync auto chooses per-bucket strategies; "
             f"ignoring {', '.join(ignored)}", flush=True)
+    cal = None
+    if args.calibrate:
+        cal = session.calibrate()
+        log(cal.describe(), flush=True)
     if args.parallelism and scheduler is not None:
         raise SystemExit("--parallelism pins arms of --sync auto's free "
                          "search; a pinned rounds scheduler bypasses that "
@@ -305,7 +311,8 @@ def plan_session(session: TrainSession, args, scheduler, par_spec,
         t_backward_s=(args.plan_backward_ms / 1e3
                       if args.plan_backward_ms > 0 else None),
         memory_budget_gb=args.memory_budget_gb,
-        compression_costs=args.compression_costs or None)
+        compression_costs=args.compression_costs or None,
+        calibration=cal)
     t0 = time.perf_counter()
     pipe, micro = par_spec.pp, max(par_spec.micro_batches, 1)
     if args.parallelism:
@@ -394,7 +401,6 @@ def run(args, rank: int = 0, group=None,
     log = print if rank == 0 else _quiet
     if par_spec is None:
         par_spec = resolve_cli_parallelism(args)
-        check_unported(args)
     scheduler = scheduler_from_args(args)
     check_composition(scheduler, par_spec)
     scfg = SessionConfig(
@@ -433,9 +439,34 @@ def run(args, rank: int = 0, group=None,
     elif strategy is None:
         session.strategy = fixed_strategy(args, scheduler, par_spec,
                                           session.axes)
+    if args.calibrate and args.sync != "auto":
+        log("warning: --calibrate fits the link model --sync auto plans "
+            "with; without --sync auto the fit is printed but unused",
+            flush=True)
+        log(session.calibrate().describe(), flush=True)
+    if args.replan_drift_pct > 0:
+        if args.sync != "auto" or scheduler is not None or \
+                par_spec.pp > 1 or par_spec.micro_batches > 1 or \
+                par_spec.shard_state:
+            raise SystemExit("--replan-drift-pct re-runs the free planner "
+                             "search; it requires --sync auto without a "
+                             "pinned scheduler/pipeline/shard axis")
+        session.enable_replan(args.replan_drift_pct,
+                              check_every=args.replan_every)
     if session.strategy is not None:
         log(f"strategy: {session.strategy.describe()}", flush=True)
     losses = session.run(args.steps, log_every=args.log_every, log=log)
+    drift = session.drift_report()
+    if drift is not None and (args.calibrate or args.replan_drift_pct > 0):
+        log(render_drift_table(drift), flush=True)
+        if args.sync == "auto" and session.rank == 0:
+            # the record again, with the post-run calibration and drift
+            # blocks (the pre-run write keeps the base schema)
+            path = save_strategy_plan(session.planned["strategy_plan"],
+                                      args.arch,
+                                      calibration=session.calibration,
+                                      drift=drift)
+            log(f"plan record (with drift): {path}", flush=True)
     if session.layout is not None:
         log(render_sharded_memory(session.layout, args.optimizer,
                                   moments=session.opt_moments), flush=True)
@@ -479,7 +510,6 @@ def main(argv: Optional[list] = None) -> Optional[TrainSession]:
     args = build_parser().parse_args(argv)
     scheduler_from_args(args)        # "pick one" exits before any spawn
     par_spec = resolve_cli_parallelism(args)
-    check_unported(args)
     world = args.data_parallel
     if world <= 1:
         return run(args, par_spec=par_spec)

@@ -171,6 +171,121 @@ def mlp(params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel MLP: the Megatron f/g operator pair
+# ---------------------------------------------------------------------------
+#
+# Column-parallel wi then row-parallel wo: each tp rank holds a 1/tp slice
+# of the ffn dim and computes its partial output; one all-reduce per MLP in
+# the forward (tp_out) and one in the backward (tp_in's).  The pair is two
+# autograd Functions on a tp process group, so the wire is the port's own:
+# the forward reduction goes through ``collectives.api.allreduce`` (any
+# algorithm), and the backward reduction of the input cotangent makes every
+# parameter outside the MLP get the same gradient on every tp rank, so the
+# gradient sync reduces over the data axes only.
+
+class _TpIn(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, sum over the tp group in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.collectives.api import allreduce
+        return allreduce(g.contiguous().clone(), "psum", (ctx.group,)), None
+
+
+class _TpOut(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce over the tp group in the forward (into
+    a buffer of its own: ``psum`` sums in place), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, algo):
+        from repro_torch.core.collectives.api import allreduce
+        return allreduce(x.contiguous().clone(), algo, (group,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def tp_in(x: torch.Tensor, group) -> torch.Tensor:
+    """Wrap the activations entering a column-parallel block: identity
+    forward; the backward sums the partial input cotangents that each
+    rank's weight slice produced over ``group`` (a process group)."""
+    return _TpIn.apply(x, group)
+
+
+def tp_out(x: torch.Tensor, group, algo: str = "psum") -> torch.Tensor:
+    """All-reduce a row-parallel partial output over ``group`` with
+    ``collectives.api.allreduce(x, algo, (group,))``; identity backward
+    (the output cotangent is already whole on every rank)."""
+    return _TpOut.apply(x, group, algo)
+
+
+def mlp_tp(params, x: torch.Tensor, activation: str = "swiglu", *, group,
+           algo: str = "psum") -> torch.Tensor:
+    """Tensor-parallel gated MLP: ``params`` hold this rank's 1/tp slice of
+    the ffn dim (wi_gate / wi_up cut on their output features, wo on its
+    input features; ``convert.tp_slice``).  Bit-equal at tp = 2 to
+    :func:`mlp_blocked` with 2 blocks (float addition is commutative)."""
+    act = _activation(activation)
+    xin = tp_in(x, group)
+    gate = act(xin @ params["wi_gate"])
+    up = xin @ params["wi_up"]
+    return tp_out((gate * up) @ params["wo"], group, algo)
+
+
+class _Block(torch.autograd.Function):
+    """Identity in both directions, as a node of its own: the cotangents of
+    a block's uses of ``x`` are summed in this node before they reach
+    ``x``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def mlp_blocked(params, x: torch.Tensor, activation: str = "swiglu",
+                blocks: int = 2) -> torch.Tensor:
+    """The tensor-parallel checks' reference: the contraction of
+    :func:`mlp` in ``blocks`` ffn slices, summed in order: the arithmetic
+    of a tp group, on one device.  Each block reads ``x`` through a node
+    of its own (the reference's optimization barrier), so that the block's
+    two input-cotangent contributions are summed before the blocks are,
+    as a tp rank sums its two before the all-reduce across ranks; and the
+    blocks read it through one more node, ``tp_in``'s place, so that their
+    sum is whole before it meets another use of ``x`` by the caller (a
+    residual).  Left to itself autograd would fold every contribution into
+    ``x`` in its own order."""
+    act = _activation(activation)
+    x = _Block.apply(x)
+    d_ff = params["wi_gate"].shape[-1]
+    if d_ff % blocks:
+        raise ValueError(f"d_ff={d_ff} does not split into {blocks} blocks")
+    # each slice contiguous, as a tp rank holds it (the matmul of a strided
+    # operand may take another kernel)
+    gates = [w.contiguous() for w in torch.chunk(params["wi_gate"], blocks,
+                                                 dim=-1)]
+    ups = [w.contiguous() for w in torch.chunk(params["wi_up"], blocks,
+                                               dim=-1)]
+    wos = torch.chunk(params["wo"], blocks, dim=-2)
+    out = None
+    for wg, wu, wo in zip(gates, ups, wos):
+        xb = _Block.apply(x)
+        part = (act(xb @ wg) * (xb @ wu)) @ wo
+        out = part if out is None else out + part
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 

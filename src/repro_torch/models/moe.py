@@ -10,8 +10,12 @@ are dropped (they land in one extra row, which is cropped).  The three
 expert einsums run on the ``(G, E, cap, d)`` buffer; the outputs are
 gathered back, weighted and summed per token in choice order.
 
-Expert parallelism (the reference's ``ep_axis``, an all-to-all over a
-manual mesh axis) is ROADMAP.md queue 1, item 10, and raises here.
+Expert parallelism (``ep_axis``, a process group): each rank holds its
+``E/ep`` block of the experts (``convert.ep_slice``), routes its own
+tokens over all E experts, and exchanges the capacity buffer with the
+differentiable all-to-all (``collectives.all_to_all_grad``): dispatch
+to the experts' owners, the local einsums, the reverse exchange to
+combine.  Its backward is the same pair of exchanges in reverse.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives.api import all_to_all_grad
+from repro_torch.core.collectives.p2p import axis_size
 from repro_torch.models.layers import ParamDesc, mlp, mlp_desc
 
 
@@ -126,8 +132,8 @@ def dispatch_plan(experts: torch.Tensor, E: int, G: int, cap: int):
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
             groups: Optional[int] = None,
-            ep_axis: Optional[str] = None) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+            ep_axis=None, a2a_variant: str = "direct"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, d) -> (out (B, T, d), aux f32).
 
     Capacity is per token group: ``cap = int(max(1, ng·k/E·capacity_
@@ -142,11 +148,16 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
     scattered copy is the gather of the cotangent, which is zero there.
     A token's k weighted outputs are summed in choice order in the
     compute dtype (the reference's scatter-add order), not through
-    ``index_add_``, whose atomics on CUDA sum in no fixed order."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is not ported yet (ROADMAP.md "
-            "queue 1, item 10)")
+    ``index_add_``, whose atomics on CUDA sum in no fixed order.
+
+    ``ep_axis`` (a process group of ep ranks) runs expert parallelism:
+    ``params`` hold this rank's block of ``E/ep`` experts (the router
+    replicated; routing stays over all E), chunk s of the capacity buffer
+    goes to ep rank s (``a2a_variant``: ``direct`` or ``ring``), the local
+    experts run, and the reverse exchange returns every output to its
+    token's rank in global expert order.  Chunks move verbatim, so the
+    step equals the same math on one device with the ep ranks' tokens as
+    ``groups``.  The drop tap counts this rank's drops."""
     B, T, d = x.shape
     N = B * T
     E, k = cfg.num_experts, cfg.top_k
@@ -156,6 +167,20 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
         G = 1
     ng = N // G
     cap = int(max(1, ng * k / E * cfg.capacity_factor))
+    ep = 1
+    if ep_axis is not None:
+        ep = axis_size(ep_axis)
+        if G != 1:
+            raise ValueError(f"ep_axis={ep_axis!r} wants one token group "
+                             f"per rank, got G={G} (the rank IS the group)")
+        if E % ep:
+            raise ValueError(f"num_experts={E} not divisible by "
+                             f"ep={ep} ({ep_axis!r})")
+        if params["wi_gate"].shape[0] != E // ep:
+            raise ValueError(
+                f"expert-parallel moe_ffn wants the LOCAL expert block "
+                f"({E // ep} of {E}), got params with "
+                f"{params['wi_gate'].shape[0]} experts")
 
     xf = x.reshape(N, d)
     weights, experts, aux = _route(cfg, xf @ params["router"])
@@ -168,11 +193,29 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
     buf = buf.scatter(1, dest[..., None].expand(G, ng * k, d), src)
     buf = buf[:, :E * cap].reshape(G, E, cap, d)
 
-    h_gate = F.silu(torch.einsum("gecd,edf->gecf", buf, params["wi_gate"]))
-    h_up = torch.einsum("gecd,edf->gecf", buf, params["wi_up"])
-    h_mid = (h_gate * h_up).to(cdt)
-    out_buf = torch.einsum("gecf,efd->gecd", h_mid, params["wo"])
-    out_flat = out_buf.reshape(G, E * cap, d)
+    if ep_axis is not None:
+        El = E // ep
+        # dispatch: chunk s of the capacity buffer is the payload for ep
+        # rank s (its expert block; global expert order is rank-major)
+        b = all_to_all_grad(buf.reshape(ep, El * cap, d), ep_axis,
+                            a2a_variant)
+        b = b.reshape(ep, El, cap, d)        # row s: source rank s's tokens
+        h_gate = F.silu(torch.einsum("secd,edf->secf", b,
+                                     params["wi_gate"]))
+        h_up = torch.einsum("secd,edf->secf", b, params["wi_up"])
+        h_mid = (h_gate * h_up).to(cdt)
+        out_b = torch.einsum("secf,efd->secd", h_mid, params["wo"])
+        # combine: the reverse exchange returns each output to its token's
+        # rank, the (E, cap, d) buffer in global order again
+        out_flat = all_to_all_grad(out_b.reshape(ep, El * cap, d), ep_axis,
+                                   a2a_variant).reshape(G, E * cap, d)
+    else:
+        h_gate = F.silu(torch.einsum("gecd,edf->gecf", buf,
+                                     params["wi_gate"]))
+        h_up = torch.einsum("gecd,edf->gecf", buf, params["wi_up"])
+        h_mid = (h_gate * h_up).to(cdt)
+        out_buf = torch.einsum("gecf,efd->gecd", h_mid, params["wo"])
+        out_flat = out_buf.reshape(G, E * cap, d)
 
     idx = torch.clamp_max(dest, E * cap - 1)
     gathered = torch.gather(out_flat, 1, idx[..., None].expand(G, ng * k, d))

@@ -16,7 +16,9 @@ Training (:func:`stack_train`) checkpoints every layer
 and splits each stacked leaf into its layers once (``unbind``): indexing
 ``p[i]`` per layer would make autograd allocate a full-size zero gradient
 of the stacked leaf for every layer.  The MoE aux loss is summed in f32
-in layer order.
+in layer order.  Under ``sharding_ctx.tp_region(group)`` the training
+blocks' dense FFNs run tensor-parallel (``layers.mlp_tp``) on the rank's
+ffn slice; the prefill and decode blocks do not, as in the reference.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, norm_desc,
-                                       rmsnorm, stack_desc)
+from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, mlp_tp,
+                                       norm_desc, rmsnorm, stack_desc)
+from repro_torch.models.sharding_ctx import tp_axis, tp_region
 
 XLSTM_MIXERS = ("mlstm", "slstm")
 _MIXER_DESC = {"attn": attn.attn_desc, "mla": attn.mla_desc,
@@ -69,15 +72,19 @@ def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     return desc
 
 
-def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x):
+def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None):
     """x + FFN(norm2(x)) and the MoE aux loss (an f32 zero for a dense
-    FFN)."""
+    FFN).  ``tp`` (a process group): the dense FFN is tensor-parallel,
+    ``params`` hold this rank's ffn slice and the Megatron wire
+    (``mlp_tp``) reduces the activations over ``tp``."""
     aux = _zero(x)
     if spec.ffn == "none":
         return x, aux
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
     if spec.ffn == "moe":
         h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h)
+    elif tp is not None:
+        h = mlp_tp(params["ffn"], h, cfg.activation, group=tp)
     else:
         h = mlp(params["ffn"], h, cfg.activation)
     return x + h, aux
@@ -103,7 +110,8 @@ def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
         h = attn.mla_forward(params["mixer"], cfg, spec, h, positions)
     else:
         h = ssm_mod.mamba_forward(params["mixer"], cfg, h)
-    return _ffn(params, cfg, spec, x + h)
+    # under an active tp region the dense FFN runs the Megatron wire
+    return _ffn(params, cfg, spec, x + h, tp=tp_axis())
 
 
 def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
@@ -186,15 +194,18 @@ def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
 def checkpointed(fn, *args):
     """``torch.utils.checkpoint`` of ``fn(*args)``, whose recomputation in
     the backward leaves the MoE drop tap alone: each routed choice is
-    counted once per forward."""
+    counted once per forward.  The recomputation runs in the tp region
+    of the forward (the backward may run outside it)."""
     ran = [False]
+    group = tp_axis()
 
     def once(*a):
-        if ran[0]:
-            with moe_mod.drop_tap_paused():
-                return fn(*a)
-        ran[0] = True
-        return fn(*a)
+        with tp_region(group):
+            if ran[0]:
+                with moe_mod.drop_tap_paused():
+                    return fn(*a)
+            ran[0] = True
+            return fn(*a)
     return checkpoint(once, *args, use_reentrant=False)
 
 

@@ -219,6 +219,10 @@ def _worker(rank: int, store: str, out_dir: str) -> None:
                        if e is not None})
         np.savez(os.path.join(out_dir, f"{compressor}-{bucket_bytes}-"
                               f"{rank}.npz"), **arrays)
+    # leave the group together: a rank that exits while its peer's gloo
+    # threads still hold the pair can abort the peer at exit
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 
 
 def _expected(compressor, bucket_bytes):

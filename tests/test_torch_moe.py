@@ -253,10 +253,32 @@ def test_moe_routing_mass_conservation():
     _close(dense, jdense, REL_LAYER)
 
 
-def test_moe_ep_axis_names_item_10():
-    _, cfg, _, tp = _moe_layer("qwen3-moe-30b-a3b", 1.25)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmoe.moe_ffn(tp, cfg, torch.zeros(1, 4, cfg.d_model), ep_axis="model")
+def test_moe_ep_axis_of_one_rank_matches_reference_and_refuses():
+    """Expert parallelism on a one-rank ep group (the exchanges move
+    nothing): the reference's function on the same inputs, and the
+    reference's refusals (more than one token group per rank; a block that
+    is not this rank's ``E/ep`` experts).  ``tests/test_torch_tp_ep.py``
+    holds ep = 2 against the reference's EP check."""
+    from repro_torch.convert import experts_slice
+    from repro_torch.launch.dist import init_group
+    init_group(torch.device("cpu"))
+    jcfg, cfg, jp, tp = _moe_layer("qwen3-moe-30b-a3b", 1.25)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    for variant in ("direct", "ring"):
+        out, aux = tmoe.moe_ffn(experts_slice(tp, 0, 1), cfg, x,
+                                ep_axis=torch.distributed.group.WORLD,
+                                a2a_variant=variant)
+        jout, jaux = jmoe.moe_ffn(jax.tree.map(jnp.asarray, jp), jcfg,
+                                  jnp.asarray(x.numpy()))
+        _close(out, jout, REL_LAYER)
+        _close(aux, jaux, REL_LAYER)
+    with pytest.raises(ValueError, match="one token group per rank"):
+        tmoe.moe_ffn(tp, cfg, x, groups=2,
+                     ep_axis=torch.distributed.group.WORLD)
+    with pytest.raises(ValueError, match="LOCAL expert block"):
+        tmoe.moe_ffn(experts_slice(tp, 0, 2), cfg, x,
+                     ep_axis=torch.distributed.group.WORLD)
 
 
 def test_drop_tap_counts_once_through_checkpointed_blocks():
