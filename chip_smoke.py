@@ -288,12 +288,46 @@ Phases (any failure exits non-zero and prints no result line):
      loss`` with the spec in ``describe()``; every CLI run launches the
      wire kernels its arm's plan names (each arm's rounds apart where a
      re-plan installs another).  ``python3 chip_smoke.py
-     --phase 16`` runs the build and this phase alone.
+     --phase 16`` runs the build and this phase alone;
+ 17. the elastic runtime: (a) ``repro_torch.launch.train`` at phase 8's
+     full width and depth (gemma-2b, Adam, batch 4 x seq 512, NCCL world
+     1) with ``--sync comm --compressor int8_fused --no-error-feedback
+     --elastic --topology node:2@datacenter,device:4@fast_ici
+     --fault-trace kill:3@2,kill:7@2 --steps 4`` (one reshard: with a
+     second 25 GB checkpoint the run's disk writes pass ~45 GiB),
+     its checkpoint under ``build/elastic_tmp`` (the disk's free space
+     checked first, the directory removed after), beside an unfaulted
+     4-step run of the same wire in this process: the events exactly 8 ->
+     6 on node:2@datacenter,device:3@fast_ici at step 2, 4 grad rounds;
+     the losses, the parameters and both moments (digests
+     of the bits) bit-equal to the unfaulted run's; quantize_tiles and
+     dequant_accum = buckets x steps on the warp routes in both runs, 0
+     for every other kernel; the memory allocated before each spawn
+     within 0.5 GiB of its value before the first session; the peak
+     within a reckoning printed before the run (one session's state + the
+     restored copy + the unfaulted run's step transients); the
+     checkpoint's bytes (reckoned from the leaves, then on disk), each
+     save's and load's seconds, GB/s and sha256 seconds, each spawn's
+     seconds (the load apart) and the host's peak RSS; (b) reduced
+     gemma-2b in f32, each scenario on the card and on the CPU (a gloo
+     group of the one rank) from the same weights: vanilla Adam on the 8
+     -> 6 -> 8 trace (bit-equal on the card to its unfaulted run),
+     ``plan=True`` on kill:3@2,kill:7@2 (the plan keys at the reshard,
+     the record's topology node:2@datacenter,device:3@fast_ici at world
+     6), local SGD tau = 2 under slow:1x4@1 (one backpressure event, tau
+     4), every step under slow:1x6@1 with ``plan=True`` on
+     device:8@fast_ici (one re-plan, installed, then local SGD), and
+     int8_fused with EF across one reshard (the EF residuals start afresh
+     after it: the checkpoint holds only params and opt): events, notes,
+     plan keys, records and round counts on the card equal the CPU's,
+     losses within phase 4's tolerance.  ``python3 chip_smoke.py --phase
+     17`` runs the build and this phase alone.
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
 12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b),
-(c) and (e), and 15 (a)–(e), and 16 (a) on both ranks, (c) and (d)) sets
+(c) and (e), and 15 (a)–(e), and 16 (a) on both ranks, (c) and (d), and
+both runs of 17 (a)) sets
 every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
@@ -330,9 +364,10 @@ step); the pipeline: quantize_ef and dequant_accum once per leaf of the
 per-row tree and step (164 x 3 at world 1, 83 x 3 on each stage of
 (c)), all on the warp route; tensor parallelism: as 8's int8_fused run
 on each rank's tree; calibration: the fused hooks' calls at the three
-sizes (encode 5, decode 4 a size), warp routes.  Launches made in
+sizes (encode 5, decode 4 a size), warp routes; elastic: as 8's no-EF
+int8_fused run, in every generation of the session.  Launches made in
 phases 3, 4, 6, 10 (b),
-12 (b), 13 (b) and 15's small references, and by the
+12 (b), 13 (b), 15's small references and 17 (b), and by the
 checks and timings of 9, 10, 11, 12, 14 and 15, are not counted.  It
 prints a ``{"kernels": [...]}``
 JSON line with all twelve kernels (launches per run and per route) and,
@@ -6143,6 +6178,460 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
                          "cli_world1": cli1["launches"]}}
 
 
+# -- phase 17: the elastic runtime -------------------------------------------
+
+ELASTIC_TOPOLOGY = "node:2@datacenter,device:4@fast_ici"
+ELASTIC_SURVIVORS = "node:2@datacenter,device:3@fast_ici"
+ELASTIC_TRACE = "kill:3@2,kill:7@2,restore:3@4,restore:7@4"   # 8 -> 6 -> 8
+# (a): phase 8's full width, depth and batch, the int8_fused wire without
+# error feedback (no state outside params and opt, so a faulted run must
+# equal the unfaulted one bit for bit), through one reshard: a full-width
+# checkpoint is 25.06 GB, and a run is held to about 45 GiB of disk
+# writes (two such checkpoints wrote 46.7), of which phase 16 writes ~19;
+# the 6 -> 8 leg runs in (b)
+ELASTIC_FULL_TRACE = "kill:3@2,kill:7@2"
+ELASTIC_STEPS = 4
+ELASTIC_EVENTS = [(2, "reshard", 8, 6, ELASTIC_SURVIVORS)]
+ELASTIC_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--optimizer", "adam",
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(ELASTIC_STEPS), "--seed", "0",
+                "--log-every", "1", *TRAIN_RUNS["int8_fused_no_ef"][0]]
+ELASTIC_FLAGS = ["--elastic", "--topology", ELASTIC_TOPOLOGY,
+                 "--fault-trace", ELASTIC_FULL_TRACE]
+ELASTIC_WIRE = TRAIN_RUNS["int8_fused_no_ef"][1]
+ELASTIC_MEMORY_SLACK = 0.5 * 2**30    # allocated before a spawn vs before
+#                                       the first session
+# (b): reduced gemma-2b in f32, card against CPU; name: (trace, topology,
+# steps run, runtime config, strategy)
+ELASTIC_SMALL = dict(arch="gemma-2b", reduced=True, steps=6, batch=4, seq=64,
+                     lr=3e-3, warmup=1)
+ELASTIC_SCENARIOS = {
+    "vanilla": (ELASTIC_TRACE, ELASTIC_TOPOLOGY, 6, {}, None),
+    "auto": ("kill:3@2,kill:7@2", ELASTIC_TOPOLOGY, 4,
+             dict(plan=True, t_backward_s=0.05), None),
+    "local_sgd": ("slow:1x4@1", ELASTIC_TOPOLOGY, 6, {}, "local_sgd"),
+    "replan": ("slow:1x6@1", "device:8@fast_ici", 5,
+               dict(plan=True, t_backward_s=0.5), None),
+    "int8_fused_ef": ("kill:3@2,kill:7@2", ELASTIC_TOPOLOGY, 4, {},
+                      "int8_fused"),
+}
+
+
+def tree_bit_digests(torch, tree) -> list:
+    """``digest`` of every leaf, as lists (the bits of a 2.5 B-parameter
+    state compared without a host copy)."""
+    from repro_torch._tree import tree_leaves
+    return [digest(torch, x).tolist() for x in tree_leaves(tree)]
+
+
+def elastic_reckoning(cfg) -> dict:
+    """The checkpoint of gemma-2b's Adam session, reckoned from its leaves
+    (meta tensors of the model's shapes): the parameters in their dtype,
+    Adam's two f32 moments."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.layers import desc_leaves
+    from repro_torch.models.model import resolve_dtype
+    leaves = desc_leaves(Model(cfg).param_desc())
+    n = sum(math.prod(d.shape) for d in leaves)
+    params = n * torch.empty((), dtype=resolve_dtype(cfg.param_dtype)) \
+        .element_size()
+    return {"params": n, "param_bytes": params, "moment_bytes": 2 * 4 * n,
+            "bytes": params + 2 * 4 * n, "leaves": 3 * len(leaves)}
+
+
+class ElasticProbes:
+    """For (a)'s run: wraps the runtime's ``_spawn``, the session's
+    ``save_checkpoint`` / ``load_checkpoint`` and the checkpoint's
+    ``_sha256_file`` to record the memory allocated before each spawn, the
+    seconds of each save, load and spawn (the factory and the topology,
+    the load apart), and the sha256 seconds of the saves and the loads.
+    Only times and memory are read; every call goes through unchanged."""
+
+    def __init__(self, torch):
+        from repro_torch.api import TrainSession
+        from repro_torch.checkpoint import checkpoint as ck
+        from repro_torch.elastic.runtime import ElasticRuntime
+        self.torch = torch
+        self.targets = [(ElasticRuntime, "_spawn"),
+                        (TrainSession, "save_checkpoint"),
+                        (TrainSession, "load_checkpoint"),
+                        (ck, "_sha256_file")]
+        self.rec = {k: [] for k in ("allocated_before_spawn", "spawn_s",
+                                    "save_s", "load_s", "sha256_save_s",
+                                    "sha256_load_s")}
+        self._in = "save"
+
+    def _timed(self, key, fn):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.rec[key].append(time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        spawn, save, load, sha = [getattr(o, n) for o, n in self.targets]
+        probes = self
+
+        def _spawn(rt, topo, restore_from):
+            probes.rec["allocated_before_spawn"].append(
+                probes.torch.cuda.memory_allocated())
+            loads = sum(probes.rec["load_s"])
+            out = probes._timed("spawn_s",
+                                lambda: spawn(rt, topo, restore_from))
+            probes.rec["spawn_s"][-1] -= sum(probes.rec["load_s"]) - loads
+            return out
+
+        def save_checkpoint(sess, path):
+            probes._in = "save"
+            probes.rec["sha256_save_s"].append(0.0)
+            out = probes._timed("save_s", lambda: save(sess, path))
+            print(f"  elastic: saved at step {sess.step} in "
+                  f"{probes.rec['save_s'][-1]:.2f} s (sha256 "
+                  f"{probes.rec['sha256_save_s'][-1]:.2f} s)", flush=True)
+            return out
+
+        def load_checkpoint(sess, path):
+            probes._in = "load"
+            probes.rec["sha256_load_s"].append(0.0)
+            out = probes._timed("load_s", lambda: load(sess, path))
+            print(f"  elastic: loaded in {probes.rec['load_s'][-1]:.2f} s "
+                  f"(sha256 {probes.rec['sha256_load_s'][-1]:.2f} s)",
+                  flush=True)
+            return out
+
+        def _sha256_file(path, chunk=1 << 20):
+            # summed into the save or load it belongs to (a save hashes
+            # its payload and its manifest)
+            t0 = time.perf_counter()
+            out = sha(path, chunk)
+            probes.rec[f"sha256_{probes._in}_s"][-1] += \
+                time.perf_counter() - t0
+            return out
+
+        self._orig = [spawn, save, load, sha]
+        for (o, n), f in zip(self.targets, (_spawn, save_checkpoint,
+                                            load_checkpoint, _sha256_file)):
+            setattr(o, n, f)
+        return self.rec
+
+    def __exit__(self, *exc):
+        for (o, n), f in zip(self.targets, self._orig):
+            setattr(o, n, f)
+
+
+def host_peak_rss() -> int:
+    """This process's peak resident set so far, in bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def p17_full_width(torch, ops, train, card) -> dict:
+    """Phase 17 (a): gemma-2b at phase 8's full width through the CLI's
+    ``--elastic`` on the 8 -> 6 -> 8 trace, against an unfaulted run of
+    the same wire in this process."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    rk = elastic_reckoning(get_config("gemma-2b"))
+    tmp = ROOT / "build" / "elastic_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    free = shutil.disk_usage(tmp).free
+    print(f"elastic (a) reckoning: checkpoint {rk['bytes'] / 1e9:.3f} GB "
+          f"({rk['leaves']} leaves: parameters {rk['param_bytes'] / 1e9:.3f} "
+          f"GB, Adam's moments {rk['moment_bytes'] / 1e9:.3f} GB f32), "
+          f"the same on the card for one session's state; the disk under "
+          f"build/ has {free / 1e9:.1f} GB free", flush=True)
+    if free < rk["bytes"]:
+        fail(f"elastic (a): {free / 1e9:.1f} GB free under {tmp}, the "
+             f"reshard's checkpoint needs {rk['bytes'] / 1e9:.1f} GB")
+
+    def counted(argv):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, path_counts(ops)
+
+    def gate_launches(launches, n_buckets, what):
+        for kname, count in launches.items():
+            want = n_buckets * ELASTIC_STEPS if kname in ELASTIC_WIRE else 0
+            if count != want or (kname in ELASTIC_WIRE and want <= 0):
+                fail(f"elastic (a) {what}: kernel {kname} launched {count} "
+                     f"times, expected {want} (= {n_buckets} buckets x "
+                     f"{ELASTIC_STEPS} steps on the warp routes, 0 for the "
+                     f"others)")
+
+    def state_digests(sess):
+        return {"params": tree_bit_digests(torch, sess.params),
+                "m": tree_bit_digests(torch, sess.opt_state["m"]),
+                "v": tree_bit_digests(torch, sess.opt_state["v"])}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    whole, whole_s, whole_launches = counted(ELASTIC_ARGS)
+    n_buckets = whole.synchronizer.plan.n_buckets
+    gate_launches(whole_launches, n_buckets, "unfaulted run")
+    state = torch.cuda.memory_allocated() - base0
+    transient = torch.cuda.max_memory_allocated() - base0 - state
+    want = {"losses": list(whole.losses), **state_digests(whole)}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reckoned_peak = 2 * rk["bytes"] + transient
+    print(f"elastic (a) unfaulted run [{card}]: {ELASTIC_STEPS} steps in "
+          f"{whole_s:.1f} s, losses {[round(x, 4) for x in want['losses']]}, "
+          f"state on the card {state / 2**30:.3f} GiB (reckoned "
+          f"{rk['bytes'] / 2**30:.3f}), the step's transients "
+          f"{transient / 2**30:.3f} GiB; the elastic run's peak reckoning: "
+          f"one session's state + the restored copy + the step's transients "
+          f"= {reckoned_peak / 2**30:.3f} GiB", flush=True)
+
+    tempfile.tempdir, old_tmp = str(tmp), tempfile.tempdir
+    rss0 = host_peak_rss()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with ElasticProbes(torch) as rec:
+            rt, run_s, launches = counted(ELASTIC_ARGS + ELASTIC_FLAGS)
+    finally:
+        tempfile.tempdir = old_tmp
+    peak = torch.cuda.max_memory_allocated() - base
+    rss = host_peak_rss()
+    sess = rt.session
+    if sess.device.type != "cuda":
+        fail(f"elastic (a) ran on {sess.device}, not on the card")
+    events = [(e.step, e.kind, e.old_world, e.new_world, e.topology)
+              for e in rt.events]
+    if events != ELASTIC_EVENTS or rt.grad_rounds != ELASTIC_STEPS:
+        fail(f"elastic (a): events {events}, grad rounds {rt.grad_rounds}; "
+             f"expected {ELASTIC_EVENTS} and {ELASTIC_STEPS}")
+    if sess.synchronizer.plan.n_buckets != n_buckets:
+        fail(f"elastic (a): {sess.synchronizer.plan.n_buckets} buckets, the "
+             f"unfaulted run {n_buckets}")
+    gate_launches(launches, n_buckets, "the --elastic run")
+    got = {"losses": list(rt.losses), **state_digests(sess)}
+    ckpt = Path(rt.cfg.checkpoint_dir) / "elastic.npz"
+    on_disk = ckpt.stat().st_size
+    dtype = sess.model_cfg.param_dtype
+    del rt, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    same = {k: got[k] == want[k] for k in want}
+    if not all(same.values()):
+        # is the unfaulted run itself repeatable on this card?
+        again, _, _ = counted(ELASTIC_ARGS)
+        repeat = {"losses": list(again.losses), **state_digests(again)}
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        fail(f"elastic (a): the faulted run differs from the unfaulted one "
+             f"(bit-equal: {same}; losses {got['losses']} vs "
+             f"{want['losses']}); a second unfaulted run is bit-equal to the "
+             f"first: { {k: repeat[k] == want[k] for k in want} }")
+    spawned = rec["allocated_before_spawn"]
+    if max(abs(a - base) for a in spawned) > ELASTIC_MEMORY_SLACK:
+        fail(f"elastic (a): allocated before the spawns "
+             f"{[round(a / 2**30, 3) for a in spawned]} GiB, before the first "
+             f"session {base / 2**30:.3f} GiB (slack 0.5 GiB)")
+    if peak > reckoned_peak:
+        fail(f"elastic (a): peak {peak / 2**30:.3f} GiB over the reckoning "
+             f"{reckoned_peak / 2**30:.3f} GiB")
+    res = {"events": events, "losses": got["losses"], "n_buckets": n_buckets,
+           "launches": launches, "unfaulted_launches": whole_launches,
+           "run_s": run_s, "unfaulted_s": whole_s,
+           "checkpoint_reckoned_bytes": rk["bytes"],
+           "checkpoint_disk_bytes": on_disk,
+           "save_s": rec["save_s"], "load_s": rec["load_s"],
+           "sha256_save_s": rec["sha256_save_s"],
+           "sha256_load_s": rec["sha256_load_s"],
+           "spawn_s": rec["spawn_s"],
+           "allocated_before_spawn": spawned, "allocated_base": base,
+           "state_bytes": state, "transient_bytes": transient,
+           "peak_bytes": peak, "reckoned_peak_bytes": reckoned_peak,
+           "host_peak_rss_before": rss0, "host_peak_rss": rss}
+    saves = ", ".join(
+        f"{s:.2f} s ({on_disk / s / 1e9:.2f} GB/s; sha256 {h:.2f} s)"
+        for s, h in zip(rec["save_s"], rec["sha256_save_s"]))
+    loads = ", ".join(
+        f"{s:.2f} s ({on_disk / s / 1e9:.2f} GB/s; sha256 {h:.2f} s)"
+        for s, h in zip(rec["load_s"], rec["sha256_load_s"]))
+    print(f"elastic (a) [{card}]: gemma-2b {rk['params']} params, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {dtype}, int8_fused without "
+          f"EF, "
+          f"{ELASTIC_FULL_TRACE}: events {events}; {ELASTIC_STEPS} losses, "
+          f"parameters and both moments bit-equal to the unfaulted run; "
+          f"launches { {k: v for k, v in launches.items() if v} } "
+          f"(= {n_buckets} buckets x {ELASTIC_STEPS} steps); run "
+          f"{run_s:.1f} s", flush=True)
+    print(f"elastic (a) round trip [{card}]: checkpoint {on_disk / 1e9:.3f} "
+          f"GB on disk (reckoned {rk['bytes'] / 1e9:.3f}); saves {saves}; "
+          f"loads {loads} (warm: the file was just written); spawns "
+          f"(factory + topology, the load apart) "
+          f"{[round(s, 2) for s in rec['spawn_s']]} s; allocated before "
+          f"each spawn {[round(a / 2**30, 3) for a in spawned]} GiB (before "
+          f"the first session {base / 2**30:.3f}); peak "
+          f"{peak / 2**30:.3f} GiB above it (reckoning "
+          f"{reckoned_peak / 2**30:.3f}); host peak RSS "
+          f"{rss / 2**30:.2f} GiB (before the run {rss0 / 2**30:.2f})",
+          flush=True)
+    return res
+
+
+def elastic_summary(rt) -> dict:
+    """What the card's and the CPU's runtimes must agree on: the events,
+    their table, the round counters, the installed scheduler, the plan
+    record's world and topology."""
+    from repro_torch.launch.report import (comm_plan_record,
+                                           render_elastic_events)
+    s = rt.session
+    sched = s.strategy.scheduler if s.strategy is not None else None
+    out = {"events": [dataclasses.asdict(e) for e in rt.events],
+           "render": render_elastic_events(rt.events),
+           "rounds": [rt.grad_rounds, rt.param_rounds, rt.control_rounds],
+           "scheduler": sched and [
+               sched.name, getattr(getattr(sched, "cfg", None), "period",
+                                   None)]}
+    if s.planned:
+        rec = comm_plan_record(s.planned["strategy_plan"].comm)
+        out["record"] = [rec["world"], rec.get("topology", {}).get("spec")]
+    return out
+
+
+def p17_small(torch, card) -> dict:
+    """Phase 17 (b): reduced gemma-2b in f32, each scenario of
+    ``ELASTIC_SCENARIOS`` on the card and on the CPU (a gloo group of the
+    one rank) from the same weights."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import SyncConfig, SyncStrategy, make_strategy
+    from repro_torch.core.strategy import get_scheduler
+    from repro_torch.elastic import (ElasticConfig, ElasticRuntime,
+                                     FaultSchedule, SimulatedExecutor)
+    from repro_torch.launch.dist import init_group
+    from repro_torch.models import Model
+    cfg = reduced(get_config("gemma-2b"))
+    params = Model(cfg).init(torch.Generator("cpu").manual_seed(0))
+    init_group(torch.device("cuda"), world_size=None)
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    root = ROOT / "build" / "elastic_small"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for name, (trace, topo, steps, rcfg, strat) in ELASTIC_SCENARIOS.items():
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            group = gloo if dev == "cpu" else None
+
+            def factory(dev=dev, group=group, strat=strat):
+                s = TrainSession(SessionConfig(device=dev, **ELASTIC_SMALL),
+                                 params=params, group=group)
+                if strat == "local_sgd":
+                    s.strategy = SyncStrategy(
+                        scheduler=get_scheduler("local_sgd", period=2))
+                elif strat == "int8_fused":
+                    s.strategy = make_strategy(
+                        "every_step", group=group,
+                        sync=SyncConfig(compressor="int8_fused"))
+                return s
+            fresh = []            # per step: no residual before it
+
+            def executor(session, step, alive, slow,
+                         inner=SimulatedExecutor()):
+                fresh.append(session.sync_state is None)
+                return inner(session, step, alive, slow)
+            rt = ElasticRuntime(
+                factory, FaultSchedule.from_spec(trace, 8),
+                ElasticConfig(topology=topo,
+                              checkpoint_dir=str(root / name / dev), **rcfg),
+                executor=executor)
+            rt.run(steps)
+            runs[dev] = (rt, fresh)
+        (rc, fc), (rh, _) = runs["cuda"], runs["cpu"]
+        sc, sh = elastic_summary(rc), elastic_summary(rh)
+        lc, lh = rc.losses, rh.losses
+        rel = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+        if sc != sh or len(lc) != steps or not (
+                all(map(math.isfinite, lc)) and rel[0] <= 1e-5
+                and max(rel) <= 1e-4):
+            fail(f"elastic (b) {name}: the card's run {sc} with losses {lc} "
+                 f"disagrees with the CPU's {sh} with losses {lh}")
+        kinds = [e["kind"] for e in sc["events"]]
+        if name == "vanilla":
+            whole = factory(dev="cuda", group=None)
+            whole.run(steps)
+            if whole.losses != lc or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        tree_leaves(whole.params),
+                        tree_leaves(rc.session.params))):
+                fail(f"elastic (b) vanilla: the faulted card run {lc} is not "
+                     f"bit-equal to its unfaulted run {whole.losses}")
+            del whole
+        elif name == "auto":
+            if sc["record"] != [6, ELASTIC_SURVIVORS] or \
+                    not sc["events"][0]["plan_key"]:
+                fail(f"elastic (b) auto: record {sc['record']}, events "
+                     f"{sc['events']}")
+        elif name == "local_sgd":
+            if kinds != ["backpressure"] or sc["scheduler"] != \
+                    ["local_sgd", 4]:
+                fail(f"elastic (b) local_sgd: events {sc['events']}, "
+                     f"scheduler {sc['scheduler']}")
+        elif name == "replan":
+            if kinds != ["replan"] or \
+                    not sc["events"][0]["note"].startswith("installed") or \
+                    sc["scheduler"][0] != "local_sgd":
+                fail(f"elastic (b) replan: events {sc['events']}, scheduler "
+                     f"{sc['scheduler']}")
+        elif name == "int8_fused_ef":
+            with open(root / name / "cuda" / "elastic.json") as f:
+                keys = json.load(f)["keys"]
+            # a fresh session before steps 0 and 2 (the reshard): its EF
+            # residuals are made, zero, at that step's build
+            if fc != [True, False, True, False] or not all(
+                    k.startswith(("params/", "opt/")) for k in keys):
+                fail(f"elastic (b) int8_fused_ef: fresh EF state before each "
+                     f"step {fc}, checkpoint keys {keys[:4]}...")
+        out[name] = {**sc, "losses_card": lc, "losses_cpu": lh,
+                     "max_rel_diff": max(rel)}
+        print(f"elastic (b) {name} [{card}]: reduced gemma-2b f32, {trace} "
+              f"on {topo}, {steps} steps: card = CPU in events "
+              f"{[(e['step'], e['kind'], e['note']) for e in sc['events']]}"
+              f", plan keys {[e['plan_key'] for e in sc['events']]}, rounds "
+              f"{sc['rounds']}, scheduler {sc['scheduler']}; losses max rel "
+              f"diff {max(rel):.3e}", flush=True)
+        del runs, rc, rh
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_elastic(torch, ops, train, card) -> dict:
+    """Phase 17: (a) the elastic runtime at full width through the CLI,
+    (b) its scenarios reduced, the card against the CPU."""
+    from repro_torch.launch.dist import destroy_group
+    t0 = time.perf_counter()
+    print(f"phase 17: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated at its start", flush=True)
+    full = p17_full_width(torch, ops, train, card)
+    t1 = time.perf_counter()
+    small = p17_small(torch, card)
+    destroy_group()
+    seconds = time.perf_counter() - t0
+    print(f"phase 17 took {seconds:.1f} s ((a) {t1 - t0:.1f} s, (b) "
+          f"{seconds - (t1 - t0):.1f} s) [{card}]", flush=True)
+    return {"full_width": full, "small": small, "seconds": seconds,
+            "full_width_s": t1 - t0,
+            "launches": {"elastic_int8_fused_no_ef": full["launches"],
+                         "elastic_unfaulted": full["unfaulted_launches"]}}
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -6264,10 +6753,15 @@ def main() -> None:
     for name in libs:
         check_ptxas(name, build.build_log(name))
     check_wgmma_instantiations(build.build_log("flash_attention_wgmma"))
-    if sys.argv[1:] == ["--phase", "16"]:
-        # phase 16 alone, after the build (a quicker check of its slice)
-        par = phase_parallel(torch, ops, ref, train, card)
-        print(json.dumps({"parallel": par, "card": card}))
+    if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"]):
+        # phase 16 or 17 alone, after the build (a quicker check of its
+        # slice)
+        if sys.argv[2] == "16":
+            alone = {"parallel": phase_parallel(torch, ops, ref, train,
+                                                card)}
+        else:
+            alone = {"elastic": phase_elastic(torch, ops, train, card)}
+        print(json.dumps({**alone, "card": card}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": kind,
                                                  "count": count}}))
@@ -6407,6 +6901,9 @@ def main() -> None:
     # -- 16. tensor / expert parallelism, calibration, drift re-planning ------
     par = phase_parallel(torch, ops, ref, train, card)
 
+    # -- 17. the elastic runtime ---------------------------------------------
+    elastic = phase_elastic(torch, ops, train, card)
+
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
                **{arch: r["launches"] for arch, r in moe["serving"].items()},
                f"{MLA_LONG_ARCH}_long": moe["long"]["launches"],
@@ -6443,6 +6940,7 @@ def main() -> None:
     train_runs["xlstm_int8_fused"] = new["training"]["launches"]
     train_runs.update({f"parallel_{k}": v
                        for k, v in par["launches"].items()})
+    train_runs.update(elastic["launches"])
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -6502,6 +7000,7 @@ def main() -> None:
     print(json.dumps({"new_families": new, "encdec_flash": encdec_flash,
                       "card": card}))
     print(json.dumps({"parallel": par, "card": card}))
+    print(json.dumps({"elastic": elastic, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

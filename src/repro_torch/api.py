@@ -56,8 +56,16 @@ at construction, such a strategy is built there, so that a stage never
 holds another stage's rows or the whole model's moments; and
 :attr:`params` merges the stages back (a gather over the pipe group when
 S > 1, so every rank reads it).  Its checkpoints hold the merged,
-leaf-shaped parameters and moments.  The elastic mode waits (ROADMAP.md
-queue 1, item 12).
+leaf-shaped parameters and moments.
+
+The elastic runtime (``repro_torch.elastic``, ``--elastic``) rebuilds a
+session in process on every membership change of its fault schedule:
+it saves the live session's leaf-shaped checkpoint, releases it, and
+builds a fresh one whose :meth:`apply_topology` installs the surviving
+topology (a planning model: the process group stays the same) before
+:meth:`load_checkpoint` and, when planning, :meth:`plan_auto`; under a
+straggler it calls the scheduler's ``backpressure`` or
+:meth:`replan_now`.
 
 Tensor and expert parallelism are planning and record axes of the
 session, as in the reference: a tp or ep winner of :meth:`plan_auto`,

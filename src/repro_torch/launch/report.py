@@ -2,7 +2,8 @@
 ``serve --plan`` paths: the part of ``repro/launch/report.py`` that the
 planner calls (the per-tier cost breakdown, the markdown plan tables, the
 JSON plan record), the per-worker memory line of a sharded run and the
-stage table of a pipeline run.
+stage table of a pipeline run, and the elastic runtime's event table
+(:func:`render_elastic_events`).
 Records go to ``artifacts/comm_plans_torch/<arch>.json``
 (``launch/paths.py``), with the calibration and drift blocks of a
 ``--calibrate`` / ``--replan-drift-pct`` run and its drift table
@@ -369,6 +370,23 @@ def render_drift_table(drift: dict) -> str:
                             else f" ({e['note']})"))
     return "\n".join(lines)
 
+
+def render_elastic_events(events) -> str:
+    """The elastic runtime's decision log (``--elastic`` epilogue): every
+    reshard, backpressure demotion, and straggler re-plan with the world
+    transition and surviving topology (DESIGN.md §15)."""
+    if not events:
+        return "elastic: no membership changes or straggler actions"
+    lines = [f"elastic events ({len(events)}):",
+             "| step | event | world | topology / plan | note |",
+             "|---|---|---|---|---|"]
+    for e in events:
+        world = (f"{e.old_world}→{e.new_world}"
+                 if e.new_world != e.old_world else f"{e.old_world}")
+        what = e.topology or e.plan_key or "—"
+        lines.append(f"| {e.step} | {e.kind} | {world} | {what} | "
+                     f"{e.note} |")
+    return "\n".join(lines)
 
 def comm_plan_record(plan) -> dict:
     """JSON-serialisable record of a plan (written by ``save_comm_plan``).

@@ -55,6 +55,22 @@ reducer:
                                  measured step drifts more than PCT% from
                                  the modeled wall step, checked every
                                  --replan-every steps (default 25)
+  * --elastic                    the supervised fault-tolerant step loop
+                                 (``elastic.ElasticRuntime``) on the
+                                 --topology fleet: a kill or restore of
+                                 --fault-trace reshards in process through
+                                 the leaf-shaped checkpoint onto the
+                                 surviving topology (a planning model, as
+                                 in the reference), a slowdown demotes the
+                                 rounds cadence; prints the events table.
+                                 The checkpoints go to a ``mkdtemp``
+                                 directory (``elastic_*``), made once
+                                 before the ranks of --data-parallel
+                                 spawn, and left there, as the reference
+                                 leaves it
+  * --fault-trace SPEC_OR_PATH   the deterministic fault schedule of
+                                 --elastic ('kill:3@5,slow:1x4@3,
+                                 restore:3@9' or a JSON trace file)
   * --checkpoint PATH            write params + optimizer state after the
                                  run (``PATH.npz`` + ``PATH.json``)
   * --data-parallel N            a world of N ranks, spawned here (one
@@ -82,7 +98,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -93,10 +111,12 @@ from repro_torch.configs import ALL_ARCHS
 from repro_torch.core import (ParallelismSpec, SyncConfig, SyncStrategy,
                               get_scheduler, make_strategy)
 from repro_torch.core.collectives import ALGOS
-from repro_torch.core.schedule import LINK_PRESETS
+from repro_torch.core.schedule import LINK_PRESETS, Topology
 from repro_torch.device import resolve_device
+from repro_torch.elastic import ElasticConfig, ElasticRuntime, FaultSchedule
 from repro_torch.launch.dist import destroy_group, init_group, spawn
-from repro_torch.launch.report import (render_moe_drops,
+from repro_torch.launch.report import (render_elastic_events,
+                                       render_moe_drops,
                                        render_pipeline_stages,
                                        render_sharded_memory,
                                        render_drift_table,
@@ -213,6 +233,21 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar=("N_PUSH", "N_FETCH"),
                     help="push gradients every N_PUSH steps, fetch (average) "
                          "parameters every N_FETCH steps")
+    ap.add_argument("--elastic", action="store_true",
+                    help="supervised fault-tolerant step loop (DESIGN.md "
+                         "§15): survive worker preemption by resharding "
+                         "through the portable checkpoint — no process "
+                         "restart — and demote the sync cadence under "
+                         "stragglers.  Requires --topology (its world is "
+                         "the fleet the fault trace runs against); "
+                         "composes with vanilla/comm/auto and pinned "
+                         "rounds schedulers, not with pipeline stages")
+    ap.add_argument("--fault-trace", default="", metavar="SPEC_OR_PATH",
+                    help="deterministic fault schedule for --elastic: a "
+                         "compact spec 'kill:3@5,slow:1x4@3,restore:3@9' "
+                         "(kind:worker[xfactor]@step) or a path to a JSON "
+                         "trace file (FaultSchedule.to_json).  Empty = "
+                         "no faults (the supervised loop still runs)")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
@@ -391,6 +426,81 @@ def _quiet(*_, **__) -> None:
     pass
 
 
+def session_config(args) -> SessionConfig:
+    """The flags' model, optimizer, data, seed and device."""
+    return SessionConfig(
+        arch=args.arch, reduced=args.reduced, steps=args.steps,
+        batch=args.batch, seq=args.seq, lr=args.lr, warmup=args.warmup,
+        optimizer=args.optimizer, seed=args.seed, device=args.device)
+
+
+def elastic_schedule(args, par_spec: ParallelismSpec):
+    """``--elastic``'s refusals, the reference's, and its fleet: the
+    launch topology and the fault schedule against its world."""
+    if not args.topology:
+        raise SystemExit("--elastic needs --topology: the tier-size "
+                         "product is the fleet the fault trace runs "
+                         "against")
+    if par_spec.pp > 1 or par_spec.micro_batches > 1:
+        raise SystemExit("--elastic resharding composes with replicated "
+                         "and sharded DP; pipeline/micro-batched builds "
+                         "cannot restore mid-run (DESIGN.md §15)")
+    topo = Topology.from_spec(args.topology)
+    trace = args.fault_trace
+    if trace and os.path.exists(trace):
+        schedule = FaultSchedule.from_json(trace)
+        if schedule.world != topo.world:
+            raise SystemExit(
+                f"fault trace {trace} is against world={schedule.world} "
+                f"but --topology {topo.spec()!r} has world={topo.world}")
+    else:
+        schedule = FaultSchedule.from_spec(trace, world=topo.world)
+    return topo, schedule
+
+
+def run_elastic(args, rank: int = 0,
+                par_spec: Optional[ParallelismSpec] = None,
+                checkpoint_dir: Optional[str] = None) -> ElasticRuntime:
+    """``--elastic``: drive the session through the supervised
+    fault-tolerant loop instead of a bare :func:`run`.  Fresh sessions
+    (and fresh scheduler instances — backpressure mutates scheduler
+    config) come from a factory, by the strategy code :func:`run` uses, so
+    resharding rebuilds from scratch every time.  ``checkpoint_dir`` is
+    the directory every rank shares (made here when None, as the
+    reference's ``mkdtemp``); rank 0 prints.  Returns the runtime (its
+    ``session``, ``losses``, ``events`` and round counters)."""
+    log = print if rank == 0 else _quiet
+    if par_spec is None:
+        par_spec = resolve_cli_parallelism(args)
+    topo, schedule = elastic_schedule(args, par_spec)
+    check_composition(scheduler_from_args(args), par_spec)
+    scfg = session_config(args)
+
+    def factory():
+        s = TrainSession(dataclasses.replace(scfg))
+        s.strategy = fixed_strategy(args, scheduler_from_args(args),
+                                    par_spec, s.axes)
+        return s
+
+    cfg = ElasticConfig(
+        topology=topo,
+        checkpoint_dir=checkpoint_dir or tempfile.mkdtemp(prefix="elastic_"),
+        plan=(args.sync == "auto"), link=args.link,
+        t_backward_s=(args.plan_backward_ms / 1e3
+                      if args.plan_backward_ms > 0 else 0.05))
+    rt = ElasticRuntime(factory, schedule, cfg)
+    losses = rt.run(args.steps)
+    log(render_elastic_events(rt.events), flush=True)
+    if args.checkpoint:
+        rt.session.save_checkpoint(args.checkpoint)
+        log("checkpoint written:", args.checkpoint, flush=True)
+    log(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f}) | "
+        f"steps {rt.session.step}, comm rounds {rt.comm_rounds} "
+        f"(grad {rt.grad_rounds}, param {rt.param_rounds}), "
+        f"{len(rt.events)} elastic events", flush=True)
+    return rt
+
+
 def run(args, rank: int = 0, group=None,
         par_spec: Optional[ParallelismSpec] = None) -> TrainSession:
     """Train as the parsed flags say on ``group`` (the default group,
@@ -403,10 +513,7 @@ def run(args, rank: int = 0, group=None,
         par_spec = resolve_cli_parallelism(args)
     scheduler = scheduler_from_args(args)
     check_composition(scheduler, par_spec)
-    scfg = SessionConfig(
-        arch=args.arch, reduced=args.reduced, steps=args.steps,
-        batch=args.batch, seq=args.seq, lr=args.lr, warmup=args.warmup,
-        optimizer=args.optimizer, seed=args.seed, device=args.device)
+    scfg = session_config(args)
     strategy = None
     if (args.sync != "auto" and not args.topology
             and (par_spec.pp > 1 or par_spec.micro_batches > 1)):
@@ -487,9 +594,11 @@ def run(args, rank: int = 0, group=None,
 
 
 def _rank_main(rank: int, world: int, store: str, argv: list,
-               par_spec: ParallelismSpec) -> None:
+               par_spec: ParallelismSpec,
+               checkpoint_dir: Optional[str] = None) -> None:
     """One spawned rank of ``--data-parallel``: its card (cuda:rank) or the
-    CPU, the world's group, then :func:`run`."""
+    CPU, the world's group, then :func:`run` (:func:`run_elastic` under
+    ``--elastic``, on the checkpoint directory all ranks share)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -499,19 +608,29 @@ def _rank_main(rank: int, world: int, store: str, argv: list,
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     init_group(device, world_size=world, rank=rank, store_path=store)
     try:
-        run(args, rank, par_spec=par_spec)
+        if args.elastic:
+            run_elastic(args, rank, par_spec, checkpoint_dir)
+        else:
+            run(args, rank, par_spec=par_spec)
     finally:
         destroy_group()
 
 
-def main(argv: Optional[list] = None) -> Optional[TrainSession]:
-    """Run the CLI; returns the session (losses, step times, state), or
-    None after a spawned ``--data-parallel`` world."""
+def main(argv: Optional[list] = None):
+    """Run the CLI; returns the session (losses, step times, state), the
+    :class:`ElasticRuntime` under ``--elastic``, or None after a spawned
+    ``--data-parallel`` world."""
     args = build_parser().parse_args(argv)
     scheduler_from_args(args)        # "pick one" exits before any spawn
     par_spec = resolve_cli_parallelism(args)
+    if args.elastic:
+        elastic_schedule(args, par_spec)    # its refusals before any spawn
+    elif args.fault_trace:
+        raise SystemExit("--fault-trace only applies under --elastic")
     world = args.data_parallel
     if world <= 1:
+        if args.elastic:
+            return run_elastic(args, par_spec=par_spec)
         return run(args, par_spec=par_spec)
     device = resolve_device(args.device)
     if device.type == "cuda" and world > torch.cuda.device_count():
@@ -519,8 +638,13 @@ def main(argv: Optional[list] = None) -> Optional[TrainSession]:
             f"--data-parallel {world} on CUDA needs one card per rank (NCCL "
             f"takes one rank per device); this machine has "
             f"{torch.cuda.device_count()}")
+    # --elastic: one checkpoint directory for every rank, made before they
+    # spawn (rank 0 writes, all ranks read)
+    checkpoint_dir = (tempfile.mkdtemp(prefix="elastic_") if args.elastic
+                      else None)
     spawn(_rank_main, world,
-          args=(list(sys.argv[1:] if argv is None else argv), par_spec))
+          args=(list(sys.argv[1:] if argv is None else argv), par_spec,
+                checkpoint_dir))
     return None
 
 
