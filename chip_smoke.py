@@ -321,13 +321,30 @@ Phases (any failure exits non-zero and prints no result line):
      after it: the checkpoint holds only params and opt): events, notes,
      plan keys, records and round counts on the card equal the CPU's,
      losses within phase 4's tolerance.  ``python3 chip_smoke.py --phase
-     17`` runs the build and this phase alone.
+     17`` runs the build and this phase alone;
+ 18. the dry run and the op analysis (``repro_torch.launch.{dryrun,
+     op_analysis}``): (a) ``python -m repro_torch.launch.dryrun`` for
+     gemma-2b at train_4k (``--microbatches 1``), prefill_32k and
+     decode_32k, rank 0 of the 16x16 mesh on CPU fake tensors, three
+     processes started together on the host, each trace's seconds
+     printed and its record's keys checked (the host processes of (a)
+     and (b) start before phase 17 and run beside it); (b) on the card at
+     world 1 (NCCL), one full-width gemma-2b step of each phase counted by
+     the op analysis while the kernels run — train at 1 x 4096 tokens
+     (Adam), prefill at 1 x 4096 (flash on its wgmma route) and one decode
+     tick of the engine at 32 slots with the int8 pool — each held equal,
+     in dot FLOPs, bytes and per-kernel calls, to a fake-tensor trace of
+     the same step and shape on the host, where the plain versions run,
+     and its kernel calls to the wrappers' launch counters
+     (``nonfinite_tiles`` once per flash call).  No time is compared.
+     ``python3 chip_smoke.py --phase 18`` runs the build and this phase
+     alone.
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
 12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b),
 (c) and (e), and 15 (a)–(e), and 16 (a) on both ranks, (c) and (d), and
-both runs of 17 (a)) sets
+both runs of 17 (a), and the three steps of 18 (b)) sets
 every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
@@ -365,7 +382,10 @@ per-row tree and step (164 x 3 at world 1, 83 x 3 on each stage of
 (c)), all on the warp route; tensor parallelism: as 8's int8_fused run
 on each rank's tree; calibration: the fused hooks' calls at the three
 sizes (encode 5, decode 4 a size), warp routes; elastic: as 8's no-EF
-int8_fused run, in every generation of the session.  Launches made in
+int8_fused run, in every generation of the session; the dry run's card
+steps: flash and its pre-pass = 18 at the prefill, quantize_tiles = 2
+(the pool's paged leaves) at the decode tick, 0 for every other kernel
+and at the train step.  Launches made in
 phases 3, 4, 6, 10 (b),
 12 (b), 13 (b), 15's small references and 17 (b), and by the
 checks and timings of 9, 10, 11, 12, 14 and 15, are not counted.  It
@@ -6632,6 +6652,278 @@ def phase_elastic(torch, ops, train, card) -> dict:
                          "elastic_unfaulted": full["unfaulted_launches"]}}
 
 
+# -- phase 18: the dry run and the op analysis ------------------------------
+
+# (a) the dry-run CLI at the 16x16 mesh's rank 0, on CPU fake tensors, one
+# process per shape, all started together; train at one micro-batch (the
+# same program as at the reference's 4, whose trace takes 4x as long on
+# the host, ~160 s against the phase's 90 s)
+DRYRUN_ARCH = "gemma-2b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 240
+# (b) one full-width step of each phase on the card at world 1: train and
+# prefill at 1 x 4096 tokens, and one decode tick of the engine at 32 slots
+# with the int8 pool (every slot at position 100 of max_len 4096)
+P18_TOKENS = (1, 4096)
+P18_SLOTS, P18_MAX_LEN, P18_POS = 32, 4096, 100
+# each step's kernel calls, by kernel and route: flash on every one of
+# gemma-2b's 18 layers at the prefill (wgmma: bf16, head dim 256), the
+# pool's two paged leaves (K and V of one segment) at the tick
+P18_WANT = {"train": {}, "prefill": {"flash_attention[wgmma]": 18},
+            "decode_tick": {"quantize_tiles[warp]": 2}}
+
+
+def p18_cli_start(out_dir: Path) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for shape in DRYRUN_SHAPES:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                DRYRUN_ARCH, "--shape", shape, "--out", str(out_dir)]
+        if shape == "train_4k":
+            argv += ["--microbatches", "1"]
+        procs[shape] = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def p18_cli_finish(procs: dict, out_dir: Path, t0: float, card) -> dict:
+    """(a)'s records: each process exits 0 with its ``[ok]`` line, and
+    each record has the reference's keys and a layout."""
+    out = {}
+    for shape, proc in procs.items():
+        try:
+            log, _ = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"dry run (a): {DRYRUN_ARCH} {shape} still tracing after "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0 or f"[ok] {DRYRUN_ARCH} {shape} 16x16" \
+                not in log:
+            fail(f"dry run (a): {DRYRUN_ARCH} {shape} exited "
+                 f"{proc.returncode}: {log[-2000:]}")
+        rec = json.loads((out_dir / f"{DRYRUN_ARCH}_{shape}_16x16_baseline"
+                                    f".json").read_text())
+        missing = {"arch", "shape", "variant", "mesh", "devices", "phase",
+                   "memory_analysis", "cost_analysis", "hlo", "trace_s",
+                   "layout"} - set(rec)
+        if missing or rec["hlo"]["dot_flops_per_device"] <= 0:
+            fail(f"dry run (a): the {shape} record lacks {sorted(missing)} "
+                 f"or has no dot FLOPs")
+        mem, h = rec["memory_analysis"], rec["hlo"]
+        print(f"dry run (a) {DRYRUN_ARCH} {shape} 16x16 rank 0 "
+              f"({rec['layout']['program']}): trace {rec['trace_s']} s on the "
+              f"host, dot {h['dot_flops_per_device']:.4e} FLOP, bytes "
+              f"{h['memory_bytes_per_device']:.4e}, wire "
+              f"{h['collective_wire_bytes_by_axis']}, args "
+              f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB, temp "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB, "
+              f"{h['aten_ops']} aten ops [{card}]", flush=True)
+        out[shape] = {"trace_s": rec["trace_s"], "hlo": h, "memory": mem}
+    return out
+
+
+def p18_program(torch, model, params, phase: str, device, mode=None):
+    """(fn, args) of one phase's step on ``params`` on ``device`` (made
+    under ``mode``, a FakeTensorMode, for the fake-tensor trace)."""
+    import contextlib
+
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    with mode if mode is not None else contextlib.nullcontext():
+        if phase == "train":
+            opt = make_optimizer("adam", lr=1e-4)
+            tokens = torch.zeros(P18_TOKENS, dtype=torch.int32, device=device)
+            return make_train_step(model, opt), (
+                params, opt.init(params), {"tokens": tokens}, 0)
+        if phase == "prefill":
+            tokens = torch.zeros(P18_TOKENS, dtype=torch.int32, device=device)
+            return make_prefill_step(model), (params, {"tokens": tokens})
+        eng = Engine(model, params, ServeConfig(
+            max_batch=P18_SLOTS, max_len=P18_MAX_LEN, page_size=PAGE,
+            quantize="int8"))
+        for slot in range(P18_SLOTS):
+            eng.cache.alloc(slot, P18_POS + 1)
+        return eng._decode_on_device, eng._decode_inputs(
+            np.zeros((P18_SLOTS, 1), np.int64),
+            np.full(P18_SLOTS, P18_POS, np.int64),
+            np.ones(P18_SLOTS, bool))
+
+
+P18_PHASES = ("train", "prefill", "decode_tick")
+
+
+def p18_fake_counts(out_path: str) -> None:
+    """(b)'s fake-tensor traces, in a process of their own beside the card
+    (``python3 -c "...; chip_smoke.p18_fake_counts(OUT)"``): each phase's
+    step on CPU fake tensors, its counts written to ``out_path``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dist import destroy_group, init_group
+    from repro_torch.models.model import Model
+    model = Model(get_config(DRYRUN_ARCH))
+    init_group(torch.device("cpu"))
+    out = {}
+    for phase in P18_PHASES:
+        mode = FakeTensorMode()
+        fake = model.abstract_params(mode=mode)
+        fn, args = p18_program(torch, model, fake, phase, "cpu", mode)
+        t0 = time.perf_counter()
+        with mode:
+            _, st = op_analysis.trace(fn, args, table=True)
+        out[phase] = {"dot_flops": st.dot_flops,
+                      "memory_bytes": st.memory_bytes,
+                      "kernel_calls": st.kernel_calls,
+                      "aten_ops": st.aten_ops, "op_counts": st.op_counts,
+                      "fake_s": time.perf_counter() - t0}
+    destroy_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def p18_fake_start(out_path: Path):
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.p18_fake_counts({str(out_path)!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def p18_card_vs_fake(torch, ops, card, fake_proc, fake_path: Path,
+                     t0: float) -> dict:
+    """(b): each phase's step counted on the card, where the kernels run,
+    against its trace on CPU fake tensors, where the plain versions run
+    (:func:`p18_fake_counts`, in its own process meanwhile): dot FLOPs,
+    bytes and per-kernel calls equal; the calls equal to the wrappers'
+    launch counters (``nonfinite_tiles``, flash's pre-pass, once per
+    flash call), every other counter 0.  No time is compared."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dist import init_group
+    from repro_torch.models.model import Model
+    model = Model(get_config(DRYRUN_ARCH))
+    dev = torch.device("cuda")
+    init_group(dev)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    got = {}
+    for phase in P18_PHASES:
+        fn, args = p18_program(torch, model, params, phase, dev)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        _, st = op_analysis.trace(fn, args, table=True)
+        torch.cuda.synchronize()
+        got[phase] = (st, time.perf_counter() - t1, path_counts(ops))
+        del fn, args
+        for t in tree_leaves(params):
+            t.requires_grad_(False)       # the next phase's step: no graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        log, _ = fake_proc.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fake_proc.kill()
+        fail(f"op analysis (b): the fake traces still running after "
+             f"{DRYRUN_TIMEOUT_S} s")
+    if fake_proc.returncode != 0:
+        fail(f"op analysis (b): the fake traces exited "
+             f"{fake_proc.returncode}: {log[-2000:]}")
+    fakes = json.loads(fake_path.read_text())
+    out = {}
+    for phase in P18_PHASES:
+        st, card_s, launches = got[phase]
+        want = fakes[phase]
+        same = (st.dot_flops == want["dot_flops"]
+                and st.memory_bytes == want["memory_bytes"]
+                and st.kernel_calls == want["kernel_calls"])
+        if not same:
+            ops_ = {k: list(v) for k, v in st.op_counts.items()}
+            diff = {k: (ops_.get(k), want["op_counts"].get(k))
+                    for k in set(ops_) | set(want["op_counts"])
+                    if ops_.get(k) != want["op_counts"].get(k)}
+            fail(f"op analysis (b) {phase}: the card counts dot "
+                 f"{st.dot_flops!r} FLOP, {st.memory_bytes!r} bytes, "
+                 f"kernels {st.kernel_calls}; the fake trace "
+                 f"{want['dot_flops']!r}, {want['memory_bytes']!r}, "
+                 f"{want['kernel_calls']}; ops that differ (calls, FLOP, "
+                 f"bytes): {diff}")
+        calls = dict(st.kernel_calls)
+        calls["nonfinite_tiles"] = calls.get("flash_attention", 0)
+        for name in ops.launch_counts():
+            if launches[name] != calls.get(name, 0):
+                fail(f"op analysis (b) {phase}: {name} launched "
+                     f"{launches[name]} times, the op analysis counted "
+                     f"{calls.get(name, 0)} calls")
+        want_routes = P18_WANT[phase]
+        want_calls = {k.split("[")[0]: n for k, n in want_routes.items()}
+        if st.kernel_calls != want_calls or any(
+                launches[k] != n for k, n in want_routes.items()):
+            fail(f"op analysis (b) {phase}: kernel calls "
+                 f"{st.kernel_calls}, launches {launches}; the step's "
+                 f"structure gives {want_routes}")
+        print(f"op analysis (b) {DRYRUN_ARCH} {phase} at world 1 (the card "
+              f"{card_s:.2f} s, the fake trace {want['fake_s']:.2f} s on the "
+              f"host): dot {st.dot_flops:.6e} FLOP, bytes "
+              f"{st.memory_bytes:.6e}, kernel calls {st.kernel_calls} = the "
+              f"launch counters { {k: v for k, v in launches.items() if v} }; "
+              f"card {st.aten_ops} aten ops, fake {want['aten_ops']} "
+              f"[{card}]", flush=True)
+        out[phase] = {"dot_flops": st.dot_flops,
+                      "memory_bytes": st.memory_bytes,
+                      "kernel_calls": st.kernel_calls,
+                      "aten_ops": [st.aten_ops, want["aten_ops"]],
+                      "card_s": card_s, "fake_s": want["fake_s"],
+                      "launches": launches}
+    return out
+
+
+def phase_dryrun_start() -> dict:
+    """Phase 18's host work, started before phase 17 (whose host is busy
+    with one checkpoint's disk and hash, not its cores): (a)'s three
+    dry-run processes and (b)'s fake-tensor traces in a fourth.  They
+    touch neither the card nor the launch counters."""
+    import shutil
+    out_dir = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    fake_path = out_dir / "fake_counts.json"
+    return {"out_dir": out_dir, "cli": p18_cli_start(out_dir),
+            "fake_path": fake_path, "fake": p18_fake_start(fake_path),
+            "t0": time.perf_counter()}
+
+
+def phase_dryrun(torch, ops, card, started=None) -> dict:
+    """Phase 18: (b) counts each phase's step on the card against its
+    fake trace, then (a)'s records are read; the host processes of
+    :func:`phase_dryrun_start` (started here when not before)."""
+    from repro_torch.launch.dist import destroy_group
+    if started is None:
+        started = phase_dryrun_start()
+    t0 = time.perf_counter()
+    counts = p18_card_vs_fake(torch, ops, card, started["fake"],
+                              started["fake_path"], t0)
+    destroy_group()
+    t1 = time.perf_counter()
+    cli = p18_cli_finish(started["cli"], started["out_dir"], t0, card)
+    seconds = time.perf_counter() - t0
+    print(f"phase 18 took {seconds:.1f} s ((b) {t1 - t0:.1f} s; its host "
+          f"processes started {t0 - started['t0']:.1f} s before it) "
+          f"[{card}]", flush=True)
+    return {"cli": cli, "counts": counts, "seconds": seconds,
+            "counts_s": t1 - t0, "host_head_start_s": t0 - started["t0"],
+            "launches": {f"dryrun_{k}": v["launches"]
+                         for k, v in counts.items()}}
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -6753,14 +7045,17 @@ def main() -> None:
     for name in libs:
         check_ptxas(name, build.build_log(name))
     check_wgmma_instantiations(build.build_log("flash_attention_wgmma"))
-    if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"]):
-        # phase 16 or 17 alone, after the build (a quicker check of its
+    if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"],
+                        ["--phase", "18"]):
+        # phase 16, 17 or 18 alone, after the build (a quicker check of its
         # slice)
         if sys.argv[2] == "16":
             alone = {"parallel": phase_parallel(torch, ops, ref, train,
                                                 card)}
-        else:
+        elif sys.argv[2] == "17":
             alone = {"elastic": phase_elastic(torch, ops, train, card)}
+        else:
+            alone = {"dryrun": phase_dryrun(torch, ops, card)}
         print(json.dumps({**alone, "card": card}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": kind,
@@ -6901,8 +7196,12 @@ def main() -> None:
     # -- 16. tensor / expert parallelism, calibration, drift re-planning ------
     par = phase_parallel(torch, ops, ref, train, card)
 
-    # -- 17. the elastic runtime ---------------------------------------------
+    # -- 17. the elastic runtime, with phase 18's host processes beside it --
+    dryrun_host = phase_dryrun_start()
     elastic = phase_elastic(torch, ops, train, card)
+
+    # -- 18. the dry run and the op analysis -----------------------------------
+    dryrun = phase_dryrun(torch, ops, card, dryrun_host)
 
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
                **{arch: r["launches"] for arch, r in moe["serving"].items()},
@@ -6910,7 +7209,9 @@ def main() -> None:
                **{arch: r["launches"] for arch, r in new["serving"].items()},
                f"{SEAMLESS_ARCH}_oneshot": new["oneshot"]["launches"],
                f"{SEAMLESS_ARCH}_f32_frames":
-                   new["f32_frames"]["launches"]}
+                   new["f32_frames"]["launches"],
+               "dryrun_prefill": dryrun["launches"]["dryrun_prefill"],
+               "dryrun_decode_tick": dryrun["launches"]["dryrun_decode_tick"]}
 
     def runs_of(name, runs):
         return {run_name: r[name] for run_name, r in runs.items()}
@@ -6941,6 +7242,7 @@ def main() -> None:
     train_runs.update({f"parallel_{k}": v
                        for k, v in par["launches"].items()})
     train_runs.update(elastic["launches"])
+    train_runs["dryrun_train"] = dryrun["launches"]["dryrun_train"]
     flash_routes = routes_of("flash_attention", serving)
     quant_routes = routes_of("quantize_tiles", {**serving, **train_runs})
     quant_shapes = {**timings, **{f"train_{k}": t for k, t in
@@ -7001,6 +7303,7 @@ def main() -> None:
                       "card": card}))
     print(json.dumps({"parallel": par, "card": card}))
     print(json.dumps({"elastic": elastic, "card": card}))
+    print(json.dumps({"dryrun": dryrun, "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

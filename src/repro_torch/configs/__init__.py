@@ -32,6 +32,15 @@ NOT_PORTED: tuple = ()
 ALL_ARCHS = tuple(_ARCH_MODULES)
 
 
+def applicable_shapes(cfg: ModelConfig) -> tuple:
+    """Which of the four assigned input shapes run for this arch (the
+    reference's rule): ``long_500k`` only for sub-quadratic archs."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        shapes.append("long_500k")
+    return tuple(shapes)
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")

@@ -21,9 +21,12 @@ default group) for a one-axis mesh.
     :func:`my_chunk_index`, :func:`local_chunk`).
 
 A CUDA tensor on a gloo group is moved through a pinned host copy
-(``p2p.py``).  :func:`axes_for_topology` maps a tiered topology's tiers
-onto one process group each, innermost first, so ``hierarchical`` runs
-its inner ring on the fast tier as the cost model
+(``p2p.py``).  Under ``launch/op_analysis.count`` the transports record
+their ops: :func:`_psum` an all-reduce per axis, :func:`all_gather` and
+the direct :func:`all_to_all` theirs, ``p2p.permute`` a hop; every other
+entry point is counted through them.  :func:`axes_for_topology` maps a
+tiered topology's tiers onto one process group each, innermost first, so
+``hierarchical`` runs its inner ring on the fast tier as the cost model
 (``core/schedule/cost.py``, re-exported here as in the reference) prices
 it.
 """
@@ -46,6 +49,7 @@ from repro_torch.core.collectives.ring_fused import ring_fused_allreduce
 from repro_torch.core.collectives.tree import tree_allreduce
 from repro_torch.core.schedule.cost import (  # noqa: F401
     LINK_PRESETS, LinkParams, allreduce_cost_s)
+from repro_torch.launch.op_analysis import record_collective
 
 # one output tensor for every rank's input: the new name where it exists
 _all_gather_into = getattr(dist, "all_gather_single", None) or \
@@ -96,6 +100,7 @@ def check_algo(algo: str) -> None:
 
 def _psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``dist.all_reduce`` (sum) of ``x`` over one axis, in place."""
+    record_collective("all-reduce", x, axis)
     buf = to_wire(x, axis)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=process_group(axis))
     if buf is not x:
@@ -145,6 +150,7 @@ def all_gather(x: torch.Tensor, axis: Axis = None) -> torch.Tensor:
     """Every rank's ``x`` stacked along a new leading rank axis:
     (axis size, *x.shape), in the order of the ranks in the group."""
     w = axis_size(axis)
+    record_collective("all-gather", x, axis)
     flat = to_wire(x.reshape(-1), axis)
     # the concatenated form (gloo takes no other), viewed as a stack
     out = torch.empty(w * flat.numel(), dtype=x.dtype, device=flat.device,
@@ -172,6 +178,7 @@ def all_to_all(x: torch.Tensor, axis: Axis, variant: str = "direct"):
         raise ValueError(f"all_to_all wants a leading chunk dim of "
                          f"axis_size {p}, got shape {tuple(x.shape)}")
     if variant == "direct":
+        record_collective("all-to-all", x, axis)
         buf = to_wire(x, axis)
         out = torch.empty_like(buf)
         dist.all_to_all_single(out, buf, group=process_group(axis))

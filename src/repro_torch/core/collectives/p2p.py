@@ -12,7 +12,9 @@ under ``ppermute``.  Peers are handed to ``P2POp`` as global ranks
 gloo moves host memory only.  So a CUDA tensor on a gloo group goes over
 the wire through a pinned host copy (:func:`to_wire` / :func:`from_wire`),
 chosen by the group's backend; those copies are counted in
-:func:`staged_bytes`.  On NCCL nothing is copied.
+:func:`staged_bytes`.  On NCCL nothing is copied.  Under
+``launch/op_analysis.count`` a :func:`permute` that moves data records one
+hop (``collective-permute``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.op_analysis import record_collective
 
 Axis = Optional[dist.ProcessGroup]
 
@@ -95,6 +99,7 @@ def permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
         return torch.zeros_like(x)
     if dst == [r]:
         return x.clone()
+    record_collective("collective-permute", x, axis)
     staged = is_staged(x, axis)
     ops = []
     if dst:

@@ -10,10 +10,13 @@ path went through the kernel; the ``routes`` of ``flash_attention``
 (wgmma / SIMT) and of the per-tile wrappers ``quantize_tiles``,
 ``dequant_accum``, ``topk_ef`` and ``topk_mask`` (warp / block) split that
 count by kernel (``route_counts``); ``reset_launch_counts`` sets them all
-to 0.
+to 0.  Under ``launch/op_analysis.count`` each wrapper's call is counted
+once, by a formula of its arguments' shapes, with the counting of the ops
+inside it suspended (``op_analysis.kernel_call``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -27,8 +30,20 @@ from repro_torch.kernels.quantize import quantize_tiles_cuda
 from repro_torch.kernels.quantize_ef import (dequant_accum_cuda,
                                              quantize_ef_cuda)
 from repro_torch.kernels.topk_mask import topk_ef_cuda, topk_mask_cuda
+from repro_torch.launch.op_analysis import kernel_call
 
 TILE = 8 * 128
+
+
+def _counted(fn):
+    """One op-analysis kernel call per call of the wrapper ``fn``."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with kernel_call(fn.__name__, *args) as box:
+            out = fn(*args, **kwargs)
+            box.append(out)
+        return out
+    return wrapper
 
 
 def _topk_k(ratio: float, tile: int) -> int:
@@ -36,6 +51,7 @@ def _topk_k(ratio: float, tile: int) -> int:
     return max(1, int(tile * ratio))
 
 
+@_counted
 def quantize_tiles(x: torch.Tensor, *, tile: int = TILE):
     """Per-tile int8 quantize without error feedback: x flat (n,) f32 or
     bf16 -> (q int8 (n,), scales f32 (ceil(n/tile),))."""
@@ -57,6 +73,7 @@ def _into(e_out: Optional[torch.Tensor], e_new: torch.Tensor):
     return e_new if e_out is None else e_out.copy_(e_new)
 
 
+@_counted
 def quantize_ef(g: torch.Tensor, e: torch.Tensor, *, decay: float = 1.0,
                 tile: int = TILE, e_out: Optional[torch.Tensor] = None):
     """Fused EF + per-tile int8 quantize of flat f32 g, e:
@@ -72,6 +89,7 @@ def quantize_ef(g: torch.Tensor, e: torch.Tensor, *, decay: float = 1.0,
     return q, _into(e_out, e_new), scales
 
 
+@_counted
 def dequant_accum(q: torch.Tensor, scales: torch.Tensor, *, tile: int = TILE):
     """Fused dequantize + accumulate of gathered payloads: q (w, n) int8,
     scales (w, ceil(n/tile)) -> (n,) f32 sum over ranks in rank order."""
@@ -83,6 +101,7 @@ def dequant_accum(q: torch.Tensor, scales: torch.Tensor, *, tile: int = TILE):
     return _ref.dequant_accum_ref(q, scales, tile=tile)
 
 
+@_counted
 def topk_ef(g: torch.Tensor, e: torch.Tensor, *, ratio: float = 0.01,
             tile: int = TILE, iters: int = 16, decay: float = 1.0,
             e_out: Optional[torch.Tensor] = None):
@@ -100,6 +119,7 @@ def topk_ef(g: torch.Tensor, e: torch.Tensor, *, ratio: float = 0.01,
     return y, _into(e_out, e_new)
 
 
+@_counted
 def topk_mask(x: torch.Tensor, *, ratio: float = 0.01, tile: int = TILE,
               iters: int = 16):
     """Per-tile bisection top-k mask (no EF) of flat f32 or bf16 x."""
@@ -112,6 +132,7 @@ def topk_mask(x: torch.Tensor, *, ratio: float = 0.01, tile: int = TILE,
     return _ref.topk_mask_bisect_ref(x, ratio=ratio, tile=tile, iters=iters)
 
 
+@_counted
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
@@ -133,6 +154,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     softcap=softcap)
 
 
+@_counted
 def nonfinite_tiles(v: torch.Tensor) -> torch.Tensor:
     """The flash kernels' pre-pass: which 64-key tiles of v (B, S, KV, hd)
     hold a non-finite value, per (b, kv head), and at which head dims, as

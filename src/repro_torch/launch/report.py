@@ -7,11 +7,16 @@ stage table of a pipeline run, and the elastic runtime's event table
 Records go to ``artifacts/comm_plans_torch/<arch>.json``
 (``launch/paths.py``), with the calibration and drift blocks of a
 ``--calibrate`` / ``--replan-drift-pct`` run and its drift table
-(:func:`render_drift_table`).  The dry-run and roofline tables are
-ROADMAP.md queue 1, item 14.
+(:func:`render_drift_table`).  The dry run's tables:
+:func:`dryrun_table` and :func:`variants_table` over the records of
+``launch/dryrun.py`` (``artifacts/dryrun_torch/``), and :func:`main`, which
+prints them with the roofline table (``launch/roofline.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.report
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 
@@ -418,3 +423,141 @@ def comm_plan_record(plan) -> dict:
             "tier_cost_s": tier_cost_breakdown(plan),
         }
     return rec
+
+
+# ---------------------------------------------------------------------------
+# The dry run's tables (reference report.py:18, 40)
+# ---------------------------------------------------------------------------
+
+def dryrun_table() -> str:
+    """One row per record of both meshes: the trace's seconds (the
+    reference's compile seconds), HBM a rank (arguments + temp), dot
+    TFLOP, wire GB and the collectives' counts."""
+    from repro_torch.launch.roofline import load_records
+    lines = ["| arch | shape | mesh | trace s | HBM/chip GiB (args+temp) | "
+             "dot TF/chip | wire GB/chip | collectives (AG/AR/RS/A2A/CP) |",
+             "|---|---|---|---|---|---|---|---|"]
+    for mesh in ("16x16", "2x16x16"):
+        for rec in load_records(mesh):
+            mem = rec["memory_analysis"]
+            hbm = (mem.get("argument_size_in_bytes", 0)
+                   + mem.get("temp_size_in_bytes", 0)) / 2**30
+            cc = rec["hlo"]["collective_counts"]
+            counts = "/".join(str(cc.get(k, 0)) for k in (
+                "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute"))
+            lines.append(
+                f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | "
+                f"{rec['trace_s']:.0f} | {hbm:.1f} | "
+                f"{rec['hlo']['dot_flops_per_device']/1e12:.2f} | "
+                f"{rec['hlo']['collective_wire_bytes_per_device']/1e9:.2f} | "
+                f"{counts} |")
+    return "\n".join(lines)
+
+
+def variants_table() -> str:
+    """Baseline vs every other traced variant at ``16x16``; "—" where the
+    baseline moves no wire (a serving step)."""
+    from repro_torch.launch import roofline
+    lines = ["| arch | shape | variant | dot TF/chip | wire GB/chip | "
+             "HBM GiB | Δwire vs baseline |",
+             "|---|---|---|---|---|---|---|"]
+    base = {}
+    rows = []
+    for path in sorted(glob.glob(os.path.join(roofline.DRYRUN,
+                                              "*_16x16_*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        key = (rec["arch"], rec["shape"])
+        if rec["variant"] == "baseline":
+            base[key] = rec
+        else:
+            rows.append(rec)
+    for rec in rows:
+        key = (rec["arch"], rec["shape"])
+        b = base.get(key)
+        mem = rec["memory_analysis"]
+        hbm = (mem.get("argument_size_in_bytes", 0)
+               + mem.get("temp_size_in_bytes", 0)) / 2**30
+        wire = rec["hlo"]["collective_wire_bytes_per_device"]
+        delta = ""
+        if b:
+            bw = b["hlo"]["collective_wire_bytes_per_device"]
+            if bw == 0:            # no ratio (the reference divides by 0)
+                delta = "—"
+            else:
+                delta = f"{bw / wire:.0f}× less" if wire < bw else \
+                    f"{wire / bw:.2f}× more"
+        lines.append(
+            f"| {rec['arch']} | {rec['shape']} | {rec['variant']} | "
+            f"{rec['hlo']['dot_flops_per_device']/1e12:.3f} | "
+            f"{wire/1e9:.3f} | {hbm:.1f} | {delta} |")
+    return "\n".join(lines)
+
+
+CARD_BYTES = 80e9        # an H100 80GB HBM3's memory
+
+
+def rank_bytes(rec) -> int:
+    """What a record's rank holds at its peak: arguments + temp + the
+    outputs not written in place over an argument."""
+    m = rec["memory_analysis"]
+    return (m.get("argument_size_in_bytes", 0)
+            + m.get("temp_size_in_bytes", 0)
+            + m.get("output_size_in_bytes", 0)
+            - m.get("alias_size_in_bytes", 0))
+
+
+def summary_table(mesh: str = "16x16") -> str:
+    """One row per baseline record: the trace's seconds on the host, the
+    rank's GB and whether it fits one card's 80 GB, dot TFLOP, wire GB,
+    and the roofline terms (modeled, with ``launch/roofline.py``'s H100
+    constants; ``memory s`` from the reference's analytic traffic model,
+    ``traced bytes s`` from the rank's fusion-less bytes)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.roofline import load_records, terms
+    lines = ["| arch | shape | trace s | rank GB | fits 80 GB | dot TF | "
+             "wire GB | compute s | memory s | traced bytes s | "
+             "collective s | dominant |",
+             "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    for rec in load_records(mesh):
+        t = terms(rec, get_config(rec["arch"]), SHAPES[rec["shape"]])
+        need = rank_bytes(rec)
+        lines.append(
+            f"| {rec['arch']} | {rec['shape']} | {rec['trace_s']:.1f} | "
+            f"{need / 1e9:.1f} | {'yes' if need <= CARD_BYTES else 'no'} | "
+            f"{rec['hlo']['dot_flops_per_device'] / 1e12:.1f} | "
+            f"{rec['hlo']['collective_wire_bytes_per_device'] / 1e9:.2f} | "
+            f"{t['compute_s']:.3g} | {t['memory_s']:.3g} | "
+            f"{t['hlo_memory_s_upper']:.3g} | {t['collective_s']:.3g} | "
+            f"{t['dominant']} |")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> None:
+    """Print the dry-run table, the roofline table with its notes at
+    ``16x16``, and the variants table (the reference's ``main`` writes
+    them into its EXPERIMENTS.md, which this repository does not have),
+    then the per-rank summary (:func:`summary_table`)."""
+    import argparse
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.roofline import (load_records, render_table,
+                                             terms)
+    argparse.ArgumentParser(prog="python -m repro_torch.launch.report"
+                            ).parse_args(argv)
+    recs = load_records("16x16")
+    notes = "\n".join(
+        f"- **{r['arch']} × {r['shape']}**: dominant="
+        f"{terms(r, get_config(r['arch']), SHAPES[r['shape']])['dominant']}"
+        for r in recs)
+    print("### Dry run\n\n" + dryrun_table() + "\n")
+    print("### Roofline (modeled: H100 data-sheet constants)\n\n"
+          + render_table(recs) + "\n\n" + notes + "\n")
+    print("### All traced variants vs baseline\n\n" + variants_table() + "\n")
+    print("### Per rank at 16x16 (roofline modeled with the H100 data-sheet "
+          "constants)\n\n" + summary_table())
+
+
+if __name__ == "__main__":
+    main()

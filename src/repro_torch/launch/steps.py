@@ -1,7 +1,10 @@
 """Train steps of the port — counterparts of ``repro/launch/steps.py``:
 
   * :func:`make_train_step` — vanilla BSP (loss, backward, update; at a
-    world above 1 the gradients are averaged densely);
+    world above 1 the gradients are averaged densely), with gradient
+    accumulation over ``microbatches``;
+  * :func:`make_prefill_step` / :func:`make_decode_step` — the serving
+    steps the dry run traces;
   * :func:`make_comm_optimized_train_step` / :func:`_make_synced_train_step`
     — per-rank loss and backward, the gradient synchronizer (compression +
     collective over the process group), the update, and the loss averaged
@@ -70,14 +73,47 @@ def mean_over_group(x: torch.Tensor,
 
 
 def make_train_step(model: Model, optimizer,
-                    group: Optional[dist.ProcessGroup] = None):
+                    group: Optional[dist.ProcessGroup] = None,
+                    microbatches: int = 1):
     """Vanilla BSP step: loss, backward, update.  Returns
     ``train_step(params, opt_state, batch, step) -> loss``; params and the
-    optimizer state are updated in place."""
+    optimizer state are updated in place.
+
+    ``microbatches > 1`` runs gradient accumulation, as the reference's
+    scan: the batch is split along dim 0 into that many slices, each
+    slice's gradients are added in f32 in slice order, and the loss and the
+    gradients are the means over the slices; the update and the gradient
+    sync run once per step."""
     dense = GradientSynchronizer(SyncConfig(), group)
+    M = int(microbatches)
+
+    def grads_of(params, batch):
+        if M <= 1:
+            return loss_and_grads(model, params, batch)
+        B = tree_leaves(batch)[0].shape[0]
+        if B % M:
+            raise ValueError(f"batch rows {B} do not split into {M} "
+                             f"micro-batches")
+        mb = B // M
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+        acc = None
+        for i in range(M):
+            part = tree_map(lambda x: x[i * mb:(i + 1) * mb], batch)
+            l, g = loss_and_grads(model, params, part)
+            if acc is None:
+                acc = tree_map(lambda t: torch.zeros(t.shape,
+                                                     dtype=torch.float32,
+                                                     device=t.device), g)
+            for a, gg in zip(tree_leaves(acc), tree_leaves(g)):
+                a.add_(gg)
+            del g
+            loss = loss + l
+        return _div(loss, float(M)), tree_map(
+            lambda a: _div(a, float(M), inplace=True), acc)
 
     def train_step(params, opt_state, batch, step):
-        loss, grads = loss_and_grads(model, params, batch)
+        loss, grads = grads_of(params, batch)
         if world_size(group) > 1:
             grads, _ = dense(grads, {"step": 0})
             loss = mean_over_group(loss, group)
@@ -85,6 +121,26 @@ def make_train_step(model: Model, optimizer,
         return loss
 
     return train_step
+
+
+def make_prefill_step(model: Model):
+    """``prefill_step(params, batch) -> (last-token logits, cache)``."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model, mla_absorb: bool = False,
+                     moe_dispatch: bool = False):
+    """``decode_step(params, tokens, cache, pos) -> (logits, new_cache)``
+    with MLA's absorbed decode and the MoE capacity dispatch as asked."""
+    def decode_step(params, tokens, cache, pos):
+        return model.decode_step(params, tokens, cache, pos,
+                                 mla_absorb=mla_absorb,
+                                 moe_dispatch=moe_dispatch)
+
+    return decode_step
 
 
 def make_comm_optimized_train_step(model: Model, optimizer, sync: SyncConfig,

@@ -8,6 +8,7 @@ carry ``"src"`` frame embeddings):
   * ``prefill(params, batch, max_len)``          (inference prefill)
   * ``init_cache`` / ``decode_step(params, tokens, cache, pos,
     mla_absorb, moe_dispatch)``
+  * ``abstract_params`` / ``input_specs(shape)``  (the dry run)
 
 The encoder-decoder keeps the reference's unused ``final_norm`` (its
 decoder ends in ``dec_norm``), so that converted trees match.
@@ -24,12 +25,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
-from repro_torch.models.layers import (TensorSpec, desc_leaves, embed,
-                                       embedding_desc, materialize, norm_desc,
-                                       rmsnorm, softmax_xent)
+from repro_torch.models.layers import (ParamDesc, TensorSpec, desc_leaves,
+                                       embed, embedding_desc, materialize,
+                                       norm_desc, rmsnorm, softmax_xent)
 
 XENT_CHUNK = 512
 
@@ -80,6 +81,21 @@ class Model:
                                post=(lambda x: x[rows].clone())
                                if k == "stack" else None)
                 for k in sorted(desc)}
+
+    def abstract_params(self, dtype=None, mode=None):
+        """CPU fake tensors of ``param_desc``'s shapes in ``dtype`` (the
+        reference's ``ShapeDtypeStruct`` stand-ins, concrete enough to run
+        a step on with no storage): made under ``mode``, a
+        ``FakeTensorMode`` (a new one when None), under which the step that
+        reads them must run."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        dtype = dtype or resolve_dtype(self.cfg.param_dtype)
+        mode = mode if mode is not None else FakeTensorMode()
+        with mode:
+            return tree_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                                  device="cpu"),
+                            self.param_desc(),
+                            is_leaf=lambda x: isinstance(x, ParamDesc))
 
     # -- shared pieces ------------------------------------------------------
 
@@ -204,6 +220,27 @@ class Model:
                                                 mla_absorb, moe_dispatch)
         h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         return self._logits(params, h), new_cache
+
+
+    # -- dry-run specs ------------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """TensorSpec stand-ins for every step-function input, the
+        reference's shapes and dtypes: train / prefill ``{"tokens": (B, T)
+        int32[, "src": (B, T, d) frames]}``; decode ``{"tokens": (B, 1)
+        int32, "cache": <a T-entry cache>, "pos": () int32}``."""
+        cfg = self.cfg
+        B, T = shape.global_batch, shape.seq_len
+        cdt = resolve_dtype(cfg.compute_dtype)
+        if shape.phase in ("train", "prefill"):
+            specs = {"tokens": TensorSpec((B, T), torch.int32)}
+            if cfg.is_encoder_decoder:
+                specs["src"] = TensorSpec((B, T, cfg.d_model), cdt)
+            return specs
+        src_len = T if cfg.is_encoder_decoder else 0
+        return {"tokens": TensorSpec((B, 1), torch.int32),
+                "cache": self.init_cache(B, T, src_len=src_len, dtype=cdt),
+                "pos": TensorSpec((), torch.int32)}
 
 
 def count_params(cfg: ModelConfig) -> int:

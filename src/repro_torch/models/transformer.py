@@ -18,7 +18,9 @@ and splits each stacked leaf into its layers once (``unbind``): indexing
 of the stacked leaf for every layer.  The MoE aux loss is summed in f32
 in layer order.  Under ``sharding_ctx.tp_region(group)`` the training
 blocks' dense FFNs run tensor-parallel (``layers.mlp_tp``) on the rank's
-ffn slice; the prefill and decode blocks do not, as in the reference.
+ffn slice, and under ``sharding_ctx.ep_region(group)`` their MoE FFNs
+expert-parallel (``moe_ffn(ep_axis=group)``) on the rank's expert block;
+the prefill and decode blocks do neither, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, mlp_tp,
                                        norm_desc, rmsnorm, stack_desc)
-from repro_torch.models.sharding_ctx import tp_axis, tp_region
+from repro_torch.models.sharding_ctx import (ep_axis, ep_region, tp_axis,
+                                             tp_region)
 
 XLSTM_MIXERS = ("mlstm", "slstm")
 _MIXER_DESC = {"attn": attn.attn_desc, "mla": attn.mla_desc,
@@ -72,17 +75,19 @@ def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     return desc
 
 
-def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None):
+def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None, ep=None):
     """x + FFN(norm2(x)) and the MoE aux loss (an f32 zero for a dense
     FFN).  ``tp`` (a process group): the dense FFN is tensor-parallel,
     ``params`` hold this rank's ffn slice and the Megatron wire
-    (``mlp_tp``) reduces the activations over ``tp``."""
+    (``mlp_tp``) reduces the activations over ``tp``.  ``ep`` (a process
+    group): the MoE FFN is expert-parallel over it, ``params`` hold this
+    rank's block of the experts."""
     aux = _zero(x)
     if spec.ffn == "none":
         return x, aux
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
     if spec.ffn == "moe":
-        h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h)
+        h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h, ep_axis=ep)
     elif tp is not None:
         h = mlp_tp(params["ffn"], h, cfg.activation, group=tp)
     else:
@@ -110,8 +115,9 @@ def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
         h = attn.mla_forward(params["mixer"], cfg, spec, h, positions)
     else:
         h = ssm_mod.mamba_forward(params["mixer"], cfg, h)
-    # under an active tp region the dense FFN runs the Megatron wire
-    return _ffn(params, cfg, spec, x + h, tp=tp_axis())
+    # under an active tp region the dense FFN runs the Megatron wire, under
+    # an ep region the MoE FFN exchanges its tokens over the ep group
+    return _ffn(params, cfg, spec, x + h, tp=tp_axis(), ep=ep_axis())
 
 
 def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
@@ -194,13 +200,13 @@ def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
 def checkpointed(fn, *args):
     """``torch.utils.checkpoint`` of ``fn(*args)``, whose recomputation in
     the backward leaves the MoE drop tap alone: each routed choice is
-    counted once per forward.  The recomputation runs in the tp region
-    of the forward (the backward may run outside it)."""
+    counted once per forward.  The recomputation runs in the tp and ep
+    regions of the forward (the backward may run outside them)."""
     ran = [False]
-    group = tp_axis()
+    group, experts = tp_axis(), ep_axis()
 
     def once(*a):
-        with tp_region(group):
+        with tp_region(group), ep_region(experts):
             if ran[0]:
                 with moe_mod.drop_tap_paused():
                     return fn(*a)

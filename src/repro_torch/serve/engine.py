@@ -327,16 +327,20 @@ class Engine:
                            arrival_s=s.req.arrival_s, admit_s=s.admit_s,
                            emit_s=list(s.emit_s))]
 
-    def _decode(self, tokens: np.ndarray, pos: np.ndarray,
-                active: np.ndarray):
-        """The fixed-shape decode step: gather the paged cache, decode one
-        token per row, scatter the new entries back.  Returns (greedy
-        tokens (B,) numpy, last-position logits (B, vocab))."""
+    def _decode_inputs(self, tokens: np.ndarray, pos: np.ndarray,
+                       active: np.ndarray):
+        """The tick's host arrays and the page tables on the device:
+        (tokens, pos, active, tables)."""
         dev = self.device
-        tokens_t = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
-        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
-        active_t = torch.as_tensor(active, device=dev)
-        tables = self.cache.tables()
+        return (torch.as_tensor(tokens, dtype=torch.int64, device=dev),
+                torch.as_tensor(pos, dtype=torch.int64, device=dev),
+                torch.as_tensor(active, device=dev), self.cache.tables())
+
+    def _decode_on_device(self, tokens_t, pos_t, active_t, tables):
+        """The fixed-shape decode step on the device: gather the paged
+        cache, decode one token per row, scatter the new entries back.
+        Returns (greedy tokens (B,), last-position logits (B, vocab)), both
+        on the device; no host read."""
         linear = self.cache.gather(self.pool, tables)
         pos_c = torch.where(active_t, pos_t, 0)
         logits, new_linear = self.model.decode_step(self.params, tokens_t,
@@ -344,7 +348,15 @@ class Engine:
         self.pool = self.cache.scatter_token(self.pool, new_linear, pos_c,
                                              tables, active_t)
         last = logits[:, -1]
-        return torch.argmax(last, dim=-1).cpu().numpy(), last
+        return torch.argmax(last, dim=-1), last
+
+    def _decode(self, tokens: np.ndarray, pos: np.ndarray,
+                active: np.ndarray):
+        """One decode tick: (greedy tokens (B,) numpy, last-position
+        logits (B, vocab))."""
+        nxt, last = self._decode_on_device(*self._decode_inputs(tokens, pos,
+                                                                active))
+        return nxt.cpu().numpy(), last
 
     def _decode_tick(self) -> List[Completion]:
         B = self.cfg.max_batch
