@@ -290,11 +290,12 @@ Phases (any failure exits non-zero and prints no result line):
      re-plan installs another).  ``python3 chip_smoke.py
      --phase 16`` runs the build and this phase alone;
  17. the elastic runtime: (a) ``repro_torch.launch.train`` at phase 8's
-     full width and depth (gemma-2b, Adam, batch 4 x seq 512, NCCL world
+     full width (gemma-2b cut to 4 of its 18 layers, the call's time
+     budget: a 9.65 GB checkpoint; Adam, batch 4 x seq 512, NCCL world
      1) with ``--sync comm --compressor int8_fused --no-error-feedback
      --elastic --topology node:2@datacenter,device:4@fast_ici
      --fault-trace kill:3@2,kill:7@2 --steps 4`` (one reshard: with a
-     second 25 GB checkpoint the run's disk writes pass ~45 GiB),
+     second checkpoint the run's disk writes would near ~45 GiB),
      its checkpoint under ``build/elastic_tmp`` (the disk's free space
      checked first, the directory removed after), beside an unfaulted
      4-step run of the same wire in this process: the events exactly 8 ->
@@ -338,13 +339,35 @@ Phases (any failure exits non-zero and prints no result line):
      and its kernel calls to the wrappers' launch counters
      (``nonfinite_tiles`` once per flash call).  No time is compared.
      ``python3 chip_smoke.py --phase 18`` runs the build and this phase
-     alone.
+     alone;
+ 19. serving under the reference's model-axis layout
+     (``sharding_ctx.serve_region``), four ranks of a gloo world on the
+     card at tp = 4, each drawing only its share of the weights
+     (``convert.serve_init``), ``make_prefill_step`` then donated
+     ``make_decode_step`` steps: (a) gemma2-9b at full width and depth,
+     B = 2, a 2048-token prompt, 8 steps (the kv heads split); (b)
+     gemma-2b at full width with a 4096-entry cache in four blocks of
+     1024 (one kv head: the length split and the split-KV combine), 8
+     steps; (c) qwen3-moe-30b-a3b at full width and 4 layers, 32 experts
+     a rank, no drop, 4 steps.  Each case's logits bit-equal on the four
+     ranks and within ``P19_LOGITS_RTOL`` (relative L2 a step) of the
+     unsharded steps on the card (argmax agreement printed as weak
+     evidence); flash on the wgmma route on every rank's head block;
+     per-rank peaks against the reckoning, staged bytes, prefill and step
+     times printed.  (d) rank 0's counts of (a)'s prefill and first step
+     equal, in dot FLOPs, bytes, kernel calls and collectives per axis,
+     a fake-tensor trace of the same rank (a ``fake`` process group of
+     world 4, on the host, started before phase 17).  Phase 3 times flash
+     at the ranks' shapes.  It writes nothing to disk but the ranks'
+     JSON.  ``python3 chip_smoke.py --phase 19`` runs the build, those
+     flash shapes and this phase alone.
 
 Every main-path run (5, 7, each of 8, each of 9 on every rank, each of
 10 (a) and (c), each of 11 on every rank, and 12 (a) and both runs of
 12 (c) on every rank, and 13 (a) and (c) on every rank, and 14 (a), (b),
 (c) and (e), and 15 (a)–(e), and 16 (a) on both ranks, (c) and (d), and
-both runs of 17 (a), and the three steps of 18 (b)) sets
+both runs of 17 (a), and the three steps of 18 (b), and 19 on every
+rank and case) sets
 every kernel launch counter
 to 0 just before it and reads them just after: each kernel of that run
 must have launched exactly as often as the run's structure says, and
@@ -385,7 +408,9 @@ sizes (encode 5, decode 4 a size), warp routes; elastic: as 8's no-EF
 int8_fused run, in every generation of the session; the dry run's card
 steps: flash and its pre-pass = 18 at the prefill, quantize_tiles = 2
 (the pool's paged leaves) at the decode tick, 0 for every other kernel
-and at the train step.  Launches made in
+and at the train step; serving under the model axis: flash and its
+pre-pass = the attention layers at the prefill on every rank (42, 18 and
+4), all wgmma, 0 at the decode steps.  Launches made in
 phases 3, 4, 6, 10 (b),
 12 (b), 13 (b), 15's small references and 17 (b), and by the
 checks and timings of 9, 10, 11, 12, 14 and 15, are not counted.  It
@@ -6203,13 +6228,16 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
 ELASTIC_TOPOLOGY = "node:2@datacenter,device:4@fast_ici"
 ELASTIC_SURVIVORS = "node:2@datacenter,device:3@fast_ici"
 ELASTIC_TRACE = "kill:3@2,kill:7@2,restore:3@4,restore:7@4"   # 8 -> 6 -> 8
-# (a): phase 8's full width, depth and batch, the int8_fused wire without
-# error feedback (no state outside params and opt, so a faulted run must
-# equal the unfaulted one bit for bit), through one reshard: a full-width
-# checkpoint is 25.06 GB, and a run is held to about 45 GiB of disk
-# writes (two such checkpoints wrote 46.7), of which phase 16 writes ~19;
-# the 6 -> 8 leg runs in (b)
+# (a): phase 8's full width and batch, the int8_fused wire without error
+# feedback (no state outside params and opt, so a faulted run must equal
+# the unfaulted one bit for bit), through one reshard, at 4 of gemma-2b's
+# 18 layers: the whole call's 1200 s hold phase 19 only with a shorter
+# round trip (at 18 layers its 25.06 GB checkpoint took 152-181 s, a
+# third of it sha256; at 9 layers 15.15 GB took 96-108 s and the call
+# 1142 s; at 4 it is 9.65 GB); a run is held to about 45 GiB of disk
+# writes, of which phase 16 writes ~19; the 6 -> 8 leg runs in (b)
 ELASTIC_FULL_TRACE = "kill:3@2,kill:7@2"
+ELASTIC_LAYERS = 4
 ELASTIC_STEPS = 4
 ELASTIC_EVENTS = [(2, "reshard", 8, 6, ELASTIC_SURVIVORS)]
 ELASTIC_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--optimizer", "adam",
@@ -6347,14 +6375,31 @@ def host_peak_rss() -> int:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
+class elastic_depth:
+    """Within the block, the sessions the CLI builds (``api.get_config``)
+    take gemma-2b cut to ``ELASTIC_LAYERS`` layers, its widths whole."""
+
+    def __enter__(self):
+        from repro_torch import api
+        self._orig = api.get_config
+        api.get_config = lambda arch: dataclasses.replace(
+            self._orig(arch), num_layers=ELASTIC_LAYERS)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import api
+        api.get_config = self._orig
+
+
 def p17_full_width(torch, ops, train, card) -> dict:
-    """Phase 17 (a): gemma-2b at phase 8's full width through the CLI's
-    ``--elastic`` on the 8 -> 6 -> 8 trace, against an unfaulted run of
-    the same wire in this process."""
+    """Phase 17 (a): gemma-2b at phase 8's full width, ``ELASTIC_LAYERS``
+    deep, through the CLI's ``--elastic`` on the 8 -> 6 -> 8 trace,
+    against an unfaulted run of the same wire in this process."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
-    rk = elastic_reckoning(get_config("gemma-2b"))
+    rk = elastic_reckoning(dataclasses.replace(get_config("gemma-2b"),
+                                               num_layers=ELASTIC_LAYERS))
     tmp = ROOT / "build" / "elastic_tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
@@ -6371,7 +6416,8 @@ def p17_full_width(torch, ops, train, card) -> dict:
     def counted(argv):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        out = train.main(argv)
+        with elastic_depth():
+            out = train.main(argv)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, path_counts(ops)
 
@@ -6481,7 +6527,8 @@ def p17_full_width(torch, ops, train, card) -> dict:
     loads = ", ".join(
         f"{s:.2f} s ({on_disk / s / 1e9:.2f} GB/s; sha256 {h:.2f} s)"
         for s, h in zip(rec["load_s"], rec["sha256_load_s"]))
-    print(f"elastic (a) [{card}]: gemma-2b {rk['params']} params, batch "
+    print(f"elastic (a) [{card}]: gemma-2b cut to {ELASTIC_LAYERS} of 18 "
+          f"layers, {rk['params']} params, batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {dtype}, int8_fused without "
           f"EF, "
           f"{ELASTIC_FULL_TRACE}: events {events}; {ELASTIC_STEPS} losses, "
@@ -6924,6 +6971,542 @@ def phase_dryrun(torch, ops, card, started=None) -> dict:
                          for k, v in counts.items()}}
 
 
+# -- phase 19: serving under the reference's model-axis layout --------------
+
+# four ranks of a gloo world on the one card, tp = 4 (the whole world), the
+# rank's share drawn leaf by leaf (``convert.serve_init``: no rank holds
+# the whole tree), make_prefill_step then donated decode steps under
+# ``serve_region``; each case against the unsharded steps on the card
+P19_WORLD = 4
+P19_DIR = "phase19"
+P19_CASES = {   # name: (arch, config overrides, batch, prompt, max_len, steps)
+    # 8 kv heads over 4 ranks (the kv split), 42 layers: global and a
+    # window of 4096 (above the cache's 2056 entries, so whole)
+    "gemma2_9b": ("gemma2-9b", {}, 2, 2048, 2056, 8),
+    # one kv head: the length split, 4096 entries in 4 blocks of 1024; the
+    # prompt ends in the third block and the steps cross into the fourth
+    "gemma_2b": ("gemma-2b", {}, 2, 3068, 4096, 8),
+    # 4 of 48 layers, 32 of the 128 experts a rank, capacity factor E / k
+    # = 16 (a capacity of every token: no drop); 4 kv heads, one a rank
+    "qwen3_moe": ("qwen3-moe-30b-a3b", {"num_layers": 4,
+                                        "capacity_factor": 16.0},
+                  2, 256, 260, 4),
+}
+# the rank's flash calls per admission, all on the wgmma route
+P19_FLASH = {"gemma2_9b": 42, "gemma_2b": 18, "qwen3_moe": 4}
+# logits of the tp ranks against the unsharded steps on the card, relative
+# L2 gap of each step's (B, vocab) logits: every layer's wo and FFN
+# partials are rounded to bf16 before the all-reduce sums them (the
+# unsharded GEMM rounds its f32 sum once), ~2^-9 relative a sum, two sums
+# a layer; those gaps walk through up to 42 residual layers and the final
+# norm.  Bound at 5e-2, the phase-16 gradient bound's order (4e-2).  The
+# MoE case's control routes as rank 0 routed (``p19_route_replay``): a
+# bf16 gap in a router's input flips near-tied choices, each of which
+# moves its token's output by a whole expert's; the flips are counted
+P19_LOGITS_RTOL = 5e-2
+# the ranks' flash shapes, timed in phase 3: q (B, T, H / tp, hd) against
+# k / v (B, T, KV / tp or the one kv head, hd)
+P19_FLASH_SHAPES = {   # name: (B, T, H, KV, hd, kwargs)
+    "gemma2_9b_tp4_rank": (2, 2048, 4, 2, 256, {"softcap": 50.0,
+                                                 "window": 4096}),
+    "gemma_2b_tp4_rank": (2, 3068, 2, 1, 256, {}),
+    "qwen3_moe_tp4_rank": (2, 256, 8, 1, 128, {}),
+}
+P19_COUNTED = "gemma2_9b"   # (d): rank 0's prefill and first decode step
+
+
+def p19_config(case: str):
+    from repro_torch.configs import get_config
+    arch, over = P19_CASES[case][:2]
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def p19_tokens(torch, cfg, case: str, device):
+    """The case's prompt (B, T) and forced decode tokens (steps, B, 1),
+    int64, from a numpy seed: the same in every process."""
+    _, _, B, T, _, steps = P19_CASES[case]
+    rng = np.random.default_rng(190 + list(P19_CASES).index(case))
+    prompt = rng.integers(0, cfg.vocab_size, (B, T))
+    forced = rng.integers(0, cfg.vocab_size, (steps, B, 1))
+    return (torch.from_numpy(prompt).to(device),
+            torch.from_numpy(forced).to(device))
+
+
+class p19_route_record:
+    """Within the block, every ``moe._route`` call's expert choices (each
+    row's in choice order, int lists) are appended to ``calls``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe._route
+
+        def route(cfg, logits):
+            w, e, aux = self._orig(cfg, logits)
+            self.calls.append(e.cpu().tolist())
+            return w, e, aux
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._orig
+
+
+class p19_route_replay:
+    """Within the block, the ``n``-th ``moe._route`` call takes the expert
+    choices of ``calls[n]`` (rank 0's, in its order) in place of its own,
+    each weighted by its own softmax there, renormalized as ``_route``
+    does; ``flipped`` counts, per call, the rows whose own choices (as a
+    set) differ."""
+
+    def __init__(self, torch, calls):
+        self.torch, self.calls, self.flipped = torch, calls, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        torch = self.torch
+        self._orig = moe._route
+
+        def route(cfg, logits):
+            w, e, aux = self._orig(cfg, logits)
+            want = torch.tensor(self.calls[len(self.flipped)],
+                                dtype=e.dtype, device=e.device)
+            self.flipped.append(int((e.sort(-1).values !=
+                                     want.sort(-1).values).any(-1).sum()))
+            probs = torch.softmax(logits.to(torch.float32), dim=-1)
+            w = probs.gather(-1, want)
+            w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+            return w, want, aux
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._orig
+
+
+def p19_control(torch, case: str, routes=None) -> dict:
+    """The unsharded steps on the card (whole model, world 1): prefill and
+    ``steps`` decode steps; logits on the host (f32).  ``routes``: the
+    expert choices of every ``_route`` call to replay
+    (:class:`p19_route_replay`)."""
+    import contextlib
+    from repro_torch.models.model import Model
+    _, _, B, T, ML, steps = P19_CASES[case]
+    cfg = p19_config(case)
+    model = Model(cfg)
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    prompt, forced = p19_tokens(torch, cfg, case, dev)
+    logits = []
+    replay = p19_route_replay(torch, routes) if routes is not None \
+        else contextlib.nullcontext()
+    with torch.no_grad(), replay:
+        out, cache = model.prefill(params, {"tokens": prompt}, ML)
+        logits.append(out.float().cpu())
+        for i in range(steps):
+            out, cache = model.decode_step(params, forced[i], cache, T + i,
+                                           inplace=True)
+            logits.append(out.float().cpu())
+    del params, cache, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logits": torch.stack(logits),
+            "flipped": replay.flipped if routes is not None else None}
+
+
+def p19_steps(model, case: str) -> tuple:
+    """The case's prefill step (its cache ``max_len`` long) and its
+    donated decode step, as a rank and the fake trace run them."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    return (make_prefill_step(model, P19_CASES[case][4]),
+            make_decode_step(model, donate=True))
+
+
+def p19_stats(st) -> dict:
+    return {"dot_flops": st.dot_flops, "memory_bytes": st.memory_bytes,
+            "kernel_calls": dict(st.kernel_calls),
+            "collective_counts": dict(st.collective_counts),
+            "wire": dict(st.collective_wire_bytes_by_axis),
+            "aten_ops": st.aten_ops, "op_counts": st.op_counts}
+
+
+def p19_fake_counts(out_path: str) -> None:
+    """(d)'s fake-tensor traces, in a process of their own (``python3 -c
+    "...; chip_smoke.p19_fake_counts(OUT)"``): rank 0 of a ``fake``
+    process group of world 4, its share of the parameters as fake
+    tensors, the prefill and the first decode step of
+    :data:`P19_COUNTED` counted on CPU fake tensors (the plain versions
+    run), the counts written to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.convert import serve_slice
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dryrun import _fake_store
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding_ctx import serve_region
+    case = P19_COUNTED
+    ML = P19_CASES[case][4]
+    cfg = p19_config(case)
+    model = Model(cfg)
+    dist.init_process_group("fake", store=_fake_store(), rank=0,
+                            world_size=P19_WORLD)
+    mode = FakeTensorMode()
+    with mode:
+        params = serve_slice(model.abstract_params(mode=mode), cfg, 0,
+                             P19_WORLD)
+    _, _, B, T, _, _ = P19_CASES[case]
+    prefill, decode = p19_steps(model, case)
+    out = {}
+    with mode, serve_region(dist.group.WORLD, (), ML), torch.no_grad():
+        t0 = time.perf_counter()
+        (_, cache), st = op_analysis.trace(prefill, (
+            params, {"tokens": torch.zeros((B, T), dtype=torch.int64)}),
+            table=True)
+        out["prefill"] = {**p19_stats(st), "fake_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        _, st = op_analysis.trace(decode, (
+            params, torch.zeros((B, 1), dtype=torch.int64), cache, T),
+            table=True)
+        out["decode"] = {**p19_stats(st), "fake_s": time.perf_counter() - t0}
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def p19_fake_start() -> tuple:
+    """(process, path) of (d)'s fake traces, started now; the path lies
+    outside ``build/phase19``, which the spawned world empties."""
+    path = ROOT / "build" / "phase19_fake" / "fake_counts.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.p19_fake_counts({str(path)!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), path
+
+
+def p19_reckoning(params, cache) -> int:
+    """The rank's parameters and decode cache, in bytes."""
+    from repro_torch._tree import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(params) + tree_leaves(cache))
+
+
+def p19_rank_case(torch, ops, rank: int, case: str, shared) -> dict:
+    """One case on this rank: its share of the weights, the prefill, then
+    the donated decode steps, under ``serve_region`` over the world; rank
+    0 counts :data:`P19_COUNTED`'s prefill and first step (the op
+    analysis, its ops beside the kernels), writes its logits into
+    ``shared`` (a host tensor in shared memory) and records its expert
+    choices."""
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.convert import serve_init
+    from repro_torch.core.collectives import p2p
+    from repro_torch.launch import op_analysis
+    from repro_torch.models.layers import desc_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding_ctx import serve_region
+    _, _, B, T, ML, steps = P19_CASES[case]
+    cfg = p19_config(case)
+    model = Model(cfg)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = serve_init(cfg, torch.Generator(dev).manual_seed(0), rank,
+                        P19_WORLD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prompt, forced = p19_tokens(torch, cfg, case, dev)
+    counted = rank == 0 and case == P19_COUNTED
+    counts = {}
+    logits, step_ms = [], []
+    dist.barrier()
+    ops.reset_launch_counts()
+    p2p.reset_staged_bytes()
+    routes = p19_route_record()
+    prefill, decode = p19_steps(model, case)
+    with torch.no_grad(), serve_region(dist.group.WORLD, (), ML), routes:
+        args = (params, {"tokens": prompt})
+        t0 = time.perf_counter()
+        if counted:
+            (out, cache), st = op_analysis.trace(prefill, args, table=True)
+            counts["prefill"] = p19_stats(st)
+        else:
+            out, cache = prefill(*args)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        logits.append(out.float())
+        staged_prefill = p2p.staged_bytes()
+        for i in range(steps):
+            args = (params, forced[i], cache, T + i)
+            t0 = time.perf_counter()
+            if counted and i == 0:
+                (out, new), st = op_analysis.trace(decode, args, table=True)
+                counts["decode"] = p19_stats(st)
+            else:
+                out, new = decode(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if new is not cache:
+                raise RuntimeError("the donated decode returned another cache")
+            logits.append(out.float())
+    launches = path_counts(ops)
+    got = torch.stack(logits)                       # (steps + 1, B, 1, V)
+    if rank == 0:
+        shared.copy_(got)
+    draw = max(math.prod(d.shape) for d in desc_leaves(model.param_desc()))
+    res = {"logits_digest": [digest(torch, x).tolist() for x in got],
+           "prefill_s": prefill_s, "step_ms": step_ms, "init_s": init_s,
+           "staged_bytes": p2p.staged_bytes(),
+           "staged_prefill_bytes": staged_prefill,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "init_peak_bytes": init_peak,
+           "reckoning_bytes": p19_reckoning(params, cache),
+           "draw_bytes": 6 * draw,
+           "cache_shapes": sorted({tuple(t.shape)
+                                   for t in tree_leaves(cache)}),
+           "routes": routes.calls if rank == 0 else None,
+           "launches": launches, "counts": counts}
+    del params, cache, out, new, got, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p19_child(rank: int, world: int, store: str, out_dir: str,
+              shared: dict) -> None:
+    """Phase 19, one of four ranks of a gloo group on the one card: every
+    case of :data:`P19_CASES` in turn at tp = 4."""
+    os.environ["RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import init_group
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(torch.device("cpu"), world_size=world, rank=rank,
+               store_path=store)
+    res = {"rank": rank}
+    for case in P19_CASES:
+        res[case] = p19_rank_case(torch, ops, rank, case, shared[case])
+    res["launches"] = {case: res[case]["launches"] for case in P19_CASES}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p19_check_counts(card_counts: dict, fake_proc, fake_path: Path,
+                     t0: float) -> dict:
+    """(d): rank 0's card counts of the prefill and the first decode step
+    equal its fake trace's in dot FLOPs, bytes, kernel calls and
+    collectives (counts and wire a mesh axis)."""
+    try:
+        log, _ = fake_proc.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fake_proc.kill()
+        fail(f"serve tp (d): the fake traces still running after "
+             f"{DRYRUN_TIMEOUT_S} s")
+    if fake_proc.returncode != 0:
+        fail(f"serve tp (d): the fake traces exited {fake_proc.returncode}: "
+             f"{log[-2000:]}")
+    fakes = json.loads(fake_path.read_text())
+    out = {}
+    for phase in ("prefill", "decode"):
+        got, want = card_counts[phase], fakes[phase]
+        keys = ("dot_flops", "memory_bytes", "kernel_calls",
+                "collective_counts", "wire")
+        if any(got[k] != want[k] for k in keys):
+            ops_ = got["op_counts"]
+            diff = {k: (ops_.get(k), want["op_counts"].get(k))
+                    for k in set(ops_) | set(want["op_counts"])
+                    if ops_.get(k) != want["op_counts"].get(k)}
+            fail(f"serve tp (d) {phase}: the card counts "
+                 f"{ {k: got[k] for k in keys} }, the fake trace "
+                 f"{ {k: want[k] for k in keys} }; ops that differ (calls, "
+                 f"FLOP, bytes): {diff}")
+        out[phase] = {k: got[k] for k in keys}
+        out[phase].update(aten_ops=[got["aten_ops"], want["aten_ops"]],
+                          fake_s=want["fake_s"])
+    return out
+
+
+def phase_serve_tp(torch, ops, card, fake=None) -> dict:
+    """Phase 19: the four ranks (one spawned gloo world on the card), then
+    each case's control in this process and the case's gates, and (d)
+    against the fake traces (started here when not before, ``fake``:
+    (process, path))."""
+    t_all = time.perf_counter()
+    if fake is None:
+        fake = p19_fake_start()
+    t0 = time.perf_counter()
+    # rank 0's logits come back through shared host memory, not the disk
+    shared = {}
+    for case, (_, _, B, T, ML, steps) in P19_CASES.items():
+        V = p19_config(case).padded_vocab
+        shared[case] = torch.zeros((steps + 1, B, 1, V)).share_memory_()
+    ranks, spawn_s = spawn_world4(torch, p19_child, P19_DIR, (shared,),
+                                  world=P19_WORLD)
+    control_s = 0.0
+    out = {"spawn_s": spawn_s, "cases": {}}
+    for case, (arch, _, B, T, ML, steps) in P19_CASES.items():
+        rs = [r[case] for r in ranks]
+        if any(r["logits_digest"] != rs[0]["logits_digest"] for r in rs):
+            fail(f"serve tp {case}: the ranks' logits differ")
+        routes = rs[0]["routes"] if p19_config(case).num_experts else None
+        t2 = time.perf_counter()
+        control = p19_control(torch, case, routes)
+        control_s += time.perf_counter() - t2
+        got, want = shared[case], control["logits"]
+        diff = (got - want).reshape(steps + 1, -1)
+        gaps = (diff.norm(dim=1)
+                / want.reshape(steps + 1, -1).norm(dim=1)).tolist()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        flipped = control["flipped"]
+        if not max(gaps) <= P19_LOGITS_RTOL:
+            fail(f"serve tp {case}: logits {gaps} (relative L2 gap a step) "
+                 f"from the unsharded steps, beyond {P19_LOGITS_RTOL}")
+        path = {"flash_attention": P19_FLASH[case],
+                "flash_attention[wgmma]": P19_FLASH[case],
+                "nonfinite_tiles": P19_FLASH[case]}
+        for r in rs:
+            launched = {k: v for k, v in r["launches"].items() if v}
+            if launched != path:
+                fail(f"serve tp {case}: launches {launched}, the path gives "
+                     f"{path}")
+        peak = sum(r["peak_bytes"] for r in rs)
+        print(f"serve tp (phase 19) {case}: {arch} tp={P19_WORLD}, B={B}, "
+              f"prompt {T}, cache {ML} ({rs[0]['cache_shapes']} a rank), "
+              f"{steps} donated steps [{card}]: logits bit-equal on the 4 "
+              f"ranks; against the unsharded steps relative L2 gap "
+              f"{[round(g, 5) for g in gaps]} (limit {P19_LOGITS_RTOL}), "
+              f"max |Δ| {diff.abs().max().item():.4g} of |logit| up to "
+              f"{want.abs().max().item():.4g}, argmax agreement "
+              f"{agree:.4f} (weak evidence: random weights)"
+              + ("" if flipped is None else
+                 f"; the control routed as rank 0 did: its own choices "
+                 f"differ in {sum(flipped)} of "
+                 f"{sum(len(c) for c in routes)} token-rows over "
+                 f"{len(flipped)} routings ({flipped})")
+              + f"; prefill {[round(r['prefill_s'], 3) for r in rs]} "
+              f"s, steps {[round(t, 1) for t in rs[0]['step_ms']]} ms (rank "
+              f"0); peak a rank serving "
+              f"{[round(r['peak_bytes'] / 2**30, 2) for r in rs]} GiB (all "
+              f"{peak / 2**30:.2f}) against the reckoning of parameters and "
+              f"cache {rs[0]['reckoning_bytes'] / 2**30:.2f} GiB; drawing "
+              f"the share {rs[0]['init_peak_bytes'] / 2**30:.2f} GiB (the "
+              f"largest leaf's f32 draw and cast "
+              f"{rs[0]['draw_bytes'] / 2**30:.2f} GiB beside the share) in "
+              f"{rs[0]['init_s']:.1f} s; staged "
+              f"{rs[0]['staged_bytes'] / 1e6:.1f} MB a rank "
+              f"(prefill {rs[0]['staged_prefill_bytes'] / 1e6:.1f}); "
+              f"launches {rs[0]['launches']['flash_attention[wgmma]']} "
+              f"flash on wgmma a rank", flush=True)
+        out["cases"][case] = {k: v for k, v in rs[0].items()
+                              if k not in ("counts", "logits_digest",
+                                           "routes")}
+        out["cases"][case].update(
+            peak_bytes_ranks=[r["peak_bytes"] for r in rs],
+            rel_l2_gap=gaps, max_abs_diff=diff.abs().max().item(),
+            token_agreement=agree, flipped_rows=flipped)
+    counts = p19_check_counts(ranks[0][P19_COUNTED]["counts"], *fake, t0)
+    for phase, c in counts.items():
+        print(f"serve tp (d) {P19_COUNTED} {phase}, rank 0 of 4 [{card}]: "
+              f"the card's counts equal the fake trace's: dot "
+              f"{c['dot_flops']:.6e} FLOP, bytes {c['memory_bytes']:.6e}, "
+              f"kernels {c['kernel_calls']}, collectives "
+              f"{c['collective_counts']}, wire {c['wire']}; aten ops card "
+              f"{c['aten_ops'][0]}, fake {c['aten_ops'][1]} (fake trace "
+              f"{c['fake_s']:.2f} s)", flush=True)
+    out["counts"] = counts
+    out["control_s"] = control_s
+    out["seconds"] = time.perf_counter() - t_all
+    out["launches"] = {f"serve_tp_{case}": ranks[0][case]["launches"]
+                       for case in P19_CASES}
+    print(f"phase 19 took {out['seconds']:.1f} s (the spawned world "
+          f"{spawn_s:.1f} s, the controls {out['control_s']:.1f} s) "
+          f"[{card}]", flush=True)
+    return out
+
+
+def tp_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
+    """Phase 3, flash at phase 19's rank shapes (:data:`P19_FLASH_SHAPES`,
+    bf16, causal): through ``ops.flash_attention`` on its wgmma route,
+    held to the plain version within :func:`flash_close`; then kernel
+    (pre-pass included), plain and SDPA (``enable_gqa``) times in turns
+    and the bound."""
+    import torch.nn.functional as F
+    out = {}
+    for i, (name, (B, T, H, KV, hd, kw)) in enumerate(
+            P19_FLASH_SHAPES.items()):
+        q, k, v = flash_inputs(torch, B, T, T, H, KV, hd, torch.bfloat16,
+                               900 + i)
+        r0 = ops.route_counts()["flash_attention"]["wgmma"]
+        got = ops.flash_attention(q, k, v, causal=True, **kw)
+        want = ref.flash_attention_ref(q, k, v, causal=True, **kw)
+        torch.cuda.synchronize()
+        if ops.route_counts()["flash_attention"]["wgmma"] != r0 + 1:
+            fail(f"flash_attention at {name} did not take the wgmma route")
+        ok, err, share = flash_close(torch, got, want)
+        if not ok:
+            fail(f"flash_attention differs from the plain version at {name}:"
+                 f" max err {err}, {share:.3f} of the tolerance")
+
+        def timed():
+            return flash_cuda(q, k, v, tiles_cuda(v), True, kw.get("window"),
+                              kw.get("softcap"), "wgmma")
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=True, **kw)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        timer = loop_ms if T > 1024 else device_ms
+        plain_ms, (k_ms,) = time_turns(torch, timer, plain, [timed])
+        lib_ms = min(timer(torch, library), timer(torch, library))
+        b_ms, by, n_ops, nbytes = flash_bound(B, T, T, H, KV, hd, 2,
+                                              {"causal": True,
+                                               "window": kw.get("window")})
+        note = "F.scaled_dot_product_attention(is_causal=True, enable_gqa)"
+        if kw.get("softcap"):
+            note += " without the softcap (no SDPA call caps the logits)"
+        out[name] = {
+            "shape": [B, T, T, H, KV, hd], "dtype": "bfloat16",
+            "kwargs": kw, "ms": k_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "ops": n_ops, "bytes": nbytes,
+            "tflops": n_ops / k_ms / 1e9, "library_ms": lib_ms,
+            "library_note": note, "max_abs_err": err,
+            "max_abs_err_bf16": err, "share_of_tolerance": share,
+            "includes_prepass": True,
+            "timer": "cuda events" if T > 1024 else "cuda graph"}
+        print(f"flash_attention wgmma route {name} q {[B, T, H, hd]} k/v "
+              f"{[B, T, KV, hd]} bf16 {kw}: within tolerance ({share:.4f} of "
+              f"it); device time kernel with its pre-pass {k_ms * 1e3:.3f} "
+              f"us, plain {plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us "
+              f"({by}), {b_ms / k_ms:.4f} of the bound, library "
+              f"{lib_ms * 1e3:.3f} us by {note} (kernel / SDPA "
+              f"{k_ms / lib_ms:.3f}) [{out[name]['timer']}]", flush=True)
+        del q, k, v, qt, kt, vt, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_name(mangled: str) -> str:
     """A short name of a mangled kernel template: its name, then its
     element type and integer template arguments."""
@@ -7021,6 +7604,13 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port (src/repro_torch) is not beside this script: {e}")
 
+    # each phase's start, seconds into the run (the whole call's budget)
+    t_run = time.perf_counter()
+
+    def timeline(what: str) -> None:
+        print(f"[{time.perf_counter() - t_run:.1f} s] {what} starts",
+              flush=True)
+
     # -- 1. device --------------------------------------------------------
     # the CPU side of the small training reference runs a gloo group of one
     # rank; loopback spares gloo a lookup of the host's name
@@ -7046,16 +7636,20 @@ def main() -> None:
         check_ptxas(name, build.build_log(name))
     check_wgmma_instantiations(build.build_log("flash_attention_wgmma"))
     if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"],
-                        ["--phase", "18"]):
-        # phase 16, 17 or 18 alone, after the build (a quicker check of its
-        # slice)
+                        ["--phase", "18"], ["--phase", "19"]):
+        # phase 16, 17, 18 or 19 alone, after the build (a quicker check of
+        # its slice; 19 with its flash shapes of phase 3)
         if sys.argv[2] == "16":
             alone = {"parallel": phase_parallel(torch, ops, ref, train,
                                                 card)}
         elif sys.argv[2] == "17":
             alone = {"elastic": phase_elastic(torch, ops, train, card)}
-        else:
+        elif sys.argv[2] == "18":
             alone = {"dryrun": phase_dryrun(torch, ops, card)}
+        else:
+            alone = {"tp_flash": tp_flash_kernels(
+                torch, ops, ref, flash_attention_cuda, nonfinite_tiles_cuda),
+                "serve_tp": phase_serve_tp(torch, ops, card)}
         print(json.dumps({**alone, "card": card}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": kind,
@@ -7088,6 +7682,8 @@ def main() -> None:
     check_flash_gates(flash_timings["wgmma"])
     encdec_flash = encdec_flash_kernels(torch, ops, ref, flash_attention_cuda,
                                         nonfinite_tiles_cuda)
+    tp_flash = tp_flash_kernels(torch, ops, ref, flash_attention_cuda,
+                                nonfinite_tiles_cuda)
     # the serving paths' shapes: one tile (head_dim) per cached entry, for
     # all stacked layers of a leaf at once; the pools of the runs cut in
     # depth at the run's depth (suffixed with it: on the path) and at the
@@ -7132,11 +7728,13 @@ def main() -> None:
                          for k in ("topk_ef", "topk_mask",
                                    "dequant_accum")}})
 
+    timeline("phase 4")
     # -- 4. small references ----------------------------------------------
     for arch in SMALL_REFS:
         phase_small_reference(torch, arch)
     phase_small_train_reference(torch)
 
+    timeline("phase 5")
     # -- 5. the serving path at full width ----------------------------------
     ops.reset_launch_counts()
     run = serve.main(SERVE_ARGS)
@@ -7146,6 +7744,7 @@ def main() -> None:
         fail(f"the engine ran on {run.engines[0].device}, not on the card")
     check_main_path(torch, run, launches, card)
 
+    timeline("phase 6")
     # -- 6. static vs continuous, and a profile (information only) --------
     compare_static(torch, run, card)
     profile_ticks(torch, run.model, run.params, run.engines[0].cfg,
@@ -7154,6 +7753,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    timeline("phase 7")
     # -- 7. gemma2-9b served at full width -----------------------------------
     gemma2 = run_gemma2_serving(torch, ops, serve, card)
     s = gemma2["summary"]
@@ -7163,45 +7763,62 @@ def main() -> None:
           f"{s['mean_ttft_s'] * 1e3:.3f} ms makespan={s['makespan_s']:.3f} s "
           f"(serve run {gemma2['seconds']:.2f} s)", flush=True)
 
+    timeline("phase 8")
     # -- 8. the training path at full width ---------------------------------
     kept = {}
     trained = run_training(torch, ops, train, card, kept)
     destroy_group()
 
+    timeline("phase 9")
     # -- 9. the explicit collectives at world 4 on the one card -------------
     world4 = phase_world4(torch, card, {"first": buckets[0],
                                         "mid": buckets[1],
                                         "largest": max(buckets)})
 
+    timeline("phase 10")
     # -- 10. the rounds axis -------------------------------------------------
     rounds = phase_rounds(torch, ops, ref, train, card)
     destroy_group()
 
+    timeline("phase 11")
     # -- 11. the communication planner ----------------------------------------
     auto = phase_auto(torch, ops, ref, train, card)
 
+    timeline("phase 12")
     # -- 12. sharded data parallelism -------------------------------------------
     shard = phase_shard(torch, ops, ref, train, card, kept["int8_fused"])
 
+    timeline("phase 13")
     # -- 13. pipeline parallelism ----------------------------------------------
     pipe = phase_pipe(torch, ops, ref, train, card, kept.pop("int8_fused"))
 
+    timeline("phase 14")
     # -- 14. the MoE and MLA families ------------------------------------------
     moe = phase_moe(torch, ops, ref, serve, train, card, flash_attention_cuda,
                     nonfinite_tiles_cuda)
 
+    timeline("phase 15")
     # -- 15. the Mamba, xLSTM and encoder-decoder families --------------------
     new = phase_new_families(torch, ops, ref, serve, train, card)
 
+    timeline("phase 16")
     # -- 16. tensor / expert parallelism, calibration, drift re-planning ------
     par = phase_parallel(torch, ops, ref, train, card)
 
-    # -- 17. the elastic runtime, with phase 18's host processes beside it --
+    timeline("phase 17")
+    # -- 17. the elastic runtime, with phase 18's and 19's host processes
+    # beside it ---------------------------------------------------------------
     dryrun_host = phase_dryrun_start()
+    p19_fake = p19_fake_start()
     elastic = phase_elastic(torch, ops, train, card)
 
+    timeline("phase 18")
     # -- 18. the dry run and the op analysis -----------------------------------
     dryrun = phase_dryrun(torch, ops, card, dryrun_host)
+
+    timeline("phase 19")
+    # -- 19. serving under the reference's model-axis layout, tp = 4 ----------
+    serve_tp = phase_serve_tp(torch, ops, card, p19_fake)
 
     serving = {"gemma-2b": launches, "gemma2-9b": gemma2["launches"],
                **{arch: r["launches"] for arch, r in moe["serving"].items()},
@@ -7211,7 +7828,8 @@ def main() -> None:
                f"{SEAMLESS_ARCH}_f32_frames":
                    new["f32_frames"]["launches"],
                "dryrun_prefill": dryrun["launches"]["dryrun_prefill"],
-               "dryrun_decode_tick": dryrun["launches"]["dryrun_decode_tick"]}
+               "dryrun_decode_tick": dryrun["launches"]["dryrun_decode_tick"],
+               **serve_tp["launches"]}
 
     def runs_of(name, runs):
         return {run_name: r[name] for run_name, r in runs.items()}
@@ -7256,9 +7874,11 @@ def main() -> None:
     for route in ("wgmma", "simt"):
         flash_timings[route].update(moe["flash"][route])
         flash_timings[route].update(encdec_flash[route])
+    flash_timings["wgmma"].update(tp_flash)
     flash_err = max([flash_err] + [t["max_abs_err_bf16"]
                                    for per in moe["flash"].values()
                                    for t in per.values()]
+                    + [t["max_abs_err"] for t in tp_flash.values()]
                     + [t["max_abs_err"] for per in encdec_flash.values()
                        for t in per.values()])
     kernels = [
@@ -7304,8 +7924,11 @@ def main() -> None:
     print(json.dumps({"parallel": par, "card": card}))
     print(json.dumps({"elastic": elastic, "card": card}))
     print(json.dumps({"dryrun": dryrun, "card": card}))
+    print(json.dumps({"serve_tp": serve_tp, "tp_flash": tp_flash,
+                      "card": card}))
     print(json.dumps({"serving_gemma2_9b": gemma2, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
+    timeline("the result lines")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

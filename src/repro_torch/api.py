@@ -330,11 +330,12 @@ class TrainSession:
         self._window: List[float] = []         # step times since the check
         self._replan_search = None         # plan_auto's free search
         # MoE capacity overflow must not vanish silently: the drop tap
-        # counts the dropped token-choices, drained once per step
+        # counts the dropped token-choices of each step (on only while the
+        # step runs, so no count outlives it in the process), drained once
+        # per step
         self.dropped_tokens = 0.0
         self.routed_tokens = 0.0
         if model_cfg.num_experts:
-            moe_mod.enable_drop_tap(True)
             moe_mod.drain_drop_tap()      # no other run's counts
         self._engine = None
         self._built = False
@@ -1028,7 +1029,20 @@ class TrainSession:
         """Run one training step under the strategy; returns the loss.  The
         order is the reference's: LAG's probe, the scheduler's ``round``,
         the step it names (sync / reuse / local), the parameter round, then
-        ``commit``."""
+        ``commit``.  A MoE model's drop tap is on for the step only (the
+        reference's stays on from the session's construction, which also
+        counts forwards run outside steps, such as ``profile_backward``'s);
+        left on, its running device count would meet the next run's
+        tensors, a fake-tensor trace's among them."""
+        if not self.model_cfg.num_experts:
+            return self._step_once()
+        old = moe_mod.enable_drop_tap(True)
+        try:
+            return self._step_once()
+        finally:
+            moe_mod.enable_drop_tap(old)
+
+    def _step_once(self) -> float:
         self._build()
         step = self.step
         batch = self.batch(step)

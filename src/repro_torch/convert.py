@@ -49,6 +49,18 @@ features, and every MoE FFN's stacked experts on the expert dim.  The
 rest of the tree (and a MoE FFN's router and shared experts) is kept
 whole, replicated on every rank.
 
+``serve_slice(params, cfg, rank, tp)`` cuts a tree to what model-axis
+rank ``rank`` holds when serving (``sharding_ctx.serve_region``): every
+leaf on the dim that the reference's serve rules put on the model axis
+(``Model.partition_dims("serve")``), the vocabulary, ffn and expert dims
+in ``tp`` equal blocks, the heads and kv heads by the rank's head block
+(``attention.head_layout``); norms and routers whole.
+``serve_init(cfg, generator, rank, tp)`` draws the same values leaf by
+leaf and keeps only the rank's share, so a rank never holds the whole
+tree.  ``cache_slice(cache, cfg, batch, max_len, rank, tp)`` cuts a
+decode cache (tensors or ``TensorSpec``s) to the rank's share by
+``Model.input_partition_specs``' rule with tp as the model axis' size.
+
 ``to_numpy(tree)`` is the reverse for comparisons: any tree of the port's
 tensors (parameters, optimizer moments, EF residuals) as numpy arrays on
 the host, bf16 widened to f32 (exact), so tests can hold it against the
@@ -59,11 +71,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_map, tree_map_with_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.layers import ParamDesc
+from repro_torch.models.attention import head_layout
+from repro_torch.models.layers import ParamDesc, TensorSpec, _init_leaf
 from repro_torch.models.model import Model
+from repro_torch.models.sharding_ctx import cache_leaf_spec
+from repro_torch.models.transformer import serve_tp_reason
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -151,6 +166,103 @@ def ep_slice(params, rank: int, ep: int):
     FFN's experts cut to its block (``experts_slice``); the rest whole."""
     return _cut_ffns(params, lambda f: experts_slice(f, rank, ep)
                      if "router" in f else f)
+
+
+def _serve_cuts(cfg: ModelConfig, rank: int, tp: int):
+    """(descriptor tree, its serve dims, the cut of one leaf) of model-axis
+    rank ``rank``; raises for a model the serve layout does not run."""
+    reason = serve_tp_reason(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+    model = Model(cfg)
+    lay = head_layout(cfg, tp, rank)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+
+    def cut(d: ParamDesc, dim, t):
+        if dim is None:
+            return t
+        n, axis = d.shape[dim], d.axes[dim]
+        if axis == "heads":
+            lo, size = lay.h0 * (n // H), lay.hl * (n // H)
+        elif axis == "kv":
+            lo, size = lay.kv0 * (n // KV), lay.kvl * (n // KV)
+        else:
+            if n % tp:
+                raise ValueError(f"{axis} dim of {d.shape} does not split "
+                                 f"over tp={tp}")
+            lo, size = rank * (n // tp), n // tp
+        if isinstance(t, TensorSpec):
+            shape = list(t.shape)
+            shape[dim] = size
+            return TensorSpec(tuple(shape), t.dtype)
+        return t.narrow(dim, lo, size).contiguous()
+    return model.param_desc(), model.partition_dims("serve"), cut
+
+
+def serve_slice(params, cfg: ModelConfig, rank: int, tp: int):
+    """The parameter tree model-axis rank ``rank`` of ``tp`` holds when
+    serving (see the module docstring)."""
+    desc, dims, cut = _serve_cuts(cfg, rank, tp)
+    return tree_map(cut, desc, dims, params,
+                    is_leaf=lambda x: isinstance(x, ParamDesc))
+
+
+def serve_init(cfg: ModelConfig, generator, rank: int, tp: int, dtype=None):
+    """``serve_slice(Model(cfg).init(generator, dtype), cfg, rank, tp)``
+    drawn leaf by leaf: each leaf is cut as soon as it is drawn, so the
+    rank holds one whole leaf at most, never the whole tree."""
+    from repro_torch.models.model import resolve_dtype
+    dtype = dtype or resolve_dtype(cfg.param_dtype)
+    desc, dims, cut = _serve_cuts(cfg, rank, tp)
+    return tree_map(lambda d, dim: cut(d, dim, _init_leaf(d, generator,
+                                                          dtype)),
+                    desc, dims, is_leaf=lambda x: isinstance(x, ParamDesc))
+
+
+def cache_slice(cache, cfg: ModelConfig, batch: int, max_len: int, rank: int,
+                tp: int, data_index: int = 0, dp: int = 1):
+    """Model-axis rank ``rank``'s share of a decode cache of global
+    ``batch`` and length ``max_len`` (leaves: tensors or ``TensorSpec``s),
+    laid out by ``Model.input_partition_specs`` with ``tp`` as the model
+    axis' size (the batch dim where the model puts it: a layer count equal
+    to the batch is not read as one); ``data_index`` of ``dp`` is the
+    rank's place on the data axes (its batch block where the batch is
+    split, its length block where a batch-1 cache's length is)."""
+    reason = serve_tp_reason(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+    model = Model(cfg)
+    specs = tree_map_with_path(
+        lambda path, s: cache_leaf_spec(
+            path[-1], s.shape, batch, tp,
+            batch_dim=int(model.plan[path[0]].repeats > 1)),
+        model.init_cache(batch, max_len))
+    place = {"model": (rank, tp), "data": (data_index, dp)}
+
+    def one(spec, t):
+        shape = list(t.shape)
+        cuts = []
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            axes = tuple(dict.fromkeys("model" if a == "model" else "data"
+                                       for a in axes))
+            index, parts = 0, 1
+            for a in axes:
+                i, n = place[a]
+                index, parts = index * n + i, parts * n
+            if shape[dim] % parts:
+                raise ValueError(f"cache dim {dim} of {tuple(t.shape)} does "
+                                 f"not split into {parts}")
+            shape[dim] //= parts
+            cuts.append((dim, index * shape[dim], shape[dim]))
+        if isinstance(t, TensorSpec):
+            return TensorSpec(tuple(shape), t.dtype)
+        for dim, lo, size in cuts:
+            t = t.narrow(dim, lo, size)
+        return t.contiguous()
+    return tree_map(one, specs, cache, is_leaf=lambda x: isinstance(x, tuple))
 
 
 def to_numpy(tree):

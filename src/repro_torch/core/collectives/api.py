@@ -7,6 +7,7 @@ one per mesh axis).  Where the reference takes ``axes: Sequence[str]``,
 the port takes ``axes``: a tuple of groups, or one group (``None``: the
 default group) for a one-axis mesh.
 
+  * :func:`allreduce_max`, the elementwise maximum over the axes;
   * :func:`allreduce` over every algorithm of ``ALGOS``: ``psum``
     (``dist.all_reduce`` on each axis in turn) and the explicit
     schedules of ``ring.py``, ``tree.py``, ``hierarchical.py``,
@@ -49,7 +50,7 @@ from repro_torch.core.collectives.ring_fused import ring_fused_allreduce
 from repro_torch.core.collectives.tree import tree_allreduce
 from repro_torch.core.schedule.cost import (  # noqa: F401
     LINK_PRESETS, LinkParams, allreduce_cost_s)
-from repro_torch.launch.op_analysis import record_collective
+from repro_torch.launch.op_analysis import record_collective, uncounted
 
 # one output tensor for every rank's input: the new name where it exists
 _all_gather_into = getattr(dist, "all_gather_single", None) or \
@@ -100,11 +101,27 @@ def check_algo(algo: str) -> None:
 
 def _psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``dist.all_reduce`` (sum) of ``x`` over one axis, in place."""
+    return _reduce(x, axis, dist.ReduceOp.SUM)
+
+
+def _reduce(x: torch.Tensor, axis: Axis, op) -> torch.Tensor:
     record_collective("all-reduce", x, axis)
     buf = to_wire(x, axis)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=process_group(axis))
+    dist.all_reduce(buf, op=op, group=process_group(axis))
     if buf is not x:
-        x.copy_(from_wire(buf, x.device))
+        back = from_wire(buf, x.device)
+        with uncounted():
+            x.copy_(back)
+    return x
+
+
+def allreduce_max(x: torch.Tensor, axes: Axes = None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over one or more axes, in place
+    into ``x`` (the caller passes a buffer it owns), one
+    ``dist.all_reduce`` (max) an axis: the split-KV decode's row maximum.
+    Counted as an all-reduce."""
+    for ax in as_axes(axes):
+        x = _reduce(x, ax, dist.ReduceOp.MAX)
     return x
 
 

@@ -12,7 +12,8 @@ under ``ppermute``.  Peers are handed to ``P2POp`` as global ranks
 gloo moves host memory only.  So a CUDA tensor on a gloo group goes over
 the wire through a pinned host copy (:func:`to_wire` / :func:`from_wire`),
 chosen by the group's backend; those copies are counted in
-:func:`staged_bytes`.  On NCCL nothing is copied.  Under
+:func:`staged_bytes`, and left out of an op analysis' count
+(``op_analysis.uncounted``).  On NCCL nothing is copied.  Under
 ``launch/op_analysis.count`` a :func:`permute` that moves data records one
 hop (``collective-permute``).
 """
@@ -23,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.op_analysis import record_collective
+from repro_torch.launch.op_analysis import record_collective, uncounted
 
 Axis = Optional[dist.ProcessGroup]
 
@@ -71,7 +72,8 @@ def to_wire(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if not is_staged(x, axis):
         return x.contiguous()
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    host.copy_(x)
+    with uncounted():
+        host.copy_(x)
     _count(host)
     return host
 
@@ -81,7 +83,8 @@ def from_wire(y: torch.Tensor, device: torch.device) -> torch.Tensor:
     if y.device == device:
         return y
     _count(y)
-    return y.to(device)
+    with uncounted():
+        return y.to(device)
 
 
 def permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],

@@ -35,9 +35,17 @@ parallelism, and every record's ``layout`` block says so:
     axes;
   * prefill / decode / long (``baseline``, ``mla_absorb``,
     ``moe_dispatch``, ``optimized``, ``chunkwise``): the batch split over
-    the data axes where B > 1, the whole model on the rank (the port's
-    serving has no tensor parallelism: ``tp: 1``); decode at ``pos = T -
-    1`` against a T-entry cache.
+    the data axes where B > 1; a grouped-query attention stack under the
+    reference's serve layout over the model axis (tp = 16,
+    ``sharding_ctx.serve_region``: the rank's share of the parameters by
+    ``convert.serve_slice``, head-parallel attention, the vocab-parallel
+    embedding and head, the FFNs' ffn slice and the experts in blocks),
+    its decode cache laid out as the reference's ``cache_spec`` lays it
+    out (``convert.cache_slice``: kv heads or the length over the model
+    axis, a batch-1 cache's length over the data axes too) and donated
+    (``make_decode_step(donate=True)``); the other families (MLA, Mamba,
+    xLSTM, the encoder-decoder) whole on the rank (``tp: 1`` and a
+    ``tp_reason``); decode at ``pos = T - 1`` against a T-entry cache.
 
 A shape the port's parallelism refuses raises the port's own refusal; the
 CLI lists it as ``[FAIL]``, as the reference's ``main`` does.  This module
@@ -46,6 +54,7 @@ sets no environment variable and needs no fake devices.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -62,14 +71,17 @@ import torch.distributed as dist
 from repro_torch._tree import tree_map
 from repro_torch.configs import (ALL_ARCHS, SHAPES, applicable_shapes,
                                  get_config)
-from repro_torch.convert import ep_slice, tp_slice
+from repro_torch.convert import cache_slice, ep_slice, serve_slice, tp_slice
 from repro_torch.launch import op_analysis
 from repro_torch.launch.paths import DRYRUN
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
+from repro_torch.models.attention import cache_split, head_layout
 from repro_torch.models.layers import TensorSpec
 from repro_torch.models.model import Model
-from repro_torch.models.sharding_ctx import ep_region, tp_region
+from repro_torch.models.sharding_ctx import (ServeAxes, ep_region,
+                                             serve_region, tp_region)
+from repro_torch.models.transformer import serve_tp_reason
 
 MICROBATCHES = 4      # train shapes' gradient accumulation (the reference's)
 MODEL_AXIS = 16       # the production mesh's model axis
@@ -211,10 +223,14 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
             lay["microbatches"] = microbatches
         return lay
     b = B // dp if B > 1 else 1
-    lay.update({"tp": 1, "ep": 1, "batch_per_rank": b,
-                "tp_reason": "the port's serving has no tensor parallelism: "
-                             "the whole model sits on each rank",
-                "unsharded": [k for k, sharded in groups.items() if sharded]})
+    reason = serve_tp_reason(cfg)
+    if reason:
+        lay.update({"tp": 1, "ep": 1, "batch_per_rank": b,
+                    "tp_reason": reason,
+                    "unsharded": [k for k, sharded in groups.items()
+                                  if sharded]})
+    else:
+        lay.update(serve_layout(cfg, shape, mesh, b))
     if shape.phase == "prefill":
         lay["program"] = "make_prefill_step"
     else:
@@ -224,6 +240,50 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
             f"{variant in ('moe_dispatch', 'optimized')})")
         lay["pos"] = shape.seq_len - 1
     return lay
+
+
+def serve_layout(cfg, shape, mesh: FakeMesh, b: int) -> Dict[str, Any]:
+    """The serve layout of rank 0 over the model axis: what is split where
+    (the reference's serve rules), the attention head blocks, and each
+    attention layer kind's decode cache (``attention.cache_split``)."""
+    tp = MODEL_AXIS
+    hl = head_layout(cfg, tp, 0)
+    moe = bool(cfg.num_experts)
+    out = {"tp": tp, "ep": tp if moe else 1, "batch_per_rank": b,
+           "attn_tp": hl.attn_tp, "heads_per_rank": hl.hl,
+           "kv_heads_computed_per_rank": hl.kvl,
+           "ranks_per_kv_head": tp * hl.kvl // cfg.num_kv_heads,
+           "split_over_model": {
+               "vocab (embedding, lm head)": "rows", "heads": "wq columns, "
+               "wo rows", "kv": "wk / wv columns",
+               "ffn": "dense FFNs' wi columns and wo rows",
+               **({"experts": f"{cfg.num_experts // tp} whole experts a "
+                              f"rank"} if moe else {})},
+           "whole": ["norms"] + (["routers"] if moe else [])
+           + (["q / k norms"] if cfg.qk_norm else []),
+           "unsharded": []}
+    if shape.phase == "prefill":
+        return out
+    data = mesh.data_axes() if shape.global_batch == 1 else ()
+    sa = ServeAxes(mesh.groups["model"],
+                   tuple(mesh.groups[a] for a in data), shape.seq_len)
+    caches = {}
+    for i in range(cfg.num_layers):
+        spec = cfg.layer_spec(i)
+        kind = f"window {spec.window}" if spec.window else "global"
+        if kind in caches:
+            continue
+        split = cache_split(cfg, spec, shape.seq_len, sa)
+        axes = (list(data) if split.data else []) + \
+            (["model"] if split.model == "length" else [])
+        caches[kind] = {"length": split.L,
+                        "kv_heads": "model" if split.model == "kv" else None,
+                        "length_over": axes,
+                        "positions_per_rank": split.L // split.parts,
+                        "kv_heads_per_rank": split.kvl}
+    out["cache"] = caches
+    out["cache_donated"] = True
+    return out
 
 
 def _materialize(specs, mode):
@@ -238,23 +298,18 @@ def _build(model, shape, variant, mesh, lay, mode, microbatches):
     params = model.abstract_params(mode=mode)
     local = dataclasses.replace(shape, global_batch=lay["batch_per_rank"])
     data = tuple(mesh.groups[a] for a in mesh.data_axes())
-    inputs = _materialize(model.input_specs(local), mode)
     if shape.phase != "train":
-        if shape.phase == "prefill":
-            return make_prefill_step(model), (params, inputs), None
-        step = make_decode_step(
-            model, mla_absorb=variant in ("mla_absorb", "optimized"),
-            moe_dispatch=variant in ("moe_dispatch", "optimized"))
-        return step, (params, inputs["tokens"], inputs["cache"],
-                      lay["pos"]), None
+        return _build_serve(model, shape, variant, mesh, lay, mode, params,
+                            local)
+    inputs = _materialize(model.input_specs(local), mode)
     model_group = mesh.groups["model"]
     with mode:
         if lay["tp"] > 1:
             params = tp_slice(params, 0, lay["tp"])
         if lay["ep"] > 1:
             params = ep_slice(params, 0, lay["ep"])
-    ctx = (model_group if lay["tp"] > 1 else None,
-           model_group if lay["ep"] > 1 else None)
+    ctx = _regions(model_group if lay["tp"] > 1 else None,
+                   model_group if lay["ep"] > 1 else None)
     opt = make_optimizer("adam", lr=1e-4)
     if variant == "zero1":
         from repro_torch.core.grad_sync import (PlanExecutor, SyncConfig,
@@ -287,6 +342,45 @@ def _build(model, shape, variant, mesh, lay, mode, microbatches):
     return step, (params, opt_state, inputs, 0), ctx
 
 
+@contextlib.contextmanager
+def _regions(tp=None, ep=None, serve=None):
+    """The traced step's regions: tp and ep (train), or the serve layout
+    (``(group, data groups, max_len)``)."""
+    with tp_region(tp), ep_region(ep), \
+            (serve_region(*serve) if serve else contextlib.nullcontext()):
+        yield
+
+
+def _build_serve(model, shape, variant, mesh, lay, mode, params, local):
+    """(step, arguments, regions) of a prefill or decode rank: under the
+    serve layout the rank's share of the parameters and of the cache (the
+    global shape's cache cut by ``convert.cache_slice``) and the region
+    over the model axis."""
+    inputs = _materialize(model.input_specs(local), mode)
+    serve = None
+    if lay["tp"] > 1:
+        with mode:
+            params = serve_slice(params, model.cfg, 0, lay["tp"])
+        data = mesh.data_axes() if shape.global_batch == 1 else ()
+        serve = (mesh.groups["model"], tuple(mesh.groups[a] for a in data),
+                 shape.seq_len)
+        if shape.phase == "decode":
+            dp = lay["dp"]
+            cache = cache_slice(model.init_cache(shape.global_batch,
+                                                 shape.seq_len),
+                                model.cfg, shape.global_batch, shape.seq_len,
+                                0, lay["tp"], 0, dp)
+            inputs["cache"] = _materialize(cache, mode)
+    ctx = _regions(serve=serve)
+    if shape.phase == "prefill":
+        return make_prefill_step(model), (params, inputs), ctx
+    step = make_decode_step(
+        model, mla_absorb=variant in ("mla_absorb", "optimized"),
+        moe_dispatch=variant in ("moe_dispatch", "optimized"),
+        donate=lay["tp"] > 1)
+    return step, (params, inputs["tokens"], inputs["cache"], lay["pos"]), ctx
+
+
 def trace_pair(arch: str, shape_name: str, multi_pod: bool = False,
                variant: str = "baseline", microbatches: int = MICROBATCHES,
                save_trace: bool = False, out_dir: str = DRYRUN):
@@ -308,8 +402,7 @@ def trace_pair(arch: str, shape_name: str, multi_pod: bool = False,
         t0 = time.time()
         step, args, ctx = _build(model, shape, variant, mesh, lay, mode,
                                  microbatches)
-        tp_group, ep_group = ctx or (None, None)
-        with mode, tp_region(tp_group), ep_region(ep_group):
+        with mode, ctx:
             _, stats = op_analysis.trace(step, args,
                                          axis_names=mesh.axis_names(),
                                          table=save_trace)

@@ -29,7 +29,8 @@ The counting rules:
     queries (``prim.device``: a fake tensor's device);
   * **collectives** — at the port's own transports, not in the c10d
     dispatcher: ``collectives.api._psum`` (``allreduce``'s psum, one
-    all-reduce per axis), ``all_gather``, the direct ``all_to_all`` and
+    all-reduce per axis) and ``allreduce_max`` (the split-KV decode's row
+    maximum, an all-reduce per axis too), ``all_gather``, the direct ``all_to_all`` and
     ``p2p.permute`` (a hop).  Every other entry point is counted through
     them: ``reduce_scatter`` on psum is an all-reduce and a slice in the
     port (so its wire is the all-reduce's), ``all_gather_shards`` on psum
@@ -54,6 +55,10 @@ The counting rules:
     kernel called inside another (flash's pre-pass ``nonfinite_tiles``
     on the card) is part of the outer call.  ``kernels="plain"`` counts
     the plain versions' own ops instead (the check of the formulas);
+  * **staging** — a card tensor on a gloo group crosses through pinned
+    host memory (``core/collectives/p2p.py``); those copies run under
+    :func:`uncounted`, so a step counts the same on gloo, on NCCL and on
+    the fake backend;
   * **loops** — the port runs eagerly, so every op is counted where it
     runs, each step of a recurrence and each micro-batch: there is no
     ``while`` to correct for, ``num_while_loops`` is 0 and
@@ -262,8 +267,10 @@ class OpCounter(TorchDispatchMode):
 
     def finish(self, result) -> None:
         """Outputs: what the call returns and the arguments it wrote in
-        place (the reference's donated outputs, also its aliases); the
-        peak less the outputs made during the call."""
+        place (the reference's donated outputs, also its aliases, as is
+        an argument returned as it is: a donated cache that this rank's
+        step did not write); the peak less the outputs made during the
+        call."""
         made = out = 0
         done = set()
         for t in _tensors(result):
@@ -274,7 +281,8 @@ class OpCounter(TorchDispatchMode):
             out += nbytes(t)
             if self._seen.get(id(s)):
                 made += nbytes(t)
-        alias = sum(self._args[sid] for sid in self._written)
+        alias = sum(self._args[sid] for sid in
+                    self._written | (done & set(self._args)))
         out += sum(self._args[sid] for sid in self._written
                    if sid not in done)
         self.stats.alias_bytes = alias
@@ -398,6 +406,23 @@ def record_collective(kind: str, x: torch.Tensor, group) -> None:
 
 
 @contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """Leave the ops of the block out of the active count: the copies of a
+    card tensor through pinned host memory that a gloo group needs
+    (``p2p.to_wire`` / ``from_wire``), which the program on NCCL, or on
+    the fake backend, does not run."""
+    c = active()
+    if c is None:
+        yield
+        return
+    c.suspended += 1
+    try:
+        yield
+    finally:
+        c.suspended -= 1
+
+
+@contextlib.contextmanager
 def kernel_call(name: str, *args) -> Iterator[list]:
     """Hook of the kernel wrappers: ``with kernel_call(name, *args) as box:
     ...; box.append(result)``.  Outside :func:`count` it does nothing."""
@@ -452,4 +477,4 @@ def wire_formula(kind: str, b: float, p: int) -> float:
 
 
 __all__ = ["OpStats", "OpCounter", "count", "trace", "kernel_call",
-           "record_collective", "kernel_cost", "wire_formula"]
+           "record_collective", "kernel_cost", "wire_formula", "uncounted"]

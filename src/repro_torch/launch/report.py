@@ -508,23 +508,45 @@ def rank_bytes(rec) -> int:
             - m.get("alias_size_in_bytes", 0))
 
 
+def layout_cells(rec) -> tuple:
+    """The record's layout in three cells: tp (and the head blocks where
+    attention runs over fewer), the decode cache's split per layer kind
+    ("kv": kv heads over the model axis, "L/<axes>": the length over
+    them, "whole") with the positions a rank holds, and ep."""
+    lay = rec.get("layout", {})
+    tp = str(lay.get("tp", 1))
+    if lay.get("attn_tp", lay.get("tp", 1)) != lay.get("tp", 1):
+        tp += f" (attn {lay['attn_tp']})"
+    cache = []
+    for kind, c in (lay.get("cache") or {}).items():
+        where = "kv" if c["kv_heads"] else \
+            "L/" + "×".join(c["length_over"]) if c["length_over"] else "whole"
+        cache.append(f"{kind}: {where} {c['positions_per_rank']}")
+    return tp, "; ".join(cache) or "—", str(lay.get("ep", 1))
+
+
 def summary_table(mesh: str = "16x16") -> str:
     """One row per baseline record: the trace's seconds on the host, the
-    rank's GB and whether it fits one card's 80 GB, dot TFLOP, wire GB,
-    and the roofline terms (modeled, with ``launch/roofline.py``'s H100
-    constants; ``memory s`` from the reference's analytic traffic model,
-    ``traced bytes s`` from the rank's fusion-less bytes)."""
+    rank's layout (:func:`layout_cells`), the rank's GB and whether it
+    fits one card's 80 GB, dot TFLOP, wire GB, and the roofline terms
+    (modeled, with ``launch/roofline.py``'s H100 constants; ``memory s``
+    from the reference's analytic traffic model, ``traced bytes s`` from
+    the rank's fusion-less bytes, ``collective s`` from the wire on each
+    mesh axis, serve records as train ones)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.roofline import load_records, terms
-    lines = ["| arch | shape | trace s | rank GB | fits 80 GB | dot TF | "
+    lines = ["| arch | shape | trace s | tp | cache split, positions a rank "
+             "| ep | rank GB | fits 80 GB | dot TF | "
              "wire GB | compute s | memory s | traced bytes s | "
              "collective s | dominant |",
-             "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+             "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for rec in load_records(mesh):
         t = terms(rec, get_config(rec["arch"]), SHAPES[rec["shape"]])
         need = rank_bytes(rec)
+        tp, cache, ep = layout_cells(rec)
         lines.append(
             f"| {rec['arch']} | {rec['shape']} | {rec['trace_s']:.1f} | "
+            f"{tp} | {cache} | {ep} | "
             f"{need / 1e9:.1f} | {'yes' if need <= CARD_BYTES else 'no'} | "
             f"{rec['hlo']['dot_flops_per_device'] / 1e12:.1f} | "
             f"{rec['hlo']['collective_wire_bytes_per_device'] / 1e9:.2f} | "

@@ -12,7 +12,10 @@ NVIDIA H100 80GB HBM3 (SXM5, 700 W), from its data sheet:
                  InfiniBand per card) for an axis that crosses nodes
 
 These are modeled, not measured: no time here comes from a run, and no
-TPU constant remains.  ``MODEL_FLOPS`` = 6·N_active·tokens (train) or
+TPU constant remains.  A serve record under the model-axis layout
+carries its all-reduces and all-gathers on the model axis (and, at batch
+1, the split-KV combine on the data axes), priced by the same collective
+term as a train record's.  ``MODEL_FLOPS`` = 6·N_active·tokens (train) or
 2·N_active·tokens (prefill / decode), the useful-compute ratio, the
 dominant term and a note on what would move it, as in the reference.
 :func:`count_active_params`, :func:`model_flops_per_device`,

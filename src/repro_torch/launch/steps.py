@@ -123,22 +123,26 @@ def make_train_step(model: Model, optimizer,
     return train_step
 
 
-def make_prefill_step(model: Model):
-    """``prefill_step(params, batch) -> (last-token logits, cache)``."""
+def make_prefill_step(model: Model, max_len: Optional[int] = None):
+    """``prefill_step(params, batch) -> (last-token logits, cache)``, the
+    cache ``max_len`` entries long (the prompt's length when None)."""
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, max_len)
 
     return prefill_step
 
 
 def make_decode_step(model: Model, mla_absorb: bool = False,
-                     moe_dispatch: bool = False):
+                     moe_dispatch: bool = False, donate: bool = False):
     """``decode_step(params, tokens, cache, pos) -> (logits, new_cache)``
-    with MLA's absorbed decode and the MoE capacity dispatch as asked."""
+    with MLA's absorbed decode and the MoE capacity dispatch as asked.
+    ``donate=True`` is the reference's ``donate_argnums=(2,)``: the new
+    token's entries are written into ``cache`` itself, which is returned,
+    so the step holds one cache, not two."""
     def decode_step(params, tokens, cache, pos):
         return model.decode_step(params, tokens, cache, pos,
                                  mla_absorb=mla_absorb,
-                                 moe_dispatch=moe_dispatch)
+                                 moe_dispatch=moe_dispatch, inplace=donate)
 
     return decode_step
 

@@ -22,18 +22,31 @@ Two full-sequence paths:
 
 Scores and the softmax are computed in f32 on both paths, as the
 reference's ``preferred_element_type=jnp.float32``.
+
+Under ``sharding_ctx.serve_region`` the grouped-query layer runs the
+reference's serve layout over the model axis (:func:`head_layout`): a
+rank projects and attends its block of the query heads and the kv heads
+they read, applies its rows of ``wo``, and one all-reduce sums the
+blocks.  The decode cache is laid out as the reference's ``cache_spec``
+lays it out (:func:`cache_split`): kv heads over the model axis, or the
+length over it (and over the data axes at batch 1), where the decode
+all-gathers the step's queries and new K/V, scores every head against
+the rank's own positions and combines the partial softmaxes by the
+split-KV rule in f32.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamDesc, TensorSpec, apply_rope,
-                                       norm_desc, rmsnorm)
+                                       norm_desc, rmsnorm, tp_out)
+from repro_torch.models.sharding_ctx import cache_leaf_spec, serve_axes
 
 NEG_INF = -1e30
 
@@ -208,10 +221,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
 def attn_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     d, hd = cfg.d_model, cfg.hd
     desc = {
-        "wq": ParamDesc((d, cfg.num_heads * hd)),
-        "wk": ParamDesc((d, cfg.num_kv_heads * hd)),
-        "wv": ParamDesc((d, cfg.num_kv_heads * hd)),
-        "wo": ParamDesc((cfg.num_heads * hd, d)),
+        "wq": ParamDesc((d, cfg.num_heads * hd), axes=("embed", "heads")),
+        "wk": ParamDesc((d, cfg.num_kv_heads * hd), axes=("embed", "kv")),
+        "wv": ParamDesc((d, cfg.num_kv_heads * hd), axes=("embed", "kv")),
+        "wo": ParamDesc((cfg.num_heads * hd, d), axes=("heads", "embed")),
     }
     if cfg.qk_norm:
         desc["q_norm"] = norm_desc(hd)
@@ -220,11 +233,14 @@ def attn_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
 
 
 def _project_qkv(params, cfg: ModelConfig, x, positions):
+    """q (B, T, H, hd), k and v (B, T, KV, hd) with QK-norm and RoPE; the
+    head counts are those of ``params`` (a model-axis rank's columns hold
+    its block of the heads)."""
     B, T, _ = x.shape
     hd = cfg.hd
-    q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, hd)
-    k = (x @ params["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    q = (x @ params["wq"]).reshape(B, T, -1, hd)
+    k = (x @ params["wk"]).reshape(B, T, -1, hd)
+    v = (x @ params["wv"]).reshape(B, T, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
@@ -257,6 +273,7 @@ def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     out = ops.flash_attention(q, k, v, causal=True, window=spec.window,
                               softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, T, -1) @ params["wo"]
+    sa = serve_axes()
 
     def to_cache(arr):
         if spec.window and spec.window < max_len:
@@ -268,7 +285,13 @@ def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
             return torch.nn.functional.pad(tail, (0, 0, 0, 0, 0, L - W))
         return torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, max_len - T))
 
-    return out, {"k": to_cache(k), "v": to_cache(v)}
+    if sa is None:
+        return out, {"k": to_cache(k), "v": to_cache(v)}
+    lay = head_layout(cfg, *_tp_of(sa))
+    split = cache_split(cfg, spec, max_len, sa)
+    kv = _to_decode_layout(torch.stack([to_cache(k), to_cache(v)]), cfg, lay,
+                           split, sa)
+    return _heads_out(out, lay, sa), {"k": kv[0], "v": kv[1]}
 
 
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -280,12 +303,19 @@ def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}
 
 
-def attn_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
+def attn_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
+                inplace: bool = False):
     """One-token decode.  x: (B, 1, d); cache: {'k','v'} (B, L, KV, hd);
     pos: an int — number of tokens already in the cache — or a (B,) int
     tensor of per-row positions (the serving engine's continuous batch,
     where every slot sits at its own depth).  Returns (out, new cache);
-    the input cache is not modified."""
+    the input cache is not modified, unless ``inplace``: then the new
+    token's K/V are written into it (the reference's donated buffer) and
+    it is returned.  Under ``serve_region`` the rank's share runs
+    (:func:`_attn_decode_tp`)."""
+    sa = serve_axes()
+    if sa is not None:
+        return _attn_decode_tp(params, cfg, spec, x, cache, pos, sa, inplace)
     B = x.shape[0]
     hd = cfg.hd
     dev = x.device
@@ -300,11 +330,11 @@ def attn_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
     L = cache["k"].shape[1]
     slot = pos % L if spec.window else pos
     if vec:
-        k_cache = _store_rows(cache["k"], k, slot)
-        v_cache = _store_rows(cache["v"], v, slot)
+        k_cache = _store_rows(cache["k"], k, slot, inplace)
+        v_cache = _store_rows(cache["v"], v, slot, inplace)
     else:
-        k_cache = _dynamic_store(cache["k"], k, slot)
-        v_cache = _dynamic_store(cache["v"], v, slot)
+        k_cache = _dynamic_store(cache["k"], k, slot, inplace)
+        v_cache = _dynamic_store(cache["v"], v, slot, inplace)
 
     # positions actually stored in each cache slot (ring-aware); valid is
     # (B, L) on the vector path, (L,) on the scalar path
@@ -332,23 +362,281 @@ def attn_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
     return out @ params["wo"], {"k": k_cache, "v": v_cache}
 
 
-def _dynamic_store(cache, new, slot: int):
-    """cache[:, slot] = new[:, 0] on a copy; ``slot`` is clamped into range
-    as ``lax.dynamic_update_slice`` clamps it."""
+def _dynamic_store(cache, new, slot: int, inplace: bool = False):
+    """cache[:, slot] = new[:, 0] on a copy (``inplace``: into ``cache``
+    itself); ``slot`` is clamped into range as ``lax.dynamic_update_slice``
+    clamps it."""
     slot = min(max(int(slot), 0), cache.shape[1] - 1)
-    out = cache.clone()
+    out = cache if inplace else cache.clone()
     out[:, slot] = new[:, 0].to(cache.dtype)
     return out
 
 
-def _store_rows(cache, new, slot):
-    """Per-row store on a copy: new[b, 0] lands at cache[b, slot[b]] — the
-    vector-``pos`` twin of :func:`_dynamic_store`.  cache: (B, L, ...);
-    new: (B, 1, ...); slot: (B,) int."""
+def _store_rows(cache, new, slot, inplace: bool = False):
+    """Per-row store on a copy (``inplace``: into ``cache`` itself):
+    new[b, 0] lands at cache[b, slot[b]] — the vector-``pos`` twin of
+    :func:`_dynamic_store`; a row whose slot lies outside [0, L) writes
+    nothing.  cache: (B, L, ...); new: (B, 1, ...); slot: (B,) int."""
     L = cache.shape[1]
+    if inplace:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        at = torch.clamp(slot, 0, L - 1)
+        hit = ((slot >= 0) & (slot < L)).reshape(
+            (-1,) + (1,) * (cache.ndim - 2))
+        cache[rows, at] = torch.where(hit, new[:, 0].to(cache.dtype),
+                                      cache[rows, at])
+        return cache
     hit = torch.arange(L, device=cache.device)[None, :] == slot[:, None]
     hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
     return torch.where(hit, new.to(cache.dtype), cache)
+
+
+# ---------------------------------------------------------------------------
+# The serve layout over the model axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeadLayout:
+    """One model-axis rank's share of a grouped-query attention layer: of
+    ``tp`` ranks, the ``attn_tp`` head blocks (``tp``, or H where H <
+    tp: each block then held by ``tp // H`` ranks, of which only
+    ``replica`` 0 adds its ``wo`` partial), this rank's query heads
+    ``[h0, h0 + hl)`` and the kv heads ``[kv0, kv0 + kvl)`` they read."""
+    tp: int
+    rank: int
+    attn_tp: int
+    block: int
+    replica: int
+    h0: int
+    hl: int
+    kv0: int
+    kvl: int
+
+
+def head_layout(cfg: ModelConfig, tp: int, rank: int) -> HeadLayout:
+    """The head block of model-axis rank ``rank`` of ``tp``; raises where
+    H and tp do not divide one another, or where a block's heads would
+    read kv heads that are not one whole group layout."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % tp == 0:
+        attn_tp = tp
+    elif tp % H == 0:
+        attn_tp = H
+    else:
+        raise ValueError(f"{cfg.name}: {H} heads do not split over tp={tp}"
+                         f" (nor tp over the heads)")
+    block, replica = divmod(rank, tp // attn_tp)
+    hl = H // attn_tp
+    h0 = block * hl
+    G = H // KV
+    kv0 = h0 // G
+    kvl = (h0 + hl - 1) // G + 1 - kv0
+    if hl % kvl or any((h0 + i) // G - kv0 != i // (hl // kvl)
+                       for i in range(hl)):
+        raise ValueError(f"{cfg.name}: heads [{h0}, {h0 + hl}) read kv heads "
+                         f"[{kv0}, {kv0 + kvl}) in no grouped layout")
+    return HeadLayout(tp, rank, attn_tp, block, replica, h0, hl, kv0, kvl)
+
+
+def _tp_of(sa) -> Tuple[int, int]:
+    from repro_torch.core.collectives.p2p import axis_index, axis_size
+    return axis_size(sa.tp), axis_index(sa.tp)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """How one attention layer's decode cache lies on a rank: the global
+    length ``L``; ``model`` ("kv", "length" or None: whole over the model
+    axis); the length in ``parts`` blocks, this rank holding block
+    ``index`` (data index major, model index minor, as the reference's
+    ``("data", "model")``); and the kv heads ``[kv0, kv0 + kvl)``
+    held."""
+    L: int
+    model: Optional[str]
+    data: bool
+    parts: int
+    index: int
+    kv0: int
+    kvl: int
+
+
+def cache_split(cfg: ModelConfig, spec: LayerSpec, max_len: int,
+                sa) -> CacheSplit:
+    """The reference's ``cache_spec`` for this layer's K/V leaf, with the
+    tp group's size as the model axis' and the region's data groups (set
+    only for a batch-1 cache) as its data axes."""
+    from repro_torch.core.collectives.p2p import axis_index, axis_size
+    if max_len is None:
+        raise ValueError("the serve region needs the cache's max_len")
+    tp, rank = _tp_of(sa)
+    L = min(max_len, spec.window) if spec.window else max_len
+    KV = cfg.num_kv_heads
+    names = tuple(f"d{i}" for i in range(len(sa.data)))
+    batch = 1 if sa.data else 2
+    leaf = cache_leaf_spec("k", (batch, L, KV, cfg.hd), batch, model_n=tp,
+                           data=names)
+    length = leaf[1] if isinstance(leaf[1], tuple) else (leaf[1],)
+    model = "kv" if leaf[2] == "model" else         "length" if "model" in length else None
+    data = bool(names) and names[0] in length
+    parts, index = 1, 0
+    if data:
+        for g in sa.data:
+            parts, index = parts * axis_size(g), index * axis_size(g) +                 axis_index(g)
+    if model == "length":
+        parts, index = parts * tp, index * tp + rank
+    if L % parts:
+        raise ValueError(f"cache length {L} does not split into {parts}")
+    if model == "kv":
+        lay = head_layout(cfg, tp, rank)
+        kv0, kvl = lay.kv0, lay.kvl
+    else:
+        kv0, kvl = 0, KV
+    return CacheSplit(L, model, data, parts, index, kv0, kvl)
+
+
+def _assemble_kv(rows: torch.Tensor, cfg: ModelConfig, tp: int):
+    """Every kv head from a gather over the tp ranks (``rows``: (tp, ...,
+    kvl, hd), row j the kv heads rank j computed), each from the first
+    rank that holds it: (..., KV, hd)."""
+    parts = []
+    for h in range(cfg.num_kv_heads):
+        for j in range(tp):
+            lay = head_layout(cfg, tp, j)
+            if lay.kv0 <= h < lay.kv0 + lay.kvl:
+                parts.append(rows[j, ..., h - lay.kv0, :])
+                break
+    return torch.stack(parts, dim=-2)
+
+
+def _to_decode_layout(kv: torch.Tensor, cfg: ModelConfig, lay: HeadLayout,
+                      split: CacheSplit, sa) -> torch.Tensor:
+    """The prefill's cache (``kv``: K and V stacked, (2, B, L, kvl, hd),
+    the kv heads this rank computed at every position) as decode holds
+    it: a batch-1 cache keeps its data block of the length; under the
+    length split one all-to-all over tp regroups the kv heads by
+    positions, and a cache whole over tp is all-gathered (neither where
+    the rank computed every kv head)."""
+    from repro_torch.core.collectives.api import all_gather, all_to_all
+    KV = cfg.num_kv_heads
+    if split.data:
+        dparts = split.parts // (lay.tp if split.model == "length" else 1)
+        block = split.L // dparts
+        d = split.index // (lay.tp if split.model == "length" else 1)
+        kv = kv.narrow(2, d * block, block)
+    if split.model == "length":
+        Lt = kv.shape[2] // lay.tp
+        if lay.kvl == KV:
+            return kv.narrow(2, lay.rank * Lt, Lt).contiguous()
+        chunks = kv.reshape(2, kv.shape[1], lay.tp, Lt, lay.kvl,
+                            kv.shape[-1]).movedim(2, 0).contiguous()
+        return _assemble_kv(all_to_all(chunks, sa.tp), cfg, lay.tp)
+    if split.model is None and lay.kvl < KV:
+        return _assemble_kv(all_gather(kv.contiguous(), sa.tp), cfg, lay.tp)
+    return kv.contiguous()
+
+
+def _heads_out(partial: torch.Tensor, lay: HeadLayout, sa) -> torch.Tensor:
+    """The layer's output from the ranks' ``wo`` partials: one all-reduce
+    over tp, to which only replica 0 of a head block adds its partial
+    (the others add zeros), so each block counts once."""
+    if lay.replica:
+        partial = torch.zeros_like(partial)
+    return tp_out(partial, sa.tp)
+
+
+def _store_block(cache, new, slot, lo: int, inplace: bool):
+    """Write ``new`` (B, 1, ...) at global slot ``slot`` (an int or (B,))
+    into the rank's block of positions ``[lo, lo + cache.shape[1])``:
+    only a rank whose block holds the slot writes."""
+    Ll = cache.shape[1]
+    if isinstance(slot, torch.Tensor):
+        return _store_rows(cache, new, slot - lo, inplace)
+    if not lo <= slot < lo + Ll:
+        return cache
+    return _dynamic_store(cache, new, slot - lo, inplace)
+
+
+def _attn_decode_tp(params, cfg: ModelConfig, spec: LayerSpec, x, cache,
+                    pos, sa, inplace: bool):
+    """One-token decode of a model-axis rank (see :func:`attn_decode`),
+    against its share of the cache (:func:`cache_split`)."""
+    from repro_torch.core.collectives.api import (all_gather, allreduce,
+                                                  allreduce_max)
+    B = x.shape[0]
+    hd = cfg.hd
+    dev = x.device
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    vec = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if vec:
+        pos = pos.to(device=dev, dtype=torch.int64)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    lay = head_layout(cfg, *_tp_of(sa))
+    split = cache_split(cfg, spec, sa.max_len, sa)
+    L = split.L
+    Ll = L // split.parts
+    lo = split.index * Ll
+    if tuple(cache["k"].shape[1:3]) != (Ll, split.kvl):
+        raise ValueError(f"the rank's cache is {tuple(cache['k'].shape)}; "
+                         f"its layout holds {Ll} positions of {split.kvl} "
+                         f"kv heads")
+    new = torch.stack([k, v])                     # (2, B, 1, kvl, hd)
+    if split.kvl > lay.kvl:
+        new = _assemble_kv(all_gather(new.contiguous(), sa.tp), cfg, lay.tp)
+    if split.model == "length":
+        # every head scores against this rank's positions
+        rows = all_gather(q.contiguous(), sa.tp)  # (tp, B, 1, hl, hd)
+        q = torch.cat([rows[b * (lay.tp // lay.attn_tp)]
+                       for b in range(lay.attn_tp)], dim=2)
+        kv0, kvl = 0, KV
+    else:
+        kv0, kvl = lay.kv0 - split.kv0, lay.kvl
+    slot = pos % L if spec.window else pos
+    k_cache = _store_block(cache["k"], new[0], slot, lo, inplace)
+    v_cache = _store_block(cache["v"], new[1], slot, lo, inplace)
+
+    idx = lo + torch.arange(Ll, device=dev)
+    p_row = pos[:, None] if vec else pos
+    if spec.window:
+        base = p_row - (p_row % L)
+        cand = torch.where(idx <= (p_row % L), base + idx, base - L + idx)
+        valid = (cand >= 0) & (cand <= p_row) & ((p_row - cand) < spec.window)
+    else:
+        valid = idx <= p_row
+    vmask = (valid[:, None, None, None, :] if vec
+             else valid[None, None, None, None, :])
+    kc = k_cache[:, :, kv0:kv0 + kvl]
+    vc = v_cache[:, :, kv0:kv0 + kvl]
+    qg = q.reshape(B, 1, kvl, -1, hd)
+    s = torch.einsum("btkgh,blkh->bkgtl", qg.to(torch.float32),
+                     kc.to(torch.float32)) / math.sqrt(hd)
+    if cfg.attn_logit_softcap is not None:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    s = torch.where(vmask, s, NEG_INF)
+    groups = ((sa.tp,) if split.model == "length" else ()) + \
+        (sa.data if split.data else ())
+    if groups:
+        # split-KV: the row maximum over every rank's positions, then the
+        # sums and the weighted values under it, in f32
+        m = allreduce_max(s.amax(dim=-1, keepdim=True).contiguous(), groups)
+        p = torch.exp(s - m)
+        o = torch.einsum("bkgtl,blkh->bkgth", p.to(vc.dtype).to(torch.float32),
+                         vc.to(torch.float32))
+        lo_ = torch.cat([o, p.sum(dim=-1, keepdim=True)], dim=-1)
+        lo_ = allreduce(lo_.contiguous(), "psum", groups)
+        out = (lo_[..., :hd] / lo_[..., hd:]).to(vc.dtype)
+        out = out.permute(0, 3, 1, 2, 4)            # (B, 1, kvl, g, hd)
+    else:
+        p = torch.softmax(s, dim=-1).to(vc.dtype)
+        out = torch.einsum("bkgtl,blkh->btkgh", p, vc)
+    out = out.reshape(B, 1, -1, hd)
+    if split.model == "length":
+        out = out[:, :, lay.h0:lay.h0 + lay.hl]
+    out = out.reshape(B, 1, -1) @ params["wo"]
+    return _heads_out(out, lay, sa), {"k": k_cache, "v": v_cache}
 
 
 # ---------------------------------------------------------------------------
@@ -365,12 +653,14 @@ def mla_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     d, H = cfg.d_model, cfg.num_heads
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
     return {
-        "wq": ParamDesc((d, H * qk)),
-        "w_dkv": ParamDesc((d, cfg.kv_lora_rank + cfg.qk_rope_dim)),
+        "wq": ParamDesc((d, H * qk), axes=("embed", "heads")),
+        "w_dkv": ParamDesc((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                           axes=("embed", "lora")),
         "kv_norm": norm_desc(cfg.kv_lora_rank),
         "w_ukv": ParamDesc((cfg.kv_lora_rank,
-                            H * (cfg.qk_nope_dim + cfg.v_head_dim))),
-        "wo": ParamDesc((H * cfg.v_head_dim, d)),
+                            H * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                           axes=("lora", "heads")),
+        "wo": ParamDesc((H * cfg.v_head_dim, d), axes=("heads", "embed")),
     }
 
 
@@ -443,7 +733,7 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype):
 
 
 def mla_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
-               absorb: bool = False):
+               absorb: bool = False, inplace: bool = False):
     """One-token MLA decode against the latent cache; ``pos`` an int or a
     (B,) tensor of per-row positions, as :func:`attn_decode`.
 
@@ -451,7 +741,8 @@ def mla_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
     ``absorb=True`` folds W_uk into the query and W_uv into the output, so
     that attention runs in the latent space without the (L, H, nope + v)
     expansion.  Returns (out, new cache); the input cache is not
-    modified."""
+    modified, unless ``inplace`` (the donated cache, written and
+    returned)."""
     B = x.shape[0]
     H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     vdim = cfg.v_head_dim
@@ -466,11 +757,11 @@ def mla_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
         positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, cfg, x, positions)
     if vec:
-        c_cache = _store_rows(cache["c_kv"], c_kv_new, pos)
-        r_cache = _store_rows(cache["k_rope"], k_rope_new, pos)
+        c_cache = _store_rows(cache["c_kv"], c_kv_new, pos, inplace)
+        r_cache = _store_rows(cache["k_rope"], k_rope_new, pos, inplace)
     else:
-        c_cache = _dynamic_store(cache["c_kv"], c_kv_new, pos)
-        r_cache = _dynamic_store(cache["k_rope"], k_rope_new, pos)
+        c_cache = _dynamic_store(cache["c_kv"], c_kv_new, pos, inplace)
+        r_cache = _dynamic_store(cache["k_rope"], k_rope_new, pos, inplace)
     L = c_cache.shape[1]
     idx = torch.arange(L, device=dev)
     valid = ((idx[None, :] <= pos[:, None])[:, None, None, :] if vec

@@ -48,10 +48,10 @@ def _promoted(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
 def cross_attn_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     d, hd = cfg.d_model, cfg.hd
     return {
-        "wq": ParamDesc((d, cfg.num_heads * hd)),
-        "wk": ParamDesc((d, cfg.num_kv_heads * hd)),
-        "wv": ParamDesc((d, cfg.num_kv_heads * hd)),
-        "wo": ParamDesc((cfg.num_heads * hd, d)),
+        "wq": ParamDesc((d, cfg.num_heads * hd), axes=("embed", "heads")),
+        "wk": ParamDesc((d, cfg.num_kv_heads * hd), axes=("embed", "kv")),
+        "wv": ParamDesc((d, cfg.num_kv_heads * hd), axes=("embed", "kv")),
+        "wo": ParamDesc((cfg.num_heads * hd, d), axes=("heads", "embed")),
     }
 
 

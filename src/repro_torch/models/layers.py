@@ -4,8 +4,13 @@ the gated MLP, the embedding and the cross-entropy — counterparts of
 
 Parameters are nested dicts of tensors laid out exactly as the JAX
 package's parameter tree (``repro_torch.convert.params_from_jax`` carries
-one over leaf by leaf).  Descriptors keep the shape and init kind; the
-JAX package's logical sharding axes have no use in this one-card slice.
+one over leaf by leaf).  Descriptors keep the shape, the init kind and
+the reference's logical axis names; :func:`sharding_rules` and
+:func:`partition_specs` map those names onto mesh axes as the reference
+does, and ``convert.serve_slice`` cuts a tree to one model-axis rank's
+share by them (the port has no partitioner).  :func:`embed_tp` and
+:func:`logits_tp` are the vocab-parallel embedding and LM head of
+serving under ``sharding_ctx.serve_region``.
 """
 from __future__ import annotations
 
@@ -25,11 +30,18 @@ from repro_torch._tree import tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class ParamDesc:
-    """Abstract parameter: shape and init kind (``normal``: N(0,1) /
-    sqrt(fan_in); ``small``: N(0,1) * 0.02; ``zeros``; ``ones``)."""
+    """Abstract parameter: shape, init kind (``normal``: N(0,1) /
+    sqrt(fan_in); ``small``: N(0,1) * 0.02; ``zeros``; ``ones``) and the
+    reference's logical axis name per dim (None: replicated)."""
     shape: Tuple[int, ...]
     init: str = "normal"
     scale: Optional[float] = None     # overrides the default fan-in scale
+    axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not name the dims of "
+                             f"{self.shape}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +57,9 @@ def _is_desc(x) -> bool:
 
 
 def stack_desc(tree, n: int):
-    """Prepend a stacked layer dim of size n to every descriptor."""
-    return tree_map(lambda d: ParamDesc((n,) + d.shape, d.init, d.scale),
+    """Prepend a stacked "layers" dim of size n to every descriptor."""
+    return tree_map(lambda d: ParamDesc((n,) + d.shape, d.init, d.scale,
+                                        ("layers",) + (d.axes or (None,) * len(d.shape))),
                     tree, is_leaf=_is_desc)
 
 
@@ -101,11 +114,54 @@ def desc_leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# Logical axes -> mesh axes (reference ``layers.py:70-104``)
+# ---------------------------------------------------------------------------
+
+def partition_specs(tree, rules: Dict[str, object]):
+    """Map every descriptor's logical axes to mesh axes through ``rules``
+    (name -> mesh axis, a tuple of them, or None); unknown names map to
+    None (replicated).  When two dims of one leaf resolve to the same mesh
+    axis (an (experts, embed, ffn) MoE weight with experts -> model and
+    ffn -> model), only the first keeps it: a mesh axis shards at most
+    one dim.  Each leaf's spec is a tuple, one entry per dim (the
+    reference's ``PartitionSpec``)."""
+    def f(d: ParamDesc):
+        used = set()
+        out = []
+        for a in d.axes or (None,) * len(d.shape):
+            r = rules.get(a) if a is not None else None
+            flat = tuple(r) if isinstance(r, tuple) else (r,)
+            if r is not None and not (set(flat) & used):
+                used.update(flat)
+                out.append(r)
+            else:
+                out.append(None)
+        return tuple(out)
+    return tree_map(f, tree, is_leaf=_is_desc)
+
+
+def sharding_rules(phase: str, multi_pod: bool = False) -> Dict[str, object]:
+    """The reference's logical-axis -> mesh-axis rules: at train the
+    d_model ("embed") dim goes over the data axes too (FSDP); at serve
+    parameters are replicated over data and split over the model axis
+    only."""
+    data = ("pod", "data") if multi_pod else "data"
+    tp = "model"
+    if phase == "train":
+        return {"vocab": tp, "embed": data, "heads": tp, "kv": tp, "ffn": tp,
+                "experts": tp, "layers": None, "lora": None, "state": None,
+                "inner": tp}
+    return {"vocab": tp, "embed": None, "heads": tp, "kv": tp, "ffn": tp,
+            "experts": tp, "layers": None, "lora": None, "state": None,
+            "inner": tp}
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
 def norm_desc(d: int) -> Dict[str, ParamDesc]:
-    return {"scale": ParamDesc((d,), "zeros")}
+    return {"scale": ParamDesc((d,), "zeros", axes=(None,))}
 
 
 def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -150,9 +206,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def mlp_desc(d: int, d_ff: int) -> Dict[str, ParamDesc]:
     return {
-        "wi_gate": ParamDesc((d, d_ff)),
-        "wi_up": ParamDesc((d, d_ff)),
-        "wo": ParamDesc((d_ff, d)),
+        "wi_gate": ParamDesc((d, d_ff), axes=("embed", "ffn")),
+        "wi_up": ParamDesc((d, d_ff), axes=("embed", "ffn")),
+        "wo": ParamDesc((d_ff, d), axes=("ffn", "embed")),
     }
 
 
@@ -290,7 +346,7 @@ def mlp_blocked(params, x: torch.Tensor, activation: str = "swiglu",
 # ---------------------------------------------------------------------------
 
 def embedding_desc(vocab: int, d: int) -> Dict[str, ParamDesc]:
-    return {"table": ParamDesc((vocab, d), "small")}
+    return {"table": ParamDesc((vocab, d), "small", axes=("vocab", "embed"))}
 
 
 def embed(params, tokens: torch.Tensor, *, scale: bool, d: int) -> torch.Tensor:
@@ -300,6 +356,43 @@ def embed(params, tokens: torch.Tensor, *, scale: bool, d: int) -> torch.Tensor:
         # (bf16: sqrt(2048) -> 45.25), as in the reference
         x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
+
+
+def embed_tp(params, tokens: torch.Tensor, *, scale: bool, d: int,
+             group) -> torch.Tensor:
+    """Vocab-parallel :func:`embed`: ``params["table"]`` holds this rank's
+    block of the vocabulary rows (block ``axis_index(group)``); a token
+    outside it gives exact zeros, and one all-reduce over ``group`` sums
+    the ranks' rows, at most one of them non-zero, so the result equals
+    :func:`embed` of the whole table bit for bit."""
+    from repro_torch.core.collectives.api import allreduce
+    from repro_torch.core.collectives.p2p import axis_index
+    table = params["table"]
+    vl = table.shape[0]
+    local = tokens - axis_index(group) * vl
+    hit = (local >= 0) & (local < vl)
+    x = table[torch.clamp(local, 0, vl - 1)]
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    if scale:
+        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+    return allreduce(x.contiguous(), "psum", (group,))
+
+
+def logits_tp(table: torch.Tensor, h: torch.Tensor, group,
+              softcap: Optional[float] = None) -> torch.Tensor:
+    """Vocab-parallel LM head: this rank's block of the logits
+    ``h @ table.T`` (``table``: its vocab rows), all-gathered over
+    ``group`` into whole rows in vocabulary order, then the final softcap
+    on the whole row (the same on every rank)."""
+    from repro_torch.core.collectives.api import all_gather
+    part = (h @ table.T).contiguous()                       # (..., V/tp)
+    parts = all_gather(part, group)                         # (tp, ..., V/tp)
+    logits = torch.movedim(parts, 0, -2).reshape(
+        *part.shape[:-1], parts.shape[0] * part.shape[-1])
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

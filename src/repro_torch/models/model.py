@@ -3,12 +3,22 @@ decoder-only stacks (attention / MLA / Mamba / xLSTM blocks with dense or
 MoE FFNs) and the encoder-decoder (``cfg.is_encoder_decoder``; batches
 carry ``"src"`` frame embeddings):
 
-  * ``param_desc`` / ``init(generator, dtype)``
+  * ``param_desc`` / ``init(generator, dtype)`` / ``partition_specs`` /
+    ``partition_dims``
   * ``loss(params, batch)``                      (train; + the MoE aux loss)
   * ``prefill(params, batch, max_len)``          (inference prefill)
   * ``init_cache`` / ``decode_step(params, tokens, cache, pos,
-    mla_absorb, moe_dispatch)``
-  * ``abstract_params`` / ``input_specs(shape)``  (the dry run)
+    mla_absorb, moe_dispatch, inplace)``
+  * ``abstract_params`` / ``input_specs(shape)`` /
+    ``input_partition_specs(shape)``  (the dry run)
+
+Under ``sharding_ctx.serve_region`` the prefill and the decode step run
+the reference's serve layout over the model axis on the rank's share of
+the parameters (``convert.serve_slice``): the embedding and the LM head
+vocab-parallel (``layers.embed_tp`` / ``logits_tp``), the stack as
+``transformer`` says, the cache laid out by
+``input_partition_specs``' rule with the tp group's size as the model
+axis' (``convert.cache_slice``).
 
 The encoder-decoder keeps the reference's unused ``final_norm`` (its
 decoder ends in ``dec_norm``), so that converted trees match.
@@ -24,13 +34,16 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_map, tree_map_with_path
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (ParamDesc, TensorSpec, desc_leaves,
-                                       embed, embedding_desc, materialize,
-                                       norm_desc, rmsnorm, softmax_xent)
+                                       embed, embed_tp, embedding_desc,
+                                       logits_tp, materialize, norm_desc,
+                                       partition_specs, rmsnorm,
+                                       sharding_rules, softmax_xent)
+from repro_torch.models.sharding_ctx import cache_leaf_spec, serve_axes
 
 XENT_CHUNK = 512
 
@@ -82,6 +95,22 @@ class Model:
                                if k == "stack" else None)
                 for k in sorted(desc)}
 
+    def partition_specs(self, phase: str, multi_pod: bool = False):
+        """Each leaf's mesh axes per dim under the reference's rules for
+        ``phase`` (``layers.sharding_rules``): a tree of tuples, the
+        reference's ``PartitionSpec``s."""
+        return partition_specs(self.param_desc(),
+                               sharding_rules(phase, multi_pod))
+
+    def partition_dims(self, phase: str = "serve"):
+        """Each leaf's dim on the model axis under ``phase``'s rules, or
+        None for a leaf whole on every model-axis rank."""
+        def dim(spec):
+            return next((i for i, a in enumerate(spec) if a == "model"),
+                        None)
+        return tree_map(dim, self.partition_specs(phase),
+                        is_leaf=lambda x: isinstance(x, tuple))
+
     def abstract_params(self, dtype=None, mode=None):
         """CPU fake tensors of ``param_desc``'s shapes in ``dtype`` (the
         reference's ``ShapeDtypeStruct`` stand-ins, concrete enough to run
@@ -100,14 +129,24 @@ class Model:
     # -- shared pieces ------------------------------------------------------
 
     def _embed(self, params, tokens):
-        return embed(params["embed"], tokens, scale=self.cfg.embed_scale,
-                     d=self.cfg.d_model).to(resolve_dtype(self.cfg.compute_dtype))
+        sa = serve_axes()
+        if sa is not None:
+            x = embed_tp(params["embed"], tokens, scale=self.cfg.embed_scale,
+                         d=self.cfg.d_model, group=sa.tp)
+        else:
+            x = embed(params["embed"], tokens, scale=self.cfg.embed_scale,
+                      d=self.cfg.d_model)
+        return x.to(resolve_dtype(self.cfg.compute_dtype))
 
     def _lm_table(self, params):
         return params["embed" if self.cfg.tie_embeddings else "lm_head"]["table"]
 
     def _logits(self, params, h):
         cfg = self.cfg
+        sa = serve_axes()
+        if sa is not None:
+            return logits_tp(self._lm_table(params), h, sa.tp,
+                             cfg.final_logit_softcap)
         logits = h @ self._lm_table(params).T
         if cfg.final_logit_softcap:
             logits = cfg.final_logit_softcap * torch.tanh(
@@ -203,21 +242,28 @@ class Model:
         return transformer.stack_cache(cfg, self.plan, batch, max_len, dtype)
 
     def decode_step(self, params, tokens, cache, pos, mla_absorb: bool = False,
-                    moe_dispatch: bool = False):
+                    moe_dispatch: bool = False, inplace: bool = False):
         """tokens: (B, 1) int; pos: an int (tokens already cached) or a
         (B,) int tensor of per-row depths (continuous batching).
         ``mla_absorb`` / ``moe_dispatch`` pick MLA's absorbed decode and
         the MoE capacity dispatch (``transformer.block_decode``).  Returns
-        (logits (B, 1, vocab), new_cache)."""
+        (logits (B, 1, vocab), new_cache); the input cache is not
+        modified, unless ``inplace``: then the new entries are written
+        into it and it is returned (the decode step's donated cache,
+        ``launch/steps.make_decode_step(donate=True)``)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         if cfg.is_encoder_decoder:
             h, new_cache = encdec.decode_step_stack(params["encdec"], cfg, x,
                                                     cache, pos)
+            if inplace:
+                transformer.write_back(cache, new_cache)
+                new_cache = cache
             return self._logits(params, h), new_cache
         h, new_cache = transformer.stack_decode(params["stack"], cfg,
                                                 self.plan, x, cache, pos,
-                                                mla_absorb, moe_dispatch)
+                                                mla_absorb, moe_dispatch,
+                                                inplace)
         h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
         return self._logits(params, h), new_cache
 
@@ -241,6 +287,29 @@ class Model:
         return {"tokens": TensorSpec((B, 1), torch.int32),
                 "cache": self.init_cache(B, T, src_len=src_len, dtype=cdt),
                 "pos": TensorSpec((), torch.int32)}
+
+    def input_partition_specs(self, shape: ShapeConfig,
+                              multi_pod: bool = False, model_n: int = 16):
+        """The mesh axes of ``input_specs(shape)``'s leaves, per dim (the
+        reference's ``input_partition_specs``): the batch over the data
+        axes where B > 1, and the decode cache by
+        ``sharding_ctx.cache_leaf_spec`` (``model_n``: the model axis'
+        size, the reference's 16)."""
+        data = ("pod", "data") if multi_pod else ("data",)
+        B = shape.global_batch
+        batch_axis = (data if multi_pod else data[0]) if B > 1 else None
+        if shape.phase in ("train", "prefill"):
+            specs = {"tokens": (batch_axis, None)}
+            if self.cfg.is_encoder_decoder:
+                specs["src"] = (batch_axis, None, None)
+            return specs
+        cache = tree_map_with_path(
+            lambda path, s: cache_leaf_spec(
+                next((p for p in reversed(path) if isinstance(p, str)), ""),
+                s.shape, B, model_n, data),
+            self.init_cache(B, shape.seq_len, src_len=shape.seq_len
+                            if self.cfg.is_encoder_decoder else 0))
+        return {"tokens": (batch_axis, None), "cache": cache, "pos": ()}
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -16,6 +16,13 @@ tokens over all E experts, and exchanges the capacity buffer with the
 differentiable all-to-all (``collectives.all_to_all_grad``): dispatch
 to the experts' owners, the local einsums, the reverse exchange to
 combine.  Its backward is the same pair of exchanges in reverse.
+
+Serving under the model axis (``tp_axis``, a process group): the
+activations are the same on every rank, so each rank routes every token
+with the whole router and runs only its block of ``E/tp`` whole experts
+(``convert.serve_slice``); a choice of another rank's expert adds an
+exact zero, and one all-reduce over the group sums the ranks' partial
+outputs.  No all-to-all; capacity and drops are the unsharded layer's.
 """
 from __future__ import annotations
 
@@ -26,8 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collectives.api import all_to_all_grad
-from repro_torch.core.collectives.p2p import axis_size
-from repro_torch.models.layers import ParamDesc, mlp, mlp_desc
+from repro_torch.core.collectives.p2p import axis_index, axis_size
+from repro_torch.models.layers import ParamDesc, mlp, mlp_desc, tp_out
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +98,10 @@ def moe_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     ff = cfg.moe_d_ff or cfg.d_ff
     E = cfg.num_experts
     desc = {
-        "router": ParamDesc((d, E), "small"),
-        "wi_gate": ParamDesc((E, d, ff)),
-        "wi_up": ParamDesc((E, d, ff)),
-        "wo": ParamDesc((E, ff, d)),
+        "router": ParamDesc((d, E), "small", axes=("embed", None)),
+        "wi_gate": ParamDesc((E, d, ff), axes=("experts", "embed", "ffn")),
+        "wi_up": ParamDesc((E, d, ff), axes=("experts", "embed", "ffn")),
+        "wo": ParamDesc((E, ff, d), axes=("experts", "ffn", "embed")),
     }
     if cfg.num_shared_experts:
         desc["shared"] = mlp_desc(d, ff * cfg.num_shared_experts)
@@ -132,7 +139,7 @@ def dispatch_plan(experts: torch.Tensor, E: int, G: int, cap: int):
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
             groups: Optional[int] = None,
-            ep_axis=None, a2a_variant: str = "direct"
+            ep_axis=None, a2a_variant: str = "direct", tp_axis=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, d) -> (out (B, T, d), aux f32).
 
@@ -157,7 +164,12 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
     experts run, and the reverse exchange returns every output to its
     token's rank in global expert order.  Chunks move verbatim, so the
     step equals the same math on one device with the ep ranks' tokens as
-    ``groups``.  The drop tap counts this rank's drops."""
+    ``groups``.  The drop tap counts this rank's drops.
+
+    ``tp_axis`` (a process group, serving) runs this rank's block of
+    ``E/tp`` experts on every token's choices and sums the ranks' outputs
+    with one all-reduce (``params``: the rank's expert block, its slice
+    of the shared experts' ffn dim)."""
     B, T, d = x.shape
     N = B * T
     E, k = cfg.num_experts, cfg.top_k
@@ -181,6 +193,7 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
                 f"expert-parallel moe_ffn wants the LOCAL expert block "
                 f"({E // ep} of {E}), got params with "
                 f"{params['wi_gate'].shape[0]} experts")
+    e0 = _expert_block(params, E, tp_axis)
 
     xf = x.reshape(N, d)
     weights, experts, aux = _route(cfg, xf @ params["router"])
@@ -209,6 +222,19 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
         # rank, the (E, cap, d) buffer in global order again
         out_flat = all_to_all_grad(out_b.reshape(ep, El * cap, d), ep_axis,
                                    a2a_variant).reshape(G, E * cap, d)
+    elif tp_axis is not None:
+        El = params["wi_gate"].shape[0]
+        b = buf[:, e0:e0 + El]
+        h_gate = F.silu(torch.einsum("gecd,edf->gecf", b,
+                                     params["wi_gate"]))
+        h_up = torch.einsum("gecd,edf->gecf", b, params["wi_up"])
+        h_mid = (h_gate * h_up).to(cdt)
+        out_b = torch.einsum("gecf,efd->gecd", h_mid, params["wo"])
+        # the other ranks' experts' rows are zeros here
+        out_buf = torch.zeros((G, E, cap, d), dtype=out_b.dtype,
+                              device=x.device)
+        out_buf[:, e0:e0 + El] = out_b
+        out_flat = out_buf.reshape(G, E * cap, d)
     else:
         h_gate = F.silu(torch.einsum("gecd,edf->gecf", buf,
                                      params["wi_gate"]))
@@ -232,23 +258,53 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
 
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], xf, cfg.activation)
+    if tp_axis is not None:
+        out = tp_out(out, tp_axis)
     return out.reshape(B, T, d), aux
 
 
-def moe_decode_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _expert_block(params, E: int, tp_axis) -> int:
+    """The first expert of this rank's block under ``tp_axis`` (0 without
+    one); raises unless ``params`` hold the block of ``E/tp``."""
+    if tp_axis is None:
+        return 0
+    tp = axis_size(tp_axis)
+    if E % tp or params["wi_gate"].shape[0] != E // tp:
+        raise ValueError(f"serving over tp={tp} wants blocks of {E}/{tp} "
+                         f"experts, got params with "
+                         f"{params['wi_gate'].shape[0]}")
+    return axis_index(tp_axis) * (E // tp)
+
+
+def moe_decode_ffn(params, cfg: ModelConfig, x: torch.Tensor,
+                   tp_axis=None) -> torch.Tensor:
     """One token a row, x (B, 1, d): gather the k chosen experts' weights
     per token instead of capacity dispatch — no drops; the gather is
-    (B, k, d, ff) a matrix, cheap at decode batch sizes."""
+    (B, k, d, ff) a matrix, cheap at decode batch sizes.  Under
+    ``tp_axis`` (serving) a rank gathers from its block of the experts, a
+    choice outside it adds an exact zero, and one all-reduce sums the
+    ranks."""
     B, _, d = x.shape
     xf = x.reshape(B, d)
     weights, experts, _ = _route(cfg, xf @ params["router"])      # (B, k)
-    wg = params["wi_gate"][experts]                               # (B,k,d,ff)
-    wu = params["wi_up"][experts]
-    wo = params["wo"][experts]                                    # (B,k,ff,d)
+    idx = experts
+    if tp_axis is not None:
+        El = params["wi_gate"].shape[0]
+        local = experts - _expert_block(params, cfg.num_experts, tp_axis)
+        mine = (local >= 0) & (local < El)
+        idx = torch.clamp(local, 0, El - 1)
+    wg = params["wi_gate"][idx]                                   # (B,k,d,ff)
+    wu = params["wi_up"][idx]
+    wo = params["wo"][idx]                                        # (B,k,ff,d)
     h = F.silu(torch.einsum("bd,bkdf->bkf", xf, wg)) * torch.einsum(
         "bd,bkdf->bkf", xf, wu)
     out = torch.einsum("bkf,bkfd->bkd", h, wo)
+    if tp_axis is not None:
+        out = torch.where(mine[..., None], out,
+                          torch.zeros((), dtype=out.dtype, device=x.device))
     out = torch.einsum("bkd,bk->bd", out, weights.to(out.dtype))
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], xf, cfg.activation)
+    if tp_axis is not None:
+        out = tp_out(out, tp_axis)
     return out.reshape(B, 1, d)

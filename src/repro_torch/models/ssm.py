@@ -36,15 +36,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def mamba_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     d, di, ds, dt = cfg.d_model, cfg.d_inner, cfg.ssm_d_state, cfg.dt_rank
     return {
-        "in_proj": ParamDesc((d, 2 * di)),
-        "conv_w": ParamDesc((cfg.ssm_conv, di), "small"),
-        "conv_b": ParamDesc((di,), "zeros"),
-        "x_proj": ParamDesc((di, dt + 2 * ds)),
-        "dt_proj_w": ParamDesc((dt, di), "small"),
-        "dt_proj_b": ParamDesc((di,), "ones"),
-        "A_log": ParamDesc((di, ds), "small"),
-        "D": ParamDesc((di,), "ones"),
-        "out_proj": ParamDesc((di, d)),
+        "in_proj": ParamDesc((d, 2 * di), axes=("embed", "inner")),
+        "conv_w": ParamDesc((cfg.ssm_conv, di), "small",
+                            axes=(None, "inner")),
+        "conv_b": ParamDesc((di,), "zeros", axes=("inner",)),
+        "x_proj": ParamDesc((di, dt + 2 * ds), axes=("inner", None)),
+        "dt_proj_w": ParamDesc((dt, di), "small", axes=(None, "inner")),
+        "dt_proj_b": ParamDesc((di,), "ones", axes=("inner",)),
+        "A_log": ParamDesc((di, ds), "small", axes=("inner", "state")),
+        "D": ParamDesc((di,), "ones", axes=("inner",)),
+        "out_proj": ParamDesc((di, d), axes=("inner", "embed")),
     }
 
 

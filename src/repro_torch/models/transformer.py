@@ -20,7 +20,15 @@ in layer order.  Under ``sharding_ctx.tp_region(group)`` the training
 blocks' dense FFNs run tensor-parallel (``layers.mlp_tp``) on the rank's
 ffn slice, and under ``sharding_ctx.ep_region(group)`` their MoE FFNs
 expert-parallel (``moe_ffn(ep_axis=group)``) on the rank's expert block;
-the prefill and decode blocks do neither, as in the reference.
+the prefill and decode blocks do neither.  Under
+``sharding_ctx.serve_region(group, ...)`` the prefill and decode blocks
+run the reference's serve layout over ``group`` on the rank's share of
+the parameters (``convert.serve_slice``): head-parallel attention
+(``attention.head_layout``), the dense FFNs' ffn slice (``mlp_tp``) and
+the experts' block (``moe_ffn`` / ``moe_decode_ffn`` with ``tp_axis``);
+the grouped-query attention stacks only (:func:`serve_tp_reason`).  The
+decode stack writes into the cache it is given when ``inplace`` (the
+reference's donated cache).
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch._tree import tree_map, tree_map_with_path
+from repro_torch._tree import tree_leaves, tree_map, tree_map_with_path
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -39,8 +47,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, mlp_tp,
                                        norm_desc, rmsnorm, stack_desc)
-from repro_torch.models.sharding_ctx import (ep_axis, ep_region, tp_axis,
-                                             tp_region)
+from repro_torch.models.sharding_ctx import (ep_axis, ep_region,
+                                             serve_axes, tp_axis, tp_region)
 
 XLSTM_MIXERS = ("mlstm", "slstm")
 _MIXER_DESC = {"attn": attn.attn_desc, "mla": attn.mla_desc,
@@ -75,19 +83,47 @@ def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     return desc
 
 
-def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None, ep=None):
+def serve_tp_reason(cfg: ModelConfig):
+    """None where the serve layout over the model axis runs ``cfg`` (a
+    decoder of grouped-query attention layers), else why not."""
+    mixers = {cfg.layer_spec(i).mixer for i in range(cfg.num_layers)}
+    if cfg.is_encoder_decoder or mixers != {"attn"}:
+        kinds = "the encoder-decoder" if cfg.is_encoder_decoder else \
+            "/".join(sorted(mixers - {"attn"}))
+        return (f"serving {cfg.name} over the model axis ({kinds}) is the "
+                f"remainder of ROADMAP queue 1 item 15: the whole model "
+                f"sits on each rank")
+    return None
+
+
+def _serve_tp(cfg: ModelConfig):
+    """The serve region's tp group, raising for a model it cannot run."""
+    sa = serve_axes()
+    if sa is None:
+        return None
+    reason = serve_tp_reason(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+    return sa.tp
+
+
+def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None, ep=None,
+         serve=None):
     """x + FFN(norm2(x)) and the MoE aux loss (an f32 zero for a dense
     FFN).  ``tp`` (a process group): the dense FFN is tensor-parallel,
     ``params`` hold this rank's ffn slice and the Megatron wire
     (``mlp_tp``) reduces the activations over ``tp``.  ``ep`` (a process
     group): the MoE FFN is expert-parallel over it, ``params`` hold this
-    rank's block of the experts."""
+    rank's block of the experts.  ``serve`` (the serve region's group):
+    both, the MoE FFN on its expert block with one all-reduce."""
     aux = _zero(x)
     if spec.ffn == "none":
         return x, aux
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
+    tp = serve if serve is not None else tp
     if spec.ffn == "moe":
-        h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h, ep_axis=ep)
+        h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h, ep_axis=ep,
+                                 tp_axis=serve)
     elif tp is not None:
         h = mlp_tp(params["ffn"], h, cfg.activation, group=tp)
     else:
@@ -134,6 +170,7 @@ def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   max_len: int):
     """Full-sequence block that also emits this layer's decode cache.
     Returns (x, aux, cache)."""
+    serve = _serve_tp(cfg)
     if spec.mixer in XLSTM_MIXERS:
         f = (xlstm_mod.mlstm_forward if spec.mixer == "mlstm"
              else xlstm_mod.slstm_forward)
@@ -146,7 +183,7 @@ def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     else:
         mixer = attn.mla_prefill if spec.mixer == "mla" else attn.attn_prefill
         h, cache = mixer(params["mixer"], cfg, spec, h, positions, max_len)
-    x, aux = _ffn(params, cfg, spec, x + h)
+    x, aux = _ffn(params, cfg, spec, x + h, serve=serve)
     return x, aux, cache
 
 
@@ -166,11 +203,14 @@ def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
 
 
 def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
-                 mla_absorb: bool = False, moe_dispatch: bool = False):
+                 mla_absorb: bool = False, moe_dispatch: bool = False,
+                 inplace: bool = False):
     """One-token block step.  Returns (x, new_cache).  ``mla_absorb``
     picks MLA's absorbed decode; ``moe_dispatch`` runs a decode MoE
     through the capacity dispatch of training instead of the per-token
-    gather of the experts' weights."""
+    gather of the experts' weights; ``inplace`` writes attention's and
+    MLA's new entries into ``cache`` itself."""
+    serve = _serve_tp(cfg)
     if spec.mixer in XLSTM_MIXERS:
         f = (xlstm_mod.mlstm_decode if spec.mixer == "mlstm"
              else xlstm_mod.slstm_decode)
@@ -181,16 +221,21 @@ def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
         h, new_cache = ssm_mod.mamba_decode(params["mixer"], cfg, h, cache)
     elif spec.mixer == "mla":
         h, new_cache = attn.mla_decode(params["mixer"], cfg, spec, h, cache,
-                                       pos, absorb=mla_absorb)
+                                       pos, absorb=mla_absorb,
+                                       inplace=inplace)
     else:
         h, new_cache = attn.attn_decode(params["mixer"], cfg, spec, h, cache,
-                                        pos)
+                                        pos, inplace=inplace)
     x = x + h
     if spec.ffn != "none":
         h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
         if spec.ffn == "moe":
-            h = (moe_mod.moe_ffn(params["ffn"], cfg, h)[0] if moe_dispatch
-                 else moe_mod.moe_decode_ffn(params["ffn"], cfg, h))
+            h = (moe_mod.moe_ffn(params["ffn"], cfg, h, tp_axis=serve)[0]
+                 if moe_dispatch else
+                 moe_mod.moe_decode_ffn(params["ffn"], cfg, h,
+                                        tp_axis=serve))
+        elif serve is not None:
+            h = mlp_tp(params["ffn"], h, cfg.activation, group=serve)
         else:
             h = mlp(params["ffn"], h, cfg.activation)
         x = x + h
@@ -351,10 +396,33 @@ def materialize_cache(cache_specs, device):
     return tree_map_with_path(init_leaf, cache_specs)
 
 
+def write_back(old, new) -> None:
+    """Copy each leaf of ``new`` into ``old``'s leaf unless the step wrote
+    it there already (the donated cache's recurrent states)."""
+    for o, n in zip(tree_leaves(old), tree_leaves(new)):
+        if n is not o:
+            o.copy_(n)
+
+
 def stack_decode(params_segs, cfg: ModelConfig, plan, x, cache_segs, pos,
-                 mla_absorb: bool = False, moe_dispatch: bool = False):
+                 mla_absorb: bool = False, moe_dispatch: bool = False,
+                 inplace: bool = False):
     """One token through every layer.  Returns (x, new cache); the input
-    cache is not modified."""
+    cache is not modified, unless ``inplace``: then every layer's new
+    entries are written into ``cache_segs`` (attention and MLA in place,
+    a recurrent state copied over its old value) and ``cache_segs`` is
+    returned — the reference's donated cache, held once."""
+    if inplace:
+        for seg, seg_params, seg_cache in zip(plan, params_segs, cache_segs):
+            stacked = seg.repeats > 1
+            for i in range(seg.repeats):
+                for spec, p, c in zip(seg.period, seg_params, seg_cache):
+                    ci = _index(c, i) if stacked else c
+                    x, nc = block_decode(_index(p, i) if stacked else p, cfg,
+                                         spec, x, ci, pos, mla_absorb,
+                                         moe_dispatch, inplace=True)
+                    write_back(ci, nc)
+        return x, cache_segs
     new_cache = []
     for seg, seg_params, seg_cache in zip(plan, params_segs, cache_segs):
         if seg.repeats == 1:

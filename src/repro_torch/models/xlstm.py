@@ -59,16 +59,18 @@ def mlstm_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     di = MLSTM_PF * d
     return {
         "norm": norm_desc(d),
-        "up": ParamDesc((d, 2 * di)),
-        "conv_w": ParamDesc((cfg.ssm_conv, di), "small"),
-        "conv_b": ParamDesc((di,), "zeros"),
-        "wq": ParamDesc((di, di)),
-        "wk": ParamDesc((di, di)),
-        "wv": ParamDesc((di, di)),
-        "w_if": ParamDesc((di, 2 * cfg.num_heads), "small"),
-        "b_if": ParamDesc((2 * cfg.num_heads,), "zeros"),
+        "up": ParamDesc((d, 2 * di), axes=("embed", "inner")),
+        "conv_w": ParamDesc((cfg.ssm_conv, di), "small",
+                            axes=(None, "inner")),
+        "conv_b": ParamDesc((di,), "zeros", axes=("inner",)),
+        "wq": ParamDesc((di, di), axes=("inner", "inner")),
+        "wk": ParamDesc((di, di), axes=("inner", "inner")),
+        "wv": ParamDesc((di, di), axes=("inner", "inner")),
+        "w_if": ParamDesc((di, 2 * cfg.num_heads), "small",
+                          axes=("inner", None)),
+        "b_if": ParamDesc((2 * cfg.num_heads,), "zeros", axes=(None,)),
         "out_norm": norm_desc(di),
-        "down": ParamDesc((di, d)),
+        "down": ParamDesc((di, d), axes=("inner", "embed")),
     }
 
 
@@ -248,12 +250,14 @@ def slstm_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     ff = int(round(SLSTM_FF_PF * d / 64) * 64)
     return {
         "norm": norm_desc(d),
-        "w_in": ParamDesc((d, 4 * d)),                 # i, f, z, o pre-acts
-        "r": ParamDesc((H, dh, 4 * dh), "small"),      # block-diag recurrent
-        "b": ParamDesc((4 * d,), "zeros"),
+        "w_in": ParamDesc((d, 4 * d),                  # i, f, z, o pre-acts
+                          axes=("embed", "inner")),
+        "r": ParamDesc((H, dh, 4 * dh), "small",       # block-diag recurrent
+                       axes=(None, None, None)),
+        "b": ParamDesc((4 * d,), "zeros", axes=(None,)),
         "out_norm": norm_desc(d),
-        "up": ParamDesc((d, 2 * ff)),
-        "down": ParamDesc((ff, d)),
+        "up": ParamDesc((d, 2 * ff), axes=("embed", "ffn")),
+        "down": ParamDesc((ff, d), axes=("ffn", "embed")),
     }
 
 

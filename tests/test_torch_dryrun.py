@@ -5,14 +5,21 @@ rank of the ``16x16`` mesh traced on CPU fake tensors.
     qwen3-moe-30b-a3b at decode_32k, through the CLI's ``main`` in one
     subprocess, records written to ``tmp_path``: the reference's record
     keys and ``hlo`` sub-keys, the ``layout`` block (tp = ep = 16 and 16
-    rows at train; tp = 1, the batch split over data, at serve),
-    ``argument_size_in_bytes`` equal to the reckoning from
-    ``count_params`` (the rank's bf16 parameters — the dense FFNs a
-    sixteenth at train — Adam's two f32 moments at train, the decode
-    cache and the tokens), and the subprocess's host memory: its peak RSS
+    rows at train; at serve the batch split over data and the serve
+    layout over the model axis, tp = 16), ``argument_size_in_bytes``
+    equal to the reckoning from the shapes (the rank's bf16 parameters —
+    the dense FFNs a sixteenth at train; at serve the vocabulary, the ffn
+    dims and the experts a sixteenth, the query heads and the kv heads
+    they read a head block — Adam's two f32 moments at train, the rank's
+    sixteenth of the decode cache and the tokens), the donated decode
+    cache as the alias, and the subprocess's host memory: its peak RSS
     at most ``HOST_MB`` above its RSS after the imports.  Train runs with
     ``--microbatches 1``: the per-micro-batch program is the same at 4
     micro-batches, whose trace takes 4x as long (~160 s here).
+  * gemma2-9b's decode_32k at tp = 16: one head a rank (the kv head it
+    reads on two ranks), each layer's cache split by length over the
+    model axis (8 kv heads of 8 % 16 != 0), the wire on the model axis
+    only.
   * ``repro_torch.launch.{dryrun,roofline,op_analysis}`` import nothing
     of ``repro`` or ``jax``.
 """
@@ -89,13 +96,50 @@ def _reckoned_args(arch: str, shape: str) -> int:
         rank = P - dense + dense // 16
         return rank * (2 + 4 + 4) + (sh.global_batch // 16) * sh.seq_len * 4
     b = sh.global_batch // 16
+    rank = _serve_rank_params(cfg, 16)
+    assert rank < P
     if sh.phase == "prefill":
-        return 2 * P + b * sh.seq_len * 4
-    cache = sum(math.prod(s.shape) * s.dtype.itemsize
-                for s in tree_leaves(Model(cfg).init_cache(b, sh.seq_len)))
-    assert all(isinstance(s, TensorSpec)
-               for s in tree_leaves(Model(cfg).init_cache(1, 8)))
-    return 2 * P + cache + b * 4
+        return 2 * rank + b * sh.seq_len * 4
+    return 2 * rank + _rank_cache(arch, shape) + b * 4
+
+
+def _rank_cache(arch: str, shape: str) -> int:
+    """The rank's sixteenth of its data shard's decode cache (kv heads or
+    the length over the model axis: 16 parts either way here)."""
+    import math
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models.layers import TensorSpec
+    from repro_torch.models.model import Model
+    sh = SHAPES[shape]
+    b = sh.global_batch // 16
+    leaves = tree_leaves(Model(get_config(arch)).init_cache(b, sh.seq_len))
+    assert all(isinstance(s, TensorSpec) for s in leaves)
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in leaves) // 16
+
+
+def _serve_rank_params(cfg, tp: int) -> int:
+    """The rank's parameters under the serve layout, from the widths: the
+    vocabulary rows, ffn dims and experts a ``tp``-th; a head block of
+    ``H / min(H, tp)`` query heads (wq columns, wo rows) and the kv heads
+    they read; norms and routers whole."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    hl = H // min(H, tp)
+    kvl = KV // min(H, tp) if KV % min(H, tp) == 0 else 1
+    layer = 2 * d * hl * hd + 2 * d * kvl * hd + 2 * d
+    if cfg.qk_norm:
+        layer += 2 * hd
+    total = 0
+    for i in range(cfg.num_layers):
+        if cfg.layer_spec(i).ffn == "moe":
+            ff = cfg.moe_d_ff or cfg.d_ff
+            total += layer + d * cfg.num_experts + \
+                3 * (cfg.num_experts // tp) * d * ff
+        else:
+            total += layer + 3 * d * cfg.d_ff // tp
+    heads = 1 if cfg.tie_embeddings else 2
+    return total + heads * cfg.padded_vocab * d // tp + d
 
 
 @pytest.mark.parametrize("arch,shape", PAIRS)
@@ -130,13 +174,54 @@ def test_full_width_records(run, arch, shape):
         assert mem["alias_size_in_bytes"] == \
             mem["argument_size_in_bytes"] - 16 * 4096 * 4
     else:
-        assert (lay["tp"], lay["ep"]) == (1, 1) and "tp_reason" in lay
+        moe = arch == "qwen3-moe-30b-a3b"
+        assert (lay["tp"], lay["ep"]) == (16, 16 if moe else 1)
+        assert "tp_reason" not in lay and lay["unsharded"] == []
+        assert lay["attn_tp"] == {"gemma-2b": 8}.get(arch, 16)
         assert lay["batch_per_rank"] == {"prefill": 2, "decode": 8}[
             rec["phase"]]
-        assert rec["hlo"]["collective_counts"] == {}
-        assert mem["alias_size_in_bytes"] == 0
+        # the head blocks', the FFNs' and the vocabulary's collectives,
+        # all on the model axis
+        assert set(rec["hlo"]["collective_wire_bytes_by_axis"]) == {"model"}
+        assert rec["hlo"]["collective_counts"]["all-reduce"] > 0
+        assert mem["alias_size_in_bytes"] == (
+            _rank_cache(arch, shape) if rec["phase"] == "decode" else 0)
     if shape == "prefill_32k":
         assert rec["hlo"]["kernel_calls"] == {"flash_attention": 18}
+
+
+def test_gemma2_decode_records_the_length_split():
+    """gemma2-9b decode_32k, rank 0 of 16x16 at tp = 16: the cache split
+    by length over the model axis in both layer kinds, attention over 16
+    head blocks, the donated cache the alias, the wire on the model axis
+    only: per layer the head block's and the FFN's all-reduces, the
+    split-KV combine's two (the row maximum, then the sums and the
+    weighted values), the step's queries and new K/V gathered; one
+    all-reduce for the embedding, one all-gather for the logits."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    if dist.is_initialized():           # another file's world-1 group
+        dist.destroy_process_group()
+    rec = dryrun.trace_pair("gemma2-9b", "decode_32k")
+    lay = rec["layout"]
+    assert (lay["tp"], lay["attn_tp"], lay["heads_per_rank"]) == (16, 16, 1)
+    assert lay["ranks_per_kv_head"] == 2
+    assert lay["cache"] == {
+        "window 4096": {"length": 4096, "kv_heads": None,
+                        "length_over": ["model"], "positions_per_rank": 256,
+                        "kv_heads_per_rank": 8},
+        "global": {"length": 32768, "kv_heads": None,
+                   "length_over": ["model"], "positions_per_rank": 2048,
+                   "kv_heads_per_rank": 8}}
+    assert lay["cache_donated"] is True
+    h = rec["hlo"]
+    assert set(h["collective_wire_bytes_by_axis"]) == {"model"}
+    assert h["collective_counts"] == {"all-reduce": 4 * 42 + 1,
+                                      "all-gather": 2 * 42 + 1}
+    mem = rec["memory_analysis"]
+    assert mem["alias_size_in_bytes"] == _rank_cache("gemma2-9b",
+                                                     "decode_32k")
 
 
 def test_host_memory_is_bounded(run):

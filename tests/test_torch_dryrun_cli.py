@@ -10,9 +10,9 @@
   * ``--multi-pod``: the ``(pod, data, model)`` mesh of 512, the data edge
     over the 32 ranks of ``(pod, data)``.
   * The CLI: a width the port's tensor parallelism refuses (an FFN of
-    1000 over 16 ranks) is the port's own ``ValueError``, listed as
-    ``[FAIL]`` beside the pair that passes, and the run exits with the
-    reference's message; ``--skip-existing``; ``--progress``; the per-op
+    1000 over 16 ranks, at train and under the serve layout) is the
+    port's own ``ValueError``, listed as ``[FAIL]`` beside the pair that
+    passes, and the run exits with the reference's message; ``--skip-existing``; ``--progress``; the per-op
     table of ``--save-trace``, whose rows sum to the record's dot FLOPs;
     an unknown variant.
 """
@@ -27,6 +27,7 @@ import torch.distributed as dist
 from repro_torch.launch import dryrun
 
 GEMMA = "gemma-2b"
+XLSTM = "xlstm-125m"
 
 
 @pytest.fixture(autouse=True)
@@ -134,23 +135,30 @@ def test_multi_pod_mesh(one_layer):
 
 
 def test_cli_refusal_is_listed_as_fail(tmp_path, monkeypatch, capsys):
+    """An FFN of 1000 splits over 16 ranks neither at train (tp = 16) nor
+    under the serve layout: both of gemma-2b's pairs are the port's
+    refusals, listed beside xlstm-125m's decode (whole on the rank), which
+    passes and is then skipped."""
     orig = dryrun.get_config
     monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
         orig(a), num_layers=1, d_ff=1000))
-    monkeypatch.setattr(dryrun, "ALL_ARCHS", (GEMMA,))
+    monkeypatch.setattr(dryrun, "ALL_ARCHS", (GEMMA, XLSTM))
     monkeypatch.setattr(dryrun, "applicable_shapes",
-                        lambda cfg: ("train_4k", "decode_32k"))
-    with pytest.raises(SystemExit, match="^1 dry-run failures$"):
+                        lambda cfg: ("decode_32k",) if cfg.name == XLSTM
+                        else ("train_4k", "decode_32k"))
+    with pytest.raises(SystemExit, match="^2 dry-run failures$"):
         dryrun.main(["--all", "--out", str(tmp_path)])
     out = capsys.readouterr().out
     assert (f"[FAIL] {GEMMA} train_4k 16x16: ValueError: dim -1 of shape "
             f"(2048, 1000) does not split over 16 ranks") in out
-    assert f"[ok] {GEMMA} decode_32k 16x16" in out
+    assert (f"[FAIL] {GEMMA} decode_32k 16x16: ValueError: ffn dim of "
+            f"(2048, 1000) does not split over tp=16") in out
+    assert f"[ok] {XLSTM} decode_32k 16x16" in out
     names = sorted(p.name for p in tmp_path.iterdir())
-    assert names == [f"{GEMMA}_decode_32k_16x16_baseline.json"]
+    assert names == [f"{XLSTM}_decode_32k_16x16_baseline.json"]
     rec = json.loads((tmp_path / names[0]).read_text())
     assert rec["shape"] == "decode_32k"
-    assert dryrun.main(["--arch", GEMMA, "--shape", "decode_32k",
+    assert dryrun.main(["--arch", XLSTM, "--shape", "decode_32k",
                         "--skip-existing", "--out", str(tmp_path)]) == 0
     assert f"[skip] {names[0]}" in capsys.readouterr().out
 
