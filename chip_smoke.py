@@ -243,7 +243,7 @@ Phases (any failure exits non-zero and prints no result line):
      memory and cross K/V, bf16 self K/V and logits); (e) xlstm-125m
      trained at full width and 4 of its 12 layers (one period of 3 mLSTM
      + 1 sLSTM, cut for time: the recurrences run as eager loops), Adam,
-     int8_fused, batch 4 x seq 256, NCCL world 1, 3 steps: finite
+     int8_fused, batch 4 x seq 128, NCCL world 1, 3 steps: finite
      losses, the peak within a reckoning that counts the chunked remat
      (printed beside the ones without it), step times and a profiled
      step (device events only); then quantize_ef and dequant_accum
@@ -290,8 +290,8 @@ Phases (any failure exits non-zero and prints no result line):
      re-plan installs another).  ``python3 chip_smoke.py
      --phase 16`` runs the build and this phase alone;
  17. the elastic runtime: (a) ``repro_torch.launch.train`` at phase 8's
-     full width (gemma-2b cut to 4 of its 18 layers, the call's time
-     budget: a 9.65 GB checkpoint; Adam, batch 4 x seq 512, NCCL world
+     full width (gemma-2b cut to 2 of its 18 layers, the call's time
+     budget; Adam, batch 4 x seq 512, NCCL world
      1) with ``--sync comm --compressor int8_fused --no-error-feedback
      --elastic --topology node:2@datacenter,device:4@fast_ici
      --fault-trace kill:3@2,kill:7@2 --steps 4`` (one reshard: with a
@@ -344,21 +344,33 @@ Phases (any failure exits non-zero and prints no result line):
      (``sharding_ctx.serve_region``), four ranks of a gloo world on the
      card at tp = 4, each drawing only its share of the weights
      (``convert.serve_init``), ``make_prefill_step`` then donated
-     ``make_decode_step`` steps: (a) gemma2-9b at full width and depth,
-     B = 2, a 2048-token prompt, 8 steps (the kv heads split); (b)
+     ``make_decode_step`` steps: (a) gemma2-9b at full width and 21 of
+     its 42 layers, B = 2, a 2048-token prompt, 8 steps (the kv heads
+     split); (b)
      gemma-2b at full width with a 4096-entry cache in four blocks of
      1024 (one kv head: the length split and the split-KV combine), 8
      steps; (c) qwen3-moe-30b-a3b at full width and 4 layers, 32 experts
-     a rank, no drop, 4 steps.  Each case's logits bit-equal on the four
-     ranks and within ``P19_LOGITS_RTOL`` (relative L2 a step) of the
-     unsharded steps on the card (argmax agreement printed as weak
-     evidence); flash on the wgmma route on every rank's head block;
-     per-rank peaks against the reckoning, staged bytes, prefill and step
-     times printed.  (d) rank 0's counts of (a)'s prefill and first step
-     equal, in dot FLOPs, bytes, kernel calls and collectives per axis,
-     a fake-tensor trace of the same rank (a ``fake`` process group of
-     world 4, on the host, started before phase 17).  Phase 3 times flash
-     at the ranks' shapes.  It writes nothing to disk but the ranks'
+     a rank, no drop, 4 steps; (e) deepseek-v2-lite-16b at full width and
+     6 layers (the dense first, five MoE; no drop), B = 2, prompt 1020,
+     the latents' 2048 entries split by length (512 a rank), 4 naive then
+     4 absorbed steps; (f) jamba-v0.1-52b at full width and 8 layers (one
+     period: attention at 3, seven Mamba, four MoE), d_inner over the
+     ranks, prompt 256, 4 steps; (g) xlstm-125m at full width and depth
+     in f32 (bf16's rounding, amplified by the recurrences, would swamp
+     the comparison), prompt 128, 8 steps, and at 4 layers with H = 2 (a
+     rank holds half of an sLSTM head's gates), 4 steps; (h)
+     seamless-m4t-large-v2 at full width and depth, 512 bf16 frames,
+     prompt 64, 4 steps (the self and cross caches by kv heads).  Each case's logits bit-equal on the
+     four ranks and within ``P19_LOGITS_RTOL`` (relative L2 a step) of
+     the unsharded steps on the card (argmax agreement printed as weak
+     evidence; a MoE case's control routes as rank 0 routed); flash on
+     the wgmma route on every rank's head block, its launches per route
+     printed; per-rank peaks against the reckoning, staged bytes, prefill
+     and step times printed.  (d) and (i): rank 0's counts of (a)'s and
+     (e)'s prefill and first step equal, in dot FLOPs, bytes, kernel
+     calls and collectives per axis, a fake-tensor trace of the same rank
+     (a ``fake`` process group of world 4, on the host, started before
+     phase 17).  Phase 3 times flash at the ranks' shapes.  It writes nothing to disk but the ranks'
      JSON.  ``python3 chip_smoke.py --phase 19`` runs the build, those
      flash shapes and this phase alone.
 
@@ -4745,9 +4757,10 @@ SEAMLESS_F32_CUT = {"num_layers": 2, "num_encoder_layers": 2}
 SEAMLESS_F32_ARGS = ["--arch", SEAMLESS_ARCH, "--no-reduced", "--batch",
                      "4", "--prompt-len", "32", "--gen", "8", "--seed", "0"]
 # (e): xlstm-125m trained at full width and 4 of its 12 layers (one
-# period: 3 mLSTM + 1 sLSTM), for time: its recurrences run as eager loops,
-# ~43k launches a layer and step with the remat's recomputes
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_LAYERS = 256, 4
+# period: 3 mLSTM + 1 sLSTM) and seq 128 (256 before phase 19 grew), for
+# time: its recurrences run as eager loops, ~43k launches a layer and step
+# at seq 256 with the remat's recomputes
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_LAYERS = 128, 4
 XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--no-reduced", "--optimizer",
                     "adam", "--batch", str(TRAIN_BATCH), "--seq",
                     str(XLSTM_TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
@@ -5125,7 +5138,7 @@ def xlstm_reckoning(cfg, batch: int, seq: int) -> dict:
 def run_xlstm_training(torch, ops, train, card) -> dict:
     """Phase 15 (e): xlstm-125m at full width and XLSTM_TRAIN_LAYERS
     layers, from XLSTM_TRAIN_ARGS (Adam, ``--sync comm --compressor
-    int8_fused``, batch 4 x seq 256, NCCL world 1, 3 steps): the session
+    int8_fused``, batch 4 x seq 128, NCCL world 1, 3 steps): the session
     is built from the CLI's flags by the CLI's own ``fixed_strategy``,
     with the depth cut, and every kernel counter set to 0 just before and
     read just after.  Gates: finite losses, quantize_ef and dequant_accum
@@ -6230,14 +6243,15 @@ ELASTIC_SURVIVORS = "node:2@datacenter,device:3@fast_ici"
 ELASTIC_TRACE = "kill:3@2,kill:7@2,restore:3@4,restore:7@4"   # 8 -> 6 -> 8
 # (a): phase 8's full width and batch, the int8_fused wire without error
 # feedback (no state outside params and opt, so a faulted run must equal
-# the unfaulted one bit for bit), through one reshard, at 4 of gemma-2b's
+# the unfaulted one bit for bit), through one reshard, at 2 of gemma-2b's
 # 18 layers: the whole call's 1200 s hold phase 19 only with a shorter
 # round trip (at 18 layers its 25.06 GB checkpoint took 152-181 s, a
 # third of it sha256; at 9 layers 15.15 GB took 96-108 s and the call
-# 1142 s; at 4 it is 9.65 GB); a run is held to about 45 GiB of disk
+# 1142 s; at 4, 9.65 GB took 50-65 s, and the call with phase 19's
+# eight cases 927-1232 s); a run is held to about 45 GiB of disk
 # writes, of which phase 16 writes ~19; the 6 -> 8 leg runs in (b)
 ELASTIC_FULL_TRACE = "kill:3@2,kill:7@2"
-ELASTIC_LAYERS = 4
+ELASTIC_LAYERS = 2
 ELASTIC_STEPS = 4
 ELASTIC_EVENTS = [(2, "reshard", 8, 6, ELASTIC_SURVIVORS)]
 ELASTIC_ARGS = ["--arch", "gemma-2b", "--no-reduced", "--optimizer", "adam",
@@ -6980,9 +6994,10 @@ def phase_dryrun(torch, ops, card, started=None) -> dict:
 P19_WORLD = 4
 P19_DIR = "phase19"
 P19_CASES = {   # name: (arch, config overrides, batch, prompt, max_len, steps)
-    # 8 kv heads over 4 ranks (the kv split), 42 layers: global and a
-    # window of 4096 (above the cache's 2056 entries, so whole)
-    "gemma2_9b": ("gemma2-9b", {}, 2, 2048, 2056, 8),
+    # 8 kv heads over 4 ranks (the kv split), 21 of 42 layers (cut for the
+    # call's time since phase 19 grew): global and a window of 4096 (above
+    # the cache's 2056 entries, so whole)
+    "gemma2_9b": ("gemma2-9b", {"num_layers": 21}, 2, 2048, 2056, 8),
     # one kv head: the length split, 4096 entries in 4 blocks of 1024; the
     # prompt ends in the third block and the steps cross into the fourth
     "gemma_2b": ("gemma-2b", {}, 2, 3068, 4096, 8),
@@ -6991,28 +7006,76 @@ P19_CASES = {   # name: (arch, config overrides, batch, prompt, max_len, steps)
     "qwen3_moe": ("qwen3-moe-30b-a3b", {"num_layers": 4,
                                         "capacity_factor": 16.0},
                   2, 256, 260, 4),
+    # (e) MLA: 6 of 27 layers (the dense first and five MoE), 16 of the 64
+    # experts a rank, capacity factor 11 >= E / k (no drop); the latents'
+    # 2048 entries by length, 512 a rank: the prompt ends in the second
+    # block, the steps cross into the third, 4 naive then 4 absorbed
+    "deepseek_v2_lite": ("deepseek-v2-lite-16b", {"num_layers": 6,
+                                                  "capacity_factor": 11.0},
+                         2, 1020, 2048, 8),
+    # (f) one period of jamba's plan (8 of 32 layers: attention at 3, seven
+    # Mamba layers, four MoE): d_inner 8192, 2048 a rank; 8 kv heads, 2 a
+    # rank; 4 of the 16 experts a rank
+    "jamba": ("jamba-v0.1-52b", {"num_layers": 8}, 2, 256, 260, 4),
+    # (g) xLSTM at full depth: H = 4, one sLSTM head a rank; then 4 layers
+    # (mLSTM 0-2, sLSTM 3) at H = 2: a rank holds half of a head's gates.
+    # In f32, as phase 15 holds the recurrences: in bf16 the unsharded
+    # steps at this depth and prompt lie ~0.1 from their own f32 twin and
+    # a re-associated sum moves the logits by ~5e-2
+    # (``scripts/serve_tp_bf16_gap.py``), so a bf16 gap would measure the
+    # rounding, not the layout
+    "xlstm": ("xlstm-125m", {"param_dtype": "float32",
+                             "compute_dtype": "float32"}, 2, 128, 136, 8),
+    "xlstm_h2": ("xlstm-125m", {"num_layers": 4, "num_heads": 2,
+                                "num_kv_heads": 2, "param_dtype": "float32",
+                                "compute_dtype": "float32"},
+                 2, 128, 136, 4),
+    # (h) the encoder-decoder at full depth (24 + 24), 512 frames: 16 kv
+    # heads, 4 a rank, in the self and the cross caches
+    "seamless": ("seamless-m4t-large-v2", {}, 2, 64, 68, 4),
 }
-# the rank's flash calls per admission, all on the wgmma route
-P19_FLASH = {"gemma2_9b": 42, "gemma_2b": 18, "qwen3_moe": 4}
+# the first absorbed decode step of an MLA case
+P19_ABSORB_FROM = {"deepseek_v2_lite": 4}
+# the encoder-decoder's frames a row (bf16, from the numpy seed)
+P19_SRC = {"seamless": 512}
+# the rank's flash calls: per admission (attention / MLA / encoder, self
+# and cross layers) and per decode step (the cross layers), all on the
+# wgmma route
+P19_FLASH = {"gemma2_9b": (21, 0), "gemma_2b": (18, 0), "qwen3_moe": (4, 0),
+             "deepseek_v2_lite": (6, 0), "jamba": (1, 0), "xlstm": (0, 0),
+             "xlstm_h2": (0, 0), "seamless": (72, 24)}
 # logits of the tp ranks against the unsharded steps on the card, relative
 # L2 gap of each step's (B, vocab) logits: every layer's wo and FFN
 # partials are rounded to bf16 before the all-reduce sums them (the
 # unsharded GEMM rounds its f32 sum once), ~2^-9 relative a sum, two sums
-# a layer; those gaps walk through up to 42 residual layers and the final
-# norm.  Bound at 5e-2, the phase-16 gradient bound's order (4e-2).  The
-# MoE case's control routes as rank 0 routed (``p19_route_replay``): a
+# a layer (the recurrent mixers' sums in f32, ``layers.psum_f32``); those
+# gaps walk through up to 48 residual layers (seamless's 24 + 24) and the
+# final norm.  Bound at 5e-2, the phase-16 gradient bound's order (4e-2).
+# A MoE case's control routes as rank 0 routed (``p19_route_replay``): a
 # bf16 gap in a router's input flips near-tied choices, each of which
 # moves its token's output by a whole expert's; the flips are counted
 P19_LOGITS_RTOL = 5e-2
 # the ranks' flash shapes, timed in phase 3: q (B, T, H / tp, hd) against
-# k / v (B, T, KV / tp or the one kv head, hd)
-P19_FLASH_SHAPES = {   # name: (B, T, H, KV, hd, kwargs)
-    "gemma2_9b_tp4_rank": (2, 2048, 4, 2, 256, {"softcap": 50.0,
-                                                 "window": 4096}),
-    "gemma_2b_tp4_rank": (2, 3068, 2, 1, 256, {}),
-    "qwen3_moe_tp4_rank": (2, 256, 8, 1, 128, {}),
+# k / v (B, S, KV / tp or the one kv head, hd)
+P19_FLASH_SHAPES = {   # name: (B, T, S, H, KV, hd, kwargs)
+    "gemma2_9b_tp4_rank": (2, 2048, 2048, 4, 2, 256,
+                           {"causal": True, "softcap": 50.0,
+                            "window": 4096}),
+    "gemma_2b_tp4_rank": (2, 3068, 3068, 2, 1, 256, {"causal": True}),
+    "qwen3_moe_tp4_rank": (2, 256, 256, 8, 1, 128, {"causal": True}),
+    # MLA's prefill: the rank's 4 heads at q/k head dim 192, v padded
+    "deepseek_v2_lite_tp4_rank": (2, 1020, 1020, 4, 4, 192,
+                                  {"causal": True}),
+    "jamba_tp4_rank": (2, 256, 256, 8, 2, 128, {"causal": True}),
+    # seamless: the encoder's self-attention and the cross-attention's
+    # decode step against the 512 frames
+    "seamless_encoder_tp4_rank": (2, 512, 512, 4, 4, 64, {"causal": False}),
+    "seamless_cross_decode_tp4_rank": (2, 1, 512, 4, 4, 64,
+                                       {"causal": False}),
 }
-P19_COUNTED = "gemma2_9b"   # (d): rank 0's prefill and first decode step
+# (d) and (i): rank 0's prefill and first decode step (naive for MLA)
+# counted on the card and in a fake-tensor trace
+P19_COUNTED = ("gemma2_9b", "deepseek_v2_lite")
 
 
 def p19_config(case: str):
@@ -7022,14 +7085,25 @@ def p19_config(case: str):
 
 
 def p19_tokens(torch, cfg, case: str, device):
-    """The case's prompt (B, T) and forced decode tokens (steps, B, 1),
-    int64, from a numpy seed: the same in every process."""
+    """The case's prefill batch ({"tokens": (B, T) int64[, "src": (B, S,
+    d) frames in the compute dtype]}) and forced decode tokens (steps, B,
+    1), from a numpy seed: the same in every process."""
     _, _, B, T, _, steps = P19_CASES[case]
     rng = np.random.default_rng(190 + list(P19_CASES).index(case))
     prompt = rng.integers(0, cfg.vocab_size, (B, T))
     forced = rng.integers(0, cfg.vocab_size, (steps, B, 1))
-    return (torch.from_numpy(prompt).to(device),
-            torch.from_numpy(forced).to(device))
+    batch = {"tokens": torch.from_numpy(prompt).to(device)}
+    if case in P19_SRC:
+        from repro_torch.models.model import resolve_dtype
+        src = rng.standard_normal((B, P19_SRC[case], cfg.d_model))
+        batch["src"] = torch.from_numpy(src.astype(np.float32)).to(
+            device, resolve_dtype(cfg.compute_dtype))
+    return batch, torch.from_numpy(forced).to(device)
+
+
+def p19_absorb(case: str, i: int) -> bool:
+    """Whether decode step ``i`` of ``case`` is MLA's absorbed one."""
+    return i >= P19_ABSORB_FROM.get(case, 1 << 30)
 
 
 class p19_route_record:
@@ -7044,8 +7118,10 @@ class p19_route_record:
         self._orig = moe._route
 
         def route(cfg, logits):
+            from repro_torch.launch.op_analysis import uncounted
             w, e, aux = self._orig(cfg, logits)
-            self.calls.append(e.cpu().tolist())
+            with uncounted():           # no op of the counted step's own
+                self.calls.append(e.cpu().tolist())
             return w, e, aux
         moe._route = route
         return self
@@ -7100,15 +7176,16 @@ def p19_control(torch, case: str, routes=None) -> dict:
     model = Model(cfg)
     dev = torch.device("cuda")
     params = model.init(torch.Generator(dev).manual_seed(0))
-    prompt, forced = p19_tokens(torch, cfg, case, dev)
+    batch, forced = p19_tokens(torch, cfg, case, dev)
     logits = []
     replay = p19_route_replay(torch, routes) if routes is not None \
         else contextlib.nullcontext()
     with torch.no_grad(), replay:
-        out, cache = model.prefill(params, {"tokens": prompt}, ML)
+        out, cache = model.prefill(params, batch, ML)
         logits.append(out.float().cpu())
         for i in range(steps):
             out, cache = model.decode_step(params, forced[i], cache, T + i,
+                                           mla_absorb=p19_absorb(case, i),
                                            inplace=True)
             logits.append(out.float().cpu())
     del params, cache, out
@@ -7120,10 +7197,12 @@ def p19_control(torch, case: str, routes=None) -> dict:
 
 def p19_steps(model, case: str) -> tuple:
     """The case's prefill step (its cache ``max_len`` long) and its
-    donated decode step, as a rank and the fake trace run them."""
+    donated decode steps (naive, then MLA's absorbed), as a rank and the
+    fake trace run them."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     return (make_prefill_step(model, P19_CASES[case][4]),
-            make_decode_step(model, donate=True))
+            make_decode_step(model, donate=True),
+            make_decode_step(model, mla_absorb=True, donate=True))
 
 
 def p19_stats(st) -> dict:
@@ -7135,10 +7214,10 @@ def p19_stats(st) -> dict:
 
 
 def p19_fake_counts(out_path: str) -> None:
-    """(d)'s fake-tensor traces, in a process of their own (``python3 -c
-    "...; chip_smoke.p19_fake_counts(OUT)"``): rank 0 of a ``fake``
-    process group of world 4, its share of the parameters as fake
-    tensors, the prefill and the first decode step of
+    """(d)'s and (i)'s fake-tensor traces, in a process of their own
+    (``python3 -c "...; chip_smoke.p19_fake_counts(OUT)"``): rank 0 of a
+    ``fake`` process group of world 4, its share of the parameters as
+    fake tensors, the prefill and the first decode step of each case of
     :data:`P19_COUNTED` counted on CPU fake tensors (the plain versions
     run), the counts written to ``out_path``."""
     import torch
@@ -7150,30 +7229,33 @@ def p19_fake_counts(out_path: str) -> None:
     from repro_torch.launch.dryrun import _fake_store
     from repro_torch.models.model import Model
     from repro_torch.models.sharding_ctx import serve_region
-    case = P19_COUNTED
-    ML = P19_CASES[case][4]
-    cfg = p19_config(case)
-    model = Model(cfg)
     dist.init_process_group("fake", store=_fake_store(), rank=0,
                             world_size=P19_WORLD)
-    mode = FakeTensorMode()
-    with mode:
-        params = serve_slice(model.abstract_params(mode=mode), cfg, 0,
-                             P19_WORLD)
-    _, _, B, T, _, _ = P19_CASES[case]
-    prefill, decode = p19_steps(model, case)
     out = {}
-    with mode, serve_region(dist.group.WORLD, (), ML), torch.no_grad():
-        t0 = time.perf_counter()
-        (_, cache), st = op_analysis.trace(prefill, (
-            params, {"tokens": torch.zeros((B, T), dtype=torch.int64)}),
-            table=True)
-        out["prefill"] = {**p19_stats(st), "fake_s": time.perf_counter() - t0}
-        t0 = time.perf_counter()
-        _, st = op_analysis.trace(decode, (
-            params, torch.zeros((B, 1), dtype=torch.int64), cache, T),
-            table=True)
-        out["decode"] = {**p19_stats(st), "fake_s": time.perf_counter() - t0}
+    for case in P19_COUNTED:
+        _, _, B, T, ML, _ = P19_CASES[case]
+        cfg = p19_config(case)
+        model = Model(cfg)
+        mode = FakeTensorMode()
+        with mode:
+            params = serve_slice(model.abstract_params(mode=mode), cfg, 0,
+                                 P19_WORLD)
+        prefill, decode, _ = p19_steps(model, case)
+        out[case] = {}
+        with mode, serve_region(dist.group.WORLD, (), ML), torch.no_grad():
+            t0 = time.perf_counter()
+            (_, cache), st = op_analysis.trace(prefill, (
+                params, {"tokens": torch.zeros((B, T), dtype=torch.int64)}),
+                table=True)
+            out[case]["prefill"] = {**p19_stats(st),
+                                    "fake_s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            _, st = op_analysis.trace(decode, (
+                params, torch.zeros((B, 1), dtype=torch.int64), cache, T),
+                table=True)
+            out[case]["decode"] = {**p19_stats(st),
+                                   "fake_s": time.perf_counter() - t0}
+        del params, cache
     dist.destroy_process_group()
     Path(out_path).write_text(json.dumps(out))
 
@@ -7227,17 +7309,17 @@ def p19_rank_case(torch, ops, rank: int, case: str, shared) -> dict:
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    prompt, forced = p19_tokens(torch, cfg, case, dev)
-    counted = rank == 0 and case == P19_COUNTED
+    batch, forced = p19_tokens(torch, cfg, case, dev)
+    counted = rank == 0 and case in P19_COUNTED
     counts = {}
     logits, step_ms = [], []
     dist.barrier()
     ops.reset_launch_counts()
     p2p.reset_staged_bytes()
     routes = p19_route_record()
-    prefill, decode = p19_steps(model, case)
+    prefill, naive, absorbed = p19_steps(model, case)
     with torch.no_grad(), serve_region(dist.group.WORLD, (), ML), routes:
-        args = (params, {"tokens": prompt})
+        args = (params, batch)
         t0 = time.perf_counter()
         if counted:
             (out, cache), st = op_analysis.trace(prefill, args, table=True)
@@ -7250,6 +7332,7 @@ def p19_rank_case(torch, ops, rank: int, case: str, shared) -> dict:
         staged_prefill = p2p.staged_bytes()
         for i in range(steps):
             args = (params, forced[i], cache, T + i)
+            decode = absorbed if p19_absorb(case, i) else naive
             t0 = time.perf_counter()
             if counted and i == 0:
                 (out, new), st = op_analysis.trace(decode, args, table=True)
@@ -7262,6 +7345,7 @@ def p19_rank_case(torch, ops, rank: int, case: str, shared) -> dict:
                 raise RuntimeError("the donated decode returned another cache")
             logits.append(out.float())
     launches = path_counts(ops)
+    routes_ = ops.route_counts()["flash_attention"]
     got = torch.stack(logits)                       # (steps + 1, B, 1, V)
     if rank == 0:
         shared.copy_(got)
@@ -7277,7 +7361,7 @@ def p19_rank_case(torch, ops, rank: int, case: str, shared) -> dict:
            "cache_shapes": sorted({tuple(t.shape)
                                    for t in tree_leaves(cache)}),
            "routes": routes.calls if rank == 0 else None,
-           "launches": launches, "counts": counts}
+           "flash_routes": routes_, "launches": launches, "counts": counts}
     del params, cache, out, new, got, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -7311,9 +7395,10 @@ def p19_child(rank: int, world: int, store: str, out_dir: str,
 
 def p19_check_counts(card_counts: dict, fake_proc, fake_path: Path,
                      t0: float) -> dict:
-    """(d): rank 0's card counts of the prefill and the first decode step
-    equal its fake trace's in dot FLOPs, bytes, kernel calls and
-    collectives (counts and wire a mesh axis)."""
+    """(d) and (i): rank 0's card counts of each counted case's prefill
+    and first decode step (``card_counts``: case -> phase -> counts) equal
+    its fake trace's in dot FLOPs, bytes, kernel calls and collectives
+    (counts and wire a mesh axis)."""
     try:
         log, _ = fake_proc.communicate(
             timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
@@ -7326,22 +7411,25 @@ def p19_check_counts(card_counts: dict, fake_proc, fake_path: Path,
              f"{log[-2000:]}")
     fakes = json.loads(fake_path.read_text())
     out = {}
-    for phase in ("prefill", "decode"):
-        got, want = card_counts[phase], fakes[phase]
-        keys = ("dot_flops", "memory_bytes", "kernel_calls",
-                "collective_counts", "wire")
-        if any(got[k] != want[k] for k in keys):
-            ops_ = got["op_counts"]
-            diff = {k: (ops_.get(k), want["op_counts"].get(k))
-                    for k in set(ops_) | set(want["op_counts"])
-                    if ops_.get(k) != want["op_counts"].get(k)}
-            fail(f"serve tp (d) {phase}: the card counts "
-                 f"{ {k: got[k] for k in keys} }, the fake trace "
-                 f"{ {k: want[k] for k in keys} }; ops that differ (calls, "
-                 f"FLOP, bytes): {diff}")
-        out[phase] = {k: got[k] for k in keys}
-        out[phase].update(aten_ops=[got["aten_ops"], want["aten_ops"]],
-                          fake_s=want["fake_s"])
+    for case in P19_COUNTED:
+        out[case] = {}
+        for phase in ("prefill", "decode"):
+            got, want = card_counts[case][phase], fakes[case][phase]
+            keys = ("dot_flops", "memory_bytes", "kernel_calls",
+                    "collective_counts", "wire")
+            if any(got[k] != want[k] for k in keys):
+                ops_ = got["op_counts"]
+                diff = {k: (ops_.get(k), want["op_counts"].get(k))
+                        for k in set(ops_) | set(want["op_counts"])
+                        if ops_.get(k) != want["op_counts"].get(k)}
+                fail(f"serve tp {case} {phase}: the card counts "
+                     f"{ {k: got[k] for k in keys} }, the fake trace "
+                     f"{ {k: want[k] for k in keys} }; ops that differ "
+                     f"(calls, FLOP, bytes): {diff}")
+            out[case][phase] = {k: got[k] for k in keys}
+            out[case][phase].update(
+                aten_ops=[got["aten_ops"], want["aten_ops"]],
+                fake_s=want["fake_s"])
     return out
 
 
@@ -7380,9 +7468,10 @@ def phase_serve_tp(torch, ops, card, fake=None) -> dict:
         if not max(gaps) <= P19_LOGITS_RTOL:
             fail(f"serve tp {case}: logits {gaps} (relative L2 gap a step) "
                  f"from the unsharded steps, beyond {P19_LOGITS_RTOL}")
-        path = {"flash_attention": P19_FLASH[case],
-                "flash_attention[wgmma]": P19_FLASH[case],
-                "nonfinite_tiles": P19_FLASH[case]}
+        per_admission, per_step = P19_FLASH[case]
+        n = per_admission + steps * per_step
+        path = {"flash_attention": n, "flash_attention[wgmma]": n,
+                "nonfinite_tiles": n} if n else {}
         for r in rs:
             launched = {k: v for k, v in r["launches"].items() if v}
             if launched != path:
@@ -7414,8 +7503,8 @@ def phase_serve_tp(torch, ops, card, fake=None) -> dict:
               f"{rs[0]['init_s']:.1f} s; staged "
               f"{rs[0]['staged_bytes'] / 1e6:.1f} MB a rank "
               f"(prefill {rs[0]['staged_prefill_bytes'] / 1e6:.1f}); "
-              f"launches {rs[0]['launches']['flash_attention[wgmma]']} "
-              f"flash on wgmma a rank", flush=True)
+              f"flash launches a rank by route {rs[0]['flash_routes']} "
+              f"(bf16 on wgmma, f32 on simt)", flush=True)
         out["cases"][case] = {k: v for k, v in rs[0].items()
                               if k not in ("counts", "logits_digest",
                                            "routes")}
@@ -7423,15 +7512,18 @@ def phase_serve_tp(torch, ops, card, fake=None) -> dict:
             peak_bytes_ranks=[r["peak_bytes"] for r in rs],
             rel_l2_gap=gaps, max_abs_diff=diff.abs().max().item(),
             token_agreement=agree, flipped_rows=flipped)
-    counts = p19_check_counts(ranks[0][P19_COUNTED]["counts"], *fake, t0)
-    for phase, c in counts.items():
-        print(f"serve tp (d) {P19_COUNTED} {phase}, rank 0 of 4 [{card}]: "
-              f"the card's counts equal the fake trace's: dot "
-              f"{c['dot_flops']:.6e} FLOP, bytes {c['memory_bytes']:.6e}, "
-              f"kernels {c['kernel_calls']}, collectives "
-              f"{c['collective_counts']}, wire {c['wire']}; aten ops card "
-              f"{c['aten_ops'][0]}, fake {c['aten_ops'][1]} (fake trace "
-              f"{c['fake_s']:.2f} s)", flush=True)
+    counts = p19_check_counts({case: ranks[0][case]["counts"]
+                               for case in P19_COUNTED}, *fake, t0)
+    for case, per in counts.items():
+        for phase, c in per.items():
+            print(f"serve tp {case} {phase}, rank 0 of 4 [{card}]: "
+                  f"the card's counts equal the fake trace's: dot "
+                  f"{c['dot_flops']:.6e} FLOP, bytes "
+                  f"{c['memory_bytes']:.6e}, kernels {c['kernel_calls']}, "
+                  f"collectives {c['collective_counts']}, wire {c['wire']};"
+                  f" aten ops card {c['aten_ops'][0]}, fake "
+                  f"{c['aten_ops'][1]} (fake trace {c['fake_s']:.2f} s)",
+                  flush=True)
     out["counts"] = counts
     out["control_s"] = control_s
     out["seconds"] = time.perf_counter() - t_all
@@ -7445,19 +7537,21 @@ def phase_serve_tp(torch, ops, card, fake=None) -> dict:
 
 def tp_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
     """Phase 3, flash at phase 19's rank shapes (:data:`P19_FLASH_SHAPES`,
-    bf16, causal): through ``ops.flash_attention`` on its wgmma route,
-    held to the plain version within :func:`flash_close`; then kernel
-    (pre-pass included), plain and SDPA (``enable_gqa``) times in turns
-    and the bound."""
+    bf16): through ``ops.flash_attention`` on its wgmma route, held to
+    the plain version within :func:`flash_close`; then kernel (pre-pass
+    included), plain and SDPA (``enable_gqa``) times in turns and the
+    bound."""
     import torch.nn.functional as F
     out = {}
-    for i, (name, (B, T, H, KV, hd, kw)) in enumerate(
+    for i, (name, (B, T, S, H, KV, hd, kw)) in enumerate(
             P19_FLASH_SHAPES.items()):
-        q, k, v = flash_inputs(torch, B, T, T, H, KV, hd, torch.bfloat16,
+        q, k, v = flash_inputs(torch, B, T, S, H, KV, hd, torch.bfloat16,
                                900 + i)
+        causal = kw["causal"]
+        extra = {a: b for a, b in kw.items() if a != "causal"}
         r0 = ops.route_counts()["flash_attention"]["wgmma"]
-        got = ops.flash_attention(q, k, v, causal=True, **kw)
-        want = ref.flash_attention_ref(q, k, v, causal=True, **kw)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         if ops.route_counts()["flash_attention"]["wgmma"] != r0 + 1:
             fail(f"flash_attention at {name} did not take the wgmma route")
@@ -7467,27 +7561,30 @@ def tp_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
                  f" max err {err}, {share:.3f} of the tolerance")
 
         def timed():
-            return flash_cuda(q, k, v, tiles_cuda(v), True, kw.get("window"),
-                              kw.get("softcap"), "wgmma")
+            return flash_cuda(q, k, v, tiles_cuda(v), causal,
+                              extra.get("window"), extra.get("softcap"),
+                              "wgmma")
 
         def plain():
-            return ref.flash_attention_ref(q, k, v, causal=True, **kw)
+            return ref.flash_attention_ref(q, k, v, **kw)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def library():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+                qt, kt, vt, is_causal=causal,
+                enable_gqa=H != KV).transpose(1, 2)
         timer = loop_ms if T > 1024 else device_ms
         plain_ms, (k_ms,) = time_turns(torch, timer, plain, [timed])
         lib_ms = min(timer(torch, library), timer(torch, library))
-        b_ms, by, n_ops, nbytes = flash_bound(B, T, T, H, KV, hd, 2,
-                                              {"causal": True,
-                                               "window": kw.get("window")})
-        note = "F.scaled_dot_product_attention(is_causal=True, enable_gqa)"
-        if kw.get("softcap"):
+        b_ms, by, n_ops, nbytes = flash_bound(B, T, S, H, KV, hd, 2,
+                                              {"causal": causal,
+                                               "window": extra.get("window")})
+        note = (f"F.scaled_dot_product_attention(is_causal={causal}"
+                + (", enable_gqa)" if H != KV else ")"))
+        if extra.get("softcap"):
             note += " without the softcap (no SDPA call caps the logits)"
         out[name] = {
-            "shape": [B, T, T, H, KV, hd], "dtype": "bfloat16",
+            "shape": [B, T, S, H, KV, hd], "dtype": "bfloat16",
             "kwargs": kw, "ms": k_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "ops": n_ops, "bytes": nbytes,
             "tflops": n_ops / k_ms / 1e9, "library_ms": lib_ms,
@@ -7496,7 +7593,7 @@ def tp_flash_kernels(torch, ops, ref, flash_cuda, tiles_cuda) -> dict:
             "includes_prepass": True,
             "timer": "cuda events" if T > 1024 else "cuda graph"}
         print(f"flash_attention wgmma route {name} q {[B, T, H, hd]} k/v "
-              f"{[B, T, KV, hd]} bf16 {kw}: within tolerance ({share:.4f} of "
+              f"{[B, S, KV, hd]} bf16 {kw}: within tolerance ({share:.4f} of "
               f"it); device time kernel with its pre-pass {k_ms * 1e3:.3f} "
               f"us, plain {plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us "
               f"({by}), {b_ms / k_ms:.4f} of the bound, library "

@@ -54,7 +54,10 @@ rank ``rank`` holds when serving (``sharding_ctx.serve_region``): every
 leaf on the dim that the reference's serve rules put on the model axis
 (``Model.partition_dims("serve")``), the vocabulary, ffn and expert dims
 in ``tp`` equal blocks, the heads and kv heads by the rank's head block
-(``attention.head_layout``); norms and routers whole.
+(``attention.head_layout``), a leaf that packs several tensors on its
+split dim (``ParamDesc.parts``: Mamba's ``in_proj``, the mLSTM's and the
+sLSTM's ``up``, the sLSTM's ``w_in``) by the rank's block of each;
+norms, routers and MLA's latent projections whole.
 ``serve_init(cfg, generator, rank, tp)`` draws the same values leaf by
 leaf and keeps only the rank's share, so a rank never holds the whole
 tree.  ``cache_slice(cache, cfg, batch, max_len, rank, tp)`` cuts a
@@ -78,7 +81,6 @@ from repro_torch.models.attention import head_layout
 from repro_torch.models.layers import ParamDesc, TensorSpec, _init_leaf
 from repro_torch.models.model import Model
 from repro_torch.models.sharding_ctx import cache_leaf_spec
-from repro_torch.models.transformer import serve_tp_reason
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -170,10 +172,10 @@ def ep_slice(params, rank: int, ep: int):
 
 def _serve_cuts(cfg: ModelConfig, rank: int, tp: int):
     """(descriptor tree, its serve dims, the cut of one leaf) of model-axis
-    rank ``rank``; raises for a model the serve layout does not run."""
-    reason = serve_tp_reason(cfg)
-    if reason:
-        raise NotImplementedError(reason)
+    rank ``rank``: the heads and kv heads by the rank's head block, every
+    other split dim (vocab, ffn, experts, inner) in ``tp`` equal blocks,
+    and a leaf of ``parts`` packed tensors (``ParamDesc.parts``) by the
+    rank's block of each part; raises where a dim does not split."""
     model = Model(cfg)
     lay = head_layout(cfg, tp, rank)
     H, KV = cfg.num_heads, cfg.num_kv_heads
@@ -182,20 +184,26 @@ def _serve_cuts(cfg: ModelConfig, rank: int, tp: int):
         if dim is None:
             return t
         n, axis = d.shape[dim], d.axes[dim]
-        if axis == "heads":
-            lo, size = lay.h0 * (n // H), lay.hl * (n // H)
-        elif axis == "kv":
-            lo, size = lay.kv0 * (n // KV), lay.kvl * (n // KV)
+        if axis in ("heads", "kv"):
+            per = n // (H if axis == "heads" else KV)
+            lo, size = ((lay.h0, lay.hl) if axis == "heads"
+                        else (lay.kv0, lay.kvl))
+            spans = [(lo * per, size * per)]
         else:
-            if n % tp:
-                raise ValueError(f"{axis} dim of {d.shape} does not split "
-                                 f"over tp={tp}")
-            lo, size = rank * (n // tp), n // tp
+            piece = n // d.parts
+            if n % d.parts or piece % tp:
+                what = f"{d.parts} parts of " if d.parts > 1 else ""
+                raise ValueError(f"{axis} dim of {what}{d.shape} does not "
+                                 f"split over tp={tp}")
+            block = piece // tp
+            spans = [(k * piece + rank * block, block)
+                     for k in range(d.parts)]
         if isinstance(t, TensorSpec):
             shape = list(t.shape)
-            shape[dim] = size
+            shape[dim] = sum(size for _, size in spans)
             return TensorSpec(tuple(shape), t.dtype)
-        return t.narrow(dim, lo, size).contiguous()
+        return torch.cat([t.narrow(dim, lo, size) for lo, size in spans],
+                         dim=dim).contiguous()
     return model.param_desc(), model.partition_dims("serve"), cut
 
 
@@ -220,23 +228,25 @@ def serve_init(cfg: ModelConfig, generator, rank: int, tp: int, dtype=None):
 
 
 def cache_slice(cache, cfg: ModelConfig, batch: int, max_len: int, rank: int,
-                tp: int, data_index: int = 0, dp: int = 1):
+                tp: int, data_index: int = 0, dp: int = 1, src_len: int = 0):
     """Model-axis rank ``rank``'s share of a decode cache of global
     ``batch`` and length ``max_len`` (leaves: tensors or ``TensorSpec``s),
     laid out by ``Model.input_partition_specs`` with ``tp`` as the model
     axis' size (the batch dim where the model puts it: a layer count equal
     to the batch is not read as one); ``data_index`` of ``dp`` is the
     rank's place on the data axes (its batch block where the batch is
-    split, its length block where a batch-1 cache's length is)."""
-    reason = serve_tp_reason(cfg)
-    if reason:
-        raise NotImplementedError(reason)
+    split, its length block where a batch-1 cache's length is);
+    ``src_len``: the encoder-decoder's cross entries a layer."""
     model = Model(cfg)
+
+    def batch_dim(path):
+        # the encoder-decoder's leaves are stacked over its decoder layers
+        return 1 if cfg.is_encoder_decoder else \
+            int(model.plan[path[0]].repeats > 1)
     specs = tree_map_with_path(
-        lambda path, s: cache_leaf_spec(
-            path[-1], s.shape, batch, tp,
-            batch_dim=int(model.plan[path[0]].repeats > 1)),
-        model.init_cache(batch, max_len))
+        lambda path, s: cache_leaf_spec(path[-1], s.shape, batch, tp,
+                                        batch_dim=batch_dim(path)),
+        model.init_cache(batch, max_len, src_len=src_len))
     place = {"model": (rank, tp), "data": (data_index, dp)}
 
     def one(spec, t):

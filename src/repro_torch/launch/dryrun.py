@@ -35,17 +35,18 @@ parallelism, and every record's ``layout`` block says so:
     axes;
   * prefill / decode / long (``baseline``, ``mla_absorb``,
     ``moe_dispatch``, ``optimized``, ``chunkwise``): the batch split over
-    the data axes where B > 1; a grouped-query attention stack under the
-    reference's serve layout over the model axis (tp = 16,
-    ``sharding_ctx.serve_region``: the rank's share of the parameters by
-    ``convert.serve_slice``, head-parallel attention, the vocab-parallel
-    embedding and head, the FFNs' ffn slice and the experts in blocks),
-    its decode cache laid out as the reference's ``cache_spec`` lays it
-    out (``convert.cache_slice``: kv heads or the length over the model
-    axis, a batch-1 cache's length over the data axes too) and donated
-    (``make_decode_step(donate=True)``); the other families (MLA, Mamba,
-    xLSTM, the encoder-decoder) whole on the rank (``tp: 1`` and a
-    ``tp_reason``); decode at ``pos = T - 1`` against a T-entry cache.
+    the data axes where B > 1; every family under the reference's serve
+    layout over the model axis (tp = 16, ``sharding_ctx.serve_region``:
+    the rank's share of the parameters by ``convert.serve_slice``,
+    head-parallel attention and MLA, Mamba and the xLSTM blocks over
+    ``inner``, the encoder-decoder's cross-attention over kv heads, the
+    vocab-parallel embedding and head, the FFNs' ffn slice and the
+    experts in blocks), its decode cache laid out as the reference's
+    ``cache_spec`` lays it out (``convert.cache_slice``: kv heads or the
+    length over the model axis, MLA's latents by length, the recurrent
+    states on their widest dim, a batch-1 cache's length over the data
+    axes too) and donated (``make_decode_step(donate=True)``); decode at
+    ``pos = T - 1`` against a T-entry cache.
 
 A shape the port's parallelism refuses raises the port's own refusal; the
 CLI lists it as ``[FAIL]``, as the reference's ``main`` does.  This module
@@ -77,11 +78,13 @@ from repro_torch.launch.paths import DRYRUN
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models.attention import cache_split, head_layout
+from repro_torch.models.encdec import CROSS_SPEC, cross_split
 from repro_torch.models.layers import TensorSpec
 from repro_torch.models.model import Model
 from repro_torch.models.sharding_ctx import (ServeAxes, ep_region,
-                                             serve_region, tp_region)
-from repro_torch.models.transformer import serve_tp_reason
+                                             leaf_share, serve_region,
+                                             tp_region)
+from repro_torch.models.transformer import block_cache
 
 MICROBATCHES = 4      # train shapes' gradient accumulation (the reference's)
 MODEL_AXIS = 16       # the production mesh's model axis
@@ -223,14 +226,7 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
             lay["microbatches"] = microbatches
         return lay
     b = B // dp if B > 1 else 1
-    reason = serve_tp_reason(cfg)
-    if reason:
-        lay.update({"tp": 1, "ep": 1, "batch_per_rank": b,
-                    "tp_reason": reason,
-                    "unsharded": [k for k, sharded in groups.items()
-                                  if sharded]})
-    else:
-        lay.update(serve_layout(cfg, shape, mesh, b))
+    lay.update(serve_layout(cfg, shape, mesh, b))
     if shape.phase == "prefill":
         lay["program"] = "make_prefill_step"
     else:
@@ -242,45 +238,123 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
     return lay
 
 
+# what each parameter group puts on the model axis under the serve rules
+_SPLIT = {
+    "attention": ("heads", "wq columns, wo rows"),
+    "attention (MLA)": ("heads", "wq and w_ukv columns, wo rows (w_dkv and "
+                        "kv_norm, the lora dim, whole)"),
+    "cross-attention": ("kv", "wk / wv columns (and wq columns, wo rows by "
+                        "heads)"),
+    "Mamba": ("inner", "in_proj's x and z each, conv, dt_proj, A_log, D by "
+              "channels; x_proj and out_proj rows"),
+    "mLSTM": ("inner", "up's xm and z each, conv by channels; wq / wk / wv "
+              "/ w_if / down rows"),
+    "sLSTM": ("inner", "w_in by dh of every head's every gate (r, b "
+              "whole)"),
+}
+# the dims of each recurrent or latent cache leaf (batch left out)
+_LEAF_DIMS = {
+    ("mla", "c_kv"): ("length", "lora"),
+    ("mla", "k_rope"): ("length", "1", "rope"),
+    ("mamba", "h"): ("d_inner", "d_state"),
+    ("mamba", "conv"): ("conv", "d_inner"),
+    ("mlstm", "C"): ("heads", "dh_v", "dh_k"),
+    ("mlstm", "n"): ("heads", "dh_k"),
+    ("mlstm", "m"): ("heads",),
+    ("mlstm", "conv"): ("conv", "d_inner"),
+    ("slstm", "c"): ("heads", "dh"), ("slstm", "n"): ("heads", "dh"),
+    ("slstm", "m"): ("heads", "dh"), ("slstm", "h"): ("heads", "dh"),
+}
+
+
+def _leaves_layout(mixer: str, cache, sa, data) -> Dict[str, Any]:
+    """Each leaf of one layer's decode cache: the dim split over the
+    model (and data) axes and its size on the rank, or whole."""
+    out = {}
+    for name, spec in cache.items():
+        share = leaf_share(name, spec.shape, sa)
+        dims = _LEAF_DIMS[(mixer, name)]
+        if share is None:
+            out[name] = {"split": None, "shape": list(spec.shape[1:])}
+            continue
+        out[name] = {"split": dims[share.dim - 1],
+                     "over": (list(data) if share.data else [])
+                     + (["model"] if share.model else []),
+                     "per_rank": spec.shape[share.dim] // share.parts,
+                     "shape": list(spec.shape[1:])}
+    return out
+
+
+def _attn_cache(split, data) -> Dict[str, Any]:
+    return {"length": split.L,
+            "kv_heads": "model" if split.model == "kv" else None,
+            "length_over": (list(data) if split.data else [])
+            + (["model"] if split.model == "length" else []),
+            "positions_per_rank": split.L // split.parts,
+            "kv_heads_per_rank": split.kvl}
+
+
 def serve_layout(cfg, shape, mesh: FakeMesh, b: int) -> Dict[str, Any]:
     """The serve layout of rank 0 over the model axis: what is split where
     (the reference's serve rules), the attention head blocks, and each
-    attention layer kind's decode cache (``attention.cache_split``)."""
+    layer kind's decode cache (``attention.cache_split`` for attention,
+    ``sharding_ctx.leaf_share`` leaf by leaf for MLA's latents and the
+    recurrent states, ``encdec.cross_split`` for the cross cache)."""
     tp = MODEL_AXIS
     hl = head_layout(cfg, tp, 0)
     moe = bool(cfg.num_experts)
-    out = {"tp": tp, "ep": tp if moe else 1, "batch_per_rank": b,
-           "attn_tp": hl.attn_tp, "heads_per_rank": hl.hl,
-           "kv_heads_computed_per_rank": hl.kvl,
-           "ranks_per_kv_head": tp * hl.kvl // cfg.num_kv_heads,
-           "split_over_model": {
-               "vocab (embedding, lm head)": "rows", "heads": "wq columns, "
-               "wo rows", "kv": "wk / wv columns",
-               "ffn": "dense FFNs' wi columns and wo rows",
-               **({"experts": f"{cfg.num_experts // tp} whole experts a "
-                              f"rank"} if moe else {})},
-           "whole": ["norms"] + (["routers"] if moe else [])
-           + (["q / k norms"] if cfg.qk_norm else []),
-           "unsharded": []}
+    groups = _groups_of(cfg)
+    mixers = {cfg.layer_spec(i).mixer for i in range(cfg.num_layers)}
+    heads = cfg.is_encoder_decoder or mixers & {"attn", "mla"}
+    split = {"vocab (embedding, lm head)": "rows",
+             "ffn": "dense FFNs' wi columns and wo rows"
+             + ("; the sLSTM FFN's up (gate and up each) columns, down rows"
+                if "slstm" in mixers else "")}
+    for g, (axis, what) in _SPLIT.items():
+        if g in groups:
+            split[f"{axis} ({g})"] = what
+    if moe:
+        split["experts"] = f"{cfg.num_experts // tp} whole experts a rank"
+    out = {"tp": tp, "ep": tp if moe else 1, "batch_per_rank": b}
+    if heads:
+        out.update({"attn_tp": hl.attn_tp, "heads_per_rank": hl.hl,
+                    "kv_heads_computed_per_rank": hl.kvl,
+                    "ranks_per_kv_head": tp * hl.kvl // cfg.num_kv_heads})
+    out.update({"split_over_model": split,
+                "whole": ["norms"] + (["routers"] if moe else [])
+                + (["q / k norms"] if cfg.qk_norm else [])
+                + (["MLA's w_dkv and kv_norm (lora)"] if "mla" in mixers
+                   else [])
+                + (["the sLSTM's r and b"] if "slstm" in mixers else [])
+                + (["the mLSTM's b_if"] if "mlstm" in mixers else []),
+                "unsharded": []})
     if shape.phase == "prefill":
         return out
     data = mesh.data_axes() if shape.global_batch == 1 else ()
+    T = shape.seq_len
     sa = ServeAxes(mesh.groups["model"],
-                   tuple(mesh.groups[a] for a in data), shape.seq_len)
+                   tuple(mesh.groups[a] for a in data), T)
+    B = shape.global_batch
     caches = {}
+    if cfg.is_encoder_decoder:
+        caches["decoder self"] = _attn_cache(
+            cache_split(cfg, CROSS_SPEC, T, sa), data)
+        caches["cross"] = _attn_cache(cross_split(cfg, B, T, sa)[1], data)
     for i in range(cfg.num_layers):
         spec = cfg.layer_spec(i)
-        kind = f"window {spec.window}" if spec.window else "global"
-        if kind in caches:
+        kind = {"attn": f"window {spec.window}" if spec.window else "global",
+                "mla": "MLA latents", "mamba": "Mamba state",
+                "mlstm": "mLSTM state",
+                "slstm": "sLSTM state"}[spec.mixer] \
+            if not cfg.is_encoder_decoder else None
+        if kind is None or kind in caches:
             continue
-        split = cache_split(cfg, spec, shape.seq_len, sa)
-        axes = (list(data) if split.data else []) + \
-            (["model"] if split.model == "length" else [])
-        caches[kind] = {"length": split.L,
-                        "kv_heads": "model" if split.model == "kv" else None,
-                        "length_over": axes,
-                        "positions_per_rank": split.L // split.parts,
-                        "kv_heads_per_rank": split.kvl}
+        if spec.mixer == "attn":
+            caches[kind] = _attn_cache(cache_split(cfg, spec, T, sa), data)
+        else:
+            caches[kind] = {"leaves": _leaves_layout(
+                spec.mixer, block_cache(cfg, spec, B, T, torch.bfloat16),
+                sa, data)}
     out["cache"] = caches
     out["cache_donated"] = True
     return out
@@ -366,10 +440,11 @@ def _build_serve(model, shape, variant, mesh, lay, mode, params, local):
                  shape.seq_len)
         if shape.phase == "decode":
             dp = lay["dp"]
+            src = shape.seq_len if model.cfg.is_encoder_decoder else 0
             cache = cache_slice(model.init_cache(shape.global_batch,
-                                                 shape.seq_len),
+                                                 shape.seq_len, src_len=src),
                                 model.cfg, shape.global_batch, shape.seq_len,
-                                0, lay["tp"], 0, dp)
+                                0, lay["tp"], 0, dp, src_len=src)
             inputs["cache"] = _materialize(cache, mode)
     ctx = _regions(serve=serve)
     if shape.phase == "prefill":

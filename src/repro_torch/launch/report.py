@@ -511,14 +511,22 @@ def rank_bytes(rec) -> int:
 def layout_cells(rec) -> tuple:
     """The record's layout in three cells: tp (and the head blocks where
     attention runs over fewer), the decode cache's split per layer kind
-    ("kv": kv heads over the model axis, "L/<axes>": the length over
-    them, "whole") with the positions a rank holds, and ep."""
+    (attention: "kv" for kv heads over the model axis, "L/<axes>" for the
+    length over them, or "whole", with the positions a rank holds; MLA's
+    latents and the recurrent states leaf by leaf: "<leaf> <dim>/<axes>
+    <size a rank>" or "<leaf> whole"), and ep."""
     lay = rec.get("layout", {})
     tp = str(lay.get("tp", 1))
     if lay.get("attn_tp", lay.get("tp", 1)) != lay.get("tp", 1):
         tp += f" (attn {lay['attn_tp']})"
     cache = []
     for kind, c in (lay.get("cache") or {}).items():
+        if "leaves" in c:
+            cells = [f"{name} {v['split']}/{'×'.join(v['over'])} "
+                     f"{v['per_rank']}" if v["split"] else f"{name} whole"
+                     for name, v in c["leaves"].items()]
+            cache.append(f"{kind}: {', '.join(cells)}")
+            continue
         where = "kv" if c["kv_heads"] else \
             "L/" + "×".join(c["length_over"]) if c["length_over"] else "whole"
         cache.append(f"{kind}: {where} {c['positions_per_rank']}")

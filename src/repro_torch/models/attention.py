@@ -32,7 +32,10 @@ lays it out (:func:`cache_split`): kv heads over the model axis, or the
 length over it (and over the data axes at batch 1), where the decode
 all-gathers the step's queries and new K/V, scores every head against
 the rank's own positions and combines the partial softmaxes by the
-split-KV rule in f32.
+split-KV rule in f32 (:func:`_split_softmax`).  MLA runs its head block
+(``wq``, ``w_ukv``, ``wo``) on the whole latents, which every rank
+computes, and keeps its block of their positions; its decode combines
+every head's partial softmax the same way (:func:`_mla_decode_tp`).
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamDesc, TensorSpec, apply_rope,
                                        norm_desc, rmsnorm, tp_out)
-from repro_torch.models.sharding_ctx import cache_leaf_spec, serve_axes
+from repro_torch.models.sharding_ctx import (cache_leaf_spec, leaf_share,
+                                             serve_axes)
 
 NEG_INF = -1e30
 
@@ -560,8 +564,7 @@ def _attn_decode_tp(params, cfg: ModelConfig, spec: LayerSpec, x, cache,
                     pos, sa, inplace: bool):
     """One-token decode of a model-axis rank (see :func:`attn_decode`),
     against its share of the cache (:func:`cache_split`)."""
-    from repro_torch.core.collectives.api import (all_gather, allreduce,
-                                                  allreduce_max)
+    from repro_torch.core.collectives.api import all_gather
     B = x.shape[0]
     hd = cfg.hd
     dev = x.device
@@ -619,15 +622,9 @@ def _attn_decode_tp(params, cfg: ModelConfig, spec: LayerSpec, x, cache,
     groups = ((sa.tp,) if split.model == "length" else ()) + \
         (sa.data if split.data else ())
     if groups:
-        # split-KV: the row maximum over every rank's positions, then the
-        # sums and the weighted values under it, in f32
-        m = allreduce_max(s.amax(dim=-1, keepdim=True).contiguous(), groups)
-        p = torch.exp(s - m)
-        o = torch.einsum("bkgtl,blkh->bkgth", p.to(vc.dtype).to(torch.float32),
-                         vc.to(torch.float32))
-        lo_ = torch.cat([o, p.sum(dim=-1, keepdim=True)], dim=-1)
-        lo_ = allreduce(lo_.contiguous(), "psum", groups)
-        out = (lo_[..., :hd] / lo_[..., hd:]).to(vc.dtype)
+        out = _split_softmax(s, lambda p: torch.einsum(
+            "bkgtl,blkh->bkgth", p.to(vc.dtype).to(torch.float32),
+            vc.to(torch.float32)), groups).to(vc.dtype)
         out = out.permute(0, 3, 1, 2, 4)            # (B, 1, kvl, g, hd)
     else:
         p = torch.softmax(s, dim=-1).to(vc.dtype)
@@ -668,8 +665,8 @@ def _mla_qkv(params, cfg: ModelConfig, x, positions):
     """x (B, T, d) -> q_nope (B, T, H, nope), q_rope (B, T, H, rope) with
     RoPE, c_kv (B, T, lora) normalized, k_rope (B, T, 1, rope) with RoPE."""
     B, T, _ = x.shape
-    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = (x @ params["wq"]).reshape(B, T, H, nope + rope)
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ params["wq"]).reshape(B, T, -1, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     latent = x @ params["w_dkv"]
@@ -681,10 +678,11 @@ def _mla_qkv(params, cfg: ModelConfig, x, positions):
 
 
 def _mla_expand_kv(params, cfg: ModelConfig, c_kv):
-    """Up-project latents (B, L, lora) to per-head K_nope and V."""
+    """Up-project latents (B, L, lora) to per-head K_nope and V (the heads
+    of ``params["w_ukv"]``'s columns)."""
     B, L, _ = c_kv.shape
-    H, nope, vdim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    kv = (c_kv @ params["w_ukv"]).reshape(B, L, H, nope + vdim)
+    nope, vdim = cfg.qk_nope_dim, cfg.v_head_dim
+    kv = (c_kv @ params["w_ukv"]).reshape(B, L, -1, nope + vdim)
     return kv[..., :nope], kv[..., nope:]
 
 
@@ -695,7 +693,7 @@ def _mla_full_qkv(params, cfg: ModelConfig, x, positions):
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
     k_nope, v = _mla_expand_kv(params, cfg, c_kv)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(B, T, cfg.num_heads,
+    k = torch.cat([k_nope, k_rope.expand(B, T, q.shape[2],
                                          cfg.qk_rope_dim)], dim=-1)
     v_p = torch.nn.functional.pad(v, (0, q.shape[-1] - cfg.v_head_dim))
     return q, k, v_p, c_kv, k_rope
@@ -716,7 +714,11 @@ def mla_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     on CUDA: bf16 at q/k head dim 192 takes the wgmma route, v padded to
     192 as the reference pads it; f32 takes the SIMT route),
     emitting the latent cache ``{"c_kv": (B, max_len, lora), "k_rope":
-    (B, max_len, 1, rope)}``."""
+    (B, max_len, 1, rope)}``.  Under ``serve_region`` the rank runs its
+    head block (``wq``, ``w_ukv`` and ``wo`` cut by heads; ``w_dkv`` and
+    ``kv_norm`` whole, so it computes the whole latents) with one
+    all-reduce, and keeps its block of the latents' positions
+    (:func:`_mla_share`), which needs no collective."""
     B, T, _ = x.shape
     q, k, v_p, c_kv, k_rope = _mla_full_qkv(params, cfg, x, positions)
     out = ops.flash_attention(q, k, v_p, causal=True)[..., :cfg.v_head_dim]
@@ -724,7 +726,27 @@ def mla_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     pad = max_len - T
     cache = {"c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
              "k_rope": torch.nn.functional.pad(k_rope, (0, 0, 0, 0, 0, pad))}
-    return out, cache
+    sa = serve_axes()
+    if sa is None:
+        return out, cache
+    lay = head_layout(cfg, *_tp_of(sa))
+    lo, Ll, _ = _mla_share(cfg, B, max_len, sa)
+    cache = {k_: t.narrow(1, lo, Ll).contiguous() for k_, t in cache.items()}
+    return _heads_out(out, lay, sa), cache
+
+
+def _mla_share(cfg: ModelConfig, batch: int, max_len: int, sa):
+    """(first position, positions, share) of the rank's block of MLA's
+    latents: the reference's ``cache_spec`` splits them by length over
+    the model axis where it divides and L >= 2048, and a batch-1 cache's
+    length over the data axes too (``share`` None: whole)."""
+    if max_len is None:
+        raise ValueError("the serve region needs the cache's max_len")
+    share = leaf_share("c_kv", (batch, max_len, cfg.kv_lora_rank), sa)
+    if share is None:
+        return 0, max_len, None
+    Ll = max_len // share.parts
+    return share.index * Ll, Ll, share
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype):
@@ -742,7 +764,12 @@ def mla_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
     that attention runs in the latent space without the (L, H, nope + v)
     expansion.  Returns (out, new cache); the input cache is not
     modified, unless ``inplace`` (the donated cache, written and
-    returned)."""
+    returned).  Under ``serve_region`` the rank's share runs
+    (:func:`_mla_decode_tp`)."""
+    sa = serve_axes()
+    if sa is not None:
+        return _mla_decode_tp(params, cfg, x, cache, pos, absorb, inplace,
+                              sa)
     B = x.shape[0]
     H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     vdim = cfg.v_head_dim
@@ -788,3 +815,119 @@ def mla_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
         out = torch.einsum("bhtL,bLhv->bthv", p.to(v.dtype), v)
     out = out.reshape(B, 1, H * vdim) @ params["wo"]
     return out, {"c_kv": c_cache, "k_rope": r_cache}
+
+
+def _split_softmax(s, values, groups):
+    """softmax(s) @ values where the keys of the scores ``s`` (..., L) lie
+    split over the process ``groups`` (split-KV): the row maximum over
+    every rank's keys, then the rank's weighted values ``values(p)`` (in
+    f32, laid out as ``s`` without its key dim, then the value dim) and
+    the sums under that maximum, all-reduced in f32 and divided."""
+    from repro_torch.core.collectives.api import allreduce, allreduce_max
+    m = allreduce_max(s.amax(dim=-1, keepdim=True).contiguous(), groups)
+    p = torch.exp(s - m)
+    both = torch.cat([values(p), p.sum(dim=-1, keepdim=True)], dim=-1)
+    both = allreduce(both.contiguous(), "psum", groups)
+    return both[..., :-1] / both[..., -1:]
+
+
+def _mla_decode_tp(params, cfg: ModelConfig, x, cache, pos, absorb: bool,
+                   inplace: bool, sa):
+    """One-token MLA decode of a model-axis rank (see :func:`mla_decode`).
+    The rank holds its head block of ``wq`` / ``w_ukv`` / ``wo`` and its
+    block of the latents' positions (:func:`_mla_share`).  Where the
+    latents are split over the model axis every rank holds positions of
+    every head: the naive decode all-gathers ``w_ukv`` and the step's
+    queries (one all-gather) and expands only its own positions; the
+    absorbed decode all-gathers ``q_lat`` and the RoPE queries (one
+    all-gather) and scores every head against its latents.  Both combine
+    the partial softmaxes over the split's groups in f32
+    (:func:`_split_softmax`) and keep the rank's heads.  Only the rank
+    holding ``pos`` writes the new latent."""
+    from repro_torch.core.collectives.api import all_gather
+    B = x.shape[0]
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    vdim, lora = cfg.v_head_dim, cfg.kv_lora_rank
+    dev = x.device
+    f32 = torch.float32
+    vec = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if vec:
+        pos = pos.to(device=dev, dtype=torch.int64)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
+    q_nope, q_rope, c_new, r_new = _mla_qkv(params, cfg, x, positions)
+    tp, rank = _tp_of(sa)
+    lay = head_layout(cfg, tp, rank)
+    lo, Ll, share = _mla_share(cfg, B, sa.max_len, sa)
+    if cache["c_kv"].shape[1] != Ll:
+        raise ValueError(f"the rank's latents are {tuple(cache['c_kv'].shape)}"
+                         f"; its layout holds {Ll} positions")
+    c_cache = _store_block(cache["c_kv"], c_new, pos, lo, inplace)
+    r_cache = _store_block(cache["k_rope"], r_new, pos, lo, inplace)
+    idx = lo + torch.arange(Ll, device=dev)
+    valid = ((idx[None, :] <= pos[:, None])[:, None, None, :] if vec
+             else (idx <= pos)[None, None, None, :])
+    every = share is not None and share.model      # every head scores here
+    groups = ((sa.tp,) if every else ()) + \
+        (sa.data if share is not None and share.data else ())
+    reps = [b * (tp // lay.attn_tp) for b in range(lay.attn_tp)]
+
+    def heads_of(rows):
+        """(tp, ..., hl, n) gathered rows -> (..., H, n), each head block
+        from its first rank."""
+        return torch.cat([rows[j] for j in reps], dim=-2)
+
+    w_ukv = params["w_ukv"]
+    scale = math.sqrt(nope + rope)
+    if absorb:
+        w = w_ukv.reshape(lora, -1, nope + vdim)
+        w_uk, w_uv = w[..., :nope], w[..., nope:]
+        q_lat = torch.einsum("bthn,lhn->bthl", q_nope, w_uk)
+        q_all = torch.cat([q_lat, q_rope.to(q_lat.dtype)], dim=-1)
+        if every:
+            q_all = heads_of(all_gather(q_all.contiguous(), sa.tp))
+        q_lat, q_rope = q_all[..., :lora], q_all[..., lora:]
+        s = torch.einsum("bthl,bLl->bhtL", q_lat.to(f32), c_cache.to(f32))
+        s = s + torch.einsum("bthr,bLkr->bhtL", q_rope.to(f32),
+                             r_cache.to(f32))
+        s = torch.where(valid, s / scale, NEG_INF)
+        if groups:
+            o_lat = _split_softmax(s, lambda p: torch.einsum(
+                "bhtL,bLl->bhtl", p.to(c_cache.dtype).to(f32),
+                c_cache.to(f32)), groups).to(c_cache.dtype).transpose(1, 2)
+        else:
+            p = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhtL,bLl->bthl", p.to(c_cache.dtype),
+                                 c_cache)
+        if every:
+            o_lat = o_lat[:, :, lay.h0:lay.h0 + lay.hl]
+        out = torch.einsum("bthl,lhv->bthv", o_lat, w_uv)
+    else:
+        q = torch.cat([q_nope, q_rope], dim=-1)              # (B, 1, hl, .)
+        if every:
+            # one all-gather: the step's queries and w_ukv, side by side
+            flat = torch.cat([q.reshape(-1), w_ukv.reshape(-1)])
+            rows = all_gather(flat.contiguous(), sa.tp)
+            nq = q.numel()
+            q = heads_of(rows[:, :nq].reshape((tp,) + tuple(q.shape)))
+            w_ukv = heads_of(rows[:, nq:].reshape(
+                tp, lora, lay.hl, nope + vdim)).reshape(lora, -1)
+        k_nope, v = _mla_expand_kv({"w_ukv": w_ukv}, cfg, c_cache)
+        s = torch.einsum("bthn,bLhn->bhtL", q[..., :nope].to(f32),
+                         k_nope.to(f32))
+        s = s + torch.einsum("bthr,bLkr->bhtL", q[..., nope:].to(f32),
+                             r_cache.to(f32))
+        s = torch.where(valid, s / scale, NEG_INF)
+        if groups:
+            out = _split_softmax(s, lambda p: torch.einsum(
+                "bhtL,bLhv->bhtv", p.to(v.dtype).to(f32), v.to(f32)),
+                groups).to(v.dtype).transpose(1, 2)
+        else:
+            p = torch.softmax(s, dim=-1)
+            out = torch.einsum("bhtL,bLhv->bthv", p.to(v.dtype), v)
+        if every:
+            out = out[:, :, lay.h0:lay.h0 + lay.hl]
+    out = out.reshape(B, 1, -1) @ params["wo"]
+    return _heads_out(out, lay, sa), {"c_kv": c_cache, "k_rope": r_cache}

@@ -15,6 +15,15 @@ on CUDA; T = 1 at decode), the decoder's self-attention through
 ``attn_prefill`` / ``attn_decode``; in training through the
 differentiable ``models/attention.flash_attention``.
 
+Under ``sharding_ctx.serve_region`` every attention runs on the rank's
+head block (H / tp heads; the encoder's and the decoder's self-attention
+as ``transformer`` / ``attention`` run them), ``cross_kv`` computes the
+rank's kv heads of the memory, the cross cache holds them (the
+reference's ``cache_spec`` splits ``cross_k`` / ``cross_v`` on the kv-head
+dim; where it keeps them whole the rank all-gathers the others), the
+cross-attention's ``wo`` rows end in one all-reduce, and every FFN runs
+its ffn slice (``mlp_tp``).  The frames are whole on every rank.
+
 dtype promotion, as the reference's ``jnp`` promotes: f32 frames against
 bf16 weights run the encoder in f32 (each layer's weights upcast, which is
 exact), so the memory and the cross K/V are f32; the cross-attention
@@ -31,7 +40,9 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamDesc, TensorSpec, mlp, mlp_desc,
-                                       norm_desc, rmsnorm, stack_desc)
+                                       mlp_tp, norm_desc, rmsnorm,
+                                       stack_desc)
+from repro_torch.models.sharding_ctx import leaf_share, serve_axes
 from repro_torch.models.transformer import (_index, _stack, _unstack,
                                             block_desc, block_train,
                                             checkpointed)
@@ -57,26 +68,56 @@ def cross_attn_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
 
 def cross_kv(params, cfg: ModelConfig, memory: torch.Tensor):
     """The memory's cross K, V (B, S, KV, hd) in the promoted dtype of the
-    memory and the weights."""
+    memory and the weights (the kv heads of ``params``' columns: a
+    model-axis rank's)."""
     B, S, _ = memory.shape
     dt = _promoted(memory, params["wk"])
     m = memory.to(dt)
-    k = (m @ params["wk"].to(dt)).reshape(B, S, cfg.num_kv_heads, cfg.hd)
-    v = (m @ params["wv"].to(dt)).reshape(B, S, cfg.num_kv_heads, cfg.hd)
+    k = (m @ params["wk"].to(dt)).reshape(B, S, -1, cfg.hd)
+    v = (m @ params["wv"].to(dt)).reshape(B, S, -1, cfg.hd)
     return k, v
+
+
+def cross_split(cfg: ModelConfig, batch: int, src_len: int, sa):
+    """The rank's share of the cross cache (``attention.CacheSplit``):
+    its kv heads where the reference's ``cache_spec`` splits
+    ``cross_k`` / ``cross_v`` on them, else every kv head; a cross cache
+    split by length (KV not divisible by tp and S >= 2048, or batch 1
+    and S >= 4096) raises: no registered shape gives one."""
+    KV = cfg.num_kv_heads
+    share = leaf_share("cross_k", (batch, src_len, KV, cfg.hd), sa)
+    lay = attn.head_layout(cfg, *attn._tp_of(sa))
+    if share is None:
+        return lay, attn.CacheSplit(src_len, None, False, 1, 0, 0, KV)
+    if share.dim == 2 and not share.data:
+        return lay, attn.CacheSplit(src_len, "kv", False, 1, 0, lay.kv0,
+                                    lay.kvl)
+    raise NotImplementedError(
+        f"{cfg.name}: the cross cache of {src_len} entries split by length "
+        f"({share}) is not run over the model axis; the port runs it split "
+        f"by kv heads or whole")
 
 
 def cross_attend(params, cfg: ModelConfig, x: torch.Tensor, k, v,
                  kernel: bool):
     """x: (B, T, d); k, v: (B, S, KV, hd).  No mask, no RoPE.  ``kernel``
     picks ``ops.flash_attention`` (inference) over the differentiable
-    chunked attention (training)."""
+    chunked attention (training).  Under ``serve_region`` the rank's
+    heads (``params``' columns) attend the kv heads they read (``k`` /
+    ``v``: the rank's cross cache, :func:`cross_split`), and one
+    all-reduce sums the ``wo`` partials."""
     B, T, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, cfg.hd)
+    q = (x @ params["wq"]).reshape(B, T, -1, cfg.hd)
+    sa = serve_axes() if kernel else None
+    if sa is not None:
+        lay, split = cross_split(cfg, B, k.shape[1], sa)
+        lo = lay.kv0 - split.kv0
+        k, v = k[:, :, lo:lo + lay.kvl], v[:, :, lo:lo + lay.kvl]
     dt = _promoted(q, k)
     fn = ops.flash_attention if kernel else attn.flash_attention
     out = fn(q.to(dt), k.to(dt), v.to(dt), causal=False).to(x.dtype)
-    return out.reshape(B, T, -1) @ params["wo"]
+    out = out.reshape(B, T, -1) @ params["wo"]
+    return out if sa is None else attn._heads_out(out, lay, sa)
 
 
 def dec_block_desc(cfg: ModelConfig) -> Dict[str, Any]:
@@ -95,6 +136,9 @@ def _cross_ffn(params, cfg: ModelConfig, x, k, v, kernel: bool):
     h = rmsnorm(params["norm_x"], x, eps=cfg.norm_eps)
     x = x + cross_attend(params["cross"], cfg, h, k, v, kernel)
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
+    sa = serve_axes() if kernel else None
+    if sa is not None:
+        return x + mlp_tp(params["ffn"], h, cfg.activation, group=sa.tp)
     return x + mlp(params["ffn"], h, cfg.activation)
 
 
@@ -108,10 +152,17 @@ def dec_block_train(params, cfg: ModelConfig, x, positions, memory):
 def dec_block_prefill(params, cfg: ModelConfig, x, positions, memory,
                       max_len: int):
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
-    sa, self_cache = attn.attn_prefill(params["self"], cfg, CROSS_SPEC, h,
-                                       positions, max_len)
+    a, self_cache = attn.attn_prefill(params["self"], cfg, CROSS_SPEC, h,
+                                      positions, max_len)
     k, v = cross_kv(params["cross"], cfg, memory)
-    x = _cross_ffn(params, cfg, x + sa, k, v, kernel=True)
+    sa = serve_axes()
+    if sa is not None:
+        # the rank's cross cache: its kv heads, or every one gathered
+        B, S = memory.shape[:2]
+        lay, split = cross_split(cfg, B, S, sa)
+        kv = attn._to_decode_layout(torch.stack([k, v]), cfg, lay, split, sa)
+        k, v = kv[0], kv[1]
+    x = _cross_ffn(params, cfg, x + a, k, v, kernel=True)
     return x, {"self": self_cache, "cross_k": k, "cross_v": v}
 
 

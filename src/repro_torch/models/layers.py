@@ -31,12 +31,18 @@ from repro_torch._tree import tree_leaves, tree_map
 @dataclasses.dataclass(frozen=True)
 class ParamDesc:
     """Abstract parameter: shape, init kind (``normal``: N(0,1) /
-    sqrt(fan_in); ``small``: N(0,1) * 0.02; ``zeros``; ``ones``) and the
-    reference's logical axis name per dim (None: replicated)."""
+    sqrt(fan_in); ``small``: N(0,1) * 0.02; ``zeros``; ``ones``), the
+    reference's logical axis name per dim (None: replicated), and
+    ``parts``: the number of tensors packed side by side on the dim that
+    the serve rules put on the model axis (Mamba's ``in_proj`` [x | z]:
+    2; the sLSTM's ``w_in``, head x {i, f, z, o} x dh: 4·H).  A rank's
+    share of such a leaf is its block of every part, not one contiguous
+    block of the dim (``convert.serve_slice``)."""
     shape: Tuple[int, ...]
     init: str = "normal"
     scale: Optional[float] = None     # overrides the default fan-in scale
     axes: Optional[Tuple[Optional[str], ...]] = None
+    parts: int = 1
 
     def __post_init__(self):
         if self.axes is not None and len(self.axes) != len(self.shape):
@@ -59,7 +65,8 @@ def _is_desc(x) -> bool:
 def stack_desc(tree, n: int):
     """Prepend a stacked "layers" dim of size n to every descriptor."""
     return tree_map(lambda d: ParamDesc((n,) + d.shape, d.init, d.scale,
-                                        ("layers",) + (d.axes or (None,) * len(d.shape))),
+                                        ("layers",) + (d.axes or (None,) * len(d.shape)),
+                                        d.parts),
                     tree, is_leaf=_is_desc)
 
 
@@ -280,6 +287,28 @@ def tp_out(x: torch.Tensor, group, algo: str = "psum") -> torch.Tensor:
     ``collectives.api.allreduce(x, algo, (group,))``; identity backward
     (the output cotangent is already whole on every rank)."""
     return _TpOut.apply(x, group, algo)
+
+
+def gather_cat(x: torch.Tensor, groups, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over the process ``groups`` (outermost first),
+    concatenated on ``dim`` in block order: the group's rank index major,
+    as a dim split over ``(data, model)`` lays its blocks.  One
+    all-gather a group, innermost first."""
+    from repro_torch.core.collectives.api import all_gather
+    for g in reversed(tuple(groups)):
+        x = torch.cat(all_gather(x.contiguous(), g).unbind(0), dim=dim)
+    return x
+
+
+def psum_f32(part: torch.Tensor, group, dtype) -> torch.Tensor:
+    """The sum over ``group`` of the ranks' f32 partial products ``part``
+    (bf16 operands multiply exactly in f32), all-reduced in f32 and
+    rounded once to ``dtype``: as the unsharded GEMM accumulates in f32
+    and rounds once, where the recurrences would amplify the extra
+    roundings of a sum of bf16 partials."""
+    from repro_torch.core.collectives.api import allreduce
+    part = part.to(torch.float32).contiguous()
+    return allreduce(part, "psum", (group,)).to(dtype)
 
 
 def mlp_tp(params, x: torch.Tensor, activation: str = "swiglu", *, group,

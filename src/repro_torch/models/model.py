@@ -16,7 +16,8 @@ Under ``sharding_ctx.serve_region`` the prefill and the decode step run
 the reference's serve layout over the model axis on the rank's share of
 the parameters (``convert.serve_slice``): the embedding and the LM head
 vocab-parallel (``layers.embed_tp`` / ``logits_tp``), the stack as
-``transformer`` says, the cache laid out by
+``transformer`` says (the encoder-decoder's as ``encdec`` says), the
+cache laid out by
 ``input_partition_specs``' rule with the tp group's size as the model
 axis' (``convert.cache_slice``).
 

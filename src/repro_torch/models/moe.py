@@ -108,6 +108,15 @@ def moe_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     return desc
 
 
+def _one_hot(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """``F.one_hot(idx, E)`` as one comparison with ``arange(E)``:
+    ``F.one_hot`` checks its range and scatters on a real tensor but
+    compares on a fake one, so a card step would not count as its
+    fake-tensor trace (``launch/op_analysis.py``)."""
+    return (idx[..., None] == torch.arange(E, device=idx.device)).to(
+        torch.int64)
+
+
 def _route(cfg: ModelConfig, logits: torch.Tensor):
     """logits (N, E) -> (weights (N, k) f32, experts (N, k), aux f32):
     softmax in f32, top-k, renormalized with a 1e-9 floor; aux is the
@@ -116,7 +125,7 @@ def _route(cfg: ModelConfig, logits: torch.Tensor):
     weights, experts = torch.topk(probs, cfg.top_k, dim=-1)
     weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
     E = logits.shape[-1]
-    f = F.one_hot(experts[..., 0], E).to(torch.float32).mean(0)
+    f = _one_hot(experts[..., 0], E).to(torch.float32).mean(0)
     p = probs.mean(0)
     aux = E * torch.sum(f * p)
     return weights, experts, aux
@@ -128,7 +137,7 @@ def dispatch_plan(experts: torch.Tensor, E: int, G: int, cap: int):
     row ``expert · cap + slot`` of a kept choice and ``E · cap`` of a
     dropped one."""
     eg = experts.reshape(G, -1)
-    onehot = F.one_hot(eg, E)                                   # (G, n, E)
+    onehot = _one_hot(eg, E)                                    # (G, n, E)
     slot = (torch.cumsum(onehot, dim=1) - 1) * onehot
     flat_slot = slot.sum(-1)
     keep = flat_slot < cap

@@ -10,14 +10,16 @@ rank's ffn slice of the parameters (``convert.tp_slice``), instead of
 (``convert.ep_slice``).  Inside ``with serve_region(group, data,
 max_len):`` the prefill and decode steps run the reference's serve
 layout over the model axis ``group`` on the rank's share of the
-parameters (``convert.serve_slice``): head-parallel attention, the
-vocab-parallel embedding and LM head, the dense FFNs on their ffn slice
-and the experts in blocks, and the decode cache laid out by
+parameters (``convert.serve_slice``): head-parallel attention and MLA,
+Mamba and the xLSTM blocks over ``inner``, the vocab-parallel embedding
+and LM head, the dense FFNs on their ffn slice and the experts in
+blocks, and the decode cache laid out by
 :func:`cache_leaf_spec` with the tp group's size in place of the
 reference's 16 (``data``: the data groups that split a batch-1 cache's
 length too; ``max_len``: the cache length of a full-attention layer).
-The contexts are process-global; ``tp_axis()``, ``ep_axis()`` and
-``serve_axes()`` are None outside every region.  The rest of the
+:func:`leaf_share` is one rank's block of a cache leaf under that
+layout.  The contexts are process-global; ``tp_axis()``, ``ep_axis()``
+and ``serve_axes()`` are None outside every region.  The rest of the
 reference module (activation sharding constraints, the mesh context)
 steers XLA's partitioner and has no counterpart here.
 """
@@ -142,3 +144,52 @@ def cache_leaf_spec(name: str, shape: Tuple[int, ...], batch: int,
         elif spec[li] == "model":
             spec[li] = tuple(data) + ("model",)
     return tuple(spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShare:
+    """A rank's share of one decode-cache leaf under the serve layout:
+    ``dim`` (of the unstacked leaf, batch first) cut into ``parts``
+    blocks, the rank holding block ``index`` (the data axes' index major,
+    the model axis' minor, as the reference's ``(data, model)``);
+    ``model`` / ``data``: whether the model axis / the data axes take
+    part in the cut."""
+    dim: int
+    parts: int
+    index: int
+    model: bool
+    data: bool
+
+
+def leaf_share(name: str, shape: Tuple[int, ...],
+               sa: ServeAxes) -> Optional[LeafShare]:
+    """The rank's share of the decode-cache leaf ``name`` of the global
+    ``shape`` (unstacked, batch first) under the region ``sa``: the
+    reference's ``cache_spec`` with the tp group's size as the model
+    axis' and the region's data groups (a batch-1 cache's) as its data
+    axes; None where the rank holds the whole leaf.  Raises where the
+    spec splits two dims (a K/V leaf's kv heads over the model axis and
+    its length over the data axes), which no caller of this one-dim
+    share runs."""
+    from repro_torch.core.collectives.p2p import axis_index, axis_size
+    names = tuple(f"d{i}" for i in range(len(sa.data)))
+    batch = 1 if sa.data else 2
+    spec = cache_leaf_spec(name, (batch,) + tuple(shape[1:]), batch,
+                           model_n=axis_size(sa.tp), data=names, batch_dim=0)
+    split = [(dim, e) for dim, e in enumerate(spec[1:], 1) if e is not None]
+    if len(split) > 1:
+        raise ValueError(f"cache leaf {name} {tuple(shape)}: the spec "
+                         f"{spec} splits two dims")
+    for dim, entry in split:
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        parts, index = 1, 0
+        for a in axes:
+            g = sa.tp if a == "model" else sa.data[names.index(a)]
+            parts, index = parts * axis_size(g), \
+                index * axis_size(g) + axis_index(g)
+        if shape[dim] % parts:
+            raise ValueError(f"cache leaf {name} {tuple(shape)}: dim {dim} "
+                             f"does not split into {parts}")
+        return LeafShare(dim, parts, index, "model" in axes,
+                         any(a != "model" for a in axes))
+    return None

@@ -23,12 +23,13 @@ expert-parallel (``moe_ffn(ep_axis=group)``) on the rank's expert block;
 the prefill and decode blocks do neither.  Under
 ``sharding_ctx.serve_region(group, ...)`` the prefill and decode blocks
 run the reference's serve layout over ``group`` on the rank's share of
-the parameters (``convert.serve_slice``): head-parallel attention
-(``attention.head_layout``), the dense FFNs' ffn slice (``mlp_tp``) and
-the experts' block (``moe_ffn`` / ``moe_decode_ffn`` with ``tp_axis``);
-the grouped-query attention stacks only (:func:`serve_tp_reason`).  The
-decode stack writes into the cache it is given when ``inplace`` (the
-reference's donated cache).
+the parameters (``convert.serve_slice``) for every mixer: head-parallel
+attention (``attention.head_layout``) and MLA (its latents split by
+length), Mamba and the xLSTM blocks over ``inner`` (``ssm``, ``xlstm``),
+the dense FFNs' ffn slice (``mlp_tp``) and the experts' block
+(``moe_ffn`` / ``moe_decode_ffn`` with ``tp_axis``).  The decode stack
+writes into the cache it is given when ``inplace`` (the reference's
+donated cache).
 """
 from __future__ import annotations
 
@@ -83,28 +84,10 @@ def block_desc(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     return desc
 
 
-def serve_tp_reason(cfg: ModelConfig):
-    """None where the serve layout over the model axis runs ``cfg`` (a
-    decoder of grouped-query attention layers), else why not."""
-    mixers = {cfg.layer_spec(i).mixer for i in range(cfg.num_layers)}
-    if cfg.is_encoder_decoder or mixers != {"attn"}:
-        kinds = "the encoder-decoder" if cfg.is_encoder_decoder else \
-            "/".join(sorted(mixers - {"attn"}))
-        return (f"serving {cfg.name} over the model axis ({kinds}) is the "
-                f"remainder of ROADMAP queue 1 item 15: the whole model "
-                f"sits on each rank")
-    return None
-
-
-def _serve_tp(cfg: ModelConfig):
-    """The serve region's tp group, raising for a model it cannot run."""
+def _serve_tp():
+    """The serve region's tp group, or None."""
     sa = serve_axes()
-    if sa is None:
-        return None
-    reason = serve_tp_reason(cfg)
-    if reason:
-        raise NotImplementedError(reason)
-    return sa.tp
+    return None if sa is None else sa.tp
 
 
 def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None, ep=None,
@@ -135,8 +118,9 @@ def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                 causal: bool = True, kernel: bool = False):
     """Full-sequence block.  Returns (x, aux).  ``causal=False`` is the
     encoder's bidirectional attention, through ``ops.flash_attention``
-    when ``kernel`` (the encoder at inference), else through the
-    differentiable chunked attention (training)."""
+    when ``kernel`` (the encoder at inference, which runs the serve
+    layout under ``serve_region``: the rank's head block and ffn slice),
+    else through the differentiable chunked attention (training)."""
     if spec.mixer in XLSTM_MIXERS:
         f = (xlstm_mod.mlstm_forward if spec.mixer == "mlstm"
              else xlstm_mod.slstm_forward)
@@ -153,7 +137,8 @@ def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
         h = ssm_mod.mamba_forward(params["mixer"], cfg, h)
     # under an active tp region the dense FFN runs the Megatron wire, under
     # an ep region the MoE FFN exchanges its tokens over the ep group
-    return _ffn(params, cfg, spec, x + h, tp=tp_axis(), ep=ep_axis())
+    return _ffn(params, cfg, spec, x + h, tp=tp_axis(), ep=ep_axis(),
+                serve=_serve_tp() if kernel else None)
 
 
 def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
@@ -163,14 +148,18 @@ def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
     fn = ops.flash_attention if kernel else attn.flash_attention
     out = fn(q, k, v, causal=False, window=spec.window,
              softcap=cfg.attn_logit_softcap)
-    return out.reshape(B, T, -1) @ params["wo"]
+    out = out.reshape(B, T, -1) @ params["wo"]
+    sa = serve_axes() if kernel else None
+    if sa is None:
+        return out
+    return attn._heads_out(out, attn.head_layout(cfg, *attn._tp_of(sa)), sa)
 
 
 def block_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   max_len: int):
     """Full-sequence block that also emits this layer's decode cache.
     Returns (x, aux, cache)."""
-    serve = _serve_tp(cfg)
+    serve = _serve_tp()
     if spec.mixer in XLSTM_MIXERS:
         f = (xlstm_mod.mlstm_forward if spec.mixer == "mlstm"
              else xlstm_mod.slstm_forward)
@@ -210,7 +199,7 @@ def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
     through the capacity dispatch of training instead of the per-token
     gather of the experts' weights; ``inplace`` writes attention's and
     MLA's new entries into ``cache`` itself."""
-    serve = _serve_tp(cfg)
+    serve = _serve_tp()
     if spec.mixer in XLSTM_MIXERS:
         f = (xlstm_mod.mlstm_decode if spec.mixer == "mlstm"
              else xlstm_mod.slstm_decode)

@@ -14,6 +14,30 @@ compute dtype (bf16: 19.625 for dh = 384), as a tensor on k's device so
 that the division is a true one; ``v`` is projected from the pre-conv
 ``xm``; log sigmoid(f) is -softplus(-f) with softplus = logaddexp(x, 0);
 the sLSTM's FFN uses the tanh approximation of GELU (``jax.nn.gelu``).
+
+Under ``sharding_ctx.serve_region`` a model-axis rank holds its block of
+``inner`` (the reference's serve rules) and the reference's cache split:
+
+  * mLSTM: ``up`` (xm and z each), the conv and the conv tail on the
+    rank's channels; ``wq`` / ``wk`` / ``wv`` / ``w_if`` on their input
+    rows (``("inner", "inner")`` puts the first dim on the model axis),
+    so q, k, v and the gates are partial sums, made whole by one
+    all-reduce of the four stacked.  ``C`` holds the rank's rows of
+    ``dh_v`` (its widest dim's first), ``n`` and ``m`` are whole: the
+    rank updates its rows of C and the whole n, and computes its rows of
+    every head's h.  Those rows are not the rank's contiguous block of
+    d_inner that ``z`` and ``down`` use, and ``out_norm`` takes its RMS
+    over the whole d_inner, so one all-gather of h regroups it; ``down``
+    holds its rows and one all-reduce sums the output.
+  * sLSTM: ``w_in`` holds the rank's block of dh of every head's every
+    gate (the cache splits h on dh), so x_proj is all-gathered (at decode
+    together with the rank's block of h: one all-gather), the cell runs
+    whole on every rank (``r``, ``b``, c, n and m are whole) and the rank
+    keeps its block of h; the FFN runs on its ffn slice (``up``'s gate
+    and up each cut by it, ``down`` by rows) with one all-reduce.
+
+The all-reduces sum f32 partials and round once (``layers.psum_f32``):
+the recurrences amplify every extra rounding of a sum of bf16 partials.
 """
 from __future__ import annotations
 
@@ -24,8 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDesc, TensorSpec, norm_desc, rmsnorm
+from repro_torch.models.layers import (ParamDesc, TensorSpec, gather_cat,
+                                       norm_desc, psum_f32, rmsnorm)
 from repro_torch.models.scan_utils import chunked_scan
+from repro_torch.models.sharding_ctx import leaf_share, serve_axes
 from repro_torch.models.ssm import softplus
 
 MLSTM_PF = 2          # mLSTM up-projection factor
@@ -59,7 +85,8 @@ def mlstm_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     di = MLSTM_PF * d
     return {
         "norm": norm_desc(d),
-        "up": ParamDesc((d, 2 * di), axes=("embed", "inner")),
+        "up": ParamDesc((d, 2 * di), axes=("embed", "inner"),
+                        parts=2),                      # [xm | z]
         "conv_w": ParamDesc((cfg.ssm_conv, di), "small",
                             axes=(None, "inner")),
         "conv_b": ParamDesc((di,), "zeros", axes=("inner",)),
@@ -82,11 +109,65 @@ def _mlstm_pre(params, cfg: ModelConfig, x: torch.Tensor):
     return xm, z, H, dh
 
 
-def _mlstm_gates(params, conv: torch.Tensor):
-    """(log_i, log_f) in f32 from the conv features."""
-    gates = (conv @ params["w_if"] + params["b_if"]).to(torch.float32)
+def _mlstm_gates(params, conv: torch.Tensor, pre=None):
+    """(log_i, log_f) in f32 from the conv features (``pre``: their
+    projection ``conv @ w_if``, when already made)."""
+    pre = conv @ params["w_if"] if pre is None else pre
+    gates = (pre + params["b_if"]).to(torch.float32)
     log_i, f_raw = torch.chunk(gates, 2, dim=-1)
     return log_i, -softplus(-f_raw)                       # log sigmoid(f)
+
+
+def _mlstm_proj(params, conv, xm, group):
+    """(q, k, v, conv @ w_if) unscaled; under ``group`` the rank's input
+    rows' f32 partial sums, stacked, all-reduced once and rounded once."""
+    if group is None:
+        return [conv @ params["wq"], conv @ params["wk"], xm @ params["wv"],
+                conv @ params["w_if"]]
+    f32 = torch.float32
+    c, x = conv.to(f32), xm.to(f32)
+    parts = [c @ params["wq"].to(f32), c @ params["wk"].to(f32),
+             x @ params["wv"].to(f32), c @ params["w_if"].to(f32)]
+    sizes = [p.shape[-1] for p in parts]
+    whole = psum_f32(torch.cat(parts, dim=-1), group, conv.dtype)
+    return list(torch.split(whole, sizes, dim=-1))
+
+
+def _mlstm_rows(cfg: ModelConfig, batch: int, sa):
+    """(first row, rows) of ``dh_v`` that the rank's ``C`` holds (all of
+    it outside the serve region); raises where the reference's spec
+    splits C on another dim."""
+    H, dh = _heads(cfg, MLSTM_PF * cfg.d_model)
+    if sa is None:
+        return 0, dh
+    share = leaf_share("C", (batch, H, dh, dh), sa)
+    conv = leaf_share("conv", (batch, cfg.ssm_conv - 1, MLSTM_PF * cfg.d_model),
+                      sa)
+    if share is None or share.dim != 2 or share.data or conv is None \
+            or conv.dim != 2 or conv.data:
+        raise ValueError(f"{cfg.name}: the mLSTM over tp runs with C split "
+                         f"on dh_v and the conv tail on d_inner; the "
+                         f"reference's cache_spec gives C {share}, conv "
+                         f"{conv}")
+    n = dh // share.parts
+    return share.index * n, n
+
+
+def _mlstm_out(params, cfg: ModelConfig, h, z, sa):
+    """out_norm(h) * silu(z) @ down; under the region ``h`` (..., H, rows)
+    holds the rank's rows of every head and is all-gathered whole, the
+    rank keeps its block of d_inner and all-reduces its ``down``
+    partial."""
+    if sa is None:
+        h = rmsnorm(params["out_norm"], h.flatten(-2), eps=cfg.norm_eps)
+        return (h * F.silu(z)) @ params["down"]
+    from repro_torch.core.collectives.p2p import axis_index
+    h = gather_cat(h, (sa.tp,), -1).flatten(-2)
+    h = rmsnorm(params["out_norm"], h, eps=cfg.norm_eps)
+    di = z.shape[-1]
+    rank = axis_index(sa.tp)
+    h = (h[..., rank * di:(rank + 1) * di] * F.silu(z)).to(torch.float32)
+    return psum_f32(h @ params["down"].to(torch.float32), sa.tp, z.dtype)
 
 
 def _mlstm_update(C, n, m, q, k, v, log_i, log_f):
@@ -108,16 +189,21 @@ def mlstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, T, d) -> (B, T, d) [, final state {"C", "n", "m", "conv"}]."""
     B, T, _ = x.shape
     f32 = torch.float32
+    sa = serve_axes()
     xm, z, H, dh = _mlstm_pre(params, cfg, x)
+    r0, rows = _mlstm_rows(cfg, B, sa)
     K = params["conv_w"].shape[0]
     padded = F.pad(xm, (0, 0, K - 1, 0))
     conv = sum(padded[:, i:i + T, :] * params["conv_w"][i] for i in range(K))
     conv = F.silu(conv + params["conv_b"])
 
-    q = (conv @ params["wq"]).reshape(B, T, H, dh)
-    k = (conv @ params["wk"]).reshape(B, T, H, dh) / _sqrt_dh(dh, x)
-    v = (xm @ params["wv"]).reshape(B, T, H, dh)
-    log_i, log_f = _mlstm_gates(params, conv)             # (B, T, H)
+    q, k, v, pre_if = _mlstm_proj(params, conv, xm,
+                                  None if sa is None else sa.tp)
+    q = q.reshape(B, T, H, dh)
+    k = k.reshape(B, T, H, dh) / _sqrt_dh(dh, x)
+    # the rank's rows of every head's value (all of them without tp)
+    v = v.reshape(B, T, H, dh)[..., r0:r0 + rows]
+    log_i, log_f = _mlstm_gates(params, conv, pre_if)     # (B, T, H)
     out_dtype = x.dtype
 
     def step(carry, inp):
@@ -127,22 +213,20 @@ def mlstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
         return (C, n, m), h.to(out_dtype)
 
     dev = x.device
-    init = (torch.zeros((B, H, dh, dh), dtype=f32, device=dev),
+    init = (torch.zeros((B, H, rows, dh), dtype=f32, device=dev),
             torch.zeros((B, H, dh), dtype=f32, device=dev),
             torch.full((B, H), M_INIT, dtype=f32, device=dev))
     if cfg.mlstm_parallel and T % cfg.mlstm_chunk == 0:
         hs, final = mlstm_chunkwise(q, k, v, log_i, log_f, init,
                                     chunk=cfg.mlstm_chunk)
-        h = hs.to(out_dtype).reshape(B, T, H * dh)
+        h = hs.to(out_dtype)
     else:
         # the q, k, v stacks stay in the compute dtype; the step upcasts
         # before touching the f32 matrix state
         xs = tuple(t.transpose(0, 1) for t in (q, k, v, log_i, log_f))
         final, hs = chunked_scan(step, init, xs, chunk=cfg.mlstm_chunk)
-        h = hs.transpose(0, 1).reshape(B, T, H * dh)
-    h = rmsnorm(params["out_norm"], h, eps=cfg.norm_eps)
-    h = h * F.silu(z)
-    out = h @ params["down"]
+        h = hs.transpose(0, 1)                            # (B, T, H, rows)
+    out = _mlstm_out(params, cfg, h, z, sa)
     if return_state:
         C, n, m = final
         tail = F.pad(xm, (0, 0, max(0, K - 1 - T), 0))[:, -(K - 1):, :]
@@ -156,8 +240,9 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, init, chunk: int):
     value product intra-chunk, plus the carried matrix state's inter-chunk
     contribution, with the exponential gates' stabilizer carried in ``m``.
 
-    q, k, v: (B, T, H, dh) (k pre-scaled by 1/sqrt(dh)); log_i, log_f:
-    (B, T, H) f32.  Returns (hs (B, T, H, dh) f32, final (C, n, m))."""
+    q, k: (B, T, H, dh) (k pre-scaled by 1/sqrt(dh)); v: (B, T, H, dv),
+    the rows of C carried (dh, or a tp rank's block of them); log_i,
+    log_f: (B, T, H) f32.  Returns (hs (B, T, H, dh) f32, final (C, n, m))."""
     B, T, H, dh = q.shape
     if T % chunk:
         raise ValueError(f"chunk {chunk} does not divide T={T}")
@@ -203,7 +288,7 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, init, chunk: int):
         n_prev = decay[..., None] * n_prev + torch.einsum("bsh,bshk->bhk",
                                                           src, kt)
         m_prev = m_new
-    h = torch.stack(hs).transpose(0, 1).reshape(B, T, H, dh)
+    h = torch.stack(hs).transpose(0, 1).reshape(B, T, H, v.shape[-1])
     return h, (C_prev, n_prev, m_prev)
 
 
@@ -223,20 +308,22 @@ def mlstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state):
     the input state is not modified."""
     B = x.shape[0]
     f32 = torch.float32
+    sa = serve_axes()
     xm, z, H, dh = _mlstm_pre(params, cfg, x)
     xm, z = xm[:, 0], z[:, 0]
+    r0, rows = _mlstm_rows(cfg, B, sa)
     window = torch.cat([state["conv"], xm[:, None, :]], dim=1)
     conv = F.silu(torch.einsum("bkd,kd->bd", window, params["conv_w"])
                   + params["conv_b"])
-    q = (conv @ params["wq"]).reshape(B, H, dh).to(f32)
-    k = ((conv @ params["wk"]).reshape(B, H, dh) / _sqrt_dh(dh, x)).to(f32)
-    v = (xm @ params["wv"]).reshape(B, H, dh).to(f32)
-    log_i, log_f = _mlstm_gates(params, conv)
+    q, k, v, pre_if = _mlstm_proj(params, conv, xm,
+                                  None if sa is None else sa.tp)
+    q = q.reshape(B, H, dh).to(f32)
+    k = (k.reshape(B, H, dh) / _sqrt_dh(dh, x)).to(f32)
+    v = v.reshape(B, H, dh)[..., r0:r0 + rows].to(f32)
+    log_i, log_f = _mlstm_gates(params, conv, pre_if)
     C, n, m, h = _mlstm_update(state["C"], state["n"], state["m"], q, k, v,
                                log_i, log_f)
-    h = h.reshape(B, H * dh).to(x.dtype)
-    h = rmsnorm(params["out_norm"], h, eps=cfg.norm_eps) * F.silu(z)
-    out = (h @ params["down"])[:, None, :]
+    out = _mlstm_out(params, cfg, h.to(x.dtype), z, sa)[:, None, :]
     return out, {"C": C, "n": n, "m": m, "conv": window[:, 1:, :]}
 
 
@@ -250,13 +337,15 @@ def slstm_desc(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     ff = int(round(SLSTM_FF_PF * d / 64) * 64)
     return {
         "norm": norm_desc(d),
-        "w_in": ParamDesc((d, 4 * d),                  # i, f, z, o pre-acts
-                          axes=("embed", "inner")),
+        # i, f, z, o pre-acts, laid out head x gate x dh: a rank holds
+        # its block of dh of every head's every gate
+        "w_in": ParamDesc((d, 4 * d), axes=("embed", "inner"), parts=4 * H),
         "r": ParamDesc((H, dh, 4 * dh), "small",       # block-diag recurrent
                        axes=(None, None, None)),
         "b": ParamDesc((4 * d,), "zeros", axes=(None,)),
         "out_norm": norm_desc(d),
-        "up": ParamDesc((d, 2 * ff), axes=("embed", "ffn")),
+        "up": ParamDesc((d, 2 * ff), axes=("embed", "ffn"),
+                        parts=2),                      # [gate | up]
         "down": ParamDesc((ff, d), axes=("ffn", "embed")),
     }
 
@@ -285,10 +374,31 @@ def _slstm_cell(params, cfg: ModelConfig, x_proj_t: torch.Tensor, carry):
     return c_new, n_new, m_new, h_new
 
 
-def _slstm_ffn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _slstm_ffn(params, cfg: ModelConfig, h: torch.Tensor,
+               group=None) -> torch.Tensor:
+    """out_norm, the gated GELU FFN; under ``group`` on the rank's ffn
+    slice with one all-reduce."""
     h = rmsnorm(params["out_norm"], h, eps=cfg.norm_eps)
     gate, up = torch.chunk(h @ params["up"], 2, dim=-1)
-    return (_gelu(gate) * up) @ params["down"]
+    if group is None:
+        return (_gelu(gate) * up) @ params["down"]
+    mid = (_gelu(gate) * up).to(torch.float32)
+    return psum_f32(mid @ params["down"].to(torch.float32), group, h.dtype)
+
+
+def _slstm_cols(cfg: ModelConfig, batch: int, sa):
+    """(first, count) of dh that the rank's ``w_in`` columns and its
+    block of ``h`` hold (all of it outside the serve region)."""
+    H, dh = _heads(cfg, cfg.d_model)
+    if sa is None:
+        return 0, dh
+    share = leaf_share("h", (batch, H, dh), sa)
+    if share is None or share.dim != 2 or share.data:
+        raise ValueError(f"{cfg.name}: the sLSTM over tp runs with h split "
+                         f"on dh; the reference's cache_spec gives "
+                         f"{share}")
+    n = dh // share.parts
+    return share.index * n, n
 
 
 def slstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
@@ -297,8 +407,14 @@ def slstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
     B, T, d = x.shape
     H, dh = _heads(cfg, d)
     f32 = torch.float32
+    sa = serve_axes()
+    c0, cols = _slstm_cols(cfg, B, sa)
     u = rmsnorm(params["norm"], x, eps=cfg.norm_eps)
     x_proj = u @ params["w_in"]                          # (B, T, 4d)
+    if sa is not None:
+        # the rank's dh block of every head's gates, gathered whole
+        x_proj = gather_cat(x_proj.reshape(B, T, H, 4, cols), (sa.tp,),
+                            -1).reshape(B, T, 4 * d)
     out_dtype = x.dtype
 
     def step(carry, xp_t):
@@ -310,10 +426,12 @@ def slstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
                                      device=x.device), zeros)
     final, hs = chunked_scan(step, init, x_proj.transpose(0, 1),
                              chunk=cfg.mlstm_chunk)
-    out = _slstm_ffn(params, cfg, hs.transpose(0, 1).reshape(B, T, d))
+    out = _slstm_ffn(params, cfg, hs.transpose(0, 1).reshape(B, T, d),
+                     None if sa is None else sa.tp)
     if return_state:
         c, n, m, hf = final
-        return out, {"c": c, "n": n, "m": m, "h": hf}
+        return out, {"c": c, "n": n, "m": m,
+                     "h": hf[..., c0:c0 + cols].contiguous()}
     return out
 
 
@@ -327,9 +445,22 @@ def slstm_decode(params, cfg: ModelConfig, x: torch.Tensor, state):
     """One-token step. x: (B, 1, d).  Returns (out (B, 1, d), new
     state)."""
     B = x.shape[0]
+    H, dh = _heads(cfg, cfg.d_model)
+    sa = serve_axes()
+    c0, cols = _slstm_cols(cfg, B, sa)
     u = rmsnorm(params["norm"], x[:, 0], eps=cfg.norm_eps)
-    carry = (state["c"], state["n"], state["m"], state["h"])
-    c, n, m, h = _slstm_cell(params, cfg, u @ params["w_in"], carry)
+    x_proj, h = u @ params["w_in"], state["h"]
+    if sa is not None:
+        # one all-gather: the rank's x_proj columns and its block of h,
+        # side by side in f32 (x_proj's dtype widened, exactly)
+        both = torch.cat([x_proj.reshape(B, H, 4, cols).to(torch.float32),
+                          h[:, :, None]], dim=2)
+        both = gather_cat(both, (sa.tp,), -1)            # (B, H, 5, dh)
+        x_proj = both[:, :, :4].reshape(B, 4 * cfg.d_model).to(u.dtype)
+        h = both[:, :, 4]
+    carry = (state["c"], state["n"], state["m"], h)
+    c, n, m, h = _slstm_cell(params, cfg, x_proj, carry)
     hv = h.reshape(B, cfg.d_model).to(x.dtype)
-    out = _slstm_ffn(params, cfg, hv)[:, None, :]
-    return out, {"c": c, "n": n, "m": m, "h": h}
+    out = _slstm_ffn(params, cfg, hv, None if sa is None else sa.tp)
+    return out[:, None, :], {"c": c, "n": n, "m": m,
+                             "h": h[..., c0:c0 + cols].contiguous()}

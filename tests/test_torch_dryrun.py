@@ -20,6 +20,9 @@ rank of the ``16x16`` mesh traced on CPU fake tensors.
     reads on two ranks), each layer's cache split by length over the
     model axis (8 kv heads of 8 % 16 != 0), the wire on the model axis
     only.
+  * deepseek-v2-lite-16b's and jamba-v0.1-52b's decode_32k at tp = 16:
+    MLA's latents split by length, Mamba over ``inner`` with its states
+    on d_inner, each layer's collectives on the model axis.
   * ``repro_torch.launch.{dryrun,roofline,op_analysis}`` import nothing
     of ``repro`` or ``jax``.
 """
@@ -222,6 +225,58 @@ def test_gemma2_decode_records_the_length_split():
     mem = rec["memory_analysis"]
     assert mem["alias_size_in_bytes"] == _rank_cache("gemma2-9b",
                                                      "decode_32k")
+
+
+def test_mla_and_mamba_decode_records_their_splits():
+    """deepseek-v2-lite-16b and jamba-v0.1-52b decode_32k, rank 0 of 16x16
+    at tp = 16, no ``tp_reason``: MLA's latents split by length over the
+    model axis (2048 of 32768 positions a rank) and per layer its head
+    block's, the split-KV combine's two and the FFN's all-reduces and one
+    all-gather (w_ukv and the step's queries); jamba's Mamba layers over
+    ``inner`` (h and the conv tail on 512 of d_inner's 8192 a rank) with
+    x_proj's and out_proj's all-reduces, its 8 kv heads below 16 split
+    by length; the wire on the model axis only, the donated cache the
+    alias."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    if dist.is_initialized():           # another file's world-1 group
+        dist.destroy_process_group()
+    mla = dryrun.trace_pair("deepseek-v2-lite-16b", "decode_32k")
+    lay = mla["layout"]
+    assert "tp_reason" not in lay
+    assert (lay["tp"], lay["ep"], lay["attn_tp"], lay["heads_per_rank"]) \
+        == (16, 16, 16, 1)
+    assert "heads (attention (MLA))" in lay["split_over_model"]
+    assert lay["cache"] == {"MLA latents": {"leaves": {
+        "c_kv": {"split": "length", "over": ["model"], "per_rank": 2048,
+                 "shape": [32768, 512]},
+        "k_rope": {"split": "length", "over": ["model"], "per_rank": 2048,
+                   "shape": [32768, 1, 64]}}}}
+    h = mla["hlo"]
+    assert set(h["collective_wire_bytes_by_axis"]) == {"model"}
+    assert h["collective_counts"] == {"all-reduce": 4 * 27 + 1,
+                                      "all-gather": 27 + 1}
+    assert mla["memory_analysis"]["alias_size_in_bytes"] == \
+        _rank_cache("deepseek-v2-lite-16b", "decode_32k")
+    jamba = dryrun.trace_pair("jamba-v0.1-52b", "decode_32k")
+    lay = jamba["layout"]
+    assert "tp_reason" not in lay and lay["unsharded"] == []
+    assert "inner (Mamba)" in lay["split_over_model"]
+    assert lay["cache"]["Mamba state"] == {"leaves": {
+        "h": {"split": "d_inner", "over": ["model"], "per_rank": 512,
+              "shape": [8192, 16]},
+        "conv": {"split": "d_inner", "over": ["model"], "per_rank": 512,
+                 "shape": [3, 8192]}}}
+    assert lay["cache"]["global"]["length_over"] == ["model"]
+    h = jamba["hlo"]
+    assert set(h["collective_wire_bytes_by_axis"]) == {"model"}
+    # 28 Mamba layers x 2, 4 attention layers x 3, 32 FFNs, the embedding;
+    # 4 attention layers x 2 gathers (queries, new K/V), the logits
+    assert h["collective_counts"] == {"all-reduce": 56 + 12 + 32 + 1,
+                                      "all-gather": 8 + 1}
+    assert jamba["memory_analysis"]["alias_size_in_bytes"] == \
+        _rank_cache("jamba-v0.1-52b", "decode_32k")
 
 
 def test_host_memory_is_bounded(run):

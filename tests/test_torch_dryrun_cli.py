@@ -137,8 +137,8 @@ def test_multi_pod_mesh(one_layer):
 def test_cli_refusal_is_listed_as_fail(tmp_path, monkeypatch, capsys):
     """An FFN of 1000 splits over 16 ranks neither at train (tp = 16) nor
     under the serve layout: both of gemma-2b's pairs are the port's
-    refusals, listed beside xlstm-125m's decode (whole on the rank), which
-    passes and is then skipped."""
+    refusals, listed beside xlstm-125m's decode (under the serve layout
+    over ``inner`` at tp = 16), which passes and is then skipped."""
     orig = dryrun.get_config
     monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
         orig(a), num_layers=1, d_ff=1000))
