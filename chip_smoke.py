@@ -5307,6 +5307,16 @@ DRIFT_KEYS = {"plan_key", "modeled_step_s", "modeled_wall_step_s",
               "fit_error_s", "within_fit_error", "replans", "replan_events",
               "arms"}
 CALIBRATION_KEYS = {"version", "world", "tiers"}
+# (e) the train layout over the model axis (``sharding_ctx.train_region``)
+# on the same two ranks, the same session and weights as (a): attention in
+# two head blocks of 4 query heads (gemma-2b's one kv head on both, its
+# wk / wv under the replica edge), the vocabulary in two blocks of 128000
+# rows, each FFN's half.  Its control (``sharding_ctx.blocked_region``) is
+# the unsharded process with every head block's ``wo`` partial, FFN half
+# and vocabulary block's loss terms summed apart: the ranks' gradients must
+# equal its bit for bit (TP_BLOCKED_RTOL), and its own gap from the plain
+# run lies within TP_GRAD_RTOL.  Moments and losses against the plain run
+# as (a)'s.
 
 
 def tp_reckoning(layers: int) -> dict:
@@ -5332,6 +5342,35 @@ def tp_reckoning(layers: int) -> dict:
             "tp_staged_per_step": layers * 2 * 2 * act}
 
 
+def train_tp_reckoning(layers: int) -> dict:
+    """(e)'s rank: its parameters under the train layout at ``layers``
+    layers (``convert.train_slice`` of the descriptors: half of every
+    FFN, of the query heads and ``wo``'s rows, of the vocabulary; the one
+    kv head and the norms whole), the peak at phase 8's bytes per
+    parameter, and the staged bytes of one step's model-axis wire: every
+    all-reduce of ``dryrun.train_layout_collectives`` copied to the host
+    and back."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_slice
+    from repro_torch.launch.dryrun import train_layout_collectives
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamDesc, TensorSpec
+    import torch
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=layers)
+    specs = tree_map(lambda d: TensorSpec(d.shape, torch.bfloat16),
+                     Model(cfg).param_desc(),
+                     is_leaf=lambda x: isinstance(x, ParamDesc))
+    per_rank = sum(math.prod(t.shape) for t in tree_leaves(
+        train_slice(specs, cfg, 0, TP),
+        is_leaf=lambda x: isinstance(x, TensorSpec)))
+    wire = train_layout_collectives(cfg, TRAIN_BATCH, TRAIN_SEQ, TP)
+    return {"layers": layers, "params_per_rank": per_rank,
+            "peak_per_rank": per_rank * TP_BYTES_PER_PARAM,
+            "all_reduces_per_step": len(wire),
+            "tp_staged_per_step": 2 * sum(b for _, b in wire)}
+
+
 def p16_dp_staged(session) -> int:
     """Staged bytes of one step's int8_fused DP edge on a one-rank gloo
     group: every bucket's int8 codes and f32 tile scales copied to the
@@ -5347,11 +5386,13 @@ def bf16_ulp_of(torch, x):
 
 
 def p16_reference(torch, layers: int) -> dict:
-    """(a)'s other side: gemma-2b at ``layers`` layers, unsharded, NCCL
-    world 1, the same int8_fused session for 3 steps on the same weights;
-    the first step's gradients (before the DP edge) of the control (every
-    FFN's two halves summed apart, ``mlp_blocked``) must lie within
-    TP_GRAD_RTOL (relative L2) of the plain run's; the control's (host
+    """(a)'s and (e)'s other side: gemma-2b at ``layers`` layers,
+    unsharded, NCCL world 1, the same int8_fused session for 3 steps on
+    the same weights; the first step's gradients (before the DP edge) of
+    (a)'s control (every FFN's two halves summed apart, ``mlp_blocked``)
+    and of (e)'s (``blocked_region(TP)``) must lie within TP_GRAD_RTOL
+    (relative L2) of the plain run's; (e)'s control's as each rank's
+    share's digests (``ref_g_train_blocked.json``); (a)'s (host
     bf16), its final
     parameters (host bf16) and Adam's first moment (host f32) go to
     ``build/phase16_ref/ref_g_blocked.pt``, ``ref_params.pt`` and
@@ -5360,9 +5401,11 @@ def p16_reference(torch, layers: int) -> dict:
     from repro_torch.checkpoint.checkpoint import _flatten_with_paths
     from repro_torch.core import SyncConfig, make_strategy
     from repro_torch.launch.dist import destroy_group
+    from repro_torch.convert import train_slice
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import transformer
     from repro_torch.models.layers import mlp_blocked
+    from repro_torch.models.sharding_ctx import blocked_region
     out_dir = ROOT / "build" / f"{P16_DIR}_ref"
     out_dir.mkdir(parents=True, exist_ok=True)
     sess = TrainSession(SessionConfig(layers=layers, device="cuda",
@@ -5393,7 +5436,28 @@ def p16_reference(torch, layers: int) -> dict:
         del want
     torch.save({k: v.detach().cpu() for k, v in blocked.items()},
                out_dir / "ref_g_blocked.pt")
-    del g, blocked, plain
+    del g, blocked
+    # (e)'s control: the train layout's blocks summed apart, each rank's
+    # share of its gradients kept as digests
+    with blocked_region(TP):
+        _, g = loss_and_grads(sess.model, sess.params, sess.batch(0))
+    train_control = {}
+    for k, v in _flatten_with_paths(g).items():
+        want = plain[k].to("cuda", torch.float32)
+        norm = float(torch.linalg.vector_norm(want))
+        gap = float(torch.linalg.vector_norm(v.float() - want))
+        train_control[k] = gap / norm if norm else gap
+        if train_control[k] > TP_GRAD_RTOL:
+            fail(f"{k}: the train layout's control's first-step gradient "
+                 f"{train_control[k]} (relative L2) from the plain run's, "
+                 f"beyond {TP_GRAD_RTOL}")
+        del want
+    digests = {r: {k: digest(torch, v).tolist() for k, v in
+                   _flatten_with_paths(train_slice(g, sess.model.cfg, r,
+                                                   TP)).items()}
+               for r in range(TP)}
+    (out_dir / "ref_g_train_blocked.json").write_text(json.dumps(digests))
+    del g, plain
     sess.run(TRAIN_STEPS)
     torch.cuda.synchronize()
     flat = {k: v.detach().cpu() for k, v in
@@ -5409,6 +5473,10 @@ def p16_reference(torch, layers: int) -> dict:
            "g_blocked_path": str(out_dir / "ref_g_blocked.pt"),
            "control_gap": {"max": max(control.values()),
                            "median": statistics.median(control.values())},
+           "train_control_gap": {
+               "max": max(train_control.values()),
+               "median": statistics.median(train_control.values())},
+           "g_train_blocked_path": str(out_dir / "ref_g_train_blocked.json"),
            "path": str(out_dir / "ref_params.pt"),
            "m_path": str(out_dir / "ref_m.pt")}
     del sess, m
@@ -5494,14 +5562,30 @@ def tp_share(want, key: str, rank: int):
     return want
 
 
-def rel_gaps(torch, mine: dict, ref_path: str, rank: int) -> dict:
+def train_share(cfg, rank: int):
+    """``share(want, key, rank)`` of the train layout: the leaf at flat
+    path ``key`` cut as ``convert.train_slice`` cuts it for ``rank``."""
+    import functools
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.convert import _model_cuts
+    from repro_torch.models.layers import ParamDesc
+    desc, dims, cut = _model_cuts(cfg, rank, TP, "train")
+    cuts = _flatten_with_paths(tree_map(
+        lambda d, dim: functools.partial(cut, d, dim), desc, dims,
+        is_leaf=lambda x: isinstance(x, ParamDesc)))
+    return lambda want, key, _rank: cuts[key](want)
+
+
+def rel_gaps(torch, mine: dict, ref_path: str, rank: int,
+             share=tp_share) -> dict:
     """Each leaf's relative L2 gap, ||mine - ref|| / ||ref||, between
-    this tp rank's flat tree and its part (``tp_share``) of the unsharded
-    run's, read from ``ref_path``."""
+    this tp rank's flat tree and its part (``share``: (a)'s ``tp_share``
+    by default) of the unsharded run's, read from ``ref_path``."""
     ref = torch.load(ref_path, mmap=True)
     out = {}
     for key, x in mine.items():
-        want = tp_share(ref[key], key, rank).to("cuda", torch.float32)
+        want = share(ref[key], key, rank).to("cuda", torch.float32)
         gap = float(torch.linalg.vector_norm(x.float() - want))
         norm = float(torch.linalg.vector_norm(want))
         out[key] = gap / norm if norm else gap
@@ -5625,6 +5709,107 @@ def p16_tp(torch, rank: int, tp_group, data_group, layers: int,
         "params_differing": n_diff, "params_compared": n_all,
         "adam_envelope": 2 * ADAM_GAIN * lr})
     del sess, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p16_train_tp(torch, rank: int, tp_group, data_group, layers: int,
+                 ref_digests_path: str, ref_m_path: str) -> dict:
+    """(e), one of the two tp ranks: gemma-2b at full width (``layers``
+    layers) under the train layout over the model axis
+    (``sharding_ctx.train_region`` on a gloo group of the two ranks): the
+    rank's share of the weights (``convert.train_init``, the same draw as
+    the unsharded run's), Adam, int8_fused on the rank's one-rank data
+    group, batch 4 x 512, 3 steps.  Gates: quantize_ef and dequant_accum
+    once per bucket and step (warp route), every step's staged bytes =
+    the train layout's wire reckoning + the DP edge's codes and scales,
+    the first step's gradient of every leaf bit-equal to the control's
+    (``blocked_region(TP)``; ``p16_reference`` holds the control within
+    TP_GRAD_RTOL of the unsharded run), Adam's first moment after the
+    steps within TP_MOMENT_RTOL (relative L2) of the unsharded run's.
+    The session's DP edge carries the leaves' sharing classes
+    (``SyncConfig.classes`` from ``convert.train_classes``), so that no
+    int8 tile of it codes a leaf both ranks hold with one that each holds
+    its own block of.  The digests of every leaf's first gradient and final value
+    go back, for the parent to hold the leaves both ranks hold
+    bit-equal."""
+    from repro_torch.api import SessionConfig, TrainSession
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs import get_config
+    import functools
+    from repro_torch.convert import train_classes, train_init
+    from repro_torch.core import SyncConfig, make_strategy
+    from repro_torch.core.collectives import p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.sharding_ctx import train_region
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=layers)
+    params = train_init(cfg, torch.Generator("cuda").manual_seed(0), rank,
+                        TP)
+    region = functools.partial(train_region, tp_group)
+    # the DP edge's packed buckets keep the leaves both ranks hold apart
+    # from the rank's own blocks
+    sync = SyncConfig(compressor="int8_fused",
+                      classes=train_classes(params, cfg, rank, TP))
+    with region():
+        sess = TrainSession(SessionConfig(layers=layers, device="cuda",
+                                          **TP_SESSION),
+                            strategy=make_strategy(
+                                "every_step", group=data_group, sync=sync),
+                            params=params, group=data_group)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rk = train_tp_reckoning(layers)
+    want = json.loads(Path(ref_digests_path).read_text())[str(rank)]
+    with region():
+        _, g = loss_and_grads(sess.model, sess.params, sess.batch(0))
+    g_digests = {k: digest(torch, v).tolist()
+                 for k, v in _flatten_with_paths(g).items()}
+    del g
+    differ = sorted(k for k in want if g_digests.get(k) != want[k])
+    w4_gate(set(g_digests) == set(want) and not differ,
+            f"the first step's gradients differ from the control's "
+            f"(blocked_region; bit-equal expected) in {differ[:4]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p2p.reset_staged_bytes()
+    ops.reset_launch_counts()
+    staged = []
+    with region():
+        for _ in range(TRAIN_STEPS):
+            before = p2p.staged_bytes()
+            sess.run(1)
+            staged.append(p2p.staged_bytes() - before)
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    n_buckets = sess.synchronizer.plan.n_buckets
+    w4_launch_gate(launches, {k: n_buckets * TRAIN_STEPS for k in INT8_WIRE},
+                   "train layout rank")
+    dp = p16_dp_staged(sess)
+    w4_gate(all(s == rk["tp_staged_per_step"] + dp for s in staged),
+            f"staged bytes a step {staged}, expected the train layout's "
+            f"wire {rk['tp_staged_per_step']} + the DP edge's {dp}")
+    losses = list(sess.losses)
+    w4_gate(all(map(math.isfinite, losses)), f"losses {losses}")
+    m_gap = gate_rel_gaps(
+        rel_gaps(torch, _flatten_with_paths(sess.opt_state["m"]),
+                 ref_m_path, rank, share=train_share(cfg, rank)),
+        TP_MOMENT_RTOL, "Adam's first moment")
+    p_digests = {k: digest(torch, v).tolist() for k, v in
+                 _flatten_with_paths(sess.params).items()}
+    res = {"layers": layers, "launches": launches, "n_buckets": n_buckets,
+           "losses": losses, "staged_per_step": staged, "dp_staged": dp,
+           "reckoning": rk, "step_ms_all": [t * 1e3 for t in
+                                            sess.step_times],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "blocked_bit_equal": True, "m_gap": m_gap,
+           "g_digests": g_digests, "p_digests": p_digests}
+    del sess
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -5866,11 +6051,13 @@ def p16_cli(torch, rank: int) -> dict:
 
 def p16_child(rank: int, world: int, store: str, out_dir: str,
               tp_layers: int, ref_g_blocked_path: str,
-              ref_path: str, ref_m_path: str) -> None:
+              ref_path: str, ref_m_path: str,
+              ref_train_digests_path: str) -> None:
     """Phase 16, one of four ranks of a gloo group on the one card: (b)
     the expert-parallel legs, (c) the collective calibration of the
-    world, (d) the CLI's tp / ep specs, then (a) tensor parallelism at
-    full width on ranks 0 and 1 (ranks 2 and 3 wait)."""
+    world, (d) the CLI's tp / ep specs, then (a) tensor parallelism and
+    (e) the train layout over the model axis at full width on ranks 0 and
+    1 (ranks 2 and 3 wait)."""
     os.environ["RANK"] = str(rank)
     import torch
     import torch.distributed as dist
@@ -5905,6 +6092,12 @@ def p16_child(rank: int, world: int, store: str, out_dir: str,
                            ref_g_blocked_path, ref_path,
                            ref_m_path)
     res["tp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if rank < TP:
+        res["train_tp"] = p16_train_tp(torch, rank, tp_group, ones[rank],
+                                       tp_layers, ref_train_digests_path,
+                                       ref_m_path)
+    res["train_tp_s"] = time.perf_counter() - t0
     res["launches"] = {}      # spawn_world4 compares ranks' counts
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -6127,6 +6320,71 @@ def p16_cli_world1(torch, ops, train, card) -> dict:
     return res
 
 
+def p16_shared_leaves(layers: int) -> list:
+    """The flat paths of the leaves that both of (e)'s ranks hold whole
+    and the same: the norms (no model-axis dim) and the attention leaves
+    whose replica edge has one block (gemma-2b's one kv head)."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.attention import edge_blocks
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=layers)
+    whole = {n for n, (blocks, _) in edge_blocks(cfg, TP, 0).items()
+             if blocks == 1}
+    dims = _flatten_with_paths(Model(cfg).partition_dims("train"))
+    return sorted(k for k, dim in dims.items()
+                  if dim is None or k.rsplit("/", 1)[-1] in whole)
+
+
+def p16_train_tp_report(ranks: list, ref_run: dict, layers: int,
+                        card: str) -> list:
+    """(e)'s gates across the ranks and against the unsharded run: the
+    ranks' losses bit-equal and within TP_LOSS_RTOL of the unsharded
+    run's, the leaves both ranks hold (``p16_shared_leaves``) bit-equal in
+    their first gradients and their final values; and its line."""
+    e = [r["train_tp"] for r in ranks[:TP]]
+    if e[0]["losses"] != e[1]["losses"]:
+        fail(f"train layout ranks' losses differ: {e[0]['losses']} / "
+             f"{e[1]['losses']}")
+    for s, (a, b) in enumerate(zip(e[0]["losses"], ref_run["losses"])):
+        if abs(a - b) > TP_LOSS_RTOL * abs(b):
+            fail(f"train layout loss at step {s}: {a} against the "
+                 f"unsharded {b}, beyond rtol {TP_LOSS_RTOL}")
+    shared = p16_shared_leaves(layers)
+    for what in ("g_digests", "p_digests"):
+        differ = [k for k in shared if e[0][what][k] != e[1][what][k]]
+        if differ:
+            fail(f"train layout: the leaves both ranks hold differ in "
+                 f"{what[0]} ({differ[:4]})")
+    a = e[0]
+    rk = a["reckoning"]
+    step_ms = statistics.median(a["step_ms_all"][1:])
+    print(f"train layout (e) [{card}]: gemma-2b tp={TP} at {layers} of 18 "
+          f"layers, {rk['params_per_rank'] / 1e9:.3f} B parameters a rank "
+          f"(reckoning {rk['peak_per_rank'] / 2**30:.2f} GiB a rank); losses "
+          f"{[round(x, 5) for x in a['losses']]} (rank 1 bit-equal; the "
+          f"unsharded run {[round(x, 5) for x in ref_run['losses']]}); the "
+          f"first step's gradients bit-equal to the control's on both "
+          f"ranks; the control's against the unsharded run's: relative L2 "
+          f"gap up to {ref_run['train_control_gap']['max']} (median "
+          f"{ref_run['train_control_gap']['median']}; limit "
+          f"{TP_GRAD_RTOL}); Adam's first moment after 3 steps: relative "
+          f"L2 gap up to {max(r['m_gap']['max'] for r in e)} "
+          f"({a['m_gap']['max_leaf']} on rank 0; median "
+          f"{a['m_gap']['median']}; limit {a['m_gap']['limit']}); "
+          f"{len(shared)} leaves held on both ranks bit-equal in gradient "
+          f"and value; staged {a['staged_per_step'][0] / 1e6:.1f} MB a step "
+          f"({rk['all_reduces_per_step']} model-axis all-reduces, "
+          f"{rk['tp_staged_per_step'] / 1e6:.1f} MB + DP edge "
+          f"{a['dp_staged'] / 1e6:.1f}); step {step_ms:.1f} ms (all "
+          f"{[round(t, 1) for t in a['step_ms_all']]}); peak "
+          f"{a['peak_bytes'] / 2**30:.2f} GiB a rank; launches "
+          f"{ {k: v for k, v in a['launches'].items() if v} }", flush=True)
+    for r in e:
+        del r["g_digests"], r["p_digests"]
+    return e
+
+
 def phase_parallel(torch, ops, ref, train, card) -> dict:
     """Phase 16: (a) tensor parallelism at full width and (b) expert
     parallelism at full width (one spawned gloo world of four on the card,
@@ -6157,7 +6415,9 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
     ranks, seconds = spawn_world4(torch, p16_child, P16_DIR,
                                   (layers, ref_run["g_blocked_path"],
                                    ref_run["path"],
-                                   ref_run["m_path"]), world=P16_WORLD)
+                                   ref_run["m_path"],
+                                   ref_run["g_train_blocked_path"]),
+                                  world=P16_WORLD)
     tp = [r["tp"] for r in ranks[:TP]]
     if tp[0]["losses"] != tp[1]["losses"]:
         fail(f"tp ranks' losses differ: {tp[0]['losses']} / "
@@ -6195,6 +6455,7 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
           f"{[round(t, 1) for t in a['step_ms_all']]}); peak "
           f"{a['peak_bytes'] / 2**30:.2f} GiB a rank; launches "
           f"{ {k: v for k, v in a['launches'].items() if v} }", flush=True)
+    e = p16_train_tp_report(ranks, ref_run, layers, card)
     for ep in EP_SIZES:
         r0 = ranks[0]["ep"][f"ep{ep}"]
         for variant in ("direct", "ring"):
@@ -6225,13 +6486,15 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
     print(f"phase 16 took {seconds_all:.1f} s (the spawned world "
           f"{seconds:.1f} s: ep {ranks[0]['ep_s']:.1f}, calibration "
           f"{ranks[0]['calibration_s']:.1f}, cli {ranks[0]['cli_s']:.1f}, "
-          f"tp {ranks[0]['tp_s']:.1f})", flush=True)
-    return {"tp": tp, "tp_reference": ref_run,
+          f"tp {ranks[0]['tp_s']:.1f}, train layout "
+          f"{ranks[0]['train_tp_s']:.1f})", flush=True)
+    return {"tp": tp, "train_tp": e, "tp_reference": ref_run,
             "ep": {k: ranks[0]["ep"][k] for k in ranks[0]["ep"]},
             "calibration_world4": cal4, "cli_world4": ranks[0]["cli"],
             "calibration": calib, "cli_world1": cli1,
             "spawn_s": seconds, "seconds": seconds_all,
             "launches": {"tp_rank0": tp[0]["launches"],
+                         "train_tp_rank0": e[0]["launches"],
                          "calibration": calib["launches"],
                          "cli_world1": cli1["launches"]}}
 

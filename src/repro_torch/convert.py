@@ -60,7 +60,11 @@ sLSTM's ``up``, the sLSTM's ``w_in``) by the rank's block of each;
 norms, routers and MLA's latent projections whole.
 ``serve_init(cfg, generator, rank, tp)`` draws the same values leaf by
 leaf and keeps only the rank's share, so a rank never holds the whole
-tree.  ``cache_slice(cache, cfg, batch, max_len, rank, tp)`` cuts a
+tree.  ``train_slice`` / ``train_init`` are the same for training
+(``sharding_ctx.train_region``), by the train rules' model-axis dims,
+which are the serve rules' (the train rules' FSDP dim, d_model over
+data, is not taken: the port replicates parameters over data).
+``cache_slice(cache, cfg, batch, max_len, rank, tp)`` cuts a
 decode cache (tensors or ``TensorSpec``s) to the rank's share by
 ``Model.input_partition_specs``' rule with tp as the model axis' size.
 
@@ -74,10 +78,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_map, tree_map_with_path
+from repro_torch._tree import tree_leaves, tree_map, tree_map_with_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import head_layout
+from repro_torch.models.attention import edge_blocks, head_layout
 from repro_torch.models.layers import ParamDesc, TensorSpec, _init_leaf
 from repro_torch.models.model import Model
 from repro_torch.models.sharding_ctx import cache_leaf_spec
@@ -170,12 +174,15 @@ def ep_slice(params, rank: int, ep: int):
                      if "router" in f else f)
 
 
-def _serve_cuts(cfg: ModelConfig, rank: int, tp: int):
-    """(descriptor tree, its serve dims, the cut of one leaf) of model-axis
-    rank ``rank``: the heads and kv heads by the rank's head block, every
-    other split dim (vocab, ffn, experts, inner) in ``tp`` equal blocks,
-    and a leaf of ``parts`` packed tensors (``ParamDesc.parts``) by the
-    rank's block of each part; raises where a dim does not split."""
+def _model_cuts(cfg: ModelConfig, rank: int, tp: int, phase: str):
+    """(descriptor tree, its model-axis dims under ``phase``'s rules, the
+    cut of one leaf) of model-axis rank ``rank``: the heads and kv heads
+    by the rank's head block, every other split dim (vocab, ffn, experts,
+    inner) in ``tp`` equal blocks, and a leaf of ``parts`` packed tensors
+    (``ParamDesc.parts``) by the rank's block of each part; raises where
+    a dim does not split.  The train rules differ from the serve rules
+    only in the d_model dim ("embed"), which they put over the data axes
+    (FSDP), not on the model axis, so both phases cut the same dims."""
     model = Model(cfg)
     lay = head_layout(cfg, tp, rank)
     H, KV = cfg.num_heads, cfg.num_kv_heads
@@ -204,27 +211,76 @@ def _serve_cuts(cfg: ModelConfig, rank: int, tp: int):
             return TensorSpec(tuple(shape), t.dtype)
         return torch.cat([t.narrow(dim, lo, size) for lo, size in spans],
                          dim=dim).contiguous()
-    return model.param_desc(), model.partition_dims("serve"), cut
+    return model.param_desc(), model.partition_dims(phase), cut
+
+
+def _slice(params, cfg: ModelConfig, rank: int, tp: int, phase: str):
+    desc, dims, cut = _model_cuts(cfg, rank, tp, phase)
+    return tree_map(cut, desc, dims, params,
+                    is_leaf=lambda x: isinstance(x, ParamDesc))
+
+
+def _init(cfg: ModelConfig, generator, rank: int, tp: int, dtype,
+          phase: str):
+    from repro_torch.models.model import resolve_dtype
+    dtype = dtype or resolve_dtype(cfg.param_dtype)
+    desc, dims, cut = _model_cuts(cfg, rank, tp, phase)
+    return tree_map(lambda d, dim: cut(d, dim, _init_leaf(d, generator,
+                                                          dtype)),
+                    desc, dims, is_leaf=lambda x: isinstance(x, ParamDesc))
 
 
 def serve_slice(params, cfg: ModelConfig, rank: int, tp: int):
     """The parameter tree model-axis rank ``rank`` of ``tp`` holds when
     serving (see the module docstring)."""
-    desc, dims, cut = _serve_cuts(cfg, rank, tp)
-    return tree_map(cut, desc, dims, params,
-                    is_leaf=lambda x: isinstance(x, ParamDesc))
+    return _slice(params, cfg, rank, tp, "serve")
 
 
 def serve_init(cfg: ModelConfig, generator, rank: int, tp: int, dtype=None):
     """``serve_slice(Model(cfg).init(generator, dtype), cfg, rank, tp)``
     drawn leaf by leaf: each leaf is cut as soon as it is drawn, so the
     rank holds one whole leaf at most, never the whole tree."""
-    from repro_torch.models.model import resolve_dtype
-    dtype = dtype or resolve_dtype(cfg.param_dtype)
-    desc, dims, cut = _serve_cuts(cfg, rank, tp)
-    return tree_map(lambda d, dim: cut(d, dim, _init_leaf(d, generator,
-                                                          dtype)),
-                    desc, dims, is_leaf=lambda x: isinstance(x, ParamDesc))
+    return _init(cfg, generator, rank, tp, dtype, "serve")
+
+
+def train_slice(params, cfg: ModelConfig, rank: int, tp: int):
+    """The parameter tree model-axis rank ``rank`` of ``tp`` holds when
+    training under ``sharding_ctx.train_region``: the dims that the
+    reference's train rules put on the model axis
+    (``Model.partition_dims("train")``), cut as :func:`serve_slice` cuts
+    them.  The d_model dim stays whole: the port keeps every parameter
+    replicated over the data axes, where the reference's rules shard it
+    (FSDP)."""
+    return _slice(params, cfg, rank, tp, "train")
+
+
+def train_init(cfg: ModelConfig, generator, rank: int, tp: int, dtype=None):
+    """``train_slice(Model(cfg).init(generator, dtype), cfg, rank, tp)``
+    drawn leaf by leaf, as :func:`serve_init`."""
+    return _init(cfg, generator, rank, tp, dtype, "train")
+
+
+def train_classes(params, cfg: ModelConfig, rank: int, tp: int):
+    """Each leaf of rank ``rank``'s share ``params`` under the train
+    layout (leaf order): over how many distinct blocks the group of
+    ``tp`` holds it: 1 for a leaf every rank holds whole (the norms, the
+    routers, the QK-norm scales), the replica edge's blocks for an
+    attention leaf that several ranks share (``attention.edge_blocks``),
+    ``tp`` for a leaf each rank holds its own block of.  Leaves of one
+    class are held the same by the same runs of ranks, so a packed DP
+    edge that never tiles two classes together (``SyncConfig.classes``)
+    keeps every shared leaf's update the same on all its ranks."""
+    dims = {}
+    tree_map_with_path(lambda path, dim: dims.__setitem__(path, dim),
+                       Model(cfg).partition_dims("train"))
+    edges = edge_blocks(cfg, tp, rank)
+
+    def one(path, _):
+        name = path[-2] if path[-1] == "scale" else path[-1]
+        if "mixer" in path and name in edges:
+            return edges[name][0]
+        return 1 if dims[path] is None else tp
+    return tuple(tree_leaves(tree_map_with_path(one, params)))
 
 
 def cache_slice(cache, cfg: ModelConfig, batch: int, max_len: int, rank: int,

@@ -62,6 +62,9 @@ class SyncConfig:
     ef_decay: float = 1.0
     bucket_bytes: int = 32 * 1024 * 1024   # MG-WFBP fusion granularity
     mean: bool = True                      # divide by world size after reduce
+    # one sharing class a leaf under the train layout over the model axis
+    # (``convert.train_classes``): a packed bucket never holds two
+    classes: Optional[Tuple[int, ...]] = None
 
     def make_compressor(self):
         return get_compressor(self.compressor, **dict(self.compressor_args))
@@ -86,15 +89,31 @@ def _div(x: torch.Tensor, denom: float, inplace: bool = False
 # Bucketing (tensor fusion, MG-WFBP / Horovod-style)
 # ---------------------------------------------------------------------------
 
-def bucketize(grads, bucket_bytes: int):
+def _class_bucket_indices(leaf_bytes, bucket_bytes: int, classes=None):
+    """``form_bucket_indices``, or with ``classes`` (one key a leaf) the
+    same rule within each class apart, the classes in the backward order
+    of their last leaves: no bucket holds two classes."""
+    if classes is None:
+        return form_bucket_indices(leaf_bytes, bucket_bytes)
+    out = []
+    for c in dict.fromkeys(reversed(classes)):
+        idx = [i for i, k in enumerate(classes) if k == c]
+        out += [tuple(idx[j] for j in b) for b in form_bucket_indices(
+            [leaf_bytes[i] for i in idx], bucket_bytes)]
+    return out
+
+
+def bucketize(grads, bucket_bytes: int, classes=None):
     """Split the flattened gradient tree into ~bucket_bytes buckets in
     backward order (last layer first).  Returns (bucket_defs, pack, unpack)
-    where bucket_defs is a list of lists of (leaf_index, size)."""
+    where bucket_defs is a list of lists of (leaf_index, size).
+    ``classes``: one key a leaf; leaves of two keys never share a bucket
+    (``SyncConfig.classes``)."""
     leaves = tree_leaves(grads)
     sizes = [_numel(g) for g in leaves]
     buckets = [[(i, sizes[i]) for i in idxs]
-               for idxs in form_bucket_indices([s * 4 for s in sizes],
-                                               bucket_bytes)]
+               for idxs in _class_bucket_indices([s * 4 for s in sizes],
+                                                 bucket_bytes, classes)]
 
     def pack(gs):
         ls = tree_leaves(gs)
@@ -128,7 +147,11 @@ def plan_from_config(cfg: SyncConfig, grads) -> CommPlan:
       * ``powersgd``          — per-leaf unpacked buckets in tree order
         (the factorization is shape-aware), always with error feedback;
       * ``bucket_bytes <= 0`` — per-leaf unpacked buckets in tree order;
-      * otherwise             — ``bucketize`` fusion in backward order."""
+      * otherwise             — ``bucketize`` fusion in backward order,
+        never packing leaves of two ``cfg.classes`` together (a lossy wire
+        codes a tile from all its elements, so a leaf that every rank of
+        the model axis holds the same must not share a tile with one
+        that each holds its own block of)."""
     leaves = tree_leaves(grads)
     sizes = [_numel(g) for g in leaves]
     if cfg.compressor == "none":
@@ -150,7 +173,10 @@ def plan_from_config(cfg: SyncConfig, grads) -> CommPlan:
             error_feedback=cfg.error_feedback, ef_decay=cfg.ef_decay)
             for i in range(len(leaves)))
     else:
-        defs, _, _ = bucketize(grads, cfg.bucket_bytes)
+        if cfg.classes is not None and len(cfg.classes) != len(leaves):
+            raise ValueError(f"SyncConfig.classes names {len(cfg.classes)} "
+                             f"leaves, the gradients have {len(leaves)}")
+        defs, _, _ = bucketize(grads, cfg.bucket_bytes, cfg.classes)
         buckets = tuple(BucketPlan(
             leaves=tuple(i for i, _ in b), compressor=cfg.compressor,
             compressor_args=cfg.compressor_args, algo=cfg.algo,

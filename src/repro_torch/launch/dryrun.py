@@ -21,12 +21,19 @@ Which rank: the meshes are the reference's ``16x16`` ``(data, model)`` and
 the trace is what the port's rank 0 of that mesh runs under the port's own
 parallelism, and every record's ``layout`` block says so:
 
-  * train ``baseline``: parameters replicated over the data axes; the
-    dense FFNs split on the model axis (``layers.mlp_tp``, tp = 16) and
-    the experts too (``moe_ffn(ep_axis=)``, ep = 16); attention,
-    embeddings, norms and the LM head whole; Adam,
-    ``make_train_step(microbatches=4)``, the dense psum DP edge over the
-    data axes (``(pod, data)``: 32 ranks under ``--multi-pod``);
+  * train ``baseline``: parameters replicated over the data axes.  The
+    grouped-query families (gemma-2b, gemma2-9b, gemma3-4b, deepseek-67b,
+    chameleon-34b, qwen3-moe-30b-a3b) run the reference's train rules
+    over the model axis (tp = 16, ``sharding_ctx.train_region``: the
+    rank's share by ``convert.train_slice``, head-parallel attention with
+    its backward, the vocab-parallel embedding and cross-entropy, the
+    dense FFNs' ffn slice, the experts in blocks of 8, the replica edge
+    over the leaves that ranks share); the other families split only the
+    dense FFNs (``layers.mlp_tp``) and the experts (``moe_ffn(ep_axis=)``)
+    on it, attention, embeddings, norms and the LM head whole (ROADMAP
+    item 16's remainder).  Adam, ``make_train_step(microbatches=4)``, the
+    dense psum DP edge over the data axes (``(pod, data)``: 32 ranks
+    under ``--multi-pod``);
   * train ``zero1``: the same rank under the port's ``shard`` spec (f32
     master and moments in rows over the data axes,
     ``make_sharded_train_step``, which takes no micro-batches);
@@ -72,18 +79,21 @@ import torch.distributed as dist
 from repro_torch._tree import tree_map
 from repro_torch.configs import (ALL_ARCHS, SHAPES, applicable_shapes,
                                  get_config)
-from repro_torch.convert import cache_slice, ep_slice, serve_slice, tp_slice
+from repro_torch.convert import (cache_slice, ep_slice, serve_slice,
+                                 tp_slice, train_slice)
 from repro_torch.launch import op_analysis
 from repro_torch.launch.paths import DRYRUN
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models.attention import cache_split, head_layout
+from repro_torch.models.attention import (cache_split, edge_blocks,
+                                          head_layout)
 from repro_torch.models.encdec import CROSS_SPEC, cross_split
 from repro_torch.models.layers import TensorSpec
 from repro_torch.models.model import Model
 from repro_torch.models.sharding_ctx import (ServeAxes, ep_region,
                                              leaf_share, serve_region,
-                                             tp_region)
+                                             tp_region, train_layout_supported,
+                                             train_region)
 from repro_torch.models.transformer import block_cache
 
 MICROBATCHES = 4      # train shapes' gradient accumulation (the reference's)
@@ -202,12 +212,19 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
     B = shape.global_batch
     if shape.phase == "train":
         moe = "experts" in groups
-        lay["tp"] = MODEL_AXIS if "dense FFNs" in groups else 1
-        lay["ep"] = MODEL_AXIS if moe else 1
         lay["batch_per_rank"] = B // dp
-        split = ("dense FFNs", "experts")
-        lay["unsharded"] = [k for k, sharded in groups.items()
-                            if sharded and k not in split]
+        if train_layout_supported(cfg):
+            lay.update(train_model_layout(cfg))
+        else:
+            lay["tp"] = MODEL_AXIS if "dense FFNs" in groups else 1
+            lay["ep"] = MODEL_AXIS if moe else 1
+            split = ("dense FFNs", "experts")
+            lay["unsharded"] = [k for k, sharded in groups.items()
+                                if sharded and k not in split]
+            lay["train_layout"] = "ffn and experts only: attention, the " \
+                "embeddings and the head under the model axis wait for " \
+                "ROADMAP item 16's remainder (MLA, Mamba, xLSTM, the " \
+                "encoder-decoder)"
         lay["replicated_over_data"] = "every parameter (the reference's " \
             "baseline shards the embed dim over data, FSDP)" \
             if variant == "baseline" else "every parameter"
@@ -236,6 +253,100 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
             f"{variant in ('moe_dispatch', 'optimized')})")
         lay["pos"] = shape.seq_len - 1
     return lay
+
+
+def train_model_layout(cfg) -> Dict[str, Any]:
+    """Rank 0's share under the train layout over the model axis
+    (``sharding_ctx.train_region``, tp = 16): the head blocks, the kv
+    heads a rank computes and the ranks each is held on, the vocabulary
+    rows a rank holds, what is split, and what every rank holds whole
+    (the leaves read after the sums, and the QK-norm scales, summed by the
+    replica edge)."""
+    tp = MODEL_AXIS
+    hl = head_layout(cfg, tp, 0)
+    moe = bool(cfg.num_experts)
+    dense = any(cfg.layer_spec(i).ffn == "dense"
+                for i in range(cfg.num_layers))
+    edges = sorted(edge_blocks(cfg, tp, 0))
+    whole = ["norms"] + (["routers"] if moe else []) + \
+        (["q / k norms"] if cfg.qk_norm else [])
+    split = {"vocab (embedding" + ("" if cfg.tie_embeddings else
+                                   ", lm head") + ")": "rows",
+             "heads (attention)": "wq columns, wo rows",
+             "kv (attention)": "wk / wv columns of the kv heads the "
+                               "rank's query heads read"}
+    if dense:
+        split["ffn"] = "dense FFNs' wi columns and wo rows"
+    if moe:
+        split["experts"] = f"{cfg.num_experts // tp} whole experts a rank"
+    return {"tp": tp, "ep": tp if moe else 1, "train_layout": "model axis",
+            "attn_tp": hl.attn_tp, "heads_per_rank": hl.hl,
+            "kv_heads_computed_per_rank": hl.kvl,
+            "ranks_per_kv_head": tp * hl.kvl // cfg.num_kv_heads,
+            "ranks_per_head_block": tp // hl.attn_tp,
+            "vocab_rows_per_rank": cfg.padded_vocab // tp,
+            "split_over_model": split, "whole": whole,
+            "replica_edge": edges, "unsharded": whole}
+
+
+def train_layout_collectives(cfg, batch: int, seq: int, tp: int,
+                             rank: int = 0, microbatches: int = 1,
+                             xent_chunk: int = 512):
+    """The model-axis all-reduces of one train step under the train
+    layout at tp (rank ``rank``, the local ``batch`` split into
+    ``microbatches``), as ``(what, operand bytes)`` pairs in no order:
+    a reckoning from the code's structure, which the op analysis' count
+    of a traced step must equal.  Per micro-batch:
+
+      * the embedding's sum, (b, T, d) in the parameters' dtype;
+      * per layer (checkpointed): the forward's two row-parallel sums
+        (attention's ``wo`` and the FFN's), the first again in the
+        recomputation (it stops at the last tensor the backward needs,
+        before the FFN's sum), and the backward's input sums: attention's
+        and the dense FFN's (b, T, d), or the MoE block's tokens and its
+        f32 routing weights (b·T, top_k);
+      * per loss chunk: the f32 row maximum (b, c) and the block terms
+        (2, b, c), twice where the chunk is checkpointed (every chunk of
+        ``xent_chunk``; a shorter tail is not), and the head's input sum
+        (b, c, d);
+      * the replica edge, once per stacked leaf that ranks share
+        (``attention.edge_blocks``): its ``blocks`` rows of the rank's
+        leaf."""
+    from repro_torch.models.model import Model, resolve_dtype
+    b = batch // microbatches
+    d = cfg.d_model
+    cbytes = resolve_dtype(cfg.compute_dtype).itemsize
+    pbytes = resolve_dtype(cfg.param_dtype).itemsize
+    act = b * seq * d * cbytes
+    out = [("embedding", b * seq * d * pbytes)]
+    for i in range(cfg.num_layers):
+        spec = cfg.layer_spec(i)
+        out += [("attention wo sum", act)] * 2 + [("attention input", act)]
+        out.append(("ffn sum", act))
+        if spec.ffn == "moe":
+            out += [("moe tokens input", act),
+                    ("moe weights input", b * seq * cfg.top_k * 4)]
+        else:
+            out.append(("ffn input", act))
+    c = min(xent_chunk, seq)
+    full, tail = divmod(seq, c)
+    for n, times in [(c, 2)] * full + [(tail, 1)] * bool(tail):
+        out += [("loss max", b * n * 4), ("loss terms", 2 * b * n * 4)] \
+            * times + [("head input", b * n * d * cbytes)]
+    out = out * microbatches
+    lay = head_layout(cfg, tp, rank)
+    hd = cfg.hd
+    widths = {"wq": d * lay.hl * hd, "wo": d * lay.hl * hd,
+              "wk": d * lay.kvl * hd, "wv": d * lay.kvl * hd,
+              "q_norm": hd, "k_norm": hd}
+    edges = edge_blocks(cfg, tp, rank)
+    for seg in Model(cfg).plan:
+        for _ in seg.period:
+            out += [(f"replica edge {name}",
+                     blocks * seg.repeats * widths[name] * pbytes)
+                    for name, (blocks, _) in sorted(edges.items())] \
+                * microbatches
+    return out
 
 
 # what each parameter group puts on the model axis under the serve rules
@@ -377,13 +488,18 @@ def _build(model, shape, variant, mesh, lay, mode, microbatches):
                             local)
     inputs = _materialize(model.input_specs(local), mode)
     model_group = mesh.groups["model"]
-    with mode:
-        if lay["tp"] > 1:
-            params = tp_slice(params, 0, lay["tp"])
-        if lay["ep"] > 1:
-            params = ep_slice(params, 0, lay["ep"])
-    ctx = _regions(model_group if lay["tp"] > 1 else None,
-                   model_group if lay["ep"] > 1 else None)
+    if lay.get("train_layout") == "model axis":
+        with mode:
+            params = train_slice(params, model.cfg, 0, lay["tp"])
+        ctx = _regions(train=model_group)
+    else:
+        with mode:
+            if lay["tp"] > 1:
+                params = tp_slice(params, 0, lay["tp"])
+            if lay["ep"] > 1:
+                params = ep_slice(params, 0, lay["ep"])
+        ctx = _regions(model_group if lay["tp"] > 1 else None,
+                       model_group if lay["ep"] > 1 else None)
     opt = make_optimizer("adam", lr=1e-4)
     if variant == "zero1":
         from repro_torch.core.grad_sync import (PlanExecutor, SyncConfig,
@@ -417,10 +533,11 @@ def _build(model, shape, variant, mesh, lay, mode, microbatches):
 
 
 @contextlib.contextmanager
-def _regions(tp=None, ep=None, serve=None):
-    """The traced step's regions: tp and ep (train), or the serve layout
-    (``(group, data groups, max_len)``)."""
-    with tp_region(tp), ep_region(ep), \
+def _regions(tp=None, ep=None, serve=None, train=None):
+    """The traced step's regions: tp and ep (train, the FFNs only), the
+    train layout over the model axis (``train``: its group), or the serve
+    layout (``(group, data groups, max_len)``)."""
+    with tp_region(tp), ep_region(ep), train_region(train), \
             (serve_region(*serve) if serve else contextlib.nullcontext()):
         yield
 

@@ -6,8 +6,8 @@ inputs.  The port has no HLO: it runs the step eagerly (on CPU fake
 tensors in the dry run, on the card in ``chip_smoke.py``) and records the
 ops as they run.  :func:`count` is a context manager that counts one call
 (:func:`trace` counts ``fn(*args)``); its :class:`OpStats` has
-``HLOStats``'s fields plus ``collective_wire_bytes_by_axis`` and the
-hand-written kernels' calls.
+``HLOStats``'s fields plus ``collective_wire_bytes_by_axis``,
+``collective_counts_by_axis`` and the hand-written kernels' calls.
 
 The counting rules:
 
@@ -109,6 +109,8 @@ class OpStats:
     while_trip_counts: List[int] = dataclasses.field(default_factory=list)
     collective_wire_bytes_by_axis: Dict[str, float] = dataclasses.field(
         default_factory=dict)
+    collective_counts_by_axis: Dict[str, Dict[str, int]] = \
+        dataclasses.field(default_factory=dict)
     kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     kernel_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -161,6 +163,8 @@ class OpStats:
             "while_trip_counts_top": sorted(self.while_trip_counts)[-8:],
             "collective_wire_bytes_by_axis":
                 dict(self.collective_wire_bytes_by_axis),
+            "collective_counts_by_axis": {
+                a: dict(c) for a, c in self.collective_counts_by_axis.items()},
             "kernel_calls": dict(self.kernel_calls),
             "aten_ops": self.aten_ops,
         }
@@ -362,6 +366,8 @@ class OpCounter(TorchDispatchMode):
         axis = self.axis_name(group)
         st.collective_wire_bytes_by_axis[axis] = \
             st.collective_wire_bytes_by_axis.get(axis, 0.0) + wire
+        counts = st.collective_counts_by_axis.setdefault(axis, {})
+        counts[kind] = counts.get(kind, 0) + 1
 
     @contextlib.contextmanager
     def kernel(self, name: str, args: tuple) -> Iterator[list]:

@@ -47,6 +47,7 @@ from repro_torch.core.local_sgd import average_leaf
 from repro_torch.core.pipeline import aligned_ticks
 from repro_torch.models.model import Model
 from repro_torch.models.moe import drop_tap_paused
+from repro_torch.models.sharding_ctx import train_axes
 from repro_torch.optim import apply_rows_inplace, step_inplace
 
 
@@ -155,6 +156,20 @@ def make_comm_optimized_train_step(model: Model, optimizer, sync: SyncConfig,
     return _make_synced_train_step(model, optimizer, synchronizer, group)
 
 
+def _check_dp_edge(synchronizer) -> None:
+    """Raise if a packed lossy DP edge runs under the train layout without
+    the leaves' sharing classes (``SyncConfig.classes``): a tile coded from
+    a leaf that every rank of the model axis holds and a rank's own block
+    would move the shared leaf apart on the ranks."""
+    cfg = getattr(synchronizer, "cfg", None)
+    if (train_axes() is not None and cfg is not None and cfg.classes is None
+            and cfg.compressor not in ("none", "powersgd")
+            and cfg.bucket_bytes > 0):
+        raise ValueError(
+            f"a packed {cfg.compressor} DP edge under the train layout "
+            f"needs SyncConfig.classes (convert.train_classes)")
+
+
 def _make_synced_train_step(model: Model, optimizer, synchronizer,
                             group: Optional[dist.ProcessGroup] = None):
     """The synced step around any grad-sync engine exposing
@@ -164,6 +179,7 @@ def _make_synced_train_step(model: Model, optimizer, synchronizer,
     (params, opt_state, sync_state, loss)``."""
 
     def step_fn(params, opt_state, sync_state, batch, step, rng=None):
+        _check_dp_edge(synchronizer)
         loss, grads = loss_and_grads(model, params, batch)
         grads, sync_state = synchronizer(grads, sync_state, rng)
         step_inplace(optimizer, params, grads, opt_state, step)

@@ -36,6 +36,14 @@ split-KV rule in f32 (:func:`_split_softmax`).  MLA runs its head block
 (``wq``, ``w_ukv``, ``wo``) on the whole latents, which every rank
 computes, and keeps its block of their positions; its decode combines
 every head's partial softmax the same way (:func:`_mla_decode_tp`).
+
+Under ``sharding_ctx.train_region`` the training layer runs the
+reference's train layout over the model axis: the same head blocks with
+the chunked attention and its backward between ``layers.tp_in`` and
+``tp_out`` (:func:`_attn_train_tp`), and the replica edge over the
+leaves a head block reads but shares (:func:`attn_replica_edge`);
+``blocked_region`` runs its control on the whole weights
+(:func:`_attn_blocked`).
 """
 from __future__ import annotations
 
@@ -48,9 +56,11 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamDesc, TensorSpec, apply_rope,
-                                       norm_desc, rmsnorm, tp_out)
-from repro_torch.models.sharding_ctx import (cache_leaf_spec, leaf_share,
-                                             serve_axes)
+                                       fan, muted, norm_desc, replica_edge,
+                                       rmsnorm, tp_in, tp_out, tree_sum)
+from repro_torch.models.sharding_ctx import (blocked_tp, cache_leaf_spec,
+                                             leaf_share, serve_axes,
+                                             train_axes)
 
 NEG_INF = -1e30
 
@@ -253,13 +263,26 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def attn_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """Full-sequence causal attention (training). x: (B, T, d)."""
+def _attn_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
     B, T, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = flash_attention(q, k, v, causal=True, window=spec.window,
                           softcap=cfg.attn_logit_softcap)
     return out.reshape(B, T, -1) @ params["wo"]
+
+
+def attn_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """Full-sequence causal attention (training). x: (B, T, d).  Under
+    ``sharding_ctx.train_region`` the rank's head block
+    (:func:`_attn_train_tp`), under ``blocked_region`` the control
+    (:func:`_attn_blocked`)."""
+    ta = train_axes()
+    if ta is not None:
+        return _attn_train_tp(params, cfg, spec, x, positions, ta)
+    tp = blocked_tp()
+    if tp is not None:
+        return _attn_blocked(params, cfg, spec, x, positions, tp)
+    return _attn_train(params, cfg, spec, x, positions)
 
 
 def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
@@ -546,6 +569,98 @@ def _heads_out(partial: torch.Tensor, lay: HeadLayout, sa) -> torch.Tensor:
     if lay.replica:
         partial = torch.zeros_like(partial)
     return tp_out(partial, sa.tp)
+
+
+# ---------------------------------------------------------------------------
+# The train layout over the model axis
+# ---------------------------------------------------------------------------
+
+def _attn_train_tp(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                   ta):
+    """One rank of the train layout: ``x`` through ``tp_in``, the rank's
+    head block (``params``: its columns of ``wq`` / ``wk`` / ``wv``, its
+    rows of ``wo``; ``convert.train_slice``) through the chunked
+    attention with its FlashAttention-2 backward, and the ``wo`` partials
+    summed by ``tp_out``, to which only replica 0 of a head block adds
+    (a replica's partial is muted, its backward kept for the collectives
+    every rank runs)."""
+    lay = head_layout(cfg, *_tp_of(ta))
+    out = _attn_train(params, cfg, spec, tp_in(x, ta.tp, ta.algo),
+                      positions)
+    return tp_out(muted(out, lay.replica > 0), ta.tp, ta.algo)
+
+
+def _attn_blocked(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                  tp: int):
+    """The control of :func:`_attn_train_tp` at ``tp``, on the whole
+    parameters: each head block (the first holder's) computed apart on
+    contiguous copies of its columns and rows, reading ``x``, its kv
+    heads' columns and the QK-norm scales through :func:`fan`, and the
+    blocks' ``wo`` partials added by :func:`tree_sum`: the arithmetic of
+    the tp ranks on ``tree`` (a replica's zero partials and zero
+    cotangents add nothing)."""
+    hd = cfg.hd
+    lays = [head_layout(cfg, tp, r) for r in range(0, tp, tp // min(
+        tp, cfg.num_heads))]
+    xs = fan(x, len(lays))
+    kv_readers = {}
+    for lay in lays:
+        kv_readers.setdefault(lay.kv0, []).append(lay)
+    kv_views = {}
+    for kv0, readers in kv_readers.items():
+        kvl = readers[0].kvl
+        kv_views[kv0] = {
+            name: iter(fan(params[name].narrow(-1, kv0 * hd, kvl * hd)
+                           .contiguous(), len(readers)))
+            for name in ("wk", "wv")}
+    norms = {name: iter(fan(params[name]["scale"], len(lays)))
+             for name in ("q_norm", "k_norm") if name in params}
+    parts = []
+    for xb, lay in zip(xs, lays):
+        p = {"wq": params["wq"].narrow(-1, lay.h0 * hd, lay.hl * hd)
+             .contiguous(),
+             "wo": params["wo"].narrow(-2, lay.h0 * hd, lay.hl * hd)
+             .contiguous()}
+        p.update({name: next(v) for name, v in kv_views[lay.kv0].items()})
+        p.update({name: {"scale": next(v)} for name, v in norms.items()})
+        parts.append(_attn_train(p, cfg, spec, xb, positions))
+    return tree_sum(parts)
+
+
+def edge_blocks(cfg: ModelConfig, tp: int, rank: int):
+    """The replica edge of an attention layer's leaves on rank ``rank`` of
+    ``tp``: leaf name -> (blocks, index), the leaf's distinct blocks over
+    the group and the rank's, for each leaf that more ranks hold than
+    there are blocks: the kv columns where kv heads are shared, the query
+    columns and ``wo`` rows where a head block is held by several ranks
+    (H < tp), and the QK-norm scales, which every rank holds whole."""
+    lay = head_layout(cfg, tp, rank)
+    out = {}
+    kv_blocks = cfg.num_kv_heads // lay.kvl
+    if kv_blocks < tp:
+        out.update({"wk": (kv_blocks, lay.kv0 // lay.kvl),
+                    "wv": (kv_blocks, lay.kv0 // lay.kvl)})
+    if lay.attn_tp < tp:
+        out.update({"wq": (lay.attn_tp, lay.block),
+                    "wo": (lay.attn_tp, lay.block)})
+    if cfg.qk_norm:
+        out.update({"q_norm": (1, 0), "k_norm": (1, 0)})
+    return out
+
+
+def attn_replica_edge(params, cfg: ModelConfig, ta):
+    """``params`` (one attention layer's leaves, stacked or not) with
+    every leaf of :func:`edge_blocks` wrapped in ``layers.replica_edge``
+    over the train layout's group (``ta``: ``sharding_ctx.TrainAxes``);
+    the rest as it is."""
+    out = dict(params)
+    for name, (blocks, index) in edge_blocks(cfg, *_tp_of(ta)).items():
+        def edge(t):
+            return replica_edge(t, ta.tp, ta.algo, blocks, index)
+        out[name] = ({"scale": edge(params[name]["scale"])}
+                     if isinstance(params[name], dict) else
+                     edge(params[name]))
+    return out
 
 
 def _store_block(cache, new, slot, lo: int, inplace: bool):

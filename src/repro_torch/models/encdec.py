@@ -173,10 +173,11 @@ def dec_block_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"self": self_cache, "cross_k": kv, "cross_v": kv}
 
 
-def dec_block_decode(params, cfg: ModelConfig, x, cache, pos):
+def dec_block_decode(params, cfg: ModelConfig, x, cache, pos,
+                     inplace: bool = False):
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
     sa, self_cache = attn.attn_decode(params["self"], cfg, CROSS_SPEC, h,
-                                      cache["self"], pos)
+                                      cache["self"], pos, inplace=inplace)
     x = _cross_ffn(params, cfg, x + sa, cache["cross_k"], cache["cross_v"],
                    kernel=True)
     return x, {"self": self_cache, "cross_k": cache["cross_k"],
@@ -235,15 +236,21 @@ def decode_prefill(params, cfg: ModelConfig, x, positions, memory,
     return rmsnorm(params["dec_norm"], x, eps=cfg.norm_eps), _stack(caches)
 
 
-def decode_step_stack(params, cfg: ModelConfig, x, caches, pos):
+def decode_step_stack(params, cfg: ModelConfig, x, caches, pos,
+                      inplace: bool = False):
     """One token through the decoder layers.  Returns (normed hidden, new
     cache); the cross K/V pass through unchanged, the input cache is not
-    modified."""
+    modified, unless ``inplace``: then each layer's self-attention entry
+    is written into its row of ``caches`` itself (a view of the stacked
+    leaf), and ``caches`` is returned — the reference's donated cache,
+    held once."""
     selfs = []
     for i in range(cfg.num_layers):
         x, c = dec_block_decode(_index(params["dec_stack"], i), cfg, x,
-                                _index(caches, i), pos)
+                                _index(caches, i), pos, inplace)
         selfs.append(c["self"])
-    return (rmsnorm(params["dec_norm"], x, eps=cfg.norm_eps),
-            {"self": _stack(selfs), "cross_k": caches["cross_k"],
-             "cross_v": caches["cross_v"]})
+    h = rmsnorm(params["dec_norm"], x, eps=cfg.norm_eps)
+    if inplace:
+        return h, caches
+    return h, {"self": _stack(selfs), "cross_k": caches["cross_k"],
+               "cross_v": caches["cross_v"]}

@@ -10,7 +10,11 @@ the reference's logical axis names; :func:`sharding_rules` and
 does, and ``convert.serve_slice`` cuts a tree to one model-axis rank's
 share by them (the port has no partitioner).  :func:`embed_tp` and
 :func:`logits_tp` are the vocab-parallel embedding and LM head of
-serving under ``sharding_ctx.serve_region``.
+serving under ``sharding_ctx.serve_region``; :func:`embed_tp` (with
+``train_algo``), :func:`softmax_xent_tp` and :func:`replica_edge` the
+train layout's under ``sharding_ctx.train_region``, and :func:`fan`,
+:func:`tree_sum`, :func:`mlp_blocked` and :func:`softmax_xent_blocked`
+its control's.
 """
 from __future__ import annotations
 
@@ -251,14 +255,15 @@ class _TpIn(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, algo):
+        ctx.group, ctx.algo = group, algo
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.core.collectives.api import allreduce
-        return allreduce(g.contiguous().clone(), "psum", (ctx.group,)), None
+        return (allreduce(g.contiguous().clone(), ctx.algo, (ctx.group,)),
+                None, None)
 
 
 class _TpOut(torch.autograd.Function):
@@ -275,11 +280,12 @@ class _TpOut(torch.autograd.Function):
         return g, None, None
 
 
-def tp_in(x: torch.Tensor, group) -> torch.Tensor:
+def tp_in(x: torch.Tensor, group, algo: str = "psum") -> torch.Tensor:
     """Wrap the activations entering a column-parallel block: identity
     forward; the backward sums the partial input cotangents that each
-    rank's weight slice produced over ``group`` (a process group)."""
-    return _TpIn.apply(x, group)
+    rank's weight slice produced over ``group`` (a process group) with
+    ``collectives.api.allreduce(g, algo, (group,))``."""
+    return _TpIn.apply(x, group, algo)
 
 
 def tp_out(x: torch.Tensor, group, algo: str = "psum") -> torch.Tensor:
@@ -315,59 +321,145 @@ def mlp_tp(params, x: torch.Tensor, activation: str = "swiglu", *, group,
            algo: str = "psum") -> torch.Tensor:
     """Tensor-parallel gated MLP: ``params`` hold this rank's 1/tp slice of
     the ffn dim (wi_gate / wi_up cut on their output features, wo on its
-    input features; ``convert.tp_slice``).  Bit-equal at tp = 2 to
-    :func:`mlp_blocked` with 2 blocks (float addition is commutative)."""
+    input features; ``convert.tp_slice``); both sums on ``algo``.
+    Bit-equal to :func:`mlp_blocked` with ``tp`` blocks at tp = 2 (float
+    addition is commutative) and on ``tree`` at any tp."""
     act = _activation(activation)
-    xin = tp_in(x, group)
+    xin = tp_in(x, group, algo)
     gate = act(xin @ params["wi_gate"])
     up = xin @ params["wi_up"]
     return tp_out((gate * up) @ params["wo"], group, algo)
 
 
-class _Block(torch.autograd.Function):
-    """Identity in both directions, as a node of its own: the cotangents of
-    a block's uses of ``x`` are summed in this node before they reach
-    ``x``."""
+# ---------------------------------------------------------------------------
+# The train layout's pieces over the model axis, and its control
+# ---------------------------------------------------------------------------
+#
+# A rank of the train layout (``sharding_ctx.train_region``) reads a leaf
+# that several ranks hold the same (a kv head shared by several head
+# blocks, a head block held by several ranks, the QK-norm scales) only
+# through its own heads, so its cotangent there is a partial sum:
+# ``replica_edge`` sums it over the ranks that hold the block.  The
+# control (``sharding_ctx.blocked_region``) runs the ranks' blocks in one
+# process: ``fan`` hands one input to each block and sums the blocks'
+# cotangents, and ``tree_sum`` sums the blocks' partial outputs, both in
+# the order the ``tree`` all-reduce sums the ranks.
+
+def tree_sum(xs):
+    """The sum of ``xs`` in the ``tree`` all-reduce's order over as many
+    ranks (``core/collectives/tree.py``: each rank absorbs its neighbour
+    at distance 1, 2, 4, ...): adjacent pairs, level by level.  For two
+    terms any all-reduce's order."""
+    xs = list(xs)
+    if len(xs) & (len(xs) - 1):
+        raise ValueError(f"the tree order sums a power of two of terms, "
+                         f"got {len(xs)}")
+    while len(xs) > 1:
+        xs = [xs[i] + xs[i + 1] for i in range(0, len(xs), 2)]
+    return xs[0]
+
+
+class _Fan(torch.autograd.Function):
+    """``n`` identity views of ``x``; the backward sums their cotangents
+    by :func:`tree_sum`: the control's stand-in for ``tp_in`` and for the
+    replica edge."""
 
     @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
 
     @staticmethod
-    def backward(ctx, g):
-        return g
+    def backward(ctx, *gs):
+        return tree_sum(gs), None
+
+
+def fan(x: torch.Tensor, n: int):
+    """``n`` views of ``x`` whose cotangents are summed in the tree
+    order (a tuple)."""
+    return _Fan.apply(x, n)
 
 
 def mlp_blocked(params, x: torch.Tensor, activation: str = "swiglu",
                 blocks: int = 2) -> torch.Tensor:
     """The tensor-parallel checks' reference: the contraction of
-    :func:`mlp` in ``blocks`` ffn slices, summed in order: the arithmetic
-    of a tp group, on one device.  Each block reads ``x`` through a node
-    of its own (the reference's optimization barrier), so that the block's
-    two input-cotangent contributions are summed before the blocks are,
-    as a tp rank sums its two before the all-reduce across ranks; and the
-    blocks read it through one more node, ``tp_in``'s place, so that their
-    sum is whole before it meets another use of ``x`` by the caller (a
-    residual).  Left to itself autograd would fold every contribution into
-    ``x`` in its own order."""
+    :func:`mlp` in ``blocks`` contiguous ffn slices (as tp ranks hold
+    them: the matmul of a strided operand may take another kernel), the
+    arithmetic of a tp group on one device.  Each block reads ``x``
+    through its own view of :func:`fan` (the reference's optimization
+    barrier), so that the block's two input-cotangent contributions are
+    summed before the blocks' are, as a tp rank sums its two before the
+    all-reduce; the blocks' outputs and input cotangents add by
+    :func:`tree_sum` (for two blocks, any all-reduce's order), whole
+    before they meet another use of ``x`` by the caller (a residual).
+    Left to itself autograd would fold every contribution into ``x`` in
+    its own order."""
     act = _activation(activation)
-    x = _Block.apply(x)
     d_ff = params["wi_gate"].shape[-1]
     if d_ff % blocks:
         raise ValueError(f"d_ff={d_ff} does not split into {blocks} blocks")
-    # each slice contiguous, as a tp rank holds it (the matmul of a strided
-    # operand may take another kernel)
-    gates = [w.contiguous() for w in torch.chunk(params["wi_gate"], blocks,
-                                                 dim=-1)]
-    ups = [w.contiguous() for w in torch.chunk(params["wi_up"], blocks,
-                                               dim=-1)]
+    gates = torch.chunk(params["wi_gate"], blocks, dim=-1)
+    ups = torch.chunk(params["wi_up"], blocks, dim=-1)
     wos = torch.chunk(params["wo"], blocks, dim=-2)
-    out = None
-    for wg, wu, wo in zip(gates, ups, wos):
-        xb = _Block.apply(x)
-        part = (act(xb @ wg) * (xb @ wu)) @ wo
-        out = part if out is None else out + part
-    return out
+    parts = []
+    for xb, wg, wu, wo in zip(fan(x, blocks), gates, ups, wos):
+        parts.append((act(xb @ wg.contiguous()) * (xb @ wu.contiguous()))
+                     @ wo.contiguous())
+    return tree_sum(parts)
+
+
+class _ReplicaEdge(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the ranks
+    that hold the same block: each rank puts its cotangent at row
+    ``index`` of ``blocks`` zero rows, one all-reduce over the group sums
+    them, and the rank keeps its row (a rank that holds no other adds
+    exact zeros to it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, algo, blocks, index):
+        ctx.args = (group, algo, blocks, index)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.collectives.api import allreduce
+        group, algo, blocks, index = ctx.args
+        if blocks == 1:
+            return allreduce(g.contiguous().clone(), algo,
+                             (group,)), None, None, None, None
+        buf = torch.zeros((blocks,) + tuple(g.shape), dtype=g.dtype,
+                          device=g.device)
+        buf[index] = g
+        return (allreduce(buf, algo, (group,))[index], None, None, None,
+                None)
+
+
+def replica_edge(x: torch.Tensor, group, algo: str = "psum",
+                 blocks: int = 1, index: int = 0) -> torch.Tensor:
+    """Wrap a leaf that several ranks of ``group`` hold the same but each
+    reads only through its own share of the work (the replica edge): the
+    leaf is one of ``blocks`` distinct blocks over the group, this rank's
+    being block ``index``; the backward sums the rank's partial cotangent
+    with those of the other ranks holding block ``index``."""
+    return _ReplicaEdge.apply(x, group, algo, blocks, index)
+
+
+class _Muted(torch.autograd.Function):
+    """Zeros in both directions, the graph kept: a replica head block's
+    ``wo`` partial, which must add nothing, yet whose backward must run
+    the same collectives as the block's first holder."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+def muted(x: torch.Tensor, mute: bool) -> torch.Tensor:
+    """``x``, or zeros of its shape that keep it in the graph."""
+    return _Muted.apply(x) if mute else x
 
 
 # ---------------------------------------------------------------------------
@@ -388,12 +480,15 @@ def embed(params, tokens: torch.Tensor, *, scale: bool, d: int) -> torch.Tensor:
 
 
 def embed_tp(params, tokens: torch.Tensor, *, scale: bool, d: int,
-             group) -> torch.Tensor:
+             group, train_algo: Optional[str] = None) -> torch.Tensor:
     """Vocab-parallel :func:`embed`: ``params["table"]`` holds this rank's
     block of the vocabulary rows (block ``axis_index(group)``); a token
     outside it gives exact zeros, and one all-reduce over ``group`` sums
     the ranks' rows, at most one of them non-zero, so the result equals
-    :func:`embed` of the whole table bit for bit."""
+    :func:`embed` of the whole table bit for bit.  ``train_algo`` (the
+    train layout): the sum is ``tp_out`` on that algo, an autograd node
+    with an identity backward, so each rank's table gradient is exactly
+    its own rows'."""
     from repro_torch.core.collectives.api import allreduce
     from repro_torch.core.collectives.p2p import axis_index
     table = params["table"]
@@ -405,6 +500,8 @@ def embed_tp(params, tokens: torch.Tensor, *, scale: bool, d: int,
                                                    device=x.device))
     if scale:
         x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+    if train_algo is not None:
+        return tp_out(x, group, train_algo)
     return allreduce(x.contiguous(), "psum", (group,))
 
 
@@ -424,14 +521,71 @@ def logits_tp(table: torch.Tensor, h: torch.Tensor, group,
     return logits
 
 
+def _masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]):
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy in f32.  labels: int ids; mask optional."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = logz - gold
-    if mask is None:
-        return torch.mean(nll)
-    mask = mask.to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return _masked_mean(logz - gold, mask)
+
+
+def _xent_terms(z: torch.Tensor, m: torch.Tensor, labels: torch.Tensor,
+                lo: int) -> torch.Tensor:
+    """One vocabulary block's terms of the cross-entropy, stacked (2,
+    ...): the sum of ``exp(z - m)`` over the block (``z``: its f32
+    logits, ``m``: the whole row's maximum) and the gold logit, exactly
+    zero where the label lies outside the block ``[lo, lo + V_block)``."""
+    vl = z.shape[-1]
+    local = labels - lo
+    hit = (local >= 0) & (local < vl)
+    gold = torch.gather(z, -1, torch.clamp(local, 0, vl - 1)[..., None])
+    gold = torch.where(hit, gold[..., 0], torch.zeros((), dtype=z.dtype,
+                                                      device=z.device))
+    return torch.stack([torch.exp(z - m[..., None]).sum(-1), gold])
+
+
+def _xent_of(terms: torch.Tensor, m: torch.Tensor, mask):
+    """The masked mean nll from the whole row's summed terms."""
+    return _masked_mean(torch.log(terms[0]) + m - terms[1], mask)
+
+
+def softmax_xent_tp(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor], group,
+                    algo: str = "psum") -> torch.Tensor:
+    """Vocab-parallel :func:`softmax_xent` (the train layout): ``logits``
+    is this rank's block of the vocabulary (block ``axis_index(group)``,
+    the final softcap applied, which is elementwise).  The row maximum
+    goes through ``collectives.allreduce_max``, the block's sum of
+    exponentials and gold logit through one f32 all-reduce on ``algo``
+    (``tp_out``: identity backward), so the backward is the block's
+    softmax minus the one-hot of the labels in the block; the whole
+    logits are never gathered.  The same value on every rank."""
+    from repro_torch.core.collectives.api import allreduce_max
+    from repro_torch.core.collectives.p2p import axis_index
+    z = logits.to(torch.float32)
+    m = allreduce_max(z.detach().amax(-1).contiguous(), (group,))
+    terms = _xent_terms(z, m, labels, axis_index(group) * z.shape[-1])
+    return _xent_of(tp_out(terms, group, algo), m, mask)
+
+
+def softmax_xent_blocked(blocks, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The control of :func:`softmax_xent_tp`: ``blocks`` are the
+    vocabulary blocks' logits in order, each block's terms computed apart
+    and summed by :func:`tree_sum`."""
+    zs = [b.to(torch.float32) for b in blocks]
+    m = zs[0].detach().amax(-1)
+    for z in zs[1:]:
+        m = torch.maximum(m, z.detach().amax(-1))
+    vl = zs[0].shape[-1]
+    terms = tree_sum([_xent_terms(z, m, labels, i * vl)
+                      for i, z in enumerate(zs)])
+    return _xent_of(terms, m, mask)

@@ -19,7 +19,12 @@ vocab-parallel (``layers.embed_tp`` / ``logits_tp``), the stack as
 ``transformer`` says (the encoder-decoder's as ``encdec`` says), the
 cache laid out by
 ``input_partition_specs``' rule with the tp group's size as the model
-axis' (``convert.cache_slice``).
+axis' (``convert.cache_slice``).  Under ``sharding_ctx.train_region`` the
+training loss of a grouped-query family runs the reference's train
+layout on the rank's share (``convert.train_slice``): the vocab-parallel
+embedding (``embed_tp`` with its autograd sum) and the vocab-parallel
+cross-entropy (``layers.softmax_xent_tp``), the same loss on every rank
+of the group; ``blocked_region`` runs its control.
 
 The encoder-decoder keeps the reference's unused ``final_norm`` (its
 decoder ends in ``dec_norm``), so that converted trees match.
@@ -40,11 +45,15 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (ParamDesc, TensorSpec, desc_leaves,
-                                       embed, embed_tp, embedding_desc,
+                                       embed, embed_tp, embedding_desc, fan,
                                        logits_tp, materialize, norm_desc,
                                        partition_specs, rmsnorm,
-                                       sharding_rules, softmax_xent)
-from repro_torch.models.sharding_ctx import cache_leaf_spec, serve_axes
+                                       sharding_rules, softmax_xent,
+                                       softmax_xent_blocked, softmax_xent_tp,
+                                       tp_in)
+from repro_torch.models.sharding_ctx import (blocked_tp, cache_leaf_spec,
+                                             check_train_layout, serve_axes,
+                                             train_axes)
 
 XENT_CHUNK = 512
 
@@ -130,10 +139,14 @@ class Model:
     # -- shared pieces ------------------------------------------------------
 
     def _embed(self, params, tokens):
-        sa = serve_axes()
+        sa, ta = serve_axes(), train_axes()
         if sa is not None:
             x = embed_tp(params["embed"], tokens, scale=self.cfg.embed_scale,
                          d=self.cfg.d_model, group=sa.tp)
+        elif ta is not None:
+            x = embed_tp(params["embed"], tokens, scale=self.cfg.embed_scale,
+                         d=self.cfg.d_model, group=ta.tp,
+                         train_algo=ta.algo)
         else:
             x = embed(params["embed"], tokens, scale=self.cfg.embed_scale,
                       d=self.cfg.d_model)
@@ -148,11 +161,7 @@ class Model:
         if sa is not None:
             return logits_tp(self._lm_table(params), h, sa.tp,
                              cfg.final_logit_softcap)
-        logits = h @ self._lm_table(params).T
-        if cfg.final_logit_softcap:
-            logits = cfg.final_logit_softcap * torch.tanh(
-                logits / cfg.final_logit_softcap)
-        return logits
+        return self._capped(h @ self._lm_table(params).T)
 
     def _backbone_train(self, params, batch):
         tokens = batch["tokens"]
@@ -168,11 +177,28 @@ class Model:
                                          self.plan, x, positions)
         return rmsnorm(params["final_norm"], h, eps=self.cfg.norm_eps), aux
 
+    def _capped(self, logits):
+        cap = self.cfg.final_logit_softcap
+        return cap * torch.tanh(logits / cap) if cap else logits
+
     def _chunk_nll(self, params, hc, lc):
-        """(masked mean nll, label count) of one sequence chunk."""
-        logits = self._logits(params, hc)
+        """(masked mean nll, label count) of one sequence chunk.  Under
+        the train region the rank's vocabulary block of the logits and
+        the vocab-parallel loss (``layers.softmax_xent_tp``), the whole
+        logits never gathered; under ``blocked_region`` its control."""
         mc = lc >= 0
-        nll = softmax_xent(logits, torch.clamp_min(lc, 0), mc)
+        labels = torch.clamp_min(lc, 0)
+        ta, blocks = train_axes(), blocked_tp()
+        table = self._lm_table(params)
+        if ta is not None:
+            logits = self._capped(tp_in(hc, ta.tp, ta.algo) @ table.T)
+            nll = softmax_xent_tp(logits, labels, mc, ta.tp, ta.algo)
+        elif blocks is not None:
+            parts = [self._capped(hb @ t.contiguous().T) for hb, t in zip(
+                fan(hc, blocks), torch.chunk(table, blocks, dim=0))]
+            nll = softmax_xent_blocked(parts, labels, mc)
+        else:
+            nll = softmax_xent(self._logits(params, hc), labels, mc)
         return nll, torch.sum(mc.to(torch.float32))
 
     def _chunked_xent(self, params, h, labels):
@@ -203,6 +229,8 @@ class Model:
         tokens = batch["tokens"]
         labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])],
                            dim=1)
+        if train_axes() is not None or blocked_tp() is not None:
+            check_train_layout(self.cfg)
         h, aux = self._backbone_train(params, batch)
         nll = self._chunked_xent(params, h, labels)
         return nll + self.cfg.router_aux_coef * aux
@@ -256,10 +284,7 @@ class Model:
         x = self._embed(params, tokens)
         if cfg.is_encoder_decoder:
             h, new_cache = encdec.decode_step_stack(params["encdec"], cfg, x,
-                                                    cache, pos)
-            if inplace:
-                transformer.write_back(cache, new_cache)
-                new_cache = cache
+                                                    cache, pos, inplace)
             return self._logits(params, h), new_cache
         h, new_cache = transformer.stack_decode(params["stack"], cfg,
                                                 self.plan, x, cache, pos,

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collectives.api import all_to_all_grad
 from repro_torch.core.collectives.p2p import axis_index, axis_size
-from repro_torch.models.layers import ParamDesc, mlp, mlp_desc, tp_out
+from repro_torch.models.layers import (ParamDesc, fan, mlp, mlp_desc, tp_in,
+                                       tp_out, tree_sum)
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +149,8 @@ def dispatch_plan(experts: torch.Tensor, E: int, G: int, cap: int):
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
             groups: Optional[int] = None,
-            ep_axis=None, a2a_variant: str = "direct", tp_axis=None
+            ep_axis=None, a2a_variant: str = "direct", tp_axis=None,
+            train_algo: Optional[str] = None, blocks: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, d) -> (out (B, T, d), aux f32).
 
@@ -178,11 +180,21 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
     ``tp_axis`` (a process group, serving) runs this rank's block of
     ``E/tp`` experts on every token's choices and sums the ranks' outputs
     with one all-reduce (``params``: the rank's expert block, its slice
-    of the shared experts' ffn dim)."""
+    of the shared experts' ffn dim).  ``train_algo`` (the train layout)
+    makes that block differentiable, the Megatron pair around it: the
+    routing runs on the whole input, the same on every rank, and the
+    block reads the tokens and the routing weights through ``tp_in`` (so
+    the router's and the input's gradients are whole on every rank), its
+    output summed by ``tp_out``, both on ``train_algo``.  (An
+    ``ep_axis`` exchange wants each rank's own tokens; the model axis
+    holds the same tokens on every rank, where it would count each
+    expert's gradient once per rank.)  ``blocks`` is its control on the
+    whole parameters: the ``blocks`` expert blocks computed apart, each
+    reading the tokens and the weights through ``layers.fan``, their
+    outputs added by ``layers.tree_sum``."""
     B, T, d = x.shape
     N = B * T
     E, k = cfg.num_experts, cfg.top_k
-    cdt = x.dtype
     G = groups if groups is not None else 1
     if N % G:
         G = 1
@@ -208,68 +220,124 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, *,
     weights, experts, aux = _route(cfg, xf @ params["router"])
     dest, keep = dispatch_plan(experts, E, G, cap)
     _tap(keep)
+    if tp_axis is not None:
+        if train_algo is not None:
+            xf = tp_in(xf, tp_axis, train_algo)
+            weights = tp_in(weights, tp_axis, train_algo)
+        out = _expert_partial(params, cfg, xf, weights, dest, keep, e0, G,
+                              cap)
+        return tp_out(out, tp_axis, train_algo or "psum").reshape(B, T, d), \
+            aux
+    if blocks is not None:
+        El = E // blocks
+        out = tree_sum([
+            _expert_partial(_block_params(params, i, blocks), cfg, xb, wb,
+                            dest, keep, i * El, G, cap)
+            for i, (xb, wb) in enumerate(zip(fan(xf, blocks),
+                                             fan(weights, blocks)))])
+        return out.reshape(B, T, d), aux
 
-    # each token's row repeated k times, in (token, choice) order
+    if ep_axis is None:
+        out = _expert_partial(params, cfg, xf, weights, dest, keep, 0, G,
+                              cap)
+        return out.reshape(B, T, d), aux
+
+    El = E // ep
+    # dispatch: chunk s of the capacity buffer is the payload for ep rank s
+    # (its expert block; global expert order is rank-major)
+    b = all_to_all_grad(_dispatch(xf, dest, E, G, cap, k).reshape(
+        ep, El * cap, d), ep_axis, a2a_variant)
+    # row s: source rank s's tokens
+    out_b = _experts(params, b.reshape(ep, El, cap, d))
+    # combine: the reverse exchange returns each output to its token's
+    # rank, the (E, cap, d) buffer in global order again
+    out_flat = all_to_all_grad(out_b.reshape(ep, El * cap, d), ep_axis,
+                               a2a_variant).reshape(G, E * cap, d)
+    out = _combine(out_flat, weights, dest, keep, k)
+    if cfg.num_shared_experts:
+        out = out + mlp(params["shared"], xf, cfg.activation)
+    return out.reshape(B, T, d), aux
+
+
+def _block_params(params, i: int, blocks: int):
+    """Contiguous copies of expert block ``i`` of ``blocks`` (and of its
+    slice of the shared experts' ffn dim): what a rank of the train
+    layout holds, without the router."""
+    El = params["wi_gate"].shape[0] // blocks
+    out = {k: params[k].narrow(0, i * El, El).contiguous()
+           for k in ("wi_gate", "wi_up", "wo")}
+    if "shared" in params:
+        sh = params["shared"]
+        f = sh["wi_gate"].shape[-1] // blocks
+        out["shared"] = {
+            "wi_gate": sh["wi_gate"].narrow(-1, i * f, f).contiguous(),
+            "wi_up": sh["wi_up"].narrow(-1, i * f, f).contiguous(),
+            "wo": sh["wo"].narrow(-2, i * f, f).contiguous()}
+    return out
+
+
+def _dispatch(xf, dest, E: int, G: int, cap: int, k: int) -> torch.Tensor:
+    """The capacity buffer (G, E, cap, d): each token's row repeated k
+    times, in (token, choice) order, scattered to its slot by ``dest``; a
+    dropped choice lands in the spill row, cut off."""
+    N, d = xf.shape
+    ng = N // G
     src = xf.reshape(G, ng, 1, d).expand(G, ng, k, d).reshape(G, ng * k, d)
-    buf = torch.zeros((G, E * cap + 1, d), dtype=cdt, device=x.device)
+    buf = torch.zeros((G, E * cap + 1, d), dtype=xf.dtype, device=xf.device)
     buf = buf.scatter(1, dest[..., None].expand(G, ng * k, d), src)
-    buf = buf[:, :E * cap].reshape(G, E, cap, d)
+    return buf[:, :E * cap].reshape(G, E, cap, d)
 
-    if ep_axis is not None:
-        El = E // ep
-        # dispatch: chunk s of the capacity buffer is the payload for ep
-        # rank s (its expert block; global expert order is rank-major)
-        b = all_to_all_grad(buf.reshape(ep, El * cap, d), ep_axis,
-                            a2a_variant)
-        b = b.reshape(ep, El, cap, d)        # row s: source rank s's tokens
-        h_gate = F.silu(torch.einsum("secd,edf->secf", b,
-                                     params["wi_gate"]))
-        h_up = torch.einsum("secd,edf->secf", b, params["wi_up"])
-        h_mid = (h_gate * h_up).to(cdt)
-        out_b = torch.einsum("secf,efd->secd", h_mid, params["wo"])
-        # combine: the reverse exchange returns each output to its token's
-        # rank, the (E, cap, d) buffer in global order again
-        out_flat = all_to_all_grad(out_b.reshape(ep, El * cap, d), ep_axis,
-                                   a2a_variant).reshape(G, E * cap, d)
-    elif tp_axis is not None:
-        El = params["wi_gate"].shape[0]
-        b = buf[:, e0:e0 + El]
-        h_gate = F.silu(torch.einsum("gecd,edf->gecf", b,
-                                     params["wi_gate"]))
-        h_up = torch.einsum("gecd,edf->gecf", b, params["wi_up"])
-        h_mid = (h_gate * h_up).to(cdt)
-        out_b = torch.einsum("gecf,efd->gecd", h_mid, params["wo"])
-        # the other ranks' experts' rows are zeros here
-        out_buf = torch.zeros((G, E, cap, d), dtype=out_b.dtype,
-                              device=x.device)
-        out_buf[:, e0:e0 + El] = out_b
-        out_flat = out_buf.reshape(G, E * cap, d)
-    else:
-        h_gate = F.silu(torch.einsum("gecd,edf->gecf", buf,
-                                     params["wi_gate"]))
-        h_up = torch.einsum("gecd,edf->gecf", buf, params["wi_up"])
-        h_mid = (h_gate * h_up).to(cdt)
-        out_buf = torch.einsum("gecf,efd->gecd", h_mid, params["wo"])
-        out_flat = out_buf.reshape(G, E * cap, d)
 
-    idx = torch.clamp_max(dest, E * cap - 1)
-    gathered = torch.gather(out_flat, 1, idx[..., None].expand(G, ng * k, d))
+def _experts(params, b: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its rows of the capacity buffer ``b``
+    (G, E_block, cap, d), in ``b``'s dtype."""
+    h_gate = F.silu(torch.einsum("gecd,edf->gecf", b, params["wi_gate"]))
+    h_up = torch.einsum("gecd,edf->gecf", b, params["wi_up"])
+    return torch.einsum("gecf,efd->gecd", (h_gate * h_up).to(b.dtype),
+                        params["wo"])
+
+
+def _combine(out_flat, weights, dest, keep, k: int) -> torch.Tensor:
+    """(N, d): each token's kept choices gathered from the expert outputs
+    ``out_flat`` (G, E·cap, d) and summed by their routing ``weights``
+    (N, k), in ``out_flat``'s dtype."""
+    G, _, d = out_flat.shape
+    n = dest.shape[1]
+    idx = torch.clamp_max(dest, out_flat.shape[1] - 1)
+    gathered = torch.gather(out_flat, 1, idx[..., None].expand(G, n, d))
     gathered = torch.where(keep[..., None], gathered,
                            torch.zeros((), dtype=gathered.dtype,
-                                       device=x.device))
-    wg = weights.reshape(G, ng * k)
-    contrib = (gathered * wg[..., None].to(gathered.dtype)).reshape(
-        G, ng, k, d)
+                                       device=out_flat.device))
+    contrib = (gathered * weights.reshape(G, n)[..., None].to(
+        gathered.dtype)).reshape(G, n // k, k, d)
     out = contrib[:, :, 0]
     for j in range(1, k):
         out = out + contrib[:, :, j]
-    out = out.to(cdt).reshape(N, d)
+    return out.to(out_flat.dtype).reshape(G * (n // k), d)
 
+
+def _expert_partial(params, cfg: ModelConfig, xf, weights, dest, keep,
+                    e0: int, G: int, cap: int) -> torch.Tensor:
+    """One block of experts' share of the MoE output, (N, d): ``params``
+    the block's ``E_block`` experts from expert ``e0`` on (and its slice
+    of the shared experts' ffn dim), ``xf`` (N, d) the tokens, ``weights``
+    (N, k) their routing weights, ``dest`` / ``keep`` the dispatch plan;
+    a choice of another block's expert adds an exact zero.  With every
+    expert (``e0`` = 0, ``E_block`` = E) it is the whole MoE FFN."""
+    N, d = xf.shape
+    E, k = cfg.num_experts, cfg.top_k
+    El = params["wi_gate"].shape[0]
+    out_b = _experts(params, _dispatch(xf, dest, E, G, cap, k)[
+        :, e0:e0 + El])
+    if El != E:
+        out_buf = torch.zeros((G, E, cap, d), dtype=out_b.dtype,
+                              device=xf.device)
+        out_buf[:, e0:e0 + El] = out_b
+        out_b = out_buf
+    out = _combine(out_b.reshape(G, E * cap, d), weights, dest, keep, k)
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], xf, cfg.activation)
-    if tp_axis is not None:
-        out = tp_out(out, tp_axis)
-    return out.reshape(B, T, d), aux
+    return out
 
 
 def _expert_block(params, E: int, tp_axis) -> int:

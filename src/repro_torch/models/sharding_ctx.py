@@ -31,7 +31,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
-_CTX = {"tp_axis": None, "ep_axis": None, "serve": None}
+_CTX = {"tp_axis": None, "ep_axis": None, "serve": None, "train": None,
+        "blocked": None}
 
 
 @contextlib.contextmanager
@@ -90,6 +91,75 @@ def serve_region(group: Optional[dist.ProcessGroup],
 def serve_axes() -> Optional[ServeAxes]:
     """The active serve layout, or None."""
     return _CTX["serve"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainAxes:
+    """The train layout's model axis ``tp`` (a process group) and the
+    all-reduce ``algo`` of its sums (``collectives.api.ALGOS``; ``tree``
+    sums every element in one order that a control can repeat).  A packed
+    lossy DP edge under it needs the leaves' sharing classes
+    (``SyncConfig.classes``, from ``convert.train_classes``)."""
+    tp: dist.ProcessGroup
+    algo: str = "psum"
+
+
+def train_region(group: Optional[dist.ProcessGroup], algo: str = "psum"):
+    """Run the enclosed training steps under the train layout over
+    ``group`` (None: every rank holds the whole model)."""
+    return _region("train", None if group is None else TrainAxes(group, algo))
+
+
+def train_axes() -> Optional[TrainAxes]:
+    """The active train layout, or None."""
+    return _CTX["train"]
+
+
+def blocked_region(tp: Optional[int]):
+    """Run the enclosed training steps as the train layout's control: the
+    whole parameters in one process, every split piece computed in the
+    blocks of ``tp`` ranks and summed apart (None: off)."""
+    return _region("blocked", tp)
+
+
+def blocked_tp() -> Optional[int]:
+    """The active control's tp, or None."""
+    return _CTX["blocked"]
+
+
+def train_layout_supported(cfg) -> bool:
+    """Whether the train layout covers ``cfg``: decoder-only stacks of
+    grouped-query attention (the MLA, Mamba, xLSTM and encoder-decoder
+    families train under it in a later slice, ROADMAP item 16)."""
+    return not cfg.is_encoder_decoder and all(
+        cfg.layer_spec(i).mixer == "attn" for i in range(cfg.num_layers))
+
+
+def check_train_layout(cfg) -> None:
+    """Raise unless the train layout covers ``cfg``."""
+    if not train_layout_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the train layout over the model axis covers the "
+            f"grouped-query families only (MLA, Mamba, xLSTM and the "
+            f"encoder-decoder: ROADMAP item 16's remainder)")
+
+
+@contextlib.contextmanager
+def regions_of(snapshot: dict):
+    """Re-enter the regions of ``snapshot`` (a :func:`snapshot`): a
+    checkpointed block's recomputation runs in the forward's regions,
+    whatever the backward runs in."""
+    old = dict(_CTX)
+    _CTX.update(snapshot)
+    try:
+        yield
+    finally:
+        _CTX.update(old)
+
+
+def snapshot() -> dict:
+    """The active regions, for :func:`regions_of`."""
+    return dict(_CTX)
 
 
 # cache leaves by name (reference ``model.py:247-277``)

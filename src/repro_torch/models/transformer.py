@@ -27,9 +27,15 @@ the parameters (``convert.serve_slice``) for every mixer: head-parallel
 attention (``attention.head_layout``) and MLA (its latents split by
 length), Mamba and the xLSTM blocks over ``inner`` (``ssm``, ``xlstm``),
 the dense FFNs' ffn slice (``mlp_tp``) and the experts' block
-(``moe_ffn`` / ``moe_decode_ffn`` with ``tp_axis``).  The decode stack
-writes into the cache it is given when ``inplace`` (the reference's
-donated cache).
+(``moe_ffn`` / ``moe_decode_ffn`` with ``tp_axis``).  Under
+``sharding_ctx.train_region(group)`` the training blocks of a
+grouped-query family run the reference's train layout over ``group``:
+head-parallel attention with its backward (``attention._attn_train_tp``),
+the dense FFNs on ``mlp_tp`` and the experts in blocks
+(``moe_ffn(tp_axis=, train_algo=)``), with the replica edge over the
+attention leaves that ranks share; ``blocked_region`` runs its control.
+The decode stack writes into the cache it is given when ``inplace`` (the
+reference's donated cache).
 """
 from __future__ import annotations
 
@@ -46,10 +52,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (TensorSpec, mlp, mlp_desc, mlp_tp,
-                                       norm_desc, rmsnorm, stack_desc)
-from repro_torch.models.sharding_ctx import (ep_axis, ep_region,
-                                             serve_axes, tp_axis, tp_region)
+from repro_torch.models.layers import (TensorSpec, mlp, mlp_blocked,
+                                       mlp_desc, mlp_tp, norm_desc, rmsnorm,
+                                       stack_desc)
+from repro_torch.models.sharding_ctx import (blocked_tp, ep_axis,
+                                             regions_of, serve_axes,
+                                             snapshot, tp_axis, train_axes)
 
 XLSTM_MIXERS = ("mlstm", "slstm")
 _MIXER_DESC = {"attn": attn.attn_desc, "mla": attn.mla_desc,
@@ -91,20 +99,35 @@ def _serve_tp():
 
 
 def _ffn(params, cfg: ModelConfig, spec: LayerSpec, x, tp=None, ep=None,
-         serve=None):
+         serve=None, train=None, blocked=None):
     """x + FFN(norm2(x)) and the MoE aux loss (an f32 zero for a dense
     FFN).  ``tp`` (a process group): the dense FFN is tensor-parallel,
     ``params`` hold this rank's ffn slice and the Megatron wire
     (``mlp_tp``) reduces the activations over ``tp``.  ``ep`` (a process
     group): the MoE FFN is expert-parallel over it, ``params`` hold this
     rank's block of the experts.  ``serve`` (the serve region's group):
-    both, the MoE FFN on its expert block with one all-reduce."""
+    both, the MoE FFN on its expert block with one all-reduce.  ``train``
+    (the train region's ``TrainAxes``): both, on its algo, the MoE FFN's
+    inputs through ``tp_in``; ``blocked`` (the control's tp): the same
+    blocks in one process (``mlp_blocked``, ``moe_ffn(blocks=)``)."""
     aux = _zero(x)
     if spec.ffn == "none":
         return x, aux
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
     tp = serve if serve is not None else tp
-    if spec.ffn == "moe":
+    if train is not None:
+        if spec.ffn == "moe":
+            h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h, tp_axis=train.tp,
+                                     train_algo=train.algo)
+        else:
+            h = mlp_tp(params["ffn"], h, cfg.activation, group=train.tp,
+                       algo=train.algo)
+    elif blocked is not None:
+        if spec.ffn == "moe":
+            h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h, blocks=blocked)
+        else:
+            h = mlp_blocked(params["ffn"], h, cfg.activation, blocks=blocked)
+    elif spec.ffn == "moe":
         h, aux = moe_mod.moe_ffn(params["ffn"], cfg, h, ep_axis=ep,
                                  tp_axis=serve)
     elif tp is not None:
@@ -136,9 +159,11 @@ def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     else:
         h = ssm_mod.mamba_forward(params["mixer"], cfg, h)
     # under an active tp region the dense FFN runs the Megatron wire, under
-    # an ep region the MoE FFN exchanges its tokens over the ep group
+    # an ep region the MoE FFN exchanges its tokens over the ep group;
+    # under the train region (or its control) both run on the model axis
     return _ffn(params, cfg, spec, x + h, tp=tp_axis(), ep=ep_axis(),
-                serve=_serve_tp() if kernel else None)
+                serve=_serve_tp() if kernel else None,
+                train=train_axes(), blocked=blocked_tp())
 
 
 def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
@@ -234,13 +259,13 @@ def block_decode(params, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
 def checkpointed(fn, *args):
     """``torch.utils.checkpoint`` of ``fn(*args)``, whose recomputation in
     the backward leaves the MoE drop tap alone: each routed choice is
-    counted once per forward.  The recomputation runs in the tp and ep
-    regions of the forward (the backward may run outside them)."""
+    counted once per forward.  The recomputation runs in the regions of
+    the forward (the backward may run outside them)."""
     ran = [False]
-    group, experts = tp_axis(), ep_axis()
+    regions = snapshot()
 
     def once(*a):
-        with tp_region(group), ep_region(experts):
+        with regions_of(regions):
             if ran[0]:
                 with moe_mod.drop_tap_paused():
                     return fn(*a)
@@ -289,9 +314,17 @@ def stack_train(params_segs, cfg: ModelConfig, plan, x, positions,
     """Full-sequence stack (training).  Returns (x, aux).  ``remat=True``
     checkpoints each block: the backward stores one input per layer and
     recomputes the block, like the reference's per-period
-    ``jax.checkpoint``."""
+    ``jax.checkpoint``.  Under the train region each segment's attention
+    leaves that ranks share are wrapped in the replica edge before the
+    segment is split into its layers, so each such stacked leaf is summed
+    once a step."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    ta = train_axes()
     for seg, seg_params in zip(plan, params_segs):
+        if ta is not None:
+            # the replica edge on each stacked leaf, once a step
+            seg_params = [dict(p, mixer=attn.attn_replica_edge(
+                p["mixer"], cfg, ta)) for p in seg_params]
         periods = ([seg_params] if seg.repeats == 1
                    else _unstack(seg_params, seg.repeats))
         for period in periods:

@@ -6,11 +6,12 @@ rank of the ``16x16`` mesh traced on CPU fake tensors.
     subprocess, records written to ``tmp_path``: the reference's record
     keys and ``hlo`` sub-keys, the ``layout`` block (tp = ep = 16 and 16
     rows at train; at serve the batch split over data and the serve
-    layout over the model axis, tp = 16), ``argument_size_in_bytes``
+    layout over the model axis, tp = 16; at train the train layout over
+    it, which cuts the same dims), ``argument_size_in_bytes``
     equal to the reckoning from the shapes (the rank's bf16 parameters —
-    the dense FFNs a sixteenth at train; at serve the vocabulary, the ffn
-    dims and the experts a sixteenth, the query heads and the kv heads
-    they read a head block — Adam's two f32 moments at train, the rank's
+    the vocabulary, the ffn dims and the experts a sixteenth, the query
+    heads and the kv heads they read a head block — Adam's two f32
+    moments at train, the rank's
     sixteenth of the decode cache and the tokens), the donated decode
     cache as the alias, and the subprocess's host memory: its peak RSS
     at most ``HOST_MB`` above its RSS after the imports.  Train runs with
@@ -93,10 +94,9 @@ def _reckoned_args(arch: str, shape: str) -> int:
     cfg, sh = get_config(arch), SHAPES[shape]
     P = count_params(cfg)
     if sh.phase == "train":
-        dense = sum(3 * cfg.d_model * cfg.d_ff
-                    for i in range(cfg.num_layers)
-                    if cfg.layer_spec(i).ffn == "dense")
-        rank = P - dense + dense // 16
+        # the train layout over the model axis cuts the serve layout's dims
+        rank = _serve_rank_params(cfg, 16)
+        assert rank < P
         return rank * (2 + 4 + 4) + (sh.global_batch // 16) * sh.seq_len * 4
     b = sh.global_batch // 16
     rank = _serve_rank_params(cfg, 16)
@@ -169,7 +169,14 @@ def test_full_width_records(run, arch, shape):
     if rec["phase"] == "train":
         assert (lay["tp"], lay["ep"], lay["batch_per_rank"]) == (16, 1, 16)
         assert lay["microbatches"] == 1
-        assert set(lay["unsharded"]) == {"embeddings", "attention"}
+        # the train layout over the model axis: attention in 8 head blocks
+        # of 2 ranks, the vocabulary in 16 blocks; only the norms whole
+        assert lay["train_layout"] == "model axis"
+        assert lay["unsharded"] == ["norms"]
+        assert (lay["attn_tp"], lay["ranks_per_head_block"],
+                lay["ranks_per_kv_head"]) == (8, 2, 16)
+        assert lay["vocab_rows_per_rank"] == 256000 // 16
+        assert lay["replica_edge"] == ["wk", "wo", "wq", "wv"]
         # the Megatron wire on the model axis, the dense DP edge on data;
         # the in-place update is the port's donation
         by_axis = rec["hlo"]["collective_wire_bytes_by_axis"]

@@ -73,20 +73,77 @@ def test_zero1_and_comm_variants(one_layer):
     assert base["hlo"]["kernel_calls"] == {}
 
 
-def test_expert_parallel_train_rank(one_layer):
-    """qwen3-moe's rank at train: the experts split ep = 16 over the model
-    axis (``sharding_ctx.ep_region``): per layer the dispatch and the
-    combine all-to-all in the forward, again in the checkpoint's
-    recomputation, and their transposes in the backward."""
-    rec = dryrun.trace_pair("qwen3-moe-30b-a3b", "train_4k", microbatches=1)
+@pytest.fixture
+def two_layers(monkeypatch):
+    orig = dryrun.get_config
+    monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
+        orig(a), num_layers=2))
+
+
+def test_expert_parallel_train_rank(two_layers):
+    """deepseek-v2-lite's rank at train, a family the train layout does
+    not cover yet (ROADMAP item 16's remainder): the experts split ep =
+    16 over the model axis (``sharding_ctx.ep_region``), layer 1 the one
+    MoE layer (layer 0 dense): the dispatch and the combine all-to-all in
+    the forward, again in the checkpoint's recomputation, and their
+    transposes in the backward."""
+    rec = dryrun.trace_pair("deepseek-v2-lite-16b", "train_4k",
+                            microbatches=1)
     lay = rec["layout"]
-    assert (lay["tp"], lay["ep"]) == (1, 16)       # every FFN is MoE
+    assert lay["ep"] == 16
+    assert "train_layout" in lay
     assert "experts" not in lay["unsharded"]
     assert "routers" not in lay["unsharded"]
     counts = rec["hlo"]["collective_counts"]
     assert counts["all-to-all"] == 6
+    assert rec["hlo"]["collective_counts_by_axis"]["model"][
+        "all-to-all"] == 6
     assert set(rec["hlo"]["collective_wire_bytes_by_axis"]) == \
         {"model", "data"}
+
+
+def test_expert_parallel_train_rank_under_train_layout(one_layer):
+    """qwen3-moe's rank at train, under the train layout over the model
+    axis (``sharding_ctx.train_region``): the heads over tp = 16 and the
+    experts in blocks of 8 over the same axis, every token routed on every
+    rank (the model axis holds the same tokens), so no all-to-all: the
+    expert block's sum and its inputs' sums are all-reduces on the model
+    axis; the router and the QK-norm scales whole."""
+    rec = dryrun.trace_pair("qwen3-moe-30b-a3b", "train_4k", microbatches=1)
+    lay = rec["layout"]
+    assert (lay["tp"], lay["ep"]) == (16, 16)
+    assert "experts" not in lay["unsharded"]
+    assert lay["unsharded"] == ["norms", "routers", "q / k norms"]
+    counts = rec["hlo"]["collective_counts"]
+    assert "all-to-all" not in counts
+    assert set(rec["hlo"]["collective_wire_bytes_by_axis"]) == \
+        {"model", "data"}
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen3-moe-30b-a3b"])
+def test_train_layout_collectives_equal_the_reckoning(one_layer, arch):
+    """A fake trace of one train step of rank 0 under the train layout
+    (one layer, ``train_4k``, one micro-batch): its all-reduces on the
+    model axis, counted by the op analysis, are
+    ``dryrun.train_layout_collectives``' reckoning, in number and in wire
+    bytes (the reference's ``2·b·(p−1)/p`` each); the data axis carries
+    only the DP edge's, one a leaf and the loss's mean."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import SHAPES
+    from repro_torch.models.layers import ParamDesc
+    from repro_torch.models.model import Model
+    rec = dryrun.trace_pair(arch, "train_4k", microbatches=1)
+    cfg = dryrun.get_config(arch)
+    want = dryrun.train_layout_collectives(
+        cfg, rec["layout"]["batch_per_rank"], SHAPES["train_4k"].seq_len,
+        16)
+    by_axis = rec["hlo"]["collective_counts_by_axis"]
+    assert by_axis["model"] == {"all-reduce": len(want)}
+    assert rec["hlo"]["collective_wire_bytes_by_axis"]["model"] == \
+        sum(2 * b * 15 / 16 for _, b in want)
+    leaves = len(tree_leaves(Model(cfg).param_desc(),
+                             is_leaf=lambda x: isinstance(x, ParamDesc)))
+    assert by_axis["data"] == {"all-reduce": leaves + 1}
 
 
 def test_chunkwise_variant(one_layer):
@@ -135,10 +192,11 @@ def test_multi_pod_mesh(one_layer):
 
 
 def test_cli_refusal_is_listed_as_fail(tmp_path, monkeypatch, capsys):
-    """An FFN of 1000 splits over 16 ranks neither at train (tp = 16) nor
-    under the serve layout: both of gemma-2b's pairs are the port's
-    refusals, listed beside xlstm-125m's decode (under the serve layout
-    over ``inner`` at tp = 16), which passes and is then skipped."""
+    """An FFN of 1000 splits over 16 ranks neither under the train layout
+    nor under the serve layout (both cut by ``convert``'s one model-axis
+    cut): both of gemma-2b's pairs are the port's refusals, listed beside
+    xlstm-125m's decode (under the serve layout over ``inner`` at tp =
+    16), which passes and is then skipped."""
     orig = dryrun.get_config
     monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
         orig(a), num_layers=1, d_ff=1000))
@@ -149,8 +207,8 @@ def test_cli_refusal_is_listed_as_fail(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="^2 dry-run failures$"):
         dryrun.main(["--all", "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert (f"[FAIL] {GEMMA} train_4k 16x16: ValueError: dim -1 of shape "
-            f"(2048, 1000) does not split over 16 ranks") in out
+    assert (f"[FAIL] {GEMMA} train_4k 16x16: ValueError: ffn dim of "
+            f"(2048, 1000) does not split over tp=16") in out
     assert (f"[FAIL] {GEMMA} decode_32k 16x16: ValueError: ffn dim of "
             f"(2048, 1000) does not split over tp=16") in out
     assert f"[ok] {XLSTM} decode_32k 16x16" in out
