@@ -202,8 +202,8 @@ Phases (any failure exits non-zero and prints no result line):
      capacity factor 0.5, phase 4's prefill + decode check, MLA's naive
      and absorbed decodes within phase 4's tolerance); then (a)
      deepseek-v2-lite-16b (64 routed experts top-6 and 2 shared, 15.65 B
-     parameters; 14 of its 27 MLA layers) and (b) qwen3-moe-30b-a3b (128
-     experts top-8, 30.53 B parameters; 24 of its 48 layers), cut in
+     parameters; 8 of its 27 MLA layers) and (b) qwen3-moe-30b-a3b (128
+     experts top-8, 30.53 B parameters; 12 of its 48 layers), cut in
      depth for the call's time, served at full width with phase
      5's traffic, bf16 from seed 0, int8 paged KV, the peak within a
      reckoning printed before each run (weights, pool, the largest
@@ -250,8 +250,7 @@ Phases (any failure exits non-zero and prints no result line):
      bit-equal at every bucket length of (e), timed at the largest;
  16. tensor and expert parallelism, calibration and drift re-planning,
      each reckoning printed before its run: (a) gemma-2b at full width
-     (18 layers unless two ranks at phase 8's bytes a parameter pass 70
-     GiB) trained with tp = 2 on two spawned gloo ranks on the one card,
+     (4 of its 18 layers since PR 32, for the call's time) trained with tp = 2 on two spawned gloo ranks on the one card,
      each holding its half of every FFN (``convert.tp_slice``) under
      ``tp_region``, Adam, int8_fused on the rank's one-rank data group,
      batch 4 x seq 512, 3 steps: both ranks' losses bit-equal; against
@@ -287,8 +286,18 @@ Phases (any failure exits non-zero and prints no result line):
      (qwen3-moe-30b-a3b), reduced, on the gloo world of 4: ``final
      loss`` with the spec in ``describe()``; every CLI run launches the
      wire kernels its arm's plan names (each arm's rounds apart where a
-     re-plan installs another).  ``python3 chip_smoke.py
-     --phase 16`` runs the build and this phase alone;
+     re-plan installs another); (e) gemma-2b as (a) under the train
+     layout over the model axis (``train_region``): first gradients
+     bit-equal to its ``blocked_region(2)`` control, the shared leaves
+     bit-equal, the staged bytes the dry run's reckoning; (f) the same
+     for deepseek-v2-lite-16b (2 layers), jamba (2 Mamba layers, one
+     MoE, seq 64), xlstm-125m (4 layers, f32, seq 32) and seamless (2 +
+     2 layers) at full width, each whole model's control and plain run
+     on rank 0 after the ranks free the card: the control within 1e-3
+     of the plain run in f32, and in bf16 the gradients, moments and
+     losses within (a)'s limits plus the plain bf16 run's own distance
+     from f32.  ``python3 chip_smoke.py --phase 16`` runs the build and
+     this phase alone;
  17. the elastic runtime: (a) ``repro_torch.launch.train`` at phase 8's
      full width (gemma-2b cut to 2 of its 18 layers, the call's time
      budget; Adam, batch 4 x seq 512, NCCL world
@@ -432,6 +441,8 @@ last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JA
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -4127,11 +4138,13 @@ def phase_pipe(torch, ops, ref, train, card, replicated_params) -> dict:
 # ---------------------------------------------------------------------------
 
 MOE_SERVE_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b")
-# (a) and (b) serve at about half depth, for the call's time: their ticks
-# and admissions are host-bound and scale with the layers, and every block
-# kind (MLA's dense first layer, the MoE layers) stays on the path
-MOE_SERVE_CUT = {"deepseek-v2-lite-16b": {"num_layers": 14},
-                 "qwen3-moe-30b-a3b": {"num_layers": 24}}
+# (a) and (b) serve at about a quarter of their depth (half until PR 32,
+# whose phase 16 (f) took the time), for the call's time: their ticks and
+# admissions are host-bound and scale with the layers, and every block
+# kind (MLA's dense first layer, the MoE layers) and each segment's
+# stacked leaves stay on the path
+MOE_SERVE_CUT = {"deepseek-v2-lite-16b": {"num_layers": 8},
+                 "qwen3-moe-30b-a3b": {"num_layers": 12}}
 # what a serving run's peak may hold above its reckoning (weights, pool and
 # the largest transient): a prefill's and a tick's activations and logits
 SERVE_ROOM = 2**30
@@ -5271,6 +5284,10 @@ TP_SESSION = dict(arch="gemma-2b", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
 # parameters (Adam, int8_fused, batch 4 x 512, on an H100 80GB HBM3 at 700 W)
 TP_BYTES_PER_PARAM = 46.08 * 2**30 / 2_506_172_416
 TP_BUDGET = 70 * 2**30        # both ranks, with the other children's room
+# (a) and (e) at 4 of gemma-2b's 18 layers since PR 32, for the call's
+# time: (f) costs ~70 s, and at 18 layers (a) and (e) with their unsharded
+# run (its 20 GB of saved references) cost ~60 s of phase 16's 193 s
+TP_LAYERS = 4
 # (a) against the unsharded run, bf16: the tp ranks sum two partial
 # products where the unsharded run sums one matmul.  The backward shows
 # in the first step's gradients (taken before the DP edge) and in Adam's
@@ -5317,6 +5334,33 @@ CALIBRATION_KEYS = {"version", "world", "tiers"}
 # equal its bit for bit (TP_BLOCKED_RTOL), and its own gap from the plain
 # run lies within TP_GRAD_RTOL.  Moments and losses against the plain run
 # as (a)'s.
+# (f) the train layout for the remaining families (MLA, Mamba, xLSTM, the
+# encoder-decoder) on the same two ranks: each at full width, its depth
+# cut so that the two ranks, and after them (the ranks' memory freed) the
+# whole model's control and plain run in rank 0's process, fit the card:
+# arch -> (overrides, dtype, sequence length).  deepseek-v2-lite-16b: the
+# dense layer and one MoE layer (64 experts, 2 shared); jamba: two Mamba
+# layers, the second with one MoE FFN (2.82 B parameters; its Adam moments
+# and EF residual alone 45 GB in the whole-model run); xlstm-125m: three
+# mLSTMs and the sLSTM at phase 15 (e)'s length, in f32 (bf16 xLSTM lies
+# 0.12-0.14 from its own f32 twin, PERF.md §6, PR 30); seamless: two
+# encoder and two decoder layers on f32 frames, as the session feeds them.
+P16F = {"deepseek-v2-lite-16b": (dict(num_layers=2), "bfloat16", TRAIN_SEQ),
+        "jamba-v0.1-52b": (dict(num_layers=2), "bfloat16", 64),
+        "xlstm-125m": (dict(num_layers=4), "float32", 32),
+        "seamless-m4t-large-v2": (dict(num_layers=2, num_encoder_layers=2),
+                                  "bfloat16", TRAIN_SEQ)}
+P16F_SEED = 32
+P16F_LR = 1e-4
+# the moments are compared on every P16F_STRIDE-th element of a leaf of
+# more than P16F_WHOLE elements (whole below): jamba's 7.5 GB a rank would
+# otherwise cross from the card to the host and between the ranks
+P16F_STRIDE, P16F_WHOLE = 16, 2**22
+# xlstm-125m's control against its plain run in f32: the ranks' sums
+# reassociated in f32, amplified by the recurrences (phase 19 (g)'s f32
+# logits lay 1-2e-5 apart); its moments keep TP_MOMENT_RTOL, since the
+# int8_fused edge tiles the ranks' buckets otherwise than the whole run's
+TP_F32_GRAD_RTOL = 1e-3
 
 
 def tp_reckoning(layers: int) -> dict:
@@ -5368,7 +5412,416 @@ def train_tp_reckoning(layers: int) -> dict:
     return {"layers": layers, "params_per_rank": per_rank,
             "peak_per_rank": per_rank * TP_BYTES_PER_PARAM,
             "all_reduces_per_step": len(wire),
-            "tp_staged_per_step": 2 * sum(b for _, b in wire)}
+            "tp_staged_per_step": tp_staged(wire)}
+
+
+def tp_staged(wire) -> int:
+    """The staged bytes of ``wire`` (``dryrun.train_layout_collectives``)
+    on a gloo group of TP card ranks: an all-reduce's operand copied to
+    the host and back, an all-gather's out and the TP blocks back."""
+    return sum(2 * b if kind == "all-reduce" else (1 + TP) * b
+               for _, kind, b in wire)
+
+
+def p16f_config(arch: str):
+    """(f)'s configuration of ``arch``: full width, P16F's depth and
+    dtype."""
+    from repro_torch.configs import get_config
+    over, dtype, _ = P16F[arch]
+    return dataclasses.replace(get_config(arch), param_dtype=dtype,
+                               compute_dtype=dtype, **over)
+
+
+def p16f_reckoning(arch: str) -> dict:
+    """(f)'s rank at tp = 2: its parameters (``convert.train_slice`` of the
+    descriptors), the whole model's, the bytes of its training state (the
+    parameter and its gradient in the run's dtype, Adam's two f32 moments,
+    the int8_fused EF residual in f32), and the staged bytes of one step's
+    model-axis wire (``dryrun.train_layout_collectives`` through
+    ``tp_staged``)."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.convert import train_slice
+    from repro_torch.launch.dryrun import train_layout_collectives
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.layers import ParamDesc, TensorSpec
+    import torch
+    cfg = p16f_config(arch)
+    specs = tree_map(lambda d: TensorSpec(d.shape, torch.float32),
+                     Model(cfg).param_desc(),
+                     is_leaf=lambda x: isinstance(x, ParamDesc))
+    per_rank = sum(math.prod(t.shape) for t in tree_leaves(
+        train_slice(specs, cfg, 0, TP),
+        is_leaf=lambda x: isinstance(x, TensorSpec)))
+    wire = train_layout_collectives(cfg, TRAIN_BATCH, P16F[arch][2], TP,
+                                    src_dtype=torch.float32)
+    kinds = collections.Counter(kind for _, kind, _ in wire)
+    item = {"bfloat16": 2, "float32": 4}[cfg.param_dtype]
+    return {"params_per_rank": per_rank, "params_total": count_params(cfg),
+            "state_bytes_per_param": 2 * item + 8 + 4,
+            "peak_per_rank": per_rank * (2 * item + 12),
+            "collectives_per_step": dict(kinds),
+            "tp_staged_per_step": tp_staged(wire)}
+
+
+def p16f_batches(torch, cfg, seq: int, dev) -> list:
+    """(f)'s TRAIN_STEPS batches of TRAIN_BATCH x ``seq`` tokens drawn
+    from P16F_SEED on ``dev`` (the encoder-decoder's frames f32 normals,
+    as the session's data feeds them)."""
+    gen = torch.Generator(dev).manual_seed(P16F_SEED)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        b = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, seq),
+                                     generator=gen, device=dev)}
+        if cfg.is_encoder_decoder:
+            b["src"] = torch.randn((TRAIN_BATCH, seq, cfg.d_model),
+                                   generator=gen, device=dev)
+        out.append(b)
+    return out
+
+
+def moment_sample(t):
+    """The elements of a moment leaf that (f) compares, flat."""
+    flat = t.detach().reshape(-1)
+    return flat if flat.numel() <= P16F_WHOLE else flat[::P16F_STRIDE]
+
+
+def p16f_run(torch, model, params, batches, wire, data_group, region):
+    """3 Adam steps of ``make_comm_optimized_train_step`` with ``wire``
+    on ``data_group`` under ``region()``: (losses, step ms, staged bytes a
+    step, the synchronizer, the optimizer state)."""
+    from repro_torch.core.collectives import p2p
+    from repro_torch.launch.steps import make_comm_optimized_train_step
+    from repro_torch.optim import make_optimizer
+    opt = make_optimizer("adam", lr=P16F_LR)
+    step, sync, init_sync = make_comm_optimized_train_step(
+        model, opt, wire, data_group)
+    state, sync_state = opt.init(params), init_sync(params)
+    losses, times, staged = [], [], []
+    for s in range(TRAIN_STEPS):
+        before = p2p.staged_bytes()
+        t0 = time.perf_counter()
+        with region():
+            loss = step(params, state, sync_state, batches[s], s)[3]
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        staged.append(p2p.staged_bytes() - before)
+    return losses, times, staged, sync, state
+
+
+def p16f_rank(torch, rank: int, tp_group, data_group, arch: str) -> tuple:
+    """(f), one of the two tp ranks, one family: ``arch`` at P16F's depth
+    under the train layout (``train_region`` on the gloo group of the two
+    ranks), the rank's share of the weights (``convert.train_init``, the
+    whole model's draw from P16F_SEED), its first gradients (digests, for
+    the control's and for the leaves both ranks hold), then 3 Adam steps
+    of int8_fused on the rank's one-rank data group (NCCL: the DP edge
+    stages nothing, (e) holds the staged one) with the leaves' sharing
+    classes (``convert.train_classes``).  Gates: quantize_ef and
+    dequant_accum once per bucket and step (warp route), every step's
+    staged bytes = the train layout's wire (``p16f_reckoning``).  Returns
+    (the results, the compared elements of Adam's first moment on the
+    host, flat by path: ``moment_sample``)."""
+    import functools
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.convert import train_classes, train_init
+    from repro_torch.core import SyncConfig
+    from repro_torch.core.collectives import p2p
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.models.sharding_ctx import train_region
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = p16f_config(arch)
+    model = Model(cfg)
+    params = train_init(cfg, torch.Generator("cuda").manual_seed(P16F_SEED),
+                        rank, TP)
+    classes = train_classes(params, cfg, rank, TP)
+    batches = p16f_batches(torch, cfg, P16F[arch][2], "cuda")
+    region = functools.partial(train_region, tp_group)
+    with region():
+        _, g = loss_and_grads(model, params, batches[0])
+    g_digests = {k: digest(torch, v).tolist()
+                 for k, v in _flatten_with_paths(g).items()}
+    del g
+    p2p.reset_staged_bytes()
+    ops.reset_launch_counts()
+    losses, times, staged, sync, state = p16f_run(
+        torch, model, params, batches,
+        SyncConfig(compressor="int8_fused", classes=classes), data_group,
+        region)
+    launches = path_counts(ops)
+    n_buckets = sync.plan.n_buckets
+    w4_launch_gate(launches, {k: n_buckets * TRAIN_STEPS for k in INT8_WIRE},
+                   f"{arch} train layout rank")
+    rk = p16f_reckoning(arch)
+    w4_gate(all(x == rk["tp_staged_per_step"] for x in staged),
+            f"{arch}: staged bytes a step {staged}, expected the train "
+            f"layout's wire {rk['tp_staged_per_step']}")
+    w4_gate(all(map(math.isfinite, losses)), f"{arch}: losses {losses}")
+    m = {k: moment_sample(v).cpu() for k, v in
+         _flatten_with_paths(state["m"]).items()}
+    res = {"launches": launches, "n_buckets": n_buckets, "losses": losses,
+           "step_ms_all": times, "staged_per_step": staged,
+           "reckoning": rk, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "classes": list(classes), "g_digests": g_digests,
+           "p_digests": {k: digest(torch, v).tolist() for k, v in
+                         _flatten_with_paths(params).items()}}
+    del params, state, sync, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, m
+
+
+def p16f_share_specs(cfg, rank: int) -> dict:
+    """The compared elements of rank ``rank``'s f32 moment leaves
+    (``moment_sample``) as flat TensorSpecs, by path."""
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.convert import train_slice
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamDesc, TensorSpec
+    import torch
+    specs = tree_map(lambda d: TensorSpec(d.shape, torch.float32),
+                     Model(cfg).param_desc(),
+                     is_leaf=lambda x: isinstance(x, ParamDesc))
+    return {k: TensorSpec((n if n <= P16F_WHOLE else -(-n // P16F_STRIDE),),
+                          t.dtype)
+            for k, t in _flatten_with_paths(train_slice(
+                specs, cfg, rank, TP)).items()
+            for n in (math.prod(t.shape),)}
+
+
+def p16f_reference(torch, arch: str, m_shares: list, classes,
+                   data_group) -> dict:
+    """(f)'s other side, on rank 0 once both ranks freed the card: the
+    whole model of ``arch`` (the same draw).  Its first gradients, plain
+    and the control's (``blocked_region(TP)``), in the run's dtype: the
+    control's digests of each rank's share (the ranks' must equal them)
+    and each leaf's gap between the two.  For a bf16 run the same two in
+    f32 (the weights widened, exactly): their gap, and each leaf's and
+    the loss's distance of the plain bf16 run from the plain f32 run
+    (how far bf16 itself lies: ``p16f_report``'s allowance).  Then the
+    plain run's 3 Adam steps, int8_fused on ``data_group`` (a one-rank
+    group) planned with the ranks' sharing ``classes`` (so that the
+    leaves both ranks hold whole fill its int8 tiles as they fill the
+    ranks'), and each rank's share of its first moment against that
+    rank's (``m_shares``, both by ``moment_sample``).  Every gap is a
+    leaf's relative L2."""
+    import functools
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.convert import train_slice
+    from repro_torch.core import SyncConfig
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    from repro_torch.models.sharding_ctx import blocked_region
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = p16f_config(arch)
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(P16F_SEED))
+    batches = p16f_batches(torch, cfg, P16F[arch][2], "cuda")
+
+    def grads(m, p, region=contextlib.nullcontext, digests=False):
+        """(loss, the first gradients flat, the digests of each rank's
+        share of them where asked)."""
+        with region():
+            loss, g = loss_and_grads(m, p, batches[0])
+        shares = {r: {k: digest(torch, v).tolist() for k, v in
+                      _flatten_with_paths(train_slice(g, m.cfg, r,
+                                                      TP)).items()}
+                  for r in range(TP)} if digests else None
+        return float(loss), _flatten_with_paths(g), shares
+
+    def gaps(xs, want):
+        return {k: rel_l2(torch, xs[k].to("cuda"), v)
+                for k, v in want.items()}
+    control_region = functools.partial(blocked_region, TP)
+    loss, plain, _ = grads(model, params)
+    control, digests = grads(model, params, control_region, True)[1:]
+    res = {"control_digests": digests, "control_gap": gaps(control, plain)}
+    del control
+    if cfg.param_dtype == "bfloat16":
+        model32 = Model(dataclasses.replace(cfg, param_dtype="float32",
+                                            compute_dtype="float32"))
+        params32 = tree_map(lambda t: t.detach().float(), params)
+        loss32, plain32, _ = grads(model32, params32)
+        res["bf16_error"] = gaps(plain, plain32)
+        res["bf16_loss_error"] = abs(loss - loss32) / abs(loss32)
+        del plain
+        res["f32_control_gap"] = gaps(
+            grads(model32, params32, control_region)[1], plain32)
+        del params32, plain32
+    else:
+        res["f32_control_gap"] = res["control_gap"]
+        del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, times, _, _, state = p16f_run(
+        torch, model, params, batches,
+        SyncConfig(compressor="int8_fused", classes=classes), data_group,
+        contextlib.nullcontext)
+    res.update({"losses": losses, "step_ms_all": times,
+                "m_gap": [gaps(mine, {k: moment_sample(v) for k, v in
+                                      _flatten_with_paths(train_slice(
+                                          state["m"], cfg, r, TP)).items()})
+                          for r, mine in enumerate(m_shares)],
+                "peak_bytes": torch.cuda.max_memory_allocated()})
+    del params, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p16f_child(torch, rank: int, tp_group, data_group, ref_group) -> dict:
+    """(f) on the two tp ranks, family by family: both ranks train their
+    share (``p16f_rank``) and free the card; rank 1 sends its first
+    moment to rank 0 over the gloo group, and rank 0 runs the whole
+    model's control and plain run (``p16f_reference``, its DP edge on
+    ``ref_group``, a one-rank NCCL group: no host staging)."""
+    import torch.distributed as dist
+    out = {}
+    for arch in P16F:
+        t0 = time.perf_counter()
+        res, m = p16f_rank(torch, rank, tp_group, data_group, arch)
+        res["rank_s"] = time.perf_counter() - t0
+        if rank == 0:
+            theirs = {}
+            for k, spec in p16f_share_specs(p16f_config(arch), 1).items():
+                theirs[k] = torch.empty(spec.shape, dtype=spec.dtype)
+                dist.recv(theirs[k], src=1, group=tp_group)
+            res["reference"] = p16f_reference(torch, arch, [m, theirs],
+                                              res["classes"], ref_group)
+            del theirs
+        else:
+            for k in p16f_share_specs(p16f_config(arch), 1):
+                dist.send(m[k].contiguous(), dst=0, group=tp_group)
+        del m
+        dist.barrier(group=tp_group)
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+    return out
+
+
+def p16f_gates(arch: str, a: dict, b: dict, ref: dict) -> list:
+    """(f)'s gates of one family, as the failures they find: the ranks'
+    losses bit-equal; every leaf's first gradient bit-equal on each rank
+    to the control's share; the leaves both ranks hold (sharing class 1)
+    bit-equal in gradient and final value; in f32 the control within
+    TP_F32_GRAD_RTOL of the plain run; and against the plain run, in the
+    run's dtype, the control's first gradients, the ranks' Adam first
+    moments and their losses within TP_GRAD_RTOL, TP_MOMENT_RTOL (the
+    int8 tiles' noise, in f32 too) and TP_LOSS_RTOL, each plus, in bf16,
+    the plain bf16 run's own distance from the plain f32 run (the leaf's,
+    or the loss's at the first step): bf16 with top-k routing at random
+    init flips near-tie routes, so that run alone lies 0.11 from f32 on
+    deepseek-v2-lite's router (PERF.md §6, PR 32)."""
+    out = []
+    if a["losses"] != b["losses"]:
+        out.append(f"the ranks' losses differ: {a['losses']} / "
+                   f"{b['losses']}")
+    for r, mine in enumerate((a, b)):
+        want = ref["control_digests"][str(r)]
+        differ = sorted(k for k in want
+                        if mine["g_digests"].get(k) != want[k])
+        if set(mine["g_digests"]) != set(want) or differ:
+            out.append(f"rank {r}'s first gradients differ from the "
+                       f"control's (bit-equal expected) in {differ[:4]}")
+    shared = [k for k, c in zip(a["g_digests"], a["classes"]) if c == 1]
+    for what in ("g_digests", "p_digests"):
+        differ = [k for k in shared if a[what][k] != b[what][k]]
+        if differ:
+            out.append(f"the leaves both ranks hold differ in {what[0]} "
+                       f"({differ[:4]})")
+    err = ref.get("bf16_error", {})
+    grad_limit = TP_GRAD_RTOL if err else TP_F32_GRAD_RTOL
+    checks = [("the control's f32 first-step gradient",
+               ref["f32_control_gap"], lambda k: TP_F32_GRAD_RTOL),
+              ("the control's first-step gradient", ref["control_gap"],
+               lambda k: grad_limit + err.get(k, 0.0))] + [
+        (f"rank {r}'s Adam first moment", g,
+         lambda k: TP_MOMENT_RTOL + err.get(k, 0.0))
+        for r, g in enumerate(ref["m_gap"])]
+    for what, gaps, limit in checks:
+        out += [f"{k}: {what} {x} (relative L2) from the plain run's, "
+                f"beyond {limit(k)}" for k, x in gaps.items()
+                if x > limit(k)]
+    loss_limit = TP_LOSS_RTOL + ref.get("bf16_loss_error", 0.0)
+    for s, (x, y) in enumerate(zip(a["losses"], ref["losses"])):
+        if abs(x - y) > loss_limit * abs(y):
+            out.append(f"loss at step {s} {x} against the plain run's {y}, "
+                       f"beyond rtol {loss_limit}")
+    return [f"(f) {arch}: {m}" for m in out]
+
+
+def p16f_report(ranks: list, card: str) -> dict:
+    """(f)'s line a family (``p16f_gates`` gate it once every line is
+    out)."""
+    f = [r["train_tp_families"] for r in ranks[:TP]]
+    out, beyond = {}, []
+
+    def gap(g: dict, allowance=None) -> str:
+        top = max(g, key=g.get)
+        return (f"{g[top]:.3g} ({top}; median "
+                f"{statistics.median(g.values()):.3g}"
+                + (f"; the plain bf16 run's own {allowance[top]:.3g}"
+                   if allowance else "") + ")")
+    for arch in P16F:
+        a, b = f[0][arch], f[1][arch]
+        ref = a["reference"]
+        beyond += p16f_gates(arch, a, b, ref)
+        rk = a["reckoning"]
+        cfg = p16f_config(arch)
+        err = ref.get("bf16_error")
+        shared = sum(c == 1 for c in a["classes"])
+        print(f"train layout (f) {arch} [{card}]: tp={TP}, "
+              f"{cfg.num_layers} layers"
+              + (f" + {cfg.num_encoder_layers} encoder"
+                 if cfg.is_encoder_decoder else "")
+              + f", {P16F[arch][1]}, {TRAIN_BATCH} x {P16F[arch][2]}; "
+              f"{rk['params_per_rank'] / 1e9:.3f} B parameters a rank of "
+              f"{rk['params_total'] / 1e9:.3f} B; losses "
+              f"{[round(x, 5) for x in a['losses']]} (rank 1 bit-equal; "
+              f"the plain run {[round(x, 5) for x in ref['losses']]}"
+              + (f", its bf16 loss {ref['bf16_loss_error']:.3g} from f32"
+                 if err else "")
+              + f"); first gradients bit-equal to the control's on both "
+              f"ranks; the control against the plain run in f32 "
+              f"{gap(ref['f32_control_gap'])} (limit {TP_F32_GRAD_RTOL})"
+              + (f", in bf16 {gap(ref['control_gap'], err)}" if err else "")
+              + f"; the ranks' Adam first moment against the plain run's "
+              f"{gap(max(ref['m_gap'], key=lambda g: max(g.values())), err)}"
+              f"; {shared} leaves held on both ranks bit-equal in gradient "
+              f"and value; staged {a['staged_per_step'][0] / 1e6:.1f} MB a "
+              f"step ({rk['collectives_per_step']} on the model axis; the "
+              f"DP edge on NCCL); steps "
+              f"{[round(t, 1) for t in a['step_ms_all']]} ms (the plain "
+              f"run {[round(t, 1) for t in ref['step_ms_all']]}); peak "
+              f"{a['peak_bytes'] / 2**30:.2f} / {b['peak_bytes'] / 2**30:.2f}"
+              f" GiB a rank (state reckoning "
+              f"{rk['peak_per_rank'] / 2**30:.2f}), the whole-model runs "
+              f"{ref['peak_bytes'] / 2**30:.2f} GiB (state reckoning "
+              f"{rk['params_total'] * rk['state_bytes_per_param'] / 2**30:.2f}"
+              f"); launches "
+              f"{ {k: v for k, v in a['launches'].items() if v} }; "
+              f"{a['rank_s']:.1f} s the ranks, {a['seconds']:.1f} s in all",
+              flush=True)
+        for r in (a, b):
+            for k in ("g_digests", "p_digests", "classes"):
+                r.pop(k)
+        ref.pop("control_digests")
+        for k in ("control_gap", "f32_control_gap", "bf16_error"):
+            if k in ref:
+                ref[k] = gap_summary(ref[k], None)
+        ref["m_gap"] = [gap_summary(g, None) for g in ref["m_gap"]]
+        out[arch] = {"ranks": [a, b]}
+    if beyond:
+        fail("; ".join(beyond))
+    return out
 
 
 def p16_dp_staged(session) -> int:
@@ -5593,13 +6046,27 @@ def rel_gaps(torch, mine: dict, ref_path: str, rank: int,
     return out
 
 
+def rel_l2(torch, x, want) -> float:
+    """||x - want|| / ||want|| in f32 (||x - want|| where want is 0)."""
+    w = want.float()
+    norm = float(torch.linalg.vector_norm(w))
+    d = float(torch.linalg.vector_norm(x.float() - w))
+    return d / norm if norm else d
+
+
+def gap_summary(gaps: dict, limit: float) -> dict:
+    """The largest of the leaves' relative gaps (and its leaf), their
+    median and the limit they are held to."""
+    top = max(gaps, key=gaps.get)
+    return {"max": gaps[top], "max_leaf": top,
+            "median": statistics.median(gaps.values()), "limit": limit}
+
+
 def gate_rel_gaps(gaps: dict, limit: float, what: str) -> dict:
     for key, r in gaps.items():
         w4_gate(r <= limit, f"{key}: {what} {r} (relative L2) from the "
                 f"unsharded run's, beyond {limit}")
-    top = max(gaps, key=gaps.get)
-    return {"max": gaps[top], "max_leaf": top,
-            "median": statistics.median(gaps.values()), "limit": limit}
+    return gap_summary(gaps, limit)
 
 
 def p16_tp(torch, rank: int, tp_group, data_group, layers: int,
@@ -6072,6 +6539,8 @@ def p16_child(rank: int, world: int, store: str, out_dir: str,
     pair = dist.new_group([0, 1])
     tp_group = dist.new_group([0, 1])
     ones = [dist.new_group([r]) for r in range(world)]
+    # (f)'s DP edges on the card: one-rank NCCL groups
+    nccl_ones = [dist.new_group([r], backend="nccl") for r in range(world)]
     res = {"rank": rank}
     t0 = time.perf_counter()
     res["ep"] = p16_ep(torch, rank, {2: (pair, [0, 1]),
@@ -6098,6 +6567,15 @@ def p16_child(rank: int, world: int, store: str, out_dir: str,
                                        tp_layers, ref_train_digests_path,
                                        ref_m_path)
     res["train_tp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if rank < TP:
+        res["train_tp_families"] = p16f_child(torch, rank, tp_group,
+                                              nccl_ones[rank], nccl_ones[0])
+    else:
+        # the card for (f)'s ranks and rank 0's whole-model runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["train_tp_families_s"] = time.perf_counter() - t0
     res["launches"] = {}      # spawn_world4 compares ranks' counts
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -6393,7 +6871,7 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
     t0 = time.perf_counter()
     print(f"phase 16: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
           f"allocated at its start", flush=True)
-    layers = 18
+    layers = TP_LAYERS
     while layers > 2 and TP * tp_reckoning(layers)["peak_per_rank"] > \
             TP_BUDGET:
         layers -= 2
@@ -6456,6 +6934,7 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
           f"{a['peak_bytes'] / 2**30:.2f} GiB a rank; launches "
           f"{ {k: v for k, v in a['launches'].items() if v} }", flush=True)
     e = p16_train_tp_report(ranks, ref_run, layers, card)
+    fam = p16f_report(ranks, card)
     for ep in EP_SIZES:
         r0 = ranks[0]["ep"][f"ep{ep}"]
         for variant in ("direct", "ring"):
@@ -6487,14 +6966,18 @@ def phase_parallel(torch, ops, ref, train, card) -> dict:
           f"{seconds:.1f} s: ep {ranks[0]['ep_s']:.1f}, calibration "
           f"{ranks[0]['calibration_s']:.1f}, cli {ranks[0]['cli_s']:.1f}, "
           f"tp {ranks[0]['tp_s']:.1f}, train layout "
-          f"{ranks[0]['train_tp_s']:.1f})", flush=True)
-    return {"tp": tp, "train_tp": e, "tp_reference": ref_run,
+          f"{ranks[0]['train_tp_s']:.1f}, the other families "
+          f"{ranks[0]['train_tp_families_s']:.1f})", flush=True)
+    return {"tp": tp, "train_tp": e, "train_tp_families": fam,
+            "tp_reference": ref_run,
             "ep": {k: ranks[0]["ep"][k] for k in ranks[0]["ep"]},
             "calibration_world4": cal4, "cli_world4": ranks[0]["cli"],
             "calibration": calib, "cli_world1": cli1,
             "spawn_s": seconds, "seconds": seconds_all,
             "launches": {"tp_rank0": tp[0]["launches"],
                          "train_tp_rank0": e[0]["launches"],
+                         **{f"train_tp_{arch}_rank0": r["ranks"][0][
+                             "launches"] for arch, r in fam.items()},
                          "calibration": calib["launches"],
                          "cli_world1": cli1["launches"]}}
 

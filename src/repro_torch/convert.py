@@ -81,8 +81,9 @@ import torch
 from repro_torch._tree import tree_leaves, tree_map, tree_map_with_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import edge_blocks, head_layout
-from repro_torch.models.layers import ParamDesc, TensorSpec, _init_leaf
+from repro_torch.models.attention import head_layout
+from repro_torch.models.layers import (ParamDesc, TensorSpec, _init_leaf,
+                                       partition_specs, sharding_rules)
 from repro_torch.models.model import Model
 from repro_torch.models.sharding_ctx import cache_leaf_spec
 
@@ -174,16 +175,13 @@ def ep_slice(params, rank: int, ep: int):
                      if "router" in f else f)
 
 
-def _model_cuts(cfg: ModelConfig, rank: int, tp: int, phase: str):
-    """(descriptor tree, its model-axis dims under ``phase``'s rules, the
-    cut of one leaf) of model-axis rank ``rank``: the heads and kv heads
-    by the rank's head block, every other split dim (vocab, ffn, experts,
-    inner) in ``tp`` equal blocks, and a leaf of ``parts`` packed tensors
-    (``ParamDesc.parts``) by the rank's block of each part; raises where
-    a dim does not split.  The train rules differ from the serve rules
-    only in the d_model dim ("embed"), which they put over the data axes
-    (FSDP), not on the model axis, so both phases cut the same dims."""
-    model = Model(cfg)
+def _leaf_cut(cfg: ModelConfig, rank: int, tp: int):
+    """The cut of one leaf (``cut(desc, dim, t)``: ``t`` a tensor or a
+    ``TensorSpec``, ``dim`` its model-axis dim or None) of model-axis
+    rank ``rank``: the heads and kv heads by the rank's head block, every
+    other split dim (vocab, ffn, experts, inner) in ``tp`` equal blocks,
+    and a leaf of ``parts`` packed tensors (``ParamDesc.parts``) by the
+    rank's block of each part; raises where a dim does not split."""
     lay = head_layout(cfg, tp, rank)
     H, KV = cfg.num_heads, cfg.num_kv_heads
 
@@ -211,7 +209,32 @@ def _model_cuts(cfg: ModelConfig, rank: int, tp: int, phase: str):
             return TensorSpec(tuple(shape), t.dtype)
         return torch.cat([t.narrow(dim, lo, size) for lo, size in spans],
                          dim=dim).contiguous()
-    return model.param_desc(), model.partition_dims(phase), cut
+    return cut
+
+
+def _model_cuts(cfg: ModelConfig, rank: int, tp: int, phase: str):
+    """(descriptor tree, its model-axis dims under ``phase``'s rules, the
+    cut of one leaf, :func:`_leaf_cut`) of model-axis rank ``rank``.  The
+    train rules differ from the serve rules only in the d_model dim
+    ("embed"), which they put over the data axes (FSDP), not on the model
+    axis, so both phases cut the same dims."""
+    model = Model(cfg)
+    return (model.param_desc(), model.partition_dims(phase),
+            _leaf_cut(cfg, rank, tp))
+
+
+def train_share(params, desc, cfg: ModelConfig, rank: int, tp: int):
+    """Model-axis rank ``rank``'s cut of a subtree ``params`` (one mixer's
+    leaves, unstacked) under the train rules, by its descriptors
+    ``desc``: each split leaf a contiguous copy (differentiable), each
+    whole leaf itself: the lanes of the train layout's control
+    (``layers.Lanes``)."""
+    rules = sharding_rules("train")
+    cut = _leaf_cut(cfg, rank, tp)
+    return tree_map(
+        lambda d, t: cut(d, next((i for i, a in enumerate(
+            partition_specs(d, rules)) if a == "model"), None), t),
+        desc, params, is_leaf=lambda x: isinstance(x, ParamDesc))
 
 
 def _slice(params, cfg: ModelConfig, rank: int, tp: int, phase: str):
@@ -263,22 +286,26 @@ def train_init(cfg: ModelConfig, generator, rank: int, tp: int, dtype=None):
 def train_classes(params, cfg: ModelConfig, rank: int, tp: int):
     """Each leaf of rank ``rank``'s share ``params`` under the train
     layout (leaf order): over how many distinct blocks the group of
-    ``tp`` holds it: 1 for a leaf every rank holds whole (the norms, the
-    routers, the QK-norm scales), the replica edge's blocks for an
-    attention leaf that several ranks share (``attention.edge_blocks``),
-    ``tp`` for a leaf each rank holds its own block of.  Leaves of one
-    class are held the same by the same runs of ranks, so a packed DP
-    edge that never tiles two classes together (``SyncConfig.classes``)
-    keeps every shared leaf's update the same on all its ranks."""
+    ``tp`` holds it: the replica edge's blocks for a leaf that several
+    ranks share (``model.train_edges``: a kv head's or a head block's
+    columns, the QK-norm scales, MLA's latent projection, the mLSTM's
+    gate bias and output norm), 1 for any other leaf every rank holds
+    whole (the norms, the routers, the sLSTM's cell), ``tp`` for a leaf
+    each rank holds its own block of.  Leaves of one class are held the
+    same by the same runs of ranks, so a packed DP edge that never tiles
+    two classes together (``SyncConfig.classes``) keeps every shared
+    leaf's update the same on all its ranks."""
+    from repro_torch.models.model import train_edges
     dims = {}
     tree_map_with_path(lambda path, dim: dims.__setitem__(path, dim),
                        Model(cfg).partition_dims("train"))
-    edges = edge_blocks(cfg, tp, rank)
+    edges = train_edges(cfg, tp, rank)
 
     def one(path, _):
-        name = path[-2] if path[-1] == "scale" else path[-1]
-        if "mixer" in path and name in edges:
-            return edges[name][0]
+        at = -2 if path[-1] == "scale" else -1
+        blocks = edges.get(path[:at], {}).get(path[at])
+        if blocks is not None:
+            return blocks[0]
         return 1 if dims[path] is None else tp
     return tuple(tree_leaves(tree_map_with_path(one, params)))
 

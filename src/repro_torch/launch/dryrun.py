@@ -21,19 +21,17 @@ Which rank: the meshes are the reference's ``16x16`` ``(data, model)`` and
 the trace is what the port's rank 0 of that mesh runs under the port's own
 parallelism, and every record's ``layout`` block says so:
 
-  * train ``baseline``: parameters replicated over the data axes.  The
-    grouped-query families (gemma-2b, gemma2-9b, gemma3-4b, deepseek-67b,
-    chameleon-34b, qwen3-moe-30b-a3b) run the reference's train rules
-    over the model axis (tp = 16, ``sharding_ctx.train_region``: the
-    rank's share by ``convert.train_slice``, head-parallel attention with
-    its backward, the vocab-parallel embedding and cross-entropy, the
-    dense FFNs' ffn slice, the experts in blocks of 8, the replica edge
-    over the leaves that ranks share); the other families split only the
-    dense FFNs (``layers.mlp_tp``) and the experts (``moe_ffn(ep_axis=)``)
-    on it, attention, embeddings, norms and the LM head whole (ROADMAP
-    item 16's remainder).  Adam, ``make_train_step(microbatches=4)``, the
-    dense psum DP edge over the data axes (``(pod, data)``: 32 ranks
-    under ``--multi-pod``);
+  * train ``baseline``: parameters replicated over the data axes; every
+    family runs the reference's train rules over the model axis (tp = 16,
+    ``sharding_ctx.train_region``: the rank's share by
+    ``convert.train_slice``, head-parallel attention with its backward
+    (the encoder-decoder's three kinds too), MLA's head blocks over whole
+    latents, Mamba and the xLSTM blocks over ``inner``, the
+    vocab-parallel embedding and cross-entropy, the dense FFNs' ffn
+    slice, the experts in blocks, the replica edge over the leaves that
+    ranks share).  Adam, ``make_train_step(microbatches=4)``, the dense
+    psum DP edge over the data axes (``(pod, data)``: 32 ranks under
+    ``--multi-pod``);
   * train ``zero1``: the same rank under the port's ``shard`` spec (f32
     master and moments in rows over the data axes,
     ``make_sharded_train_step``, which takes no micro-batches);
@@ -79,21 +77,17 @@ import torch.distributed as dist
 from repro_torch._tree import tree_map
 from repro_torch.configs import (ALL_ARCHS, SHAPES, applicable_shapes,
                                  get_config)
-from repro_torch.convert import (cache_slice, ep_slice, serve_slice,
-                                 tp_slice, train_slice)
+from repro_torch.convert import cache_slice, serve_slice, train_slice
 from repro_torch.launch import op_analysis
 from repro_torch.launch.paths import DRYRUN
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models.attention import (cache_split, edge_blocks,
-                                          head_layout)
+from repro_torch.models.attention import cache_split, head_layout
 from repro_torch.models.encdec import CROSS_SPEC, cross_split
 from repro_torch.models.layers import TensorSpec
-from repro_torch.models.model import Model
-from repro_torch.models.sharding_ctx import (ServeAxes, ep_region,
-                                             leaf_share, serve_region,
-                                             tp_region, train_layout_supported,
-                                             train_region)
+from repro_torch.models.model import Model, resolve_dtype, train_edges
+from repro_torch.models.sharding_ctx import (ServeAxes, leaf_share,
+                                             serve_region, train_region)
 from repro_torch.models.transformer import block_cache
 
 MICROBATCHES = 4      # train shapes' gradient accumulation (the reference's)
@@ -202,7 +196,6 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
     """The ``layout`` block: what the traced rank holds and runs."""
     data = mesh.data_axes()
     dp = math.prod(p for p, n in zip(mesh.shape, mesh.names) if n in data)
-    groups = _groups_of(cfg)
     lay: Dict[str, Any] = {
         "note": "the port has no SPMD partitioner: the record is what the "
                 "port's rank 0 of this mesh runs under its own parallelism",
@@ -211,20 +204,8 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
         "data_axes": list(data), "dp": dp}
     B = shape.global_batch
     if shape.phase == "train":
-        moe = "experts" in groups
         lay["batch_per_rank"] = B // dp
-        if train_layout_supported(cfg):
-            lay.update(train_model_layout(cfg))
-        else:
-            lay["tp"] = MODEL_AXIS if "dense FFNs" in groups else 1
-            lay["ep"] = MODEL_AXIS if moe else 1
-            split = ("dense FFNs", "experts")
-            lay["unsharded"] = [k for k, sharded in groups.items()
-                                if sharded and k not in split]
-            lay["train_layout"] = "ffn and experts only: attention, the " \
-                "embeddings and the head under the model axis wait for " \
-                "ROADMAP item 16's remainder (MLA, Mamba, xLSTM, the " \
-                "encoder-decoder)"
+        lay.update(train_model_layout(cfg))
         lay["replicated_over_data"] = "every parameter (the reference's " \
             "baseline shards the embed dim over data, FSDP)" \
             if variant == "baseline" else "every parameter"
@@ -257,96 +238,228 @@ def rank_layout(cfg, shape, variant: str, mesh: FakeMesh,
 
 def train_model_layout(cfg) -> Dict[str, Any]:
     """Rank 0's share under the train layout over the model axis
-    (``sharding_ctx.train_region``, tp = 16): the head blocks, the kv
-    heads a rank computes and the ranks each is held on, the vocabulary
-    rows a rank holds, what is split, and what every rank holds whole
-    (the leaves read after the sums, and the QK-norm scales, summed by the
-    replica edge)."""
+    (``sharding_ctx.train_region``, tp = 16): the head blocks (attention,
+    MLA, the encoder's, the decoder's and the cross-attention's), the kv
+    heads a rank computes and the ranks each is held on, Mamba's and the
+    mLSTM's ``inner`` channels and the mLSTM's ``dh_v`` rows a rank, the
+    sLSTM's dh block, the vocabulary rows a rank holds, what is split,
+    what every rank holds whole (``unsharded``) and the leaves the
+    replica edge sums (``model.train_edges``)."""
     tp = MODEL_AXIS
-    hl = head_layout(cfg, tp, 0)
     moe = bool(cfg.num_experts)
-    dense = any(cfg.layer_spec(i).ffn == "dense"
-                for i in range(cfg.num_layers))
-    edges = sorted(edge_blocks(cfg, tp, 0))
+    specs = [cfg.layer_spec(i) for i in range(cfg.num_layers)]
+    mixers = {s.mixer for s in specs}
+    heads = cfg.is_encoder_decoder or bool(mixers & {"attn", "mla"})
+    dense = cfg.is_encoder_decoder or any(s.ffn == "dense" for s in specs)
+    edges = sorted({name for e in train_edges(cfg, tp, 0).values()
+                    for name in e})
     whole = ["norms"] + (["routers"] if moe else []) + \
-        (["q / k norms"] if cfg.qk_norm else [])
+        (["q / k norms"] if cfg.qk_norm and heads else [])
     split = {"vocab (embedding" + ("" if cfg.tie_embeddings else
-                                   ", lm head") + ")": "rows",
-             "heads (attention)": "wq columns, wo rows",
-             "kv (attention)": "wk / wv columns of the kv heads the "
-                               "rank's query heads read"}
+                                   ", lm head") + ")": "rows"}
+    out: Dict[str, Any] = {"tp": tp, "ep": tp if moe else 1,
+                           "train_layout": "model axis"}
+    if heads:
+        hl = head_layout(cfg, tp, 0)
+        out.update({"attn_tp": hl.attn_tp, "heads_per_rank": hl.hl,
+                    "kv_heads_computed_per_rank": hl.kvl,
+                    "ranks_per_kv_head": tp * hl.kvl // cfg.num_kv_heads,
+                    "ranks_per_head_block": tp // hl.attn_tp})
+    if "attn" in mixers or cfg.is_encoder_decoder:
+        what = "(the encoder's, the decoder's and the cross-attention's)" \
+            if cfg.is_encoder_decoder else "(attention)"
+        split[f"heads {what}"] = "wq columns, wo rows"
+        split[f"kv {what}"] = "wk / wv columns of the kv heads the " \
+            "rank's query heads read"
+    if "mla" in mixers:
+        split["heads (MLA)"] = "wq and w_ukv columns, wo rows"
+        whole.append("MLA latent projection (w_dkv, kv_norm)")
+        out["mla_latents"] = "whole on every rank, summed by the replica " \
+            "edge"
+    if "mamba" in mixers:
+        split["inner (Mamba)"] = "in_proj's x and z each, conv, dt_proj, " \
+            "A_log, D by channels; x_proj and out_proj rows"
+        out["mamba_inner_per_rank"] = cfg.d_inner // tp
+    if "mlstm" in mixers:
+        di = 2 * cfg.d_model
+        split["inner (mLSTM)"] = "up's xm and z each, conv by channels; " \
+            "wq / wk / wv / w_if / down rows; C by dh_v rows"
+        whole.append("mLSTM b_if, out_norm")
+        out["mlstm_inner_per_rank"] = di // tp
+        out["mlstm_dh_v_rows_per_rank"] = di // cfg.num_heads // tp
+    if "slstm" in mixers:
+        split["inner (sLSTM)"] = "w_in by dh of every head's every gate"
+        whole.append("sLSTM cell (r, b)")
+        out["slstm_dh_per_rank"] = cfg.d_model // cfg.num_heads // tp
     if dense:
         split["ffn"] = "dense FFNs' wi columns and wo rows"
+    if "slstm" in mixers:
+        split["ffn (sLSTM)"] = "up's gate and up each, down rows"
     if moe:
-        split["experts"] = f"{cfg.num_experts // tp} whole experts a rank"
-    return {"tp": tp, "ep": tp if moe else 1, "train_layout": "model axis",
-            "attn_tp": hl.attn_tp, "heads_per_rank": hl.hl,
-            "kv_heads_computed_per_rank": hl.kvl,
-            "ranks_per_kv_head": tp * hl.kvl // cfg.num_kv_heads,
-            "ranks_per_head_block": tp // hl.attn_tp,
-            "vocab_rows_per_rank": cfg.padded_vocab // tp,
-            "split_over_model": split, "whole": whole,
-            "replica_edge": edges, "unsharded": whole}
+        n = cfg.num_experts // tp
+        split["experts"] = f"{n} whole expert{'s' * (n > 1)} a rank"
+    out.update({"vocab_rows_per_rank": cfg.padded_vocab // tp,
+                "split_over_model": split, "whole": whole,
+                "replica_edge": edges, "unsharded": whole})
+    return out
+
+
+def _mixer_collectives(cfg, spec, b: int, seq: int, tp: int):
+    """One checkpointed layer's model-axis collectives at (b, seq) as
+    (what, kind, operand bytes): the forward's sums and gathers, those the
+    recomputation repeats (it stops at the last tensor the backward
+    needs: before the block's last sum, unless an FFN's norm reads its
+    output), and the backward's."""
+    d = cfg.d_model
+    cb = resolve_dtype(cfg.compute_dtype).itemsize
+    act, f32act = b * seq * d * cb, b * seq * d * 4
+
+    def ar(what, n):
+        return (what, "all-reduce", n)
+    if spec.mixer in ("attn", "mla"):
+        return [ar("attention wo sum", act)] * 2 + \
+            [ar("attention input", act)]
+    if spec.mixer == "mamba":
+        proj = b * seq * (cfg.dt_rank + 2 * cfg.ssm_d_state) * 4
+        return [ar("mamba x_proj sum", proj)] * 3 + \
+            [ar("mamba out_proj sum", f32act)] * 2 + [ar("mamba input", act)]
+    if spec.mixer == "mlstm":
+        di, H = 2 * d, cfg.num_heads
+        proj = b * seq * (3 * di + 2 * H) * 4
+        return [ar("mlstm q/k/v/gates sum", proj)] * 3 + \
+            [("mlstm h gather", "all-gather", b * seq * di // tp * cb)] * 2 \
+            + [ar("mlstm h reduce-scatter", b * seq * di * cb),
+               ar("mlstm down sum", f32act), ar("mlstm input", act)]
+    return [("slstm gates gather", "all-gather", b * seq * 4 * d // tp * cb)
+            ] * 2 + [ar("slstm ffn sum", f32act), ar("slstm ffn input", act),
+                     ar("slstm input", act)]
+
+
+def _ffn_collectives(cfg, spec, b: int, seq: int, nbytes: int):
+    """A layer's FFN: the forward's row-parallel sum (the recomputation
+    stops before it) and the backward's input sums (the MoE block's
+    tokens and its f32 routing weights)."""
+    act = b * seq * cfg.d_model * nbytes
+    if spec.ffn == "moe":
+        return [("ffn sum", "all-reduce", act),
+                ("moe tokens input", "all-reduce", act),
+                ("moe weights input", "all-reduce", b * seq * cfg.top_k * 4)]
+    if spec.ffn == "dense":
+        return [("ffn sum", "all-reduce", act),
+                ("ffn input", "all-reduce", act)]
+    return []
 
 
 def train_layout_collectives(cfg, batch: int, seq: int, tp: int,
                              rank: int = 0, microbatches: int = 1,
-                             xent_chunk: int = 512):
-    """The model-axis all-reduces of one train step under the train
+                             xent_chunk: int = 512, src_dtype=None):
+    """The model-axis collectives of one train step under the train
     layout at tp (rank ``rank``, the local ``batch`` split into
-    ``microbatches``), as ``(what, operand bytes)`` pairs in no order:
-    a reckoning from the code's structure, which the op analysis' count
-    of a traced step must equal.  Per micro-batch:
+    ``microbatches``), as ``(what, kind, operand bytes)`` triples in no
+    order (``kind``: ``all-reduce`` or ``all-gather``): a reckoning from
+    the code's structure, which the op analysis' count of a traced step
+    must equal.  Per micro-batch:
 
       * the embedding's sum, (b, T, d) in the parameters' dtype;
-      * per layer (checkpointed): the forward's two row-parallel sums
-        (attention's ``wo`` and the FFN's), the first again in the
-        recomputation (it stops at the last tensor the backward needs,
-        before the FFN's sum), and the backward's input sums: attention's
-        and the dense FFN's (b, T, d), or the MoE block's tokens and its
-        f32 routing weights (b·T, top_k);
+      * per layer (checkpointed, :func:`_mixer_collectives`,
+        :func:`_ffn_collectives`): attention's and MLA's ``wo`` sum twice
+        and their input's backward sum; Mamba's f32 ``x_proj`` sum twice
+        and its backward sum, its f32 ``out_proj`` sum twice, its input's
+        sum; the mLSTM's f32 q / k / v / gates sum twice and its backward
+        sum, h's all-gather twice and its backward reduce-scatter (an
+        all-reduce), the f32 ``down`` sum and the input's sum; the
+        sLSTM's gates all-gather twice (its backward keeps the rank's
+        block), the FFN's f32 sum and input sum and the input's sum; then
+        the FFN's;
+      * the encoder-decoder: its encoder's layers at the frames' length
+        in the frames' promoted dtype (``src_dtype``: the compute dtype
+        by default), the memory's one input sum, and per decoder layer
+        the self- and cross-attention's as attention's and the FFN's;
       * per loss chunk: the f32 row maximum (b, c) and the block terms
         (2, b, c), twice where the chunk is checkpointed (every chunk of
         ``xent_chunk``; a shorter tail is not), and the head's input sum
         (b, c, d);
       * the replica edge, once per stacked leaf that ranks share
-        (``attention.edge_blocks``): its ``blocks`` rows of the rank's
+        (``model.train_edges``): its ``blocks`` rows of the rank's
         leaf."""
-    from repro_torch.models.model import Model, resolve_dtype
     b = batch // microbatches
     d = cfg.d_model
-    cbytes = resolve_dtype(cfg.compute_dtype).itemsize
+    cdt = resolve_dtype(cfg.compute_dtype)
+    cbytes = cdt.itemsize
     pbytes = resolve_dtype(cfg.param_dtype).itemsize
-    act = b * seq * d * cbytes
-    out = [("embedding", b * seq * d * pbytes)]
-    for i in range(cfg.num_layers):
-        spec = cfg.layer_spec(i)
-        out += [("attention wo sum", act)] * 2 + [("attention input", act)]
-        out.append(("ffn sum", act))
-        if spec.ffn == "moe":
-            out += [("moe tokens input", act),
-                    ("moe weights input", b * seq * cfg.top_k * 4)]
-        else:
-            out.append(("ffn input", act))
+    out = [("embedding", "all-reduce", b * seq * d * pbytes)]
+    if cfg.is_encoder_decoder:
+        ebytes = torch.promote_types(
+            src_dtype or cdt, resolve_dtype(cfg.param_dtype)).itemsize
+        enc = CROSS_SPEC
+        for _ in range(cfg.num_encoder_layers):
+            act = b * seq * d * ebytes
+            out += [("encoder attention wo sum", "all-reduce", act)] * 2 + \
+                [("encoder attention input", "all-reduce", act)] + \
+                _ffn_collectives(cfg, enc, b, seq, ebytes)
+        out.append(("memory input", "all-reduce", b * seq * d * ebytes))
+        act = b * seq * d * cbytes
+        for _ in range(cfg.num_layers):
+            out += [("self-attention wo sum", "all-reduce", act)] * 2 + \
+                [("self-attention input", "all-reduce", act)] + \
+                [("cross-attention wo sum", "all-reduce", act)] * 2 + \
+                [("cross-attention input", "all-reduce", act)] + \
+                _ffn_collectives(cfg, enc, b, seq, cbytes)
+    else:
+        for i in range(cfg.num_layers):
+            spec = cfg.layer_spec(i)
+            out += _mixer_collectives(cfg, spec, b, seq, tp) + \
+                _ffn_collectives(cfg, spec, b, seq, cbytes)
     c = min(xent_chunk, seq)
     full, tail = divmod(seq, c)
     for n, times in [(c, 2)] * full + [(tail, 1)] * bool(tail):
-        out += [("loss max", b * n * 4), ("loss terms", 2 * b * n * 4)] \
-            * times + [("head input", b * n * d * cbytes)]
+        out += [("loss max", "all-reduce", b * n * 4),
+                ("loss terms", "all-reduce", 2 * b * n * 4)] * times + \
+            [("head input", "all-reduce", b * n * d * cbytes)]
     out = out * microbatches
-    lay = head_layout(cfg, tp, rank)
-    hd = cfg.hd
-    widths = {"wq": d * lay.hl * hd, "wo": d * lay.hl * hd,
-              "wk": d * lay.kvl * hd, "wv": d * lay.kvl * hd,
-              "q_norm": hd, "k_norm": hd}
-    edges = edge_blocks(cfg, tp, rank)
-    for seg in Model(cfg).plan:
-        for _ in seg.period:
-            out += [(f"replica edge {name}",
-                     blocks * seg.repeats * widths[name] * pbytes)
-                    for name, (blocks, _) in sorted(edges.items())] \
-                * microbatches
+    widths = _edge_widths(cfg, tp, rank)
+    repeats = _edge_repeats(cfg)
+    for path, edges in sorted(train_edges(cfg, tp, rank).items(), key=str):
+        out += [(f"replica edge {name}", "all-reduce",
+                 blocks * repeats[path] * widths[path[-1]][name] * pbytes)
+                for name, (blocks, _) in sorted(edges.items())
+                if name in widths[path[-1]]] * microbatches
     return out
+
+
+def _edge_repeats(cfg) -> Dict[Tuple, int]:
+    """The layers each replica-edge subtree (``model.train_edges``) is
+    stacked over."""
+    if cfg.is_encoder_decoder:
+        return {("encdec", "enc_stack", "mixer"): cfg.num_encoder_layers,
+                ("encdec", "dec_stack", "self"): cfg.num_layers,
+                ("encdec", "dec_stack", "cross"): cfg.num_layers}
+    return {("stack", i, j, "mixer"): seg.repeats
+            for i, seg in enumerate(cfg.stack_plan())
+            for j in range(len(seg.period))}
+
+
+def _edge_widths(cfg, tp: int, rank: int) -> Dict[str, Dict[str, int]]:
+    """Elements of one layer's share of each leaf the replica edge may
+    sum, by the subtree's last key: attention's (``mixer``, ``self``),
+    the cross-attention's (without QK-norm) and, under ``mixer``, MLA's
+    and the mLSTM's."""
+    lay = head_layout(cfg, tp, rank)
+    d, hd = cfg.d_model, cfg.hd
+    attn = {"wq": d * lay.hl * hd, "wo": d * lay.hl * hd,
+            "wk": d * lay.kvl * hd, "wv": d * lay.kvl * hd,
+            "q_norm": hd, "k_norm": hd}
+    mixer = dict(attn)
+    lora, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+    if cfg.use_mla:
+        mixer.update({
+            "wq": d * lay.hl * (cfg.qk_nope_dim + rope),
+            "w_ukv": lora * lay.hl * (cfg.qk_nope_dim + cfg.v_head_dim),
+            "wo": lay.hl * cfg.v_head_dim * d,
+            "w_dkv": d * (lora + rope), "kv_norm": lora})
+    mixer.update({"b_if": 2 * cfg.num_heads, "out_norm": 2 * d})
+    cross = {k: v for k, v in attn.items() if k not in ("q_norm", "k_norm")}
+    return {"mixer": mixer, "self": attn, "cross": cross}
 
 
 # what each parameter group puts on the model axis under the serve rules
@@ -487,19 +600,9 @@ def _build(model, shape, variant, mesh, lay, mode, microbatches):
         return _build_serve(model, shape, variant, mesh, lay, mode, params,
                             local)
     inputs = _materialize(model.input_specs(local), mode)
-    model_group = mesh.groups["model"]
-    if lay.get("train_layout") == "model axis":
-        with mode:
-            params = train_slice(params, model.cfg, 0, lay["tp"])
-        ctx = _regions(train=model_group)
-    else:
-        with mode:
-            if lay["tp"] > 1:
-                params = tp_slice(params, 0, lay["tp"])
-            if lay["ep"] > 1:
-                params = ep_slice(params, 0, lay["ep"])
-        ctx = _regions(model_group if lay["tp"] > 1 else None,
-                       model_group if lay["ep"] > 1 else None)
+    with mode:
+        params = train_slice(params, model.cfg, 0, lay["tp"])
+    ctx = _regions(train=mesh.groups["model"])
     opt = make_optimizer("adam", lr=1e-4)
     if variant == "zero1":
         from repro_torch.core.grad_sync import (PlanExecutor, SyncConfig,
@@ -533,11 +636,11 @@ def _build(model, shape, variant, mesh, lay, mode, microbatches):
 
 
 @contextlib.contextmanager
-def _regions(tp=None, ep=None, serve=None, train=None):
-    """The traced step's regions: tp and ep (train, the FFNs only), the
-    train layout over the model axis (``train``: its group), or the serve
-    layout (``(group, data groups, max_len)``)."""
-    with tp_region(tp), ep_region(ep), train_region(train), \
+def _regions(serve=None, train=None):
+    """The traced step's regions: the train layout over the model axis
+    (``train``: its group) or the serve layout (``(group, data groups,
+    max_len)``)."""
+    with train_region(train), \
             (serve_region(*serve) if serve else contextlib.nullcontext()):
         yield
 

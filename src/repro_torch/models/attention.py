@@ -40,10 +40,12 @@ every head's partial softmax the same way (:func:`_mla_decode_tp`).
 Under ``sharding_ctx.train_region`` the training layer runs the
 reference's train layout over the model axis: the same head blocks with
 the chunked attention and its backward between ``layers.tp_in`` and
-``tp_out`` (:func:`_attn_train_tp`), and the replica edge over the
-leaves a head block reads but shares (:func:`attn_replica_edge`);
-``blocked_region`` runs its control on the whole weights
-(:func:`_attn_blocked`).
+``tp_out`` (:func:`_attn_train_tp`; bidirectional for the encoder), and
+the replica edge over the leaves a head block reads but shares
+(:func:`attn_replica_edge`); ``blocked_region`` runs its control on the
+whole weights (:func:`_attn_blocked`, :func:`head_lanes`).  MLA trains
+on its head block over the whole latents (:func:`mla_forward`, its edge
+:func:`mla_edge_blocks`).
 """
 from __future__ import annotations
 
@@ -56,8 +58,9 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamDesc, TensorSpec, apply_rope,
-                                       fan, muted, norm_desc, replica_edge,
-                                       rmsnorm, tp_in, tp_out, tree_sum)
+                                       fan, muted, norm_desc, replica_edges,
+                                       rmsnorm, tp_in, tp_out, train_lanes,
+                                       tree_sum)
 from repro_torch.models.sharding_ctx import (blocked_tp, cache_leaf_spec,
                                              leaf_share, serve_axes,
                                              train_axes)
@@ -263,26 +266,28 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def _attn_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+def _attn_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                causal: bool = True):
     B, T, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=spec.window,
+    out = flash_attention(q, k, v, causal=causal, window=spec.window,
                           softcap=cfg.attn_logit_softcap)
     return out.reshape(B, T, -1) @ params["wo"]
 
 
-def attn_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """Full-sequence causal attention (training). x: (B, T, d).  Under
-    ``sharding_ctx.train_region`` the rank's head block
-    (:func:`_attn_train_tp`), under ``blocked_region`` the control
-    (:func:`_attn_blocked`)."""
+def attn_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                 causal: bool = True):
+    """Full-sequence attention (training), causal or bidirectional (the
+    encoder). x: (B, T, d).  Under ``sharding_ctx.train_region`` the
+    rank's head block (:func:`_attn_train_tp`), under ``blocked_region``
+    the control (:func:`_attn_blocked`)."""
     ta = train_axes()
     if ta is not None:
-        return _attn_train_tp(params, cfg, spec, x, positions, ta)
+        return _attn_train_tp(params, cfg, spec, x, positions, ta, causal)
     tp = blocked_tp()
     if tp is not None:
-        return _attn_blocked(params, cfg, spec, x, positions, tp)
-    return _attn_train(params, cfg, spec, x, positions)
+        return _attn_blocked(params, cfg, spec, x, positions, tp, causal)
+    return _attn_train(params, cfg, spec, x, positions, causal)
 
 
 def attn_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
@@ -576,7 +581,7 @@ def _heads_out(partial: torch.Tensor, lay: HeadLayout, sa) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _attn_train_tp(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                   ta):
+                   ta, causal: bool = True):
     """One rank of the train layout: ``x`` through ``tp_in``, the rank's
     head block (``params``: its columns of ``wq`` / ``wk`` / ``wv``, its
     rows of ``wo``; ``convert.train_slice``) through the chunked
@@ -586,23 +591,25 @@ def _attn_train_tp(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
     every rank runs)."""
     lay = head_layout(cfg, *_tp_of(ta))
     out = _attn_train(params, cfg, spec, tp_in(x, ta.tp, ta.algo),
-                      positions)
+                      positions, causal)
     return tp_out(muted(out, lay.replica > 0), ta.tp, ta.algo)
 
 
-def _attn_blocked(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                  tp: int):
-    """The control of :func:`_attn_train_tp` at ``tp``, on the whole
-    parameters: each head block (the first holder's) computed apart on
-    contiguous copies of its columns and rows, reading ``x``, its kv
-    heads' columns and the QK-norm scales through :func:`fan`, and the
-    blocks' ``wo`` partials added by :func:`tree_sum`: the arithmetic of
-    the tp ranks on ``tree`` (a replica's zero partials and zero
-    cotangents add nothing)."""
+def head_ranks(cfg: ModelConfig, tp: int):
+    """The first holder of each distinct head block at ``tp``: the ranks
+    whose work the control computes."""
+    return range(0, tp, tp // min(tp, cfg.num_heads))
+
+
+def head_lanes(params, cfg: ModelConfig, tp: int):
+    """The control's lanes of a grouped-query layer at ``tp`` (one a
+    distinct head block, :func:`head_ranks`), each a dict of its block's
+    parameters: contiguous copies of its ``wq`` columns and ``wo`` rows,
+    its kv heads' ``wk`` / ``wv`` columns read through :func:`fan` among
+    the blocks that read them, and the QK-norm scales through
+    :func:`fan` (a leaf the layer lacks is left out)."""
     hd = cfg.hd
-    lays = [head_layout(cfg, tp, r) for r in range(0, tp, tp // min(
-        tp, cfg.num_heads))]
-    xs = fan(x, len(lays))
+    lays = [head_layout(cfg, tp, r) for r in head_ranks(cfg, tp)]
     kv_readers = {}
     for lay in lays:
         kv_readers.setdefault(lay.kv0, []).append(lay)
@@ -615,16 +622,29 @@ def _attn_blocked(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
             for name in ("wk", "wv")}
     norms = {name: iter(fan(params[name]["scale"], len(lays)))
              for name in ("q_norm", "k_norm") if name in params}
-    parts = []
-    for xb, lay in zip(xs, lays):
+    lanes = []
+    for lay in lays:
         p = {"wq": params["wq"].narrow(-1, lay.h0 * hd, lay.hl * hd)
              .contiguous(),
              "wo": params["wo"].narrow(-2, lay.h0 * hd, lay.hl * hd)
              .contiguous()}
         p.update({name: next(v) for name, v in kv_views[lay.kv0].items()})
         p.update({name: {"scale": next(v)} for name, v in norms.items()})
-        parts.append(_attn_train(p, cfg, spec, xb, positions))
-    return tree_sum(parts)
+        lanes.append(p)
+    return lanes
+
+
+def _attn_blocked(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                  tp: int, causal: bool = True):
+    """The control of :func:`_attn_train_tp` at ``tp``, on the whole
+    parameters: each head block (:func:`head_lanes`) computed apart,
+    reading ``x`` through :func:`fan`, and the blocks' ``wo`` partials
+    added by :func:`tree_sum`: the arithmetic of the tp ranks on
+    ``tree`` (a replica's zero partials and zero cotangents add
+    nothing)."""
+    lanes = head_lanes(params, cfg, tp)
+    return tree_sum([_attn_train(p, cfg, spec, xb, positions, causal)
+                     for xb, p in zip(fan(x, len(lanes)), lanes)])
 
 
 def edge_blocks(cfg: ModelConfig, tp: int, rank: int):
@@ -649,18 +669,12 @@ def edge_blocks(cfg: ModelConfig, tp: int, rank: int):
 
 
 def attn_replica_edge(params, cfg: ModelConfig, ta):
-    """``params`` (one attention layer's leaves, stacked or not) with
-    every leaf of :func:`edge_blocks` wrapped in ``layers.replica_edge``
-    over the train layout's group (``ta``: ``sharding_ctx.TrainAxes``);
-    the rest as it is."""
-    out = dict(params)
-    for name, (blocks, index) in edge_blocks(cfg, *_tp_of(ta)).items():
-        def edge(t):
-            return replica_edge(t, ta.tp, ta.algo, blocks, index)
-        out[name] = ({"scale": edge(params[name]["scale"])}
-                     if isinstance(params[name], dict) else
-                     edge(params[name]))
-    return out
+    """``params`` (one attention layer's leaves, stacked or not; the
+    encoder-decoder's cross-attention too) with every leaf of
+    :func:`edge_blocks` wrapped in ``layers.replica_edge`` over the train
+    layout's group (``ta``: ``sharding_ctx.TrainAxes``); the rest as it
+    is."""
+    return replica_edges(params, edge_blocks(cfg, *_tp_of(ta)), ta)
 
 
 def _store_block(cache, new, slot, lo: int, inplace: bool):
@@ -814,13 +828,45 @@ def _mla_full_qkv(params, cfg: ModelConfig, x, positions):
     return q, k, v_p, c_kv, k_rope
 
 
-def mla_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """Full-sequence causal MLA (training), through the differentiable
-    chunked attention."""
+def _mla_train(params, cfg: ModelConfig, x, positions):
     B, T, _ = x.shape
     q, k, v_p, _, _ = _mla_full_qkv(params, cfg, x, positions)
     out = flash_attention(q, k, v_p, causal=True)[..., :cfg.v_head_dim]
     return out.reshape(B, T, -1) @ params["wo"]
+
+
+def mla_forward(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """Full-sequence causal MLA (training), through the differentiable
+    chunked attention.  Under ``sharding_ctx.train_region`` the rank's
+    head block (``wq`` and ``w_ukv`` columns, ``wo`` rows) reads ``x``
+    through ``tp_in`` and computes the whole latents and ``k_rope`` from
+    ``w_dkv`` and ``kv_norm``, which every rank holds whole and reads
+    only through its own heads (their replica edge, :func:`mla_edge_blocks`,
+    sums their gradients); ``tp_out`` sums the ``wo`` partials, a replica
+    block's muted.  Under ``blocked_region`` the control
+    (``layers.Lanes``)."""
+    lanes = train_lanes(lambda tp: head_ranks(cfg, tp))
+    if lanes is None:
+        return _mla_train(params, cfg, x, positions)
+    ps = lanes.share(params, cfg, mla_desc(cfg), fanned=("w_dkv", "kv_norm"))
+    outs = [_mla_train(p, cfg, xb, positions)
+            for p, xb in zip(ps, lanes.enter(x))]
+    mute = lanes.group is not None and head_layout(
+        cfg, lanes.tp, lanes.ranks[0]).replica > 0
+    return lanes.out(outs, mute)
+
+
+def mla_edge_blocks(cfg: ModelConfig, tp: int, rank: int):
+    """The replica edge of an MLA layer's leaves on rank ``rank`` of
+    ``tp`` (as :func:`edge_blocks`): ``w_dkv`` and ``kv_norm``, whole on
+    every rank, and the head block's ``wq`` / ``w_ukv`` columns and
+    ``wo`` rows where several ranks hold it (H < tp)."""
+    lay = head_layout(cfg, tp, rank)
+    out = {"w_dkv": (1, 0), "kv_norm": (1, 0)}
+    if lay.attn_tp < tp:
+        out.update({name: (lay.attn_tp, lay.block)
+                    for name in ("wq", "w_ukv", "wo")})
+    return out
 
 
 def mla_prefill(params, cfg: ModelConfig, spec: LayerSpec, x, positions,

@@ -24,6 +24,13 @@ dim; where it keeps them whole the rank all-gathers the others), the
 cross-attention's ``wo`` rows end in one all-reduce, and every FFN runs
 its ffn slice (``mlp_tp``).  The frames are whole on every rank.
 
+Under ``sharding_ctx.train_region`` training runs the same head blocks
+with their backward: the encoder's bidirectional attention
+(``attention.attn_forward``), the decoder's self-attention, the
+cross-attention (:func:`cross_train`) reading the memory that entered
+the model axis once (:func:`memory_in`), the FFNs on ``mlp_tp``, and the
+replica edge over each stack's shared attention leaves.
+
 dtype promotion, as the reference's ``jnp`` promotes: f32 frames against
 bf16 weights run the encoder in f32 (each layer's weights upcast, which is
 exact), so the memory and the cross K/V are f32; the cross-attention
@@ -39,11 +46,13 @@ from repro_torch._tree import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (ParamDesc, TensorSpec, mlp, mlp_desc,
-                                       mlp_tp, norm_desc, rmsnorm,
-                                       stack_desc)
-from repro_torch.models.sharding_ctx import leaf_share, serve_axes
-from repro_torch.models.transformer import (_index, _stack, _unstack,
+from repro_torch.models.layers import (ParamDesc, TensorSpec, fan, mlp,
+                                       mlp_desc, mlp_tp, muted, norm_desc,
+                                       rmsnorm, stack_desc, tp_in, tp_out,
+                                       tree_sum)
+from repro_torch.models.sharding_ctx import (blocked_tp, leaf_share,
+                                             serve_axes, train_axes)
+from repro_torch.models.transformer import (_ffn, _index, _stack, _unstack,
                                             block_desc, block_train,
                                             checkpointed)
 
@@ -131,22 +140,69 @@ def dec_block_desc(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _cross_ffn(params, cfg: ModelConfig, x, k, v, kernel: bool):
-    """The block's tail after self-attention: cross-attention and FFN."""
+def _cross_ffn(params, cfg: ModelConfig, x, k, v):
+    """The block's tail after self-attention at inference: cross-attention
+    and FFN."""
     h = rmsnorm(params["norm_x"], x, eps=cfg.norm_eps)
-    x = x + cross_attend(params["cross"], cfg, h, k, v, kernel)
+    x = x + cross_attend(params["cross"], cfg, h, k, v, kernel=True)
     h = rmsnorm(params["norm2"], x, eps=cfg.norm_eps)
-    sa = serve_axes() if kernel else None
+    sa = serve_axes()
     if sa is not None:
         return x + mlp_tp(params["ffn"], h, cfg.activation, group=sa.tp)
     return x + mlp(params["ffn"], h, cfg.activation)
 
 
+def _cross_train(params, cfg: ModelConfig, x, memory):
+    """Training's cross-attention of ``x`` over ``memory``, on the heads
+    of ``params``' columns."""
+    k, v = cross_kv(params, cfg, memory)
+    return cross_attend(params, cfg, x, k, v, kernel=False)
+
+
+def cross_train(params, cfg: ModelConfig, x, memory):
+    """Training's cross-attention; under ``sharding_ctx.train_region`` the
+    rank's head block (``wq`` by heads, ``wk`` / ``wv`` by kv heads,
+    ``wo`` by rows) reads ``x`` through ``tp_in`` and ``memory`` as the
+    decoder's stack gives it (``memory`` entered the model axis once,
+    :func:`memory_in`), its ``wo`` partial summed by ``tp_out`` (muted on
+    a replica block); under ``blocked_region`` the control, ``memory``
+    one view a head block."""
+    ta = train_axes()
+    if ta is not None:
+        lay = attn.head_layout(cfg, *attn._tp_of(ta))
+        out = _cross_train(params, cfg, tp_in(x, ta.tp, ta.algo), memory)
+        return tp_out(muted(out, lay.replica > 0), ta.tp, ta.algo)
+    tp = blocked_tp()
+    if tp is not None:
+        lanes = attn.head_lanes(params, cfg, tp)
+        return tree_sum([_cross_train(p, cfg, xb, mb) for p, xb, mb in
+                         zip(lanes, fan(x, len(lanes)), memory)])
+    return _cross_train(params, cfg, x, memory)
+
+
+def memory_in(memory: torch.Tensor, cfg: ModelConfig):
+    """The encoder's memory as the decoder's cross-attentions read it:
+    under the train layout through one ``tp_in`` (every decoder layer's
+    split ``wk`` / ``wv`` read it, so its cotangent, summed over the
+    layers first, is the rank's partial: one all-reduce, not one a
+    layer); under ``blocked_region`` one :func:`fan` view a head block
+    (a tuple); else itself."""
+    ta = train_axes()
+    if ta is not None:
+        return tp_in(memory, ta.tp, ta.algo)
+    tp = blocked_tp()
+    if tp is not None:
+        return fan(memory, len(attn.head_ranks(cfg, tp)))
+    return memory
+
+
 def dec_block_train(params, cfg: ModelConfig, x, positions, memory):
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
     x = x + attn.attn_forward(params["self"], cfg, CROSS_SPEC, h, positions)
-    k, v = cross_kv(params["cross"], cfg, memory)
-    return _cross_ffn(params, cfg, x, k, v, kernel=False)
+    h = rmsnorm(params["norm_x"], x, eps=cfg.norm_eps)
+    x = x + cross_train(params["cross"], cfg, h, memory)
+    return _ffn(params, cfg, CROSS_SPEC, x, train=train_axes(),
+                blocked=blocked_tp())[0]
 
 
 def dec_block_prefill(params, cfg: ModelConfig, x, positions, memory,
@@ -162,7 +218,7 @@ def dec_block_prefill(params, cfg: ModelConfig, x, positions, memory,
         lay, split = cross_split(cfg, B, S, sa)
         kv = attn._to_decode_layout(torch.stack([k, v]), cfg, lay, split, sa)
         k, v = kv[0], kv[1]
-    x = _cross_ffn(params, cfg, x + a, k, v, kernel=True)
+    x = _cross_ffn(params, cfg, x + a, k, v)
     return x, {"self": self_cache, "cross_k": k, "cross_v": v}
 
 
@@ -178,8 +234,7 @@ def dec_block_decode(params, cfg: ModelConfig, x, cache, pos,
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps)
     sa, self_cache = attn.attn_decode(params["self"], cfg, CROSS_SPEC, h,
                                       cache["self"], pos, inplace=inplace)
-    x = _cross_ffn(params, cfg, x + sa, cache["cross_k"], cache["cross_v"],
-                   kernel=True)
+    x = _cross_ffn(params, cfg, x + sa, cache["cross_k"], cache["cross_v"])
     return x, {"self": self_cache, "cross_k": cache["cross_k"],
                "cross_v": cache["cross_v"]}
 
@@ -208,7 +263,13 @@ def encode(params, cfg: ModelConfig, src: torch.Tensor,
     dt = _promoted(src, params["enc_norm"]["scale"])
     positions = torch.arange(S, device=src.device)[None, :]
     x = src.to(dt)
-    for p in _unstack(params["enc_stack"], cfg.num_encoder_layers):
+    stack = params["enc_stack"]
+    ta = train_axes() if training else None
+    if ta is not None:
+        # the replica edge on each stacked attention leaf, once a step
+        stack = dict(stack, mixer=attn.attn_replica_edge(stack["mixer"], cfg,
+                                                         ta))
+    for p in _unstack(stack, cfg.num_encoder_layers):
         def blk(h, p=p):
             pd = tree_map(lambda t: t.to(dt), p)
             return block_train(pd, cfg, CROSS_SPEC, h, positions, causal=False,
@@ -218,7 +279,17 @@ def encode(params, cfg: ModelConfig, src: torch.Tensor,
 
 
 def decode_train(params, cfg: ModelConfig, x, positions, memory):
-    for p in _unstack(params["dec_stack"], cfg.num_layers):
+    """The decoder stack (training), each layer checkpointed.  Under the
+    train layout the self- and cross-attention leaves that ranks share
+    take the replica edge once a step, and ``memory`` enters the model
+    axis once (:func:`memory_in`)."""
+    stack = params["dec_stack"]
+    ta = train_axes()
+    if ta is not None:
+        stack = dict(stack, **{k: attn.attn_replica_edge(stack[k], cfg, ta)
+                               for k in ("self", "cross")})
+    memory = memory_in(memory, cfg)
+    for p in _unstack(stack, cfg.num_layers):
         def blk(h, p=p):
             return dec_block_train(p, cfg, h, positions, memory)
         x = checkpointed(blk, x)

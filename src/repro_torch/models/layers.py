@@ -11,10 +11,12 @@ does, and ``convert.serve_slice`` cuts a tree to one model-axis rank's
 share by them (the port has no partitioner).  :func:`embed_tp` and
 :func:`logits_tp` are the vocab-parallel embedding and LM head of
 serving under ``sharding_ctx.serve_region``; :func:`embed_tp` (with
-``train_algo``), :func:`softmax_xent_tp` and :func:`replica_edge` the
-train layout's under ``sharding_ctx.train_region``, and :func:`fan`,
-:func:`tree_sum`, :func:`mlp_blocked` and :func:`softmax_xent_blocked`
-its control's.
+``train_algo``), :func:`softmax_xent_tp`, :func:`replica_edge`, and the
+recurrent mixers' differentiable f32 sum :func:`sum_f32` and gather
+:func:`gather_tp` the train layout's under ``sharding_ctx.train_region``,
+and :func:`fan`, :func:`tree_sum`, :func:`mlp_blocked` and
+:func:`softmax_xent_blocked` its control's.  :class:`Lanes` runs a split
+mixer's work as one rank or as the control with the same arithmetic.
 """
 from __future__ import annotations
 
@@ -460,6 +462,193 @@ class _Muted(torch.autograd.Function):
 def muted(x: torch.Tensor, mute: bool) -> torch.Tensor:
     """``x``, or zeros of its shape that keep it in the graph."""
     return _Muted.apply(x) if mute else x
+
+
+def replica_edges(params, edges, ta):
+    """``params`` (one mixer's leaves, stacked or not) with each leaf named
+    in ``edges`` (name -> (blocks, index), as ``attention.edge_blocks``
+    gives them; a name the mixer lacks is skipped) wrapped in
+    :func:`replica_edge` over the train layout's group (``ta``:
+    ``sharding_ctx.TrainAxes``); a norm's ``scale`` inside its dict."""
+    out = dict(params)
+    for name, (blocks, index) in edges.items():
+        if name not in params:
+            continue
+
+        def edge(t, blocks=blocks, index=index):
+            return replica_edge(t, ta.tp, ta.algo, blocks, index)
+        out[name] = ({"scale": edge(params[name]["scale"])}
+                     if isinstance(params[name], dict) else
+                     edge(params[name]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The recurrent mixers' sums and gathers under the train layout, and the
+# lanes that run a split mixer as one rank or as the control
+# ---------------------------------------------------------------------------
+#
+# Mamba's x_proj and the mLSTM's q / k / v / gates are partial products of
+# the rank's channels whose sum every rank then reads through its own
+# channels (:func:`sum_f32`); the mLSTM's h and the sLSTM's gates are the
+# rank's blocks gathered whole (:func:`gather_tp`).  The sums run in f32
+# and round once, as serving's ``psum_f32`` does.
+
+class _SumF32(torch.autograd.Function):
+    """The f32 all-reduce of the ranks' partials, rounded once to
+    ``dtype``; the backward all-reduces the cotangent in f32 (each rank
+    reads the sum through its own share, so its cotangent is partial)."""
+
+    @staticmethod
+    def forward(ctx, part, group, algo, dtype):
+        from repro_torch.core.collectives.api import allreduce
+        ctx.args = (group, algo, part.dtype)
+        buf = part.to(torch.float32, copy=True).contiguous()
+        return allreduce(buf, algo, (group,)).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.collectives.api import allreduce
+        group, algo, dtype = ctx.args
+        g = allreduce(g.to(torch.float32, copy=True).contiguous(), algo,
+                      (group,))
+        return g.to(dtype), None, None, None
+
+
+def sum_f32(part: torch.Tensor, group, algo: str = "psum",
+            dtype=None) -> torch.Tensor:
+    """``tp_in(tp_out(part))`` in f32: the sum over ``group`` of the
+    ranks' f32 partial products ``part``, rounded once to ``dtype`` (the
+    part's by default), whose every rank reads it through its own share
+    of the work; the backward sums the ranks' partial cotangents in f32.
+    Both all-reduces on ``algo``."""
+    return _SumF32.apply(part, group, algo, dtype or part.dtype)
+
+
+class _GatherTp(torch.autograd.Function):
+    """:func:`gather_cat` over one group; the backward keeps the rank's
+    block of the cotangent, all-reduced first where it is partial."""
+
+    @staticmethod
+    def forward(ctx, x, group, algo, dim, partial):
+        from repro_torch.core.collectives.p2p import axis_index
+        ctx.args = (group, algo, dim, partial, x.shape[dim],
+                    axis_index(group))
+        return gather_cat(x, (group,), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.collectives.api import allreduce
+        group, algo, dim, partial, n, rank = ctx.args
+        if partial:
+            g = allreduce(g.contiguous().clone(), algo, (group,))
+        return g.narrow(dim, rank * n, n), None, None, None, None
+
+
+def gather_tp(x: torch.Tensor, group, algo: str = "psum", dim: int = -1,
+              partial: bool = True) -> torch.Tensor:
+    """Every rank's block ``x`` of ``group`` concatenated on ``dim`` in
+    rank order, differentiable.  ``partial``: the gathered tensor's
+    consumers are split over the ranks, so its cotangent is partial and
+    the backward is a reduce-scatter to the rank's block (the all-reduce
+    on ``algo`` and the rank's slice, as ``collectives.reduce_scatter``
+    runs it on psum, so that the ranks on ``tree`` sum in the control's
+    order); otherwise every rank computes the same from it with the same
+    cotangent, and the backward is the rank's own block, no collective."""
+    return _GatherTp.apply(x, group, algo, dim, partial)
+
+
+class Lanes:
+    """A split mixer's work under the train layout, as one rank runs it
+    (``group``: one lane, the rank's share of the parameters, the pieces'
+    collectives over the group on ``algo``) or as the control
+    (``sharding_ctx.blocked_region``: no group, one lane for each of
+    ``ranks``, the first holder of each distinct block, on the whole
+    parameters cut as that rank holds them, every sum in the ``tree``
+    all-reduce's order): the ranks' arithmetic in one process.
+    ``ranks`` is the rank's own index on a rank; ``tp`` the group's
+    size."""
+
+    def __init__(self, ranks, tp: int, group=None, algo: str = "psum"):
+        self.ranks, self.tp = tuple(ranks), tp
+        self.group, self.algo = group, algo
+
+    def share(self, params, cfg, desc, fanned=()):
+        """Each lane's parameters: the rank's share as given, or in the
+        control each lane's rank's cut of the whole ``params``
+        (``convert.train_share`` by the mixer's descriptors ``desc``),
+        the whole leaves ``fanned`` (read by every lane) through
+        :func:`fan`, every other whole leaf as it is."""
+        if self.group is not None:
+            return [params]
+        from repro_torch.convert import train_share
+        cuts = [train_share(params, desc, cfg, r, self.tp)
+                for r in self.ranks]
+        for name in fanned:
+            leaf = params[name]
+            views = fan(leaf["scale"] if isinstance(leaf, dict) else leaf,
+                        len(cuts))
+            for c, v in zip(cuts, views):
+                c[name] = {"scale": v} if isinstance(leaf, dict) else v
+        return cuts
+
+    def enter(self, x: torch.Tensor):
+        """``x`` (whole, the same on every rank) into the lanes: ``tp_in``
+        on a rank, :func:`fan` in the control."""
+        if self.group is not None:
+            return [tp_in(x, self.group, self.algo)]
+        return list(fan(x, len(self.ranks)))
+
+    def out(self, parts, mute: bool = False) -> torch.Tensor:
+        """The lanes' partial outputs summed: ``tp_out`` (of zeros that
+        keep the graph where ``mute``: a replica head block), or
+        :func:`tree_sum`."""
+        if self.group is not None:
+            return tp_out(muted(parts[0], mute), self.group, self.algo)
+        return tree_sum(parts)
+
+    def out_f32(self, parts, dtype) -> torch.Tensor:
+        """The lanes' partial outputs summed in f32 and rounded once to
+        ``dtype``."""
+        parts = [p.to(torch.float32) for p in parts]
+        if self.group is not None:
+            return tp_out(parts[0], self.group, self.algo).to(dtype)
+        return tree_sum(parts).to(dtype)
+
+    def sum_f32(self, parts, dtype):
+        """:func:`sum_f32` of the lanes' partials, one view a lane."""
+        if self.group is not None:
+            return [sum_f32(parts[0], self.group, self.algo, dtype)]
+        whole = tree_sum([p.to(torch.float32) for p in parts])
+        return [v.to(dtype) for v in fan(whole, len(parts))]
+
+    def gather_split(self, parts, dim: int):
+        """The lanes' blocks concatenated on ``dim``, one view a lane (the
+        consumers are split: :func:`gather_tp` with ``partial``)."""
+        if self.group is not None:
+            return [gather_tp(parts[0], self.group, self.algo, dim)]
+        return list(fan(torch.cat(parts, dim), len(parts)))
+
+    def gather_whole(self, parts, dim: int) -> torch.Tensor:
+        """The lanes' blocks concatenated on ``dim``, one tensor that every
+        rank reads whole (:func:`gather_tp` without ``partial``)."""
+        if self.group is not None:
+            return gather_tp(parts[0], self.group, self.algo, dim,
+                             partial=False)
+        return torch.cat(parts, dim)
+
+
+def train_lanes(blocks) -> Optional["Lanes"]:
+    """The active train layout's :class:`Lanes`, or its control's
+    (``blocks(tp)``: the ranks whose work the control's lanes do), or
+    None outside both."""
+    from repro_torch.models.sharding_ctx import blocked_tp, train_axes
+    ta = train_axes()
+    if ta is not None:
+        from repro_torch.core.collectives.p2p import axis_index, axis_size
+        return Lanes((axis_index(ta.tp),), axis_size(ta.tp), ta.tp, ta.algo)
+    tp = blocked_tp()
+    return None if tp is None else Lanes(blocks(tp), tp)
 
 
 # ---------------------------------------------------------------------------

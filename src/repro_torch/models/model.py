@@ -20,11 +20,13 @@ vocab-parallel (``layers.embed_tp`` / ``logits_tp``), the stack as
 cache laid out by
 ``input_partition_specs``' rule with the tp group's size as the model
 axis' (``convert.cache_slice``).  Under ``sharding_ctx.train_region`` the
-training loss of a grouped-query family runs the reference's train
-layout on the rank's share (``convert.train_slice``): the vocab-parallel
+training loss runs the reference's train layout on the rank's share
+(``convert.train_slice``) for every family: the vocab-parallel
 embedding (``embed_tp`` with its autograd sum) and the vocab-parallel
 cross-entropy (``layers.softmax_xent_tp``), the same loss on every rank
-of the group; ``blocked_region`` runs its control.
+of the group, and the stack as ``transformer`` (the encoder-decoder's as
+``encdec``) says; ``blocked_region`` runs its control.
+:func:`train_edges` lists the leaves that take the replica edge.
 
 The encoder-decoder keeps the reference's unused ``final_norm`` (its
 decoder ends in ``dec_norm``), so that converted trees match.
@@ -52,8 +54,7 @@ from repro_torch.models.layers import (ParamDesc, TensorSpec, desc_leaves,
                                        softmax_xent_blocked, softmax_xent_tp,
                                        tp_in)
 from repro_torch.models.sharding_ctx import (blocked_tp, cache_leaf_spec,
-                                             check_train_layout, serve_axes,
-                                             train_axes)
+                                             serve_axes, train_axes)
 
 XENT_CHUNK = 512
 
@@ -229,8 +230,6 @@ class Model:
         tokens = batch["tokens"]
         labels = torch.cat([tokens[:, 1:], -torch.ones_like(tokens[:, :1])],
                            dim=1)
-        if train_axes() is not None or blocked_tp() is not None:
-            check_train_layout(self.cfg)
         h, aux = self._backbone_train(params, batch)
         nll = self._chunked_xent(params, h, labels)
         return nll + self.cfg.router_aux_coef * aux
@@ -336,6 +335,23 @@ class Model:
             self.init_cache(B, shape.seq_len, src_len=shape.seq_len
                             if self.cfg.is_encoder_decoder else 0))
         return {"tokens": (batch_axis, None), "cache": cache, "pos": ()}
+
+
+def train_edges(cfg: ModelConfig, tp: int, rank: int):
+    """The replica edge of the whole parameter tree on model-axis rank
+    ``rank`` of ``tp``: the path of each subtree whose leaves take it
+    (a block's ``mixer``; the encoder's attention, the decoder's
+    ``self`` and ``cross``) -> leaf name -> (blocks, index)
+    (``transformer.mixer_edges``)."""
+    if cfg.is_encoder_decoder:
+        e = transformer.mixer_edges(cfg, "attn", tp, rank)
+        return {("encdec", "enc_stack", "mixer"): e,
+                ("encdec", "dec_stack", "self"): e,
+                ("encdec", "dec_stack", "cross"): e}
+    return {("stack", i, j, "mixer"): transformer.mixer_edges(
+        cfg, spec.mixer, tp, rank)
+        for i, seg in enumerate(cfg.stack_plan())
+        for j, spec in enumerate(seg.period)}
 
 
 def count_params(cfg: ModelConfig) -> int:

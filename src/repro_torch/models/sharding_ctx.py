@@ -18,7 +18,10 @@ blocks, and the decode cache laid out by
 reference's 16 (``data``: the data groups that split a batch-1 cache's
 length too; ``max_len``: the cache length of a full-attention layer).
 :func:`leaf_share` is one rank's block of a cache leaf under that
-layout.  The contexts are process-global; ``tp_axis()``, ``ep_axis()``
+layout.  Inside ``with train_region(group, algo):`` the training loss runs the
+reference's train layout over ``group`` on the rank's share
+(``convert.train_slice``), every family; ``blocked_region(tp)`` is its
+control in one process.  The contexts are process-global; ``tp_axis()``, ``ep_axis()``
 and ``serve_axes()`` are None outside every region.  The rest of the
 reference module (activation sharding constraints, the mesh context)
 steers XLA's partitioner and has no counterpart here.
@@ -125,23 +128,6 @@ def blocked_region(tp: Optional[int]):
 def blocked_tp() -> Optional[int]:
     """The active control's tp, or None."""
     return _CTX["blocked"]
-
-
-def train_layout_supported(cfg) -> bool:
-    """Whether the train layout covers ``cfg``: decoder-only stacks of
-    grouped-query attention (the MLA, Mamba, xLSTM and encoder-decoder
-    families train under it in a later slice, ROADMAP item 16)."""
-    return not cfg.is_encoder_decoder and all(
-        cfg.layer_spec(i).mixer == "attn" for i in range(cfg.num_layers))
-
-
-def check_train_layout(cfg) -> None:
-    """Raise unless the train layout covers ``cfg``."""
-    if not train_layout_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the train layout over the model axis covers the "
-            f"grouped-query families only (MLA, Mamba, xLSTM and the "
-            f"encoder-decoder: ROADMAP item 16's remainder)")
 
 
 @contextlib.contextmanager

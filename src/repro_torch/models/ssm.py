@@ -23,6 +23,8 @@ run on the rank's channels; ``x_proj`` holds the rank's input rows, so
 it whole; ``out_proj`` holds its rows and one all-reduce sums the layer's
 output.  Both sums run in f32 and round once (``layers.psum_f32``): the
 recurrence amplifies every extra rounding of a sum of bf16 partials.
+Under ``sharding_ctx.train_region`` the training forward runs the same
+split with differentiable sums (:func:`_mamba_train`).
 The state ``h`` and the conv tail hold the rank's channels, as the
 reference's ``cache_spec`` splits them (their widest dim, d_inner, over
 the model axis).  At batch 1 with d_inner >= 4096 that spec splits
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamDesc, TensorSpec, gather_cat,
-                                       psum_f32)
+                                       psum_f32, train_lanes)
 from repro_torch.models.scan_utils import chunked_scan
 from repro_torch.models.sharding_ctx import leaf_share, serve_axes
 
@@ -81,31 +83,39 @@ def _sel_params(params, cfg: ModelConfig, x: torch.Tensor, group=None):
     """x: (..., di) -> (dt (..., di), B (..., ds), C (..., ds)); under
     ``group`` (a tp process group) x holds the rank's channels and
     ``x_proj`` its rows, and the partial projection is all-reduced."""
-    ds, dtr = cfg.ssm_d_state, cfg.dt_rank
     if group is None:
         proj = x @ params["x_proj"]
     else:
-        proj = psum_f32(x.to(torch.float32)
-                        @ params["x_proj"].to(torch.float32), group, x.dtype)
+        proj = psum_f32(_x_proj_part(params, x), group, x.dtype)
+    return _sel_split(params, cfg, proj)
+
+
+def _x_proj_part(params, x: torch.Tensor) -> torch.Tensor:
+    """The f32 partial projection of the rank's channels ``x``."""
+    return x.to(torch.float32) @ params["x_proj"].to(torch.float32)
+
+
+def _sel_split(params, cfg: ModelConfig, proj: torch.Tensor):
+    """(dt, B, C) from the whole projection (dt_rank + 2 d_state)."""
+    ds, dtr = cfg.ssm_d_state, cfg.dt_rank
     dt_in, Bc, Cc = torch.split(proj, [dtr, ds, ds], dim=-1)
     dt = softplus(dt_in @ params["dt_proj_w"] + params["dt_proj_b"])
     return dt, Bc, Cc
 
 
-def mamba_forward(params, cfg: ModelConfig, x: torch.Tensor,
-                  return_state: bool = False):
-    """x: (B, T, d) -> (B, T, d) [, final state {"h", "conv"}]."""
-    B, T, _ = x.shape
-    ds = cfg.ssm_d_state
-    f32 = torch.float32
-    sa = serve_axes()
-    group = None if sa is None else sa.tp
+def _mamba_in(params, x: torch.Tensor):
+    """(the pre-conv x, the conv's features, z) of the channels that
+    ``params`` hold."""
     xin_raw, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)
-    di = xin_raw.shape[-1]                 # the rank's channels under tp
-    xin = F.silu(_conv1d_causal(params, xin_raw))
-    dt, Bc, Cc = _sel_params(params, cfg, xin, group)
+    return xin_raw, F.silu(_conv1d_causal(params, xin_raw)), z
+
+
+def _mamba_scan(params, cfg: ModelConfig, xin, z, dt, Bc, Cc, out_dtype):
+    """The selective scan of ``xin``'s channels: (the gated output y
+    before ``out_proj``, the final state h)."""
+    B, T, di = xin.shape
+    f32 = torch.float32
     A = -torch.exp(params["A_log"].to(f32))                # (di, ds)
-    out_dtype = x.dtype
 
     def step(h, inp):
         x_t, dt_t, B_t, C_t = (t.to(f32) for t in inp)
@@ -115,13 +125,30 @@ def mamba_forward(params, cfg: ModelConfig, x: torch.Tensor,
         y = torch.einsum("bds,bs->bd", h, C_t)
         return h, y.to(out_dtype)          # the stacked ys stay small
 
-    h0 = torch.zeros((B, di, ds), dtype=f32, device=x.device)
+    h0 = torch.zeros((B, di, cfg.ssm_d_state), dtype=f32, device=xin.device)
     # the stacks stay in the compute dtype; the step upcasts
     xs = tuple(t.transpose(0, 1) for t in (xin, dt, Bc, Cc))
     h_final, ys = chunked_scan(step, h0, xs, chunk=128)
-    y = ys.transpose(0, 1).to(x.dtype)
+    y = ys.transpose(0, 1).to(out_dtype)
     y = y + xin * params["D"]
-    y = y * F.silu(z)
+    return y * F.silu(z), h_final
+
+
+def mamba_forward(params, cfg: ModelConfig, x: torch.Tensor,
+                  return_state: bool = False):
+    """x: (B, T, d) -> (B, T, d) [, final state {"h", "conv"}].  Under
+    ``sharding_ctx.train_region`` (or its control, ``blocked_region``)
+    :func:`_mamba_train`."""
+    if not return_state:
+        lanes = train_lanes(range)
+        if lanes is not None:
+            return _mamba_train(params, cfg, x, lanes)
+    B, T, _ = x.shape
+    sa = serve_axes()
+    group = None if sa is None else sa.tp
+    xin_raw, xin, z = _mamba_in(params, x)
+    dt, Bc, Cc = _sel_params(params, cfg, xin, group)
+    y, h_final = _mamba_scan(params, cfg, xin, z, dt, Bc, Cc, x.dtype)
     out = _out_proj(params, y, group)
     if return_state:
         K = cfg.ssm_conv
@@ -136,6 +163,27 @@ def mamba_forward(params, cfg: ModelConfig, x: torch.Tensor,
                 h_final = whole[:, share.index * n:(share.index + 1) * n]
         return out, {"h": h_final.contiguous(), "conv": tail}
     return out
+
+
+def _mamba_train(params, cfg: ModelConfig, x: torch.Tensor, lanes):
+    """The train layout's Mamba (``lanes``: ``layers.Lanes``, a rank or
+    the control): ``x`` (after ``norm1``) through ``tp_in``; ``in_proj``'s
+    x and z parts, the conv, ``dt_proj``, ``A_log``, ``D`` and the scan
+    on the rank's ``inner`` channels; ``x_proj``'s f32 partial summed by
+    ``layers.sum_f32`` (dt, B and C feed every rank's channels, so the
+    backward sums their cotangent too); ``out_proj``'s f32 partial summed
+    by ``tp_out`` in f32 and rounded once.  Every collective lies outside
+    the scan's checkpointed steps."""
+    ps = lanes.share(params, cfg, mamba_desc(cfg))
+    ins = [_mamba_in(p, xb) for p, xb in zip(ps, lanes.enter(x))]
+    projs = lanes.sum_f32([_x_proj_part(p, xin) for p, (_, xin, _)
+                           in zip(ps, ins)], x.dtype)
+    parts = []
+    for p, (_, xin, z), proj in zip(ps, ins, projs):
+        dt, Bc, Cc = _sel_split(p, cfg, proj)
+        y, _ = _mamba_scan(p, cfg, xin, z, dt, Bc, Cc, x.dtype)
+        parts.append(y.to(torch.float32) @ p["out_proj"].to(torch.float32))
+    return lanes.out_f32(parts, x.dtype)
 
 
 def _out_proj(params, y: torch.Tensor, group) -> torch.Tensor:

@@ -28,12 +28,13 @@ attention (``attention.head_layout``) and MLA (its latents split by
 length), Mamba and the xLSTM blocks over ``inner`` (``ssm``, ``xlstm``),
 the dense FFNs' ffn slice (``mlp_tp``) and the experts' block
 (``moe_ffn`` / ``moe_decode_ffn`` with ``tp_axis``).  Under
-``sharding_ctx.train_region(group)`` the training blocks of a
-grouped-query family run the reference's train layout over ``group``:
-head-parallel attention with its backward (``attention._attn_train_tp``),
-the dense FFNs on ``mlp_tp`` and the experts in blocks
-(``moe_ffn(tp_axis=, train_algo=)``), with the replica edge over the
-attention leaves that ranks share; ``blocked_region`` runs its control.
+``sharding_ctx.train_region(group)`` the training blocks run the
+reference's train layout over ``group`` for every mixer: head-parallel
+attention with its backward (``attention._attn_train_tp``), MLA on its
+head block, Mamba and the xLSTM blocks over ``inner``, the dense FFNs on
+``mlp_tp`` and the experts in blocks (``moe_ffn(tp_axis=,
+train_algo=)``), with the replica edge over the mixer leaves that ranks
+share (:func:`mixer_edges`); ``blocked_region`` runs its control.
 The decode stack writes into the cache it is given when ``inplace`` (the
 reference's donated cache).
 """
@@ -53,8 +54,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (TensorSpec, mlp, mlp_blocked,
-                                       mlp_desc, mlp_tp, norm_desc, rmsnorm,
-                                       stack_desc)
+                                       mlp_desc, mlp_tp, norm_desc,
+                                       replica_edges, rmsnorm, stack_desc)
 from repro_torch.models.sharding_ctx import (blocked_tp, ep_axis,
                                              regions_of, serve_axes,
                                              snapshot, tp_axis, train_axes)
@@ -168,13 +169,19 @@ def block_train(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
 
 def _attn_bidirectional(params, cfg: ModelConfig, spec: LayerSpec, x,
                         positions, kernel: bool):
+    """The encoder's attention: through ``ops.flash_attention`` when
+    ``kernel`` (the rank's head block under ``serve_region``), else the
+    differentiable chunked attention (``attention.attn_forward``: the
+    rank's head block under the train layout)."""
+    if not kernel:
+        return attn.attn_forward(params, cfg, spec, x, positions,
+                                 causal=False)
     B, T, _ = x.shape
     q, k, v = attn._project_qkv(params, cfg, x, positions)
-    fn = ops.flash_attention if kernel else attn.flash_attention
-    out = fn(q, k, v, causal=False, window=spec.window,
-             softcap=cfg.attn_logit_softcap)
+    out = ops.flash_attention(q, k, v, causal=False, window=spec.window,
+                              softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, T, -1) @ params["wo"]
-    sa = serve_axes() if kernel else None
+    sa = serve_axes()
     if sa is None:
         return out
     return attn._heads_out(out, attn.head_layout(cfg, *attn._tp_of(sa)), sa)
@@ -309,22 +316,47 @@ def _unstack(tree, repeats: int) -> List[Any]:
             for r in range(repeats)]
 
 
+def mixer_edges(cfg: ModelConfig, mixer: str, tp: int, rank: int):
+    """The replica edge of one mixer's leaves on rank ``rank`` of ``tp``:
+    leaf name -> (blocks, index) (``attention.edge_blocks``,
+    ``mla_edge_blocks``, ``xlstm.mlstm_edge_blocks``; Mamba and the
+    sLSTM share no leaf that a rank reads only through its share)."""
+    if mixer == "attn":
+        return attn.edge_blocks(cfg, tp, rank)
+    if mixer == "mla":
+        return attn.mla_edge_blocks(cfg, tp, rank)
+    if mixer == "mlstm":
+        return xlstm_mod.mlstm_edge_blocks(cfg, tp, rank)
+    return {}
+
+
+def mixer_replica_edge(params, cfg: ModelConfig, mixer: str, ta):
+    """One mixer's leaves (stacked or not) with its replica edge
+    (:func:`mixer_edges`) over the train layout's group ``ta``."""
+    if mixer == "attn":
+        return attn.attn_replica_edge(params, cfg, ta)
+    from repro_torch.core.collectives.p2p import axis_index, axis_size
+    return replica_edges(params, mixer_edges(
+        cfg, mixer, axis_size(ta.tp), axis_index(ta.tp)), ta)
+
+
 def stack_train(params_segs, cfg: ModelConfig, plan, x, positions,
                 remat: bool = True):
     """Full-sequence stack (training).  Returns (x, aux).  ``remat=True``
     checkpoints each block: the backward stores one input per layer and
     recomputes the block, like the reference's per-period
-    ``jax.checkpoint``.  Under the train region each segment's attention
-    leaves that ranks share are wrapped in the replica edge before the
-    segment is split into its layers, so each such stacked leaf is summed
-    once a step."""
+    ``jax.checkpoint``.  Under the train region each segment's mixer
+    leaves that ranks share (:func:`mixer_edges`) are wrapped in the
+    replica edge before the segment is split into its layers, so each
+    such stacked leaf is summed once a step."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ta = train_axes()
     for seg, seg_params in zip(plan, params_segs):
         if ta is not None:
             # the replica edge on each stacked leaf, once a step
-            seg_params = [dict(p, mixer=attn.attn_replica_edge(
-                p["mixer"], cfg, ta)) for p in seg_params]
+            seg_params = [dict(p, mixer=mixer_replica_edge(
+                p["mixer"], cfg, spec.mixer, ta))
+                for spec, p in zip(seg.period, seg_params)]
         periods = ([seg_params] if seg.repeats == 1
                    else _unstack(seg_params, seg.repeats))
         for period in periods:

@@ -38,6 +38,9 @@ Under ``sharding_ctx.serve_region`` a model-axis rank holds its block of
 
 The all-reduces sum f32 partials and round once (``layers.psum_f32``):
 the recurrences amplify every extra rounding of a sum of bf16 partials.
+Under ``sharding_ctx.train_region`` the training forward runs the same
+splits with differentiable sums and gathers (:func:`_mlstm_train`,
+:func:`_slstm_train`; C by the rank's block of ``dh_v`` rows).
 """
 from __future__ import annotations
 
@@ -49,7 +52,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamDesc, TensorSpec, gather_cat,
-                                       norm_desc, psum_f32, rmsnorm)
+                                       norm_desc, psum_f32, rmsnorm,
+                                       train_lanes)
 from repro_torch.models.scan_utils import chunked_scan
 from repro_torch.models.sharding_ctx import leaf_share, serve_axes
 from repro_torch.models.ssm import softplus
@@ -124,12 +128,8 @@ def _mlstm_proj(params, conv, xm, group):
     if group is None:
         return [conv @ params["wq"], conv @ params["wk"], xm @ params["wv"],
                 conv @ params["w_if"]]
-    f32 = torch.float32
-    c, x = conv.to(f32), xm.to(f32)
-    parts = [c @ params["wq"].to(f32), c @ params["wk"].to(f32),
-             x @ params["wv"].to(f32), c @ params["w_if"].to(f32)]
-    sizes = [p.shape[-1] for p in parts]
-    whole = psum_f32(torch.cat(parts, dim=-1), group, conv.dtype)
+    sizes = [params[w].shape[-1] for w in ("wq", "wk", "wv", "w_if")]
+    whole = psum_f32(_mlstm_proj_parts(params, conv, xm), group, conv.dtype)
     return list(torch.split(whole, sizes, dim=-1))
 
 
@@ -184,27 +184,65 @@ def _mlstm_update(C, n, m, q, k, v, log_i, log_f):
     return C, n, m_new, num / den[..., None]
 
 
+def _mlstm_conv(params, xm: torch.Tensor) -> torch.Tensor:
+    """The causal depthwise conv of the channels of ``xm``, SiLU'd."""
+    K, T = params["conv_w"].shape[0], xm.shape[1]
+    padded = F.pad(xm, (0, 0, K - 1, 0))
+    conv = sum(padded[:, i:i + T, :] * params["conv_w"][i] for i in range(K))
+    return F.silu(conv + params["conv_b"])
+
+
+def _mlstm_proj_parts(params, conv, xm) -> torch.Tensor:
+    """The f32 partial products of the rank's input rows of ``wq`` /
+    ``wk`` / ``wv`` / ``w_if``, side by side."""
+    f32 = torch.float32
+    c, x = conv.to(f32), xm.to(f32)
+    return torch.cat([c @ params["wq"].to(f32), c @ params["wk"].to(f32),
+                      x @ params["wv"].to(f32), c @ params["w_if"].to(f32)],
+                     dim=-1)
+
+
 def mlstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
                   return_state: bool = False):
-    """x: (B, T, d) -> (B, T, d) [, final state {"C", "n", "m", "conv"}]."""
+    """x: (B, T, d) -> (B, T, d) [, final state {"C", "n", "m", "conv"}].
+    Under ``sharding_ctx.train_region`` (or its control,
+    ``blocked_region``) :func:`_mlstm_train`."""
+    if not return_state:
+        lanes = train_lanes(range)
+        if lanes is not None:
+            return _mlstm_train(params, cfg, x, lanes)
     B, T, _ = x.shape
-    f32 = torch.float32
     sa = serve_axes()
     xm, z, H, dh = _mlstm_pre(params, cfg, x)
     r0, rows = _mlstm_rows(cfg, B, sa)
     K = params["conv_w"].shape[0]
-    padded = F.pad(xm, (0, 0, K - 1, 0))
-    conv = sum(padded[:, i:i + T, :] * params["conv_w"][i] for i in range(K))
-    conv = F.silu(conv + params["conv_b"])
-
+    conv = _mlstm_conv(params, xm)
     q, k, v, pre_if = _mlstm_proj(params, conv, xm,
                                   None if sa is None else sa.tp)
+    h, final = _mlstm_recur(params, cfg, conv, q, k, v, pre_if, r0, rows,
+                            x.dtype)
+    out = _mlstm_out(params, cfg, h, z, sa)
+    if return_state:
+        C, n, m = final
+        tail = F.pad(xm, (0, 0, max(0, K - 1 - T), 0))[:, -(K - 1):, :]
+        return out, {"C": C, "n": n, "m": m, "conv": tail}
+    return out
+
+
+def _mlstm_recur(params, cfg: ModelConfig, conv, q, k, v, pre_if, r0: int,
+                 rows: int, out_dtype):
+    """The mLSTM recurrence on rows ``[r0, r0 + rows)`` of every head's
+    ``dh_v`` (the whole q, k and gates): (h (B, T, H, rows), the final
+    (C, n, m)); the sequential scan, or the chunkwise form
+    (``cfg.mlstm_parallel``) where the chunk tiles T."""
+    B, T, _ = conv.shape
+    f32 = torch.float32
+    H, dh = _heads(cfg, MLSTM_PF * cfg.d_model)
     q = q.reshape(B, T, H, dh)
-    k = k.reshape(B, T, H, dh) / _sqrt_dh(dh, x)
+    k = k.reshape(B, T, H, dh) / _sqrt_dh(dh, k)
     # the rank's rows of every head's value (all of them without tp)
     v = v.reshape(B, T, H, dh)[..., r0:r0 + rows]
     log_i, log_f = _mlstm_gates(params, conv, pre_if)     # (B, T, H)
-    out_dtype = x.dtype
 
     def step(carry, inp):
         q_t, k_t, v_t, li_t, lf_t = inp
@@ -212,26 +250,71 @@ def mlstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
                                    v_t.to(f32), li_t, lf_t)
         return (C, n, m), h.to(out_dtype)
 
-    dev = x.device
+    dev = conv.device
     init = (torch.zeros((B, H, rows, dh), dtype=f32, device=dev),
             torch.zeros((B, H, dh), dtype=f32, device=dev),
             torch.full((B, H), M_INIT, dtype=f32, device=dev))
     if cfg.mlstm_parallel and T % cfg.mlstm_chunk == 0:
         hs, final = mlstm_chunkwise(q, k, v, log_i, log_f, init,
                                     chunk=cfg.mlstm_chunk)
-        h = hs.to(out_dtype)
-    else:
-        # the q, k, v stacks stay in the compute dtype; the step upcasts
-        # before touching the f32 matrix state
-        xs = tuple(t.transpose(0, 1) for t in (q, k, v, log_i, log_f))
-        final, hs = chunked_scan(step, init, xs, chunk=cfg.mlstm_chunk)
-        h = hs.transpose(0, 1)                            # (B, T, H, rows)
-    out = _mlstm_out(params, cfg, h, z, sa)
-    if return_state:
-        C, n, m = final
-        tail = F.pad(xm, (0, 0, max(0, K - 1 - T), 0))[:, -(K - 1):, :]
-        return out, {"C": C, "n": n, "m": m, "conv": tail}
-    return out
+        return hs.to(out_dtype), final
+    # the q, k, v stacks stay in the compute dtype; the step upcasts
+    # before touching the f32 matrix state
+    xs = tuple(t.transpose(0, 1) for t in (q, k, v, log_i, log_f))
+    final, hs = chunked_scan(step, init, xs, chunk=cfg.mlstm_chunk)
+    return hs.transpose(0, 1), final                      # (B, T, H, rows)
+
+
+def _mlstm_train(params, cfg: ModelConfig, x: torch.Tensor, lanes):
+    """The train layout's mLSTM (``lanes``: ``layers.Lanes``, a rank or
+    the control).  ``norm`` runs whole and its output enters through
+    ``tp_in`` (so its scale's gradient is whole); ``up``'s xm and z, the
+    conv and the input rows of ``wq`` / ``wk`` / ``wv`` / ``w_if`` are the
+    rank's ``inner`` block, and their f32 partials sum through
+    ``layers.sum_f32``.  ``b_if`` is added after that sum, so its
+    cotangent is the rank's partial: it takes the replica edge
+    (:func:`mlstm_edge_blocks`).  C holds the rank's rows of ``dh_v``
+    (block ``rank`` of ``tp``), n and m are whole; the rank's rows of h
+    are gathered whole (``layers.gather_tp``, the backward a
+    reduce-scatter: ``out_norm`` reads the whole h and the rank keeps its
+    block of d_inner, so the cotangent is partial; ``out_norm``'s
+    gradient, partial the same way, takes the replica edge); ``down``'s
+    f32 partial is summed by ``tp_out`` in f32."""
+    H, dh = _heads(cfg, MLSTM_PF * cfg.d_model)
+    if dh % lanes.tp:
+        raise ValueError(f"{cfg.name}: the mLSTM's dh_v={dh} does not "
+                         f"split over tp={lanes.tp}")
+    rows = dh // lanes.tp
+    u = rmsnorm(params["norm"], x, eps=cfg.norm_eps)
+    ps = lanes.share(params, cfg, mlstm_desc(cfg),
+                     fanned=("b_if", "out_norm"))
+    pre = []
+    for p, ub in zip(ps, lanes.enter(u)):
+        xm, z = torch.chunk(ub @ p["up"], 2, dim=-1)
+        conv = _mlstm_conv(p, xm)
+        pre.append((z, conv, _mlstm_proj_parts(p, conv, xm)))
+    wholes = lanes.sum_f32([part for _, _, part in pre], x.dtype)
+    hs = []
+    for p, r, (_, conv, _), whole in zip(ps, lanes.ranks, pre, wholes):
+        q, k, v, pre_if = torch.split(whole, [w.shape[-1] for w in (
+            p["wq"], p["wk"], p["wv"], p["w_if"])], dim=-1)
+        hs.append(_mlstm_recur(p, cfg, conv, q, k, v, pre_if, r * rows,
+                               rows, x.dtype)[0])
+    parts = []
+    for p, r, (z, _, _), h in zip(ps, lanes.ranks, pre,
+                                  lanes.gather_split(hs, -1)):
+        h = rmsnorm(p["out_norm"], h.flatten(-2), eps=cfg.norm_eps)
+        di = z.shape[-1]
+        h = (h[..., r * di:(r + 1) * di] * F.silu(z)).to(torch.float32)
+        parts.append(h @ p["down"].to(torch.float32))
+    return lanes.out_f32(parts, x.dtype)
+
+
+def mlstm_edge_blocks(cfg: ModelConfig, tp: int, rank: int):
+    """The replica edge of an mLSTM layer's leaves (as
+    ``attention.edge_blocks``): ``b_if`` and ``out_norm``, whole on every
+    rank and read through the rank's share."""
+    return {"b_if": (1, 0), "out_norm": (1, 0)}
 
 
 def mlstm_chunkwise(q, k, v, log_i, log_f, init, chunk: int):
@@ -401,12 +484,36 @@ def _slstm_cols(cfg: ModelConfig, batch: int, sa):
     return share.index * n, n
 
 
+def _slstm_scan(params, cfg: ModelConfig, x_proj: torch.Tensor, out_dtype):
+    """The sLSTM cell over the whole gates ``x_proj`` (B, T, 4d): (h (B, T,
+    d), the final (c, n, m, h))."""
+    B, T, _ = x_proj.shape
+    H, dh = _heads(cfg, cfg.d_model)
+    f32 = torch.float32
+
+    def step(carry, xp_t):
+        new = _slstm_cell(params, cfg, xp_t, carry)
+        return new, new[3].to(out_dtype)
+
+    zeros = torch.zeros((B, H, dh), dtype=f32, device=x_proj.device)
+    init = (zeros, zeros, torch.full((B, H, dh), M_INIT, dtype=f32,
+                                     device=x_proj.device), zeros)
+    final, hs = chunked_scan(step, init, x_proj.transpose(0, 1),
+                             chunk=cfg.mlstm_chunk)
+    return hs.transpose(0, 1).reshape(B, T, cfg.d_model), final
+
+
 def slstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
                   return_state: bool = False):
-    """x: (B, T, d) -> (B, T, d) [, final state {"c", "n", "m", "h"}]."""
+    """x: (B, T, d) -> (B, T, d) [, final state {"c", "n", "m", "h"}].
+    Under ``sharding_ctx.train_region`` (or its control,
+    ``blocked_region``) :func:`_slstm_train`."""
+    if not return_state:
+        lanes = train_lanes(range)
+        if lanes is not None:
+            return _slstm_train(params, cfg, x, lanes)
     B, T, d = x.shape
     H, dh = _heads(cfg, d)
-    f32 = torch.float32
     sa = serve_axes()
     c0, cols = _slstm_cols(cfg, B, sa)
     u = rmsnorm(params["norm"], x, eps=cfg.norm_eps)
@@ -415,24 +522,45 @@ def slstm_forward(params, cfg: ModelConfig, x: torch.Tensor,
         # the rank's dh block of every head's gates, gathered whole
         x_proj = gather_cat(x_proj.reshape(B, T, H, 4, cols), (sa.tp,),
                             -1).reshape(B, T, 4 * d)
-    out_dtype = x.dtype
-
-    def step(carry, xp_t):
-        new = _slstm_cell(params, cfg, xp_t, carry)
-        return new, new[3].to(out_dtype)
-
-    zeros = torch.zeros((B, H, dh), dtype=f32, device=x.device)
-    init = (zeros, zeros, torch.full((B, H, dh), M_INIT, dtype=f32,
-                                     device=x.device), zeros)
-    final, hs = chunked_scan(step, init, x_proj.transpose(0, 1),
-                             chunk=cfg.mlstm_chunk)
-    out = _slstm_ffn(params, cfg, hs.transpose(0, 1).reshape(B, T, d),
-                     None if sa is None else sa.tp)
+    hs, final = _slstm_scan(params, cfg, x_proj, x.dtype)
+    out = _slstm_ffn(params, cfg, hs, None if sa is None else sa.tp)
     if return_state:
         c, n, m, hf = final
         return out, {"c": c, "n": n, "m": m,
                      "h": hf[..., c0:c0 + cols].contiguous()}
     return out
+
+
+def _slstm_train(params, cfg: ModelConfig, x: torch.Tensor, lanes):
+    """The train layout's sLSTM (``lanes``: ``layers.Lanes``, a rank or
+    the control): ``norm`` whole, its output through ``tp_in`` into the
+    rank's ``w_in`` columns (its block of dh of every head's every
+    gate), the gates gathered whole (``layers.gather_tp`` with the rank's
+    own block as the backward: every rank runs the same cell on them);
+    the cell (``r``, ``b``) and ``out_norm`` whole on every rank, whose
+    output enters the FFN through ``tp_in``, so that h's cotangent, and
+    with it the cell's gradients, is whole and the same on every rank;
+    the FFN on the rank's ffn slice, its f32 partial summed by ``tp_out``
+    in f32."""
+    B, T, d = x.shape
+    H, dh = _heads(cfg, d)
+    if dh % lanes.tp:
+        raise ValueError(f"{cfg.name}: the sLSTM's dh={dh} does not split "
+                         f"over tp={lanes.tp}")
+    cols = dh // lanes.tp
+    u = rmsnorm(params["norm"], x, eps=cfg.norm_eps)
+    ps = lanes.share(params, cfg, slstm_desc(cfg))
+    x_proj = lanes.gather_whole(
+        [(ub @ p["w_in"]).reshape(B, T, H, 4, cols)
+         for p, ub in zip(ps, lanes.enter(u))], -1).reshape(B, T, 4 * d)
+    hs, _ = _slstm_scan(params, cfg, x_proj, x.dtype)
+    h = rmsnorm(params["out_norm"], hs, eps=cfg.norm_eps)
+    parts = []
+    for p, hb in zip(ps, lanes.enter(h)):
+        gate, up = torch.chunk(hb @ p["up"], 2, dim=-1)
+        parts.append((_gelu(gate) * up).to(torch.float32)
+                     @ p["down"].to(torch.float32))
+    return lanes.out_f32(parts, x.dtype)
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, dtype):

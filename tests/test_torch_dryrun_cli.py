@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 
 import pytest
 import torch.distributed as dist
@@ -81,25 +82,96 @@ def two_layers(monkeypatch):
 
 
 def test_expert_parallel_train_rank(two_layers):
-    """deepseek-v2-lite's rank at train, a family the train layout does
-    not cover yet (ROADMAP item 16's remainder): the experts split ep =
-    16 over the model axis (``sharding_ctx.ep_region``), layer 1 the one
-    MoE layer (layer 0 dense): the dispatch and the combine all-to-all in
-    the forward, again in the checkpoint's recomputation, and their
-    transposes in the backward."""
+    """deepseek-v2-lite's rank at train with the experts split ep = 16 over
+    the model axis (``sharding_ctx.ep_region``; no dry-run record trains
+    on it since every family trains under the train layout, so the step
+    is traced here through the op analysis on the fake group), layer 1
+    the one MoE layer (layer 0 dense): the dispatch and the combine
+    all-to-all in the forward, again in the checkpoint's recomputation,
+    and their transposes in the backward.  The rank holds 4 of the 64
+    experts and the router whole, as the reference's train rules hold
+    it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch._tree import tree_leaves, tree_map_with_path
+    from repro_torch.configs import SHAPES
+    from repro_torch.convert import ep_slice
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import ParamDesc
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding_ctx import ep_region
+    from repro_torch.optim import make_optimizer
+    cfg = dryrun.get_config("deepseek-v2-lite-16b")
+    shape = SHAPES["train_4k"]
+    model = Model(cfg)
+    mesh = dryrun.FakeMesh(False).open()
+    try:
+        mode = FakeTensorMode()
+        with mode:
+            params = ep_slice(model.abstract_params(mode=mode), 0, 16)
+            inputs = dryrun._materialize(model.input_specs(
+                dataclasses.replace(shape, global_batch=16)), mode)
+            opt = make_optimizer("adam", lr=1e-4)
+            state = opt.init(params)
+        step = make_train_step(model, opt, group=mesh.groups["data"])
+        with mode, ep_region(mesh.groups["model"]):
+            _, stats = op_analysis.trace(step, (params, state, inputs, 0),
+                                         axis_names=mesh.axis_names())
+    finally:
+        mesh.close()
+    ffn = params["stack"][1][0]["ffn"]
+    assert ffn["wi_gate"].shape[-3] == cfg.num_experts // 16      # ep = 16
+    # the leaves the reference's train rules put on the model axis that
+    # the rank holds whole: not the experts (the shared experts are, as
+    # under ep_slice); the router is not on the model axis
+    paths = []
+    tree_map_with_path(lambda path, _: paths.append(path), params)
+    specs = tree_leaves(model.partition_specs("train"),
+                        is_leaf=lambda x: isinstance(x, tuple))
+    descs = tree_leaves(model.param_desc(),
+                        is_leaf=lambda x: isinstance(x, ParamDesc))
+    whole = [path for path, spec, t, d in zip(paths, specs,
+                                              tree_leaves(params), descs)
+             if "model" in spec and tuple(t.shape) == d.shape]
+    experts = ("stack", 1, 0, "ffn")
+    assert not [p for p in whole if p[:4] == experts and len(p) == 5]
+    assert ffn["router"].shape == (cfg.d_model, cfg.num_experts)
+    hlo = stats.hlo_block()
+    assert hlo["collective_counts"]["all-to-all"] == 6
+    assert hlo["collective_counts_by_axis"]["model"]["all-to-all"] == 6
+    assert set(hlo["collective_wire_bytes_by_axis"]) == {"model", "data"}
+
+
+def test_mla_train_rank_under_train_layout(two_layers):
+    """deepseek-v2-lite's rank at train under the train layout over the
+    model axis: one of its 16 heads a rank (``wq`` / ``w_ukv`` columns,
+    ``wo`` rows), the latent projection whole and under the replica
+    edge, 4 of the 64 experts and a sixteenth of the shared experts' and
+    the dense FFN's ffn dim, the vocabulary in blocks of 6400 rows; every
+    token routed on every rank, so no all-to-all; the rank's arguments
+    are the rank's share, about a sixteenth of the whole model's."""
+    from repro_torch.models.layers import ParamDesc
+    from repro_torch.models.model import Model
+    from repro_torch._tree import tree_leaves
     rec = dryrun.trace_pair("deepseek-v2-lite-16b", "train_4k",
                             microbatches=1)
     lay = rec["layout"]
-    assert lay["ep"] == 16
-    assert "train_layout" in lay
-    assert "experts" not in lay["unsharded"]
-    assert "routers" not in lay["unsharded"]
-    counts = rec["hlo"]["collective_counts"]
-    assert counts["all-to-all"] == 6
-    assert rec["hlo"]["collective_counts_by_axis"]["model"][
-        "all-to-all"] == 6
-    assert set(rec["hlo"]["collective_wire_bytes_by_axis"]) == \
-        {"model", "data"}
+    assert (lay["tp"], lay["ep"], lay["train_layout"]) == \
+        (16, 16, "model axis")
+    assert (lay["attn_tp"], lay["heads_per_rank"]) == (16, 1)
+    assert lay["replica_edge"] == ["kv_norm", "w_dkv"]
+    assert lay["unsharded"] == ["norms", "routers",
+                                "MLA latent projection (w_dkv, kv_norm)"]
+    assert lay["vocab_rows_per_rank"] == 6400
+    assert "all-to-all" not in rec["hlo"]["collective_counts"]
+    assert set(rec["hlo"]["collective_counts_by_axis"]["model"]) == \
+        {"all-reduce"}
+    cfg = dryrun.get_config("deepseek-v2-lite-16b")
+    whole = sum(math.prod(d.shape) for d in tree_leaves(
+        Model(cfg).param_desc(), is_leaf=lambda x: isinstance(x, ParamDesc)))
+    # bf16 parameters, f32 moments: 10 bytes a parameter
+    args = rec["memory_analysis"]["argument_size_in_bytes"]
+    assert 10 * whole / 16 < args < 10 * whole / 12
 
 
 def test_expert_parallel_train_rank_under_train_layout(one_layer):
@@ -120,27 +192,48 @@ def test_expert_parallel_train_rank_under_train_layout(one_layer):
         {"model", "data"}
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen3-moe-30b-a3b"])
-def test_train_layout_collectives_equal_the_reckoning(one_layer, arch):
+# arch: (layers, sequence length): the grouped-query families at
+# train_4k's own length; the others at a short one (the recurrent loops
+# trace every step), deepseek-v2-lite at two layers (layer 1 the MoE)
+RECKONED = {"gemma3-4b": (1, None), "qwen3-moe-30b-a3b": (1, None),
+            "deepseek-v2-lite-16b": (2, 64), "jamba-v0.1-52b": (1, 16),
+            "xlstm-125m": (1, 16), "seamless-m4t-large-v2": (1, 64)}
+
+
+@pytest.mark.parametrize("arch", list(RECKONED))
+def test_train_layout_collectives_equal_the_reckoning(monkeypatch, arch):
     """A fake trace of one train step of rank 0 under the train layout
-    (one layer, ``train_4k``, one micro-batch): its all-reduces on the
-    model axis, counted by the op analysis, are
-    ``dryrun.train_layout_collectives``' reckoning, in number and in wire
-    bytes (the reference's ``2·b·(p−1)/p`` each); the data axis carries
-    only the DP edge's, one a leaf and the loss's mean."""
+    (``RECKONED``'s layers and length, one micro-batch): its collectives
+    on the model axis, counted by the op analysis, are
+    ``dryrun.train_layout_collectives``' reckoning, in number of each
+    kind and in wire bytes (the reference's ``2·b·(p−1)/p`` an
+    all-reduce, ``b·(p−1)`` an all-gather); the data axis carries only
+    the DP edge's, one a leaf and the loss's mean."""
     from repro_torch._tree import tree_leaves
     from repro_torch.configs import SHAPES
+    from repro_torch.launch.op_analysis import wire_formula
     from repro_torch.models.layers import ParamDesc
     from repro_torch.models.model import Model
+    layers, seq = RECKONED[arch]
+    orig = dryrun.get_config
+    monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
+        orig(a), num_layers=layers, num_encoder_layers=layers
+        if orig(a).is_encoder_decoder else 0))
+    shape = SHAPES["train_4k"]
+    seq = seq or shape.seq_len
+    monkeypatch.setattr(dryrun, "SHAPES", dict(
+        SHAPES, train_4k=dataclasses.replace(shape, seq_len=seq)))
     rec = dryrun.trace_pair(arch, "train_4k", microbatches=1)
     cfg = dryrun.get_config(arch)
     want = dryrun.train_layout_collectives(
-        cfg, rec["layout"]["batch_per_rank"], SHAPES["train_4k"].seq_len,
-        16)
+        cfg, rec["layout"]["batch_per_rank"], seq, 16)
+    kinds = {}
+    for _, kind, _ in want:
+        kinds[kind] = kinds.get(kind, 0) + 1
     by_axis = rec["hlo"]["collective_counts_by_axis"]
-    assert by_axis["model"] == {"all-reduce": len(want)}
+    assert by_axis["model"] == kinds
     assert rec["hlo"]["collective_wire_bytes_by_axis"]["model"] == \
-        sum(2 * b * 15 / 16 for _, b in want)
+        sum(wire_formula(kind, b, 16) for _, kind, b in want)
     leaves = len(tree_leaves(Model(cfg).param_desc(),
                              is_leaf=lambda x: isinstance(x, ParamDesc)))
     assert by_axis["data"] == {"all-reduce": leaves + 1}
@@ -150,8 +243,12 @@ def test_chunkwise_variant(one_layer):
     rec = dryrun.trace_pair("xlstm-125m", "train_4k", variant="chunkwise",
                             microbatches=1)
     assert rec["variant"] == "chunkwise" and rec["phase"] == "train"
-    assert rec["layout"]["tp"] == 1          # no dense FFN to split
-    assert "mLSTM" in rec["layout"]["unsharded"]
+    # the mLSTM over inner under the train layout: 96 channels and 24
+    # rows of dh_v a rank, b_if and out_norm whole under the replica edge
+    assert rec["layout"]["tp"] == 16
+    assert (rec["layout"]["mlstm_inner_per_rank"],
+            rec["layout"]["mlstm_dh_v_rows_per_rank"]) == (96, 24)
+    assert rec["layout"]["unsharded"] == ["norms", "mLSTM b_if, out_norm"]
     assert rec["hlo"]["dot_flops_per_device"] > 0
 
 
